@@ -1,0 +1,186 @@
+"""Flag-compatible CLI entry (counterpart of `bsarec_tpu/main.py`).
+
+    python -m bsarec_tpu_torch.main --data_name Beauty --model_type BSARec \
+        --c 5 --alpha 0.7 --do_eval --load_model BSARec_Beauty
+
+Takes the JAX CLI's flags plus `--device` (default cuda; CUDA asked for
+and absent raises). Only the `--do_eval` path is ported: it loads
+`--load_model` (a port checkpoint) or `--load_torch_model` (a reference
+torch state_dict, the same key layout), runs the test split, and with
+`--export_topk` writes the [num_users, 20] top-k ids. Flags of parts not
+ported yet raise when set.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from bsarec_tpu_torch.config import ModelConfig, TrainConfig
+from bsarec_tpu_torch.data.corpus import load_corpus
+from bsarec_tpu_torch.data.pipeline import SeqRecData
+from bsarec_tpu_torch.train import checkpoint as ckpt
+from bsarec_tpu_torch.train.trainer import TRAINING_NOT_PORTED, Trainer
+from bsarec_tpu_torch.utils.logging import get_local_time, set_logger
+
+# flags whose machinery is not ported yet, with their no-op values
+_NOT_PORTED_FLAGS = {
+    "dump_seqout": None, "export_serving": None, "profile": None,
+    "resume": False, "mesh": "", "multihost": False,
+}
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    # basic
+    parser.add_argument("--data_dir", default="data/", type=str)
+    parser.add_argument("--output_dir", default="output/", type=str)
+    parser.add_argument("--data_name", default="Beauty", type=str)
+    parser.add_argument("--do_eval", action="store_true")
+    parser.add_argument("--load_model", default=None, type=str)
+    parser.add_argument("--load_torch_model", default=None, type=str,
+                        help="path to a reference PyTorch .pt state-dict")
+    parser.add_argument("--export_topk", default=None, type=str,
+                        help="write the [num_users, 20] seen-masked top-k item ids "
+                        "of the test split to this .npy path")
+    parser.add_argument("--dump_seqout", default=None, type=str, help="(not ported yet)")
+    parser.add_argument("--export_serving", default=None, type=str, help="(not ported yet)")
+    parser.add_argument("--serving_quant", default="none", choices=["none", "int8"],
+                        help="(not ported yet)")
+    parser.add_argument("--serving_impl", default="bitmask",
+                        choices=["bitmask", "dense", "filtered", "chunked"],
+                        help="(not ported yet)")
+    parser.add_argument("--serving_item_chunk", default=65536, type=int, help="(not ported yet)")
+    parser.add_argument("--train_name", default=get_local_time(), type=str)
+    parser.add_argument("--profile", default=None, type=str, help="(not ported yet)")
+    parser.add_argument("--resume", action="store_true", help="(not ported yet)")
+    parser.add_argument("--mesh", default="", type=str, help="(not ported yet)")
+    parser.add_argument("--prng", default="threefry", choices=("threefry", "rbg"),
+                        help="(training only; not ported yet)")
+    parser.add_argument("--multihost", action="store_true", help="(not ported yet)")
+    parser.add_argument("--eval_impl", default="auto", type=str,
+                        help="full-catalog eval path: auto | dense | streaming")
+    parser.add_argument("--dtype", default="fp32", type=str,
+                        help="compute dtype policy: fp32 (bf16 is not ported yet)")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="cuda (default) or cpu; asking for cuda without a card raises")
+    # drop-in compatibility no-ops (reference `src/utils.py:58-78`)
+    parser.add_argument("--num_items", default=10, type=int, help="(compat no-op)")
+    parser.add_argument("--num_users", default=10, type=int, help="(compat no-op)")
+    parser.add_argument("--no_cuda", action="store_true", help="(compat no-op)")
+    parser.add_argument("--num_workers", default=4, type=int, help="(compat no-op)")
+    parser.add_argument("--gpu_id", default="0", type=str, help="(compat no-op)")
+    parser.add_argument("--variance", default=5, type=float, help="(compat no-op)")
+    # train
+    parser.add_argument("--lr", default=0.001, type=float)
+    parser.add_argument("--batch_size", default=256, type=int)
+    parser.add_argument("--epochs", default=200, type=int)
+    parser.add_argument("--log_freq", default=1, type=int)
+    parser.add_argument("--patience", default=10, type=int)
+    parser.add_argument("--seed", default=42, type=int)
+    parser.add_argument("--weight_decay", default=0.0, type=float)
+    parser.add_argument("--adam_beta1", default=0.9, type=float)
+    parser.add_argument("--adam_beta2", default=0.999, type=float)
+    # model
+    parser.add_argument("--model_type", default="BSARec", type=str)
+    parser.add_argument("--max_seq_length", default=50, type=int)
+    parser.add_argument("--hidden_size", default=64, type=int)
+    parser.add_argument("--num_hidden_layers", default=2, type=int)
+    parser.add_argument("--hidden_act", default="gelu", type=str)
+    parser.add_argument("--num_attention_heads", default=2, type=int)
+    parser.add_argument("--attention_probs_dropout_prob", default=0.5, type=float)
+    parser.add_argument("--hidden_dropout_prob", default=0.5, type=float)
+    parser.add_argument("--initializer_range", default=0.02, type=float)
+    parser.add_argument("--scan_unroll", default=0, type=int, help="(training only; not ported yet)")
+    parser.add_argument("--remat", action="store_true", help="(training only; not ported yet)")
+
+    args, _ = parser.parse_known_args(argv)
+    mt = args.model_type.lower()
+    if mt == "bsarec":
+        parser.add_argument("--c", default=3, type=int)
+        parser.add_argument("--alpha", default=0.9, type=float)
+    elif mt == "bert4rec":
+        parser.add_argument("--mask_ratio", default=0.2, type=float)
+    elif mt == "caser":
+        parser.add_argument("--nh", default=8, type=int)
+        parser.add_argument("--nv", default=4, type=int)
+        parser.add_argument("--reg_weight", default=1e-4, type=float)
+    elif mt in ("duorec", "fearec"):
+        parser.add_argument("--tau", default=1.0, type=float)
+        parser.add_argument("--lmd", default=0.1, type=float)
+        parser.add_argument("--lmd_sem", default=0.1, type=float)
+        parser.add_argument("--ssl", default="us_x", type=str)
+        parser.add_argument("--sim", default="dot", type=str)
+        if mt == "fearec":
+            parser.add_argument("--spatial_ratio", default=0.1, type=float)
+            parser.add_argument("--global_ratio", default=0.6, type=float)
+            parser.add_argument("--fredom_type", default="us_x", type=str)
+            parser.add_argument("--fredom", default="True", type=str)
+    elif mt == "gru4rec":
+        parser.add_argument("--gru_hidden_size", default=64, type=int)
+    return parser.parse_args(argv)
+
+
+def configs_from_args(args, item_size: int, num_users: int):
+    model_fields = set(ModelConfig.__dataclass_fields__)
+    overrides = {k: v for k, v in vars(args).items() if k in model_fields}
+    if isinstance(overrides.get("fredom"), str):
+        overrides["fredom"] = overrides["fredom"] == "True"
+    dtype_names = {"fp32": "float32", "bf16": "bfloat16",
+                   "float32": "float32", "bfloat16": "bfloat16"}
+    overrides["compute_dtype"] = dtype_names[args.dtype]
+    model_cfg = ModelConfig(**overrides | {"item_size": item_size, "num_users": num_users})
+    train_cfg = TrainConfig(
+        lr=args.lr, batch_size=args.batch_size, epochs=args.epochs, patience=args.patience,
+        seed=args.seed, weight_decay=args.weight_decay, adam_beta1=args.adam_beta1,
+        adam_beta2=args.adam_beta2, log_freq=args.log_freq, eval_impl=args.eval_impl,
+        mesh=args.mesh, multihost=args.multihost, scan_unroll=args.scan_unroll,
+        remat=args.remat, device=args.device,
+    )
+    return model_cfg, train_cfg
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    for flag, off in _NOT_PORTED_FLAGS.items():
+        if getattr(args, flag) != off:
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP)")
+    if not args.do_eval:
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+    os.makedirs(args.output_dir, exist_ok=True)
+    logger = set_logger(os.path.join(args.output_dir, args.train_name + ".log"))
+
+    corpus = load_corpus(os.path.join(args.data_dir, args.data_name + ".txt"))
+    data = SeqRecData(corpus, args.max_seq_length)
+    model_cfg, train_cfg = configs_from_args(args, corpus.item_size, corpus.num_users + 1)
+    logger.info(str(vars(args)))
+
+    checkpoint_path = os.path.join(args.output_dir, args.train_name + ".ckpt")
+    trainer = Trainer(model_cfg, train_cfg, data, logger, checkpoint_path)
+
+    if args.load_torch_model is not None:
+        trainer.install_params(ckpt.load_params(args.load_torch_model))
+        logger.info(f"Imported torch checkpoint {args.load_torch_model} for test!")
+    elif args.load_model is None:
+        logger.info("No model input!")
+        return None
+    else:
+        trainer.load(os.path.join(args.output_dir, args.load_model + ".ckpt"))
+        logger.info(f"Load model from {args.load_model} for test!")
+    scores, result_info = trainer.test(0)
+
+    if args.export_topk:
+        topk = trainer.export_topk("test")
+        np.save(args.export_topk, topk)
+        logger.info(f"exported top-{topk.shape[1]} item ids for "
+                    f"{topk.shape[0]} users to {args.export_topk}")
+
+    logger.info(args.train_name)
+    logger.info(result_info)
+    return scores
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,25 @@
+"""Model registry (counterpart of `bsarec_tpu/models/__init__.py`).
+
+Only BSARec is ported so far; every other model type raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bsarec_tpu_torch.models.base import SequentialRecModel
+from bsarec_tpu_torch.models.bsarec import BSARecModel
+
+MODEL_REGISTRY = {"bsarec": BSARecModel}
+
+
+def build_model(config, generator: torch.Generator | None = None) -> SequentialRecModel:
+    """A freshly initialized model on the CPU (`generator` seeds the init)."""
+    mt = config.model_type.lower()
+    if mt not in MODEL_REGISTRY:
+        raise NotImplementedError(f"model type {config.model_type!r} is not ported yet (ROADMAP)")
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {config.compute_dtype!r} is not ported yet; use float32"
+        )
+    return MODEL_REGISTRY[mt](config, generator=generator)

@@ -1,0 +1,55 @@
+"""Abstract sequential-recommendation model (counterpart of
+`bsarec_tpu/models/base.py`).
+
+Item and position embeddings, the embedding LayerNorm and dropout, and
+the `predict` / `item_table` surface the eval loop uses. The item table
+has `padding_idx=0`: row 0 is zero at init and lookups do not update it
+(the tied logits matmul of training does, as in the reference).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from bsarec_tpu_torch.models.modules import TFLayerNorm
+from bsarec_tpu_torch.ops.masks import causal_additive_mask
+
+
+class SequentialRecModel(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.config = cfg
+        self.item_embeddings = nn.Embedding(cfg.item_size, cfg.hidden_size, padding_idx=0)
+        self.position_embeddings = nn.Embedding(cfg.max_seq_length, cfg.hidden_size)
+        self.LayerNorm = TFLayerNorm(cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """N(0, initializer_range) embeddings with the padding row zeroed;
+        subclasses initialize their encoder after this."""
+        std = self.config.initializer_range
+        with torch.no_grad():
+            self.item_embeddings.weight.normal_(0.0, std, generator=generator)
+            self.item_embeddings.weight[0].zero_()
+            self.position_embeddings.weight.normal_(0.0, std, generator=generator)
+
+    @property
+    def item_table(self) -> torch.Tensor:
+        return self.item_embeddings.weight
+
+    def add_position_embedding(self, input_ids: torch.Tensor) -> torch.Tensor:
+        pos = self.position_embeddings.weight[: input_ids.shape[-1]]
+        emb = self.item_embeddings(input_ids.long()) + pos[None]
+        return self.dropout(self.LayerNorm(emb))
+
+    @staticmethod
+    def get_attention_mask(input_ids):
+        return causal_additive_mask(input_ids)
+
+    def forward(self, input_ids, user_ids=None, all_layers: bool = False):
+        raise NotImplementedError
+
+    def predict(self, input_ids, user_ids=None) -> torch.Tensor:
+        """Eval-time forward; returns [B, L, H] (the eval loop takes [:, -1])."""
+        return self.forward(input_ids, user_ids)

@@ -1,0 +1,99 @@
+"""BSARec (counterpart of `bsarec_tpu/models/bsarec.py`).
+
+Each block blends a frequency-domain filter branch (`dsp`) with
+multi-head attention (`gsp`) as `alpha*dsp + (1-alpha)*gsp`, followed by
+the shared FeedForward (reference: `src/model/bsarec.py`). The
+FrequencyLayer low-passes the sequence with a fixed [L, L] projection
+and rescales the high-pass residue by a learnable `sqrt_beta**2`.
+Module names give the reference's key layout
+(`item_encoder.blocks.{i}.layer.filter_layer.sqrt_beta`, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from bsarec_tpu_torch.models.base import SequentialRecModel
+from bsarec_tpu_torch.models.modules import FeedForward, MultiHeadAttention, TFLayerNorm
+from bsarec_tpu_torch.ops.frequency import frequency_filter, lowpass_projection_matrix
+
+
+class FrequencyLayer(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.c = cfg.c
+        self.sqrt_beta = nn.Parameter(torch.empty(1, 1, cfg.hidden_size))
+        self.LayerNorm = TFLayerNorm(cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        # kept on the model's device: a copy from pageable host memory in
+        # every forward would make the host wait for the card each batch
+        self.register_buffer("proj", torch.tensor(
+            lowpass_projection_matrix(cfg.max_seq_length, cfg.c)), persistent=False)
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.sqrt_beta.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        proj = self.proj
+        if x.shape[1] != proj.shape[0]:  # inputs shorter than max_seq_length
+            proj = torch.from_numpy(lowpass_projection_matrix(x.shape[1], self.c)).to(x.device)
+        h = frequency_filter(x, proj, self.sqrt_beta)
+        return self.LayerNorm(self.dropout(h) + x)
+
+
+class BSARecLayer(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.alpha = cfg.alpha
+        self.filter_layer = FrequencyLayer(cfg)
+        self.attention_layer = MultiHeadAttention(cfg)
+
+    def forward(self, x, attention_mask):
+        dsp = self.filter_layer(x)
+        gsp = self.attention_layer(x, attention_mask)
+        return self.alpha * dsp + (1.0 - self.alpha) * gsp
+
+
+class BSARecBlock(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.layer = BSARecLayer(cfg)
+        self.feed_forward = FeedForward(cfg)
+
+    def forward(self, x, attention_mask):
+        return self.feed_forward(self.layer(x, attention_mask))
+
+
+class BSARecEncoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.blocks = nn.ModuleList([BSARecBlock(cfg) for _ in range(cfg.num_hidden_layers)])
+
+    def forward(self, x, attention_mask, all_layers: bool = False):
+        outputs = [x]
+        for block in self.blocks:
+            x = block(x, attention_mask)
+            outputs.append(x)
+        return outputs if all_layers else x
+
+
+class BSARecModel(SequentialRecModel):
+    def __init__(self, cfg, generator: torch.Generator | None = None):
+        super().__init__(cfg)
+        self.item_encoder = BSARecEncoder(cfg)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        super().reset_parameters(generator)
+        std = self.config.initializer_range
+        for block in self.item_encoder.blocks:
+            block.layer.filter_layer.reset_parameters(generator)
+            block.layer.attention_layer.reset_parameters(std, generator)
+            block.feed_forward.reset_parameters(std, generator)
+
+    def forward(self, input_ids, user_ids=None, all_layers: bool = False):
+        mask = self.get_attention_mask(input_ids)
+        x = self.add_position_embedding(input_ids)
+        return self.item_encoder(x, mask, all_layers=all_layers)

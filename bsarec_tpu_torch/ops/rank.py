@@ -1,0 +1,205 @@
+"""Streaming full-catalog masked top-k (counterpart of
+`bsarec_tpu/ops/pallas_rank.py`).
+
+`streaming_masked_topk` returns, per user, the top k of the catalog
+scores `states @ table.T` without building the [B, V] score matrix on
+the card: the CUDA kernel in `csrc/streaming_rank.cu` (which replaces
+the Pallas `_rank_kernel`) sweeps the catalog once. Seen items score
+0.0 (the reference's `src/trainers.py:134`), columns >= n_valid score
+-inf, ties go to the smallest item id, and slots never filled are
+(-inf, 0) — exactly what the TPU kernel returns.
+
+Seen items arrive as a packed bitmask. The port's layout is linear:
+item v is bit `v & 31` of word `v >> 5`, [B, ceil(V/32)] int32, and the
+builders always set item 0's bit. (The JAX package's bit-plane layout
+exists for the TPU's lanes; only the seen sets carry over.)
+
+On a CPU tensor the wrapper runs the plain PyTorch version beside it;
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+NEG_INF = float("-inf")
+MAX_K = 128
+WORD_BITS = 32
+
+# Above this many bytes of staged [num_users, ceil(V/32)] bitmasks (valid +
+# test splits together), the Trainer keeps the [U, S] seen-id lists on
+# the device instead and builds each batch's bitmask there
+# (`seen_ids_to_bitmask`): a 1M-item x 50k-user catalog would stage
+# 2 x 6.25 GB.
+SEEN_BITMASK_STAGE_LIMIT = 256 * 2**20
+
+
+def seen_words(vocab_size: int) -> int:
+    """Words per bitmask row."""
+    return -(-vocab_size // WORD_BITS)
+
+
+def build_seen_bitmask(seen_items: np.ndarray, vocab_size: int) -> np.ndarray:
+    """[B, S] 0-padded seen-item lists -> [B, ceil(V/32)] int32 bitmask
+    (host side). The padding item's bit is always set; ids outside
+    [1, vocab_size) are dropped. (The JAX builder's `id_offset` and
+    `mask_item0` serve the vocab-sharded path, which is not ported.)"""
+    out = np.zeros((seen_items.shape[0], seen_words(vocab_size)), np.uint32)
+    out[:, 0] |= 1
+    rows = np.repeat(np.arange(seen_items.shape[0]), seen_items.shape[1])
+    ids = seen_items.reshape(-1).astype(np.int64)
+    keep = (ids > 0) & (ids < vocab_size)
+    rows, ids = rows[keep], ids[keep]
+    np.bitwise_or.at(out, (rows, ids >> 5), np.uint32(1) << (ids & 31).astype(np.uint32))
+    return out.view(np.int32)
+
+
+def dedupe_seen_rows(seen_items: np.ndarray) -> np.ndarray:
+    """Zero duplicate ids within each row. `seen_ids_to_bitmask` ORs
+    single-bit words with a scatter-add, which is OR only when each
+    (row, id) appears once. Returns a sorted, 0-padded copy."""
+    s = np.sort(seen_items.astype(np.int32), axis=1)
+    dup = np.zeros_like(s, dtype=bool)
+    dup[:, 1:] = s[:, 1:] == s[:, :-1]
+    s[dup] = 0
+    return s
+
+
+def seen_ids_to_bitmask(seen_ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Device-side `build_seen_bitmask`: [B, S] 0-padded seen-id lists,
+    UNIQUE per row (`dedupe_seen_rows`) -> [B, ceil(V/32)] int32.
+
+    torch's scatter has no bitwise OR, so single-bit words are added:
+    distinct ids land on distinct (word, bit) pairs, so no carry occurs,
+    and int32 wrap-around makes bit 31 add like the others. Padding (id
+    0) adds 0 to word 0; item 0's bit, which no other id shares, is then
+    set."""
+    ids = seen_ids.long()
+    bit = torch.where(ids > 0, torch.ones_like(ids) << (ids & 31), torch.zeros_like(ids))
+    bit = torch.where(bit >= 2**31, bit - 2**32, bit).int()  # two's-complement int32
+    out = torch.zeros((ids.shape[0], seen_words(vocab_size)), dtype=torch.int32,
+                      device=seen_ids.device)
+    out.scatter_add_(1, ids >> 5, bit)
+    out[:, 0] |= 1
+    return out
+
+
+def streaming_masked_topk_plain(states: torch.Tensor, table: torch.Tensor,
+                                seen_bitmask: torch.Tensor, k: int = 20,
+                                n_valid: int | None = None, chunk: int = 65536):
+    """Plain PyTorch version of the kernel, chunked over the catalog.
+
+    Keeps a running (values, ids) list sorted by (value desc, id asc):
+    each chunk's masked scores are appended after it (their ids are all
+    larger) and a stable descending sort keeps equal values in id order."""
+    b = states.shape[0]
+    v = table.shape[0]
+    n_valid = v if n_valid is None else n_valid
+    dev = states.device
+    vals = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.zeros((b, k), dtype=torch.int64, device=dev)
+    for j0 in range(0, v, chunk):
+        j1 = min(v, j0 + chunk)
+        cols = torch.arange(j0, j1, device=dev)
+        scores = states.float() @ table[j0:j1].float().T
+        words = seen_bitmask[:, cols >> 5]
+        seen = ((words >> (cols & 31).int()) & 1).bool()
+        scores = torch.where(seen, 0.0, scores)
+        scores = torch.where(cols < n_valid, scores, NEG_INF)
+        cat_v = torch.cat([vals, scores], dim=1)
+        cat_i = torch.cat([ids, cols.expand(b, -1)], dim=1)
+        sv, order = torch.sort(cat_v, dim=1, descending=True, stable=True)
+        vals = sv[:, :k]
+        ids = torch.gather(cat_i, 1, order[:, :k])
+    ids = torch.where(vals == NEG_INF, 0, ids)
+    return vals, ids.int()
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library (built at first use) with its C signatures."""
+    from bsarec_tpu_torch.ops import _build
+
+    lib = _build.load("streaming_rank")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.streaming_rank.restype = ctypes.c_int
+    lib.streaming_rank_error.argtypes = [i]
+    lib.streaming_rank_error.restype = ctypes.c_char_p
+    lib.streaming_rank_smem_bytes.argtypes = [i, i]
+    lib.streaming_rank_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+# kernel tiling (csrc/streaming_rank.cu): rows per block, columns per tile
+_BT, _VT = 64, 128
+
+
+def _splits(b: int, v: int, device: torch.device) -> tuple[int, int]:
+    """(n_splits, tiles_per_split): enough blocks for two per SM."""
+    n_tiles = -(-v // _VT)
+    target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    n_splits = max(1, min(n_tiles, -(-target // -(-b // _BT))))
+    per = -(-n_tiles // n_splits)
+    return -(-n_tiles // per), per
+
+
+def _launch(states, table, seen_bitmask, k, n_valid):
+    b, h = states.shape
+    v = table.shape[0]
+    dev = states.device
+    for name, t, dtype in (("states", states, torch.float32), ("table", table, torch.float32),
+                           ("seen_bitmask", seen_bitmask, torch.int32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if table.shape[1] != h or h % 4 or seen_bitmask.shape != (b, seen_words(v)):
+        raise ValueError(
+            f"shapes: states {tuple(states.shape)}, table {tuple(table.shape)}, "
+            f"bitmask {tuple(seen_bitmask.shape)} (need H % 4 == 0, bitmask [B, ceil(V/32)])"
+        )
+    lib = _lib()
+    n_splits, per = _splits(b, v, dev)
+    part_v = torch.empty((n_splits, b, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_splits, b, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.streaming_rank(
+            states.data_ptr(), table.data_ptr(), seen_bitmask.data_ptr(),
+            b, v, h, seen_bitmask.shape[1], n_valid, k, n_splits, per,
+            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"streaming_rank launch failed ({rc}: {lib.streaming_rank_error(rc).decode()}); "
+            f"B={b} V={v} H={h} k={k}, shared memory {lib.streaming_rank_smem_bytes(h, k)} bytes"
+        )
+    streaming_masked_topk.launches += 1
+    return vals, ids
+
+
+def streaming_masked_topk(states: torch.Tensor, table: torch.Tensor,
+                          seen_bitmask: torch.Tensor, k: int = 20,
+                          n_valid: int | None = None):
+    """states [B, H] f32, table [V, H] f32, seen_bitmask [B, ceil(V/32)]
+    int32 -> (values [B, k] f32, item ids [B, k] int32), 1 <= k <= 128."""
+    n_valid = table.shape[0] if n_valid is None else n_valid
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    if not 0 <= n_valid <= table.shape[0]:
+        raise ValueError(f"n_valid must be in [0, {table.shape[0]}], got {n_valid}")
+    if states.device.type == "cpu":
+        return streaming_masked_topk_plain(states, table, seen_bitmask, k, n_valid)
+    if states.device.type != "cuda":
+        raise ValueError(f"unsupported device {states.device}")
+    return _launch(states, table, seen_bitmask, k, n_valid)
+
+
+streaming_masked_topk.launches = 0  # kernel launches (CUDA path only)

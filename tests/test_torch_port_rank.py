@@ -1,0 +1,128 @@
+"""Streaming masked top-k: the port's plain version vs the JAX Pallas
+kernel (interpret mode on the CPU), and the CUDA kernel vs the plain
+version on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bsarec_tpu.ops.pallas_rank import build_seen_bitmask as jax_build_seen_bitmask
+from bsarec_tpu.ops.pallas_rank import streaming_masked_topk as jax_streaming_masked_topk
+from bsarec_tpu_torch.ops import rank
+
+# float inputs: fp32 dot products of 64 N(0, 1) terms, summed in another
+# order by XLA and by torch
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def _inputs(b, v, h, seed, integer):
+    rng = np.random.default_rng(seed)
+    if integer:  # dot products are exact, so ids (ties included) must match
+        states = rng.integers(-2, 3, size=(b, h)).astype(np.float32)
+        table = rng.integers(-2, 3, size=(v, h)).astype(np.float32)
+    else:
+        states = rng.normal(size=(b, h)).astype(np.float32)
+        table = rng.normal(size=(v, h)).astype(np.float32)
+    seen = rng.integers(1, v, size=(b, 20)).astype(np.int32)
+    seen[:, 1] = seen[:, 0]
+    seen[:, 14:] = 0
+    return states, table, seen
+
+
+def _masked_logits(states, table, seen, n_valid):
+    logits = states @ table.T
+    logits[np.arange(len(seen))[:, None], seen] = 0.0
+    logits[:, 0] = 0.0
+    logits[:, n_valid:] = -np.inf
+    return logits
+
+
+@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_plain_matches_jax_kernel(k, integer):
+    """B=10, V=5000 (two 4096-wide TPU tiles and a tail), n_valid=4990."""
+    b, v, h, n_valid = 10, 5000, 64, 4990
+    states, table, seen = _inputs(b, v, h, seed=k, integer=integer)
+    want_v, want_i = jax_streaming_masked_topk(
+        jnp.asarray(states), jnp.asarray(table), jnp.asarray(jax_build_seen_bitmask(seen, v)),
+        k=k, n_valid=n_valid, interpret=True,
+    )
+    got_v, got_i = rank.streaming_masked_topk(
+        torch.from_numpy(states), torch.from_numpy(table),
+        torch.from_numpy(rank.build_seen_bitmask(seen, v)), k=k, n_valid=n_valid,
+    )
+    assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
+    if integer:
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    else:
+        np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=RTOL, atol=ATOL)
+        logits = _masked_logits(states, table, seen, n_valid)
+        by_score = np.take_along_axis(logits, got_i.numpy().astype(np.int64), axis=1)
+        np.testing.assert_allclose(by_score, np.asarray(want_v), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("chunk", [7, 64, 4096])
+def test_plain_is_chunk_invariant_and_pads(chunk):
+    """The running merge across chunks gives the one-shot answer; rows
+    with fewer valid columns than k end in (-inf, 0) slots."""
+    states, table, seen = _inputs(6, 300, 16, seed=1, integer=True)
+    bm = torch.from_numpy(rank.build_seen_bitmask(seen, 300))
+    s, t = torch.from_numpy(states), torch.from_numpy(table)
+    want = rank.streaming_masked_topk_plain(s, t, bm, k=30, n_valid=300, chunk=1 << 20)
+    got = rank.streaming_masked_topk_plain(s, t, bm, k=30, n_valid=300, chunk=chunk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    few_v, few_i = rank.streaming_masked_topk_plain(s, t, bm, k=30, n_valid=12, chunk=chunk)
+    assert torch.isinf(few_v[:, 12:]).all() and (few_i[:, 12:] == 0).all()
+    assert torch.isfinite(few_v[:, :12]).all()
+
+
+def test_wrapper_on_cpu_runs_plain_and_validates():
+    states, table, seen = _inputs(4, 100, 8, seed=2, integer=False)
+    s, t = torch.from_numpy(states), torch.from_numpy(table)
+    bm = torch.from_numpy(rank.build_seen_bitmask(seen, 100))
+    before = rank.streaming_masked_topk.launches
+    got = rank.streaming_masked_topk(s, t, bm, k=3)
+    want = rank.streaming_masked_topk_plain(s, t, bm, k=3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert rank.streaming_masked_topk.launches == before  # counts kernel launches only
+    for bad in ({"k": 0}, {"k": rank.MAX_K + 1}, {"n_valid": 101}, {"n_valid": -1}):
+        with pytest.raises(ValueError):
+            rank.streaming_masked_topk(s, t, bm, **{"k": 3, **bad})
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc: the CUDA kernel has no CPU mode")
+    from bsarec_tpu_torch.train.trainer import set_fp32_matmul
+
+    set_fp32_matmul()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,k,n_valid,integer", [
+    (37, 5000, 64, 20, 4990, False),
+    (3, 12101, 48, 1, 12101, False),
+    (64, 20011, 64, 128, 20006, True),
+    (37, 20011, 64, 20, 20011, True),
+])
+def test_cuda_kernel_matches_plain(cuda_device, b, v, h, k, n_valid, integer):
+    states, table, seen = _inputs(b, v, h, seed=b, integer=integer)
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    bm = rank.seen_ids_to_bitmask(torch.from_numpy(rank.dedupe_seen_rows(seen)).to(cuda_device), v)
+    np.testing.assert_array_equal(bm.cpu().numpy(), rank.build_seen_bitmask(seen, v))
+    before = rank.streaming_masked_topk.launches
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert rank.streaming_masked_topk.launches == before + 1
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
+    if integer:
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    else:
+        torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
+        logits = _masked_logits(states, table, seen, n_valid)
+        by_score = np.take_along_axis(logits, got_i.cpu().numpy().astype(np.int64), axis=1)
+        np.testing.assert_allclose(by_score, want_v.cpu().numpy(), rtol=RTOL, atol=ATOL)
