@@ -1,14 +1,19 @@
 """Flag-compatible CLI entry (counterpart of `bsarec_tpu/main.py`).
 
     python -m bsarec_tpu_torch.main --data_name Beauty --model_type BSARec \
+        --c 5 --alpha 0.7 --lr 0.0005 --train_name BSARec_Beauty
+    python -m bsarec_tpu_torch.main --data_name Beauty --model_type BSARec \
         --c 5 --alpha 0.7 --do_eval --load_model BSARec_Beauty
 
 Takes the JAX CLI's flags plus `--device` (default cuda; CUDA asked for
-and absent raises). Only the `--do_eval` path is ported: it loads
-`--load_model` (a port checkpoint) or `--load_torch_model` (a reference
-torch state_dict, the same key layout), runs the test split, and with
-`--export_topk` writes the [num_users, 20] top-k ids. Flags of parts not
-ported yet raise when set.
+and absent raises, `--device cpu` runs on the CPU). Without `--do_eval`
+it trains (`Trainer.fit`: epochs, validation, early stopping with a
+checkpoint of the best model, a train-state snapshot after each epoch,
+the final test); `--resume` continues from the snapshot. With
+`--do_eval` it loads `--load_model` (a port checkpoint) or
+`--load_torch_model` (a reference torch state_dict, the same key layout)
+and runs the test split. Either way `--export_topk` then writes the
+[num_users, 20] top-k ids. Flags of parts not ported yet raise when set.
 """
 
 from __future__ import annotations
@@ -18,17 +23,17 @@ import os
 
 import numpy as np
 
-from bsarec_tpu_torch.config import ModelConfig, TrainConfig
+from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device
 from bsarec_tpu_torch.data.corpus import load_corpus
 from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.train import checkpoint as ckpt
-from bsarec_tpu_torch.train.trainer import TRAINING_NOT_PORTED, Trainer
+from bsarec_tpu_torch.train.trainer import Trainer
 from bsarec_tpu_torch.utils.logging import get_local_time, set_logger
 
 # flags whose machinery is not ported yet, with their no-op values
 _NOT_PORTED_FLAGS = {
     "dump_seqout": None, "export_serving": None, "profile": None,
-    "resume": False, "mesh": "", "multihost": False,
+    "mesh": "", "multihost": False, "remat": False,
 }
 
 
@@ -55,10 +60,11 @@ def parse_args(argv=None):
     parser.add_argument("--serving_item_chunk", default=65536, type=int, help="(not ported yet)")
     parser.add_argument("--train_name", default=get_local_time(), type=str)
     parser.add_argument("--profile", default=None, type=str, help="(not ported yet)")
-    parser.add_argument("--resume", action="store_true", help="(not ported yet)")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue training from the <train_name>.ckpt.state snapshot")
     parser.add_argument("--mesh", default="", type=str, help="(not ported yet)")
     parser.add_argument("--prng", default="threefry", choices=("threefry", "rbg"),
-                        help="(training only; not ported yet)")
+                        help="(the JAX package's PRNG; the port draws from torch's generators)")
     parser.add_argument("--multihost", action="store_true", help="(not ported yet)")
     parser.add_argument("--eval_impl", default="auto", type=str,
                         help="full-catalog eval path: auto | dense | streaming")
@@ -93,8 +99,9 @@ def parse_args(argv=None):
     parser.add_argument("--attention_probs_dropout_prob", default=0.5, type=float)
     parser.add_argument("--hidden_dropout_prob", default=0.5, type=float)
     parser.add_argument("--initializer_range", default=0.02, type=float)
-    parser.add_argument("--scan_unroll", default=0, type=int, help="(training only; not ported yet)")
-    parser.add_argument("--remat", action="store_true", help="(training only; not ported yet)")
+    parser.add_argument("--scan_unroll", default=0, type=int,
+                        help="(the JAX epoch scan's unroll; no counterpart in the port)")
+    parser.add_argument("--remat", action="store_true", help="(not ported yet)")
 
     args, _ = parser.parse_known_args(argv)
     mt = args.model_type.lower()
@@ -147,8 +154,7 @@ def main(argv=None):
     for flag, off in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP)")
-    if not args.do_eval:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    resolve_device(args.device)  # a missing card fails before the data is read
     os.makedirs(args.output_dir, exist_ok=True)
     logger = set_logger(os.path.join(args.output_dir, args.train_name + ".log"))
 
@@ -160,16 +166,20 @@ def main(argv=None):
     checkpoint_path = os.path.join(args.output_dir, args.train_name + ".ckpt")
     trainer = Trainer(model_cfg, train_cfg, data, logger, checkpoint_path)
 
-    if args.load_torch_model is not None:
+    if not args.do_eval:
+        start_epoch = trainer.resume() if args.resume else 0
+        scores, result_info = trainer.fit(start_epoch)
+    elif args.load_torch_model is not None:
         trainer.install_params(ckpt.load_params(args.load_torch_model))
         logger.info(f"Imported torch checkpoint {args.load_torch_model} for test!")
+        scores, result_info = trainer.test(0)
     elif args.load_model is None:
         logger.info("No model input!")
         return None
     else:
         trainer.load(os.path.join(args.output_dir, args.load_model + ".ckpt"))
         logger.info(f"Load model from {args.load_model} for test!")
-    scores, result_info = trainer.test(0)
+        scores, result_info = trainer.test(0)
 
     if args.export_topk:
         topk = trainer.export_topk("test")

@@ -2,9 +2,11 @@
 `bsarec_tpu/models/base.py`).
 
 Item and position embeddings, the embedding LayerNorm and dropout, and
-the `predict` / `item_table` surface the eval loop uses. The item table
-has `padding_idx=0`: row 0 is zero at init and lookups do not update it
-(the tied logits matmul of training does, as in the reference).
+the `predict` / `item_table` / `calculate_loss` surface of the eval and
+training loops. The item table has `padding_idx=0`: row 0 is zero at
+init and lookups do not update it, while the tied full-catalog CE of
+training does (`bsarec_tpu/models/base.py:12-15`). Dropout follows the
+module's train/eval mode, where the JAX package takes a `train` flag.
 """
 
 from __future__ import annotations
@@ -53,3 +55,7 @@ class SequentialRecModel(nn.Module):
     def predict(self, input_ids, user_ids=None) -> torch.Tensor:
         """Eval-time forward; returns [B, L, H] (the eval loop takes [:, -1])."""
         return self.forward(input_ids, user_ids)
+
+    def calculate_loss(self, input_ids, answers) -> torch.Tensor:
+        """Scalar training loss of one batch."""
+        raise NotImplementedError

@@ -17,6 +17,7 @@ from torch import nn
 from bsarec_tpu_torch.models.base import SequentialRecModel
 from bsarec_tpu_torch.models.modules import FeedForward, MultiHeadAttention, TFLayerNorm
 from bsarec_tpu_torch.ops.frequency import frequency_filter, lowpass_projection_matrix
+from bsarec_tpu_torch.ops.losses import full_softmax_ce
 
 
 class FrequencyLayer(nn.Module):
@@ -97,3 +98,10 @@ class BSARecModel(SequentialRecModel):
         mask = self.get_attention_mask(input_ids)
         x = self.add_position_embedding(input_ids)
         return self.item_encoder(x, mask, all_layers=all_layers)
+
+    def calculate_loss(self, input_ids, answers):
+        """Mean full-catalog CE of the last position's state against the
+        tied item table (`bsarec_tpu/models/bsarec.py:91-93`)."""
+        seq_output = self.forward(input_ids)
+        return full_softmax_ce(seq_output[:, -1, :], self.item_table, answers,
+                               impl=self.config.loss_impl, dtype=self.config.compute_dtype)

@@ -22,7 +22,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = {"streaming_rank": _PKG / "csrc" / "streaming_rank.cu"}
+SOURCES = {
+    "streaming_rank": _PKG / "csrc" / "streaming_rank.cu",
+    "streaming_ce": _PKG / "csrc" / "streaming_ce.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

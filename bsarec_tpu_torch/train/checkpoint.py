@@ -1,9 +1,17 @@
-"""Parameter checkpoints (counterpart of `bsarec_tpu/train/checkpoint.py`).
+"""Checkpoints (counterpart of `bsarec_tpu/train/checkpoint.py`).
 
-Parameters only, as the reference saves them (`src/utils.py:171-176`):
-an atomic write-then-rename of `torch.save(state_dict)`, so a crash
-mid-write never corrupts the previous good checkpoint. Full train-state
-resume is not ported yet.
+- `save_params` / `load_params`: parameters only, as the reference saves
+  them (`src/utils.py:171-176`), a `torch.save`d state_dict in the
+  reference's key layout.
+- `save_train_state` / `load_train_state`: the full training state, so
+  that `--resume` continues an interrupted run where it stopped: params,
+  the Adam state, the epoch, the random generators' states, the
+  early-stopping best score and counter, and the model-config
+  fingerprint that `Trainer.resume` checks.
+
+Both write to a temporary file, fsync it and rename it over the target,
+so a crash mid-write never corrupts the previous good file. Tensors are
+saved on the CPU, so a snapshot loads on any device.
 """
 
 from __future__ import annotations
@@ -11,21 +19,62 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
-def save_params(state_dict: dict, path: str | Path) -> None:
+def _cpu(obj):
+    """`obj` with every tensor detached and copied to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def _atomic_save(obj, path: str | Path) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp")
-    cpu = {k: v.detach().cpu() for k, v in state_dict.items()}
     with open(tmp, "wb") as fh:
-        torch.save(cpu, fh)
+        torch.save(obj, fh)
         fh.flush()
         os.fsync(fh.fileno())
     os.replace(tmp, path)
 
 
+def save_params(state_dict: dict, path: str | Path) -> None:
+    _atomic_save(_cpu(state_dict), path)
+
+
 def load_params(path: str | Path) -> dict:
     """The saved `state_dict`, as CPU tensors."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_train_state(path: str | Path, params: dict, opt_state: dict, epoch: int,
+                     rng_states: dict, best_score=None, patience_counter: int = 0,
+                     config_fp: str = "") -> None:
+    """The full resumable state. `best_score` is None before the first
+    validation; `rng_states` maps a generator's name to its state."""
+    best = None if best_score is None else [float(x) for x in np.asarray(best_score).reshape(-1)]
+    _atomic_save({
+        "params": _cpu(params),
+        "opt_state": _cpu(opt_state),
+        "epoch": int(epoch),
+        "rng": _cpu(rng_states),
+        "best_score": best,
+        "patience_counter": int(patience_counter),
+        "config_fp": config_fp,
+    }, path)
+
+
+def load_train_state(path: str | Path) -> dict:
+    """A `save_train_state` snapshot, tensors on the CPU (`best_score` as
+    a float32 array or None)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if state["best_score"] is not None:
+        state["best_score"] = np.asarray(state["best_score"], np.float32)
+    return state

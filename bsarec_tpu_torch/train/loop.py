@@ -1,8 +1,11 @@
-"""Eval loop (counterpart of `bsarec_tpu/train/loop.py:build_eval_fn`).
+"""Training and eval loops (counterpart of `bsarec_tpu/train/loop.py`).
 
-The JAX package scans over user batches inside one jitted program; here
-it is a Python loop over eval batches on the device. The training
-half of the JAX module is not ported yet.
+The JAX package runs a whole epoch, or a whole eval pass, as one
+`lax.scan` inside one jitted program. Here each is a Python loop over
+batches of device-resident data. The training loop reads nothing back
+to the host until the epoch ends: the loss is summed on the device, the
+epoch order comes from a generator on the device, and Adam keeps its
+step counts on the host.
 """
 
 from __future__ import annotations
@@ -13,10 +16,75 @@ import torch
 
 from bsarec_tpu_torch.ops.rank import seen_ids_to_bitmask, streaming_masked_topk
 from bsarec_tpu_torch.ops.topk import TOP_K, masked_topk, topk_metrics
+from bsarec_tpu_torch.utils.profiling import annotate
 
 # From this catalog size on (and on CUDA) "auto" picks the streaming
 # rank kernel over the dense [B, V] score matrix.
 STREAMING_RANK_MIN_VOCAB = 262_144
+
+
+def make_optimizer(params, train_cfg) -> torch.optim.Adam:
+    """torch.optim.Adam as the reference builds it (`src/trainers.py:27-28`),
+    which the JAX package copies with optax: weight decay added to the
+    gradient (not decoupled), eps 1e-8, bias-corrected moments."""
+    return torch.optim.Adam(params, lr=train_cfg.lr,
+                            betas=(train_cfg.adam_beta1, train_cfg.adam_beta2),
+                            eps=1e-8, weight_decay=train_cfg.weight_decay)
+
+
+def sample_negatives(generator: torch.Generator, input_ids: torch.Tensor,
+                     answers: torch.Tensor, item_size: int, rounds: int = 8) -> torch.Tensor:
+    """Uniform negatives in [1, item_size) that avoid the sample's items,
+    {nonzero input ids} | {answer} (`src/dataset.py:66-70,120-124`), by 8
+    rounds of redrawing the colliding ones. `generator` lives on the
+    tensors' device. The zoo's pairwise losses read these (ROADMAP A9);
+    BSARec's full-catalog CE does not, and the JAX epoch's draw for it is
+    dead code that XLA removes, so the port's epoch does not draw them."""
+    batch, dev = answers.shape[0], answers.device
+
+    def draw():
+        return torch.randint(1, item_size, (batch,), generator=generator, device=dev)
+
+    cand = draw()
+    for _ in range(rounds):
+        collides = (input_ids == cand[:, None]).any(dim=1) | (cand == answers)
+        cand = torch.where(collides, draw(), cand)
+    return cand
+
+
+def epoch_permutation(num_samples: int, batch_size: int, generator: torch.Generator,
+                      device: torch.device) -> torch.Tensor:
+    """[steps, batch_size] sample indices: a random permutation, wrapped
+    around so that the last batch is full (`train/loop.py:181-185`)."""
+    steps = math.ceil(num_samples / batch_size)
+    perm = torch.randperm(num_samples, generator=generator, device=device)
+    wrap = torch.arange(steps * batch_size, device=device) % num_samples
+    return perm[wrap].view(steps, batch_size)
+
+
+def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
+                      device: torch.device):
+    """Returns `(epoch, steps)`; `epoch(inputs, answers, generator)` runs
+    one pass over the [N, L] inputs and [N] answers in the generator's
+    order, one Adam step per full batch, and returns the mean batch loss
+    as a 0-d tensor on the device."""
+    steps = math.ceil(num_samples / batch_size)
+
+    def epoch(inputs, answers, generator):
+        perm = epoch_permutation(num_samples, batch_size, generator, device)
+        model.train()
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for step in range(steps):
+            with annotate("train_step"):
+                idx = perm[step]
+                loss = model.calculate_loss(inputs[idx], answers[idx])
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                optimizer.step()
+                loss_sum += loss.detach()
+        return loss_sum / steps
+
+    return epoch, steps
 
 
 def resolve_eval_impl(impl: str, item_size: int, device: torch.device) -> str:

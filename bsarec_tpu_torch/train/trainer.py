@@ -1,12 +1,17 @@
-"""Trainer, eval half (counterpart of `bsarec_tpu/train/trainer.py`).
+"""Trainer (counterpart of `bsarec_tpu/train/trainer.py`).
 
-`valid` / `test` / `export_topk` / `load` / `install_params` follow the
-reference `Trainer` surface (`src/trainers.py:9-60`). Training (`train`,
-`fit`, `resume`) is not ported yet and raises.
+Mirrors the reference `Trainer` surface (`src/trainers.py:9-60`):
+`train(epoch)` / `valid(epoch)` / `test(epoch)` / `save` / `load`, plus
+`fit()`, the run loop of `src/main.py:51-64` (early stop on NDCG@20, reload
+the best checkpoint, final test), and full train-state snapshots for
+`--resume`. The JAX package's mesh and multihost branches are not ported
+(ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import time
 
 import numpy as np
@@ -16,11 +21,12 @@ from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device
 from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.models import build_model
 from bsarec_tpu_torch.ops import rank
+from bsarec_tpu_torch.ops.losses import resolve_loss_impl
 from bsarec_tpu_torch.ops.topk import metrics_from_sums
 from bsarec_tpu_torch.train import checkpoint as ckpt
-from bsarec_tpu_torch.train.loop import build_eval_fn
-
-TRAINING_NOT_PORTED = "training is not ported yet (ROADMAP)"
+from bsarec_tpu_torch.train.loop import build_eval_fn, build_train_epoch, make_optimizer
+from bsarec_tpu_torch.utils.early_stopping import EarlyStopping
+from bsarec_tpu_torch.utils.profiling import Throughput, annotate
 
 
 def set_fp32_matmul() -> None:
@@ -45,6 +51,18 @@ class Trainer:
         self.model = build_model(model_cfg, generator=gen).to(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info(f"Total Parameters: {n_params}")
+
+        # dropout draws from torch's default generators, the epoch order
+        # from this one; a snapshot keeps the states of all of them
+        torch.manual_seed(train_cfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
+        self.optimizer = make_optimizer(self.model.parameters(), train_cfg)
+        self.loss_impl = resolve_loss_impl(model_cfg.loss_impl, model_cfg.item_size, self.device)
+        self._epoch_fn, self.steps_per_epoch = build_train_epoch(
+            self.model, self.optimizer, train_cfg.batch_size, data.train.num_samples, self.device)
+        self._train_dev = None  # moved to the device by the first train()
+        # early-stopping state restored by resume(), consumed by fit()
+        self._resume_stopper = None
 
         # streaming eval stages one [U, ceil(V/32)] bitmask per split;
         # above the limit the [U, S] id lists stay on the device and each
@@ -83,13 +101,18 @@ class Trainer:
 
     # ---- reference-API surface -----------------------------------------
     def train(self, epoch: int) -> float:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
-
-    def fit(self, start_epoch: int = 0):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
-
-    def resume(self) -> int:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        if self._train_dev is None:
+            self.logger.info(f"full-catalog CE: {self.loss_impl} ({self.device.type})")
+            self._train_dev = {
+                "inputs": torch.from_numpy(self.data.train.input_ids).long().to(self.device),
+                "answers": torch.from_numpy(self.data.train.answers).long().to(self.device),
+            }
+        dev = self._train_dev
+        # the epoch's one read back to the host
+        loss = float(self._epoch_fn(dev["inputs"], dev["answers"], self.generator))
+        if (epoch + 1) % self.train_cfg.log_freq == 0:
+            self.logger.info(str({"epoch": epoch, "rec_loss": f"{loss:.4f}"}))
+        return loss
 
     def evaluate_sums(self, split: str) -> np.ndarray:
         """The [9] metric sums of one eval pass over `split`."""
@@ -130,6 +153,9 @@ class Trainer:
         dev = self._eval_dev[split]
         return fn(dev["inputs"], dev["answers"], dev["seen"]).cpu().numpy()
 
+    def save(self, path: str | None = None):
+        ckpt.save_params(self.model.state_dict(), path or self.checkpoint_path)
+
     def load(self, path: str | None = None):
         self.install_params(ckpt.load_params(path or self.checkpoint_path))
 
@@ -137,3 +163,85 @@ class Trainer:
         """Adopt an externally produced `state_dict` (checkpoint, a
         reference torch checkpoint, or `params_from_jax`)."""
         self.model.load_state_dict(state_dict)
+
+    # ---- crash recovery -----------------------------------------------------
+    @property
+    def state_path(self) -> str:
+        return self.checkpoint_path + ".state"
+
+    def _config_fingerprint(self) -> str:
+        """The model architecture as canonical JSON. `loss_impl` is left
+        out: its choices compute the same loss."""
+        fields = dataclasses.asdict(self.model_cfg)
+        fields.pop("loss_impl", None)
+        return json.dumps(fields, sort_keys=True)
+
+    def _rng_states(self) -> dict:
+        states = {"epoch_order": self.generator.get_state(), "torch": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            states["cuda"] = torch.cuda.get_rng_state(self.device)
+        return states
+
+    def save_state(self, epoch: int, stopper: EarlyStopping | None = None):
+        ckpt.save_train_state(
+            self.state_path, self.model.state_dict(), self.optimizer.state_dict(), epoch,
+            self._rng_states(),
+            best_score=None if stopper is None else stopper.best_score,
+            patience_counter=0 if stopper is None else stopper.counter,
+            config_fp=self._config_fingerprint(),
+        )
+
+    def resume(self) -> int:
+        """Restore params, Adam state, generators and early-stopping state
+        from the latest snapshot; returns the next epoch to run."""
+        state = ckpt.load_train_state(self.state_path)
+        saved_fp, here_fp = state["config_fp"], self._config_fingerprint()
+        if saved_fp != here_fp:
+            saved, here = json.loads(saved_fp), json.loads(here_fp)
+            diff = {k: (saved.get(k), here.get(k)) for k in sorted(set(saved) | set(here))
+                    if saved.get(k) != here.get(k)}
+            raise ValueError(
+                f"--resume model config does not match the snapshot at {self.state_path} "
+                f"(snapshot vs now): {diff}. Omitted CLI flags fall back to defaults: pass the "
+                f"original run's flags again (matching parameter shapes are not enough, e.g. "
+                f"a num_attention_heads change keeps every shape)."
+            )
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        rng = state["rng"]
+        self.generator.set_state(rng["epoch_order"])
+        torch.set_rng_state(rng["torch"])
+        if "cuda" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(rng["cuda"], self.device)
+        self._resume_stopper = (state["best_score"], state["patience_counter"])
+        self.logger.info(f"resumed full train state from {self.state_path} (epoch {state['epoch']})")
+        return state["epoch"] + 1
+
+    # ---- full run (reference: src/main.py:51-64) ------------------------
+    def fit(self, start_epoch: int = 0):
+        stopper = EarlyStopping(save_fn=lambda _: self.save(), logger=self.logger,
+                                patience=self.train_cfg.patience)
+        if self._resume_stopper is not None:
+            stopper.best_score, stopper.counter = self._resume_stopper
+            self._resume_stopper = None
+        tput = Throughput()
+        for epoch in range(start_epoch, self.train_cfg.epochs):
+            tput.start()
+            with annotate("train_epoch"):
+                self.train(epoch)
+            rate = tput.stop(self.data.train.num_samples)
+            t1 = time.perf_counter()
+            with annotate("eval_epoch"):
+                scores, _ = self.valid(epoch)
+            self.logger.info(f"epoch {epoch}: train {rate:.0f} ex/s, "
+                             f"eval {time.perf_counter() - t1:.2f}s")
+            stopper(np.array(scores[-1:]), None)
+            self.save_state(epoch, stopper)
+            if stopper.early_stop:
+                self.logger.info("Early stopping")
+                break
+        if tput.steady_rate:
+            self.logger.info(f"steady-state train throughput: {tput.steady_rate:.0f} examples/s")
+        self.logger.info("---------------Test Score---------------")
+        self.load()
+        return self.test(0)

@@ -5,7 +5,8 @@
 Phases, each of which raises (exit code 1) when it fails:
 
 1. Print the card's name and power limit; build every CUDA kernel of the
-   port from `bsarec_tpu_torch/csrc/` with nvcc.
+   port from `bsarec_tpu_torch/csrc/` with nvcc, one process per source,
+   all started together.
 2. Hold the streaming masked top-k kernel against its plain PyTorch
    version at the eval path's shape (B=256 users, V=1,000,000 items,
    H=64, k=20) and at edge shapes: odd B, V off every tile, n_valid < V,
@@ -14,17 +15,36 @@ Phases, each of which raises (exit code 1) when it fails:
    products are exact, where values and ids (tie order included) must be
    bit-equal. On float inputs values agree within FLOAT_TOL and each
    returned id is checked by the plain version's score of that id.
-3. Drive the port's main path through its normal entry point:
+3. Hold the three streaming-CE kernels (logZ, gold-row gather, fused
+   backward) against their plain versions: loss, logZ, ds and dT at the
+   training shape (B=256, V=1,000,000, H=64) and at edge shapes (odd B,
+   V off every tile, n_valid < V, H in {32, 48, 128, 256}, repeated
+   answers, answers of -1 and >= n_valid, an answer at item 0). The
+   gather must be bit-equal; CE_TOL and GRAD_TOL state the others.
+4. One Adam step of a full-width BSARec at 1,000,000 items through the
+   kernels against the same step through the plain versions (same
+   weights and batch, dropout 0): loss, gradients and parameters.
+5. Drive the eval path through its normal entry point:
    `bsarec_tpu_torch.main --do_eval --eval_impl streaming --export_topk`
    on a seeded synthetic 1,000,000-item x 50,000-user corpus with a
    seeded random-init BSARec at the paper's Beauty widths (hidden 64,
-   2 layers, 1 head, c=5, alpha=0.7, max_len 50). The kernel's launch
-   count must cover every eval batch of the test pass and the export,
-   and the first 512 users' exported top-20 must agree with the plain
-   version.
-4. Time the kernel, its plain version and one library yardstick with
-   CUDA events, print the bound, eval users/s, a steady-state eval pass
-   with its per-batch breakdown, and a `kernels` JSON line.
+   2 layers, 1 head, c=5, alpha=0.7, max_len 50). The rank kernel's
+   launch count must cover every eval batch of the test pass and the
+   export, and the first 512 users' exported top-20 must agree with the
+   plain version.
+6. Drive the training path through its normal entry point: `main`
+   without `--do_eval` on a 1,000,000-item x 10,000-user corpus, BSARec
+   at the same widths with dropout 0.5, batch 256, lr 5e-4, 2 epochs;
+   then `--resume --epochs 3 --export_topk`, which must start at epoch
+   2. The CE forward and backward kernels must launch once per step and
+   the gather twice; every epoch's loss must be finite and epoch 1's
+   below epoch 0's; the checkpoint and the `.state` snapshot must exist;
+   the test scores must lie in [0, 1].
+7. Time every kernel, its plain version and one library yardstick with
+   CUDA events, print each bound, eval users/s and a steady-state eval
+   pass with its per-batch breakdown, train examples/s, a per-step
+   training breakdown, the host syncs of a training step, the device's
+   busy share under torch.profiler, and a `kernels` JSON line.
 
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA device
 the script exits 1 and prints no result. It imports nothing of JAX.
@@ -32,6 +52,8 @@ the script exits 1 and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import os
@@ -40,12 +62,26 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
 # fp32 sums of 64 products taken in another order than torch.matmul's;
 # scores at these shapes stay below ~50 in magnitude
 FLOAT_TOL = 1e-4
+# CE, relative to max(1, |plain|): logZ sums up to 1M exponentials of
+# H-term fp32 dot products, in another order than torch's (the sum's
+# relative error, ~1e-6, becomes logZ's absolute error)
+CE_TOL = 1e-5
+# gradients, relative to the largest |plain| entry of the same tensor (dT:
+# of the answer rows and of the other rows apart): ds sums up to 1M
+# columns, dT up to 256 rows, each term carrying p = exp(logit - logZ)
+# with logZ's error
+GRAD_TOL = 1e-4
+# one Adam step from the same weights: Adam divides each gradient by its
+# own magnitude, so a gradient's relative rounding error moves its
+# parameter by that fraction of lr (5e-4)
+STEP_PARAM_TOL = 1e-6
 # H100 SXM peaks from NVIDIA's data sheet: fp32 outside
 # the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -53,6 +89,9 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # EVAL_BATCH is TrainConfig.eval_batch_size's default, which main uses
 N_USERS, N_ITEMS, EVAL_BATCH, TOP_K = 50_000, 1_000_000, 256, 20
+TRAIN_USERS, TRAIN_BATCH, LR = 10_000, 256, 5e-4
+WIDTHS = ["--model_type", "BSARec", "--hidden_size", "64", "--num_hidden_layers", "2",
+          "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7", "--max_seq_length", "50"]
 
 
 def log(msg: str) -> None:
@@ -62,6 +101,14 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Log the seconds a phase took."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
 
 
 def card_line() -> str:
@@ -106,6 +153,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_kernels(prof):
+    """The profiler's device-side entries, without user annotations (such
+    as `Optimizer.step#Adam.step`), whose ranges overlap the kernels."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def masked_scores(states, table, bitmask, n_valid, ids):
@@ -233,9 +289,7 @@ def phase_main_path(device, workdir):
         "--data_dir", workdir, "--data_name", "synth1m", "--output_dir", workdir,
         "--train_name", "smoke_eval", "--do_eval", "--load_model", "smoke_init",
         "--eval_impl", "streaming", "--export_topk", topk_path, "--device", device.type,
-        "--model_type", "BSARec", "--hidden_size", "64", "--num_hidden_layers", "2",
-        "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7",
-        "--max_seq_length", "50",
+        *WIDTHS,
     ]
     rank.streaming_masked_topk.launches = 0
     t0 = time.perf_counter()
@@ -281,7 +335,6 @@ def phase_breakdown(device, seqs, model, card):
     function main uses, one such pass under torch.profiler (device busy
     time by kernel), and each per-batch piece on its own (CUDA events)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from bsarec_tpu_torch.data.corpus import Corpus
@@ -310,7 +363,7 @@ def phase_breakdown(device, seqs, model, card):
         evaluate(inputs, answers, seen)
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
-    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    on_device = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in on_device) / 1e6
     if busy > 0:
         log(f"eval trace: device busy {busy:.3f}s of a {traced:.3f}s traced pass, idle share "
@@ -379,6 +432,405 @@ def phase_times(full, card):
             "library_ms": library_ms}
 
 
+
+def ce_case(b, v, h, n_valid, seed, device, answer_kind):
+    """Seeded CE inputs. answer_kind "plain": answers in [1, n_valid);
+    "odd": the first rows repeat one answer, then item 0, -1, n_valid and
+    V + 7; "repeated": every answer is one of 5 ids."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    states = rng.standard_normal((b, h), dtype=np.float32)
+    table = 0.25 * rng.standard_normal((v, h), dtype=np.float32)
+    answers = rng.integers(1, n_valid, size=b)
+    if answer_kind == "odd":
+        special = [answers[0], answers[0], answers[0], 0, -1, n_valid, v + 7]
+        answers[: min(b, len(special))] = special[:b]
+    elif answer_kind == "repeated":
+        answers = rng.choice(rng.integers(1, n_valid, size=5), size=b)
+    return (torch.from_numpy(states).to(device), torch.from_numpy(table).to(device),
+            torch.from_numpy(answers).to(device))
+
+
+def rel_err(got, want, rows=None):
+    """max |got - want| over `rows`, relative to max |want| there."""
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    if want.numel() == 0:
+        return 0.0
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def compare_ce(case_name, states, table, answers, n_valid):
+    """The CE kernels vs their plain versions on one input, through the
+    autograd function (loss, ds, dT) and each kernel alone (logZ, gather).
+    Returns the largest absolute error of each kernel's outputs."""
+    import torch
+
+    from bsarec_tpu_torch.ops import ce
+
+    mapped = ce.map_answers(answers, n_valid)
+    logz = ce.ce_logz(states, table, n_valid)
+    rows = ce.gold_rows(table, mapped)
+    torch.cuda.synchronize()
+    want_logz = ce.ce_logz_plain(states, table, n_valid)
+    check(torch.equal(torch.isfinite(logz), torch.isfinite(want_logz)), f"{case_name}: logZ finiteness")
+    logz_err = float(((logz - want_logz).abs() / want_logz.abs().clamp(min=1.0)).max())
+    check(logz_err <= CE_TOL, f"{case_name}: logZ error {logz_err} > {CE_TOL}")
+    check(torch.equal(rows, ce.gold_rows_plain(table, mapped)), f"{case_name}: gather not bit-equal")
+
+    grads = []
+    for fn in (ce.streaming_softmax_ce, ce.streaming_softmax_ce_plain):
+        s = states.clone().requires_grad_()
+        t = table.clone().requires_grad_()
+        loss = fn(s, t, answers, n_valid)
+        loss.mean().backward()
+        grads.append((loss.detach(), s.grad, t.grad))
+        del s, t
+    (loss, ds, dt), (want_loss, want_ds, want_dt) = grads
+    torch.cuda.synchronize()
+    loss_err = float(((loss - want_loss).abs() / want_loss.abs().clamp(min=1.0)).max())
+    check(loss_err <= CE_TOL, f"{case_name}: loss error {loss_err} > {CE_TOL}")
+    ds_err = rel_err(ds, want_ds)
+    is_answer = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    is_answer[mapped[mapped >= 0].long()] = True
+    dt_err = max(rel_err(dt, want_dt, is_answer), rel_err(dt, want_dt, ~is_answer))
+    check(ds_err <= GRAD_TOL and dt_err <= GRAD_TOL,
+          f"{case_name}: gradient error ds {ds_err}, dT {dt_err} > {GRAD_TOL}")
+    check(not dt[n_valid:].any(), f"{case_name}: dT rows past n_valid must be 0")
+    abs_err = {
+        "ce_logz": max(float((logz - want_logz)[torch.isfinite(want_logz)].abs().max()),
+                       float((loss - want_loss).abs().max())),
+        "gold_rows": 0.0,
+        "ce_grads": max(float((ds - want_ds).abs().max()), float((dt - want_dt).abs().max())),
+    }
+    log(f"CE kernels vs plain {case_name}: ok, logZ rel err {logz_err:.3g}, loss {loss_err:.3g}, "
+        f"ds {ds_err:.3g}, dT {dt_err:.3g} (relative to the largest |plain|), gather bit-equal; "
+        f"max abs err logZ/loss {abs_err['ce_logz']:.3g}, ds/dT {abs_err['ce_grads']:.3g}")
+    return abs_err
+
+
+def phase_ce_kernels(device):
+    """Phase 3. Returns ({kernel: largest absolute error}, the main-shape inputs)."""
+    import torch
+
+    # (tag, B, V, H, n_valid, answers)
+    cases = [
+        ("main path", 256, N_ITEMS, 64, N_ITEMS, "plain"),
+        ("odd B, n_valid < V, odd answers", 37, 5000, 64, 4990, "odd"),
+        ("V off every tile", 3, 12101, 64, 12101, "odd"),
+        ("H=32", 130, 70001, 32, 70001, "odd"),
+        ("H=48, n_valid < V", 64, 20011, 48, 20006, "odd"),
+        ("H=128", 96, 30011, 128, 30011, "odd"),
+        ("H=256, n_valid < V", 256, 40009, 256, 40000, "odd"),
+        ("repeated answers", 200, 3001, 64, 3001, "repeated"),
+    ]
+    worst = {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0}
+    full = None
+    for i, (tag, b, v, h, n_valid, kind) in enumerate(cases):
+        states, table, answers = ce_case(b, v, h, n_valid, seed=100 + i, device=device,
+                                         answer_kind=kind)
+        errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
+                          answers, n_valid)
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        if i == 0:
+            full = (states, table, answers)
+        del states, table, answers
+    torch.cuda.empty_cache()
+    return worst, full
+
+
+def full_width_model(device, dropout: float, loss_impl: str = "auto"):
+    """A seeded random-init BSARec at the paper's Beauty widths, 1M items."""
+    import torch
+
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.models import build_model
+
+    cfg = ModelConfig(model_type="bsarec", item_size=N_ITEMS, num_users=TRAIN_USERS + 1,
+                      max_seq_length=50, hidden_size=64, num_hidden_layers=2,
+                      num_attention_heads=1, c=5, alpha=0.7, hidden_dropout_prob=dropout,
+                      attention_probs_dropout_prob=dropout, loss_impl=loss_impl)
+    return build_model(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+
+
+def random_batch(device, seed):
+    """[256, 50] left-padded item ids and [256] answers, from a seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, N_ITEMS, size=(TRAIN_BATCH, 50))
+    for r, pad in enumerate(rng.integers(0, 45, size=TRAIN_BATCH)):
+        ids[r, :pad] = 0
+    answers = rng.integers(1, N_ITEMS, size=TRAIN_BATCH)
+    return torch.from_numpy(ids).to(device), torch.from_numpy(answers).to(device)
+
+
+def phase_step(device):
+    """Phase 4: one Adam step through the kernels vs through the plain
+    versions, from the same weights and batch, dropout 0."""
+    import torch
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.ops import ce
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    ids, answers = random_batch(device, seed=7)
+    first = full_width_model(device, dropout=0.0, loss_impl="streaming")
+    models = (first, copy.deepcopy(first))
+    del first
+    results = []
+    for plain, model in zip((False, True), models):
+        model.train()
+        opt = make_optimizer(model.parameters(), TrainConfig(lr=LR))
+        if plain:
+            state = model(ids)[:, -1, :]
+            loss = ce.streaming_softmax_ce_plain(state, model.item_table, answers).mean()
+        else:
+            loss = model.calculate_loss(ids, answers)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        opt.step()
+        results.append((loss.detach(), grads, {k: v.clone() for k, v in model.state_dict().items()}))
+        del opt
+    del models, model
+    (loss, grads, params), (want_loss, want_grads, want_params) = results
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss) - float(want_loss))
+    check(loss_err <= CE_TOL * max(1.0, abs(float(want_loss))), f"step: loss error {loss_err}")
+    grad_err = max(rel_err(grads[k], want_grads[k]) for k in grads
+                   if not k.endswith("key.bias") and want_grads[k].abs().max() > 0)
+    check(grad_err <= GRAD_TOL, f"step: gradient error {grad_err} > {GRAD_TOL}")
+    param_err, key_bias = 0.0, 0.0
+    for k, want in want_params.items():
+        if k.endswith("attention_layer.key.bias"):
+            # zero at init with an exactly-zero true gradient: Adam steps on
+            # rounding noise on both sides, bounded by lr
+            key_bias = max(key_bias, float(params[k].abs().max()), float(want.abs().max()))
+            continue
+        param_err = max(param_err, float((params[k] - want).abs().max()))
+    check(param_err <= STEP_PARAM_TOL, f"step: parameter error {param_err} > {STEP_PARAM_TOL}")
+    check(key_bias <= LR, f"step: key bias moved {key_bias} > lr")
+    log(f"one Adam step, kernels vs plain (B={TRAIN_BATCH}, V={N_ITEMS}, H=64, dropout 0): ok, "
+        f"loss {float(loss):.6f} vs {float(want_loss):.6f}, gradient rel err {grad_err:.3g}, "
+        f"parameter max |diff| {param_err:.3g} (key biases, zero true gradient: |b| <= {key_bias:.3g})")
+    del results, grads, want_grads, params, want_params
+    torch.cuda.empty_cache()
+
+
+def read_log(path):
+    with open(path) as fh:
+        return fh.read()
+
+
+def phase_train(device, workdir):
+    """Phase 6: `main` without --do_eval, then --resume. Returns (the
+    launch counts of the first run, the second epoch's examples/s)."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch.ops import ce, rank
+
+    seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
+    with open(os.path.join(workdir, "synth_train.txt"), "w") as fh:
+        for u, seq in enumerate(seqs):
+            fh.write(f"{u + 1} {' '.join(map(str, seq))}\n")
+    n_samples = sum(len(s[-52:-2]) for s in seqs)
+    steps = math.ceil(n_samples / TRAIN_BATCH)
+    eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    argv = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
+            "--train_name", "smoke_train", "--device", device.type, "--lr", str(LR),
+            "--batch_size", str(TRAIN_BATCH), *WIDTHS]
+    kernels = (ce.ce_logz, ce.gold_rows, ce.ce_grads, rank.streaming_masked_topk)
+
+    def run(extra):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        scores = port_main.main(argv + extra)
+        torch.cuda.synchronize(device)
+        counts = {k.__name__: k.launches for k in kernels}
+        check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
+        return scores, counts, time.perf_counter() - t0
+
+    scores, counts, seconds = run(["--epochs", "2"])
+    log(f"train path: main(--epochs 2) on {TRAIN_USERS} users x {N_ITEMS} items, {n_samples} "
+        f"samples = {steps} steps per epoch, returned in {seconds:.1f}s, test scores {scores}; "
+        f"launches {counts}")
+    want = {"ce_logz": 2 * steps, "gold_rows": 4 * steps, "ce_grads": 2 * steps,
+            "streaming_masked_topk": 3 * eval_steps}
+    check(counts == want, f"train path launches {counts}, want {want}")
+    first_counts = counts
+    text = read_log(os.path.join(workdir, "smoke_train.log"))
+    losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses) and losses[1] < losses[0],
+          f"epoch losses {losses}: want two finite values, the second lower")
+    rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+    check(len(rates) == 2, f"epoch rate lines {rates}")
+    for name in ("smoke_train.ckpt", "smoke_train.ckpt.state"):
+        check(os.path.exists(os.path.join(workdir, name)), f"{name} missing")
+    log(f"train path: epoch losses {losses}; train {rates[0]:.0f} then {rates[1]:.0f} examples/s; "
+        f"checkpoint and .state snapshot written")
+
+    topk_path = os.path.join(workdir, "train_topk.npy")
+    scores, counts, seconds = run(["--epochs", "3", "--resume", "--export_topk", topk_path])
+    text = read_log(os.path.join(workdir, "smoke_train.log"))
+    check("resumed full train state" in text and "(epoch 1)" in text, "resume line missing")
+    losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+    check(len(losses) == 3 and "'epoch': 2," in text and math.isfinite(losses[2]),
+          f"resumed run: epoch losses {losses}")
+    want = {"ce_logz": steps, "gold_rows": 2 * steps, "ce_grads": steps,
+            "streaming_masked_topk": 3 * eval_steps}
+    check(counts == want, f"resumed launches {counts}, want {want}")
+    topk = np.load(topk_path)
+    check(topk.shape == (TRAIN_USERS, TOP_K) and 0 <= int(topk.min()) and int(topk.max()) < N_ITEMS,
+          "export after fit")
+    log(f"train path: main(--resume --epochs 3 --export_topk) started at epoch 2 and returned in "
+        f"{seconds:.1f}s, epoch 2 loss {losses[2]}, test scores {scores}; launches {counts}")
+    return first_counts, rates[1]
+
+
+def phase_ce_times(full, card):
+    """Each CE kernel at the training shape: its time, its plain version's,
+    a library yardstick's and its bound. Returns {kernel: JSON fields}."""
+    import torch
+    import torch.nn.functional as F
+
+    from bsarec_tpu_torch.ops import ce
+
+    states, table, answers = full
+    b, h = states.shape
+    v = table.shape[0]
+    a = ce.map_answers(answers, v)
+    logz = ce.ce_logz(states, table, v)
+    d = torch.full((b,), 1.0 / b, device=states.device)
+    flops = 2 * b * v * h
+    s_req = states.clone().requires_grad_()
+    t_req = table.clone().requires_grad_()
+    lib_loss = F.cross_entropy(s_req @ t_req.T, answers)  # the yardstick's graph, 1 GB logits
+    pieces = {
+        "ce_logz": (lambda: ce.ce_logz(states, table, v),
+                    lambda: ce.ce_logz_plain(states, table, v),
+                    lambda: F.cross_entropy(states @ table.T, answers),
+                    "F.cross_entropy(states @ table.T) forward",
+                    flops, 4 * (b * h + v * h + b)),
+        "gold_rows": (lambda: ce.gold_rows(table, a),
+                      lambda: ce.gold_rows_plain(table, a),
+                      lambda: table.index_select(0, answers),
+                      "table.index_select",
+                      0, 4 * (2 * b * h + b)),
+        "ce_grads": (lambda: ce.ce_grads(states, table, a, logz, d, v),
+                     lambda: ce.ce_grads_plain(states, table, a, logz, d, v),
+                     lambda: torch.autograd.grad(lib_loss, (s_req, t_req), retain_graph=True),
+                     "backward of F.cross_entropy(states @ table.T)",
+                     3 * flops, 4 * (2 * b * h + 2 * v * h + 3 * b)),
+    }
+    out = {}
+    for name, (kernel, plain, library, lib_name, ops, nbytes) in pieces.items():
+        ms = cuda_ms(kernel, iters=200 if name == "gold_rows" else 20)
+        plain_ms = cuda_ms(plain, iters=20 if name == "gold_rows" else 3, warmup=1)
+        library_ms = cuda_ms(library, iters=20 if name == "gold_rows" else 5)
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        for label, t in (("kernel", ms), ("plain version", plain_ms), (f"library {lib_name}", library_ms)):
+            log(f"time {name} {label}: {t:.4f} ms (B={b} V={v} H={h}) [{card}]")
+        log(f"bound {name}: {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP fp32 at 67 TFLOP/s "
+            f"= {t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.4f} ms) -> kernel at "
+            f"{100 * bound_ms / ms:.1f}% of the bound [{card}]")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms}
+    del lib_loss, s_req, t_req
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_breakdown(device, card, n_steps: int = 30):
+    """Where a training step's time goes at full width and 1M items, on a
+    fresh model: CUDA events between the step's pieces, then a window of
+    steps under torch.profiler for the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.ops.losses import full_softmax_ce
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    model = full_width_model(device, dropout=0.5)
+    model.train()
+    opt = make_optimizer(model.parameters(), TrainConfig(lr=LR))
+    batches = [random_batch(device, seed=1000 + i) for i in range(n_steps)]
+    names = ("model forward", "CE forward", "backward", "Adam")
+    totals = dict.fromkeys(names, 0.0)
+
+    def step(ids, answers, events=None):
+        if events:
+            events[0].record()
+        state = model(ids)[:, -1, :]
+        if events:
+            events[1].record()
+        loss = full_softmax_ce(state, model.item_table, answers, impl="streaming")
+        if events:
+            events[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if events:
+            events[3].record()
+        opt.step()
+        if events:
+            events[4].record()
+
+    for ids, answers in batches[:3]:  # warm-up: Adam's state, the allocator
+        step(ids, answers)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(*batches[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    log(f"train step host syncs: {len(syncs)} found by torch.cuda.set_sync_debug_mode('warn') "
+        f"(which does not see every kind of sync)")
+    torch.cuda.synchronize()
+    all_events = []
+    t0 = time.perf_counter()
+    for ids, answers in batches:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        step(ids, answers, events)
+        all_events.append(events)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_steps
+    for events in all_events:
+        for i, name in enumerate(names):
+            totals[name] += events[i].elapsed_time(events[i + 1]) / n_steps
+    for name in names:
+        log(f"train breakdown {name}: {totals[name]:.4f} ms per step on the card's timeline [{card}]")
+    log(f"train step: {1e3 * wall:.4f} ms per {TRAIN_BATCH}-sample step on the host clock = "
+        f"{TRAIN_BATCH / wall:.1f} examples/s (fresh model, random batches) [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for ids, answers in batches[:10]:
+            step(ids, answers)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    on_device = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in on_device) / 1e6
+    if busy > 0:
+        log(f"train trace: device busy {busy:.4f}s of a {traced:.4f}s traced window of 10 steps, "
+            f"idle share {100 * (1 - busy / traced):.1f}% (torch.profiler) [{card}]")
+        for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"train trace device time {e.key[:90]}: {e.self_device_time_total / 1e3 / 10:.4f} "
+                f"ms per step, {e.count} calls [{card}]")
+    else:
+        log("train trace: torch.profiler recorded no device time; device busy share not measured")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -399,13 +851,28 @@ def main() -> int:
     _build.build_all(verbose=True)
     log(f"build: {len(_build.SOURCES)} CUDA source(s) compiled in {time.perf_counter() - t0:.1f}s")
 
-    worst_err, full = phase_kernels(device)
-    with tempfile.TemporaryDirectory() as workdir:
+    with timed("rank kernel vs plain"):
+        worst_err, full = phase_kernels(device)
+    with timed("CE kernels vs plain"):
+        ce_err, ce_full = phase_ce_kernels(device)
+    with timed("one step, kernels vs plain"):
+        phase_step(device)
+    with timed("eval main path"), tempfile.TemporaryDirectory() as workdir:
         launches, eval_seconds, seqs, model = phase_main_path(device, workdir)
     log(f"eval: {N_USERS} users in {eval_seconds:.3f}s = {N_USERS / eval_seconds:.1f} users/s "
         f"(test pass of main --do_eval, first batch included) [{card}]")
-    times = phase_times(full, card)
-    phase_breakdown(device, seqs, model, card)
+    with timed("train main path"), tempfile.TemporaryDirectory() as workdir:
+        train_launches, train_rate = phase_train(device, workdir)
+    log(f"train: {train_rate:.0f} examples/s in the second epoch of main (--epochs 2, "
+        f"validation excluded) [{card}]")
+    with timed("rank times and eval breakdown"):
+        times = phase_times(full, card)
+        phase_breakdown(device, seqs, model, card)
+    del full, model
+    with timed("CE times and train breakdown"):
+        ce_times = phase_ce_times(ce_full, card)
+        del ce_full
+        phase_train_breakdown(device, card)
 
     kernels = [{
         "name": "streaming_masked_topk",
@@ -416,13 +883,24 @@ def main() -> int:
         "max_abs_err": worst_err,
         **times,
     }]
+    for name, replaces in (("ce_logz", "bsarec_tpu/ops/pallas_ce.py:222"),
+                           ("gold_rows", "bsarec_tpu/ops/pallas_ce.py:152"),
+                           ("ce_grads", "bsarec_tpu/ops/pallas_ce.py:340")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
+            "replaces": replaces,
+            "launches": train_launches[name],
+            "max_abs_err": ce_err[name],
+            **ce_times[name],
+        })
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

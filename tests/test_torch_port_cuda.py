@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. Every test here needs an NVIDIA card and nvcc and skips without
+them. The file imports no JAX, so that it runs on a machine with the card
+and PyTorch alone:
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bsarec_tpu_torch.ops import ce, rank
+
+# top-k: fp32 dot products of 64 N(0, 1) terms in another order
+RTOL, ATOL = 1e-5, 1e-5
+# CE: fp32 sums of V exponentials (logZ) and of B or V products (gradients)
+# in another order than torch's
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc: the CUDA kernels have no CPU mode")
+    from bsarec_tpu_torch.train.trainer import set_fp32_matmul
+
+    set_fp32_matmul()
+    return torch.device("cuda")
+
+
+def _rank_inputs(b, v, h, seed, integer):
+    rng = np.random.default_rng(seed)
+    if integer:  # dot products are exact, so ids (ties included) must match
+        states = rng.integers(-2, 3, size=(b, h)).astype(np.float32)
+        table = rng.integers(-2, 3, size=(v, h)).astype(np.float32)
+    else:
+        states = rng.normal(size=(b, h)).astype(np.float32)
+        table = rng.normal(size=(v, h)).astype(np.float32)
+    seen = rng.integers(1, v, size=(b, 20)).astype(np.int32)
+    seen[:, 1] = seen[:, 0]
+    seen[:, 14:] = 0
+    return states, table, seen
+
+
+def _masked_logits(states, table, seen, n_valid):
+    logits = states @ table.T
+    logits[np.arange(len(seen))[:, None], seen] = 0.0
+    logits[:, 0] = 0.0
+    logits[:, n_valid:] = -np.inf
+    return logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,k,n_valid,integer", [
+    (37, 5000, 64, 20, 4990, False),
+    (3, 12101, 48, 1, 12101, False),
+    (64, 20011, 64, 128, 20006, True),
+    (37, 20011, 64, 20, 20011, True),
+])
+def test_cuda_kernel_matches_plain(cuda_device, b, v, h, k, n_valid, integer):
+    states, table, seen = _rank_inputs(b, v, h, seed=b, integer=integer)
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    bm = rank.seen_ids_to_bitmask(torch.from_numpy(rank.dedupe_seen_rows(seen)).to(cuda_device), v)
+    np.testing.assert_array_equal(bm.cpu().numpy(), rank.build_seen_bitmask(seen, v))
+    before = rank.streaming_masked_topk.launches
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert rank.streaming_masked_topk.launches == before + 1
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
+    if integer:
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    else:
+        torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
+        logits = _masked_logits(states, table, seen, n_valid)
+        by_score = np.take_along_axis(logits, got_i.cpu().numpy().astype(np.int64), axis=1)
+        np.testing.assert_allclose(by_score, want_v.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (37, 5000, 64, 4990), (3, 12101, 48, 12101), (130, 70001, 32, 70001),
+    (64, 20011, 128, 20006), (256, 9000, 256, 9000),
+])
+def test_cuda_ce_kernels_match_plain(cuda_device, b, v, h, n_valid):
+    rng = np.random.default_rng(b)
+    states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
+    answers = rng.integers(0, n_valid, size=b)
+    answers[: min(b, 3)] = answers[0]  # repeats
+    answers[-1] = -1
+    a = ce.map_answers(torch.from_numpy(answers).to(cuda_device), n_valid)
+    before = (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches)
+    logz = ce.ce_logz(states, table, n_valid)
+    rows = ce.gold_rows(table, a)
+    d = torch.full((b,), 1.0 / b, device=cuda_device)
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid)
+    torch.cuda.synchronize()
+    assert (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches) == tuple(
+        x + 1 for x in before)
+    torch.testing.assert_close(logz, ce.ce_logz_plain(states, table, n_valid), **LOSS_TOL)
+    assert torch.equal(rows, ce.gold_rows_plain(table, a))
+    want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
+    torch.testing.assert_close(ds, want_ds, **GRAD_TOL)
+    torch.testing.assert_close(dt, want_dt, **GRAD_TOL)

@@ -1,6 +1,6 @@
 """Streaming masked top-k: the port's plain version vs the JAX Pallas
-kernel (interpret mode on the CPU), and the CUDA kernel vs the plain
-version on the card."""
+kernel (interpret mode on the CPU). The CUDA kernel is held against the
+plain version in `tests/test_torch_port_cuda.py` and `chip_smoke.py`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -90,39 +90,3 @@ def test_wrapper_on_cpu_runs_plain_and_validates():
     for bad in ({"k": 0}, {"k": rank.MAX_K + 1}, {"n_valid": 101}, {"n_valid": -1}):
         with pytest.raises(ValueError):
             rank.streaming_masked_topk(s, t, bm, **{"k": 3, **bad})
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card and nvcc: the CUDA kernel has no CPU mode")
-    from bsarec_tpu_torch.train.trainer import set_fp32_matmul
-
-    set_fp32_matmul()
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,v,h,k,n_valid,integer", [
-    (37, 5000, 64, 20, 4990, False),
-    (3, 12101, 48, 1, 12101, False),
-    (64, 20011, 64, 128, 20006, True),
-    (37, 20011, 64, 20, 20011, True),
-])
-def test_cuda_kernel_matches_plain(cuda_device, b, v, h, k, n_valid, integer):
-    states, table, seen = _inputs(b, v, h, seed=b, integer=integer)
-    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
-    bm = rank.seen_ids_to_bitmask(torch.from_numpy(rank.dedupe_seen_rows(seen)).to(cuda_device), v)
-    np.testing.assert_array_equal(bm.cpu().numpy(), rank.build_seen_bitmask(seen, v))
-    before = rank.streaming_masked_topk.launches
-    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
-    torch.cuda.synchronize()
-    assert rank.streaming_masked_topk.launches == before + 1
-    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
-    if integer:
-        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
-    else:
-        torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
-        logits = _masked_logits(states, table, seen, n_valid)
-        by_score = np.take_along_axis(logits, got_i.cpu().numpy().astype(np.int64), axis=1)
-        np.testing.assert_allclose(by_score, want_v.cpu().numpy(), rtol=RTOL, atol=ATOL)
