@@ -1,7 +1,7 @@
 """Typed run configuration (counterpart of `bsarec_tpu/config.py`).
 
-The fields and defaults are the JAX package's; `TrainConfig.device` is
-new. Fields that only steer TPU machinery (`mesh`, `scan_unroll`,
+The fields and defaults are the JAX package's; `TrainConfig.device` and
+`TrainConfig.prng` (a JAX-wide setting there, `--prng`) are new. Fields that only steer TPU machinery (`mesh`, `scan_unroll`,
 `remat`, `multihost`) are kept so that configurations carry across, and
 the parts of the port that would read them are not ported yet.
 """
@@ -78,6 +78,9 @@ class TrainConfig:
     multihost: bool = False
     # "cuda" (default) or "cpu"; CPU runs only when asked for
     device: str = "cuda"
+    # "threefry" | "rbg" (--prng): "rbg" with BSAREC_DROPOUT=pallas puts
+    # every dropout site on the fused kernel (models/modules.py)
+    prng: str = "threefry"
 
 
 def resolve_device(name: str | torch.device) -> torch.device:

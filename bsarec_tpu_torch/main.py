@@ -4,9 +4,13 @@
         --c 5 --alpha 0.7 --lr 0.0005 --train_name BSARec_Beauty
     python -m bsarec_tpu_torch.main --data_name Beauty --model_type BSARec \
         --c 5 --alpha 0.7 --do_eval --load_model BSARec_Beauty
+    BSAREC_DROPOUT=pallas python -m bsarec_tpu_torch.main --data_name Beauty \
+        --model_type SASRec --prng rbg --train_name SASRec_Beauty
 
 Takes the JAX CLI's flags plus `--device` (default cuda; CUDA asked for
-and absent raises, `--device cpu` runs on the CPU). Without `--do_eval`
+and absent raises, `--device cpu` runs on the CPU). BSARec and SASRec
+are ported; other `--model_type`s raise. `--prng rbg` with
+`BSAREC_DROPOUT=pallas` runs every dropout site on the fused kernel. Without `--do_eval`
 it trains (`Trainer.fit`: epochs, validation, early stopping with a
 checkpoint of the best model, a train-state snapshot after each epoch,
 the final test); `--resume` continues from the snapshot. With
@@ -64,7 +68,9 @@ def parse_args(argv=None):
                         help="continue training from the <train_name>.ckpt.state snapshot")
     parser.add_argument("--mesh", default="", type=str, help="(not ported yet)")
     parser.add_argument("--prng", default="threefry", choices=("threefry", "rbg"),
-                        help="(the JAX package's PRNG; the port draws from torch's generators)")
+                        help="rbg with BSAREC_DROPOUT=pallas in the environment runs every "
+                        "dropout site on the fused CUDA kernel (Philox in the kernel, the "
+                        "mask made again in the backward); otherwise torch's nn.Dropout")
     parser.add_argument("--multihost", action="store_true", help="(not ported yet)")
     parser.add_argument("--eval_impl", default="auto", type=str,
                         help="full-catalog eval path: auto | dense | streaming")
@@ -144,7 +150,7 @@ def configs_from_args(args, item_size: int, num_users: int):
         seed=args.seed, weight_decay=args.weight_decay, adam_beta1=args.adam_beta1,
         adam_beta2=args.adam_beta2, log_freq=args.log_freq, eval_impl=args.eval_impl,
         mesh=args.mesh, multihost=args.multihost, scan_unroll=args.scan_unroll,
-        remat=args.remat, device=args.device,
+        remat=args.remat, device=args.device, prng=args.prng,
     )
     return model_cfg, train_cfg
 

@@ -1,6 +1,6 @@
 """Model registry (counterpart of `bsarec_tpu/models/__init__.py`).
 
-Only BSARec is ported so far; every other model type raises.
+BSARec and SASRec are ported; every other model type raises.
 """
 
 from __future__ import annotations
@@ -9,12 +9,16 @@ import torch
 
 from bsarec_tpu_torch.models.base import SequentialRecModel
 from bsarec_tpu_torch.models.bsarec import BSARecModel
+from bsarec_tpu_torch.models.sasrec import SASRecModel
 
-MODEL_REGISTRY = {"bsarec": BSARecModel}
+MODEL_REGISTRY = {"bsarec": BSARecModel, "sasrec": SASRecModel}
 
 
-def build_model(config, generator: torch.Generator | None = None) -> SequentialRecModel:
-    """A freshly initialized model on the CPU (`generator` seeds the init)."""
+def build_model(config, generator: torch.Generator | None = None,
+                prng: str = "threefry") -> SequentialRecModel:
+    """A freshly initialized model on the CPU (`generator` seeds the init).
+    `prng` is the CLI's `--prng`: "rbg" with `BSAREC_DROPOUT=pallas` set
+    builds every dropout site on the fused kernel (`modules.make_dropout`)."""
     mt = config.model_type.lower()
     if mt not in MODEL_REGISTRY:
         raise NotImplementedError(f"model type {config.model_type!r} is not ported yet (ROADMAP)")
@@ -22,4 +26,4 @@ def build_model(config, generator: torch.Generator | None = None) -> SequentialR
         raise NotImplementedError(
             f"compute_dtype {config.compute_dtype!r} is not ported yet; use float32"
         )
-    return MODEL_REGISTRY[mt](config, generator=generator)
+    return MODEL_REGISTRY[mt](config, generator=generator, prng=prng)

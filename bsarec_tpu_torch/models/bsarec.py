@@ -15,18 +15,25 @@ import torch
 from torch import nn
 
 from bsarec_tpu_torch.models.base import SequentialRecModel
-from bsarec_tpu_torch.models.modules import FeedForward, MultiHeadAttention, TFLayerNorm
+from bsarec_tpu_torch.models.modules import (
+    DropoutState,
+    FeedForward,
+    MultiHeadAttention,
+    TFLayerNorm,
+    TransformerEncoder,
+    make_dropout,
+)
 from bsarec_tpu_torch.ops.frequency import frequency_filter, lowpass_projection_matrix
 from bsarec_tpu_torch.ops.losses import full_softmax_ce
 
 
 class FrequencyLayer(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
         self.c = cfg.c
         self.sqrt_beta = nn.Parameter(torch.empty(1, 1, cfg.hidden_size))
         self.LayerNorm = TFLayerNorm(cfg.hidden_size)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = make_dropout(cfg.hidden_dropout_prob, dropout_state)
         # kept on the model's device: a copy from pageable host memory in
         # every forward would make the host wait for the card each batch
         self.register_buffer("proj", torch.tensor(
@@ -45,11 +52,11 @@ class FrequencyLayer(nn.Module):
 
 
 class BSARecLayer(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
         self.alpha = cfg.alpha
-        self.filter_layer = FrequencyLayer(cfg)
-        self.attention_layer = MultiHeadAttention(cfg)
+        self.filter_layer = FrequencyLayer(cfg, dropout_state)
+        self.attention_layer = MultiHeadAttention(cfg, dropout_state)
 
     def forward(self, x, attention_mask):
         dsp = self.filter_layer(x)
@@ -58,32 +65,19 @@ class BSARecLayer(nn.Module):
 
 
 class BSARecBlock(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
-        self.layer = BSARecLayer(cfg)
-        self.feed_forward = FeedForward(cfg)
+        self.layer = BSARecLayer(cfg, dropout_state)
+        self.feed_forward = FeedForward(cfg, dropout_state)
 
     def forward(self, x, attention_mask):
         return self.feed_forward(self.layer(x, attention_mask))
 
 
-class BSARecEncoder(nn.Module):
-    def __init__(self, cfg):
-        super().__init__()
-        self.blocks = nn.ModuleList([BSARecBlock(cfg) for _ in range(cfg.num_hidden_layers)])
-
-    def forward(self, x, attention_mask, all_layers: bool = False):
-        outputs = [x]
-        for block in self.blocks:
-            x = block(x, attention_mask)
-            outputs.append(x)
-        return outputs if all_layers else x
-
-
 class BSARecModel(SequentialRecModel):
-    def __init__(self, cfg, generator: torch.Generator | None = None):
-        super().__init__(cfg)
-        self.item_encoder = BSARecEncoder(cfg)
+    def __init__(self, cfg, generator: torch.Generator | None = None, prng: str = "threefry"):
+        super().__init__(cfg, prng)
+        self.item_encoder = TransformerEncoder(cfg, self.dropout_state, block=BSARecBlock)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -99,9 +93,10 @@ class BSARecModel(SequentialRecModel):
         x = self.add_position_embedding(input_ids)
         return self.item_encoder(x, mask, all_layers=all_layers)
 
-    def calculate_loss(self, input_ids, answers):
+    def calculate_loss(self, input_ids, answers, neg_answers=None):
         """Mean full-catalog CE of the last position's state against the
-        tied item table (`bsarec_tpu/models/bsarec.py:91-93`)."""
+        tied item table (`bsarec_tpu/models/bsarec.py:91-93`); the
+        negatives are not read."""
         seq_output = self.forward(input_ids)
         return full_softmax_ce(seq_output[:, -1, :], self.item_table, answers,
                                impl=self.config.loss_impl, dtype=self.config.compute_dtype)

@@ -12,14 +12,25 @@ Numerics contract (reference: `src/model/_modules.py`):
 
 Parameter names follow the reference's torch modules, so a port
 `state_dict` has the reference key layout.
+
+Dropout sites are made by `make_dropout`, which picks the path once, when
+the model is built: `nn.Dropout`, or the fused CUDA kernel of
+`ops/dropout.py` under `--prng rbg` with `BSAREC_DROPOUT=pallas`, as the
+JAX package's `FastDropout` picks `pallas_dropout`
+(`bsarec_tpu/core/dropout.py:179-190,217`). The fused sites of one model
+share a `DropoutState`: the step's seed words and a call index that each
+site takes in turn, so every site of a step draws its own mask.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 from torch import nn
+
+from bsarec_tpu_torch.ops.dropout import fused_dropout
 
 
 def erf_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +52,63 @@ def init_linear(layer: nn.Linear, std: float, generator: torch.Generator | None)
         layer.bias.zero_()
 
 
+def use_fused_dropout(prng: str) -> bool:
+    """True under `--prng rbg` with `BSAREC_DROPOUT=pallas` in the
+    environment, read when the model is built. Under rbg with any other
+    strategy the JAX package draws its masks another way; the port then
+    uses `nn.Dropout`, the same distribution on torch's own stream."""
+    return prng == "rbg" and os.environ.get("BSAREC_DROPOUT", "threshold") == "pallas"
+
+
+class DropoutState:
+    """The fused dropout sites' per-step stream: `seeds`, an int64 [2]
+    tensor on the model's device, and the index of the next call. The
+    training loop calls `begin_step` before each step's forward; `plain`
+    runs the kernel's plain version on any device (the card's check)."""
+
+    def __init__(self, fused: bool, plain: bool = False):
+        self.fused = fused
+        self.plain = plain
+        self.seeds: torch.Tensor | None = None
+        self.call = 0
+
+    def begin_step(self, seeds: torch.Tensor) -> None:
+        self.seeds, self.call = seeds, 0
+
+    def next_call(self) -> int:
+        if self.seeds is None:
+            raise RuntimeError("fused dropout in training mode needs the step's seeds: "
+                               "call DropoutState.begin_step(seeds) first")
+        call, self.call = self.call, self.call + 1
+        return call
+
+
+class FusedDropout(nn.Module):
+    """Training-mode dropout through `ops.dropout.fused_dropout`; the
+    identity in eval mode, like `nn.Dropout`."""
+
+    def __init__(self, rate: float, state: DropoutState):
+        super().__init__()
+        self.rate = rate
+        self.state = state
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return fused_dropout(x, self.rate, self.state.seeds, 0)  # zeros, no launch
+        call = self.state.next_call()
+        return fused_dropout(x, self.rate, self.state.seeds, call, plain=self.state.plain)
+
+    def extra_repr(self) -> str:
+        return f"p={self.rate}, fused"
+
+
+def make_dropout(rate: float, state: DropoutState) -> nn.Module:
+    """A dropout site: fused when `state.fused`, else `nn.Dropout`."""
+    return FusedDropout(rate, state) if state.fused else nn.Dropout(rate)
+
+
 class TFLayerNorm(nn.Module):
     """LayerNorm with epsilon inside the sqrt (TF style), eps=1e-12,
     computed and returned in float32 whatever the input dtype."""
@@ -60,14 +128,14 @@ class TFLayerNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
         h = cfg.hidden_size
         self.dense_1 = nn.Linear(h, 4 * h)
         self.act = ACT2FN[cfg.hidden_act]
         self.dense_2 = nn.Linear(4 * h, h)
         self.LayerNorm = TFLayerNorm(h)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = make_dropout(cfg.hidden_dropout_prob, dropout_state)
 
     def reset_parameters(self, std: float, generator=None) -> None:
         init_linear(self.dense_1, std, generator)
@@ -79,7 +147,7 @@ class FeedForward(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
@@ -87,10 +155,10 @@ class MultiHeadAttention(nn.Module):
         self.query = nn.Linear(h, h)
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
-        self.attn_dropout = nn.Dropout(cfg.attention_probs_dropout_prob)
+        self.attn_dropout = make_dropout(cfg.attention_probs_dropout_prob, dropout_state)
         self.dense = nn.Linear(h, h)
         self.LayerNorm = TFLayerNorm(h)
-        self.out_dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.out_dropout = make_dropout(cfg.hidden_dropout_prob, dropout_state)
 
     def reset_parameters(self, std: float, generator=None) -> None:
         for layer in (self.query, self.key, self.value, self.dense):
@@ -109,3 +177,38 @@ class MultiHeadAttention(nn.Module):
         ctx = ctx.transpose(1, 2).reshape(b, seq_len, hidden)
         out = self.out_dropout(self.dense(ctx))
         return self.LayerNorm(out + x)
+
+
+class TransformerBlock(nn.Module):
+    """Attention, then the FeedForward (`bsarec_tpu/models/modules.py:137-143`).
+    The attention is named `layer`, the reference key layout
+    (`item_encoder.blocks.{i}.layer.query.weight`, ...)."""
+
+    def __init__(self, cfg, dropout_state: DropoutState):
+        super().__init__()
+        self.layer = MultiHeadAttention(cfg, dropout_state)
+        self.feed_forward = FeedForward(cfg, dropout_state)
+
+    def reset_parameters(self, std: float, generator=None) -> None:
+        self.layer.reset_parameters(std, generator)
+        self.feed_forward.reset_parameters(std, generator)
+
+    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.feed_forward(self.layer(x, attention_mask))
+
+
+class TransformerEncoder(nn.Module):
+    """`num_hidden_layers` blocks in a row (`bsarec_tpu/models/modules.py:146-155`):
+    TransformerBlocks, or another block class with the same call (BSARec's)."""
+
+    def __init__(self, cfg, dropout_state: DropoutState, block=TransformerBlock):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            [block(cfg, dropout_state) for _ in range(cfg.num_hidden_layers)])
+
+    def forward(self, x, attention_mask, all_layers: bool = False):
+        outputs = [x]
+        for block in self.blocks:
+            x = block(x, attention_mask)
+            outputs.append(x)
+        return outputs if all_layers else x

@@ -25,6 +25,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {
     "streaming_rank": _PKG / "csrc" / "streaming_rank.cu",
     "streaming_ce": _PKG / "csrc" / "streaming_ce.cu",
+    "fused_dropout": _PKG / "csrc" / "fused_dropout.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,12 +1,13 @@
 """Training losses (counterpart of `bsarec_tpu/ops/losses.py`).
 
-Only the full-catalog softmax cross-entropy of BSARec is ported so far;
-the pairwise and contrastive losses of the zoo wait for ROADMAP A9.
+The full-catalog softmax cross-entropy of BSARec and SASRec's pairwise
+BCE are ported; the zoo's other losses wait for ROADMAP A9.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from bsarec_tpu_torch.ops.ce import streaming_softmax_ce
 
@@ -41,3 +42,16 @@ def full_softmax_ce(seq_state: torch.Tensor, item_table: torch.Tensor, answers: 
     logits = seq_state @ item_table.T
     gold = logits.gather(1, answers.long()[:, None])[:, 0]
     return (torch.logsumexp(logits, dim=-1) - gold).mean()
+
+
+def pair_bce_masked(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
+                    pos_ids: torch.Tensor) -> torch.Tensor:
+    """BCE-with-logits on (positive, negative) pairs over the rows whose
+    positive id is not 0 (`bsarec_tpu/ops/losses.py:75-87`; reference
+    `src/model/sasrec.py:42-63`): the masked means of softplus(-pos) and
+    softplus(neg), summed."""
+    valid = (pos_ids != 0).float()
+    denom = valid.sum().clamp(min=1.0)
+    pos_loss = (F.softplus(-pos_logits) * valid).sum() / denom
+    neg_loss = (F.softplus(neg_logits) * valid).sum() / denom
+    return pos_loss + neg_loss

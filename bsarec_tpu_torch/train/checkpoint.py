@@ -5,7 +5,9 @@
   reference's key layout.
 - `save_train_state` / `load_train_state`: the full training state, so
   that `--resume` continues an interrupted run where it stopped: params,
-  the Adam state, the epoch, the random generators' states, the
+  the Adam state, the epoch, the random generators' states (the
+  trainer's device generator, which draws the epoch order, the negatives
+  and the fused dropout's seeds, and torch's default generators), the
   early-stopping best score and counter, and the model-config
   fingerprint that `Trainer.resume` checks.
 

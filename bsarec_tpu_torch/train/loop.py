@@ -3,9 +3,9 @@
 The JAX package runs a whole epoch, or a whole eval pass, as one
 `lax.scan` inside one jitted program. Here each is a Python loop over
 batches of device-resident data. The training loop reads nothing back
-to the host until the epoch ends: the loss is summed on the device, the
-epoch order comes from a generator on the device, and Adam keeps its
-step counts on the host.
+to the host until the epoch ends: the loss is summed on the device; the
+epoch order, the negatives and the fused dropout's seed words come from
+a generator on the device; Adam keeps its step counts on the host.
 """
 
 from __future__ import annotations
@@ -37,9 +37,10 @@ def sample_negatives(generator: torch.Generator, input_ids: torch.Tensor,
     """Uniform negatives in [1, item_size) that avoid the sample's items,
     {nonzero input ids} | {answer} (`src/dataset.py:66-70,120-124`), by 8
     rounds of redrawing the colliding ones. `generator` lives on the
-    tensors' device. The zoo's pairwise losses read these (ROADMAP A9);
-    BSARec's full-catalog CE does not, and the JAX epoch's draw for it is
-    dead code that XLA removes, so the port's epoch does not draw them."""
+    tensors' device. The pairwise losses (SASRec's) read these; BSARec's
+    full-catalog CE does not, and the JAX epoch's draw for it is dead
+    code that XLA removes, so the port's epoch draws them only for models
+    with `reads_negatives`."""
     batch, dev = answers.shape[0], answers.device
 
     def draw():
@@ -62,22 +63,40 @@ def epoch_permutation(num_samples: int, batch_size: int, generator: torch.Genera
     return perm[wrap].view(steps, batch_size)
 
 
+def dropout_seeds(generator: torch.Generator, steps: int, device: torch.device) -> torch.Tensor:
+    """[steps, 2] int64 seed words in [0, 2^32), one row per step, drawn on
+    the device (no host sync)."""
+    return torch.randint(0, 1 << 32, (steps, 2), generator=generator, dtype=torch.int64,
+                         device=device)
+
+
 def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
                       device: torch.device):
     """Returns `(epoch, steps)`; `epoch(inputs, answers, generator)` runs
     one pass over the [N, L] inputs and [N] answers in the generator's
     order, one Adam step per full batch, and returns the mean batch loss
-    as a 0-d tensor on the device."""
+    as a 0-d tensor on the device. From the generator, in this order:
+    the epoch's permutation, the fused dropout's [steps, 2] seed words
+    (fused models only), then each step's negatives (models with
+    `reads_negatives` only)."""
     steps = math.ceil(num_samples / batch_size)
+    item_size = model.config.item_size
+    dropout_state = model.dropout_state
 
     def epoch(inputs, answers, generator):
         perm = epoch_permutation(num_samples, batch_size, generator, device)
+        seeds = dropout_seeds(generator, steps, device) if dropout_state.fused else None
         model.train()
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for step in range(steps):
             with annotate("train_step"):
                 idx = perm[step]
-                loss = model.calculate_loss(inputs[idx], answers[idx])
+                ids, ans = inputs[idx], answers[idx]
+                neg = (sample_negatives(generator, ids, ans, item_size)
+                       if model.reads_negatives else None)
+                if seeds is not None:
+                    dropout_state.begin_step(seeds[step])
+                loss = model.calculate_loss(ids, ans, neg)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 optimizer.step()

@@ -48,12 +48,13 @@ class Trainer:
         set_fp32_matmul()
 
         gen = torch.Generator().manual_seed(train_cfg.seed)
-        self.model = build_model(model_cfg, generator=gen).to(self.device)
+        self.model = build_model(model_cfg, generator=gen, prng=train_cfg.prng).to(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info(f"Total Parameters: {n_params}")
 
-        # dropout draws from torch's default generators, the epoch order
-        # from this one; a snapshot keeps the states of all of them
+        # nn.Dropout draws from torch's default generators; the epoch order,
+        # the negatives and the fused dropout's seeds from this one. A
+        # snapshot keeps the states of all of them
         torch.manual_seed(train_cfg.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
         self.optimizer = make_optimizer(self.model.parameters(), train_cfg)
@@ -102,7 +103,15 @@ class Trainer:
     # ---- reference-API surface -----------------------------------------
     def train(self, epoch: int) -> float:
         if self._train_dev is None:
-            self.logger.info(f"full-catalog CE: {self.loss_impl} ({self.device.type})")
+            if self.model.reads_negatives:
+                self.logger.info("loss: pair BCE with one sampled negative per sample")
+            else:
+                self.logger.info(f"full-catalog CE: {self.loss_impl} ({self.device.type})")
+            fused = self.model.dropout_state.fused
+            self.logger.info(
+                "dropout: fused kernel (--prng rbg, BSAREC_DROPOUT=pallas; "
+                f"{'CUDA kernel' if self.device.type == 'cuda' else 'plain version on the CPU'})"
+                if fused else "dropout: torch nn.Dropout")
             self._train_dev = {
                 "inputs": torch.from_numpy(self.data.train.input_ids).long().to(self.device),
                 "answers": torch.from_numpy(self.data.train.answers).long().to(self.device),
@@ -177,6 +186,8 @@ class Trainer:
         return json.dumps(fields, sort_keys=True)
 
     def _rng_states(self) -> dict:
+        # "epoch_order" is the trainer's device generator, which also draws
+        # the negatives and the fused dropout's seeds
         states = {"epoch_order": self.generator.get_state(), "torch": torch.get_rng_state()}
         if self.device.type == "cuda":
             states["cuda"] = torch.cuda.get_rng_state(self.device)

@@ -21,10 +21,20 @@ Phases, each of which raises (exit code 1) when it fails:
    V off every tile, n_valid < V, H in {32, 48, 128, 256}, repeated
    answers, answers of -1 and >= n_valid, an answer at item 0). The
    gather must be bit-equal; CE_TOL and GRAD_TOL state the others.
-4. One Adam step of a full-width BSARec at 1,000,000 items through the
+4. Hold the fused dropout kernel against its plain version, bit for bit,
+   at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
+   fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
+   {0, 0.2, 0.5, 0.9}, aligned and misaligned views); then the checks of
+   `benchmarks/validate_pallas_dropout.py` (keep fraction, kept scale,
+   determinism, seed and call sensitivity, keep fraction per 64K chunk)
+   and the forward/backward mask identity through the autograd function.
+5. One Adam step of a full-width BSARec at 1,000,000 items through the
    kernels against the same step through the plain versions (same
-   weights and batch, dropout 0): loss, gradients and parameters.
-5. Drive the eval path through its normal entry point:
+   weights and batch, dropout 0): loss, gradients and parameters. Then
+   one SASRec step with every dropout site on the kernel against the same
+   step on its plain version (same weights, batch, negatives and seeds):
+   14 dropout launches, loss, gradients and parameters.
+6. Drive the eval path through its normal entry point:
    `bsarec_tpu_torch.main --do_eval --eval_impl streaming --export_topk`
    on a seeded synthetic 1,000,000-item x 50,000-user corpus with a
    seeded random-init BSARec at the paper's Beauty widths (hidden 64,
@@ -32,7 +42,7 @@ Phases, each of which raises (exit code 1) when it fails:
    launch count must cover every eval batch of the test pass and the
    export, and the first 512 users' exported top-20 must agree with the
    plain version.
-6. Drive the training path through its normal entry point: `main`
+7. Drive the training path through its normal entry point: `main`
    without `--do_eval` on a 1,000,000-item x 10,000-user corpus, BSARec
    at the same widths with dropout 0.5, batch 256, lr 5e-4, 2 epochs;
    then `--resume --epochs 3 --export_topk`, which must start at epoch
@@ -40,11 +50,21 @@ Phases, each of which raises (exit code 1) when it fails:
    the gather twice; every epoch's loss must be finite and epoch 1's
    below epoch 0's; the checkpoint and the `.state` snapshot must exist;
    the test scores must lie in [0, 1].
-7. Time every kernel, its plain version and one library yardstick with
+8. Drive SASRec's training path: `main --model_type SASRec --prng rbg`
+   with BSAREC_DROPOUT=pallas at the CLI defaults on the same corpus, 2
+   epochs, then `--resume --epochs 3`; exactly 14 dropout launches per
+   step, the rank kernel in every validation and no CE launch; epoch 1's
+   loss below epoch 0's; the resumed run starts at epoch 2. Then 2
+   epochs with nn.Dropout for the rate without the kernel.
+9. Time every kernel, its plain version and one library yardstick with
    CUDA events, print each bound, eval users/s and a steady-state eval
    pass with its per-batch breakdown, train examples/s, a per-step
    training breakdown, the host syncs of a training step, the device's
-   busy share under torch.profiler, and a `kernels` JSON line.
+   busy share under torch.profiler (for BSARec and for SASRec with the
+   fused dropout), and a `kernels` JSON line.
+
+Every path is driven with every kernel's launch count set to 0 just
+before it and read just after.
 
 The last line is `{"ok": true, "device": {...}}`. Without a CUDA device
 the script exits 1 and prints no result. It imports nothing of JAX.
@@ -89,9 +109,17 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # EVAL_BATCH is TrainConfig.eval_batch_size's default, which main uses
 N_USERS, N_ITEMS, EVAL_BATCH, TOP_K = 50_000, 1_000_000, 256, 20
+TRACED_EVAL_USERS = 40 * EVAL_BATCH
 TRAIN_USERS, TRAIN_BATCH, LR = 10_000, 256, 5e-4
 WIDTHS = ["--model_type", "BSARec", "--hidden_size", "64", "--num_hidden_layers", "2",
           "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7", "--max_seq_length", "50"]
+# SASRec at the CLI defaults (hidden 64, 2 layers, 2 heads, dropout 0.5/0.5,
+# max_len 50, lr 1e-3): dropout sites per forward (embedding, then per
+# layer the attention probabilities, the attention output and the FFN),
+# and the two shapes they see at batch 256
+SASREC_LR = 1e-3
+DROPOUT_SITES = 7
+DROPOUT_SHAPES = {"hidden": (256, 50, 64), "attention": (256, 2, 50, 50)}
 
 
 def log(msg: str) -> None:
@@ -291,17 +319,18 @@ def phase_main_path(device, workdir):
         "--eval_impl", "streaming", "--export_topk", topk_path, "--device", device.type,
         *WIDTHS,
     ]
-    rank.streaming_masked_topk.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     scores = port_main.main(argv)
     torch.cuda.synchronize(device)
-    launches = rank.streaming_masked_topk.launches
+    counts = read_counts()
+    launches = counts["streaming_masked_topk"]
     log(f"main path: main(--do_eval --eval_impl streaming --export_topk) returned in "
         f"{time.perf_counter() - t0:.1f}s, test scores {scores}")
 
     steps = math.ceil(N_USERS / EVAL_BATCH)
-    check(launches == 2 * steps,
-          f"rank kernel launched {launches} times, want {2 * steps} (test pass + export)")
+    check(counts == zero_counts() | {"streaming_masked_topk": 2 * steps},
+          f"eval path launches {counts}, want {2 * steps} rank launches (test pass + export)")
     check(all(math.isfinite(s) and 0.0 <= s <= 1.0 for s in scores), f"bad scores {scores}")
     with open(os.path.join(workdir, "smoke_eval.log")) as fh:
         found = re.findall(r"eval test: (\d+) users in ([0-9.]+)s", fh.read())
@@ -332,8 +361,10 @@ def phase_main_path(device, workdir):
 
 def phase_breakdown(device, seqs, model, card):
     """Where one eval pass's time goes: a steady-state pass of the eval
-    function main uses, one such pass under torch.profiler (device busy
-    time by kernel), and each per-batch piece on its own (CUDA events)."""
+    function main uses, the first TRACED_EVAL_USERS of such a pass under
+    torch.profiler (device busy time by kernel; fewer users keep the
+    profiler's post-processing short), and each per-batch piece on its own
+    (CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,19 +389,24 @@ def phase_breakdown(device, seqs, model, card):
     log(f"eval steady state: {N_USERS} users in {seconds:.3f}s = {N_USERS / seconds:.1f} users/s, "
         f"{1e3 * seconds / steps:.3f} ms per {EVAL_BATCH}-user batch (second pass) [{card}]")
 
+    head = slice(0, TRACED_EVAL_USERS)
+    evaluate_head, head_steps, _ = build_eval_fn(model, N_ITEMS, EVAL_BATCH, TRACED_EVAL_USERS,
+                                                 device, impl="streaming", seen_format="ids")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        evaluate(inputs, answers, seen)
+        evaluate_head(inputs[head], answers[head], seen[head])
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     on_device = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in on_device) / 1e6
     if busy > 0:
-        log(f"eval trace: device busy {busy:.3f}s of a {traced:.3f}s traced pass, idle share "
-            f"{100 * (1 - busy / traced):.1f}% (torch.profiler) [{card}]")
+        log(f"eval trace: device busy {busy:.3f}s of a {traced:.3f}s traced pass over the first "
+            f"{TRACED_EVAL_USERS} users, idle share {100 * (1 - busy / traced):.1f}% "
+            f"(torch.profiler) [{card}]")
         for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"eval trace device time {e.key[:90]}: {e.self_device_time_total / 1e3 / steps:.4f} "
-                f"ms per batch, {e.count} calls [{card}]")
+            log(f"eval trace device time {e.key[:90]}: "
+                f"{e.self_device_time_total / 1e3 / head_steps:.4f} ms per batch, {e.count} calls "
+                f"[{card}]")
     else:
         log("eval trace: torch.profiler recorded no device time; device busy share not measured")
 
@@ -630,7 +666,6 @@ def phase_train(device, workdir):
     import torch
 
     from bsarec_tpu_torch import main as port_main
-    from bsarec_tpu_torch.ops import ce, rank
 
     seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
     with open(os.path.join(workdir, "synth_train.txt"), "w") as fh:
@@ -642,15 +677,13 @@ def phase_train(device, workdir):
     argv = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
             "--train_name", "smoke_train", "--device", device.type, "--lr", str(LR),
             "--batch_size", str(TRAIN_BATCH), *WIDTHS]
-    kernels = (ce.ce_logz, ce.gold_rows, ce.ce_grads, rank.streaming_masked_topk)
 
     def run(extra):
-        for k in kernels:
-            k.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         scores = port_main.main(argv + extra)
         torch.cuda.synchronize(device)
-        counts = {k.__name__: k.launches for k in kernels}
+        counts = read_counts()
         check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
         return scores, counts, time.perf_counter() - t0
 
@@ -658,8 +691,8 @@ def phase_train(device, workdir):
     log(f"train path: main(--epochs 2) on {TRAIN_USERS} users x {N_ITEMS} items, {n_samples} "
         f"samples = {steps} steps per epoch, returned in {seconds:.1f}s, test scores {scores}; "
         f"launches {counts}")
-    want = {"ce_logz": 2 * steps, "gold_rows": 4 * steps, "ce_grads": 2 * steps,
-            "streaming_masked_topk": 3 * eval_steps}
+    want = zero_counts() | {"ce_logz": 2 * steps, "gold_rows": 4 * steps, "ce_grads": 2 * steps,
+                            "streaming_masked_topk": 3 * eval_steps}
     check(counts == want, f"train path launches {counts}, want {want}")
     first_counts = counts
     text = read_log(os.path.join(workdir, "smoke_train.log"))
@@ -680,8 +713,8 @@ def phase_train(device, workdir):
     losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
     check(len(losses) == 3 and "'epoch': 2," in text and math.isfinite(losses[2]),
           f"resumed run: epoch losses {losses}")
-    want = {"ce_logz": steps, "gold_rows": 2 * steps, "ce_grads": steps,
-            "streaming_masked_topk": 3 * eval_steps}
+    want = zero_counts() | {"ce_logz": steps, "gold_rows": 2 * steps, "ce_grads": steps,
+                            "streaming_masked_topk": 3 * eval_steps}
     check(counts == want, f"resumed launches {counts}, want {want}")
     topk = np.load(topk_path)
     check(topk.shape == (TRAIN_USERS, TOP_K) and 0 <= int(topk.min()) and int(topk.max()) < N_ITEMS,
@@ -831,6 +864,368 @@ def phase_train_breakdown(device, card, n_steps: int = 30):
     torch.cuda.empty_cache()
 
 
+# ---- the fused dropout kernel and SASRec ---------------------------------------
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every kernel of the port, each with a `launches` count."""
+    from bsarec_tpu_torch.ops import ce, rank
+    from bsarec_tpu_torch.ops import dropout as fd
+
+    return {f.__name__: f for f in (rank.streaming_masked_topk, ce.ce_logz, ce.gold_rows,
+                                    ce.ce_grads, fd.fused_dropout)}
+
+
+def reset_counts() -> None:
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in kernel_wrappers().items()}
+
+
+def zero_counts() -> dict:
+    return dict.fromkeys(kernel_wrappers(), 0)
+
+
+@contextlib.contextmanager
+def pallas_dropout_env(on: bool = True):
+    """BSAREC_DROPOUT=pallas (on) or unset (off) while models are built:
+    the model reads it when it is built."""
+    old = os.environ.pop("BSAREC_DROPOUT", None)
+    if on:
+        os.environ["BSAREC_DROPOUT"] = "pallas"
+    try:
+        yield
+    finally:
+        os.environ.pop("BSAREC_DROPOUT", None)
+        if old is not None:
+            os.environ["BSAREC_DROPOUT"] = old
+
+
+def dropout_seeds(device, seed):
+    """Two seed words in [0, 2^32) as the int64 [2] tensor the kernel reads."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 1 << 32, size=2, dtype=np.int64)).to(device)
+
+
+def compare_dropout(case_name, x, seeds, rate, call) -> float:
+    """The kernel's pass vs the plain version's: bit-equal values. Returns
+    the largest absolute difference (0.0 when the check passes)."""
+    import torch
+
+    from bsarec_tpu_torch.ops import dropout as fd
+
+    got = fd.dropout_apply(x, seeds, rate, call)
+    torch.cuda.synchronize()
+    want = fd.fused_dropout_plain(x, seeds, rate, call)
+    check(got.dtype == x.dtype and got.shape == x.shape, f"dropout {case_name}: dtype/shape")
+    check(torch.equal(got, want), f"dropout {case_name}: kernel and plain version differ "
+          f"at {int((got != want).sum())} of {x.numel()} elements")
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_dropout_kernels(device):
+    """The fused dropout kernel against its plain version, bit for bit, at
+    the SASRec sites' shapes and at edge shapes; then the checks of
+    `benchmarks/validate_pallas_dropout.py` and the forward/backward mask
+    identity through the autograd function. Returns the largest absolute
+    difference over the compared cases."""
+    import torch
+
+    from bsarec_tpu_torch.ops import dropout as fd
+
+    seeds = dropout_seeds(device, 0)
+    errs = []
+    for shape in DROPOUT_SHAPES.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.5, 0.2):
+                x = torch.randn(shape, device=device).to(dtype)
+                errs.append(compare_dropout(f"{list(shape)} {dtype} rate {rate}", x, seeds, rate, 3))
+    for n in (1, 3, 4, 4097, 1_000_003):
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.2, 0.5, 0.9):
+                for offset in (0, 1):  # 1: a view off the vector alignment
+                    flat = torch.randn(n + offset, device=device).to(dtype)
+                    errs.append(compare_dropout(f"n={n} {dtype} rate {rate} offset {offset}",
+                                                flat[offset:], seeds, rate, n))
+    log(f"dropout kernel vs plain: bit-equal in {len(errs)} cases (the sites' shapes "
+        f"{[list(s) for s in DROPOUT_SHAPES.values()]} in fp32 and bf16 at rates 0.5 and 0.2; "
+        f"n in (1, 3, 4, 4097, 1000003) x fp32/bf16 x rates (0, 0.2, 0.5, 0.9) x aligned and "
+        f"misaligned views)")
+
+    x = torch.ones(4, device=device)
+    before = fd.fused_dropout.launches
+    check(fd.fused_dropout(x, 0.0, seeds, 0) is x and not fd.fused_dropout(x, 1.0, seeds, 0).any()
+          and fd.fused_dropout.launches == before, "rates 0 and 1 must not launch")
+
+    for rate, shape in ((0.5, DROPOUT_SHAPES["hidden"]), (0.2, DROPOUT_SHAPES["attention"])):
+        ones = torch.ones(shape, device=device)
+        y = fd.dropout_apply(ones, seeds, rate, 0)
+        kept = y != 0
+        keep_frac = float(kept.float().mean())
+        scale = fd.inv_keep(rate, torch.float32)
+        check(abs(keep_frac - (1 - rate)) < 0.01, f"keep fraction {keep_frac} at rate {rate}")
+        check(bool((y[kept] == scale).all()), f"kept values must be {scale}")
+        check(torch.equal(y, fd.dropout_apply(ones, seeds, rate, 0)), "not deterministic")
+        check(not torch.equal(y, fd.dropout_apply(ones, seeds + 1, rate, 0)), "seed-insensitive")
+        check(not torch.equal(y, fd.dropout_apply(ones, seeds, rate, 1)), "call-insensitive")
+        flat = kept.reshape(-1)
+        chunks = flat[: flat.numel() // 65536 * 65536].view(-1, 65536).float().mean(dim=1)
+        lo, hi = float(chunks.min()), float(chunks.max())
+        check(abs(lo - (1 - rate)) < 0.05 and abs(hi - (1 - rate)) < 0.05,
+              f"64K-chunk keep fractions {lo}..{hi} at rate {rate}")
+        xg = ones.clone().requires_grad_()
+        out = fd.fused_dropout(xg, rate, seeds, 0)
+        out.sum().backward()
+        torch.cuda.synchronize()
+        check(torch.equal(out.detach(), y), "the autograd function's forward differs from the pass")
+        check(torch.equal(xg.grad != 0, kept) and bool((xg.grad[kept] == scale).all()),
+              "backward mask differs from the forward mask")
+        log(f"dropout statistics at rate {rate}, {list(shape)}: keep fraction {keep_frac:.4f}, "
+            f"kept values {scale}, deterministic, seed- and call-sensitive, 64K-chunk keep "
+            f"{lo:.4f}..{hi:.4f}, forward/backward masks identical")
+    return max(errs)
+
+
+def sasrec_model(device, fused: bool):
+    """A seeded random-init SASRec at the CLI defaults (hidden 64, 2 layers,
+    2 heads, dropout 0.5/0.5, max_len 50) over 1M items."""
+    import torch
+
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.models import build_model
+
+    cfg = ModelConfig(model_type="sasrec", item_size=N_ITEMS, num_users=TRAIN_USERS + 1)
+    with pallas_dropout_env(fused):
+        model = build_model(cfg, generator=torch.Generator().manual_seed(0),
+                            prng="rbg" if fused else "threefry")
+    check(model.dropout_state.fused == fused, "dropout path not as asked")
+    return model.to(device)
+
+
+def sasrec_batch(device, seed):
+    """A random batch, its negatives and the step's dropout seeds."""
+    import torch
+
+    from bsarec_tpu_torch.train.loop import sample_negatives
+
+    ids, answers = random_batch(device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return ids, answers, sample_negatives(gen, ids, answers, N_ITEMS), dropout_seeds(device, seed)
+
+
+def phase_sasrec_step(device):
+    """One SASRec Adam step with every dropout site on the kernel against
+    the same step on the kernel's plain version: same weights, batch,
+    negatives and seeds."""
+    import torch
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.ops import dropout as fd
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    ids, answers, negs, seeds = sasrec_batch(device, seed=11)
+    first = sasrec_model(device, fused=True)
+    models = (first, copy.deepcopy(first))
+    del first
+    models[1].dropout_state.plain = True
+    results, launches = [], []
+    for model in models:
+        model.train()
+        opt = make_optimizer(model.parameters(), TrainConfig(lr=SASREC_LR))
+        before = fd.fused_dropout.launches
+        model.dropout_state.begin_step(seeds)
+        loss = model.calculate_loss(ids, answers, negs)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        launches.append(fd.fused_dropout.launches - before)
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        results.append((loss.detach(), grads, {k: v.clone() for k, v in model.state_dict().items()}))
+        del opt
+    del models, model
+    check(launches == [2 * DROPOUT_SITES, 0],
+          f"dropout launches in the two steps {launches}, want [{2 * DROPOUT_SITES}, 0]")
+    (loss, grads, params), (want_loss, want_grads, want_params) = results
+    loss_err = abs(float(loss) - float(want_loss))
+    check(loss_err <= CE_TOL * max(1.0, abs(float(want_loss))), f"SASRec step: loss error {loss_err}")
+    grad_err = max(rel_err(grads[k], want_grads[k]) for k in grads if want_grads[k].abs().max() > 0)
+    check(grad_err <= GRAD_TOL, f"SASRec step: gradient error {grad_err} > {GRAD_TOL}")
+    param_err = max(float((params[k] - want).abs().max()) for k, want in want_params.items())
+    check(param_err <= STEP_PARAM_TOL, f"SASRec step: parameter error {param_err}")
+    log(f"one SASRec Adam step, fused dropout kernel vs its plain version (B={TRAIN_BATCH}, "
+        f"V={N_ITEMS}, H=64, dropout 0.5, {launches[0]} dropout launches): ok, loss "
+        f"{float(loss):.7f} vs {float(want_loss):.7f}, gradient rel err {grad_err:.3g}, "
+        f"parameter max |diff| {param_err:.3g}")
+    del results, grads, want_grads, params, want_params
+    torch.cuda.empty_cache()
+
+
+def phase_sasrec_train(device, workdir, card):
+    """`main --model_type SASRec --prng rbg` with BSAREC_DROPOUT=pallas for 2
+    epochs, then --resume for a third; then 2 epochs with nn.Dropout for
+    the rate without the kernel. Returns (the first run's launch counts,
+    its second epoch's examples/s, the nn.Dropout run's)."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+
+    seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
+    with open(os.path.join(workdir, "synth_train.txt"), "w") as fh:
+        for u, seq in enumerate(seqs):
+            fh.write(f"{u + 1} {' '.join(map(str, seq))}\n")
+    n_samples = sum(len(s[-52:-2]) for s in seqs)
+    steps = math.ceil(n_samples / TRAIN_BATCH)
+    eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    argv = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
+            "--device", device.type, "--model_type", "SASRec", "--prng", "rbg",
+            "--lr", str(SASREC_LR), "--batch_size", str(TRAIN_BATCH)]
+
+    def run(name, extra, fused=True):
+        reset_counts()
+        t0 = time.perf_counter()
+        with pallas_dropout_env(fused):
+            scores = port_main.main(argv + ["--train_name", name] + extra)
+        torch.cuda.synchronize(device)
+        counts = read_counts()
+        check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
+        text = read_log(os.path.join(workdir, f"{name}.log"))
+        losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+        rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+        return scores, counts, time.perf_counter() - t0, text, losses, rates
+
+    scores, counts, seconds, text, losses, rates = run("sasrec", ["--epochs", "2"])
+    want = zero_counts() | {"fused_dropout": 2 * 2 * DROPOUT_SITES * steps,
+                            "streaming_masked_topk": 3 * eval_steps}
+    check(counts == want, f"SASRec launches {counts}, want {want}")
+    check("dropout: fused kernel" in text and "pair BCE" in text, "dropout/loss log lines missing")
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses) and losses[1] < losses[0],
+          f"SASRec epoch losses {losses}: want two finite values, the second lower")
+    check(len(rates) == 2, f"epoch rate lines {rates}")
+    first_counts, fused_rate = counts, rates[1]
+    log(f"SASRec path: main(--model_type SASRec --prng rbg, BSAREC_DROPOUT=pallas, --epochs 2) on "
+        f"{TRAIN_USERS} users x {N_ITEMS} items, {steps} steps per epoch, returned in {seconds:.1f}s, "
+        f"epoch losses {losses}, train {rates[0]:.0f} then {rates[1]:.0f} examples/s, test scores "
+        f"{scores}; launches {counts}: {2 * DROPOUT_SITES} dropout launches per step [{card}]")
+
+    scores, counts, seconds, text, losses, _ = run("sasrec", ["--epochs", "3", "--resume"])
+    check("resumed full train state" in text and "(epoch 1)" in text, "resume line missing")
+    check(len(losses) == 3 and "'epoch': 2," in text and math.isfinite(losses[2]),
+          f"resumed run: epoch losses {losses}")
+    want = zero_counts() | {"fused_dropout": 2 * DROPOUT_SITES * steps,
+                            "streaming_masked_topk": 2 * eval_steps}
+    check(counts == want, f"resumed SASRec launches {counts}, want {want}")
+    log(f"SASRec path: main(--resume --epochs 3) started at epoch 2 and returned in {seconds:.1f}s, "
+        f"epoch 2 loss {losses[2]}, test scores {scores}; launches {counts}")
+
+    _, counts, seconds, _, losses, rates = run("sasrec_nn", ["--epochs", "2"], fused=False)
+    want = zero_counts() | {"streaming_masked_topk": 3 * eval_steps}
+    check(counts == want and len(rates) == 2, f"nn.Dropout run: launches {counts}, rates {rates}")
+    log(f"SASRec path with nn.Dropout (BSAREC_DROPOUT unset): returned in {seconds:.1f}s, epoch "
+        f"losses {losses}, train {rates[0]:.0f} then {rates[1]:.0f} examples/s [{card}]")
+    return first_counts, fused_rate, rates[1]
+
+
+def phase_dropout_times(device, card):
+    """The dropout kernel at both site shapes: CUDA events around back-to-back
+    wrapper calls, and around replays of a CUDA graph of 50 launches (the
+    card's time per launch without the host's), the plain version's and
+    F.dropout's times, and its bound. Returns the hidden site's JSON fields."""
+    import torch
+    import torch.nn.functional as F
+
+    from bsarec_tpu_torch.ops import dropout as fd
+
+    seeds = dropout_seeds(device, 1)
+    out = {}
+    for site, shape in DROPOUT_SHAPES.items():
+        x = torch.randn(shape, device=device)
+        ms = cuda_ms(lambda: fd.dropout_apply(x, seeds, 0.5, 0), iters=200, warmup=5)
+        plain_ms = cuda_ms(lambda: fd.fused_dropout_plain(x, seeds, 0.5, 0), iters=20)
+        library_ms = cuda_ms(lambda: F.dropout(x, 0.5, True), iters=200, warmup=5)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):  # the wrapper launches on the capturing stream
+            for _ in range(50):
+                fd.dropout_apply(x, seeds, 0.5, 0)
+        graph_ms = cuda_ms(graph.replay, iters=20) / 50
+        del graph
+        nbytes = 2 * x.numel() * 4
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        for label, t in (("kernel", ms), ("plain version", plain_ms),
+                         ("library F.dropout", library_ms)):
+            log(f"time fused_dropout {label}: {t:.4f} ms per call ({site} site {list(shape)} "
+                f"fp32, rate 0.5, back to back) [{card}]")
+        log(f"time fused_dropout kernel in a CUDA graph of 50 launches: {graph_ms:.5f} ms per "
+            f"launch ({site} site; the same input each launch, L2-resident) [{card}]")
+        log(f"bound fused_dropout: {bound_ms:.5f} ms (bytes: {nbytes / 1e6:.3f} MB at 3.35 TB/s; "
+            f"Philox's ~12 integer operations per element stay far under it) -> kernel at "
+            f"{100 * bound_ms / ms:.1f}% of the bound back to back, "
+            f"{100 * bound_ms / graph_ms:.1f}% in the graph ({site} site) [{card}]")
+        out[site] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": library_ms}
+    return out["hidden"]
+
+
+def phase_sasrec_breakdown(device, card, n_steps: int = 10):
+    """SASRec training steps with the fused dropout, on the host clock and
+    under torch.profiler: the device's busy share and its time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    model = sasrec_model(device, fused=True)
+    model.train()
+    opt = make_optimizer(model.parameters(), TrainConfig(lr=SASREC_LR))
+    batches = [sasrec_batch(device, seed=2000 + i) for i in range(n_steps)]
+
+    def step(ids, answers, negs, seeds):
+        model.dropout_state.begin_step(seeds)
+        loss = model.calculate_loss(ids, answers, negs)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    for batch in batches[:3]:  # warm-up: Adam's state, the allocator
+        step(*batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        step(*batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_steps
+    log(f"SASRec train step (fused dropout): {1e3 * wall:.4f} ms per {TRAIN_BATCH}-sample step on "
+        f"the host clock = {TRAIN_BATCH / wall:.1f} examples/s (fresh model, random batches) [{card}]")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            step(*batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    on_device = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in on_device) / 1e6
+    if busy > 0:
+        log(f"SASRec train trace: device busy {busy:.4f}s of a {traced:.4f}s traced window of "
+            f"{n_steps} steps, idle share {100 * (1 - busy / traced):.1f}% (torch.profiler) [{card}]")
+        for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"SASRec train trace device time {e.key[:90]}: "
+                f"{e.self_device_time_total / 1e3 / n_steps:.4f} ms per step, {e.count} calls [{card}]")
+        ours = [e for e in on_device if "fused_dropout_kernel" in e.key]
+        log(f"SASRec train trace device time fused_dropout_kernel: "
+            f"{sum(e.self_device_time_total for e in ours) / 1e3 / n_steps:.4f} ms per step, "
+            f"{sum(e.count for e in ours)} calls in {n_steps} steps [{card}]")
+    else:
+        log("SASRec train trace: torch.profiler recorded no device time; busy share not measured")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -855,8 +1250,12 @@ def main() -> int:
         worst_err, full = phase_kernels(device)
     with timed("CE kernels vs plain"):
         ce_err, ce_full = phase_ce_kernels(device)
+    with timed("dropout kernel vs plain"):
+        dropout_err = phase_dropout_kernels(device)
     with timed("one step, kernels vs plain"):
         phase_step(device)
+    with timed("one SASRec step, dropout kernel vs plain"):
+        phase_sasrec_step(device)
     with timed("eval main path"), tempfile.TemporaryDirectory() as workdir:
         launches, eval_seconds, seqs, model = phase_main_path(device, workdir)
     log(f"eval: {N_USERS} users in {eval_seconds:.3f}s = {N_USERS / eval_seconds:.1f} users/s "
@@ -865,6 +1264,10 @@ def main() -> int:
         train_launches, train_rate = phase_train(device, workdir)
     log(f"train: {train_rate:.0f} examples/s in the second epoch of main (--epochs 2, "
         f"validation excluded) [{card}]")
+    with timed("SASRec train main path"), tempfile.TemporaryDirectory() as workdir:
+        sasrec_launches, fused_rate, nn_rate = phase_sasrec_train(device, workdir, card)
+    log(f"SASRec train: {fused_rate:.0f} examples/s with the fused dropout kernel, {nn_rate:.0f} "
+        f"with nn.Dropout, in the second epoch of main (separate runs, in that order) [{card}]")
     with timed("rank times and eval breakdown"):
         times = phase_times(full, card)
         phase_breakdown(device, seqs, model, card)
@@ -873,6 +1276,9 @@ def main() -> int:
         ce_times = phase_ce_times(ce_full, card)
         del ce_full
         phase_train_breakdown(device, card)
+    with timed("dropout times and SASRec breakdown"):
+        dropout_times = phase_dropout_times(device, card)
+        phase_sasrec_breakdown(device, card)
 
     kernels = [{
         "name": "streaming_masked_topk",
@@ -895,6 +1301,15 @@ def main() -> int:
             "max_abs_err": ce_err[name],
             **ce_times[name],
         })
+    kernels.append({
+        "name": "fused_dropout",
+        "route": "cuda",
+        "source": "bsarec_tpu_torch/csrc/fused_dropout.cu",
+        "replaces": "bsarec_tpu/ops/pallas_dropout.py:69",
+        "launches": sasrec_launches["fused_dropout"],
+        "max_abs_err": dropout_err,
+        **dropout_times,
+    })
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from bsarec_tpu_torch.ops import ce, rank
+from bsarec_tpu_torch.ops import dropout as fd
 
 # top-k: fp32 dot products of 64 N(0, 1) terms in another order
 RTOL, ATOL = 1e-5, 1e-5
@@ -104,3 +105,32 @@ def test_cuda_ce_kernels_match_plain(cuda_device, b, v, h, n_valid):
     want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
     torch.testing.assert_close(ds, want_ds, **GRAD_TOL)
     torch.testing.assert_close(dt, want_dt, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype,offset,rate", [
+    (256 * 50 * 64, torch.float32, 0, 0.5),
+    (256 * 2 * 50 * 50, torch.float32, 0, 0.5),
+    (4097, torch.float32, 1, 0.2),  # a misaligned view, a ragged last group
+    (3, torch.bfloat16, 0, 0.9),
+    (1, torch.float32, 0, 0.5),
+    (70001, torch.bfloat16, 3, 0.2),
+])
+def test_cuda_dropout_kernel_matches_plain(cuda_device, n, dtype, offset, rate):
+    """The fused dropout kernel gives the plain version's values bit for
+    bit, and the backward regenerates the forward's mask."""
+    seeds = torch.tensor([123456789, 4000000000], dtype=torch.int64, device=cuda_device)
+    base = torch.randn(n + offset, generator=torch.Generator().manual_seed(n)).to(dtype)
+    x = base.to(cuda_device)[offset:]
+    before = fd.fused_dropout.launches
+    got = fd.dropout_apply(x, seeds, rate, 7)
+    torch.cuda.synchronize()
+    assert fd.fused_dropout.launches == before + 1
+    assert torch.equal(got, fd.fused_dropout_plain(x, seeds, rate, 7))
+    assert torch.equal(got.cpu(), fd.fused_dropout_plain(x.cpu(), seeds.cpu(), rate, 7))
+    xg = x.clone().requires_grad_()
+    y = fd.fused_dropout(xg, rate, seeds, 7)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert torch.equal(y.detach(), got)
+    assert torch.equal(xg.grad, fd.fused_dropout_plain(torch.ones_like(x), seeds, rate, 7))

@@ -95,7 +95,7 @@ def test_checkpoint_round_trip(tmp_path):
     assert all(torch.equal(v, model.state_dict()[k]) for k, v in loaded.items())
 
 
-@pytest.mark.parametrize("fields", [{"model_type": "sasrec"}, {"compute_dtype": "bfloat16"}])
+@pytest.mark.parametrize("fields", [{"model_type": "bert4rec"}, {"compute_dtype": "bfloat16"}])
 def test_unported_configurations_raise(fields):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(ModelConfig(**(FIELDS | fields)))
