@@ -36,6 +36,9 @@
 // element otherwise and in the ragged last group. The seeds are read from
 // device memory by the kernel, so the host never waits for them. No
 // shared memory, no scratch; the kernel runs on the caller's stream.
+// At these sizes the grid is one wave, so a thread's chain of latencies
+// is the kernel's time: the vector load of x goes out first and its
+// latency overlaps the seeds' load and the generator (see the kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,15 +99,21 @@ __global__ void __launch_bounds__(THREADS)
 fused_dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
                      const long long* __restrict__ seed, uint32_t call, uint32_t threshold,
                      float inv_keep, int vectorized) {
+  using V = typename Quad<T>::type;
   const long long q = (long long)blockIdx.x * THREADS + threadIdx.x;
   const long long i0 = 4 * q;
   if (i0 >= n) return;
+  const bool whole = vectorized && i0 + 4 <= n;
+  // The input's load is issued before the seeds' and the generator's ten
+  // rounds, so that its memory latency runs under them: loaded after them,
+  // as the compiler placed it when the load sat behind the generator, the
+  // latency of a cold read followed theirs.
+  V v;
+  if (whole) v = reinterpret_cast<const V*>(x)[q];
   const uint4 r = philox4x32_10(make_uint4((uint32_t)q, (uint32_t)(q >> 32), call, 0u),
                                 (uint32_t)seed[0], (uint32_t)seed[1]);
   const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
-  if (vectorized && i0 + 4 <= n) {
-    using V = typename Quad<T>::type;
-    V v = reinterpret_cast<const V*>(x)[q];
+  if (whole) {
     quad_apply(v, bits, threshold, inv_keep);
     reinterpret_cast<V*>(y)[q] = v;
     return;

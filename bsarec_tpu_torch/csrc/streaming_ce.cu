@@ -2,14 +2,21 @@
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
 //   - _fwd_kernel    -> ce_fwd_partial_kernel + ce_fwd_merge_kernel:
-//       per row, logZ = logsumexp(s . T^T) over the columns < n_valid;
+//       per row, logZ = logsumexp(s . T^T) over the columns < n_valid and,
+//       when answers are given, loss = logZ - <s, T[a]>;
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
 //       (zeros where a is outside [0, V));
 //   - _grads_kernel  -> ce_bwd_sweep_kernel + ce_ds_reduce_kernel: with
 //       p = exp(s . T^T - logZ) * dloss (0 past n_valid),
-//         ds = p @ T    and    dT = p^T @ s,  then dT[a_i] -= dloss_i * s_i.
-//       (ds -= dloss * T[a] is left to the caller, which reuses the gather,
-//       as pallas_ce.py:553-555 does.)
+//         ds = p @ T - dloss * T[a]   and   dT = p^T @ s,  then
+//         dT[a_i] -= dloss_i * s_i.
+// Answers are the model's int64 ids as they are: every pass that reads one
+// tests 0 <= a < n_valid itself, and a row whose answer fails it has gold 0
+// and no one-hot term. The JAX package gathers T[a] apart and composes the
+// gold terms outside its kernels (pallas_ce.py:553-555); here the merge
+// pass and the ds-reduce pass, which visit each row once anyway, take
+// them, so the training path runs no gather. gold_rows_kernel stays as the
+// counterpart of _gather_kernel and the yardstick of that fusion.
 // None of them writes the [B, V] logit matrix.
 //
 // What bounds them: at B=256, V=1,000,000, H=64 the forward is 2*B*V*H ~
@@ -29,7 +36,10 @@
 //     thread), masks columns >= n_valid, and folds each tile into a
 //     per-thread online (max, sum); the 16 threads of a row merge by
 //     shuffles and write one partial (m, s) per (split, row).
-//   forward, pass 2: logZ = M + log(sum_s s_s * exp(m_s - M)), splits in order.
+//   forward, pass 2: one warp per row. logZ = M + log(sum_s s_s *
+//     exp(m_s - M)), each lane taking every 32nd split and the lanes
+//     merged by a fixed shuffle tree; then the gold logit <s, T[a]> from
+//     coalesced float4 reads of the two rows, reduced the same way.
 //   backward, pass 1: one block per vocab split. For each 64-column tile
 //     it loops over the batch in 64-row chunks: it recomputes the logits,
 //     forms p in shared memory, adds p^T @ s_chunk into the tile's dT held
@@ -39,7 +49,11 @@
 //     applied for the answers inside the tile, in ascending i, so
 //     duplicate answers accumulate in a fixed order; the tile's dT rows
 //     are then written once. Every dT row belongs to one block.
-//   backward, pass 2: ds = sum of the splits' partials, in split order.
+//   backward, pass 2: ds = sum of the splits' partials, in split order,
+//     minus dloss_i * T[a_i][h], the product and the difference each
+//     rounded once (__fmul_rn, __fsub_rn: no FMA contraction), so that ds
+//     equals bit for bit the sum alone minus dloss[:, None] * T[a] taken
+//     by two elementwise passes.
 // Every sum is taken in a fixed order: results are deterministic.
 // Shared-memory rows are padded to H + 4 floats, so the float4 reads of a
 // quarter warp fall on distinct banks. Simple first: no wgmma, TMA or
@@ -59,7 +73,18 @@ constexpr int MAX_H = 256;
 constexpr int MAX_SMEM = 232448;  // usable shared memory per block on sm_90
 constexpr int GATHER_THREADS = 256;
 constexpr int REDUCE_THREADS = 256;
+constexpr int MERGE_THREADS = 128;  // four rows a block, one warp each
 constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;  // the butterfly leaves the same value, summed in the same order, in every lane
+}
+
+__device__ __forceinline__ bool in_catalog(long long a, int n_valid) {
+  return a >= 0 && a < n_valid;
+}
 
 // Copy rows [row0, row0 + n) of a row-major [R, H] matrix into shared
 // memory with row stride H + 4; rows >= R are zero.
@@ -175,23 +200,47 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
   }
 }
 
-__global__ void ce_fwd_merge_kernel(const float* __restrict__ part_m,
-                                    const float* __restrict__ part_s, int B, int n_splits,
-                                    float* __restrict__ logz) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
+// One warp per row: logz[row] from the splits' partials and, when answers
+// is not null, loss[row] = logz[row] - <states[row], table[answers[row]]>
+// (gold 0 for an answer outside [0, n_valid)).
+__global__ void __launch_bounds__(MERGE_THREADS)
+ce_fwd_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_s,
+                    const float* __restrict__ states, const float* __restrict__ table,
+                    const long long* __restrict__ answers, int B, int H, int n_valid,
+                    int n_splits, float* __restrict__ logz, float* __restrict__ loss) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (MERGE_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= B) return;  // the whole warp leaves together
   float mm = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) mm = fmaxf(mm, part_m[(size_t)s * B + row]);
-  if (mm == -INFINITY) {  // no valid column
-    logz[row] = -INFINITY;
-    return;
+  for (int s = lane; s < n_splits; s += 32) mm = fmaxf(mm, part_m[(size_t)s * B + row]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mm = fmaxf(mm, __shfl_xor_sync(FULL, mm, off));
+  float z = -INFINITY;  // no valid column
+  if (mm > -INFINITY) {
+    float total = 0.f;
+    for (int s = lane; s < n_splits; s += 32) {
+      const float ms = part_m[(size_t)s * B + row];
+      if (ms > -INFINITY) total += part_s[(size_t)s * B + row] * expf(ms - mm);
+    }
+    z = mm + logf(warp_sum(total));
   }
-  float total = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float ms = part_m[(size_t)s * B + row];
-    if (ms > -INFINITY) total += part_s[(size_t)s * B + row] * expf(ms - mm);
+  if (lane == 0) logz[row] = z;
+  if (answers == nullptr) return;
+  const long long a = answers[row];
+  float gold = 0.f;
+  if (in_catalog(a, n_valid)) {  // the same for every lane of the warp
+    const float4* s4 = reinterpret_cast<const float4*>(states + (size_t)row * H);
+    const float4* t4 = reinterpret_cast<const float4*>(table + (size_t)a * H);
+    for (int c4 = lane; c4 < H / 4; c4 += 32) {
+      const float4 x = __ldg(s4 + c4), y = __ldg(t4 + c4);
+      gold = fmaf(x.x, y.x, gold);
+      gold = fmaf(x.y, y.y, gold);
+      gold = fmaf(x.z, y.z, gold);
+      gold = fmaf(x.w, y.w, gold);
+    }
+    gold = warp_sum(gold);
   }
-  logz[row] = mm + logf(total);
+  if (lane == 0) loss[row] = z - gold;
 }
 
 __global__ void __launch_bounds__(GATHER_THREADS)
@@ -209,7 +258,7 @@ gold_rows_kernel(const float* __restrict__ table, const int32_t* __restrict__ an
 
 __global__ void __launch_bounds__(THREADS, 2)
 ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ table,
-                    const int32_t* __restrict__ answers, const float* __restrict__ logz,
+                    const long long* __restrict__ answers, const float* __restrict__ logz,
                     const float* __restrict__ dloss, int B, int V, int H, int n_valid,
                     int tiles_per_split, float* __restrict__ ds_part,
                     float* __restrict__ dtable) {
@@ -332,20 +381,21 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
         }
       }
     }
-    // one-hot term, answers in ascending order: duplicates accumulate in
-    // a fixed order, and each (row, h) element has one writer. Most tiles
-    // hold no answer and skip the serial loop after one vote.
+    // one-hot term for the answers in [0, n_valid) that fall in this tile,
+    // in ascending answer order: duplicates accumulate in a fixed order,
+    // and each (row, h) element has one writer. Most tiles hold no answer
+    // and skip the serial loop after one vote.
     int hit = 0;
     for (int i = tid; i < B; i += THREADS) {
-      const int c = __ldg(answers + i) - j0;
-      hit |= c >= 0 && c < VT;
+      const long long a = __ldg(answers + i);
+      hit |= in_catalog(a, n_valid) && a >= j0 && a < j0 + VT;
     }
     if (__syncthreads_or(hit)) {  // the vote is also the barrier after sG is complete
       for (int h = tid; h < H; h += THREADS) {
         for (int i = 0; i < B; ++i) {
-          const int c = __ldg(answers + i) - j0;
-          if (c >= 0 && c < VT)
-            sG[c * ld + h] -= __ldg(dloss + i) * __ldg(states + (size_t)i * H + h);
+          const long long a = __ldg(answers + i);
+          if (in_catalog(a, n_valid) && a >= j0 && a < j0 + VT)
+            sG[(int)(a - j0) * ld + h] -= __ldg(dloss + i) * __ldg(states + (size_t)i * H + h);
         }
       }
       __syncthreads();
@@ -361,13 +411,21 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
   }
 }
 
+// ds [B, H] = the splits' partials summed in split order, then minus
+// dloss_i * table[a_i][h] for a_i in [0, n_valid).
 __global__ void __launch_bounds__(REDUCE_THREADS)
-ce_ds_reduce_kernel(const float* __restrict__ ds_part, int n, int n_splits,
-                    float* __restrict__ ds) {
+ce_ds_reduce_kernel(const float* __restrict__ ds_part, const float* __restrict__ table,
+                    const long long* __restrict__ answers, const float* __restrict__ dloss,
+                    int B, int H, int n_valid, int n_splits, float* __restrict__ ds) {
+  const int n = B * H;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   float total = 0.f;
   for (int s = 0; s < n_splits; ++s) total += ds_part[(size_t)s * n + idx];
+  const int row = idx / H;
+  const long long a = __ldg(answers + row);
+  if (in_catalog(a, n_valid))
+    total = __fsub_rn(total, __fmul_rn(__ldg(dloss + row), __ldg(table + (size_t)a * H + (idx - row * H))));
   ds[idx] = total;
 }
 
@@ -387,15 +445,17 @@ long long streaming_ce_smem_bytes(int H, int which) {
   return (long long)sizeof(float) * (BT * ld + 2 * VT * ld + BT * (VT + 4) + 2 * BT);
 }
 
-// logZ [B] of states [B, H] against table [V, H] over columns < n_valid.
-// The caller allocates the partials part_m, part_s ([n_splits, B]);
-// n_splits * tiles_per_split tiles must cover V. Returns 0 or a
-// cudaError_t code.
-int ce_logz(const void* states, const void* table, int B, int V, int H, int n_valid,
-            int n_splits, int tiles_per_split, void* part_m, void* part_s, void* logz,
-            void* stream) {
+// logZ [B] of states [B, H] against table [V, H] over columns < n_valid,
+// and, when answers (int64 [B]) and loss are not null, loss [B] = logZ -
+// <states[i], table[answers[i]]> with gold 0 for answers outside
+// [0, n_valid). answers and loss are both given or both null. The caller
+// allocates the partials part_m, part_s ([n_splits, B]); n_splits *
+// tiles_per_split tiles must cover V. Returns 0 or a cudaError_t code.
+int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
+            int n_valid, int n_splits, int tiles_per_split, void* part_m, void* part_s,
+            void* logz, void* loss, void* stream) {
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
-      (long long)n_splits * tiles_per_split * VT < V)
+      (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long smem = streaming_ce_smem_bytes(H, 0);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -408,9 +468,12 @@ int ce_logz(const void* states, const void* table, int B, int V, int H, int n_va
       tiles_per_split, static_cast<float*>(part_m), static_cast<float*>(part_s));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ce_fwd_merge_kernel<<<(B + 127) / 128, 128, 0, s>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_s), B, n_splits,
-      static_cast<float*>(logz));
+  constexpr int rows_per_block = MERGE_THREADS / 32;
+  ce_fwd_merge_kernel<<<(B + rows_per_block - 1) / rows_per_block, MERGE_THREADS, 0, s>>>(
+      static_cast<const float*>(part_m), static_cast<const float*>(part_s),
+      static_cast<const float*>(states), static_cast<const float*>(table),
+      static_cast<const long long*>(answers), B, H, n_valid, n_splits, static_cast<float*>(logz),
+      static_cast<float*>(loss));
   return (int)cudaGetLastError();
 }
 
@@ -426,13 +489,13 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
   return (int)cudaGetLastError();
 }
 
-// ds [B, H] = p @ table and dtable [V, H] = p^T @ states - onehot, with
-// p = exp(states @ table^T - logz) * dloss over columns < n_valid and the
-// one-hot term dtable[a_i] -= dloss_i * states_i for answers a_i in
-// [0, n_valid) (the caller maps the others to -1). The caller allocates
-// ds_part ([n_splits, B, H]); n_splits * tiles_per_split tiles must cover
-// V, and every split must hold at least one tile. Returns 0 or a
-// cudaError_t code.
+// ds [B, H] = p @ table - dloss * table[answers] and dtable [V, H] =
+// p^T @ states - onehot, with p = exp(states @ table^T - logz) * dloss over
+// columns < n_valid and the one-hot term dtable[a_i] -= dloss_i * states_i,
+// for the int64 answers a_i in [0, n_valid) only (the others have neither
+// term). The caller allocates ds_part ([n_splits, B, H]); n_splits *
+// tiles_per_split tiles must cover V, and every split must hold at least
+// one tile. Returns 0 or a cudaError_t code.
 int ce_grads(const void* states, const void* table, const void* answers, const void* logz,
              const void* dloss, int B, int V, int H, int n_valid, int n_splits,
              int tiles_per_split, void* ds_part, void* ds, void* dtable, void* stream) {
@@ -449,14 +512,16 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
   if (e != cudaSuccess) return (int)e;
   ce_bwd_sweep_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
       static_cast<const float*>(states), static_cast<const float*>(table),
-      static_cast<const int32_t*>(answers), static_cast<const float*>(logz),
+      static_cast<const long long*>(answers), static_cast<const float*>(logz),
       static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
       static_cast<float*>(ds_part), static_cast<float*>(dtable));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int n = B * H;
   ce_ds_reduce_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
-      static_cast<const float*>(ds_part), n, n_splits, static_cast<float*>(ds));
+      static_cast<const float*>(ds_part), static_cast<const float*>(table),
+      static_cast<const long long*>(answers), static_cast<const float*>(dloss),
+      B, H, n_valid, n_splits, static_cast<float*>(ds));
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,7 @@ import os
 import torch
 from torch import nn
 
-from bsarec_tpu_torch.ops.dropout import fused_dropout
+from bsarec_tpu_torch.ops.dropout import DropoutSite, FusedDropoutFn, check_call, check_seeds, dropped
 
 
 def erf_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -63,8 +63,9 @@ def use_fused_dropout(prng: str) -> bool:
 class DropoutState:
     """The fused dropout sites' per-step stream: `seeds`, an int64 [2]
     tensor on the model's device, and the index of the next call. The
-    training loop calls `begin_step` before each step's forward; `plain`
-    runs the kernel's plain version on any device (the card's check)."""
+    training loop calls `begin_step` before each step's forward, which
+    checks the seeds once for all of the step's sites; `plain` runs the
+    kernel's plain version on any device (the card's check)."""
 
     def __init__(self, fused: bool, plain: bool = False):
         self.fused = fused
@@ -73,32 +74,40 @@ class DropoutState:
         self.call = 0
 
     def begin_step(self, seeds: torch.Tensor) -> None:
+        check_seeds(seeds)
         self.seeds, self.call = seeds, 0
 
     def next_call(self) -> int:
         if self.seeds is None:
             raise RuntimeError("fused dropout in training mode needs the step's seeds: "
                                "call DropoutState.begin_step(seeds) first")
-        call, self.call = self.call, self.call + 1
+        call = self.call
+        check_call(call)
+        self.call = call + 1
         return call
 
 
 class FusedDropout(nn.Module):
-    """Training-mode dropout through `ops.dropout.fused_dropout`; the
-    identity in eval mode, like `nn.Dropout`."""
+    """Training-mode dropout through the fused kernel; the identity in eval
+    mode, like `nn.Dropout`. The rate is checked, and the kernel's
+    constants made, once, when the site is built."""
 
     def __init__(self, rate: float, state: DropoutState):
         super().__init__()
+        if not rate >= 0.0:  # NaN fails too
+            raise ValueError(f"dropout rate must be >= 0, got {rate}")
         self.rate = rate
         self.state = state
+        # rate 0 is the identity and rate >= 1 zeros: neither launches
+        self.site = DropoutSite(rate) if 0.0 < rate < 1.0 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        if self.rate >= 1.0:
-            return fused_dropout(x, self.rate, self.state.seeds, 0)  # zeros, no launch
-        call = self.state.next_call()
-        return fused_dropout(x, self.rate, self.state.seeds, call, plain=self.state.plain)
+        if self.site is None:
+            return dropped(x)
+        state = self.state
+        return FusedDropoutFn.apply(x, state.seeds, self.site, state.next_call(), state.plain)
 
     def extra_repr(self) -> str:
         return f"p={self.rate}, fused"

@@ -7,23 +7,31 @@ building the [B, V] logit matrix on the card. Three CUDA kernels in
 `csrc/streaming_ce.cu` replace the three Pallas kernels:
 
 - `ce_logz` (the Pallas `_fwd_kernel`): per-row logZ over the columns
-  < n_valid, one online-softmax sweep over the catalog;
+  < n_valid, one online-softmax sweep over the catalog. `ce_loss_logz`
+  launches the same kernel with the answers: its merge pass also takes
+  the gold logit and gives (loss, logZ) in one call;
 - `gold_rows` (the Pallas `_gather_kernel`): the answers' table rows,
-  zeros for answers outside [0, V);
+  zeros for answers outside [0, V). The training path does not run it:
+  it stays as `_gather_kernel`'s counterpart and as the yardstick of the
+  fused gold terms;
 - `ce_grads` (the Pallas `_grads_kernel`): one sweep that recomputes the
-  logits and gives ds = p @ T and dT = pᵀ @ s with p = softmax · dloss,
-  then dT[a_i] -= dloss_i · s_i, duplicate answers accumulating.
+  logits and gives ds = p @ T - dloss · T[a] and dT = pᵀ @ s with
+  p = softmax · dloss, then dT[a_i] -= dloss_i · s_i, duplicate answers
+  accumulating. Its ds-reduce pass takes the gold term, which the JAX
+  package composes outside the kernel with its gather
+  (`pallas_ce.py:553-555`).
 
-The backward then takes ds -= dloss · T[a] with the gather, as the JAX
-package does (`pallas_ce.py:553-555`). Answers < 0 or >= n_valid map to
--1 first: they have gold 0 and no one-hot term.
+Answers are the model's ids as they are. The kernels test 0 <= a <
+n_valid themselves: a row whose answer fails it has gold 0 and no
+one-hot term. So a step's CE is one kernel call each way.
 
 Beside each kernel is its plain PyTorch version (`ce_logz_plain`,
-`gold_rows_plain`, `ce_grads_plain`), chunked over the catalog. On a
-CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise. Only float32 is ported. The TPU layout work
-(lane packing, lane-replicated row scalars, 8-row-aligned DMA windows,
-padding the catalog to an even tile count) has no counterpart here.
+`ce_loss_logz_plain`, `gold_rows_plain`, `ce_grads_plain`), chunked over
+the catalog. On a CPU tensor the wrappers run the plain version; on a
+CUDA tensor they launch the kernel or raise. Only float32 is ported. The
+TPU layout work (lane packing, lane-replicated row scalars, 8-row-aligned
+DMA windows, padding the catalog to an even tile count) has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import functools
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from bsarec_tpu_torch.ops._launch import call_on, raw_stream, sm_count
 
 NEG_INF = float("-inf")
 MAX_H = 256
@@ -54,9 +64,15 @@ def _resolve_n_valid(table: torch.Tensor, n_valid: int | None) -> int:
 
 def map_answers(answers: torch.Tensor, n_valid: int) -> torch.Tensor:
     """int32 answers with every id outside [0, n_valid) mapped to -1
-    (`pallas_ce.py:631-633`): such a row has gold 0 and no one-hot term."""
-    a = answers.to(torch.int32)
-    return torch.where((a >= 0) & (a < n_valid), a, torch.full_like(a, -1)).contiguous()
+    (`pallas_ce.py:631-633`): such a row has gold 0 and no one-hot term.
+    The plain versions gather with it; the kernels test the range
+    themselves."""
+    a = answers.long()
+    return torch.where((a >= 0) & (a < n_valid), a, -1).to(torch.int32)
+
+
+def _int64(answers: torch.Tensor) -> torch.Tensor:
+    return answers if answers.dtype == torch.int64 else answers.long()
 
 
 # ---- plain PyTorch versions ------------------------------------------------
@@ -81,12 +97,22 @@ def gold_rows_plain(table: torch.Tensor, answers: torch.Tensor) -> torch.Tensor:
     return torch.where(keep[:, None], rows, torch.zeros_like(rows))
 
 
+def ce_loss_logz_plain(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
+                       n_valid: int, chunk: int = PLAIN_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, logZ) [B]: `ce_logz_plain`, and loss = logZ - <s, T[a]> from
+    the gathered rows, gold 0 for answers outside [0, n_valid)."""
+    logz = ce_logz_plain(states, table, n_valid, chunk)
+    gold = (gold_rows_plain(table, map_answers(answers, n_valid)) * states).sum(dim=1)
+    return logz - gold, logz
+
+
 def ce_grads_plain(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
                    logz: torch.Tensor, dloss: torch.Tensor, n_valid: int,
                    chunk: int = PLAIN_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
     """(ds, dT): ds = p @ T, dT = pᵀ @ s with p = exp(s @ Tᵀ - logz) ·
-    dloss over the columns < n_valid (rows >= n_valid of dT stay 0), then
-    dT[a_i] -= dloss_i · s_i for every answer in [0, n_valid)."""
+    dloss over the columns < n_valid (rows >= n_valid of dT stay 0); then,
+    for every answer in [0, n_valid), dT[a_i] -= dloss_i · s_i and
+    ds_i -= dloss_i · T[a_i]."""
     ds = torch.zeros_like(states)
     dt = torch.zeros_like(table)
     for j0 in range(0, n_valid, chunk):
@@ -98,6 +124,7 @@ def ce_grads_plain(states: torch.Tensor, table: torch.Tensor, answers: torch.Ten
     a = answers.long()
     keep = (a >= 0) & (a < n_valid)
     dt.index_add_(0, a[keep], -(dloss[keep, None] * states[keep]))
+    ds = ds - dloss[:, None] * gold_rows_plain(table, torch.where(keep, a, -1))
     return ds, dt
 
 
@@ -111,7 +138,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("streaming_ce")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ce_logz.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p]
+    lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
     lib.ce_logz.restype = i
     lib.ce_gold_rows.argtypes = [p, p, i, i, i, p, p]
     lib.ce_gold_rows.restype = i
@@ -128,39 +155,40 @@ def _lib() -> ctypes.CDLL:
 _BT, _VT = 64, 64
 
 
-def _check(device: torch.device, **tensors) -> None:
-    for name, (t, dtype, shape) in tensors.items():
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, index: int,
+             aligned: bool = False) -> None:
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on card
+    `index` (16-byte aligned where the kernel reads it by float4)."""
+    if t.dtype != dtype or t.get_device() != index or not t.is_contiguous() or t.shape != shape:
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} on "
+                         f"cuda:{index}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check_table(table: torch.Tensor) -> tuple[int, int]:
+def _check_table(table: torch.Tensor) -> tuple[int, int, int]:
+    """(V, H, device index) of a float32 table [V, H]."""
     v, h = table.shape
     if h % 4 or not 4 <= h <= MAX_H:
         raise ValueError(f"the CE kernels take H % 4 == 0 and 4 <= H <= {MAX_H}, got H={h}")
-    _check(table.device, table=(table, torch.float32, (v, h)))
-    return v, h
+    index = table.get_device()
+    _require("table", table, torch.float32, (v, h), index, aligned=True)
+    return v, h, index
 
 
-def _check_matrices(states: torch.Tensor, table: torch.Tensor) -> tuple[int, int, int]:
-    v, h = _check_table(table)
+def _check_matrices(states: torch.Tensor, table: torch.Tensor) -> tuple[int, int, int, int]:
+    """(B, V, H, device index) of a float32 states [B, H] and table [V, H]."""
+    v, h, index = _check_table(table)
     b = states.shape[0]
-    _check(table.device, states=(states, torch.float32, (b, h)))
-    return b, v, h
+    _require("states", states, torch.float32, (b, h), index, aligned=True)
+    return b, v, h, index
 
 
-def _raise(lib, what: str, rc: int, b: int, v: int, h: int, which: int | None = None) -> None:
+def _raise(what: str, rc: int, b: int, v: int, h: int, which: int | None = None) -> None:
+    lib = _lib()
     smem = "" if which is None else f", shared memory {lib.streaming_ce_smem_bytes(h, which)} bytes"
     raise RuntimeError(f"{what} launch failed ({rc}: {lib.streaming_ce_error(rc).decode()}); "
                        f"B={b} V={v} H={h}{smem}")
-
-
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _even_splits(n_tiles: int, n_splits: int) -> tuple[int, int]:
@@ -169,67 +197,66 @@ def _even_splits(n_tiles: int, n_splits: int) -> tuple[int, int]:
     return -(-n_tiles // per), per
 
 
-def _launch_logz(states, table, n_valid):
-    b, v, h = _check_matrices(states, table)
-    dev = states.device
-    lib = _lib()
+def _launch_logz(states, table, answers, n_valid):
+    """(loss, logZ) from one `ce_logz` call; loss is None when answers is."""
+    b, v, h, index = _check_matrices(states, table)
+    if answers is not None:
+        _require("answers", answers, torch.int64, (b,), index)
     # two blocks per SM over (splits x batch tiles)
-    n_splits, per = _even_splits(-(-v // _VT), -(-2 * _sm_count(dev) // -(-b // _BT)))
-    part_m = torch.empty((n_splits, b), dtype=torch.float32, device=dev)
-    part_s = torch.empty((n_splits, b), dtype=torch.float32, device=dev)
-    logz = torch.empty((b,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.ce_logz(states.data_ptr(), table.data_ptr(), b, v, h, n_valid, n_splits, per,
-                         part_m.data_ptr(), part_s.data_ptr(), logz.data_ptr(),
-                         torch.cuda.current_stream(dev).cuda_stream)
+    n_splits, per = _even_splits(-(-v // _VT), -(-2 * sm_count(index) // -(-b // _BT)))
+    part = states.new_empty((2, n_splits, b))  # (max, sum) partials
+    logz = states.new_empty((b,))
+    loss = None if answers is None else states.new_empty((b,))
+    part_m = part.data_ptr()
+    rc = call_on(index, _lib().ce_logz, states.data_ptr(), table.data_ptr(),
+                 None if answers is None else answers.data_ptr(), b, v, h, n_valid, n_splits, per,
+                 part_m, part_m + 4 * n_splits * b, logz.data_ptr(),
+                 None if loss is None else loss.data_ptr(), raw_stream(index))
     if rc != 0:
-        _raise(lib, "ce_logz", rc, b, v, h, 0)
+        _raise("ce_logz", rc, b, v, h, 0)
     ce_logz.launches += 1
-    return logz
+    return loss, logz
 
 
 def _launch_gold_rows(table, answers):
-    v, h = _check_table(table)
+    v, h, index = _check_table(table)
     b = answers.shape[0]
-    dev = table.device
-    _check(dev, answers=(answers, torch.int32, (b,)))
-    lib = _lib()
-    out = torch.empty((b, h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.ce_gold_rows(table.data_ptr(), answers.data_ptr(), b, v, h, out.data_ptr(),
-                              torch.cuda.current_stream(dev).cuda_stream)
+    _require("answers", answers, torch.int32, (b,), index)
+    out = table.new_empty((b, h))
+    rc = call_on(index, _lib().ce_gold_rows, table.data_ptr(), answers.data_ptr(), b, v, h,
+                 out.data_ptr(), raw_stream(index))
     if rc != 0:
-        _raise(lib, "ce_gold_rows", rc, b, v, h)
+        _raise("ce_gold_rows", rc, b, v, h)
     gold_rows.launches += 1
     return out
 
 
 def _launch_grads(states, table, answers, logz, dloss, n_valid):
-    b, v, h = _check_matrices(states, table)
-    dev = states.device
-    _check(dev, answers=(answers, torch.int32, (b,)), logz=(logz, torch.float32, (b,)),
-           dloss=(dloss, torch.float32, (b,)))
-    lib = _lib()
+    b, v, h, index = _check_matrices(states, table)
+    _require("answers", answers, torch.int64, (b,), index)
+    _require("logz", logz, torch.float32, (b,), index)
+    _require("dloss", dloss, torch.float32, (b,), index)
     # one block per split, two per SM
-    n_splits, per = _even_splits(-(-v // _VT), 2 * _sm_count(dev))
-    ds_part = torch.empty((n_splits, b, h), dtype=torch.float32, device=dev)
-    ds = torch.empty((b, h), dtype=torch.float32, device=dev)
-    dt = torch.empty((v, h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.ce_grads(states.data_ptr(), table.data_ptr(), answers.data_ptr(),
-                          logz.data_ptr(), dloss.data_ptr(), b, v, h, n_valid, n_splits, per,
-                          ds_part.data_ptr(), ds.data_ptr(), dt.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream)
+    n_splits, per = _even_splits(-(-v // _VT), 2 * sm_count(index))
+    ds_part = states.new_empty((n_splits, b, h))
+    ds = states.new_empty((b, h))
+    dt = table.new_empty((v, h))
+    rc = call_on(index, _lib().ce_grads, states.data_ptr(), table.data_ptr(), answers.data_ptr(),
+                 logz.data_ptr(), dloss.data_ptr(), b, v, h, n_valid, n_splits, per,
+                 ds_part.data_ptr(), ds.data_ptr(), dt.data_ptr(), raw_stream(index))
     if rc != 0:
-        _raise(lib, "ce_grads", rc, b, v, h, 1)
+        _raise("ce_grads", rc, b, v, h, 1)
     ce_grads.launches += 1
     return ds, dt
 
 
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; other devices raise."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
         raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
+    return False
 
 
 # ---- wrappers: plain version on the CPU, the kernel on the card --------------
@@ -239,66 +266,74 @@ def ce_logz(states: torch.Tensor, table: torch.Tensor, n_valid: int | None = Non
     """states [B, H] f32, table [V, H] f32 -> logZ [B] f32 over the columns
     < n_valid."""
     n_valid = _resolve_n_valid(table, n_valid)
-    if _device_kind(states) == "cpu":
+    if not _on_card(states):
         return ce_logz_plain(states, table, n_valid)
-    return _launch_logz(states, table, n_valid)
+    return _launch_logz(states, table, None, n_valid)[1]
+
+
+def ce_loss_logz(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
+                 n_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss [B], logZ [B]) f32: logZ over the columns < n_valid and
+    loss = logZ - <states, table[answers]>, gold 0 for answers outside
+    [0, n_valid). One launch of the `ce_logz` kernel, counted there."""
+    n_valid = _resolve_n_valid(table, n_valid)
+    if not _on_card(states):
+        return ce_loss_logz_plain(states, table, answers, n_valid)
+    return _launch_logz(states, table, _int64(answers), n_valid)
 
 
 def gold_rows(table: torch.Tensor, answers: torch.Tensor) -> torch.Tensor:
     """table [V, H] f32, answers [B] int -> [B, H] f32 rows table[answers],
     zeros for answers outside [0, V)."""
-    if _device_kind(table) == "cpu":
+    if not _on_card(table):
         return gold_rows_plain(table, answers)
-    return _launch_gold_rows(table, answers.to(torch.int32).contiguous())
+    if answers.dtype != torch.int32:
+        answers = answers.int()
+    return _launch_gold_rows(table, answers if answers.is_contiguous() else answers.contiguous())
 
 
 def ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
              logz: torch.Tensor, dloss: torch.Tensor, n_valid: int | None = None):
-    """(ds [B, H], dT [V, H]) of `ce_grads_plain`; answers outside
-    [0, n_valid) must already be -1 (`map_answers`)."""
+    """(ds [B, H], dT [V, H]) of `ce_grads_plain`: the finished gradients
+    of sum(dloss · loss). Answers are taken as they are."""
     n_valid = _resolve_n_valid(table, n_valid)
-    if _device_kind(states) == "cpu":
+    if not _on_card(states):
         return ce_grads_plain(states, table, answers, logz, dloss, n_valid)
-    return _launch_grads(states, table, answers, logz, dloss, n_valid)
+    return _launch_grads(states, table, _int64(answers), logz, dloss, n_valid)
 
 
-ce_logz.launches = 0  # kernel launches (CUDA path only)
+ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's included
 gold_rows.launches = 0
 ce_grads.launches = 0
 
-_KERNEL_OPS = (ce_logz, gold_rows, ce_grads)
-_PLAIN_OPS = (ce_logz_plain, gold_rows_plain, ce_grads_plain)
-
 
 class _StreamingCE(torch.autograd.Function):
-    """Per-row loss logZ - <s, T[a]>; `plain` selects the plain versions
-    on any device (the card's check of the autograd wiring)."""
+    """Per-row loss logZ - <s, T[a]>, one kernel call each way. `plain`
+    selects the plain versions (always on the CPU; on the card, the check
+    of the autograd wiring)."""
 
     @staticmethod
     def forward(ctx, states, table, answers, n_valid, plain):
-        logz_fn, gold_fn, _ = _PLAIN_OPS if plain else _KERNEL_OPS
-        logz = logz_fn(states, table, n_valid)
-        gold = (gold_fn(table, answers) * states).sum(dim=1)
+        loss, logz = (ce_loss_logz_plain if plain else _launch_logz)(states, table, answers, n_valid)
         ctx.save_for_backward(states, table, answers, logz)
         ctx.n_valid, ctx.plain = n_valid, plain
-        return logz - gold
+        return loss
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dloss):
         states, table, answers, logz = ctx.saved_tensors
-        _, gold_fn, grads_fn = _PLAIN_OPS if ctx.plain else _KERNEL_OPS
-        dloss = dloss.contiguous()
-        ds, dt = grads_fn(states, table, answers, logz, dloss, ctx.n_valid)
-        ds = ds - dloss[:, None] * gold_fn(table, answers)
+        grads = ce_grads_plain if ctx.plain else _launch_grads
+        ds, dt = grads(states, table, answers, logz, dloss.contiguous(), ctx.n_valid)
         return ds, dt, None, None, None
 
 
 def _apply(states, table, answers, n_valid, dtype, plain):
     _fp32_only(dtype)
     n_valid = _resolve_n_valid(table, n_valid)
+    plain = plain or not _on_card(states)
     return _StreamingCE.apply(states.contiguous(), table.contiguous(),
-                              map_answers(answers, n_valid), n_valid, plain)
+                              _int64(answers).contiguous(), n_valid, plain)
 
 
 def streaming_softmax_ce(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
@@ -324,11 +359,8 @@ def streaming_ce_stats(states: torch.Tensor, table: torch.Tensor, answers: torch
     differentiable. Answers outside [0, n_valid) (another shard's gold)
     contribute gold 0, so there loss_local == logz_local."""
     _fp32_only(dtype)
-    n_valid = _resolve_n_valid(table, n_valid)
     with torch.no_grad():
-        logz = ce_logz(states.contiguous(), table, n_valid)
-        gold = (gold_rows(table, map_answers(answers, n_valid)) * states).sum(dim=1)
-    return logz - gold, logz
+        return ce_loss_logz(states.contiguous(), table, answers, n_valid)
 
 
 def streaming_ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
@@ -338,9 +370,6 @@ def streaming_ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch
     logZ: dstates sums only this shard's columns (sum it over the shards),
     dtable covers exactly this shard's rows."""
     _fp32_only(dtype)
-    n_valid = _resolve_n_valid(table, n_valid)
-    a = map_answers(answers, n_valid)
     with torch.no_grad():
-        d = dloss.float().contiguous()
-        ds, dt = ce_grads(states.contiguous(), table, a, logz.float().contiguous(), d, n_valid)
-        return ds - d[:, None] * gold_rows(table, a), dt
+        return ce_grads(states.contiguous(), table, answers, logz.float().contiguous(),
+                        dloss.float().contiguous(), n_valid)

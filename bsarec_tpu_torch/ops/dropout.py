@@ -19,6 +19,14 @@ runs the plain version; on a CUDA tensor it launches the kernel or
 raises. fp32 and bf16 are taken, as `pallas_dropout.supported` admits
 both; any element count >= 1, with no shape gating.
 
+A training step runs 14 such passes in SASRec, so their host cost is
+kept near `F.dropout`'s: what is fixed per site (the rate, its threshold
+and scale per dtype: `DropoutSite`) or per step (the seeds:
+`check_seeds` in `DropoutState.begin_step`) is checked once there, and
+a call checks only x's dtype, contiguity and device and goes from the
+autograd function to ctypes through `_launch` alone, which reads the raw
+stream handle and switches devices only when needed (`ops/_launch.py`).
+
 The TPU's hardware generator has no counterpart off the TPU (Pallas's
 CPU interpreter gives all-zero bits), so the CPU tests hold the apply
 half, `dropout_from_bits`, against the JAX package's threshold path on
@@ -34,10 +42,13 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from bsarec_tpu_torch.ops._launch import call_on, raw_stream
+
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CALLS = 1 << 32  # the call index is one 32-bit word of Philox's counter
 
 
 def threshold(rate: float) -> int:
@@ -121,65 +132,127 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x: torch.Tensor, seeds: torch.Tensor, rate: float, call: int) -> torch.Tensor:
-    dev = x.device
-    if not x.is_contiguous():
-        raise ValueError("the dropout kernel takes a contiguous tensor")
-    if seeds.device != dev or seeds.dtype != torch.int64 or seeds.shape != (2,) \
-            or not seeds.is_contiguous():
-        raise ValueError(f"seeds must be a contiguous int64 [2] tensor on {dev}")
-    lib = _lib()
-    y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    args = (x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_CODES[x.dtype], seeds.data_ptr(), call,
-            threshold(rate), inv_keep(rate, x.dtype), torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():  # the common case skips the device switch
-        rc = lib.fused_dropout(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = lib.fused_dropout(*args)
+class DropoutSite:
+    """One rate's kernel constants, checked and computed once: the drop
+    threshold and, per dtype the kernel takes, its code and 1 / (1 - rate)
+    rounded to that dtype. A model's dropout site builds one when it is
+    built; the per-call entries take a cached one per rate (`_checked`)."""
+
+    __slots__ = ("rate", "consts")
+
+    def __init__(self, rate: float):
+        if not 0.0 <= rate < 1.0:  # NaN fails too
+            raise ValueError(f"a dropout pass takes a rate in [0, 1), got {rate}")
+        self.rate = float(rate)
+        t = threshold(self.rate)
+        self.consts = {dt: (code, t, inv_keep(self.rate, dt)) for dt, code in _DTYPE_CODES.items()}
+
+
+@functools.cache
+def _site(rate: float) -> DropoutSite:
+    return DropoutSite(rate)
+
+
+def dropped(x: torch.Tensor) -> torch.Tensor:
+    """Dropout at rate >= 1: zeros of x's shape, with a zero gradient, and
+    no launch (`core/dropout.py:214`)."""
+    none = torch.zeros((), dtype=torch.bool, device=x.device)
+    return torch.where(none, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def check_seeds(seeds: torch.Tensor) -> None:
+    """Raise unless `seeds` is a contiguous int64 [2] tensor on the CPU or
+    a card: the check a step's seeds get once, in
+    `DropoutState.begin_step`, and not at each call."""
+    if (not isinstance(seeds, torch.Tensor) or seeds.dtype != torch.int64
+            or seeds.shape != (2,) or not seeds.is_contiguous()
+            or seeds.device.type not in ("cpu", "cuda")):
+        raise ValueError("seeds must be a contiguous int64 [2] tensor on the CPU or a card")
+
+
+def check_call(call: int) -> None:
+    if not 0 <= call < MAX_CALLS:
+        raise ValueError(f"call index {call} outside [0, 2^32)")
+
+
+def _check_dtype(x: torch.Tensor) -> None:
+    if x.dtype not in _DTYPE_CODES:
+        raise NotImplementedError(f"fused dropout takes float32 and bfloat16, not {x.dtype}")
+
+
+def _checked(x: torch.Tensor, seeds: torch.Tensor, rate: float, call: int) -> DropoutSite:
+    """The rate's site, once every argument of a per-call entry is checked."""
+    _check_dtype(x)
+    check_call(call)
+    check_seeds(seeds)
+    return _site(rate)
+
+
+def _launch(x: torch.Tensor, seeds: torch.Tensor, site: DropoutSite, call: int) -> torch.Tensor:
+    """One kernel pass over a contiguous CUDA tensor x of a dtype the site
+    takes (its callers see to both). It checks only x's device against the
+    seeds'; the rate, call index and seeds were checked where they were
+    made."""
+    index = x.get_device()
+    if seeds.get_device() != index:
+        raise ValueError(f"seeds on {seeds.device}, x on {x.device}")
+    y = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return y
+    code, thresh, scale = site.consts[x.dtype]
+    rc = call_on(index, _lib().fused_dropout, x.data_ptr(), y.data_ptr(), n, code,
+                 seeds.data_ptr(), call, thresh, scale, raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"fused_dropout launch failed ({rc}: "
-                           f"{lib.fused_dropout_error(rc).decode()}); n={x.numel()} {x.dtype}")
+                           f"{_lib().fused_dropout_error(rc).decode()}); n={n} {x.dtype}")
     fused_dropout.launches += 1
     return y
 
 
 def dropout_apply(x: torch.Tensor, seeds: torch.Tensor, rate: float, call: int) -> torch.Tensor:
     """One dropout pass over a contiguous x with 0 <= rate < 1: the plain
-    version for a CPU tensor, the kernel for a CUDA tensor."""
-    if x.dtype not in _DTYPE_CODES:
-        raise NotImplementedError(f"fused dropout takes float32 and bfloat16, not {x.dtype}")
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"rate must be in [0, 1), got {rate}")
-    if not 0 <= call < (1 << 32):
-        raise ValueError(f"call index {call} outside [0, 2^32)")
-    if x.numel() == 0:
-        return torch.empty_like(x)
+    version for a CPU tensor, the kernel for a CUDA tensor. Every argument
+    is checked here; the pass is the one the autograd function runs."""
+    site = _checked(x, seeds, rate, call)
     if x.device.type == "cpu":
         return fused_dropout_plain(x, seeds, rate, call)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, seeds, rate, call)
+    if not x.is_contiguous():
+        raise ValueError("the dropout kernel takes a contiguous tensor")
+    return _launch(x, seeds, site, call)
 
 
-class _FusedDropout(torch.autograd.Function):
-    """Saves only the seeds and the call index; the backward runs the same
-    pass on the cotangent, so the mask is made again. `plain` selects the
-    plain version on any device (the card's check of the wiring)."""
+class FusedDropoutFn(torch.autograd.Function):
+    """Dropout of x at a checked `DropoutSite`, differentiable in x. It keeps
+    only the seeds, the site and the call index (the seeds as an
+    attribute: a step's seed row is an input that no one writes), and the
+    backward runs the same pass on the cotangent, so the mask is made
+    again. The forward and backward reach the kernel through `_launch`
+    alone. `plain` selects the plain version on any device (the card's
+    check of the wiring); a tensor off the card always takes it."""
 
     @staticmethod
-    def forward(ctx, x, seeds, rate, call, plain):
-        ctx.save_for_backward(seeds)
-        ctx.rate, ctx.call, ctx.plain = rate, call, plain
-        fn = fused_dropout_plain if plain else dropout_apply
-        return fn(x, seeds, rate, call)
+    def forward(ctx, x, seeds, site, call, plain):
+        _check_dtype(x)
+        plain = plain or not x.is_cuda
+        ctx.args = (seeds, site, call, plain)
+        if plain:
+            return fused_dropout_plain(x, seeds, site.rate, call)
+        return _launch(x if x.is_contiguous() else x.contiguous(), seeds, site, call)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        (seeds,) = ctx.saved_tensors
-        fn = fused_dropout_plain if ctx.plain else dropout_apply
-        return fn(grad.contiguous(), seeds, ctx.rate, ctx.call), None, None, None, None
+        seeds, site, call, plain = ctx.args
+        if not grad.is_contiguous():
+            grad = grad.contiguous()
+        if plain:
+            dx = fused_dropout_plain(grad, seeds, site.rate, call)
+        else:
+            dx = _launch(grad, seeds, site, call)
+        return dx, None, None, None, None
 
 
 def fused_dropout(x: torch.Tensor, rate: float, seeds: torch.Tensor, call: int,
@@ -187,13 +260,14 @@ def fused_dropout(x: torch.Tensor, rate: float, seeds: torch.Tensor, call: int,
     """Training-mode dropout of x, differentiable in x. `seeds`: int64 [2]
     on x's device (the step's stream words); `call`: the site's index
     within the step. Rate 0 returns x and rate >= 1 zeros, with no launch
-    (`core/dropout.py:151-152,214`)."""
+    (`core/dropout.py:151-152,214`). Checks every argument at each call;
+    a model's site (`models/modules.py`) checks them once and applies
+    `FusedDropoutFn` itself."""
     if rate == 0.0:
         return x
-    if rate >= 1.0:  # zeros, with a zero gradient
-        none = torch.zeros((), dtype=torch.bool, device=x.device)
-        return torch.where(none, x, torch.zeros((), dtype=x.dtype, device=x.device))
-    return _FusedDropout.apply(x.contiguous(), seeds, rate, call, plain)
+    if rate >= 1.0:
+        return dropped(x)
+    return FusedDropoutFn.apply(x, seeds, _checked(x, seeds, rate, call), call, plain)
 
 
 fused_dropout.launches = 0  # kernel launches (CUDA path only)

@@ -16,11 +16,16 @@ Phases, each of which raises (exit code 1) when it fails:
    bit-equal. On float inputs values agree within FLOAT_TOL and each
    returned id is checked by the plain version's score of that id.
 3. Hold the three streaming-CE kernels (logZ, gold-row gather, fused
-   backward) against their plain versions: loss, logZ, ds and dT at the
-   training shape (B=256, V=1,000,000, H=64) and at edge shapes (odd B,
-   V off every tile, n_valid < V, H in {32, 48, 128, 256}, repeated
-   answers, answers of -1 and >= n_valid, an answer at item 0). The
-   gather must be bit-equal; CE_TOL and GRAD_TOL state the others.
+   backward) against their plain versions at the training shape (B=256,
+   V=1,000,000, H=64) and at edge shapes (odd B, V off every tile,
+   n_valid < V, H in {32, 48, 128, 256}, repeated answers, raw int64
+   answers of -1, >= n_valid and >= V, an answer at item 0): the fused
+   forward's loss and logZ (one ce_logz call), the finished ds and dT
+   (one ce_grads call), both through the autograd function, within
+   CE_TOL and GRAD_TOL; the standalone gather bit-equal; and the fused
+   ds bit-equal to the unfused composition of the same kernels
+   (ce_grads with every answer set to -1, which leaves out the gold
+   terms, minus dloss * gold_rows).
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -47,7 +52,7 @@ Phases, each of which raises (exit code 1) when it fails:
    at the same widths with dropout 0.5, batch 256, lr 5e-4, 2 epochs;
    then `--resume --epochs 3 --export_topk`, which must start at epoch
    2. The CE forward and backward kernels must launch once per step and
-   the gather twice; every epoch's loss must be finite and epoch 1's
+   the standalone gather never; every epoch's loss must be finite and epoch 1's
    below epoch 0's; the checkpoint and the `.state` snapshot must exist;
    the test scores must lie in [0, 1].
 8. Drive SASRec's training path: `main --model_type SASRec --prng rbg`
@@ -61,7 +66,16 @@ Phases, each of which raises (exit code 1) when it fails:
    pass with its per-batch breakdown, train examples/s, a per-step
    training breakdown, the host syncs of a training step, the device's
    busy share under torch.profiler (for BSARec and for SASRec with the
-   fused dropout), and a `kernels` JSON line.
+   fused dropout), and a `kernels` JSON line. Comparisons with a
+   yardstick run in turns (kernel, yardstick, yardstick, kernel): the
+   standalone gather against `index_select` back to back and in a CUDA
+   graph; one CE forward plus backward through the fused entries against
+   the unfused composition (host ms to issue, card ms in a CUDA graph,
+   device operations under torch.profiler; the training step's CE must
+   make 2 wrapper calls and at most 5 device operations); the dropout
+   kernel against `F.dropout` back to back and through a model's site
+   with its backward against `nn.Dropout`; the dropout kernel with a
+   cold and a warm L2.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -498,21 +512,29 @@ def rel_err(got, want, rows=None):
 
 
 def compare_ce(case_name, states, table, answers, n_valid):
-    """The CE kernels vs their plain versions on one input, through the
-    autograd function (loss, ds, dT) and each kernel alone (logZ, gather).
+    """The CE kernels vs their plain versions on one input: the fused
+    entries (loss and logZ from one ce_logz call, the finished ds and dT
+    from one ce_grads call) on the raw int64 answers, the same through the
+    autograd function, and the standalone gather; then the fused ds
+    against the unfused composition of the same kernels, bit for bit.
     Returns the largest absolute error of each kernel's outputs."""
     import torch
 
     from bsarec_tpu_torch.ops import ce
 
     mapped = ce.map_answers(answers, n_valid)
-    logz = ce.ce_logz(states, table, n_valid)
+    loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid)
     rows = ce.gold_rows(table, mapped)
     torch.cuda.synchronize()
-    want_logz = ce.ce_logz_plain(states, table, n_valid)
+    want_loss_f, want_logz = ce.ce_loss_logz_plain(states, table, answers, n_valid)
     check(torch.equal(torch.isfinite(logz), torch.isfinite(want_logz)), f"{case_name}: logZ finiteness")
     logz_err = float(((logz - want_logz).abs() / want_logz.abs().clamp(min=1.0)).max())
     check(logz_err <= CE_TOL, f"{case_name}: logZ error {logz_err} > {CE_TOL}")
+    fused_err = float(((loss_f - want_loss_f).abs() / want_loss_f.abs().clamp(min=1.0)).max())
+    check(fused_err <= CE_TOL, f"{case_name}: fused loss error {fused_err} > {CE_TOL}")
+    off = (answers < 0) | (answers >= n_valid)
+    check(torch.equal(loss_f[off], logz[off]), f"{case_name}: answers off the catalog need gold 0")
+    check(torch.equal(ce.ce_logz(states, table, n_valid), logz), f"{case_name}: logZ alone differs")
     check(torch.equal(rows, ce.gold_rows_plain(table, mapped)), f"{case_name}: gather not bit-equal")
 
     grads = []
@@ -525,6 +547,7 @@ def compare_ce(case_name, states, table, answers, n_valid):
         del s, t
     (loss, ds, dt), (want_loss, want_ds, want_dt) = grads
     torch.cuda.synchronize()
+    check(torch.equal(loss, loss_f), f"{case_name}: the autograd function's loss differs from ce_loss_logz")
     loss_err = float(((loss - want_loss).abs() / want_loss.abs().clamp(min=1.0)).max())
     check(loss_err <= CE_TOL, f"{case_name}: loss error {loss_err} > {CE_TOL}")
     ds_err = rel_err(ds, want_ds)
@@ -534,14 +557,29 @@ def compare_ce(case_name, states, table, answers, n_valid):
     check(ds_err <= GRAD_TOL and dt_err <= GRAD_TOL,
           f"{case_name}: gradient error ds {ds_err}, dT {dt_err} > {GRAD_TOL}")
     check(not dt[n_valid:].any(), f"{case_name}: dT rows past n_valid must be 0")
+    d = torch.full((states.shape[0],), 1.0 / states.shape[0], device=states.device)
+    # the unfused ds: ce_grads with every answer off the catalog leaves out
+    # both gold terms, and the caller subtracts the gathered rows
+    no_answers = torch.full_like(answers, -1)
+    fused_ds, _ = ce.ce_grads(states, table, answers, logz, d, n_valid)
+    sum_ds, _ = ce.ce_grads(states, table, no_answers, logz, d, n_valid)
+    unfused_ds = sum_ds - d[:, None] * ce.gold_rows(table, mapped)
+    torch.cuda.synchronize()
+    check(torch.equal(fused_ds, unfused_ds),
+          f"{case_name}: fused ds differs from the unfused composition at "
+          f"{int((fused_ds != unfused_ds).sum())} of {fused_ds.numel()} elements")
+    del fused_ds, sum_ds, unfused_ds, no_answers
     abs_err = {
         "ce_logz": max(float((logz - want_logz)[torch.isfinite(want_logz)].abs().max()),
+                       float((loss_f - want_loss_f).abs().max()),
                        float((loss - want_loss).abs().max())),
         "gold_rows": 0.0,
         "ce_grads": max(float((ds - want_ds).abs().max()), float((dt - want_dt).abs().max())),
     }
-    log(f"CE kernels vs plain {case_name}: ok, logZ rel err {logz_err:.3g}, loss {loss_err:.3g}, "
-        f"ds {ds_err:.3g}, dT {dt_err:.3g} (relative to the largest |plain|), gather bit-equal; "
+    log(f"CE kernels vs plain {case_name}: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
+        f"loss through autograd {loss_err:.3g}, ds {ds_err:.3g}, dT {dt_err:.3g} (relative to the "
+        f"largest |plain|), {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
+        f"to ce_grads(answers -1) - dloss * gold_rows; "
         f"max abs err logZ/loss {abs_err['ce_logz']:.3g}, ds/dT {abs_err['ce_grads']:.3g}")
     return abs_err
 
@@ -691,7 +729,9 @@ def phase_train(device, workdir):
     log(f"train path: main(--epochs 2) on {TRAIN_USERS} users x {N_ITEMS} items, {n_samples} "
         f"samples = {steps} steps per epoch, returned in {seconds:.1f}s, test scores {scores}; "
         f"launches {counts}")
-    want = zero_counts() | {"ce_logz": 2 * steps, "gold_rows": 4 * steps, "ce_grads": 2 * steps,
+    # one ce_logz call (loss and logZ) and one ce_grads call per step; the
+    # gold terms ride in them, so the standalone gather never launches
+    want = zero_counts() | {"ce_logz": 2 * steps, "ce_grads": 2 * steps,
                             "streaming_masked_topk": 3 * eval_steps}
     check(counts == want, f"train path launches {counts}, want {want}")
     first_counts = counts
@@ -713,7 +753,7 @@ def phase_train(device, workdir):
     losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
     check(len(losses) == 3 and "'epoch': 2," in text and math.isfinite(losses[2]),
           f"resumed run: epoch losses {losses}")
-    want = zero_counts() | {"ce_logz": steps, "gold_rows": 2 * steps, "ce_grads": steps,
+    want = zero_counts() | {"ce_logz": steps, "ce_grads": steps,
                             "streaming_masked_topk": 3 * eval_steps}
     check(counts == want, f"resumed launches {counts}, want {want}")
     topk = np.load(topk_path)
@@ -724,9 +764,79 @@ def phase_train(device, workdir):
     return first_counts, rates[1]
 
 
+def in_turns(first, second, measure):
+    """measure(first), measure(second), measure(second), measure(first):
+    two readings of each, taken in turns inside one call."""
+    a1 = measure(first)
+    b1, b2 = measure(second), measure(second)
+    return (a1, measure(first)), (b1, b2)
+
+
+def graph_ms(fn, calls: int, replays: int = 10) -> float:
+    """The card's ms per call of fn: CUDA events around replays of a CUDA
+    graph that holds `calls` calls, so the host's dispatch is left out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # the wrappers launch on the capturing stream
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, iters=replays) / calls
+    del graph
+    return ms
+
+
+def host_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Host ms per call to issue fn: perf_counter around `iters` calls with
+    no sync inside (the card drains its queue afterwards)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def profiled_ops(fn, tries: int = 3) -> int:
+    """Device operations (kernels, memsets, copies) that one call of fn
+    issues, counted by torch.profiler: the most any of `tries` traced
+    calls shows, since a trace now and then loses a record but never adds
+    one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in device_kernels(prof)))
+    return max(counts)
+
+
+def pair(readings) -> str:
+    return "/".join(f"{t:.5f}" for t in readings)
+
+
+GOLD_ROWS_WENT = ("folded into the main path's other two CE calls: ce_logz's merge pass takes "
+                  "the gold logit <s, T[a]>, ce_grads' ds-reduce pass takes -dloss * T[a]")
+
+
 def phase_ce_times(full, card):
-    """Each CE kernel at the training shape: its time, its plain version's,
-    a library yardstick's and its bound. Returns {kernel: JSON fields}."""
+    """The CE kernels at the training shape: the standalone gather against
+    `index_select`, back to back and in a CUDA graph, in turns; each
+    main-path entry's time, its plain version's, a library yardstick's
+    and its bound; one CE forward plus backward through the fused entries
+    against the unfused composition of the public wrappers (the gather
+    and elementwise ops around ce_logz and ce_grads), in turns: host ms to issue it, device ms in a CUDA graph and
+    the device operations it issues. Returns {kernel: JSON fields}."""
     import torch
     import torch.nn.functional as F
 
@@ -735,46 +845,112 @@ def phase_ce_times(full, card):
     states, table, answers = full
     b, h = states.shape
     v = table.shape[0]
+    dev = states.device
     a = ce.map_answers(answers, v)
-    logz = ce.ce_logz(states, table, v)
-    d = torch.full((b,), 1.0 / b, device=states.device)
+    _, logz = ce.ce_loss_logz(states, table, answers, v)
+    d = torch.full((b,), 1.0 / b, device=dev)
     flops = 2 * b * v * h
+    out = {}
+
+    # the gather alone against one PyTorch call
+    back = lambda fn: cuda_ms(fn, iters=200, warmup=5)
+    ((k1, k2), (l1, l2)) = in_turns(lambda: ce.gold_rows(table, a),
+                                    lambda: table.index_select(0, answers), back)
+    ((g1, g2), (i1, i2)) = in_turns(lambda: ce.gold_rows(table, a),
+                                    lambda: table.index_select(0, answers),
+                                    lambda fn: graph_ms(fn, calls=50, replays=20))
+    plain_ms = cuda_ms(lambda: ce.gold_rows_plain(table, a), iters=20, warmup=1)
+    nbytes = 4 * (2 * b * h + b)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"time gold_rows kernel: {pair((k1, k2))} ms back to back, {pair((g1, g2))} ms per call in a "
+        f"CUDA graph of 50 (B={b} V={v} H={h}; turns kernel, index_select, index_select, kernel) [{card}]")
+    log(f"time gold_rows library table.index_select: {pair((l1, l2))} ms back to back, "
+        f"{pair((i1, i2))} ms per call in a CUDA graph of 50 [{card}]")
+    log(f"time gold_rows plain version: {plain_ms:.4f} ms [{card}]")
+    log(f"bound gold_rows: {bound_ms:.7f} ms (bytes: {nbytes / 1e6:.3f} MB at 3.35 TB/s); main path: "
+        f"0 launches, {GOLD_ROWS_WENT} [{card}]")
+    out["gold_rows"] = {"ms": (k1 + k2) / 2, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes", "library_ms": (l1 + l2) / 2,
+                        "main_path": GOLD_ROWS_WENT}
+
+    # the two main-path entries, as the training step calls them
     s_req = states.clone().requires_grad_()
     t_req = table.clone().requires_grad_()
     lib_loss = F.cross_entropy(s_req @ t_req.T, answers)  # the yardstick's graph, 1 GB logits
     pieces = {
-        "ce_logz": (lambda: ce.ce_logz(states, table, v),
-                    lambda: ce.ce_logz_plain(states, table, v),
+        "ce_logz": (lambda: ce.ce_loss_logz(states, table, answers, v),
+                    lambda: ce.ce_loss_logz_plain(states, table, answers, v),
                     lambda: F.cross_entropy(states @ table.T, answers),
                     "F.cross_entropy(states @ table.T) forward",
-                    flops, 4 * (b * h + v * h + b)),
-        "gold_rows": (lambda: ce.gold_rows(table, a),
-                      lambda: ce.gold_rows_plain(table, a),
-                      lambda: table.index_select(0, answers),
-                      "table.index_select",
-                      0, 4 * (2 * b * h + b)),
-        "ce_grads": (lambda: ce.ce_grads(states, table, a, logz, d, v),
-                     lambda: ce.ce_grads_plain(states, table, a, logz, d, v),
+                    flops + 2 * b * h, 4 * (2 * b * h + v * h + 2 * b) + 8 * b),
+        "ce_grads": (lambda: ce.ce_grads(states, table, answers, logz, d, v),
+                     lambda: ce.ce_grads_plain(states, table, answers, logz, d, v),
                      lambda: torch.autograd.grad(lib_loss, (s_req, t_req), retain_graph=True),
                      "backward of F.cross_entropy(states @ table.T)",
-                     3 * flops, 4 * (2 * b * h + 2 * v * h + 3 * b)),
+                     3 * flops, 4 * (2 * b * h + 2 * v * h + 2 * b) + 8 * b),
     }
-    out = {}
     for name, (kernel, plain, library, lib_name, ops, nbytes) in pieces.items():
-        ms = cuda_ms(kernel, iters=200 if name == "gold_rows" else 20)
-        plain_ms = cuda_ms(plain, iters=20 if name == "gold_rows" else 3, warmup=1)
-        library_ms = cuda_ms(library, iters=20 if name == "gold_rows" else 5)
+        ms = cuda_ms(kernel, iters=20)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        library_ms = cuda_ms(library, iters=5)
         t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         for label, t in (("kernel", ms), ("plain version", plain_ms), (f"library {lib_name}", library_ms)):
-            log(f"time {name} {label}: {t:.4f} ms (B={b} V={v} H={h}) [{card}]")
+            log(f"time {name} {label}: {t:.4f} ms (B={b} V={v} H={h}, gold terms fused) [{card}]")
         log(f"bound {name}: {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP fp32 at 67 TFLOP/s "
             f"= {t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.4f} ms) -> kernel at "
             f"{100 * bound_ms / ms:.1f}% of the bound [{card}]")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library_ms}
-    del lib_loss, s_req, t_req
+    del lib_loss, s_req
+
+    # one forward plus backward: fused entries vs the unfused composition,
+    # on the model's form of the state (the last position of [B, L, H])
+    seq = torch.zeros((b, 2, h), device=dev)
+    seq[:, 1] = states
+    state = seq[:, -1, :]
+
+    def fused():
+        s = state.contiguous()
+        _, z = ce.ce_loss_logz(s, table, answers, v)
+        ce.ce_grads(s, table, answers, z, d, v)
+
+    no_answers = torch.full_like(answers, -1)
+
+    def unfused():
+        s = state.contiguous()
+        m = ce.map_answers(answers, v)
+        z = ce.ce_logz(s, table, v)
+        _ = z - (ce.gold_rows(table, m) * s).sum(dim=1)
+        ds, _ = ce.ce_grads(s, table, no_answers, z, d, v)
+        _ = ds - d[:, None] * ce.gold_rows(table, m)
+
+    ((f1, f2), (u1, u2)) = in_turns(fused, unfused, lambda fn: host_ms(fn, iters=10))
+    ((fg1, fg2), (ug1, ug2)) = in_turns(fused, unfused, lambda fn: graph_ms(fn, calls=5, replays=4))
+    fused_ops, unfused_ops = profiled_ops(fused), profiled_ops(unfused)
+    log(f"CE forward+backward, fused entries: host {pair((f1, f2))} ms to issue, card {pair((fg1, fg2))} "
+        f"ms per call in a CUDA graph, {fused_ops} device operations, 2 wrapper calls (B={b} V={v} "
+        f"H={h}; turns fused, unfused, unfused, fused) [{card}]")
+    log(f"CE forward+backward, unfused composition (ce_logz + gold_rows + elementwise, ce_grads "
+        f"on answers of -1 + gold_rows + elementwise): host {pair((u1, u2))} ms to issue, card "
+        f"{pair((ug1, ug2))} ms per call in a CUDA graph, {unfused_ops} device operations, 4 wrapper "
+        f"calls [{card}]")
+
+    def autograd_form():
+        loss = ce.streaming_softmax_ce(state, t_req, answers)
+        torch.autograd.grad(loss, t_req, d)
+
+    before = sum(f.launches for f in (ce.ce_logz, ce.gold_rows, ce.ce_grads))
+    autograd_form()
+    calls = sum(f.launches for f in (ce.ce_logz, ce.gold_rows, ce.ce_grads)) - before
+    step_ops = profiled_ops(autograd_form)
+    check(calls == 2 and step_ops <= 5,
+          f"the training step's CE made {calls} wrapper calls and {step_ops} device operations")
+    log(f"CE of a training step (streaming_softmax_ce forward and backward on the model's "
+        f"[B, L, H][:, -1] state): {calls} wrapper calls, {step_ops} device operations "
+        f"(torch.profiler) [{card}]")
+    del t_req, seq, state
     torch.cuda.empty_cache()
     return out
 
@@ -1131,43 +1307,118 @@ def phase_sasrec_train(device, workdir, card):
     return first_counts, fused_rate, rates[1]
 
 
+def kernel_ms_profiled(fn, kernel_name: str, flush=None, iters: int = 50, tries: int = 3):
+    """The card's ms per launch of the kernels whose name holds
+    `kernel_name` over `iters` calls of fn, from torch.profiler's kernel
+    times. `flush` (a callable that reads or writes a buffer larger than
+    the 50 MB L2) runs before each call, so the kernel finds none of its
+    input in L2. A trace that recorded no such kernel is taken again, up
+    to `tries` traces; None when none did."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in device_kernels(prof) if kernel_name in e.key]
+        n = sum(e.count for e in ours)
+        if n:
+            return sum(e.self_device_time_total for e in ours) / 1e3 / n
+    return None
+
+
 def phase_dropout_times(device, card):
-    """The dropout kernel at both site shapes: CUDA events around back-to-back
-    wrapper calls, and around replays of a CUDA graph of 50 launches (the
-    card's time per launch without the host's), the plain version's and
-    F.dropout's times, and its bound. Returns the hidden site's JSON fields."""
+    """The dropout kernel at both site shapes, each comparison in turns
+    (kernel, yardstick, yardstick, kernel): `dropout_apply` against
+    `F.dropout(x, 0.5, True)` back to back; forward through a chain of
+    7 sites (a SASRec step's count) and one backward on a leaf that
+    requires grad, `FusedDropout` sites against `nn.Dropout` ones, per
+    site; the kernel in a CUDA graph of 50 launches; the kernel with a
+    cold L2, after a 128 MB write (the lines it evicts are dirty) and
+    after a 128 MB read (clean), beside ATen's dropout kernel and a
+    multiply by 2 (the same bytes in and out) under the same flush, and
+    with a warm L2; the plain version and the bound. Returns the hidden
+    site's JSON fields."""
     import torch
     import torch.nn.functional as F
 
+    from bsarec_tpu_torch.models.modules import DropoutState, FusedDropout
     from bsarec_tpu_torch.ops import dropout as fd
 
     seeds = dropout_seeds(device, 1)
+    state = DropoutState(fused=True)
+    state.begin_step(seeds)
+    fused_sites = torch.nn.Sequential(*[FusedDropout(0.5, state) for _ in range(DROPOUT_SITES)]).train()
+    nn_sites = torch.nn.Sequential(*[torch.nn.Dropout(0.5) for _ in range(DROPOUT_SITES)]).train()
+    buf = torch.empty(32 << 20, device=device)  # 128 MB
+    flushes = {"written": buf.zero_, "read": buf.sum}
+    back = lambda fn: cuda_ms(fn, iters=200, warmup=5)
     out = {}
-    for site, shape in DROPOUT_SHAPES.items():
+    for site_name, shape in DROPOUT_SHAPES.items():
         x = torch.randn(shape, device=device)
-        ms = cuda_ms(lambda: fd.dropout_apply(x, seeds, 0.5, 0), iters=200, warmup=5)
+        y = torch.empty_like(x)
+        where = f"{site_name} site {list(shape)} fp32, rate 0.5"
+        (k1, k2), (l1, l2) = in_turns(lambda: fd.dropout_apply(x, seeds, 0.5, 0),
+                                      lambda: F.dropout(x, 0.5, True), back)
+        leaf = x.clone().requires_grad_()
+        g = torch.randn_like(x)
+
+        def through_fused():
+            state.call = 0
+            torch.autograd.grad(fused_sites(leaf), leaf, g)
+
+        (s1, s2), (n1, n2) = in_turns(through_fused,
+                                      lambda: torch.autograd.grad(nn_sites(leaf), leaf, g),
+                                      lambda fn: cuda_ms(fn, iters=100, warmup=5) / DROPOUT_SITES)
         plain_ms = cuda_ms(lambda: fd.fused_dropout_plain(x, seeds, 0.5, 0), iters=20)
-        library_ms = cuda_ms(lambda: F.dropout(x, 0.5, True), iters=200, warmup=5)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):  # the wrapper launches on the capturing stream
-            for _ in range(50):
-                fd.dropout_apply(x, seeds, 0.5, 0)
-        graph_ms = cuda_ms(graph.replay, iters=20) / 50
-        del graph
+        in_graph = graph_ms(lambda: fd.dropout_apply(x, seeds, 0.5, 0), calls=50, replays=20)
         nbytes = 2 * x.numel() * 4
         bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        for label, t in (("kernel", ms), ("plain version", plain_ms),
-                         ("library F.dropout", library_ms)):
-            log(f"time fused_dropout {label}: {t:.4f} ms per call ({site} site {list(shape)} "
-                f"fp32, rate 0.5, back to back) [{card}]")
-        log(f"time fused_dropout kernel in a CUDA graph of 50 launches: {graph_ms:.5f} ms per "
-            f"launch ({site} site; the same input each launch, L2-resident) [{card}]")
+        log(f"time fused_dropout dropout_apply: {pair((k1, k2))} ms per call back to back; library "
+            f"F.dropout(x, 0.5, True): {pair((l1, l2))} ms ({where}; turns kernel, F.dropout, "
+            f"F.dropout, kernel) [{card}]")
+        log(f"time fused_dropout forward through {DROPOUT_SITES} sites and one backward on a leaf "
+            f"that requires grad, per site: FusedDropout {pair((s1, s2))} ms, nn.Dropout "
+            f"{pair((n1, n2))} ms ({where}; turns FusedDropout, nn.Dropout, nn.Dropout, "
+            f"FusedDropout) [{card}]")
+        log(f"time fused_dropout plain version: {plain_ms:.4f} ms; kernel in a CUDA graph of 50 "
+            f"launches: {in_graph:.5f} ms per launch (the same input each launch, L2-resident) "
+            f"({where}) [{card}]")
+        # each profiled alone, beside the flush's own kernel; the names tell them apart
+        ours = (lambda: fd.dropout_apply(x, seeds, 0.5, 0), "fused_dropout_kernel<")
+        aten = (lambda: F.dropout(x, 0.5, True), "dropout")
+        double = (lambda: torch.mul(x, 2.0, out=y), "MulFunctor")
+        for flush_name, flush in flushes.items():
+            ((c1, c2), (a1, a2)) = in_turns(ours, aten, lambda k: kernel_ms_profiled(*k, flush))
+            mul = kernel_ms_profiled(*double, flush)
+            for label, times in (("fused_dropout_kernel", (c1, c2)), ("ATen's dropout kernel", (a1, a2)),
+                                 ("x * 2 (ATen)", (mul,))):
+                if any(t is None for t in times):
+                    log(f"time {label}, cold L2 (128 MB {flush_name} before each launch): not "
+                        f"measured (torch.profiler recorded no such kernel) ({where})")
+                    continue
+                share = "/".join(f"{100 * bound_ms / t:.1f}" for t in times)
+                log(f"time {label}, cold L2 (128 MB {flush_name} before each launch): "
+                    f"{pair(times)} ms per launch (torch.profiler), {share}% of the dropout "
+                    f"kernel's bound ({where}) [{card}]")
+        warm = kernel_ms_profiled(*ours)
+        log(f"time fused_dropout_kernel, warm L2 (back to back, same input): "
+            + (f"{warm:.5f} ms per launch (torch.profiler), {100 * bound_ms / warm:.1f}% of the bound"
+               if warm is not None else "not measured") + f" ({where}) [{card}]")
         log(f"bound fused_dropout: {bound_ms:.5f} ms (bytes: {nbytes / 1e6:.3f} MB at 3.35 TB/s; "
             f"Philox's ~12 integer operations per element stay far under it) -> kernel at "
-            f"{100 * bound_ms / ms:.1f}% of the bound back to back, "
-            f"{100 * bound_ms / graph_ms:.1f}% in the graph ({site} site) [{card}]")
-        out[site] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-                     "library_ms": library_ms}
+            f"{100 * bound_ms / in_graph:.1f}% of the bound in the graph ({site_name} site) [{card}]")
+        out[site_name] = {"ms": (k1 + k2) / 2, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": "bytes", "library_ms": (l1 + l2) / 2}
+        del x, y, leaf, g
+    del buf, flushes
+    torch.cuda.empty_cache()
     return out["hidden"]
 
 

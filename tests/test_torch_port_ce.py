@@ -113,9 +113,89 @@ def test_plain_pieces_are_chunk_invariant(chunk):
     keep = a >= 0
     onehot[torch.arange(b)[keep], a[keep].long()] = 1.0
     onehot = onehot * d[:, None]
-    torch.testing.assert_close(ds, p @ t[:n_valid], **GRAD_TOL)
+    # the finished ds: p @ T minus dloss_i * T[a_i] for the answers in range
+    torch.testing.assert_close(ds, (p - onehot[:, :n_valid]) @ t[:n_valid], **GRAD_TOL)
     torch.testing.assert_close(dt[:n_valid], p.T @ s - (onehot.T @ s)[:n_valid], **GRAD_TOL)
     assert not dt[n_valid:].any()
+
+
+@pytest.mark.parametrize("b,v,h,n_valid,odd", [
+    (8, 256, 64, 256, False),
+    (13, 300, 32, 290, True),
+    (9, 260, 128, 250, True),
+])
+def test_fused_forward_and_finished_ds_match_jax(b, v, h, n_valid, odd):
+    """`ce_loss_logz` (one call: loss and logZ) and the finished ds of
+    `ce_grads` against the JAX package's loss, `jax.grad` of
+    sum(dloss * loss), and its `streaming_ce_stats`/`streaming_ce_grads`."""
+    states, table, answers = _inputs(b, v, h, n_valid, seed=20 + b, odd_answers=odd)
+    dloss = np.random.default_rng(21).uniform(0.5, 1.5, size=b).astype(np.float32)
+    js, jt, ja = jnp.asarray(states), jnp.asarray(table), jnp.asarray(answers)
+    j_loss = jax_streaming_softmax_ce(js, jt, ja, n_valid, 8, 128, True)
+    _, j_logz = jax_streaming_ce_stats(js, jt, ja, n_valid, 8, 128, True)
+
+    def weighted(s_, t_):
+        return jnp.sum(jnp.asarray(dloss) * jax_streaming_softmax_ce(s_, t_, ja, n_valid, 8, 128, True))
+
+    j_gs, j_gt = jax.grad(weighted, argnums=(0, 1))(js, jt)
+    j_ds, j_dt = jax_streaming_ce_grads(js, jt, ja, j_logz, jnp.asarray(dloss), n_valid, 8, 128, True)
+
+    s, t = torch.from_numpy(states), torch.from_numpy(table)
+    a = torch.from_numpy(answers).long()  # the model's int64 ids, unmapped
+    loss, logz = ce.ce_loss_logz(s, t, a, n_valid)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(j_loss), **LOSS_TOL)
+    np.testing.assert_allclose(logz.numpy(), np.asarray(j_logz), **LOSS_TOL)
+    ds, dt = ce.ce_grads_plain(s, t, a, logz, torch.from_numpy(dloss), n_valid)
+    for want_ds, want_dt in ((j_gs, j_gt), (j_ds, j_dt)):
+        np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds), **GRAD_TOL)
+        np.testing.assert_allclose(dt.numpy(), np.asarray(want_dt), **GRAD_TOL)
+
+
+def _dense_reference(s, t, a, n_valid, dloss):
+    """loss, logZ and the gradients of sum(dloss * loss) from the dense
+    [B, n_valid] logits, float64, gold 0 where a is outside [0, n_valid)."""
+    s64 = s.double().requires_grad_()
+    t64 = t.double().requires_grad_()
+    logits = s64 @ t64[:n_valid].T
+    logz = torch.logsumexp(logits, dim=1)
+    keep = (a >= 0) & (a < n_valid)
+    gold = torch.where(keep, logits.gather(1, torch.where(keep, a, 0)[:, None])[:, 0], 0.0)
+    loss = logz - gold
+    ds, dt = torch.autograd.grad((dloss.double() * loss).sum(), (s64, t64))
+    return loss.detach().float(), logz.detach().float(), ds.float(), dt.float()
+
+
+def test_raw_int64_answers_through_the_plain_paths():
+    """The model's int64 answers go in unmapped: -1, n_valid, an id in
+    [n_valid, V), V, V + 7 and 2^40 have gold 0 and no one-hot term; item 0
+    and repeated answers count. int32 answers give the same results."""
+    b, v, h, n_valid = 12, 70, 16, 60
+    states, table, answers = _inputs(b, v, h, n_valid, seed=30)
+    a = torch.from_numpy(answers).long()
+    a[:9] = torch.tensor([-1, n_valid, n_valid + 3, v, v + 7, 1 << 40, 0, 0, int(a[9])])
+    s, t = torch.from_numpy(states), torch.from_numpy(table)
+    dloss = torch.from_numpy(np.random.default_rng(31).uniform(0.5, 1.5, size=b).astype(np.float32))
+    want_loss, want_logz, want_ds, want_dt = _dense_reference(s, t, a, n_valid, dloss)
+    loss, logz = ce.ce_loss_logz_plain(s, t, a, n_valid)
+    torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+    assert torch.equal(loss[:6], logz[:6])  # gold 0 exactly
+    ds, dt = ce.ce_grads_plain(s, t, a, logz, dloss, n_valid)
+    torch.testing.assert_close(ds, want_ds, **GRAD_TOL)
+    torch.testing.assert_close(dt, want_dt, **GRAD_TOL)
+    assert not dt[n_valid:].any()
+    a32 = a.clamp(max=v + 7).int()  # 2^40 does not fit; v + 7 is out of range as well
+    loss32, _ = ce.ce_loss_logz(s, t, a32, n_valid)
+    assert torch.equal(loss32, loss)
+    ds32, dt32 = ce.ce_grads(s, t, a32, logz, dloss, n_valid)
+    assert torch.equal(ds32, ds) and torch.equal(dt32, dt)
+    # answers of -1 leave out both gold terms; dT differs only at the answers
+    ds_sum, dt_sum = ce.ce_grads_plain(s, t, torch.full_like(a, -1), logz, dloss, n_valid)
+    answered = torch.zeros(v, dtype=torch.bool)
+    answered[a[(a >= 0) & (a < n_valid)]] = True
+    assert torch.equal(dt_sum[~answered], dt[~answered])
+    torch.testing.assert_close(ds_sum - dloss[:, None] * ce.gold_rows_plain(
+        t, ce.map_answers(a, n_valid)), ds, rtol=0, atol=0)
 
 
 def test_gather_and_answer_mapping():
@@ -128,6 +208,8 @@ def test_gather_and_answer_mapping():
     mapped = ce.map_answers(answers, n_valid=9)
     assert mapped.dtype == torch.int32
     assert mapped.tolist() == [3, -1, -1, -1, 0, 3]
+    # ids past int32 are out of range, not wrapped into it
+    assert ce.map_answers(torch.tensor([(1 << 32) + 3, 3]), n_valid=9).tolist() == [-1, 3]
 
 
 def test_wrappers_on_cpu_run_plain_and_validate():
@@ -138,6 +220,7 @@ def test_wrappers_on_cpu_run_plain_and_validate():
     assert torch.equal(ce.gold_rows(t, a), ce.gold_rows_plain(t, a))
     loss = ce.streaming_softmax_ce(s, t, a)
     assert torch.equal(loss, ce.streaming_softmax_ce_plain(s, t, a))
+    assert torch.equal(ce.ce_loss_logz(s, t, a)[0], loss)
     assert (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches) == before
     for n_valid in (-1, 51):
         with pytest.raises(ValueError):

@@ -108,6 +108,46 @@ def test_cuda_ce_kernels_match_plain(cuda_device, b, v, h, n_valid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (256, 70001, 64, 70001), (37, 5000, 64, 4990), (3, 12101, 48, 12101), (64, 20011, 256, 20006),
+])
+def test_cuda_fused_ce_matches_plain_and_the_unfused_composition(cuda_device, b, v, h, n_valid):
+    """The fused entries (loss and logZ from one ce_logz call; the finished
+    ds from one ce_grads call) on raw int64 answers (-1, >= n_valid,
+    >= V, item 0, repeats) against the plain versions, and the fused ds
+    bit-equal to the unfused composition of the same kernels: ce_grads
+    on answers of -1 (no gold terms), minus dloss[:, None] * gold_rows(...)."""
+    rng = np.random.default_rng(b + h)
+    states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
+    answers = rng.integers(1, n_valid, size=b)
+    special = [answers[0], answers[0], 0, -1, n_valid, v, v + 7]
+    answers[: min(b, len(special))] = special[:b]
+    a = torch.from_numpy(answers).to(cuda_device)  # int64, unmapped
+    d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
+    before = (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches)
+    loss, logz = ce.ce_loss_logz(states, table, a, n_valid)
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid)
+    torch.cuda.synchronize()
+    assert (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid)
+    torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+    off = (a < 0) | (a >= n_valid)
+    assert torch.equal(loss[off], logz[off])  # gold 0
+    want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
+    torch.testing.assert_close(ds, want_ds, **GRAD_TOL)
+    torch.testing.assert_close(dt, want_dt, **GRAD_TOL)
+    assert torch.equal(ce.ce_logz(states, table, n_valid), logz)
+    # answers of -1 leave out both gold terms: the unfused ds subtracts them
+    ds_sum, _ = ce.ce_grads(states, table, torch.full_like(a, -1), logz, d, n_valid)
+    unfused = ds_sum - d[:, None] * ce.gold_rows(table, ce.map_answers(a, n_valid))
+    torch.cuda.synchronize()
+    assert torch.equal(ds, unfused)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,dtype,offset,rate", [
     (256 * 50 * 64, torch.float32, 0, 0.5),
     (256 * 2 * 50 * 50, torch.float32, 0, 0.5),

@@ -150,3 +150,67 @@ def test_dropout_module_selection(monkeypatch):
         assert torch.equal(out, fd.fused_dropout_plain(x, SEEDS, 0.5, call))
     sites[0].eval()
     assert sites[0](x) is x and state.call == 3
+
+
+@pytest.mark.parametrize("rate", [-0.1, float("nan")])
+def test_a_site_checks_its_rate_when_it_is_built(rate):
+    """A bad rate raises where the site is made, not at its first call;
+    rate 0 and rates >= 1 need no kernel constants."""
+    state = DropoutState(fused=True)
+    with pytest.raises(ValueError, match="rate"):
+        make_dropout(rate, state)
+    assert FusedDropout(0.0, state).site is None and FusedDropout(1.5, state).site is None
+    site = FusedDropout(0.2, state).site
+    assert site.rate == 0.2
+    assert site.consts[torch.float32] == (0, fd.threshold(0.2), fd.inv_keep(0.2, torch.float32))
+    assert site.consts[torch.bfloat16] == (1, fd.threshold(0.2), fd.inv_keep(0.2, torch.bfloat16))
+    for bad in (1.0, -0.5):
+        with pytest.raises(ValueError, match="rate"):
+            fd.DropoutSite(bad)
+
+
+@pytest.mark.parametrize("seeds", [
+    SEEDS.int(),                      # int32
+    torch.zeros(3, dtype=torch.int64),  # three words
+    torch.zeros(2, 2, dtype=torch.int64)[:, 0],  # not contiguous
+    [1, 2],                           # not a tensor
+])
+def test_a_step_checks_its_seeds_once(seeds):
+    """`begin_step` rejects what the kernel cannot read; `dropout_apply`
+    and `fused_dropout`, the per-call entries, check the same."""
+    state = DropoutState(fused=True)
+    with pytest.raises(ValueError, match="seeds"):
+        state.begin_step(seeds)
+    x = torch.ones(8)
+    with pytest.raises(ValueError, match="seeds"):
+        fd.dropout_apply(x, seeds, 0.5, 0)
+    with pytest.raises(ValueError, match="seeds"):
+        fd.fused_dropout(x, 0.5, seeds, 0)
+
+
+def test_call_index_and_per_call_checks():
+    """The call index is checked where it is made (`next_call`) and by the
+    per-call entries; a site's call checks only x."""
+    state = DropoutState(fused=True)
+    site = make_dropout(0.5, state)
+    state.begin_step(SEEDS)
+    state.call = fd.MAX_CALLS - 1
+    site(torch.ones(4))  # the last index the kernel's counter word takes
+    with pytest.raises(ValueError, match="call index"):
+        site(torch.ones(4))
+    x = torch.ones(8)
+    for call in (-1, 1 << 32):
+        with pytest.raises(ValueError, match="call index"):
+            fd.dropout_apply(x, SEEDS, 0.5, call)
+        with pytest.raises(ValueError, match="call index"):
+            fd.fused_dropout(x, 0.5, SEEDS, call)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="rate"):
+            fd.dropout_apply(x, SEEDS, rate, 0)
+    state.begin_step(SEEDS)
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+        site(torch.ones(4, dtype=torch.float16))
+    # a non-contiguous input is made contiguous; the values are those of its copy
+    y = torch.randn(6, 4, generator=torch.Generator().manual_seed(2)).T
+    state.begin_step(SEEDS)
+    assert torch.equal(site(y), fd.fused_dropout_plain(y.contiguous(), SEEDS, 0.5, 0))
