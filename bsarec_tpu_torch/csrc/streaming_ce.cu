@@ -6,7 +6,8 @@
 //       when answers are given, loss = logZ - <s, T[a]>;
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
 //       (zeros where a is outside [0, V));
-//   - _grads_kernel  -> ce_bwd_sweep_kernel + ce_ds_reduce_kernel: with
+//   - _grads_kernel  -> ce_bwd_onchip_kernel or ce_bwd_sweep_kernel, then
+//       ce_ds_reduce_kernel: with
 //       p = exp(s . T^T - logZ) * dloss (0 past n_valid),
 //         ds = p @ T - dloss * T[a]   and   dT = p^T @ s,  then
 //         dT[a_i] -= dloss_i * s_i.
@@ -40,24 +41,51 @@
 //     exp(m_s - M)), each lane taking every 32nd split and the lanes
 //     merged by a fixed shuffle tree; then the gold logit <s, T[a]> from
 //     coalesced float4 reads of the two rows, reduced the same way.
-//   backward, pass 1: one block per vocab split. For each 64-column tile
-//     it loops over the batch in 64-row chunks: it recomputes the logits,
-//     forms p in shared memory, adds p^T @ s_chunk into the tile's dT held
-//     in shared memory, and adds p @ T_tile into its split's own partial
-//     ds rows in device memory (each element has one writer, so no
-//     atomics). After the batch, the one-hot term dT[a_i] -= d_i * s_i is
-//     applied for the answers inside the tile, in ascending i, so
-//     duplicate answers accumulate in a fixed order; the tile's dT rows
-//     are then written once. Every dT row belongs to one block.
+//   backward, pass 1: one block per vocab split, on one of two routes that
+//     the C entry picks by shape before the launch:
+//     - the on-chip route, B <= 256 and H <= 64 (the training path's B=256,
+//       H=64): ce_bwd_onchip_kernel, one block of 256 threads per SM. What
+//       the TPU kernel keeps in VMEM stays on chip for the whole sweep:
+//       every state row is staged into shared memory once (rows past B and
+//       columns past H zero), and each thread holds an 8 x 8 block of the
+//       split's ds partial in registers, written to ds_part once at the end.
+//       For each 64-column tile: the [256 x 64] logits and then p into
+//       shared memory; ds += p @ T_tile into the registers; dT = p^T @ S as
+//       four partials over 64-row groups, summed in group order through
+//       the space p held; the one-hot term dT[a_i] -= d_i * s_i for the
+//       answers inside the tile, in ascending i, so duplicate answers
+//       accumulate in a fixed order; the tile's dT rows written once.
+//       Every product runs 8 x 8 register tiles, so each 16-byte
+//       shared-memory load feeds 16 FMAs. (The sweep route's 4 x 4 tiles
+//       feed 8: Hopper's SM issues 128 fp32 FMAs but reads 128 bytes of
+//       shared memory a clock, so 8 caps a loop near half the FMA peak.)
+//       Table tiles come through a ring of two: the 16-byte cp.async.cg
+//       copies of tile t+1, one commit group a tile, are in flight while
+//       tile t computes. Shared memory at H=64: states 69,632 B, the table
+//       ring 34,816, p (then the dT partials) 73,728, logZ, dloss and
+//       answers 3,072: 181,248 of the 232,448 bytes a block may use.
+//     - the sweep route, B > 256 or H > 64, where the batch and its ds do
+//       not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per SM.
+//       For each 64-column tile it loops over the batch in 64-row chunks,
+//       staging each chunk's states again: it recomputes the logits, forms
+//       p in shared memory, adds p^T @ s_chunk into the tile's dT held in
+//       shared memory, and adds p @ T_tile into its split's partial ds rows
+//       in device memory (each element has one writer, so no atomics).
+//       The one-hot term and the dT write are as on the other route.
+//     Every dT row belongs to one block.
 //   backward, pass 2: ds = sum of the splits' partials, in split order,
 //     minus dloss_i * T[a_i][h], the product and the difference each
 //     rounded once (__fmul_rn, __fsub_rn: no FMA contraction), so that ds
 //     equals bit for bit the sum alone minus dloss[:, None] * T[a] taken
 //     by two elementwise passes.
 // Every sum is taken in a fixed order: results are deterministic.
-// Shared-memory rows are padded to H + 4 floats, so the float4 reads of a
-// quarter warp fall on distinct banks. Simple first: no wgmma, TMA or
-// cp.async pipelining yet.
+// Shared-memory rows are padded to H + 4 floats (p's to 72), so the float4
+// reads of a quarter warp, and p's scalar stores, fall on distinct banks.
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at B=256, V=1,000,000, H=64
+// (chip_smoke.py, bsarec_tpu_torch/tools/time_ce_grads.py): the on-chip
+// route's backward takes ~2.70 ms, 54% of its 1.4672 ms fp32 bound (the
+// sweep route's ~3.53 ms, 41.6%); the forward ~1.33 ms, 37% of 0.4891 ms.
+// No wgmma or TMA yet.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,9 +96,14 @@ namespace {
 constexpr int BT = 64;            // batch rows per tile / chunk
 constexpr int VT = 64;            // catalog columns per tile
 constexpr int HB = 64;            // hidden columns per output block (backward)
-constexpr int THREADS = 256;      // 16 x 16 threads
+constexpr int THREADS = 256;      // 16 x 16 threads for 4 x 4 tiles, 32 x 8 for 8 x 8
 constexpr int MAX_H = 256;
 constexpr int MAX_SMEM = 232448;  // usable shared memory per block on sm_90
+constexpr int OC_B = 256;         // ce_grads' on-chip route: B <= OC_B
+constexpr int OC_H = 64;          // ... and H <= OC_H
+constexpr int OC_LD = OC_H + 4;   // its row strides in shared memory: states, table, dT
+constexpr int OC_PLD = VT + 8;    // ... and p (8 rows of a warp's stores on distinct banks)
+static_assert(OC_B == THREADS, "the on-chip route stages one row's scalars a thread");
 constexpr int GATHER_THREADS = 256;
 constexpr int REDUCE_THREADS = 256;
 constexpr int MERGE_THREADS = 128;  // four rows a block, one warp each
@@ -411,6 +444,251 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
   }
 }
 
+// cp.async: 16-byte copies from device to shared memory that bypass the
+// registers and L1, grouped by commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Issue the copies of table rows [j0, j0 + VT), columns < H, into dst (row
+// stride OC_LD); rows >= V are zero-filled (a source size of 0).
+__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ table,
+                                                int j0, int V, int H) {
+  const int q = H / 4;
+  for (int i = threadIdx.x; i < VT * q; i += THREADS) {
+    const int r = i / q, c4 = i - r * q, row = j0 + r;
+    const float* src = table + (size_t)min(row, V - 1) * H + 4 * c4;
+    const unsigned dst_s = (unsigned)__cvta_generic_to_shared(dst + r * OC_LD + 4 * c4);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst_s), "l"(src),
+                 "r"(row < V ? 16 : 0)
+                 : "memory");
+  }
+}
+
+// The on-chip route (B <= OC_B, H <= OC_H). One block per SM walks its
+// split of the catalog in tiles of VT columns, the next tile's cp.async
+// copies in flight while a tile computes. The block holds every state row
+// for the whole sweep (staged once), and each thread holds an 8 x 8 block
+// of the split's ds partial in registers, written to ds_part once at the
+// end. Per tile, with the 256 rows x 64 columns of the tile:
+//   logits [256 x 64] = S @ T^T    8 x 8 a thread (rows ty + 32i, columns tx + 8j)
+//   p                             to shared memory, 0 past n_valid and B
+//   ds [256 x 64] += p @ T         8 x 8 a thread (rows ty + 32i, h tx*4 and 32 + tx*4)
+//   dT [64 x 64] = p^T @ S         split over four row groups of 64, 8 x 8 a thread,
+//                                  the four partials summed in group order
+// Each product reads two 16-byte values from shared memory for every 32 FMAs
+// (16 FMAs per load). Rows and columns past B and H are zero in shared
+// memory, so the products run at the padded 256 x 64 shape.
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                     const long long* __restrict__ answers, const float* __restrict__ logz,
+                     const float* __restrict__ dloss, int B, int V, int H, int n_valid,
+                     int tiles_per_split, float* __restrict__ ds_part,
+                     float* __restrict__ dtable) {
+  extern __shared__ __align__(16) float smem[];
+  float* sS = smem;                  // [OC_B][OC_LD] every state row
+  float* sT = sS + OC_B * OC_LD;     // [2][VT][OC_LD] table tiles, a ring of two
+  float* sP = sT + 2 * VT * OC_LD;   // [OC_B][OC_PLD] p; then the four dT partials [4][VT][OC_LD]
+  float* sZ = sP + OC_B * OC_PLD;    // [OC_B] logZ
+  float* sD = sZ + OC_B;             // [OC_B] dloss
+  int* sA = reinterpret_cast<int*>(sD + OC_B);  // [OC_B] the answer, -1 outside [0, n_valid)
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int grp = tid >> 6, hx = tid & 7, cy = (tid & 63) >> 3;  // the dT product's mapping
+  const int split = blockIdx.x;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int q = H / 4;
+
+  for (int i = tid; i < OC_B * (OC_H / 4); i += THREADS) {
+    const int r = i / (OC_H / 4), c4 = i - r * (OC_H / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < B && c4 < q) v = __ldg(reinterpret_cast<const float4*>(states + (size_t)r * H) + c4);
+    *reinterpret_cast<float4*>(sS + r * OC_LD + 4 * c4) = v;
+  }
+  for (int i = tid; i < 2 * VT * (OC_H - H); i += THREADS)  // columns past H stay 0
+    sT[(i / (OC_H - H)) * OC_LD + H + i % (OC_H - H)] = 0.f;
+  {
+    const bool ok = tid < B;
+    sZ[tid] = ok ? logz[tid] : 0.f;
+    sD[tid] = ok ? dloss[tid] : 0.f;
+    const long long a = ok ? answers[tid] : -1;
+    sA[tid] = in_catalog(a, n_valid) ? (int)a : -1;
+  }
+
+  float ds[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ds[i][k] = 0.f;
+
+  load_tile_async(sT, table, t_begin * VT, V, H);
+  cp_async_commit();
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j0 = t * VT;
+    cp_async_wait_all();  // this thread's copies of tile t have landed
+    __syncthreads();      // everyone's have; earlier readers of sP are done
+    const float* sTt = sT + ((t - t_begin) & 1) * VT * OC_LD;
+
+    // logits and p
+    {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+      for (int h = 0; h < OC_H; h += 4) {
+        float4 b[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(sTt + (tx + 8 * j) * OC_LD + h);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(sS + (ty + 32 * i) * OC_LD + h);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float v = acc[i][j];
+            v = fmaf(a.x, b[j].x, v);
+            v = fmaf(a.y, b[j].y, v);
+            v = fmaf(a.z, b[j].z, v);
+            v = fmaf(a.w, b[j].w, v);
+            acc[i][j] = v;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = ty + 32 * i;
+        const bool row_ok = r < B;
+        const float z = sZ[r], d = sD[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = tx + 8 * j;
+          sP[r * OC_PLD + c] = (row_ok && j0 + c < n_valid) ? expf(acc[i][j] - z) * d : 0.f;
+        }
+      }
+    }
+    // does any answer fall in this tile? (the vote is also the barrier after p)
+    const int a_mine = sA[tid];
+    const bool hit = __syncthreads_or(a_mine >= j0 && a_mine < j0 + VT);
+    // the next tile loads into the other slot, last read by the tile
+    // before's products, while this tile's products run. (Issued before
+    // the logits instead, with a wait that left one group in flight, the
+    // kernel ran 0.12 ms slower on the H100 at B=256, V=1M, H=64.)
+    if (t + 1 < t_end)
+      load_tile_async(sT + ((t + 1 - t_begin) & 1) * VT * OC_LD, table, j0 + VT, V, H);
+    cp_async_commit();
+
+    // ds += p @ T_tile
+#pragma unroll 2
+    for (int c = 0; c < VT; c += 4) {
+      float4 t0[4], t1[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        t0[k] = *reinterpret_cast<const float4*>(sTt + (c + k) * OC_LD + tx * 4);
+        t1[k] = *reinterpret_cast<const float4*>(sTt + (c + k) * OC_LD + 32 + tx * 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 p4 = *reinterpret_cast<const float4*>(sP + (ty + 32 * i) * OC_PLD + c);
+        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          ds[i][0] = fmaf(pv[k], t0[k].x, ds[i][0]);
+          ds[i][1] = fmaf(pv[k], t0[k].y, ds[i][1]);
+          ds[i][2] = fmaf(pv[k], t0[k].z, ds[i][2]);
+          ds[i][3] = fmaf(pv[k], t0[k].w, ds[i][3]);
+          ds[i][4] = fmaf(pv[k], t1[k].x, ds[i][4]);
+          ds[i][5] = fmaf(pv[k], t1[k].y, ds[i][5]);
+          ds[i][6] = fmaf(pv[k], t1[k].z, ds[i][6]);
+          ds[i][7] = fmaf(pv[k], t1[k].w, ds[i][7]);
+        }
+      }
+    }
+
+    // this row group's dT partial: rows c = cy*4 + k and 32 + cy*4 + k,
+    // columns h = hx*4 + k and 32 + hx*4 + k, summed over its 64 batch rows
+    float g[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) g[i][k] = 0.f;
+#pragma unroll 2
+    for (int r = grp * 64; r < grp * 64 + 64; ++r) {
+      const float4 p0 = *reinterpret_cast<const float4*>(sP + r * OC_PLD + cy * 4);
+      const float4 p1 = *reinterpret_cast<const float4*>(sP + r * OC_PLD + 32 + cy * 4);
+      const float4 s0 = *reinterpret_cast<const float4*>(sS + r * OC_LD + hx * 4);
+      const float4 s1 = *reinterpret_cast<const float4*>(sS + r * OC_LD + 32 + hx * 4);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) g[i][k] = fmaf(pv[i], sv[k], g[i][k]);
+    }
+    __syncthreads();  // every reader of p is done: its space takes the partials
+    float* part = sP + grp * VT * OC_LD;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* row = part + ((i & 4) * 8 + cy * 4 + (i & 3)) * OC_LD;
+      *reinterpret_cast<float4*>(row + hx * 4) = make_float4(g[i][0], g[i][1], g[i][2], g[i][3]);
+      *reinterpret_cast<float4*>(row + 32 + hx * 4) = make_float4(g[i][4], g[i][5], g[i][6], g[i][7]);
+    }
+    __syncthreads();
+
+    // dT tile = the four partials in group order; then, for the answers
+    // that fall in the tile, the one-hot term in ascending i (duplicate
+    // answers accumulate in a fixed order); each dT row has one writer
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int f = tid + THREADS * k, c = f >> 4, h = (f & 15) * 4;
+      const float* e = sP + c * OC_LD + h;
+      float4 v = *reinterpret_cast<const float4*>(e);
+#pragma unroll
+      for (int gi = 1; gi < 4; ++gi) {
+        const float4 o = *reinterpret_cast<const float4*>(e + gi * VT * OC_LD);
+        v.x += o.x;
+        v.y += o.y;
+        v.z += o.z;
+        v.w += o.w;
+      }
+      if (hit)
+        *reinterpret_cast<float4*>(sP + c * OC_LD + h) = v;
+      else if (j0 + c < V && h < H)
+        *reinterpret_cast<float4*>(dtable + (size_t)(j0 + c) * H + h) = v;
+    }
+    if (hit) {  // rare: at most B of the catalog's tiles
+      __syncthreads();
+      for (int h = tid; h < H; h += THREADS)
+        for (int i = 0; i < B; ++i) {
+          const int a = sA[i];
+          if (a >= j0 && a < j0 + VT) sP[(a - j0) * OC_LD + h] -= sD[i] * sS[i * OC_LD + h];
+        }
+      __syncthreads();
+      for (int i = tid; i < VT * q; i += THREADS) {
+        const int c = i / q, c4 = i - c * q;
+        if (j0 + c < V)
+          reinterpret_cast<float4*>(dtable + (size_t)(j0 + c) * H)[c4] =
+              *reinterpret_cast<const float4*>(sP + c * OC_LD + 4 * c4);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 32 * i;
+    if (r >= B) continue;
+    float* dst = ds_part + ((size_t)split * B + r) * H;
+    if (tx * 4 < H)
+      *reinterpret_cast<float4*>(dst + tx * 4) = make_float4(ds[i][0], ds[i][1], ds[i][2], ds[i][3]);
+    if (32 + tx * 4 < H)
+      *reinterpret_cast<float4*>(dst + 32 + tx * 4) = make_float4(ds[i][4], ds[i][5], ds[i][6], ds[i][7]);
+  }
+}
+
 // ds [B, H] = the splits' partials summed in split order, then minus
 // dloss_i * table[a_i][h] for a_i in [0, n_valid).
 __global__ void __launch_bounds__(REDUCE_THREADS)
@@ -433,17 +711,26 @@ bool bad_shape(int B, int V, int H) {
   return B < 1 || V < 1 || H < 4 || H > MAX_H || H % 4 != 0;
 }
 
+// ce_grads' route, by shape: the on-chip sweep where the batch and its ds
+// fit beside the tiles, ce_bwd_sweep_kernel elsewhere.
+bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory of the forward's pass 1 (which = 0) and of the backward's
-// pass 1 (which = 1) at hidden size H.
-long long streaming_ce_smem_bytes(int H, int which) {
+// pass 1 (which = 1: the route B and H take) at batch B, hidden size H.
+long long streaming_ce_smem_bytes(int B, int H, int which) {
   const long long ld = H + 4;
   if (which == 0) return (long long)sizeof(float) * (BT + VT) * ld;
+  if (onchip_route(B, H))
+    return (long long)sizeof(float) * (OC_B * OC_LD + 2 * VT * OC_LD + OC_B * OC_PLD + 3 * OC_B);
   return (long long)sizeof(float) * (BT * ld + 2 * VT * ld + BT * (VT + 4) + 2 * BT);
 }
+
+// 1 where ce_grads takes the on-chip route at batch B, hidden size H.
+int ce_grads_onchip(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 
 // logZ [B] of states [B, H] against table [V, H] over columns < n_valid,
 // and, when answers (int64 [B]) and loss are not null, loss [B] = logZ -
@@ -457,7 +744,7 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr))
     return (int)cudaErrorInvalidValue;
-  const long long smem = streaming_ce_smem_bytes(H, 0);
+  const long long smem = streaming_ce_smem_bytes(B, H, 0);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaFuncSetAttribute(ce_fwd_partial_kernel,
@@ -493,9 +780,11 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // p^T @ states - onehot, with p = exp(states @ table^T - logz) * dloss over
 // columns < n_valid and the one-hot term dtable[a_i] -= dloss_i * states_i,
 // for the int64 answers a_i in [0, n_valid) only (the others have neither
-// term). The caller allocates ds_part ([n_splits, B, H]); n_splits *
-// tiles_per_split tiles must cover V, and every split must hold at least
-// one tile. Returns 0 or a cudaError_t code.
+// term). The route is the shape's (ce_grads_onchip): one block per SM
+// suits the on-chip route, two the sweep route. The caller allocates
+// ds_part ([n_splits, B, H]); n_splits * tiles_per_split tiles must cover
+// V, and every split must hold at least one tile. Returns 0 or a
+// cudaError_t code.
 int ce_grads(const void* states, const void* table, const void* answers, const void* logz,
              const void* dloss, int B, int V, int H, int n_valid, int n_splits,
              int tiles_per_split, void* ds_part, void* ds, void* dtable, void* stream) {
@@ -504,13 +793,14 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
       (long long)(n_splits - 1) * tiles_per_split >= n_tiles)
     return (int)cudaErrorInvalidValue;
-  const long long smem = streaming_ce_smem_bytes(H, 1);
+  const long long smem = streaming_ce_smem_bytes(B, H, 1);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(ce_bwd_sweep_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto sweep = onchip_route(B, H) ? ce_bwd_onchip_kernel : ce_bwd_sweep_kernel;
+  cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  ce_bwd_sweep_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+  sweep<<<n_splits, THREADS, (size_t)smem, s>>>(
       static_cast<const float*>(states), static_cast<const float*>(table),
       static_cast<const long long*>(answers), static_cast<const float*>(logz),
       static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,

@@ -19,7 +19,11 @@ building the [B, V] logit matrix on the card. Three CUDA kernels in
   p = softmax · dloss, then dT[a_i] -= dloss_i · s_i, duplicate answers
   accumulating. Its ds-reduce pass takes the gold term, which the JAX
   package composes outside the kernel with its gather
-  (`pallas_ce.py:553-555`).
+  (`pallas_ce.py:553-555`). The sweep takes one of two routes, by shape
+  (`grads_onchip`): at B <= 256 and H <= 64 the batch and its ds stay on
+  chip for the whole sweep (one block per SM), elsewhere the older sweep
+  re-stages them per tile (two blocks per SM). `ce_grads.onchip_launches`
+  counts the first apart.
 
 Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
@@ -146,9 +150,18 @@ def _lib() -> ctypes.CDLL:
     lib.ce_grads.restype = i
     lib.streaming_ce_error.argtypes = [i]
     lib.streaming_ce_error.restype = ctypes.c_char_p
-    lib.streaming_ce_smem_bytes.argtypes = [i, i]
+    lib.streaming_ce_smem_bytes.argtypes = [i, i, i]
     lib.streaming_ce_smem_bytes.restype = ctypes.c_longlong
+    lib.ce_grads_onchip.argtypes = [i, i]
+    lib.ce_grads_onchip.restype = i
     return lib
+
+
+@functools.cache
+def grads_onchip(b: int, h: int) -> bool:
+    """True where `ce_grads` takes the kernel's on-chip route (the batch
+    and its ds held in the block for the whole sweep), by shape."""
+    return bool(_lib().ce_grads_onchip(b, h))
 
 
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per tile
@@ -186,7 +199,7 @@ def _check_matrices(states: torch.Tensor, table: torch.Tensor) -> tuple[int, int
 
 def _raise(what: str, rc: int, b: int, v: int, h: int, which: int | None = None) -> None:
     lib = _lib()
-    smem = "" if which is None else f", shared memory {lib.streaming_ce_smem_bytes(h, which)} bytes"
+    smem = "" if which is None else f", shared memory {lib.streaming_ce_smem_bytes(b, h, which)} bytes"
     raise RuntimeError(f"{what} launch failed ({rc}: {lib.streaming_ce_error(rc).decode()}); "
                        f"B={b} V={v} H={h}{smem}")
 
@@ -236,8 +249,9 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid):
     _require("answers", answers, torch.int64, (b,), index)
     _require("logz", logz, torch.float32, (b,), index)
     _require("dloss", dloss, torch.float32, (b,), index)
-    # one block per split, two per SM
-    n_splits, per = _even_splits(-(-v // _VT), 2 * sm_count(index))
+    onchip = grads_onchip(b, h)
+    # one block per split: one per SM on the on-chip route, two elsewhere
+    n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
     ds_part = states.new_empty((n_splits, b, h))
     ds = states.new_empty((b, h))
     dt = table.new_empty((v, h))
@@ -247,6 +261,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid):
     if rc != 0:
         _raise("ce_grads", rc, b, v, h, 1)
     ce_grads.launches += 1
+    ce_grads.onchip_launches += onchip
     return ds, dt
 
 
@@ -305,6 +320,7 @@ def ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
 ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's included
 gold_rows.launches = 0
 ce_grads.launches = 0
+ce_grads.onchip_launches = 0  # the launches that took the on-chip route
 
 
 class _StreamingCE(torch.autograd.Function):

@@ -22,10 +22,12 @@ Phases, each of which raises (exit code 1) when it fails:
    answers of -1, >= n_valid and >= V, an answer at item 0): the fused
    forward's loss and logZ (one ce_logz call), the finished ds and dT
    (one ce_grads call), both through the autograd function, within
-   CE_TOL and GRAD_TOL; the standalone gather bit-equal; and the fused
+   CE_TOL and GRAD_TOL; the standalone gather bit-equal; the fused
    ds bit-equal to the unfused composition of the same kernels
    (ce_grads with every answer set to -1, which leaves out the gold
-   terms, minus dloss * gold_rows).
+   terms, minus dloss * gold_rows); ce_grads on the route its shape
+   names (on-chip at B <= 256 and H <= 64, the sweep at H in {128, 256}),
+   and two ce_grads calls on the same inputs bit-equal in ds and dT.
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -51,10 +53,11 @@ Phases, each of which raises (exit code 1) when it fails:
    without `--do_eval` on a 1,000,000-item x 10,000-user corpus, BSARec
    at the same widths with dropout 0.5, batch 256, lr 5e-4, 2 epochs;
    then `--resume --epochs 3 --export_topk`, which must start at epoch
-   2. The CE forward and backward kernels must launch once per step and
-   the standalone gather never; every epoch's loss must be finite and epoch 1's
-   below epoch 0's; the checkpoint and the `.state` snapshot must exist;
-   the test scores must lie in [0, 1].
+   2. The CE forward and backward kernels must launch once per step, every
+   ce_grads launch on its on-chip route, and the standalone gather never;
+   every epoch's loss must be finite and epoch 1's below epoch 0's; the
+   checkpoint and the `.state` snapshot must exist; the test scores must
+   lie in [0, 1].
 8. Drive SASRec's training path: `main --model_type SASRec --prng rbg`
    with BSAREC_DROPOUT=pallas at the CLI defaults on the same corpus, 2
    epochs, then `--resume --epochs 3`; exactly 14 dropout launches per
@@ -558,10 +561,21 @@ def compare_ce(case_name, states, table, answers, n_valid):
           f"{case_name}: gradient error ds {ds_err}, dT {dt_err} > {GRAD_TOL}")
     check(not dt[n_valid:].any(), f"{case_name}: dT rows past n_valid must be 0")
     d = torch.full((states.shape[0],), 1.0 / states.shape[0], device=states.device)
+    # two calls on the same inputs give the same bits, on the route the shape takes
+    onchip_before = ce.ce_grads.onchip_launches
+    fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid)
+    again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid)
+    torch.cuda.synchronize()
+    n_onchip = ce.ce_grads.onchip_launches - onchip_before
+    route = "on-chip" if n_onchip else "sweep"
+    check(n_onchip == (2 if ce.grads_onchip(*states.shape) else 0),
+          f"{case_name}: ce_grads took another route than its shape names")
+    check(torch.equal(fused_ds, again_ds) and torch.equal(fused_dt, again_dt),
+          f"{case_name}: two ce_grads calls on the same inputs differ")
+    del again_ds, again_dt, fused_dt
     # the unfused ds: ce_grads with every answer off the catalog leaves out
     # both gold terms, and the caller subtracts the gathered rows
     no_answers = torch.full_like(answers, -1)
-    fused_ds, _ = ce.ce_grads(states, table, answers, logz, d, n_valid)
     sum_ds, _ = ce.ce_grads(states, table, no_answers, logz, d, n_valid)
     unfused_ds = sum_ds - d[:, None] * ce.gold_rows(table, mapped)
     torch.cuda.synchronize()
@@ -579,7 +593,7 @@ def compare_ce(case_name, states, table, answers, n_valid):
     log(f"CE kernels vs plain {case_name}: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
         f"loss through autograd {loss_err:.3g}, ds {ds_err:.3g}, dT {dt_err:.3g} (relative to the "
         f"largest |plain|), {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
-        f"to ce_grads(answers -1) - dloss * gold_rows; "
+        f"to ce_grads(answers -1) - dloss * gold_rows; ce_grads route {route}, two calls bit-equal; "
         f"max abs err logZ/loss {abs_err['ce_logz']:.3g}, ds/dT {abs_err['ce_grads']:.3g}")
     return abs_err
 
@@ -704,6 +718,7 @@ def phase_train(device, workdir):
     import torch
 
     from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch.ops import ce
 
     seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
     with open(os.path.join(workdir, "synth_train.txt"), "w") as fh:
@@ -723,16 +738,18 @@ def phase_train(device, workdir):
         torch.cuda.synchronize(device)
         counts = read_counts()
         check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
-        return scores, counts, time.perf_counter() - t0
+        return scores, counts | {"ce_grads_onchip": ce.ce_grads.onchip_launches}, \
+            time.perf_counter() - t0
 
     scores, counts, seconds = run(["--epochs", "2"])
     log(f"train path: main(--epochs 2) on {TRAIN_USERS} users x {N_ITEMS} items, {n_samples} "
         f"samples = {steps} steps per epoch, returned in {seconds:.1f}s, test scores {scores}; "
         f"launches {counts}")
-    # one ce_logz call (loss and logZ) and one ce_grads call per step; the
-    # gold terms ride in them, so the standalone gather never launches
+    # one ce_logz call (loss and logZ) and one ce_grads call per step, on
+    # its on-chip route (B=256, H=64); the gold terms ride in them, so the
+    # standalone gather never launches
     want = zero_counts() | {"ce_logz": 2 * steps, "ce_grads": 2 * steps,
-                            "streaming_masked_topk": 3 * eval_steps}
+                            "streaming_masked_topk": 3 * eval_steps, "ce_grads_onchip": 2 * steps}
     check(counts == want, f"train path launches {counts}, want {want}")
     first_counts = counts
     text = read_log(os.path.join(workdir, "smoke_train.log"))
@@ -754,7 +771,7 @@ def phase_train(device, workdir):
     check(len(losses) == 3 and "'epoch': 2," in text and math.isfinite(losses[2]),
           f"resumed run: epoch losses {losses}")
     want = zero_counts() | {"ce_logz": steps, "ce_grads": steps,
-                            "streaming_masked_topk": 3 * eval_steps}
+                            "streaming_masked_topk": 3 * eval_steps, "ce_grads_onchip": steps}
     check(counts == want, f"resumed launches {counts}, want {want}")
     topk = np.load(topk_path)
     check(topk.shape == (TRAIN_USERS, TOP_K) and 0 <= int(topk.min()) and int(topk.max()) < N_ITEMS,
@@ -1053,8 +1070,11 @@ def kernel_wrappers():
 
 
 def reset_counts() -> None:
+    from bsarec_tpu_torch.ops import ce
+
     for f in kernel_wrappers().values():
         f.launches = 0
+    ce.ce_grads.onchip_launches = 0
 
 
 def read_counts() -> dict:
@@ -1551,6 +1571,7 @@ def main() -> int:
             "launches": train_launches[name],
             "max_abs_err": ce_err[name],
             **ce_times[name],
+            **({"onchip_launches": train_launches["ce_grads_onchip"]} if name == "ce_grads" else {}),
         })
     kernels.append({
         "name": "fused_dropout",

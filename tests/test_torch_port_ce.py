@@ -215,13 +215,18 @@ def test_gather_and_answer_mapping():
 def test_wrappers_on_cpu_run_plain_and_validate():
     states, table, answers = _inputs(6, 50, 8, 50, seed=6)
     s, t, a = torch.from_numpy(states), torch.from_numpy(table), torch.from_numpy(answers)
-    before = (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches)
+    counts = lambda: (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches,
+                      ce.ce_grads.onchip_launches)
+    before = counts()
     assert torch.equal(ce.ce_logz(s, t), ce.ce_logz_plain(s, t, 50))
     assert torch.equal(ce.gold_rows(t, a), ce.gold_rows_plain(t, a))
     loss = ce.streaming_softmax_ce(s, t, a)
     assert torch.equal(loss, ce.streaming_softmax_ce_plain(s, t, a))
     assert torch.equal(ce.ce_loss_logz(s, t, a)[0], loss)
-    assert (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches) == before
+    logz, d = ce.ce_logz(s, t), torch.ones(6)
+    for got, want in zip(ce.ce_grads(s, t, a, logz, d), ce.ce_grads_plain(s, t, a, logz, d, 50)):
+        assert torch.equal(got, want)
+    assert counts() == before
     for n_valid in (-1, 51):
         with pytest.raises(ValueError):
             ce.ce_logz(s, t, n_valid)

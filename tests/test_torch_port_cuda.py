@@ -148,6 +148,37 @@ def test_cuda_fused_ce_matches_plain_and_the_unfused_composition(cuda_device, b,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,onchip", [
+    (256, 64, True), (257, 64, False), (255, 64, True), (1, 64, True),
+    (256, 60, True), (64, 128, False), (64, 64, True),
+])
+def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
+    """ce_grads on both sides of the on-chip route's bounds (B <= 256,
+    H <= 64): the route the shape names, the plain version's gradients
+    within the tolerance, and two calls bit-equal."""
+    v, n_valid = 9001, 8999
+    rng = np.random.default_rng(b * 1000 + h)
+    states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
+    answers = rng.integers(0, v + 3, size=b)  # some at or past n_valid
+    answers[: min(b, 4)] = answers[0]  # repeats
+    a = torch.from_numpy(answers).to(cuda_device)
+    d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
+    logz = ce.ce_logz(states, table, n_valid)
+    assert ce.grads_onchip(b, h) == onchip
+    before = (ce.ce_grads.launches, ce.ce_grads.onchip_launches)
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid)
+    ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid)
+    torch.cuda.synchronize()
+    assert (ce.ce_grads.launches, ce.ce_grads.onchip_launches) == (
+        before[0] + 2, before[1] + 2 * onchip)
+    assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
+    torch.testing.assert_close(ds, want_ds, **GRAD_TOL)
+    torch.testing.assert_close(dt, want_dt, **GRAD_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,dtype,offset,rate", [
     (256 * 50 * 64, torch.float32, 0, 0.5),
     (256 * 2 * 50 * 50, torch.float32, 0, 0.5),
