@@ -31,12 +31,18 @@
 // carry (max, sum) or the ds accumulator in VMEM from step to step.
 // Hopper blocks run in no order, so each reduction across the catalog
 // takes a second pass:
-//   forward, pass 1: grid (vocab splits x batch tiles of 64 rows). A block
-//     keeps its 64 state rows in shared memory, walks its split in tiles
-//     of 64 columns, computes the 64 x 64 logits with fp32 FMAs (4 x 4 a
-//     thread), masks columns >= n_valid, and folds each tile into a
-//     per-thread online (max, sum); the 16 threads of a row merge by
-//     shuffles and write one partial (m, s) per (split, row).
+//   forward, pass 1: per vocab split, in tiles of 64 columns, the logits
+//     with fp32 FMAs, columns >= n_valid masked, each tile folded into a
+//     per-thread online (max, sum) after its max; the threads of a row
+//     merge by shuffles in a fixed order and write one partial (m, s) per
+//     (split, row). Two routes, picked by shape in the C entry:
+//     - the on-chip route, B <= 256 and H <= 64 (the training path):
+//       ce_fwd_onchip_kernel on onchip_tile.cuh's skeleton, one block of
+//       256 threads per SM: every state row staged once, a cp.async ring
+//       of two table tiles, 8 x 8 logits a thread, one barrier a tile;
+//     - elsewhere ce_fwd_partial_kernel, grid (vocab splits x batch tiles
+//       of 64 rows), each block staging its 64 state rows and each table
+//       tile synchronously, 4 x 4 logits a thread.
 //   forward, pass 2: one warp per row. logZ = M + log(sum_s s_s *
 //     exp(m_s - M)), each lane taking every 32nd split and the lanes
 //     merged by a fixed shuffle tree; then the gold logit <s, T[a]> from
@@ -59,9 +65,9 @@
 //       shared-memory load feeds 16 FMAs. (The sweep route's 4 x 4 tiles
 //       feed 8: Hopper's SM issues 128 fp32 FMAs but reads 128 bytes of
 //       shared memory a clock, so 8 caps a loop near half the FMA peak.)
-//       Table tiles come through a ring of two: the 16-byte cp.async.cg
-//       copies of tile t+1, one commit group a tile, are in flight while
-//       tile t computes. Shared memory at H=64: states 69,632 B, the table
+//       Table tiles come through onchip_tile.cuh's ring of two: the
+//       16-byte cp.async.cg copies of tile t+1, one commit group a tile,
+//       are in flight while tile t computes. Shared memory at H=64: states 69,632 B, the table
 //       ring 34,816, p (then the dT partials) 73,728, logZ, dloss and
 //       answers 3,072: 181,248 of the 232,448 bytes a block may use.
 //     - the sweep route, B > 256 or H > 64, where the batch and its ds do
@@ -82,14 +88,16 @@
 // Shared-memory rows are padded to H + 4 floats (p's to 72), so the float4
 // reads of a quarter warp, and p's scalar stores, fall on distinct banks.
 // On one "NVIDIA H100 80GB HBM3, 700.00 W" at B=256, V=1,000,000, H=64
-// (chip_smoke.py, bsarec_tpu_torch/tools/time_ce_grads.py): the on-chip
-// route's backward takes ~2.70 ms, 54% of its 1.4672 ms fp32 bound (the
-// sweep route's ~3.53 ms, 41.6%); the forward ~1.33 ms, 37% of 0.4891 ms.
-// No wgmma or TMA yet.
+// (chip_smoke.py, bsarec_tpu_torch/tools/time_kernels.py): the on-chip
+// routes' backward takes ~2.66 ms, 55% of its 1.4672 ms fp32 bound (the
+// sweep route's ~3.53 ms, 41.6%), their forward ~0.945 ms, 52% of 0.4891
+// ms (the partial-kernel route's ~1.33 ms, 37%). No wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "onchip_tile.cuh"
 
 namespace {
 
@@ -99,11 +107,12 @@ constexpr int HB = 64;            // hidden columns per output block (backward)
 constexpr int THREADS = 256;      // 16 x 16 threads for 4 x 4 tiles, 32 x 8 for 8 x 8
 constexpr int MAX_H = 256;
 constexpr int MAX_SMEM = 232448;  // usable shared memory per block on sm_90
-constexpr int OC_B = 256;         // ce_grads' on-chip route: B <= OC_B
-constexpr int OC_H = 64;          // ... and H <= OC_H
-constexpr int OC_LD = OC_H + 4;   // its row strides in shared memory: states, table, dT
-constexpr int OC_PLD = VT + 8;    // ... and p (8 rows of a warp's stores on distinct banks)
-static_assert(OC_B == THREADS, "the on-chip route stages one row's scalars a thread");
+constexpr int OC_B = onchip::ROWS;  // the on-chip routes: B <= OC_B
+constexpr int OC_H = onchip::MAX_H;  // ... and H <= OC_H
+constexpr int OC_LD = onchip::LD;    // their row strides in shared memory: states, table, dT
+constexpr int OC_PLD = VT + 8;       // ... and p (8 rows of a warp's stores on distinct banks)
+static_assert(OC_B == THREADS && onchip::THREADS == THREADS && onchip::VT == VT,
+              "the on-chip routes stage one row's scalars a thread, on onchip_tile.cuh's tiles");
 constexpr int GATHER_THREADS = 256;
 constexpr int REDUCE_THREADS = 256;
 constexpr int MERGE_THREADS = 128;  // four rows a block, one warp each
@@ -225,6 +234,94 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + ty * 4 + i;
+      if (row < B) {
+        part_m[(size_t)split * B + row] = m[i];
+        part_s[(size_t)split * B + row] = s[i];
+      }
+    }
+  }
+}
+
+// The forward's on-chip route (B <= OC_B, H <= OC_H): one block per SM
+// walks its split in tiles of VT columns on onchip_tile.cuh's skeleton
+// (every state row staged once, the table ring of two, 8 x 8 logits a
+// thread). Each thread keeps an online (max, sum) for each of its 8 rows:
+// per tile it masks the columns >= n_valid, takes its 8 columns' max, and
+// rescales its sum at most once. The 8 lanes of a row then merge in a
+// fixed order (offsets 1, 2, 4) and lane tx = 0 writes one (m, s) per
+// (split, row). No value goes through shared memory, so the ring's
+// barrier is the tile's only one.
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
+                     int V, int H, int n_valid, int tiles_per_split,
+                     float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) float smem[];
+  float* sS = smem;                     // [OC_B][OC_LD] every state row
+  float* sT = sS + onchip::STATE_FLOATS;  // [2][VT][OC_LD] table tiles, a ring of two
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const int split = blockIdx.x;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+
+  onchip::stage_states(sS, sT, states, B, H);
+  float m[8], s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    s[i] = 0.f;
+  }
+  onchip::load_tile_async(sT, table, t_begin * VT, V, H);
+  onchip::cp_async_commit();
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j0 = t * VT;
+    onchip::cp_async_wait_all();  // this thread's copies of tile t have landed
+    __syncthreads();              // everyone's have; every reader of the other slot is done
+    if (t + 1 < t_end)
+      onchip::load_tile_async(sT + ((t + 1 - t_begin) & 1) * VT * OC_LD, table, j0 + VT, V, H);
+    onchip::cp_async_commit();
+    float acc[8][8];
+    onchip::tile_logits(sS, sT + ((t - t_begin) & 1) * VT * OC_LD, acc, tx, ty);
+    if (j0 + VT > n_valid) {  // the tile reaches past the valid columns
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j0 + tx + 8 * j >= n_valid)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i][j] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float tmax = acc[i][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, acc[i][j]);
+      if (tmax > -INFINITY) {
+        if (tmax > m[i]) {
+          s[i] *= expf(m[i] - tmax);  // exp(-inf) = 0 on the row's first column
+          m[i] = tmax;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i] += expf(acc[i][j] - m[i]);
+      }
+    }
+  }
+  // the 8 threads of a row are 8 consecutive lanes: merge their (m, s)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float om = __shfl_xor_sync(FULL, m[i], off);
+      const float os = __shfl_xor_sync(FULL, s[i], off);
+      const float mm = fmaxf(m[i], om);
+      if (mm > -INFINITY) {
+        s[i] = s[i] * expf(m[i] - mm) + os * expf(om - mm);
+        m[i] = mm;
+      }
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = ty + 32 * i;
       if (row < B) {
         part_m[(size_t)split * B + row] = m[i];
         part_s[(size_t)split * B + row] = s[i];
@@ -444,30 +541,6 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
   }
 }
 
-// cp.async: 16-byte copies from device to shared memory that bypass the
-// registers and L1, grouped by commit.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Issue the copies of table rows [j0, j0 + VT), columns < H, into dst (row
-// stride OC_LD); rows >= V are zero-filled (a source size of 0).
-__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ table,
-                                                int j0, int V, int H) {
-  const int q = H / 4;
-  for (int i = threadIdx.x; i < VT * q; i += THREADS) {
-    const int r = i / q, c4 = i - r * q, row = j0 + r;
-    const float* src = table + (size_t)min(row, V - 1) * H + 4 * c4;
-    const unsigned dst_s = (unsigned)__cvta_generic_to_shared(dst + r * OC_LD + 4 * c4);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst_s), "l"(src),
-                 "r"(row < V ? 16 : 0)
-                 : "memory");
-  }
-}
-
 // The on-chip route (B <= OC_B, H <= OC_H). One block per SM walks its
 // split of the catalog in tiles of VT columns, the next tile's cp.async
 // copies in flight while a tile computes. The block holds every state row
@@ -503,14 +576,7 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const int q = H / 4;
 
-  for (int i = tid; i < OC_B * (OC_H / 4); i += THREADS) {
-    const int r = i / (OC_H / 4), c4 = i - r * (OC_H / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < B && c4 < q) v = __ldg(reinterpret_cast<const float4*>(states + (size_t)r * H) + c4);
-    *reinterpret_cast<float4*>(sS + r * OC_LD + 4 * c4) = v;
-  }
-  for (int i = tid; i < 2 * VT * (OC_H - H); i += THREADS)  // columns past H stay 0
-    sT[(i / (OC_H - H)) * OC_LD + H + i % (OC_H - H)] = 0.f;
+  onchip::stage_states(sS, sT, states, B, H);
   {
     const bool ok = tid < B;
     sZ[tid] = ok ? logz[tid] : 0.f;
@@ -525,40 +591,18 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
 #pragma unroll
     for (int k = 0; k < 8; ++k) ds[i][k] = 0.f;
 
-  load_tile_async(sT, table, t_begin * VT, V, H);
-  cp_async_commit();
+  onchip::load_tile_async(sT, table, t_begin * VT, V, H);
+  onchip::cp_async_commit();
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
-    cp_async_wait_all();  // this thread's copies of tile t have landed
-    __syncthreads();      // everyone's have; earlier readers of sP are done
+    onchip::cp_async_wait_all();  // this thread's copies of tile t have landed
+    __syncthreads();              // everyone's have; earlier readers of sP are done
     const float* sTt = sT + ((t - t_begin) & 1) * VT * OC_LD;
 
     // logits and p
     {
       float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-      for (int h = 0; h < OC_H; h += 4) {
-        float4 b[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(sTt + (tx + 8 * j) * OC_LD + h);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(sS + (ty + 32 * i) * OC_LD + h);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float v = acc[i][j];
-            v = fmaf(a.x, b[j].x, v);
-            v = fmaf(a.y, b[j].y, v);
-            v = fmaf(a.z, b[j].z, v);
-            v = fmaf(a.w, b[j].w, v);
-            acc[i][j] = v;
-          }
-        }
-      }
+      onchip::tile_logits(sS, sTt, acc, tx, ty);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int r = ty + 32 * i;
@@ -579,8 +623,8 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
     // the logits instead, with a wait that left one group in flight, the
     // kernel ran 0.12 ms slower on the H100 at B=256, V=1M, H=64.)
     if (t + 1 < t_end)
-      load_tile_async(sT + ((t + 1 - t_begin) & 1) * VT * OC_LD, table, j0 + VT, V, H);
-    cp_async_commit();
+      onchip::load_tile_async(sT + ((t + 1 - t_begin) & 1) * VT * OC_LD, table, j0 + VT, V, H);
+    onchip::cp_async_commit();
 
     // ds += p @ T_tile
 #pragma unroll 2
@@ -711,8 +755,9 @@ bool bad_shape(int B, int V, int H) {
   return B < 1 || V < 1 || H < 4 || H > MAX_H || H % 4 != 0;
 }
 
-// ce_grads' route, by shape: the on-chip sweep where the batch and its ds
-// fit beside the tiles, ce_bwd_sweep_kernel elsewhere.
+// The route of both sweeps, by shape: the on-chip kernels where the batch
+// (and the backward's ds) fit beside the tiles, ce_fwd_partial_kernel and
+// ce_bwd_sweep_kernel elsewhere.
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 
 }  // namespace
@@ -720,24 +765,29 @@ bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 extern "C" {
 
 // Shared memory of the forward's pass 1 (which = 0) and of the backward's
-// pass 1 (which = 1: the route B and H take) at batch B, hidden size H.
+// pass 1 (which = 1) on the route B and H take, at batch B, hidden size H.
 long long streaming_ce_smem_bytes(int B, int H, int which) {
   const long long ld = H + 4;
-  if (which == 0) return (long long)sizeof(float) * (BT + VT) * ld;
+  if (which == 0)
+    return (long long)sizeof(float) *
+           (onchip_route(B, H) ? onchip::STATE_FLOATS + onchip::RING_FLOATS : (BT + VT) * ld);
   if (onchip_route(B, H))
     return (long long)sizeof(float) * (OC_B * OC_LD + 2 * VT * OC_LD + OC_B * OC_PLD + 3 * OC_B);
   return (long long)sizeof(float) * (BT * ld + 2 * VT * ld + BT * (VT + 4) + 2 * BT);
 }
 
-// 1 where ce_grads takes the on-chip route at batch B, hidden size H.
-int ce_grads_onchip(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
+// 1 where ce_logz and ce_grads take their on-chip routes at batch B,
+// hidden size H.
+int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 
 // logZ [B] of states [B, H] against table [V, H] over columns < n_valid,
 // and, when answers (int64 [B]) and loss are not null, loss [B] = logZ -
 // <states[i], table[answers[i]]> with gold 0 for answers outside
-// [0, n_valid). answers and loss are both given or both null. The caller
-// allocates the partials part_m, part_s ([n_splits, B]); n_splits *
-// tiles_per_split tiles must cover V. Returns 0 or a cudaError_t code.
+// [0, n_valid). answers and loss are both given or both null. The route
+// is the shape's (ce_onchip_route): one block per SM suits the on-chip
+// route, two the other. The caller allocates the partials part_m, part_s
+// ([n_splits, B]); n_splits * tiles_per_split tiles must cover V. Returns
+// 0 or a cudaError_t code.
 int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
             int n_valid, int n_splits, int tiles_per_split, void* part_m, void* part_s,
             void* logz, void* loss, void* stream) {
@@ -747,10 +797,12 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
   const long long smem = streaming_ce_smem_bytes(B, H, 0);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(ce_fwd_partial_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool onchip = onchip_route(B, H);
+  auto sweep = onchip ? ce_fwd_onchip_kernel : ce_fwd_partial_kernel;
+  cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  ce_fwd_partial_kernel<<<dim3(n_splits, (B + BT - 1) / BT), THREADS, (size_t)smem, s>>>(
+  sweep<<<dim3(n_splits, onchip ? 1 : (B + BT - 1) / BT), THREADS, (size_t)smem, s>>>(
       static_cast<const float*>(states), static_cast<const float*>(table), B, V, H, n_valid,
       tiles_per_split, static_cast<float*>(part_m), static_cast<float*>(part_s));
   e = cudaGetLastError();
@@ -780,7 +832,7 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // p^T @ states - onehot, with p = exp(states @ table^T - logz) * dloss over
 // columns < n_valid and the one-hot term dtable[a_i] -= dloss_i * states_i,
 // for the int64 answers a_i in [0, n_valid) only (the others have neither
-// term). The route is the shape's (ce_grads_onchip): one block per SM
+// term). The route is the shape's (ce_onchip_route): one block per SM
 // suits the on-chip route, two the sweep route. The caller allocates
 // ds_part ([n_splits, B, H]); n_splits * tiles_per_split tiles must cover
 // V, and every split must hold at least one tile. Returns 0 or a

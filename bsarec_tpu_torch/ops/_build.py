@@ -5,8 +5,9 @@ compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into `build/kernels/<name>-<hash of the source>.so` at the root of the
-checkout, then loaded with ctypes. Nothing here runs at import time:
+into `build/kernels/<name>-<hash>.so` at the root of the checkout, then
+loaded with ctypes. The hash covers the source and every header of
+`csrc/` (`*.cuh`), so an edited header never loads a stale library. Nothing here runs at import time:
 the CPU tests import every module on hosts with no nvcc.
 """
 
@@ -48,8 +49,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(SOURCES[name].parent.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None, verbose: bool = False) -> dict[str, Path]:

@@ -19,11 +19,13 @@ building the [B, V] logit matrix on the card. Three CUDA kernels in
   p = softmax · dloss, then dT[a_i] -= dloss_i · s_i, duplicate answers
   accumulating. Its ds-reduce pass takes the gold term, which the JAX
   package composes outside the kernel with its gather
-  (`pallas_ce.py:553-555`). The sweep takes one of two routes, by shape
-  (`grads_onchip`): at B <= 256 and H <= 64 the batch and its ds stay on
-  chip for the whole sweep (one block per SM), elsewhere the older sweep
-  re-stages them per tile (two blocks per SM). `ce_grads.onchip_launches`
-  counts the first apart.
+  (`pallas_ce.py:553-555`).
+
+Both sweeps take one of two routes, by shape (`onchip_route`): at
+B <= 256 and H <= 64 the batch (and the backward's ds) stays on chip for
+the whole sweep, one block per SM; elsewhere the older sweeps re-stage
+64-row batch tiles, two blocks per SM. `ce_logz.onchip_launches` and
+`ce_grads.onchip_launches` count the first apart.
 
 Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
@@ -152,16 +154,17 @@ def _lib() -> ctypes.CDLL:
     lib.streaming_ce_error.restype = ctypes.c_char_p
     lib.streaming_ce_smem_bytes.argtypes = [i, i, i]
     lib.streaming_ce_smem_bytes.restype = ctypes.c_longlong
-    lib.ce_grads_onchip.argtypes = [i, i]
-    lib.ce_grads_onchip.restype = i
+    lib.ce_onchip_route.argtypes = [i, i]
+    lib.ce_onchip_route.restype = i
     return lib
 
 
 @functools.cache
-def grads_onchip(b: int, h: int) -> bool:
-    """True where `ce_grads` takes the kernel's on-chip route (the batch
-    and its ds held in the block for the whole sweep), by shape."""
-    return bool(_lib().ce_grads_onchip(b, h))
+def onchip_route(b: int, h: int) -> bool:
+    """True where `ce_logz` and `ce_grads` take their kernels' on-chip
+    routes (the batch held in one block per SM for the whole sweep), by
+    shape."""
+    return bool(_lib().ce_onchip_route(b, h))
 
 
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per tile
@@ -215,8 +218,11 @@ def _launch_logz(states, table, answers, n_valid):
     b, v, h, index = _check_matrices(states, table)
     if answers is not None:
         _require("answers", answers, torch.int64, (b,), index)
-    # two blocks per SM over (splits x batch tiles)
-    n_splits, per = _even_splits(-(-v // _VT), -(-2 * sm_count(index) // -(-b // _BT)))
+    # one block per SM on the on-chip route; elsewhere two blocks per SM
+    # over (splits x batch tiles)
+    onchip = onchip_route(b, h)
+    target = sm_count(index) if onchip else -(-2 * sm_count(index) // -(-b // _BT))
+    n_splits, per = _even_splits(-(-v // _VT), target)
     part = states.new_empty((2, n_splits, b))  # (max, sum) partials
     logz = states.new_empty((b,))
     loss = None if answers is None else states.new_empty((b,))
@@ -228,6 +234,7 @@ def _launch_logz(states, table, answers, n_valid):
     if rc != 0:
         _raise("ce_logz", rc, b, v, h, 0)
     ce_logz.launches += 1
+    ce_logz.onchip_launches += onchip
     return loss, logz
 
 
@@ -249,7 +256,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid):
     _require("answers", answers, torch.int64, (b,), index)
     _require("logz", logz, torch.float32, (b,), index)
     _require("dloss", dloss, torch.float32, (b,), index)
-    onchip = grads_onchip(b, h)
+    onchip = onchip_route(b, h)
     # one block per split: one per SM on the on-chip route, two elsewhere
     n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
     ds_part = states.new_empty((n_splits, b, h))
@@ -318,6 +325,7 @@ def ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
 
 
 ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's included
+ce_logz.onchip_launches = 0  # the launches that took the on-chip route
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route

@@ -4,7 +4,13 @@
 `streaming_masked_topk` returns, per user, the top k of the catalog
 scores `states @ table.T` without building the [B, V] score matrix on
 the card: the CUDA kernel in `csrc/streaming_rank.cu` (which replaces
-the Pallas `_rank_kernel`) sweeps the catalog once. Seen items score
+the Pallas `_rank_kernel`) sweeps the catalog once, on one of two
+routes picked by shape (`onchip_route`): at B <= 256, H <= 64 and
+k <= 32 a sample pass bounds each row's k-th score from below, then one
+block per SM holds the whole batch and skips every score under the
+bound; elsewhere an older sweep re-stages 64-row batch tiles.
+`streaming_masked_topk.onchip_launches` counts the first apart. Both give
+bit-equal results. Seen items score
 0.0 (the reference's `src/trainers.py:134`), columns >= n_valid score
 -inf, ties go to the smallest item id, and slots never filled are
 (-inf, 0) — exactly what the TPU kernel returns.
@@ -25,6 +31,8 @@ import functools
 
 import numpy as np
 import torch
+
+from bsarec_tpu_torch.ops._launch import call_on, raw_stream, sm_count
 
 NEG_INF = float("-inf")
 MAX_K = 128
@@ -126,29 +134,43 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("streaming_rank")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.streaming_rank.restype = ctypes.c_int
     lib.streaming_rank_error.argtypes = [i]
     lib.streaming_rank_error.restype = ctypes.c_char_p
-    lib.streaming_rank_smem_bytes.argtypes = [i, i]
+    lib.streaming_rank_smem_bytes.argtypes = [i, i, i]
     lib.streaming_rank_smem_bytes.restype = ctypes.c_longlong
+    lib.streaming_rank_onchip.argtypes = [i, i, i]
+    lib.streaming_rank_onchip.restype = ctypes.c_int
     return lib
 
 
-# kernel tiling (csrc/streaming_rank.cu): rows per block, columns per tile
-_BT, _VT = 64, 128
+@functools.cache
+def onchip_route(b: int, h: int, k: int) -> bool:
+    """True where the kernel takes its on-chip route (the whole batch held
+    in one block per SM, warp-private top-k lists), by shape."""
+    return bool(_lib().streaming_rank_onchip(b, h, k))
 
 
-def _splits(b: int, v: int, device: torch.device) -> tuple[int, int]:
-    """(n_splits, tiles_per_split): enough blocks for two per SM."""
-    n_tiles = -(-v // _VT)
-    target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    n_splits = max(1, min(n_tiles, -(-target // -(-b // _BT))))
-    per = -(-n_tiles // n_splits)
+# kernel tiling (csrc/streaming_rank.cu): rows per block and columns per
+# tile of the older route; columns per tile of the on-chip route
+_BT, _VT, _ONCHIP_VT = 64, 128, 64
+
+
+def _splits(b: int, v: int, onchip: bool, sms: int) -> tuple[int, int]:
+    """(n_splits, tiles_per_split), every split holding a tile: one block
+    per SM on the on-chip route, enough blocks for two per SM on the other."""
+    n_tiles = -(-v // (_ONCHIP_VT if onchip else _VT))
+    target = sms if onchip else -(-2 * sms // -(-b // _BT))
+    per = -(-n_tiles // max(1, min(n_tiles, target)))
     return -(-n_tiles // per), per
 
 
-def _launch(states, table, seen_bitmask, k, n_valid):
+def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=None):
+    """Both passes of the kernel. `allow_onchip=False` keeps the older
+    route at any shape, and `taken` (an int64 [1] tensor on the card)
+    receives the count of scores the on-chip route's lists took: both
+    serve only the checks and the timing tool."""
     b, h = states.shape
     v = table.shape[0]
     dev = states.device
@@ -164,24 +186,29 @@ def _launch(states, table, seen_bitmask, k, n_valid):
             f"bitmask {tuple(seen_bitmask.shape)} (need H % 4 == 0, bitmask [B, ceil(V/32)])"
         )
     lib = _lib()
-    n_splits, per = _splits(b, v, dev)
+    index = states.get_device()
+    onchip = allow_onchip and onchip_route(b, h, k)
+    n_splits, per = _splits(b, v, onchip, sm_count(index))
     part_v = torch.empty((n_splits, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, b, k), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.streaming_rank(
-            states.data_ptr(), table.data_ptr(), seen_bitmask.data_ptr(),
-            b, v, h, seen_bitmask.shape[1], n_valid, k, n_splits, per,
-            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream,
-        )
+    # the on-chip route's sample: 64 bucket maxima a row
+    buckets = torch.empty((b, 64), dtype=torch.int32, device=dev) if onchip else None
+    rc = call_on(index, lib.streaming_rank, states.data_ptr(), table.data_ptr(),
+                 seen_bitmask.data_ptr(), b, v, h, seen_bitmask.shape[1], n_valid, k, n_splits,
+                 per, int(allow_onchip), None if buckets is None else buckets.data_ptr(),
+                 part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                 ids.data_ptr(), None if taken is None else taken.data_ptr(),
+                 raw_stream(index))
     if rc != 0:
         raise RuntimeError(
             f"streaming_rank launch failed ({rc}: {lib.streaming_rank_error(rc).decode()}); "
-            f"B={b} V={v} H={h} k={k}, shared memory {lib.streaming_rank_smem_bytes(h, k)} bytes"
+            f"B={b} V={v} H={h} k={k}, shared memory "
+            f"{lib.streaming_rank_smem_bytes(h, k, int(onchip))} bytes"
         )
     streaming_masked_topk.launches += 1
+    streaming_masked_topk.onchip_launches += onchip
     return vals, ids
 
 
@@ -203,3 +230,4 @@ def streaming_masked_topk(states: torch.Tensor, table: torch.Tensor,
 
 
 streaming_masked_topk.launches = 0  # kernel launches (CUDA path only)
+streaming_masked_topk.onchip_launches = 0  # the launches that took the on-chip route

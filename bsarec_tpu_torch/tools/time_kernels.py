@@ -1,0 +1,190 @@
+"""Time the kernels of the port's main paths at their main-path shapes,
+and compare checkouts of the port on one card.
+
+One reading is the mean of 20 calls (CUDA events, after warm-up) of
+`ce_grads` and of `ce_loss_logz` at B=256, V=1,000,000, H=64, and of
+`streaming_masked_topk` at B=256, V=1,000,000, H=64, k=20, in fp32 on
+seeded inputs, as `chip_smoke.py` times them (`time ce_grads kernel`,
+`time ce_logz kernel`, `time streaming_masked_topk kernel`); two readings
+each, in turns (grads, logz, rank, rank, logz, grads). All three are
+public entries that every version of the port has, so an older
+checkout's package is timed by the same code. Each process first holds
+`ce_grads` against `ce_grads_plain` (GRAD_TOL relative to the largest
+|plain| entry) and two calls bit for bit, and the rank kernel against
+its plain version (values within FLOAT_TOL, each returned id by the
+plain score of that id). It also reports the rank wrapper's host ms per
+call (perf_counter around 50 calls, no sync inside) and, where the
+package's rank kernel counts them, the scores inserted into a row's
+top-k list in a split.
+
+    python3 bsarec_tpu_torch/tools/time_kernels.py
+        # this checkout's package
+    python3 bsarec_tpu_torch/tools/time_kernels.py --against DIR [DIR ...]
+        # the DIRs' packages, then this one; then the same in reverse
+        # order: one process each, in turns
+
+Each process prints one JSON line; the comparison ends with the card's
+name and power limit. Needs a card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+B, V, H, K = 256, 1_000_000, 64, 20
+ITERS = 20
+GRAD_TOL = 1e-4  # chip_smoke.py's
+FLOAT_TOL = 1e-4  # chip_smoke.py's
+
+
+def cuda_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
+    """Mean ms per call of fn (CUDA events around `iters` calls)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host ms per call to issue fn, no sync inside."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def rank_inputs(device):
+    """chip_smoke.py's main-path rank case: N(0, 1) states and table, 20
+    seen items a row (a repeat and padding among them)."""
+    import numpy as np
+    import torch
+
+    from bsarec_tpu_torch.ops import rank
+
+    rng = np.random.default_rng(0)
+    states = torch.from_numpy(rng.standard_normal((B, H), dtype=np.float32)).to(device)
+    table = torch.from_numpy(rng.standard_normal((V, H), dtype=np.float32)).to(device)
+    seen = rng.integers(1, V, size=(B, 20)).astype(np.int32)
+    seen[:, 1] = seen[:, 0]
+    seen[:, -3:] = 0
+    bitmask = torch.from_numpy(rank.build_seen_bitmask(seen, V)).to(device)
+    return states, table, bitmask
+
+
+def check_rank(states, table, bitmask) -> float:
+    """The kernel against the plain version; returns the value error."""
+    import torch
+
+    from bsarec_tpu_torch.ops import rank
+
+    vals, ids = rank.streaming_masked_topk(states, table, bitmask, K, V)
+    want_v, _ = rank.streaming_masked_topk_plain(states, table, bitmask, K, V)
+    err = float((vals - want_v).abs().max())
+    ids = ids.long()
+    by_id = torch.einsum("bh,bkh->bk", states, table[ids])
+    seen = ((torch.gather(bitmask, 1, ids >> 5) >> (ids & 31).int()) & 1).bool()
+    by_id = torch.where(seen, torch.zeros_like(by_id), by_id)
+    id_err = float((by_id - want_v).abs().max())
+    if not (err <= FLOAT_TOL and id_err <= FLOAT_TOL):
+        raise SystemExit(f"time_kernels: rank kernel off its plain version ({err}, ids {id_err})")
+    return err
+
+
+def time_package(package_root: Path) -> dict:
+    """{"ce_grads": [ms, ms], "ce_logz": [ms, ms], "streaming_masked_topk":
+    [ms, ms], ...} for the package under `package_root`."""
+    sys.path.insert(0, str(package_root))
+    import numpy as np
+    import torch
+
+    from bsarec_tpu_torch.ops import ce, rank
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    rng = np.random.default_rng(100)
+    states = torch.from_numpy(rng.standard_normal((B, H), dtype=np.float32)).to(device)
+    table = torch.from_numpy(0.25 * rng.standard_normal((V, H), dtype=np.float32)).to(device)
+    answers = torch.from_numpy(rng.integers(1, V, size=B)).to(device)
+    d = torch.full((B,), 1.0 / B, device=device)
+    _, logz = ce.ce_loss_logz(states, table, answers, V)
+    ds, dt = ce.ce_grads(states, table, answers, logz, d, V)
+    ds2, dt2 = ce.ce_grads(states, table, answers, logz, d, V)
+    want_ds, want_dt = ce.ce_grads_plain(states, table, answers, logz, d, V)
+    err = max(rel_err(ds, want_ds), rel_err(dt, want_dt))
+    if err > GRAD_TOL or not (torch.equal(ds, ds2) and torch.equal(dt, dt2)):
+        raise SystemExit(f"time_kernels: ce_grads off its plain version ({err}) or not deterministic")
+    del ds, dt, ds2, dt2, want_ds, want_dt
+    r_states, r_table, r_mask = rank_inputs(device)
+    rank_err = check_rank(r_states, r_table, r_mask)
+    out = {"ce_grads_rel_err": err, "rank_abs_err": rank_err}
+    if "taken" in inspect.signature(rank._launch).parameters:
+        n = torch.zeros(1, dtype=torch.int64, device=device)
+        rank._launch(r_states, r_table, r_mask, K, V, taken=n)
+        out["rank_taken_per_row_per_split"] = int(n) / B / rank._splits(
+            B, V, rank.onchip_route(B, H, K), torch.cuda.get_device_properties(0).multi_processor_count)[0]
+    grads = lambda: ce.ce_grads(states, table, answers, logz, d, V)
+    logz_fn = lambda: ce.ce_loss_logz(states, table, answers, V)
+    rank_fn = lambda: rank.streaming_masked_topk(r_states, r_table, r_mask, K, V)
+    g1, l1, r1 = cuda_ms(grads), cuda_ms(logz_fn), cuda_ms(rank_fn)
+    r2, l2, g2 = cuda_ms(rank_fn), cuda_ms(logz_fn), cuda_ms(grads)
+    out |= {"ce_grads": [g1, g2], "ce_logz": [l1, l2], "streaming_masked_topk": [r1, r2],
+            "rank_host_ms": host_ms(rank_fn)}
+    for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads),
+                    ("streaming_masked_topk", rank.streaming_masked_topk)):
+        out[f"{name}_onchip_launches"] = getattr(f, "onchip_launches", None)
+    return out
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--package-root", type=Path, default=ROOT,
+                    help="the checkout whose bsarec_tpu_torch is timed (default: this one)")
+    ap.add_argument("--against", type=Path, nargs="+", default=None,
+                    help="other checkouts: time them and this one in turns, one process each")
+    args = ap.parse_args()
+    if args.against is None:
+        print(json.dumps({"package": str(args.package_root), "B": B, "V": V, "H": H, "k": K,
+                          "ms": time_package(args.package_root.resolve())}), flush=True)
+        return
+    order = [*args.against, args.package_root]
+    for root in order + order[::-1]:
+        subprocess.run([sys.executable, __file__, "--package-root", str(root.resolve())],
+                       check=True, timeout=600)
+    print(card_line(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

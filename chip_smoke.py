@@ -14,7 +14,10 @@ Phases, each of which raises (exit code 1) when it fails:
    the kernel's hidden chunk, and integer-valued inputs whose dot
    products are exact, where values and ids (tie order included) must be
    bit-equal. On float inputs values agree within FLOAT_TOL and each
-   returned id is checked by the plain version's score of that id.
+   returned id is checked by the plain version's score of that id. Each
+   case takes the route its shape names (on-chip at B <= 256, H <= 64
+   and k <= 32, the older sweep at k=128), and every on-chip case is
+   bit-equal in values and ids to the older route on the same inputs.
 3. Hold the three streaming-CE kernels (logZ, gold-row gather, fused
    backward) against their plain versions at the training shape (B=256,
    V=1,000,000, H=64) and at edge shapes (odd B, V off every tile,
@@ -47,14 +50,15 @@ Phases, each of which raises (exit code 1) when it fails:
    seeded random-init BSARec at the paper's Beauty widths (hidden 64,
    2 layers, 1 head, c=5, alpha=0.7, max_len 50). The rank kernel's
    launch count must cover every eval batch of the test pass and the
-   export, and the first 512 users' exported top-20 must agree with the
-   plain version.
+   export, every launch on its on-chip route, and the first 512 users'
+   exported top-20 must agree with the plain version.
 7. Drive the training path through its normal entry point: `main`
    without `--do_eval` on a 1,000,000-item x 10,000-user corpus, BSARec
    at the same widths with dropout 0.5, batch 256, lr 5e-4, 2 epochs;
    then `--resume --epochs 3 --export_topk`, which must start at epoch
    2. The CE forward and backward kernels must launch once per step, every
-   ce_grads launch on its on-chip route, and the standalone gather never;
+   ce_logz and ce_grads launch on its on-chip route, and the standalone
+   gather never;
    every epoch's loss must be finite and epoch 1's below epoch 0's; the
    checkpoint and the `.state` snapshot must exist; the test scores must
    lie in [0, 1].
@@ -253,8 +257,19 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact):
 
     from bsarec_tpu_torch.ops import rank
 
+    onchip_before = rank.streaming_masked_topk.onchip_launches
     vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid)
     torch.cuda.synchronize()
+    onchip = rank.streaming_masked_topk.onchip_launches - onchip_before
+    check(onchip == rank.onchip_route(states.shape[0], states.shape[1], k),
+          f"{case_name}: the rank kernel took another route than its shape names")
+    if onchip:  # the older route on the same inputs gives the same bits
+        old_v, old_i = rank._launch(states, table, bitmask, k, n_valid, allow_onchip=False)
+        torch.cuda.synchronize()
+        check(torch.equal(vals, old_v) and torch.equal(ids, old_i),
+              f"{case_name}: the on-chip route differs from the older route at "
+              f"{int(((vals != old_v) | (ids != old_i)).sum())} of {vals.numel()} slots")
+        del old_v, old_i
     want_v, want_i = rank.streaming_masked_topk_plain(states, table, bitmask, k, n_valid)
     check(vals.shape == want_v.shape and ids.dtype == torch.int32, f"{case_name}: shape/dtype")
     finite = torch.isfinite(want_v)
@@ -272,8 +287,9 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact):
         for r in range(ids.shape[0]):
             row = ids[r][finite[r]]
             check(row.unique().numel() == row.numel(), f"{case_name}: row {r} repeats an id")
+    route = "on-chip, bit-equal to the older route" if onchip else "older route"
     log(f"kernel vs plain {case_name}: ok, max |value error| {err:.3g}"
-        f"{' (bit-equal ids and values)' if exact else ''}")
+        f"{' (bit-equal ids and values)' if exact else ''}; {route}")
     return err
 
 
@@ -288,6 +304,8 @@ def phase_kernels(device):
         ("all-seen row", 9, 4099, 64, 20, 4099, 16, False, True),
         ("n_valid < k", 5, 300, 64, 20, 10, 4, False, False),
         ("H off the hidden chunk", 130, 70001, 48, 20, 70001, 16, False, False),
+        ("on-chip bounds", 256, 64 * 1563 + 17, 64, 32, 64 * 1563 + 5, 16, False, True),
+        ("past the on-chip bounds", 257, 30011, 64, 33, 30011, 16, False, False),
         ("integer", 37, 20011, 64, 1, 20006, 16, True, False),
         ("integer", 37, 20011, 64, 20, 20006, 16, True, False),
         ("integer, all-seen row", 70, 20011, 64, 128, 20011, 16, True, True),
@@ -305,8 +323,8 @@ def phase_kernels(device):
 
 def phase_main_path(device, workdir):
     """Phase 3: `main --do_eval --eval_impl streaming --export_topk` at
-    full width. Returns (kernel launches, test-pass seconds, the corpus's
-    sequences, the model on the device)."""
+    full width. Returns (kernel launches, those on the on-chip route,
+    test-pass seconds, the corpus's sequences, the model on the device)."""
     import torch
 
     from bsarec_tpu_torch import main as port_main
@@ -342,12 +360,14 @@ def phase_main_path(device, workdir):
     torch.cuda.synchronize(device)
     counts = read_counts()
     launches = counts["streaming_masked_topk"]
+    onchip = rank.streaming_masked_topk.onchip_launches
     log(f"main path: main(--do_eval --eval_impl streaming --export_topk) returned in "
         f"{time.perf_counter() - t0:.1f}s, test scores {scores}")
 
     steps = math.ceil(N_USERS / EVAL_BATCH)
     check(counts == zero_counts() | {"streaming_masked_topk": 2 * steps},
           f"eval path launches {counts}, want {2 * steps} rank launches (test pass + export)")
+    check(onchip == launches, f"eval path: {onchip} of {launches} rank launches on the on-chip route")
     check(all(math.isfinite(s) and 0.0 <= s <= 1.0 for s in scores), f"bad scores {scores}")
     with open(os.path.join(workdir, "smoke_eval.log")) as fh:
         found = re.findall(r"eval test: (\d+) users in ([0-9.]+)s", fh.read())
@@ -371,9 +391,10 @@ def phase_main_path(device, workdir):
                             torch.from_numpy(topk[:512]).to(device))
     err = float((got - want_v).abs().max())
     check(err <= FLOAT_TOL, f"exported top-20 of the first 512 users: score error {err}")
-    log(f"main path: {launches} kernel launches over {steps} eval batches x 2 passes; "
-        f"first 512 users' exported top-20 agree with the plain version (score error {err:.3g})")
-    return launches, eval_seconds, seqs, model
+    log(f"main path: {launches} kernel launches over {steps} eval batches x 2 passes, {onchip} on "
+        f"the on-chip route; first 512 users' exported top-20 agree with the plain version "
+        f"(score error {err:.3g})")
+    return launches, onchip, eval_seconds, seqs, model
 
 
 def phase_breakdown(device, seqs, model, card):
@@ -457,6 +478,8 @@ def phase_times(full, card):
     b, h = states.shape
     v, k = table.shape[0], TOP_K
     ms = cuda_ms(lambda: rank.streaming_masked_topk(states, table, bitmask, k, v), iters=20)
+    older_ms = cuda_ms(lambda: rank._launch(states, table, bitmask, k, v, allow_onchip=False),
+                       iters=20)
     plain_ms = cuda_ms(lambda: rank.streaming_masked_topk_plain(states, table, bitmask, k, v),
                        iters=3, warmup=1)
     # yardstick only (the port never calls it): one dense score matrix,
@@ -474,7 +497,7 @@ def phase_times(full, card):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    for name, t in (("kernel", ms), ("plain version", plain_ms),
+    for name, t in (("kernel", ms), ("kernel, older route", older_ms), ("plain version", plain_ms),
                     ("library matmul+masked_fill+topk", library_ms)):
         log(f"time streaming_masked_topk {name}: {t:.4f} ms per {b}-user batch "
             f"(B={b} V={v} H={h} k={k}) [{card}]")
@@ -526,7 +549,10 @@ def compare_ce(case_name, states, table, answers, n_valid):
     from bsarec_tpu_torch.ops import ce
 
     mapped = ce.map_answers(answers, n_valid)
+    logz_onchip_before = ce.ce_logz.onchip_launches
     loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid)
+    check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape),
+          f"{case_name}: ce_logz took another route than its shape names")
     rows = ce.gold_rows(table, mapped)
     torch.cuda.synchronize()
     want_loss_f, want_logz = ce.ce_loss_logz_plain(states, table, answers, n_valid)
@@ -568,7 +594,7 @@ def compare_ce(case_name, states, table, answers, n_valid):
     torch.cuda.synchronize()
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
     route = "on-chip" if n_onchip else "sweep"
-    check(n_onchip == (2 if ce.grads_onchip(*states.shape) else 0),
+    check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0),
           f"{case_name}: ce_grads took another route than its shape names")
     check(torch.equal(fused_ds, again_ds) and torch.equal(fused_dt, again_dt),
           f"{case_name}: two ce_grads calls on the same inputs differ")
@@ -593,7 +619,7 @@ def compare_ce(case_name, states, table, answers, n_valid):
     log(f"CE kernels vs plain {case_name}: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
         f"loss through autograd {loss_err:.3g}, ds {ds_err:.3g}, dT {dt_err:.3g} (relative to the "
         f"largest |plain|), {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
-        f"to ce_grads(answers -1) - dloss * gold_rows; ce_grads route {route}, two calls bit-equal; "
+        f"to ce_grads(answers -1) - dloss * gold_rows; ce_logz and ce_grads route {route}, two calls bit-equal; "
         f"max abs err logZ/loss {abs_err['ce_logz']:.3g}, ds/dT {abs_err['ce_grads']:.3g}")
     return abs_err
 
@@ -738,18 +764,20 @@ def phase_train(device, workdir):
         torch.cuda.synchronize(device)
         counts = read_counts()
         check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
-        return scores, counts | {"ce_grads_onchip": ce.ce_grads.onchip_launches}, \
+        return scores, counts | {"ce_logz_onchip": ce.ce_logz.onchip_launches,
+                                 "ce_grads_onchip": ce.ce_grads.onchip_launches}, \
             time.perf_counter() - t0
 
     scores, counts, seconds = run(["--epochs", "2"])
     log(f"train path: main(--epochs 2) on {TRAIN_USERS} users x {N_ITEMS} items, {n_samples} "
         f"samples = {steps} steps per epoch, returned in {seconds:.1f}s, test scores {scores}; "
         f"launches {counts}")
-    # one ce_logz call (loss and logZ) and one ce_grads call per step, on
-    # its on-chip route (B=256, H=64); the gold terms ride in them, so the
-    # standalone gather never launches
+    # one ce_logz call (loss and logZ) and one ce_grads call per step, each
+    # on its on-chip route (B=256, H=64); the gold terms ride in them, so
+    # the standalone gather never launches
     want = zero_counts() | {"ce_logz": 2 * steps, "ce_grads": 2 * steps,
-                            "streaming_masked_topk": 3 * eval_steps, "ce_grads_onchip": 2 * steps}
+                            "streaming_masked_topk": 3 * eval_steps, "ce_logz_onchip": 2 * steps,
+                            "ce_grads_onchip": 2 * steps}
     check(counts == want, f"train path launches {counts}, want {want}")
     first_counts = counts
     text = read_log(os.path.join(workdir, "smoke_train.log"))
@@ -771,7 +799,8 @@ def phase_train(device, workdir):
     check(len(losses) == 3 and "'epoch': 2," in text and math.isfinite(losses[2]),
           f"resumed run: epoch losses {losses}")
     want = zero_counts() | {"ce_logz": steps, "ce_grads": steps,
-                            "streaming_masked_topk": 3 * eval_steps, "ce_grads_onchip": steps}
+                            "streaming_masked_topk": 3 * eval_steps, "ce_logz_onchip": steps,
+                            "ce_grads_onchip": steps}
     check(counts == want, f"resumed launches {counts}, want {want}")
     topk = np.load(topk_path)
     check(topk.shape == (TRAIN_USERS, TOP_K) and 0 <= int(topk.min()) and int(topk.max()) < N_ITEMS,
@@ -1070,11 +1099,12 @@ def kernel_wrappers():
 
 
 def reset_counts() -> None:
-    from bsarec_tpu_torch.ops import ce
+    from bsarec_tpu_torch.ops import ce, rank
 
     for f in kernel_wrappers().values():
         f.launches = 0
-    ce.ce_grads.onchip_launches = 0
+    for f in (rank.streaming_masked_topk, ce.ce_logz, ce.ce_grads):
+        f.onchip_launches = 0
 
 
 def read_counts() -> dict:
@@ -1528,7 +1558,7 @@ def main() -> int:
     with timed("one SASRec step, dropout kernel vs plain"):
         phase_sasrec_step(device)
     with timed("eval main path"), tempfile.TemporaryDirectory() as workdir:
-        launches, eval_seconds, seqs, model = phase_main_path(device, workdir)
+        launches, eval_onchip, eval_seconds, seqs, model = phase_main_path(device, workdir)
     log(f"eval: {N_USERS} users in {eval_seconds:.3f}s = {N_USERS / eval_seconds:.1f} users/s "
         f"(test pass of main --do_eval, first batch included) [{card}]")
     with timed("train main path"), tempfile.TemporaryDirectory() as workdir:
@@ -1557,6 +1587,7 @@ def main() -> int:
         "source": "bsarec_tpu_torch/csrc/streaming_rank.cu",
         "replaces": "bsarec_tpu/ops/pallas_rank.py:165",
         "launches": launches,
+        "onchip_launches": eval_onchip,
         "max_abs_err": worst_err,
         **times,
     }]
@@ -1571,7 +1602,7 @@ def main() -> int:
             "launches": train_launches[name],
             "max_abs_err": ce_err[name],
             **ce_times[name],
-            **({"onchip_launches": train_launches["ce_grads_onchip"]} if name == "ce_grads" else {}),
+            **({"onchip_launches": train_launches[f"{name}_onchip"]} if name != "gold_rows" else {}),
         })
     kernels.append({
         "name": "fused_dropout",

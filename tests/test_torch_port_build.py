@@ -1,0 +1,32 @@
+"""The kernel build's cache key (`bsarec_tpu_torch/ops/_build.py`): a
+library is named by a hash of its source and of every header beside it,
+so an edited header never loads a stale library. Runs without nvcc."""
+
+import re
+import shutil
+
+from bsarec_tpu_torch.ops import _build
+
+
+def test_every_included_header_is_in_csrc():
+    """The headers that the sources include by quotes are the `*.cuh`
+    files the hash covers."""
+    for path in _build.SOURCES.values():
+        for header in re.findall(r'#include "([^"]+)"', path.read_text()):
+            assert (path.parent / header).is_file() and header.endswith(".cuh"), (path, header)
+
+
+def test_library_path_follows_the_source_and_its_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.SOURCES["streaming_ce"].parent, csrc)
+    monkeypatch.setattr(_build, "SOURCES", {"streaming_ce": csrc / "streaming_ce.cu"})
+    first = _build.library_path("streaming_ce")
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("streaming_ce-")
+    assert _build.library_path("streaming_ce") == first
+    header = csrc / "onchip_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = _build.library_path("streaming_ce")
+    assert second != first
+    source = csrc / "streaming_ce.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _build.library_path("streaming_ce") not in (first, second)

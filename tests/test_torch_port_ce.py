@@ -96,6 +96,26 @@ def test_stats_and_grads_building_blocks_match_jax():
     np.testing.assert_allclose(dt.numpy(), np.asarray(j_dt), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (257, 300, 64, 290),
+    (256, 200, 32, 197),
+    (255, 260, 64, 260),
+    (1, 260, 128, 250),
+])
+def test_plain_loss_logz_matches_jax_at_the_onchip_route_edges(b, v, h, n_valid):
+    """`ce_loss_logz` (the plain version on the CPU) against the JAX
+    package's `streaming_ce_stats` at the CUDA kernels' on-chip route
+    bounds (B <= 256, H <= 64) and past them, V off the 64-column tile,
+    n_valid < V, with repeated, zero, negative and out-of-range answers."""
+    states, table, answers = _inputs(b, v, h, n_valid, seed=30 + b, odd_answers=b >= 7)
+    j_loss, j_logz = jax_streaming_ce_stats(jnp.asarray(states), jnp.asarray(table),
+                                            jnp.asarray(answers), n_valid, 64, 128, True)
+    s, t = torch.from_numpy(states), torch.from_numpy(table)
+    loss, logz = ce.ce_loss_logz(s, t, torch.from_numpy(answers).long(), n_valid)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(j_loss), **LOSS_TOL)
+    np.testing.assert_allclose(logz.numpy(), np.asarray(j_logz), **LOSS_TOL)
+
+
 @pytest.mark.parametrize("chunk", [7, 64, 1 << 20])
 def test_plain_pieces_are_chunk_invariant(chunk):
     """Chunking the catalog changes only the order of fp32 sums."""

@@ -165,7 +165,7 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
     a = torch.from_numpy(answers).to(cuda_device)
     d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
     logz = ce.ce_logz(states, table, n_valid)
-    assert ce.grads_onchip(b, h) == onchip
+    assert ce.onchip_route(b, h) == onchip
     before = (ce.ce_grads.launches, ce.ce_grads.onchip_launches)
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid)
@@ -176,6 +176,96 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
     want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
     torch.testing.assert_close(ds, want_ds, **GRAD_TOL)
     torch.testing.assert_close(dt, want_dt, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,onchip", [
+    (1, 64, True), (255, 64, True), (256, 64, True), (257, 64, False),
+    (256, 48, True), (256, 128, False),
+])
+def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip):
+    """ce_loss_logz on both sides of the on-chip route's bounds (B <= 256,
+    H <= 64): the route the shape names, loss and logZ within the
+    tolerance of the plain version, and two calls bit-equal."""
+    v, n_valid = 9001, 8999
+    rng = np.random.default_rng(b * 1000 + h + 7)
+    states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
+    a = torch.from_numpy(rng.integers(-1, v + 3, size=b)).to(cuda_device)  # some off the catalog
+    assert ce.onchip_route(b, h) == onchip
+    before = (ce.ce_logz.launches, ce.ce_logz.onchip_launches)
+    loss, logz = ce.ce_loss_logz(states, table, a, n_valid)
+    loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid)
+    torch.cuda.synchronize()
+    assert (ce.ce_logz.launches, ce.ce_logz.onchip_launches) == (
+        before[0] + 2, before[1] + 2 * onchip)
+    assert torch.equal(loss, loss2) and torch.equal(logz, logz2)
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid)
+    torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,k,n_valid,all_seen,onchip", [
+    (256, 64 * 150 + 17, 64, 32, 64 * 150 + 5, True, True),
+    (256, 9601, 64, 33, 9601, False, False),
+    (1, 5003, 64, 1, 5003, False, True),
+    (257, 5003, 64, 20, 4990, False, False),
+    (255, 12101, 48, 20, 12090, True, True),
+    (64, 20011, 64, 20, 20011, False, True),
+])
+def test_cuda_rank_route_boundary(cuda_device, b, v, h, k, n_valid, all_seen, onchip):
+    """The rank kernel on both sides of the on-chip route's bounds (B <=
+    256, H <= 64, k <= 32), with V off the 64-column tile, n_valid < V and
+    an all-seen row: the route the shape names, the plain version's values
+    and ids, and, on the on-chip route, values and ids bit-equal to the
+    older route's on the same inputs."""
+    states, table, seen = _rank_inputs(b, v, h, seed=b + k, integer=False)
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    bm = rank.seen_ids_to_bitmask(torch.from_numpy(rank.dedupe_seen_rows(seen)).to(cuda_device), v)
+    if all_seen:
+        bm[b // 2] = -1
+        seen = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
+        seen[b // 2, 20:] = np.arange(v)
+    assert rank.onchip_route(b, h, k) == onchip
+    before = (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.onchip_launches)
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.onchip_launches) == (
+        before[0] + 1, before[1] + onchip)
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
+    torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
+    logits = _masked_logits(states, table, seen, n_valid)
+    by_score = np.take_along_axis(logits, got_i.cpu().numpy().astype(np.int64), axis=1)
+    np.testing.assert_allclose(by_score, want_v.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    if all_seen:  # every valid score is 0.0: the first k ids, in order
+        assert got_i[b // 2].tolist() == list(range(min(k, n_valid)))
+    if onchip:
+        old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_onchip=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", [1.0, -1.0], ids=["rising", "falling"])
+def test_cuda_rank_onchip_scores_along_the_catalog(cuda_device, direction):
+    """Scores that rise along the catalog give every later tile's 64 values
+    to each row's list (the on-chip route's buffer overflows in every tile
+    and the values go in one at a time); falling scores give it none. Both
+    bit-equal to the older route and to the plain version (exact: the
+    scores are multiples of 2^-14)."""
+    b, v, h, k = 256, 64 * 40 + 9, 64, 32
+    states = torch.ones((b, h), device=cuda_device) / h
+    ramp = direction * torch.arange(v, device=cuda_device, dtype=torch.float32) / 16384
+    table = ramp[:, None].expand(v, h).contiguous()
+    bm = rank.seen_ids_to_bitmask(torch.zeros((b, 1), dtype=torch.int32, device=cuda_device), v)
+    got_v, got_i = rank.streaming_masked_topk(states, table, bm, k=k)
+    old_v, old_i = rank._launch(states, table, bm, k, v, allow_onchip=False)
+    want_v, want_i = rank.streaming_masked_topk_plain(states, table, bm, k=k)
+    torch.cuda.synchronize()
+    assert rank.onchip_route(b, h, k)
+    assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
 
 
 @pytest.mark.cuda

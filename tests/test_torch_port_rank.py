@@ -63,6 +63,33 @@ def test_plain_matches_jax_kernel(k, integer):
         np.testing.assert_allclose(by_score, np.asarray(want_v), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("k,n_valid,all_seen", [
+    (32, 4990, True), (33, 5000, False), (1, 4999, True),
+])
+def test_plain_matches_jax_kernel_at_the_onchip_route_edges(k, n_valid, all_seen):
+    """Integer inputs (exact dot products, many ties) at the CUDA kernel's
+    on-chip route bound k=32 and just past it (k=33), V=5000 off the
+    64-column tile, n_valid < V, and a row that has seen every item (all
+    its valid scores 0.0): values and ids bit-equal to the JAX kernel's."""
+    b, v, h = 6, 5000, 64
+    states, table, seen = _inputs(b, v, h, seed=40 + k, integer=True)
+    if all_seen:
+        seen = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
+        seen[2, 20:] = np.arange(v)
+    want_v, want_i = jax_streaming_masked_topk(
+        jnp.asarray(states), jnp.asarray(table), jnp.asarray(jax_build_seen_bitmask(seen, v)),
+        k=k, n_valid=n_valid, interpret=True,
+    )
+    got_v, got_i = rank.streaming_masked_topk(
+        torch.from_numpy(states), torch.from_numpy(table),
+        torch.from_numpy(rank.build_seen_bitmask(seen, v)), k=k, n_valid=n_valid,
+    )
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    if all_seen:
+        assert got_i[2].tolist() == list(range(k)) and not got_v[2].any()
+
+
 @pytest.mark.parametrize("chunk", [7, 64, 4096])
 def test_plain_is_chunk_invariant_and_pads(chunk):
     """The running merge across chunks gives the one-shot answer; rows
