@@ -95,3 +95,10 @@ def resolve_device(name: str | torch.device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return device
+
+
+def set_fp32_matmul() -> None:
+    """Full-fp32 matmuls and convolutions on the card (no TF32), the
+    precision the parity tests and the reference's numbers assume."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -4,7 +4,9 @@
 // kernel behind streaming_masked_topk). Per user row it returns the top k
 // of the catalog scores s . T^T without writing the [B, V] score matrix:
 //   - seen items (bit v & 31 of word v >> 5 of the row's bitmask; the
-//     builders always set item 0) score 0.0, not -inf;
+//     builders always set item 0) score seen_value: 0.0 for eval (the
+//     reference's rating_pred[seen] = 0), -inf for serving, where a seen
+//     item never enters the result;
 //   - columns >= n_valid score -inf and never enter the result;
 //   - candidates are ordered by (value descending, id ascending), the
 //     order the TPU kernel produces; slots never filled are (-inf, 0).
@@ -141,7 +143,7 @@ __device__ void warp_offer(float* lv, int* li, int k, float v, int id, int lane)
 __global__ void __launch_bounds__(THREADS, 2)
 rank_partial_kernel(const float* __restrict__ states, const float* __restrict__ table,
                     const int32_t* __restrict__ mask, int B, int V, int H, int W,
-                    int n_valid, int k, int tiles_per_split,
+                    int n_valid, float seen_value, int k, int tiles_per_split,
                     float* __restrict__ part_v, int32_t* __restrict__ part_i) {
   extern __shared__ __align__(16) float smem[];
   float* sS = smem;                     // [H][BT]   states, transposed
@@ -224,7 +226,7 @@ rank_partial_kernel(const float* __restrict__ states, const float* __restrict__ 
         if (col >= n_valid) {
           v = -INFINITY;
         } else if ((sM[r * (VT / 32) + (c >> 5)] >> (c & 31)) & 1u) {
-          v = 0.f;
+          v = seen_value;
         }
         sC[r * (VT + 1) + c] = v;
         any |= (v > -INFINITY) && ahead(v, col, kv, ki);
@@ -281,18 +283,18 @@ __device__ __forceinline__ float from_order_key(unsigned u) {
 }
 
 // The masked scores of the tile at column j0 for this thread's 8 x 8
-// block: seen -> 0.0, columns >= n_valid -> -inf. words(i) gives row
-// ty + 32i's two bitmask words of the tile.
+// block: seen -> seen_value, columns >= n_valid -> -inf. words(i) gives
+// row ty + 32i's two bitmask words of the tile.
 template <class Words>
 __device__ __forceinline__ void mask_scores(float acc[8][8], Words words, int j0, int n_valid,
-                                            int tx) {
+                                            float seen_value, int tx) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const uint2 w = words(i);
     if (w.x | w.y) {  // a row's two words hold a seen bit in few tiles
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        if (((j < 4 ? w.x : w.y) >> (tx + 8 * (j & 3))) & 1u) acc[i][j] = 0.f;
+        if (((j < 4 ? w.x : w.y) >> (tx + 8 * (j & 3))) & 1u) acc[i][j] = seen_value;
     }
   }
   if (j0 + OC_VT > n_valid) {
@@ -312,13 +314,14 @@ __device__ __forceinline__ void mask_scores(float acc[8][8], Words words, int j0
 // largest masked score of its columns, by atomicMax on order keys (the
 // caller zeroes the buckets). The buckets hold distinct columns, so the
 // k-th largest bucket maximum is at most the row's k-th score: a score
-// below it has k scores ahead of it.
+// below it has k scores ahead of it. With seen_value = -inf a bucket may
+// hold only -inf; the bound is then -inf and the sweep's bar -FLT_MAX.
 constexpr int SAMPLE_TILES = 4;
 constexpr int BUCKETS = OC_VT;
 __global__ void __launch_bounds__(onchip::THREADS, 1)
 rank_sample_kernel(const float* __restrict__ states, const float* __restrict__ table,
                    const int32_t* __restrict__ mask, int B, int V, int H, int W, int n_valid,
-                   int sample_tiles, unsigned* __restrict__ bucket_max) {
+                   float seen_value, int sample_tiles, unsigned* __restrict__ bucket_max) {
   extern __shared__ __align__(16) float smem[];
   float* sS = smem;                       // [ROWS][LD] states
   float* sT = sS + onchip::STATE_FLOATS;  // [2][VT][LD] table ring
@@ -349,7 +352,7 @@ rank_sample_kernel(const float* __restrict__ states, const float* __restrict__ t
     onchip::cp_async_commit();
     float acc[8][8];
     onchip::tile_logits(sS, sT + slot * onchip::VT * onchip::LD, acc, tx, ty);
-    mask_scores(acc, [&](int i) { return w[i]; }, j0, n_valid, tx);
+    mask_scores(acc, [&](int i) { return w[i]; }, j0, n_valid, seen_value, tx);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -447,7 +450,8 @@ __device__ __forceinline__ float flush_row(float* lv, int* li, const float* pv, 
 __global__ void __launch_bounds__(onchip::THREADS, 1)
 rank_onchip_kernel(const float* __restrict__ states, const float* __restrict__ table,
                    const int32_t* __restrict__ mask, int B, int V, int H, int W, int n_valid,
-                   int k, int S, int tiles_per_split, const unsigned* __restrict__ bucket_max,
+                   float seen_value, int k, int S, int tiles_per_split,
+                   const unsigned* __restrict__ bucket_max,
                    float* __restrict__ part_v, int32_t* __restrict__ part_i,
                    unsigned long long* __restrict__ taken) {
   extern __shared__ __align__(16) float smem[];
@@ -523,7 +527,7 @@ rank_onchip_kernel(const float* __restrict__ states, const float* __restrict__ t
     const uint32_t* sMt = sM + slot * MSLOT;
     mask_scores(acc, [&](int i) {
       return *reinterpret_cast<const uint2*>(sMt + (ty + 32 * i) * OC_WORDS);
-    }, j0, n_valid, tx);
+    }, j0, n_valid, seen_value, tx);
     // take: each lane into its own slice; `over` marks the i it cannot fit
     unsigned over = 0;
 #pragma unroll
@@ -725,10 +729,12 @@ long long streaming_rank_smem_bytes(int H, int k, int onchip) {
 // outputs ([B, k]); n_splits * tiles_per_split must cover the catalog in
 // tiles of the route's width (64 columns on-chip, 128 otherwise), and
 // on-chip every split must hold a tile. `taken`, when not null, receives
-// the on-chip route's count of scores its lists took. Returns 0
-// or a cudaError_t code.
+// the on-chip route's count of scores its lists took. A seen item scores
+// seen_value (0.0 for eval, -inf for serving). Returns 0 or a cudaError_t
+// code.
 int streaming_rank(const void* states, const void* table, const void* mask, int B, int V,
-                   int H, int W, int n_valid, int k, int n_splits, int tiles_per_split,
+                   int H, int W, int n_valid, float seen_value, int k, int n_splits,
+                   int tiles_per_split,
                    int allow_onchip, void* buckets, void* part_v, void* part_i, void* out_v,
                    void* out_i, void* taken, void* stream) {
   const bool onchip = allow_onchip && onchip_route(B, H, k);
@@ -755,7 +761,7 @@ int streaming_rank(const void* states, const void* table, const void* mask, int 
     rank_sample_kernel<<<(sample_tiles + SAMPLE_TILES - 1) / SAMPLE_TILES, onchip::THREADS,
                          (size_t)sample_smem, s>>>(
         static_cast<const float*>(states), static_cast<const float*>(table),
-        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, sample_tiles,
+        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, sample_tiles,
         static_cast<unsigned*>(buckets));
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -764,7 +770,7 @@ int streaming_rank(const void* states, const void* table, const void* mask, int 
     if (e != cudaSuccess) return (int)e;
     rank_onchip_kernel<<<n_splits, onchip::THREADS, (size_t)smem, s>>>(
         static_cast<const float*>(states), static_cast<const float*>(table),
-        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, k, onchip_slice(k),
+        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, k, onchip_slice(k),
         tiles_per_split, static_cast<const unsigned*>(buckets), static_cast<float*>(part_v),
         static_cast<int32_t*>(part_i), static_cast<unsigned long long*>(taken));
   } else {
@@ -774,7 +780,7 @@ int streaming_rank(const void* states, const void* table, const void* mask, int 
     const dim3 grid(n_splits, (B + BT - 1) / BT);
     rank_partial_kernel<<<grid, THREADS, (size_t)smem, s>>>(
         static_cast<const float*>(states), static_cast<const float*>(table),
-        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, k, tiles_per_split,
+        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, k, tiles_per_split,
         static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
   }
   e = cudaGetLastError();

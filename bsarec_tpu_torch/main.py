@@ -17,7 +17,11 @@ the final test); `--resume` continues from the snapshot. With
 `--do_eval` it loads `--load_model` (a port checkpoint) or
 `--load_torch_model` (a reference torch state_dict, the same key layout)
 and runs the test split. Either way `--export_topk` then writes the
-[num_users, 20] top-k ids. Flags of parts not ported yet raise when set.
+[num_users, 20] top-k ids, and `--export_serving scorer.pt2` the
+weights-baked serving artifact (`serving.py`; `--serving_quant`,
+`--serving_impl`, `--serving_item_chunk`), exported on `--device`; serve
+it with `python -m bsarec_tpu_torch.serve scorer.pt2`. Flags of parts not
+ported yet raise when set.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from bsarec_tpu_torch.utils.logging import get_local_time, set_logger
 
 # flags whose machinery is not ported yet, with their no-op values
 _NOT_PORTED_FLAGS = {
-    "dump_seqout": None, "export_serving": None, "profile": None,
+    "dump_seqout": None, "profile": None,
     "mesh": "", "multihost": False, "remat": False,
 }
 
@@ -55,13 +59,21 @@ def parse_args(argv=None):
                         help="write the [num_users, 20] seen-masked top-k item ids "
                         "of the test split to this .npy path")
     parser.add_argument("--dump_seqout", default=None, type=str, help="(not ported yet)")
-    parser.add_argument("--export_serving", default=None, type=str, help="(not ported yet)")
+    parser.add_argument("--export_serving", default=None, type=str,
+                        help="export the weights-baked, batch-polymorphic top-k scorer "
+                        "(torch.export .pt2) to this path; load it with "
+                        "bsarec_tpu_torch.serving.load_scorer, serve it with "
+                        "python -m bsarec_tpu_torch.serve")
     parser.add_argument("--serving_quant", default="none", choices=["none", "int8"],
-                        help="(not ported yet)")
+                        help="with --export_serving: symmetric per-row int8 catalog matmul")
     parser.add_argument("--serving_impl", default="bitmask",
                         choices=["bitmask", "dense", "filtered", "chunked"],
-                        help="(not ported yet)")
-    parser.add_argument("--serving_item_chunk", default=65536, type=int, help="(not ported yet)")
+                        help="with --export_serving: the masking layout, all giving the same "
+                        "ranking. 'bitmask' (default) runs the streaming rank kernel in its "
+                        "serving mode (no [b, V] scores); 'dense' masks the [b, V] logits; "
+                        "'filtered' masks in top-k space; 'chunked' streams the catalog in "
+                        "--serving_item_chunk blocks")
+    parser.add_argument("--serving_item_chunk", default=65536, type=int)
     parser.add_argument("--train_name", default=get_local_time(), type=str)
     parser.add_argument("--profile", default=None, type=str, help="(not ported yet)")
     parser.add_argument("--resume", action="store_true",
@@ -192,6 +204,17 @@ def main(argv=None):
         np.save(args.export_topk, topk)
         logger.info(f"exported top-{topk.shape[1]} item ids for "
                     f"{topk.shape[0]} users to {args.export_topk}")
+
+    if args.export_serving:
+        from bsarec_tpu_torch.serving import export_scorer
+
+        meta = export_scorer(
+            trainer.model, model_cfg.item_size, args.max_seq_length,
+            data.test.seen_items.shape[1], args.export_serving,
+            quant=None if args.serving_quant == "none" else args.serving_quant,
+            impl=args.serving_impl, item_chunk=args.serving_item_chunk,
+        )
+        logger.info(f"exported serving scorer: {meta}")
 
     logger.info(args.train_name)
     logger.info(result_info)

@@ -11,7 +11,9 @@ block per SM holds the whole batch and skips every score under the
 bound; elsewhere an older sweep re-stages 64-row batch tiles.
 `streaming_masked_topk.onchip_launches` counts the first apart. Both give
 bit-equal results. Seen items score
-0.0 (the reference's `src/trainers.py:134`), columns >= n_valid score
+`seen_value`: 0.0 for eval (the reference's `src/trainers.py:134`, what
+the TPU kernel gives them) and -inf for serving (`ops/serving_topk.py`),
+where a seen item never enters the result. Columns >= n_valid score
 -inf, ties go to the smallest item id, and slots never filled are
 (-inf, 0) — exactly what the TPU kernel returns.
 
@@ -98,7 +100,8 @@ def seen_ids_to_bitmask(seen_ids: torch.Tensor, vocab_size: int) -> torch.Tensor
 
 def streaming_masked_topk_plain(states: torch.Tensor, table: torch.Tensor,
                                 seen_bitmask: torch.Tensor, k: int = 20,
-                                n_valid: int | None = None, chunk: int = 65536):
+                                n_valid: int | None = None, chunk: int = 65536,
+                                seen_value: float = 0.0):
     """Plain PyTorch version of the kernel, chunked over the catalog.
 
     Keeps a running (values, ids) list sorted by (value desc, id asc):
@@ -116,7 +119,7 @@ def streaming_masked_topk_plain(states: torch.Tensor, table: torch.Tensor,
         scores = states.float() @ table[j0:j1].float().T
         words = seen_bitmask[:, cols >> 5]
         seen = ((words >> (cols & 31).int()) & 1).bool()
-        scores = torch.where(seen, 0.0, scores)
+        scores = torch.where(seen, seen_value, scores)
         scores = torch.where(cols < n_valid, scores, NEG_INF)
         cat_v = torch.cat([vals, scores], dim=1)
         cat_i = torch.cat([ids, cols.expand(b, -1)], dim=1)
@@ -133,8 +136,8 @@ def _lib() -> ctypes.CDLL:
     from bsarec_tpu_torch.ops import _build
 
     lib = _build.load("streaming_rank")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i, i, p, p, p, p, p, p, p]
     lib.streaming_rank.restype = ctypes.c_int
     lib.streaming_rank_error.argtypes = [i]
     lib.streaming_rank_error.restype = ctypes.c_char_p
@@ -166,7 +169,8 @@ def _splits(b: int, v: int, onchip: bool, sms: int) -> tuple[int, int]:
     return -(-n_tiles // per), per
 
 
-def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=None):
+def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=None,
+            seen_value=0.0):
     """Both passes of the kernel. `allow_onchip=False` keeps the older
     route at any shape, and `taken` (an int64 [1] tensor on the card)
     receives the count of scores the on-chip route's lists took: both
@@ -196,8 +200,9 @@ def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=No
     # the on-chip route's sample: 64 bucket maxima a row
     buckets = torch.empty((b, 64), dtype=torch.int32, device=dev) if onchip else None
     rc = call_on(index, lib.streaming_rank, states.data_ptr(), table.data_ptr(),
-                 seen_bitmask.data_ptr(), b, v, h, seen_bitmask.shape[1], n_valid, k, n_splits,
-                 per, int(allow_onchip), None if buckets is None else buckets.data_ptr(),
+                 seen_bitmask.data_ptr(), b, v, h, seen_bitmask.shape[1], n_valid, seen_value,
+                 k, n_splits, per, int(allow_onchip),
+                 None if buckets is None else buckets.data_ptr(),
                  part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
                  ids.data_ptr(), None if taken is None else taken.data_ptr(),
                  raw_stream(index))
@@ -214,19 +219,23 @@ def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=No
 
 def streaming_masked_topk(states: torch.Tensor, table: torch.Tensor,
                           seen_bitmask: torch.Tensor, k: int = 20,
-                          n_valid: int | None = None):
+                          n_valid: int | None = None, seen_value: float = 0.0):
     """states [B, H] f32, table [V, H] f32, seen_bitmask [B, ceil(V/32)]
-    int32 -> (values [B, k] f32, item ids [B, k] int32), 1 <= k <= 128."""
+    int32 -> (values [B, k] f32, item ids [B, k] int32), 1 <= k <= 128.
+    A seen item scores `seen_value`, 0.0 or -inf."""
     n_valid = table.shape[0] if n_valid is None else n_valid
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
     if not 0 <= n_valid <= table.shape[0]:
         raise ValueError(f"n_valid must be in [0, {table.shape[0]}], got {n_valid}")
+    if seen_value not in (0.0, NEG_INF):
+        raise ValueError(f"seen_value must be 0.0 (eval) or -inf (serving), got {seen_value}")
     if states.device.type == "cpu":
-        return streaming_masked_topk_plain(states, table, seen_bitmask, k, n_valid)
+        return streaming_masked_topk_plain(states, table, seen_bitmask, k, n_valid,
+                                           seen_value=seen_value)
     if states.device.type != "cuda":
         raise ValueError(f"unsupported device {states.device}")
-    return _launch(states, table, seen_bitmask, k, n_valid)
+    return _launch(states, table, seen_bitmask, k, n_valid, seen_value=seen_value)
 
 
 streaming_masked_topk.launches = 0  # kernel launches (CUDA path only)

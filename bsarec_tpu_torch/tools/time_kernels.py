@@ -13,9 +13,12 @@ checkout's package is timed by the same code. Each process first holds
 |plain| entry) and two calls bit for bit, and the rank kernel against
 its plain version (values within FLOAT_TOL, each returned id by the
 plain score of that id). It also reports the rank wrapper's host ms per
-call (perf_counter around 50 calls, no sync inside) and, where the
+call (perf_counter around 50 calls, no sync inside), where the
 package's rank kernel counts them, the scores inserted into a row's
-top-k list in a split.
+top-k list in a split, and `rank_eval_digest`: a sha256 of the rank
+kernel's eval-mode values and ids at this checkout's `chip_smoke.py`
+rank cases (read from that file: its table, seeds and inputs), so that
+two checkouts with equal digests give bit-equal results there.
 
     python3 bsarec_tpu_torch/tools/time_kernels.py
         # this checkout's package
@@ -30,6 +33,8 @@ name and power limit. Needs a card and nvcc.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import importlib.util
 import inspect
 import json
 import subprocess
@@ -96,6 +101,25 @@ def rank_inputs(device):
     return states, table, bitmask
 
 
+def rank_eval_digest(device) -> str:
+    """sha256 over the rank kernel's eval-mode (values, ids) at this
+    checkout's `chip_smoke.py` rank cases (`RANK_CASES`), on its inputs
+    (`make_case`, the i-th case seeded with i)."""
+    from bsarec_tpu_torch.ops import rank
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    digest = hashlib.sha256()
+    for i, (_, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(smoke.RANK_CASES):
+        states, table, bitmask = smoke.make_case(b, v, h, n_seen, seed=i, device=device,
+                                                 integer=integer, all_seen_row=all_seen)
+        vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid)
+        digest.update(vals.cpu().numpy().tobytes())
+        digest.update(ids.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
 def check_rank(states, table, bitmask) -> float:
     """The kernel against the plain version; returns the value error."""
     import torch
@@ -143,7 +167,8 @@ def time_package(package_root: Path) -> dict:
     del ds, dt, ds2, dt2, want_ds, want_dt
     r_states, r_table, r_mask = rank_inputs(device)
     rank_err = check_rank(r_states, r_table, r_mask)
-    out = {"ce_grads_rel_err": err, "rank_abs_err": rank_err}
+    out = {"ce_grads_rel_err": err, "rank_abs_err": rank_err,
+           "rank_eval_digest": rank_eval_digest(device)}
     if "taken" in inspect.signature(rank._launch).parameters:
         n = torch.zeros(1, dtype=torch.int64, device=device)
         rank._launch(r_states, r_table, r_mask, K, V, taken=n)

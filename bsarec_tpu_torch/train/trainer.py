@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device
+from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device, set_fp32_matmul
 from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.models import build_model
 from bsarec_tpu_torch.ops import rank
@@ -27,13 +27,6 @@ from bsarec_tpu_torch.train import checkpoint as ckpt
 from bsarec_tpu_torch.train.loop import build_eval_fn, build_train_epoch, make_optimizer
 from bsarec_tpu_torch.utils.early_stopping import EarlyStopping
 from bsarec_tpu_torch.utils.profiling import Throughput, annotate
-
-
-def set_fp32_matmul() -> None:
-    """Full-fp32 matmuls and convolutions on the card (no TF32), the
-    precision the parity tests and the reference's numbers assume."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 class Trainer:

@@ -18,6 +18,9 @@ Phases, each of which raises (exit code 1) when it fails:
    case takes the route its shape names (on-chip at B <= 256, H <= 64
    and k <= 32, the older sweep at k=128), and every on-chip case is
    bit-equal in values and ids to the older route on the same inputs.
+   Every case runs twice: in the eval mode (a seen item scores 0.0) and
+   in the serving mode (-inf), which must leave no seen item in the
+   result and (-inf, 0) in every slot it cannot fill.
 3. Hold the three streaming-CE kernels (logZ, gold-row gather, fused
    backward) against their plain versions at the training shape (B=256,
    V=1,000,000, H=64) and at edge shapes (odd B, V off every tile,
@@ -62,13 +65,30 @@ Phases, each of which raises (exit code 1) when it fails:
    every epoch's loss must be finite and epoch 1's below epoch 0's; the
    checkpoint and the `.state` snapshot must exist; the test scores must
    lie in [0, 1].
-8. Drive SASRec's training path: `main --model_type SASRec --prng rbg`
+8. Drive the serving path in phase 7's directory: `main --do_eval
+   --load_model <phase 7's BSARec> --export_serving scorer.pt2` on the
+   card, `serving.load_scorer(..., "cuda")`, one artifact call at B=256
+   (the rank kernel launches once, on its on-chip route), then the HTTP
+   host (`serve.make_server`, port 0, a thread): /healthz, /rank with
+   ragged histories at b = 1, 17 and 256, a malformed body and an
+   out-of-range id (400), sequential requests/s and p50/p99 latency at
+   b = 1 and 256 (HTTP_LOAD_REQUESTS requests each). Only rank launches,
+   all on-chip. Then the artifact's top-20 at B=256 against the serving-mode plain version (each id by its
+   plain score), the dense, filtered and chunked artifacts against it,
+   the int8 artifact's overlap with it (at least INT8_MIN_OVERLAP), the
+   serving op on both routes at edge rows (an all-seen row, rows with 5
+   unseen items, out-of-range seen ids) against a host reference of
+   JAX's serving contract, its -inf fill included; export seconds and
+   bytes, each layout's ms per call at b = 1, 16 and 256 (median of
+   SCORER_CALLS), and the rank
+   kernel's serving mode against its eval mode on the same inputs.
+9. Drive SASRec's training path: `main --model_type SASRec --prng rbg`
    with BSAREC_DROPOUT=pallas at the CLI defaults on the same corpus, 2
    epochs, then `--resume --epochs 3`; exactly 14 dropout launches per
    step, the rank kernel in every validation and no CE launch; epoch 1's
    loss below epoch 0's; the resumed run starts at epoch 2. Then 2
    epochs with nn.Dropout for the rate without the kernel.
-9. Time every kernel, its plain version and one library yardstick with
+10. Time every kernel, its plain version and one library yardstick with
    CUDA events, print each bound, eval users/s and a steady-state eval
    pass with its per-batch breakdown, train examples/s, a per-step
    training breakdown, the host syncs of a training step, the device's
@@ -93,6 +113,7 @@ the script exits 1 and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import json
@@ -213,16 +234,36 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def masked_scores(states, table, bitmask, n_valid, ids):
+def masked_scores(states, table, bitmask, n_valid, ids, seen_value=0.0):
     """The plain version's masked score of each given id: s . T[id],
-    0.0 where the id is seen, -inf at or past n_valid."""
+    seen_value (0.0 eval, -inf serving) where the id is seen, -inf at or
+    past n_valid."""
     import torch
 
     ids = ids.long()
     raw = torch.einsum("bh,bkh->bk", states, table[ids])
     seen = (torch.gather(bitmask, 1, ids >> 5) >> (ids & 31).int()) & 1
-    raw = torch.where(seen.bool(), torch.zeros_like(raw), raw)
+    raw = torch.where(seen.bool(), torch.full_like(raw, seen_value), raw)
     return torch.where(ids < n_valid, raw, torch.full_like(raw, -math.inf))
+
+
+# phase 2's rank cases, the i-th on make_case's inputs seeded with i:
+# (tag, B, V, H, k, n_valid, seen per row, integer, all-seen row).
+# bsarec_tpu_torch/tools/time_kernels.py digests the kernel's results here.
+RANK_CASES = [
+    ("main path", 256, N_ITEMS, 64, TOP_K, N_ITEMS, 16, False, False),
+    ("odd B, n_valid < V", 37, 5000, 64, 20, 4990, 16, False, False),
+    ("V off the tile, k=1", 3, 12101, 64, 1, 12101, 16, False, False),
+    ("k=128", 64, 33333, 64, 128, 33333, 16, False, False),
+    ("all-seen row", 9, 4099, 64, 20, 4099, 16, False, True),
+    ("n_valid < k", 5, 300, 64, 20, 10, 4, False, False),
+    ("H off the hidden chunk", 130, 70001, 48, 20, 70001, 16, False, False),
+    ("on-chip bounds", 256, 64 * 1563 + 17, 64, 32, 64 * 1563 + 5, 16, False, True),
+    ("past the on-chip bounds", 257, 30011, 64, 33, 30011, 16, False, False),
+    ("integer", 37, 20011, 64, 1, 20006, 16, True, False),
+    ("integer", 37, 20011, 64, 20, 20006, 16, True, False),
+    ("integer, all-seen row", 70, 20011, 64, 128, 20011, 16, True, True),
+]
 
 
 def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False):
@@ -251,26 +292,30 @@ def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False):
     return torch.from_numpy(states).to(device), torch.from_numpy(table).to(device), dev
 
 
-def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact):
-    """Kernel vs plain on one input; returns the largest value error."""
+def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_value=0.0):
+    """Kernel vs plain on one input, a seen item scoring seen_value (0.0
+    eval, -inf serving); returns the largest value error."""
     import torch
 
     from bsarec_tpu_torch.ops import rank
 
+    case_name = f"{case_name}, {'eval' if seen_value == 0.0 else 'serving'} mode"
     onchip_before = rank.streaming_masked_topk.onchip_launches
-    vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid)
+    vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid, seen_value)
     torch.cuda.synchronize()
     onchip = rank.streaming_masked_topk.onchip_launches - onchip_before
     check(onchip == rank.onchip_route(states.shape[0], states.shape[1], k),
           f"{case_name}: the rank kernel took another route than its shape names")
     if onchip:  # the older route on the same inputs gives the same bits
-        old_v, old_i = rank._launch(states, table, bitmask, k, n_valid, allow_onchip=False)
+        old_v, old_i = rank._launch(states, table, bitmask, k, n_valid, allow_onchip=False,
+                                    seen_value=seen_value)
         torch.cuda.synchronize()
         check(torch.equal(vals, old_v) and torch.equal(ids, old_i),
               f"{case_name}: the on-chip route differs from the older route at "
               f"{int(((vals != old_v) | (ids != old_i)).sum())} of {vals.numel()} slots")
         del old_v, old_i
-    want_v, want_i = rank.streaming_masked_topk_plain(states, table, bitmask, k, n_valid)
+    want_v, want_i = rank.streaming_masked_topk_plain(states, table, bitmask, k, n_valid,
+                                                      seen_value=seen_value)
     check(vals.shape == want_v.shape and ids.dtype == torch.int32, f"{case_name}: shape/dtype")
     finite = torch.isfinite(want_v)
     check(torch.equal(torch.isfinite(vals), finite), f"{case_name}: filled slots differ")
@@ -281,7 +326,7 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact):
               f"{case_name}: integer inputs must give bit-equal values and ids")
     else:
         check(err <= FLOAT_TOL, f"{case_name}: value error {err} > {FLOAT_TOL}")
-        by_score = masked_scores(states, table, bitmask, n_valid, ids)
+        by_score = masked_scores(states, table, bitmask, n_valid, ids, seen_value)
         id_err = float((by_score[finite] - want_v[finite]).abs().max()) if finite.any() else 0.0
         check(id_err <= FLOAT_TOL, f"{case_name}: returned ids score {id_err} off the plain values")
         for r in range(ids.shape[0]):
@@ -295,27 +340,14 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact):
 
 def phase_kernels(device):
     """Phase 2. Returns (max value error, the full-shape inputs)."""
-    # (tag, B, V, H, k, n_valid, seen per row, integer, all-seen row)
-    cases = [
-        ("main path", 256, N_ITEMS, 64, TOP_K, N_ITEMS, 16, False, False),
-        ("odd B, n_valid < V", 37, 5000, 64, 20, 4990, 16, False, False),
-        ("V off the tile, k=1", 3, 12101, 64, 1, 12101, 16, False, False),
-        ("k=128", 64, 33333, 64, 128, 33333, 16, False, False),
-        ("all-seen row", 9, 4099, 64, 20, 4099, 16, False, True),
-        ("n_valid < k", 5, 300, 64, 20, 10, 4, False, False),
-        ("H off the hidden chunk", 130, 70001, 48, 20, 70001, 16, False, False),
-        ("on-chip bounds", 256, 64 * 1563 + 17, 64, 32, 64 * 1563 + 5, 16, False, True),
-        ("past the on-chip bounds", 257, 30011, 64, 33, 30011, 16, False, False),
-        ("integer", 37, 20011, 64, 1, 20006, 16, True, False),
-        ("integer", 37, 20011, 64, 20, 20006, 16, True, False),
-        ("integer, all-seen row", 70, 20011, 64, 128, 20011, 16, True, True),
-    ]
     worst, full = 0.0, None
-    for i, (tag, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(cases):
+    for i, (tag, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(RANK_CASES):
         name = f"{tag} (B={b} V={v} H={h} k={k} n_valid={n_valid})"
         states, table, bitmask = make_case(b, v, h, n_seen, seed=i, device=device,
                                            integer=integer, all_seen_row=all_seen)
-        worst = max(worst, compare_kernel(name, states, table, bitmask, k, n_valid, integer))
+        for seen_value in (0.0, -math.inf):
+            worst = max(worst, compare_kernel(name, states, table, bitmask, k, n_valid, integer,
+                                              seen_value))
         if i == 0:
             full = (states, table, bitmask)
     return worst, full
@@ -808,6 +840,280 @@ def phase_train(device, workdir):
     log(f"train path: main(--resume --epochs 3 --export_topk) started at epoch 2 and returned in "
         f"{seconds:.1f}s, epoch 2 loss {losses[2]}, test scores {scores}; launches {counts}")
     return first_counts, rates[1]
+
+
+# ---- the serving path ----------------------------------------------------------
+
+SCORER_BATCHES = (1, 16, 256)
+HTTP_BATCHES = (1, 17, 256)
+# sequential requests timed at each HTTP load batch, and calls timed at
+# each scorer batch: enough that a p99 is not just the largest reading
+HTTP_LOAD_REQUESTS = {1: 200, 256: 200}
+SCORER_CALLS = 20
+# the serving layouts timed, (impl, quant)
+LAYOUTS = (("bitmask", None), ("dense", None), ("filtered", None), ("chunked", None),
+           ("bitmask", "int8"))
+# the share of the fp32 top-20 ids that the int8 artifact must keep, per
+# row on average
+INT8_MIN_OVERLAP = 0.5
+
+
+def serving_fill_cases(device):
+    """The serving op at the edge rows, integer inputs (exact scores, many
+    ties) on both routes (B=9 on-chip, B=257 the older route): row 0 has
+    seen every item, rows 1 and 2 all but 5, and every row holds ids
+    outside [0, V). The ids and values must equal a host reference of
+    JAX's serving contract: the seen ids (out-of-range ones dropped) and
+    item 0 masked to -inf, then a stable top-k by (value desc, id asc),
+    whose -inf tail is 0 and then the row's seen ids ascending."""
+    import torch
+
+    from bsarec_tpu_torch.ops import rank, serving_topk
+
+    v, h, k, extra = 4099, 64, TOP_K, 8
+    for b in (9, 257):
+        rng = np.random.default_rng(b)
+        states = rng.integers(-3, 4, size=(b, h)).astype(np.float32)
+        table = rng.integers(-3, 4, size=(v, h)).astype(np.float32)
+        seen = np.zeros((b, extra + v), np.int32)
+        seen[:, :extra] = rng.integers(-2, v + 3, size=(b, extra))
+        for r in (0, 1, 2):
+            seen[r, :extra] = [-2, -1, v, v + 1, v + 2, 1 << 30, 0, 0]
+            seen[r, extra:] = np.arange(v)
+            if r:
+                seen[r, extra + 100 * r:extra + 100 * r + 5] = 0
+        logits = states @ table.T  # integer sums below 2^24: exact
+        ok = (seen >= 0) & (seen < v)
+        mask = np.zeros((b, v), bool)
+        mask[np.nonzero(ok)[0], seen[ok]] = True
+        mask[:, 0] = True
+        masked = np.where(mask, -np.inf, logits)
+        want_i = np.argsort(-masked, axis=1, kind="stable")[:, :k]
+        want_v = np.take_along_axis(masked, want_i, 1)
+        before = (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.onchip_launches)
+        got_v, got_i = serving_topk.serving_masked_topk(
+            torch.from_numpy(states).to(device), torch.from_numpy(table).to(device),
+            torch.from_numpy(seen).to(device), k)
+        torch.cuda.synchronize()
+        onchip = rank.onchip_route(b, h, k)
+        check((rank.streaming_masked_topk.launches, rank.streaming_masked_topk.onchip_launches)
+              == (before[0] + 1, before[1] + onchip), f"serving op B={b}: launches")
+        check(np.array_equal(got_i.cpu().numpy(), want_i)
+              and np.array_equal(got_v.cpu().numpy(), want_v.astype(np.float32)),
+              f"serving op B={b}: ids or values differ from the serving contract's")
+        check(got_i[0].tolist() == list(range(k)) and got_i[1, 5:].tolist() == list(range(k - 5)),
+              f"serving op B={b}: the -inf fill of the all-seen and 5-unseen rows")
+        log(f"serving op vs host reference (B={b} V={v} k={k}, integer inputs, an all-seen row, "
+            f"rows with 5 unseen items, out-of-range seen ids): bit-equal ids and values, "
+            f"JAX's -inf fill; {'on-chip' if onchip else 'older'} route")
+
+
+def http_session(scorer, seqs, card):
+    """Serve the scorer over HTTP from a thread; /healthz, /rank at the
+    HTTP_BATCHES with ragged histories (each equal to a direct scorer
+    call, no history item or id 0 served), a malformed body and an
+    out-of-range id (400, then the server still answers), then
+    sequential requests/s and latency at b = 1 and 256."""
+    import http.client
+    import threading
+
+    from bsarec_tpu_torch import serve
+
+    server = serve.make_server(scorer, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+
+    def post(body):
+        conn.request("POST", "/rank", body, {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+
+    def health():
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+
+    try:
+        status, body = health()
+        check(status == 200 and body == {"ok": True, "max_len": scorer.max_len,
+                                         "seen_width": scorer.seen_width}, f"/healthz {body}")
+        for b in HTTP_BATCHES:
+            hists = [s[:-1] for s in seqs[:b]]
+            status, body = post(json.dumps({"input_ids": hists}))
+            check(status == 200, f"/rank b={b}: status {status} {body}")
+            ids, seen, _ = serve.pad_requests(hists, scorer.max_len, scorer.seen_width)
+            got = np.asarray(body["topk"])
+            check(np.array_equal(got, scorer.topk(ids, None, seen)),
+                  f"/rank b={b} differs from a direct scorer call")
+            check(all(not set(row) & (set(h) | {0}) for row, h in zip(got.tolist(), hists)),
+                  f"/rank b={b} served a history item or id 0")
+        for bad in ("{bad json", json.dumps({"input_ids": [[5, N_ITEMS]]})):
+            status, body = post(bad)
+            check(status == 400 and "error" in body, f"/rank {bad[:40]!r}: {status} {body}")
+        check(health()[0] == 200, "/healthz after the refused requests")
+        log("serving HTTP: /healthz, /rank at b = " + ", ".join(map(str, HTTP_BATCHES))
+            + " equal to direct scorer calls with no history item served; a malformed body "
+            "and an out-of-range id answered 400")
+        for b, n in HTTP_LOAD_REQUESTS.items():
+            body = json.dumps({"input_ids": [s[:-1] for s in seqs[:b]]})
+            post(body)
+            lat = []
+            t0 = time.perf_counter()
+            for _ in range(n):
+                t1 = time.perf_counter()
+                check(post(body)[0] == 200, "/rank under load")
+                lat.append(1e3 * (time.perf_counter() - t1))
+            wall = time.perf_counter() - t0
+            log(f"serving HTTP b={b}: {n} sequential requests on one connection, "
+                f"{n / wall:.1f} requests/s ({b * n / wall:.1f} users/s), "
+                f"p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
+                f"max {max(lat):.3f} ms of {n} [{card}]")
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the HTTP server thread did not stop")
+
+
+def phase_serving(device, workdir, card):
+    """The serving path, in phase 7's directory: `main --do_eval
+    --load_model <phase 7's BSARec> --export_serving` at full width on
+    the card, `load_scorer(..., "cuda")`, one artifact call at B=256 (the
+    rank kernel launches once, on its on-chip route), then the HTTP host.
+    The launch counts are read over that run. Then, outside it: the
+    artifact against the serving-mode plain version, the four layouts and
+    int8 against it, the op at the edge rows, and the timings. Returns
+    the JSON fields for the rank kernel."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch import serving
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.data.corpus import Corpus
+    from bsarec_tpu_torch.data.pipeline import SeqRecData
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.ops import rank, serving_topk
+    from bsarec_tpu_torch.train.checkpoint import load_params
+
+    path = os.path.join(workdir, "scorer.pt2")
+    argv = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
+            "--train_name", "smoke_serving", "--do_eval", "--load_model", "smoke_train",
+            "--export_serving", path, "--device", device.type, *WIDTHS]
+    seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)  # phase 7's corpus
+    test = SeqRecData(Corpus(user_seq=seqs, max_item=N_ITEMS - 1), max_len=50).test
+    ids, seen = test.input_ids[:EVAL_BATCH], test.seen_items[:EVAL_BATCH]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    port_main.main(argv)
+    main_seconds = time.perf_counter() - t0
+    found = re.findall(r"exported serving scorer: (\{.*\})", read_log(
+        os.path.join(workdir, "smoke_serving.log")))
+    check(len(found) == 1, "export log line")
+    meta = ast.literal_eval(found[0])
+    check(meta["impl"] == "bitmask" and meta["device"] == "cuda" and meta["item_size"] == N_ITEMS
+          and meta["bytes"] == os.path.getsize(path), f"export metadata {meta}")
+    t0 = time.perf_counter()
+    scorer = serving.load_scorer(path, "cuda")
+    load_seconds = time.perf_counter() - t0
+    before = (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.onchip_launches)
+    got = scorer.topk(ids, None, seen)
+    check((rank.streaming_masked_topk.launches, rank.streaming_masked_topk.onchip_launches)
+          == (before[0] + 1, before[1] + 1),
+          "the artifact call at B=256 must launch the rank kernel once, on its on-chip route")
+    http_session(scorer, seqs, card)
+    counts = read_counts()
+    launches, onchip = counts["streaming_masked_topk"], rank.streaming_masked_topk.onchip_launches
+    eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    check(counts == zero_counts() | {"streaming_masked_topk": launches}
+          and launches > eval_steps and onchip == launches,
+          f"serving path launches {counts}, {onchip} on-chip: want only rank launches, more than "
+          f"the test pass's {eval_steps}, all on-chip")
+    log(f"serving path: main(--do_eval --export_serving) returned in {main_seconds:.1f}s, export "
+        f"{meta['seconds']:.3f}s, artifact {meta['bytes']} bytes, load {load_seconds:.3f}s; "
+        f"{launches} rank launches ({eval_steps} of the test pass, the rest in artifact calls), "
+        f"{onchip} on the on-chip route [{card}]")
+
+    # the artifact against the serving-mode plain version on the card
+    cfg = ModelConfig(model_type="bsarec", item_size=N_ITEMS, num_users=TRAIN_USERS + 1,
+                      max_seq_length=50, hidden_size=64, num_hidden_layers=2,
+                      num_attention_heads=1, c=5, alpha=0.7)
+    model = build_model(cfg)
+    model.load_state_dict(load_params(os.path.join(workdir, "smoke_train.ckpt")))
+    model.to(device).eval()
+    seen_dev = torch.from_numpy(seen).to(device)
+    with torch.inference_mode():
+        states = model.predict(torch.from_numpy(ids).long().to(device))[:, -1, :].contiguous()
+        table = model.item_table
+        bitmask = serving_topk.seen_bitmask(seen_dev, N_ITEMS)
+        want_v, _ = rank.streaming_masked_topk_plain(states, table, bitmask, TOP_K, N_ITEMS,
+                                                     seen_value=-math.inf)
+
+        def score_of(topk):
+            return masked_scores(states, table, bitmask, N_ITEMS,
+                                 torch.from_numpy(topk).to(device), -math.inf)
+
+        check(bool(torch.isfinite(want_v).all()), "every row has 20 unmasked items")
+        err = float((score_of(got) - want_v).abs().max())
+        check(err <= FLOAT_TOL, f"artifact top-20 at B=256: score error {err} > {FLOAT_TOL}")
+        check(all(len(set(r)) == TOP_K for r in got.tolist()), "artifact row repeats an id")
+        log(f"serving artifact vs plain serving version at B={EVAL_BATCH}: ids scored by the plain "
+            f"version within {err:.3g} of its top-20 values")
+
+        serving_fill_cases(device)
+        bm_ms = cuda_ms(lambda: rank.streaming_masked_topk(
+            states, table, bitmask, TOP_K, N_ITEMS, -math.inf), iters=20)
+        eval_ms = cuda_ms(lambda: rank.streaming_masked_topk(
+            states, table, bitmask, TOP_K, N_ITEMS), iters=20)
+    log(f"time streaming_masked_topk serving mode: {bm_ms:.4f} ms per {EVAL_BATCH}-user batch, "
+        f"eval mode on the same inputs {eval_ms:.4f} ms [{card}]")
+
+    # the layouts: each exported as main would, loaded, held against bitmask
+    # and timed per call (host clock around Scorer.topk, inputs from and
+    # ids back to the host)
+    scorers = {("bitmask", None): scorer}
+    for impl, quant in LAYOUTS:
+        key = (impl, quant)
+        if key not in scorers:
+            lpath = os.path.join(workdir, f"scorer_{impl}_{quant}.pt2")
+            lmeta = serving.export_scorer(model, N_ITEMS, 50, seen.shape[1], lpath, quant=quant,
+                                          impl=impl)
+            scorers[key] = serving.load_scorer(lpath, "cuda")
+            log(f"serving export {impl}{' int8' if quant else ''}: {lmeta['seconds']:.3f}s, "
+                f"{lmeta['bytes']} bytes")
+        sc = scorers[key]
+        out = sc.topk(ids, None, seen)
+        if quant is None and impl != "bitmask":
+            diff = out != got
+            with torch.inference_mode():
+                d_err = float((score_of(out) - score_of(got)).abs().max())
+            check(d_err <= FLOAT_TOL, f"layout {impl}: ids score {d_err} off bitmask's")
+            log(f"serving layout {impl} vs bitmask at B={EVAL_BATCH}: {int(diff.sum())} of "
+                f"{diff.size} ids differ, scores within {d_err:.3g}")
+        elif quant:
+            overlap = float(np.mean([len(set(a) & set(b)) / TOP_K
+                                     for a, b in zip(out.tolist(), got.tolist())]))
+            top1 = float((out[:, 0] == got[:, 0]).mean())
+            check(overlap >= INT8_MIN_OVERLAP, f"int8 keeps {overlap:.3f} of the fp32 top-20")
+            log(f"serving int8 vs fp32 at B={EVAL_BATCH}: {overlap:.4f} of each row's top-20 "
+                f"kept on average, top-1 equal in {top1:.4f} of rows")
+        for b in SCORER_BATCHES:
+            sc.topk(ids[:b], None, seen[:b])
+            times = []
+            for _ in range(SCORER_CALLS):
+                t0 = time.perf_counter()
+                sc.topk(ids[:b], None, seen[:b])
+                times.append(1e3 * (time.perf_counter() - t0))
+            name = impl + (" int8" if quant else "")
+            log(f"serving scorer {name} b={b}: median {np.median(times):.3f} ms per call, "
+                f"min {min(times):.3f}, {SCORER_CALLS} calls [{card}]")
+        if key != ("bitmask", None):
+            del scorers[key]
+    del scorer, scorers, model
+    torch.cuda.empty_cache()
+    return {"serving_launches": launches, "serving_onchip_launches": onchip, "serving_ms": bm_ms}
 
 
 def in_turns(first, second, measure):
@@ -1563,8 +1869,10 @@ def main() -> int:
         f"(test pass of main --do_eval, first batch included) [{card}]")
     with timed("train main path"), tempfile.TemporaryDirectory() as workdir:
         train_launches, train_rate = phase_train(device, workdir)
-    log(f"train: {train_rate:.0f} examples/s in the second epoch of main (--epochs 2, "
-        f"validation excluded) [{card}]")
+        log(f"train: {train_rate:.0f} examples/s in the second epoch of main (--epochs 2, "
+            f"validation excluded) [{card}]")
+        with timed("serving main path"):
+            serving_fields = phase_serving(device, workdir, card)
     with timed("SASRec train main path"), tempfile.TemporaryDirectory() as workdir:
         sasrec_launches, fused_rate, nn_rate = phase_sasrec_train(device, workdir, card)
     log(f"SASRec train: {fused_rate:.0f} examples/s with the fused dropout kernel, {nn_rate:.0f} "
@@ -1590,6 +1898,9 @@ def main() -> int:
         "onchip_launches": eval_onchip,
         "max_abs_err": worst_err,
         **times,
+        "serving_launches": serving_fields["serving_launches"],
+        "serving_onchip_launches": serving_fields["serving_onchip_launches"],
+        "serving_ms": serving_fields["serving_ms"],
     }]
     for name, replaces in (("ce_logz", "bsarec_tpu/ops/pallas_ce.py:222"),
                            ("gold_rows", "bsarec_tpu/ops/pallas_ce.py:152"),

@@ -269,6 +269,88 @@ def test_cuda_rank_onchip_scores_along_the_catalog(cuda_device, direction):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,v,k,onchip", [
+    (37, 5000, 20, True), (9, 300, 20, True), (257, 30011, 20, False), (64, 20011, 128, False),
+])
+def test_cuda_rank_serving_mode_matches_plain(cuda_device, b, v, k, onchip):
+    """The rank kernel with seen -> -inf (serving) on both routes, integer
+    inputs (exact scores, many ties): values and ids bit-equal to the plain
+    version and, on the on-chip route, to the older route; an all-seen row
+    and rows with fewer than k unmasked items end in (-inf, 0) slots. The
+    custom op on top gives them JAX's fill: 0, then the row's seen ids
+    ascending, and on the card launches the kernel once."""
+    from bsarec_tpu_torch.ops import serving_topk
+
+    states, table, seen = _rank_inputs(b, v, 64, seed=v + k, integer=True)
+    if v == 300:  # rows 1..4 see all but 10 items, row 0 every item
+        seen = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
+        seen[:5, :20] = 0
+        seen[0, 20:] = np.arange(v)
+        for r in range(1, 5):
+            seen[r, 20:] = np.arange(v)
+            seen[r, 20 + 11 * r:20 + 11 * r + 10] = 0
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    sd = torch.from_numpy(seen).to(cuda_device)
+    bm = serving_topk.seen_bitmask(sd, v)
+    np.testing.assert_array_equal(bm.cpu().numpy(), rank.build_seen_bitmask(seen, v))
+    assert rank.onchip_route(b, 64, k) == onchip
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, seen_value=float("-inf"))
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, seen_value=float("-inf"))
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    if onchip:
+        old_v, old_i = rank._launch(s, t, bm, k, v, allow_onchip=False, seen_value=float("-inf"))
+        torch.cuda.synchronize()
+        assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+    if v == 300:
+        assert torch.isinf(got_v[0]).all() and (got_i[0] == 0).all()
+        assert torch.isfinite(got_v[1, :10]).all() and torch.isinf(got_v[1, 10:]).all()
+    before = rank.streaming_masked_topk.launches
+    op_v, op_i = serving_topk.serving_masked_topk(s, t, sd, k)
+    torch.cuda.synchronize()
+    assert rank.streaming_masked_topk.launches == before + 1
+    cpu_v, cpu_i = serving_topk.serving_masked_topk(s.cpu(), t.cpu(), sd.cpu(), k)
+    assert torch.equal(op_v.cpu(), cpu_v) and torch.equal(op_i.cpu(), cpu_i)
+    if v == 300:
+        masked = sorted(set(seen[1].tolist()) | {0})
+        assert op_i[1, 10:].tolist() == masked[:k - 10]
+        assert op_i[0].tolist() == list(range(k))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_artifact_round_trip(cuda_device, tmp_path):
+    """A small BSARec's bitmask artifact exported on the card ranks as its
+    eager module and launches the rank kernel in the artifact; the same
+    artifact loaded on the CPU ranks alike, and one exported on the CPU
+    loads onto the card."""
+    from bsarec_tpu_torch import serving
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.models import build_model
+
+    cfg = ModelConfig(model_type="bsarec", item_size=5000, num_users=2, max_seq_length=10,
+                      hidden_size=16, num_hidden_layers=1, num_attention_heads=1, c=3, alpha=0.7)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 5000, size=(33, 10)).astype(np.int32)
+    seen = rng.integers(0, 5000, size=(33, 12)).astype(np.int32)
+    want = serving.load_scorer(serving.export_scorer(model, 5000, 10, 12,
+                                                     str(tmp_path / "cpu.pt2"))["path"],
+                               "cpu").topk(ids, None, seen)
+    on_card = serving.load_scorer(str(tmp_path / "cpu.pt2"), cuda_device)
+    before = rank.streaming_masked_topk.launches
+    np.testing.assert_array_equal(on_card.topk(ids, None, seen), want)
+    assert rank.streaming_masked_topk.launches == before + 1
+    model.to(cuda_device)
+    path = serving.export_scorer(model, 5000, 10, 12, str(tmp_path / "cuda.pt2"))["path"]
+    for device in (cuda_device, "cpu"):
+        np.testing.assert_array_equal(
+            serving.load_scorer(path, device).topk(ids, None, seen), want)
+    for b in (1, 257):
+        got = serving.load_scorer(path, cuda_device).topk(ids[:1].repeat(b, 0))
+        assert got.shape == (b, 20)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,dtype,offset,rate", [
     (256 * 50 * 64, torch.float32, 0, 0.5),
     (256 * 2 * 50 * 50, torch.float32, 0, 0.5),

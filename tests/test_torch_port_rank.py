@@ -114,6 +114,7 @@ def test_wrapper_on_cpu_runs_plain_and_validates():
     want = rank.streaming_masked_topk_plain(s, t, bm, k=3)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert rank.streaming_masked_topk.launches == before  # counts kernel launches only
-    for bad in ({"k": 0}, {"k": rank.MAX_K + 1}, {"n_valid": 101}, {"n_valid": -1}):
+    for bad in ({"k": 0}, {"k": rank.MAX_K + 1}, {"n_valid": 101}, {"n_valid": -1},
+                {"seen_value": 1.0}):
         with pytest.raises(ValueError):
             rank.streaming_masked_topk(s, t, bm, **{"k": 3, **bad})
