@@ -7,8 +7,11 @@ Every split is materialized once as fixed-shape int32 numpy arrays:
 - valid/test: [U, L] inputs, [U] answers, plus 0-padded per-user
   seen-item lists (`src/dataset.py:126-168`) for eval masking.
 
-The contrastive same-target view (`sample_same_target`, DuoRec/FEARec)
-is not ported yet.
+The contrastive same-target view of DuoRec and FEARec
+(`sample_same_target`, `src/dataset.py:41-56,83-106`) is resampled on the
+host each epoch from a grouped-by-answer index, in numpy. It is JAX's
+numpy path; the JAX package's native `same_target_pick` is not ported
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ class SeqRecData:
         self.train = self._build_train(lists, max_len)
         self.valid = self._build_eval(lists, max_len, mode="valid")
         self.test = self._build_eval(lists, max_len, mode="test")
+        self._same_target_groups = None
 
     @staticmethod
     def _build_train(user_seq: list[list[int]], max_len: int) -> TrainSplit:
@@ -94,3 +98,58 @@ class SeqRecData:
             answers[user] = seq[-drop]
             seen[user, : len(hist)] = hist
         return EvalSplit(inputs, answers, seen)
+
+    # ---- contrastive same-target view (DuoRec / FEARec) ----------------
+    def _build_same_target_groups(self):
+        """Group the train rows by answer item, and flag the groups that
+        hold at least two distinct input rows (reference `keep_random`,
+        `src/dataset.py:86-96`). `row_class` numbers the distinct input
+        rows, where JAX hashes each row's bytes: the two agree on which
+        rows are equal, which is all the sampler reads. The flags come from
+        each group's least and largest class, where JAX loops over the
+        catalog in Python (seconds at 1M items): the same groups."""
+        answers = self.train.answers
+        order = np.argsort(answers, kind="stable")
+        sorted_ans = answers[order]
+        items = np.arange(self.item_size)
+        starts = np.searchsorted(sorted_ans, items)
+        ends = np.searchsorted(sorted_ans, items, side="right")
+        rows = np.ascontiguousarray(self.train.input_ids)
+        as_bytes = rows.view(np.dtype((np.void, rows.shape[1] * rows.itemsize))).reshape(-1)
+        row_class = np.unique(as_bytes, return_inverse=True)[1].reshape(-1).astype(np.int64)
+        diversity = np.zeros(self.item_size, dtype=bool)
+        nonempty = ends > starts
+        if nonempty.any():
+            grouped = row_class[order]
+            firsts = starts[nonempty]
+            diversity[nonempty] = (np.minimum.reduceat(grouped, firsts)
+                                   != np.maximum.reduceat(grouped, firsts))
+        self._same_target_groups = (order, starts, ends, diversity, row_class)
+
+    def sample_same_target(self, rng: np.random.Generator) -> np.ndarray:
+        """One epoch's same-target view, [N, L]: for each train row the
+        input row of a random *other* train row with the same answer
+        (itself when its group has no distinct member), JAX's numpy path
+        (`bsarec_tpu/data/pipeline.py:152-185`) draw for draw. JAX draws a
+        seed for its native sampler first and, without the library, drops
+        it; so does this, to stay on the same stream of `rng`."""
+        if self._same_target_groups is None:
+            self._build_same_target_groups()
+        order, starts, ends, diversity, row_class = self._same_target_groups
+        answers = self.train.answers
+        n = answers.shape[0]
+        group_start = starts[answers]
+        group_size = np.maximum(ends[answers] - group_start, 1)
+        rng.integers(0, 2**63 - 1)  # JAX's native-sampler seed
+        pick = order[group_start + (rng.integers(0, 1 << 62, size=n) % group_size)]
+        # re-pick rows that landed on an identical sequence while their
+        # group offers another one (8 rounds, as JAX)
+        for _ in range(8):
+            bad = (row_class[pick] == row_class) & diversity[answers]
+            if not bad.any():
+                break
+            idx = np.nonzero(bad)[0]
+            pick[idx] = order[group_start[idx]
+                              + (rng.integers(0, 1 << 62, size=idx.size) % group_size[idx])]
+        # the picked row's input is the reference's sem_aug[:-1]
+        return self.train.input_ids[pick].copy()

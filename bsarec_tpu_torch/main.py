@@ -6,10 +6,14 @@
         --c 5 --alpha 0.7 --do_eval --load_model BSARec_Beauty
     BSAREC_DROPOUT=pallas python -m bsarec_tpu_torch.main --data_name Beauty \
         --model_type SASRec --prng rbg --train_name SASRec_Beauty
+    python -m bsarec_tpu_torch.main --data_name Beauty --model_type FEARec \
+        --train_name FEARec_Beauty
 
 Takes the JAX CLI's flags plus `--device` (default cuda; CUDA asked for
-and absent raises, `--device cpu` runs on the CPU). BSARec and SASRec
-are ported; other `--model_type`s raise. `--prng rbg` with
+and absent raises, `--device cpu` runs on the CPU). Every `--model_type`
+of the JAX package is ported: BSARec, SASRec, BERT4Rec, FMLPRec, GRU4Rec,
+Caser, DuoRec and FEARec, each with its own flags; an unknown type
+raises. `--prng rbg` with
 `BSAREC_DROPOUT=pallas` runs every dropout site on the fused kernel. Without `--do_eval`
 it trains (`Trainer.fit`: epochs, validation, early stopping with a
 checkpoint of the best model, a train-state snapshot after each epoch,

@@ -93,7 +93,8 @@ class BSARecModel(SequentialRecModel):
         x = self.add_position_embedding(input_ids)
         return self.item_encoder(x, mask, all_layers=all_layers)
 
-    def calculate_loss(self, input_ids, answers, neg_answers=None):
+    def calculate_loss(self, input_ids, answers, neg_answers=None, same_target=None,
+                       user_ids=None, *, generator=None):
         """Mean full-catalog CE of the last position's state against the
         tied item table (`bsarec_tpu/models/bsarec.py:91-93`); the
         negatives are not read."""

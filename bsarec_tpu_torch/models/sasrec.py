@@ -20,6 +20,9 @@ from bsarec_tpu_torch.ops.losses import pair_bce_masked
 class SASRecModel(SequentialRecModel):
     reads_negatives = True
 
+    def loss_name(self, ce: str) -> str:
+        return "pair BCE with one sampled negative per sample"
+
     def __init__(self, cfg, generator: torch.Generator | None = None, prng: str = "threefry"):
         super().__init__(cfg, prng)
         self.item_encoder = TransformerEncoder(cfg, self.dropout_state)
@@ -35,10 +38,7 @@ class SASRecModel(SequentialRecModel):
         x = self.add_position_embedding(input_ids)
         return self.item_encoder(x, mask, all_layers=all_layers)
 
-    def calculate_loss(self, input_ids, answers, neg_answers=None):
-        if neg_answers is None:
-            raise ValueError("SASRec's loss reads one sampled negative per sample")
+    def calculate_loss(self, input_ids, answers, neg_answers=None, same_target=None,
+                       user_ids=None, *, generator=None):
         seq_out = self.forward(input_ids)[:, -1, :]
-        pos_logits = (self.embed_items(answers) * seq_out).sum(-1)
-        neg_logits = (self.embed_items(neg_answers) * seq_out).sum(-1)
-        return pair_bce_masked(pos_logits, neg_logits, answers)
+        return pair_bce_masked(*self.pair_logits(seq_out, answers, neg_answers), answers)

@@ -1,7 +1,9 @@
 """Training losses (counterpart of `bsarec_tpu/ops/losses.py`).
 
-The full-catalog softmax cross-entropy of BSARec and SASRec's pairwise
-BCE are ported; the zoo's other losses wait for ROADMAP A9.
+The full-catalog softmax cross-entropy (BSARec, BERT4Rec, DuoRec,
+FEARec), the masked pairwise BCE (SASRec, Caser), FMLP-Rec's unmasked
+log-sigmoid BCE, GRU4Rec's BPR loss and the contrastive models' in-batch
+InfoNCE.
 """
 
 from __future__ import annotations
@@ -55,3 +57,43 @@ def pair_bce_masked(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
     pos_loss = (F.softplus(-pos_logits) * valid).sum() / denom
     neg_loss = (F.softplus(neg_logits) * valid).sum() / denom
     return pos_loss + neg_loss
+
+
+def pair_logsigmoid_bce(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
+                        eps: float = 1e-24) -> torch.Tensor:
+    """FMLP-Rec's unmasked sigmoid BCE (`bsarec_tpu/ops/losses.py:90-94`;
+    reference `src/model/fmlprec.py:54-59`): every row counts, padded
+    answers included, and eps guards the logs."""
+    pos = -torch.log(torch.sigmoid(pos_logits) + eps)
+    neg = -torch.log(1.0 - torch.sigmoid(neg_logits) + eps)
+    return (pos + neg).mean()
+
+
+def bpr_loss(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
+             gamma: float = 1e-10) -> torch.Tensor:
+    """GRU4Rec's BPR loss, -mean log(gamma + sigmoid(pos - neg))
+    (`bsarec_tpu/ops/losses.py:97-99`; reference `src/model/gru4rec.py:49-67`)."""
+    return -torch.log(gamma + torch.sigmoid(pos_logits - neg_logits)).mean()
+
+
+def info_nce_logits(z_i: torch.Tensor, z_j: torch.Tensor, temp: float,
+                    sim: str = "dot") -> torch.Tensor:
+    """In-batch InfoNCE over two views (`bsarec_tpu/ops/losses.py:102-124`;
+    reference `src/model/duorec.py:47-74`).
+
+    z_i, z_j: [B, H] states of the two views. Each of the 2B rows of
+    z = [z_i; z_j] has its pair as the positive and the other 2(B - 1)
+    rows as negatives: the [2B, 2B] similarities divided by `temp`, the
+    diagonal set to -inf (self excluded), and the mean of logZ - positive.
+    `sim` is "dot" or "cos" (rows scaled to unit norm, clipped at 1e-12)."""
+    z = torch.cat([z_i, z_j], dim=0)
+    if sim == "cos":
+        z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True).clamp(min=1e-12)
+    sims = (z @ z.T) / temp
+    n = z.shape[0]
+    b = n // 2
+    idx = torch.arange(n, device=z.device)
+    pos = sims[idx, torch.where(idx < b, idx + b, idx - b)]
+    eye = torch.eye(n, dtype=torch.bool, device=z.device)
+    sims = sims.masked_fill(eye, float("-inf"))
+    return (torch.logsumexp(sims, dim=-1) - pos).mean()

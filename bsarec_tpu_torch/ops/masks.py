@@ -3,8 +3,8 @@
 Masks are additive: 0 where attention is allowed and -10000 (not -inf)
 where not (reference: `src/model/_abstract_model.py:41-69`). Padding
 positions (item id 0) are always disallowed as keys; the causal variant
-also disallows future positions. (The bidirectional mask waits for
-BERT4Rec.)
+also disallows future positions; the bidirectional one (BERT4Rec) only
+the padding keys.
 """
 
 from __future__ import annotations
@@ -21,3 +21,9 @@ def causal_additive_mask(input_ids: torch.Tensor, dtype=torch.float32) -> torch.
     causal = torch.tril(torch.ones(seq_len, seq_len, dtype=dtype, device=input_ids.device))
     keep = valid[:, None, None, :] * causal[None, None, :, :]
     return (1.0 - keep) * NEG_INF
+
+
+def bidirectional_additive_mask(input_ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[B, L] int ids -> [B, 1, 1, L] additive padding mask."""
+    valid = (input_ids > 0).to(dtype)
+    return (1.0 - valid[:, None, None, :]) * NEG_INF

@@ -14,13 +14,18 @@ EVAL_KS = (5, 10, 15, 20)
 TOP_K = 20
 
 
+def stable_topk(x: torch.Tensor, k: int):
+    """Top k along the last dim, ordered by (value desc, index asc), as
+    `jax.lax.top_k` orders ties."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def masked_topk(scores: torch.Tensor, seen_items: torch.Tensor, k: int = TOP_K):
     """scores: [B, V]; seen_items: [B, S] int ids, 0-padded (item 0 is the
     padding id, so pad entries re-zero column 0). Returns (values [B, k],
     ids [B, k] int64), ordered by (value descending, id ascending)."""
-    scores = scores.scatter(1, seen_items.long(), 0.0)
-    vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], ids[:, :k]
+    return stable_topk(scores.scatter(1, seen_items.long(), 0.0), k)
 
 
 def topk_metrics(topk_idx: torch.Tensor, answers: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,10 @@ The artifact:
 - has one symbolic batch dimension, so any batch size runs without a new
   export;
 - takes int32 `input_ids [b, L]`, `user_ids [b]`, `seen_items [b, S]` and
-  returns int32 [b, 20] ranked ids;
+  returns int32 [b, 20] ranked ids. The state is `model.predict(input_ids,
+  user_ids)[:, -1]`: BERT4Rec's predict shifts in its mask token, Caser's
+  reads the user ids; every model ranks `table[:item_size]`, which leaves
+  out BERT4Rec's [mask] row;
 - is exported on one device and loads on either: `load_scorer` moves it
   with `torch.export.passes.move_to_device_pass` where they differ.
 
@@ -53,6 +56,7 @@ from torch import nn
 
 # registers the custom op that bitmask artifacts call
 from bsarec_tpu_torch.ops import serving_topk
+from bsarec_tpu_torch.ops.topk import stable_topk
 
 SERVING_CALL_DOC = "(input_ids [b, L] i32, user_ids [b] i32, seen_items [b, S] i32) -> [b, 20] i32"
 IMPLS = ("bitmask", "dense", "filtered", "chunked")
@@ -60,12 +64,6 @@ _META_FILE = "bsarec_scorer.json"
 # an fp32 product of int8-valued operands is exact while every partial sum
 # stays below 2^24: H * 127^2 < 2^24
 _INT8_MAX_HIDDEN = (1 << 24) // (127 * 127)
-
-
-def stable_topk(x: torch.Tensor, k: int):
-    """Top k along dim 1 ordered by (value desc, index asc)."""
-    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
 
 
 def _drop_out_of_range(seen_items: torch.Tensor, v: int) -> torch.Tensor:
@@ -253,6 +251,8 @@ def export_scorer(model: nn.Module, item_size: int, max_len: int, seen_width: in
         model.train(was_training)
     meta = {
         "path": path, "call": SERVING_CALL_DOC, "device": device.type, "max_len": max_len,
+        # the user-table size of a model that reads user ids (Caser), else None
+        "num_users": model.config.num_users if model.reads_users else None,
         "seen_width": seen_width, "item_size": item_size, "quant": quant or "none",
         "impl": impl, "item_chunk": item_chunk if impl == "chunked" else None,
     }
@@ -286,7 +286,8 @@ class Scorer:
         return self.meta["item_size"]
 
     def topk(self, input_ids, user_ids=None, seen_items=None) -> np.ndarray:
-        """Inputs are checked on the host: an id outside [0, item_size)
+        """Inputs are checked on the host: an id outside [0, item_size), or
+        a user id outside [0, num_users) for a model that reads them,
         raises ValueError (on the card an embedding lookup out of range
         would fire a device assert; JAX's lookup gives that row NaN
         scores instead)."""
@@ -303,6 +304,10 @@ class Scorer:
         if user_ids.shape != (b,) or seen_items.shape != (b, self.seen_width):
             raise ValueError(f"user_ids {user_ids.shape} and seen_items {seen_items.shape} must "
                              f"be [{b}] and [{b}, {self.seen_width}]")
+        num_users = self.meta.get("num_users")
+        if num_users is not None and user_ids.size and (user_ids.min() < 0
+                                                        or user_ids.max() >= num_users):
+            raise ValueError(f"user_ids must lie in [0, {num_users})")
         args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
                 for a in (input_ids, user_ids, seen_items)]
         with self._lock, torch.inference_mode():

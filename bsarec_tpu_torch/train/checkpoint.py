@@ -6,8 +6,9 @@
 - `save_train_state` / `load_train_state`: the full training state, so
   that `--resume` continues an interrupted run where it stopped: params,
   the Adam state, the epoch, the random generators' states (the
-  trainer's device generator, which draws the epoch order, the negatives
-  and the fused dropout's seeds, and torch's default generators), the
+  trainer's device generator, which draws the epoch order, the negatives,
+  BERT4Rec's cloze positions and the fused dropout's seeds; torch's
+  default generators; the numpy generator of the same-target view), the
   early-stopping best score and counter, and the model-config
   fingerprint that `Trainer.resume` checks.
 

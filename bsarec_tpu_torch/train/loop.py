@@ -4,8 +4,9 @@ The JAX package runs a whole epoch, or a whole eval pass, as one
 `lax.scan` inside one jitted program. Here each is a Python loop over
 batches of device-resident data. The training loop reads nothing back
 to the host until the epoch ends: the loss is summed on the device; the
-epoch order, the negatives and the fused dropout's seed words come from
-a generator on the device; Adam keeps its step counts on the host.
+epoch order, the negatives, BERT4Rec's cloze positions and the fused
+dropout's seed words come from a generator on the device; Adam keeps its
+step counts on the host.
 """
 
 from __future__ import annotations
@@ -37,10 +38,10 @@ def sample_negatives(generator: torch.Generator, input_ids: torch.Tensor,
     """Uniform negatives in [1, item_size) that avoid the sample's items,
     {nonzero input ids} | {answer} (`src/dataset.py:66-70,120-124`), by 8
     rounds of redrawing the colliding ones. `generator` lives on the
-    tensors' device. The pairwise losses (SASRec's) read these; BSARec's
-    full-catalog CE does not, and the JAX epoch's draw for it is dead
-    code that XLA removes, so the port's epoch draws them only for models
-    with `reads_negatives`."""
+    tensors' device. The pairwise losses (SASRec, FMLP-Rec, GRU4Rec,
+    Caser) read these; the full-catalog CE models do not, and the JAX
+    epoch's draw for them is dead code that XLA removes, so the port's
+    epoch draws them only for models with `reads_negatives`."""
     batch, dev = answers.shape[0], answers.device
 
     def draw():
@@ -72,18 +73,20 @@ def dropout_seeds(generator: torch.Generator, steps: int, device: torch.device) 
 
 def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
                       device: torch.device):
-    """Returns `(epoch, steps)`; `epoch(inputs, answers, generator)` runs
-    one pass over the [N, L] inputs and [N] answers in the generator's
-    order, one Adam step per full batch, and returns the mean batch loss
-    as a 0-d tensor on the device. From the generator, in this order:
-    the epoch's permutation, the fused dropout's [steps, 2] seed words
-    (fused models only), then each step's negatives (models with
-    `reads_negatives` only)."""
+    """Returns `(epoch, steps)`; `epoch(inputs, answers, generator, users,
+    same_target)` runs one pass over the [N, L] inputs, [N] answers, [N]
+    user ids and [N, L] same-target view (each None where the model reads
+    none) in the generator's order, one Adam step per full batch, and
+    returns the mean batch loss as a 0-d tensor on the device. From the
+    generator, in this order: the epoch's permutation, the fused
+    dropout's [steps, 2] seed words (fused models only), then per step
+    the negatives (models with `reads_negatives` only) and what the loss
+    itself draws (BERT4Rec's cloze positions)."""
     steps = math.ceil(num_samples / batch_size)
     item_size = model.config.item_size
     dropout_state = model.dropout_state
 
-    def epoch(inputs, answers, generator):
+    def epoch(inputs, answers, generator, users=None, same_target=None):
         perm = epoch_permutation(num_samples, batch_size, generator, device)
         seeds = dropout_seeds(generator, steps, device) if dropout_state.fused else None
         model.train()
@@ -92,11 +95,13 @@ def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
             with annotate("train_step"):
                 idx = perm[step]
                 ids, ans = inputs[idx], answers[idx]
+                uid = None if users is None else users[idx]
+                sem = None if same_target is None else same_target[idx]
                 neg = (sample_negatives(generator, ids, ans, item_size)
                        if model.reads_negatives else None)
                 if seeds is not None:
                     dropout_state.begin_step(seeds[step])
-                loss = model.calculate_loss(ids, ans, neg)
+                loss = model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 optimizer.step()
@@ -126,11 +131,15 @@ def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
     "streaming" runs `ops.rank.streaming_masked_topk` and `seen` is then a
     [U, ceil(V/32)] bitmask ("bitmask") or deduplicated [U, S] seen-id
     lists from which each batch's bitmask is built on the device ("ids").
-    The dense path always takes id lists. The last batch is padded by
-    clamping user indices to num_users-1 and weighted out with `valid`.
+    It scores the whole item table, V = `model.vocab_rows()` rows
+    (BERT4Rec's [mask] row included), with n_valid = item_size. The dense
+    path always takes id lists. The last batch is padded by clamping user
+    indices to num_users-1 and weighted out with `valid`. `model.predict`
+    gets the users' indices too (Caser reads them).
     """
     steps = math.ceil(num_users / batch_size)
     impl = resolve_eval_impl(impl, item_size, device)
+    vocab = model.vocab_rows()
 
     @torch.inference_mode()
     def evaluate(inputs, answers, seen):
@@ -141,12 +150,12 @@ def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
             idx = torch.arange(step * batch_size, (step + 1) * batch_size, device=device)
             valid = (idx < num_users).float()
             safe = idx.clamp(max=num_users - 1)
-            state = model.predict(inputs[safe])[:, -1, :]
+            state = model.predict(inputs[safe], safe)[:, -1, :]
             table = model.item_table
             if impl == "streaming":
                 seen_batch = seen[safe]
                 if seen_format == "ids":
-                    seen_batch = seen_ids_to_bitmask(seen_batch, item_size)
+                    seen_batch = seen_ids_to_bitmask(seen_batch, vocab)
                 _, topk_idx = streaming_masked_topk(
                     state.contiguous(), table, seen_batch, k=TOP_K, n_valid=item_size
                 )

@@ -46,10 +46,12 @@ class Trainer:
         logger.info(f"Total Parameters: {n_params}")
 
         # nn.Dropout draws from torch's default generators; the epoch order,
-        # the negatives and the fused dropout's seeds from this one. A
-        # snapshot keeps the states of all of them
+        # the negatives, BERT4Rec's cloze positions and the fused dropout's
+        # seeds from this one; the same-target view from np_rng, as in JAX.
+        # A snapshot keeps the states of all of them
         torch.manual_seed(train_cfg.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
+        self.np_rng = np.random.default_rng(train_cfg.seed)
         self.optimizer = make_optimizer(self.model.parameters(), train_cfg)
         self.loss_impl = resolve_loss_impl(model_cfg.loss_impl, model_cfg.item_size, self.device)
         self._epoch_fn, self.steps_per_epoch = build_train_epoch(
@@ -62,7 +64,8 @@ class Trainer:
         # above the limit the [U, S] id lists stay on the device and each
         # batch's bitmask is built there (1M items x 50k users would stage
         # 2 x 6.25 GB)
-        staged_bytes = 2 * data.valid.num_users * rank.seen_words(model_cfg.item_size) * 4
+        vocab = self.model.vocab_rows()
+        staged_bytes = 2 * data.valid.num_users * rank.seen_words(vocab) * 4
         self._seen_format = "ids" if staged_bytes > rank.SEEN_BITMASK_STAGE_LIMIT else "bitmask"
         self._eval_fn, _, self.eval_impl = self._build_eval(collect_topk=False)
 
@@ -77,7 +80,7 @@ class Trainer:
                         f"(staging both splits would take {staged_bytes >> 20} MiB)"
                     )
             elif self.eval_impl == "streaming":
-                seen = rank.build_seen_bitmask(split.seen_items, model_cfg.item_size)
+                seen = rank.build_seen_bitmask(split.seen_items, vocab)
             else:
                 seen = split.seen_items
             self._eval_dev[split_name] = {
@@ -96,10 +99,8 @@ class Trainer:
     # ---- reference-API surface -----------------------------------------
     def train(self, epoch: int) -> float:
         if self._train_dev is None:
-            if self.model.reads_negatives:
-                self.logger.info("loss: pair BCE with one sampled negative per sample")
-            else:
-                self.logger.info(f"full-catalog CE: {self.loss_impl} ({self.device.type})")
+            ce = f"full-catalog CE ({self.loss_impl}, {self.device.type})"
+            self.logger.info(f"loss: {self.model.loss_name(ce)}")
             fused = self.model.dropout_state.fused
             self.logger.info(
                 "dropout: fused kernel (--prng rbg, BSAREC_DROPOUT=pallas; "
@@ -108,10 +109,16 @@ class Trainer:
             self._train_dev = {
                 "inputs": torch.from_numpy(self.data.train.input_ids).long().to(self.device),
                 "answers": torch.from_numpy(self.data.train.answers).long().to(self.device),
+                "users": torch.from_numpy(self.data.train.user_ids).long().to(self.device),
             }
         dev = self._train_dev
-        # the epoch's one read back to the host
-        loss = float(self._epoch_fn(dev["inputs"], dev["answers"], self.generator))
+        sem = None
+        if self.model.reads_same_target:
+            sem = torch.from_numpy(self.data.sample_same_target(self.np_rng)).long().to(self.device)
+        # the epoch's one read back to the host; the user ids only for a
+        # model that reads them (a gather a step saved for the others)
+        users = dev["users"] if self.model.reads_users else None
+        loss = float(self._epoch_fn(dev["inputs"], dev["answers"], self.generator, users, sem))
         if (epoch + 1) % self.train_cfg.log_freq == 0:
             self.logger.info(str({"epoch": epoch, "rec_loss": f"{loss:.4f}"}))
         return loss
@@ -180,8 +187,10 @@ class Trainer:
 
     def _rng_states(self) -> dict:
         # "epoch_order" is the trainer's device generator, which also draws
-        # the negatives and the fused dropout's seeds
-        states = {"epoch_order": self.generator.get_state(), "torch": torch.get_rng_state()}
+        # the negatives, the cloze positions and the fused dropout's seeds;
+        # "numpy" draws the same-target view
+        states = {"epoch_order": self.generator.get_state(), "torch": torch.get_rng_state(),
+                  "numpy": self.np_rng.bit_generator.state}
         if self.device.type == "cuda":
             states["cuda"] = torch.cuda.get_rng_state(self.device)
         return states
@@ -215,6 +224,8 @@ class Trainer:
         rng = state["rng"]
         self.generator.set_state(rng["epoch_order"])
         torch.set_rng_state(rng["torch"])
+        if "numpy" in rng:
+            self.np_rng.bit_generator.state = rng["numpy"]
         if "cuda" in rng and self.device.type == "cuda":
             torch.cuda.set_rng_state(rng["cuda"], self.device)
         self._resume_stopper = (state["best_score"], state["patience_counter"])

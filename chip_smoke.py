@@ -670,6 +670,8 @@ def phase_ce_kernels(device):
         ("H=128", 96, 30011, 128, 30011, "odd"),
         ("H=256, n_valid < V", 256, 40009, 256, 40000, "odd"),
         ("repeated answers", 200, 3001, 64, 3001, "repeated"),
+        # BERT4Rec's table with its [mask] row: V mod 64 = 1, the last tile one row
+        ("BERT4Rec's table", 256, N_ITEMS + 1, 64, N_ITEMS + 1, "plain"),
     ]
     worst = {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0}
     full = None
@@ -1833,6 +1835,504 @@ def phase_sasrec_breakdown(device, card, n_steps: int = 10):
     torch.cuda.empty_cache()
 
 
+# ---- the rest of the model zoo -------------------------------------------------
+
+# the six models ported after BSARec and SASRec, at the JAX CLI's defaults
+# (hidden 64, 2 layers, 2 heads, max_len 50, dropout 0.5/0.5, and each
+# model's own flags at main's defaults); the CE models train through the
+# streaming CE kernels, every model's eval through the rank kernel
+ZOO = ("FMLPRec", "BERT4Rec", "GRU4Rec", "Caser", "DuoRec", "FEARec")
+ZOO_CE = ("bert4rec", "duorec", "fearec")
+ZOO_SERVED = ("BERT4Rec", "Caser")
+# FEARec trains on the fused dropout kernel: 7 sites a forward (the
+# embedding, then per layer the attention probabilities [B, h, L, L], the
+# attention output and the FFN), 3 forwards a step under ssl us_x, each
+# site once forward and once backward
+FEAREC_DROPOUT_PER_STEP = 7 * 3 * 2
+# an entry's parameter after one Adam step from the same weights is
+# lr * f(G), f(G) = G / (|G| + eps), G the gradient with the decay added:
+# an entry whose gradient is near eps (1e-8) turns a rounding difference
+# in G into a visible step difference
+ADAM_EPS = 1e-8
+CASER_FC_SHAPE = (TRAIN_BATCH, 4 * 64 + 8 * 50)  # nv * H + nh * L at the defaults
+
+
+def zoo_config(model_type: str, dropout: float = 0.0, loss_impl: str = "auto"):
+    """A model of the zoo over N_ITEMS items at the CLI defaults."""
+    from bsarec_tpu_torch.config import ModelConfig
+
+    return ModelConfig(model_type=model_type.lower(), item_size=N_ITEMS,
+                       num_users=TRAIN_USERS + 1, hidden_dropout_prob=dropout,
+                       attention_probs_dropout_prob=dropout, loss_impl=loss_impl)
+
+
+def zoo_batch(seed: int):
+    """A training batch on the host: [256, 50] left-padded ids, answers,
+    negatives, a same-target view and user ids, from a seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def ids():
+        x = rng.integers(1, N_ITEMS, size=(TRAIN_BATCH, 50))
+        for r, pad in enumerate(rng.integers(0, 45, size=TRAIN_BATCH)):
+            x[r, :pad] = 0
+        return x
+
+    batch = (ids(), rng.integers(1, N_ITEMS, size=TRAIN_BATCH),
+             rng.integers(1, N_ITEMS, size=TRAIN_BATCH), ids(),
+             rng.integers(0, TRAIN_USERS + 1, size=TRAIN_BATCH))
+    return tuple(torch.from_numpy(x) for x in batch)
+
+
+def zoo_loss(model, batch, masked=None):
+    """The model's training loss on a batch; BERT4Rec's on the cloze-masked
+    ids given (its own draw would differ between the CPU's and the card's
+    generators): the CE of the forward on them, as its calculate_loss takes it."""
+    from bsarec_tpu_torch.ops.losses import full_softmax_ce
+
+    if masked is not None:
+        cfg = model.config
+        return full_softmax_ce(model(masked)[:, -1, :], model.item_table, batch[1],
+                               impl=cfg.loss_impl)
+    return model.calculate_loss(*batch)
+
+
+def zoo_one_step(model, batch, masked=None):
+    """One Adam step; returns (loss, gradients, parameters after), on the CPU."""
+    import torch
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    model.train()
+    opt = make_optimizer(model.parameters(), TrainConfig(lr=LR))
+    loss = zoo_loss(model, batch, masked)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    opt.step()
+    params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del opt
+    return float(loss.detach()), grads, params
+
+
+def zoo_read_rows(model, batch, masked):
+    """[V] bool: the item-table rows that the batch's lookups and pair
+    logits read (the inputs, or BERT4Rec's masked ids, the answers, the
+    negatives and same-target view where the model reads them). The
+    other rows' gradient is the CE's softmax share, or Caser's norm
+    penalty, or 0."""
+    import torch
+
+    ids = [batch[0] if masked is None else masked, batch[1]]
+    if model.reads_negatives:
+        ids.append(batch[2])
+    if model.reads_same_target:
+        ids.append(batch[3])
+    rows = torch.zeros(model.vocab_rows(), dtype=torch.bool)
+    rows[torch.cat([x.reshape(-1) for x in ids]).long()] = True
+    return rows
+
+
+def zoo_grad_tolerance(grads, want_grads, read_rows):
+    """{name: the largest gradient difference allowed, a scalar tensor or
+    [V, 1] for the item table}, the errors relative to it, and the names
+    of the zero-gradient tensors. Each tensor is
+    held within GRAD_TOL of its largest CPU entry; a tensor whose CPU
+    gradient stays under 1e-6 of the model's largest (a zero true
+    gradient) within GRAD_TOL of that largest; the item table's read rows
+    and its other rows apart, each within GRAD_TOL of its own largest
+    entry (0 where that is 0: the card's must then be 0 too)."""
+    import torch
+
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    tol, errs, zero = {}, {}, []
+    for k, want in want_grads.items():
+        diff = (grads[k] - want).abs()
+        if k == "item_embeddings.weight":
+            t = torch.zeros(want.shape[0], 1)
+            for part, rows in (("read rows", read_rows), ("other rows", ~read_rows)):
+                scale = float(want[rows].abs().max()) if rows.any() else 0.0
+                t[rows] = GRAD_TOL * scale
+                d = float(diff[rows].max()) if rows.any() else 0.0
+                errs[f"table {part}"] = d / scale if scale > 0 else (0.0 if d == 0 else math.inf)
+            tol[k] = t
+            continue
+        scale = float(want.abs().max())
+        if scale <= 1e-6 * top:
+            zero.append(k)
+            scale = top
+        tol[k] = torch.tensor(GRAD_TOL * scale)
+        errs["other tensors"] = max(errs.get("other tensors", 0.0), float(diff.max()) / scale)
+    return tol, errs, zero
+
+
+def zoo_adam_excess(start, grads, want_grads, params, want_params, tol):
+    """The largest parameter difference after one Adam step beyond the
+    most that a gradient difference within `tol` explains: lr * |f(G + d)
+    - f(G)|, G the CPU's gradient with the decay added (TrainConfig's
+    weight_decay), d the measured difference clamped to +-tol. A zeroed
+    gradient where |G| > tol is then an error."""
+    from bsarec_tpu_torch.config import TrainConfig
+
+    def f(g):
+        return g / (g.abs() + ADAM_EPS)
+
+    decay = TrainConfig().weight_decay
+    worst = 0.0
+    for k, want in want_params.items():
+        diff = (params[k].double() - want.double()).abs()
+        if k in want_grads:
+            g = want_grads[k].double() + decay * start[k].double()
+            t = tol[k].double()
+            d = (grads[k].double() - want_grads[k].double()).clamp(min=-t, max=t)
+            diff = diff - LR * (f(g + d) - f(g)).abs()
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_zoo_steps(device, card):
+    """One Adam step of each zoo model at full width over N_ITEMS items
+    (BERT4Rec's table 1,000,001 rows), dropout 0, B=256: through the
+    kernels on the card against the plain versions on the CPU, from the
+    same weights and batch. Loss within CE_TOL; gradients as
+    `zoo_grad_tolerance` holds them (the item table's read rows and its
+    other rows apart); every parameter within STEP_PARAM_TOL of the CPU's
+    beyond what `zoo_adam_excess` allows. The CE models' card step must
+    launch ce_logz and ce_grads once each on the on-chip route, the others
+    no kernel. Returns {model: launch counts}."""
+    import torch
+
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.models.bert4rec import cloze_mask
+    from bsarec_tpu_torch.ops import ce
+
+    out = {}
+    for i, name in enumerate(ZOO):
+        mt = name.lower()
+        batch = zoo_batch(seed=700 + i)
+        masked = None
+        if mt == "bert4rec":
+            masked = cloze_mask(batch[0], int(50 * 0.2), N_ITEMS, torch.Generator().manual_seed(i))
+        cfg = zoo_config(mt, loss_impl="streaming")
+        cpu_model = build_model(cfg, generator=torch.Generator().manual_seed(i))
+        card_model = copy.deepcopy(cpu_model).to(device)
+        start = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
+        read_rows = zoo_read_rows(cpu_model, batch, masked)
+        t0 = time.perf_counter()
+        want_loss, want_grads, want_params = zoo_one_step(cpu_model, batch, masked)
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads, params = zoo_one_step(
+            card_model, tuple(x.to(device) for x in batch),
+            None if masked is None else masked.to(device))
+        card_s = time.perf_counter() - t0
+        counts = read_counts() | {"ce_logz_onchip": ce.ce_logz.onchip_launches,
+                                  "ce_grads_onchip": ce.ce_grads.onchip_launches}
+        del card_model
+        want_counts = zero_counts() | {"ce_logz_onchip": 0, "ce_grads_onchip": 0}
+        if mt in ZOO_CE:
+            want_counts |= {"ce_logz": 1, "ce_grads": 1, "ce_logz_onchip": 1, "ce_grads_onchip": 1}
+        check(counts == want_counts, f"{name} step launches {counts}, want {want_counts}")
+        loss_err = abs(loss - want_loss)
+        check(math.isfinite(loss) and loss_err <= CE_TOL * max(1.0, abs(want_loss)),
+              f"{name} step: loss {loss} vs {want_loss}")
+        check(grads.keys() == want_grads.keys(), f"{name} step: gradient keys differ")
+        tol, grad_errs, zero = zoo_grad_tolerance(grads, want_grads, read_rows)
+        check(max(grad_errs.values()) <= GRAD_TOL,
+              f"{name} step: gradient errors {grad_errs} > {GRAD_TOL}")
+        param_excess = zoo_adam_excess(start, grads, want_grads, params, want_params, tol)
+        check(param_excess <= STEP_PARAM_TOL,
+              f"{name} step: parameter error beyond Adam's share {param_excess} > {STEP_PARAM_TOL}")
+        rows = params["item_embeddings.weight"].shape[0]
+        log(f"zoo step {name} (B={TRAIN_BATCH}, {rows} table rows, H=64, dropout 0): kernels on the "
+            f"card vs plain versions on the CPU ok: loss {loss:.6f} vs {want_loss:.6f}, gradient "
+            f"rel err { {k: float(f'{v:.3g}') for k, v in grad_errs.items()} } ({int(read_rows.sum())} "
+            f"read table rows; {len(zero)} zero-gradient tensors: {zero}), parameters "
+            f"within {STEP_PARAM_TOL} beyond Adam's share (worst {param_excess:.3g}); launches "
+            f"{counts}; CPU step {cpu_s:.1f}s, card step {card_s:.2f}s (first call) [{card}]")
+        out[mt] = counts
+        del grads, want_grads, params, want_params, start, tol
+        torch.cuda.empty_cache()
+    return out
+
+
+# the user ids of the served batch: the first users, then another set
+# (Caser's states depend on them; its top-20s must change)
+SERVED_USER_SETS = (0, 5000)
+
+
+def zoo_serving_check(device, workdir, name, data, argv, card):
+    """BERT4Rec or Caser served from seeded random-init weights (one
+    epoch leaves Caser's states scoring every item alike): the weights
+    saved as a port checkpoint, `main --do_eval --load_model
+    --export_serving` on them (the test pass, then the export), the
+    artifact loaded on the card. Per user set of SERVED_USER_SETS, one
+    call at B=256 (one rank launch, on-chip), each returned id scored by
+    the serving-mode plain version within `tol` of its top-20, and the
+    ids equal to it at every slot whose score stands more than `tol` from
+    its neighbours'; half the slots at least must be such. `tol` is
+    FLOAT_TOL times the largest |score| where that is under 1 (Caser's
+    random-init scores are ~1e-3: an absolute 1e-4 would let any id pass). Caser's
+    two user sets must give different top-20s. For BERT4Rec also the eval
+    path's own call, the kernel over the whole table (1,000,001 rows)
+    with n_valid = 1,000,000, against its plain version."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch import serving
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.ops import rank, serving_topk
+    from bsarec_tpu_torch.train.checkpoint import save_params
+
+    mt = name.lower()
+    model = build_model(zoo_config(mt), generator=torch.Generator().manual_seed(11))
+    save_params(model.state_dict(), os.path.join(workdir, f"zoo_{mt}_init.ckpt"))
+    path = os.path.join(workdir, f"zoo_{mt}.pt2")
+    t0 = time.perf_counter()
+    scores = port_main.main(argv + ["--train_name", f"zoo_{mt}_serve", "--do_eval",
+                                    "--load_model", f"zoo_{mt}_init", "--export_serving", path])
+    export_s = time.perf_counter() - t0
+    check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores),
+          f"{name} --do_eval scores {scores}")
+    scorer = serving.load_scorer(path, device)
+    ids = data.test.input_ids[:EVAL_BATCH]
+    seen = data.test.seen_items[:EVAL_BATCH]
+    model.to(device).eval()
+    table = model.item_table
+    served = table[:N_ITEMS]
+    seen_dev = torch.from_numpy(seen).to(device)
+    bitmask = serving_topk.seen_bitmask(seen_dev, N_ITEMS)
+    ids_dev = torch.from_numpy(ids).long().to(device)
+    err, tops = 0.0, []
+    for first in SERVED_USER_SETS:
+        users = np.arange(first, first + EVAL_BATCH, dtype=np.int32)
+        reset_counts()
+        got = scorer.topk(ids, users, seen)
+        counts = read_counts()
+        check(counts == zero_counts() | {"streaming_masked_topk": 1}
+              and rank.streaming_masked_topk.onchip_launches == 1,
+              f"{name} artifact call launches {counts}")
+        with torch.inference_mode():
+            states = model.predict(ids_dev, torch.from_numpy(users).long().to(device))
+            states = states[:, -1, :].contiguous()
+            want_v, want_i = rank.streaming_masked_topk_plain(states, served, bitmask, TOP_K,
+                                                              N_ITEMS, seen_value=-math.inf)
+            got_t = torch.from_numpy(got).to(device)
+            set_err = float((masked_scores(states, served, bitmask, N_ITEMS, got_t, -math.inf)
+                             - want_v).abs().max())
+            top = float(want_v.abs().max())
+            tol = FLOAT_TOL * min(1.0, top)
+            check(set_err <= tol, f"{name} artifact: score error {set_err} > {tol}")
+            gaps = (want_v[:, :-1] - want_v[:, 1:]).abs()
+            clear = torch.cat([gaps[:, :1], torch.minimum(gaps[:, 1:], gaps[:, :-1]),
+                               gaps[:, -1:]], dim=1) > tol  # apart from its neighbours
+            same = got_t.long() == want_i.long()
+            check(2 * int(clear.sum()) >= clear.numel(),
+                  f"{name} artifact: only {int(clear.sum())} of {clear.numel()} slots clearly ranked")
+            check(bool(same[clear].all()), f"{name} artifact: ids differ at clearly ranked slots")
+        err = max(err, set_err)
+        tops.append(got)
+        log(f"zoo serving {name}: artifact at B={EVAL_BATCH}, users {first}..{first + EVAL_BATCH - 1}, "
+            f"one rank launch on-chip; ids scored within {set_err:.3g} (tolerance {tol:.3g}, largest "
+            f"|score| {top:.3g}) of the serving-mode plain top-20, equal in {int(same.sum())} of {same.numel()} slots (all {int(clear.sum())} "
+            f"clearly ranked ones) [{card}]")
+    rows_differ = int((tops[0] != tops[1]).any(axis=1).sum())
+    if model.reads_users:
+        check(rows_differ > 0, f"{name} artifact: the two user sets give the same top-20s")
+    log(f"zoo serving {name}: random-init weights exported by main --do_eval --export_serving in "
+        f"{export_s:.1f}s (test pass and export); the two user sets' top-20s differ in "
+        f"{rows_differ} of {EVAL_BATCH} rows")
+    if mt == "bert4rec":  # the eval path's call: the whole table, n_valid < V
+        with torch.inference_mode():
+            full_mask = rank.seen_ids_to_bitmask(
+                torch.from_numpy(rank.dedupe_seen_rows(seen)).to(device), table.shape[0])
+            reset_counts()
+            kv, ki = rank.streaming_masked_topk(states, table, full_mask, TOP_K, N_ITEMS)
+            torch.cuda.synchronize()
+            check(rank.streaming_masked_topk.onchip_launches == 1, "BERT4Rec eval call route")
+            pv, _ = rank.streaming_masked_topk_plain(states, table, full_mask, TOP_K, N_ITEMS)
+            eval_err = float((masked_scores(states, table, full_mask, N_ITEMS, ki) - pv).abs().max())
+        check(eval_err <= FLOAT_TOL and int(ki.max()) < N_ITEMS,
+              f"BERT4Rec eval rank call: error {eval_err}, largest id {int(ki.max())}")
+        log(f"zoo BERT4Rec eval rank call (V={table.shape[0]}, n_valid={N_ITEMS}, on-chip) vs "
+            f"plain: ids scored within {eval_err:.3g}, the [mask] row never returned")
+    del model, scorer
+    return err
+
+
+def phase_zoo_train(device, workdir, card):
+    """`main --model_type <M> --epochs 1` for each zoo model on the
+    10,000-user x N_ITEMS synthetic corpus (Trainer.fit: one epoch, the
+    validation, the test pass), FEARec under `--prng rbg` with
+    BSAREC_DROPOUT=pallas; BERT4Rec and Caser then exported and served
+    (`zoo_serving_check`).
+    Checks the scores and the epoch loss, and the launches: the CE models
+    ce_logz and ce_grads once a step on the on-chip route, the others
+    none; the rank kernel once an eval batch, all on-chip; FEARec's
+    dropout sites on the fused kernel. Returns ({model: counts}, {model:
+    (train examples/s of the epoch, eval users/s of the test pass)})."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch.data.corpus import Corpus
+    from bsarec_tpu_torch.data.pipeline import SeqRecData
+    from bsarec_tpu_torch.ops import ce, rank
+
+    seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
+    with open(os.path.join(workdir, "zoo_train.txt"), "w") as fh:
+        for u, seq in enumerate(seqs):
+            fh.write(f"{u + 1} {' '.join(map(str, seq))}\n")
+    data = SeqRecData(Corpus(user_seq=seqs, max_item=N_ITEMS - 1), 50)
+    steps = math.ceil(data.train.num_samples / TRAIN_BATCH)
+    eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    counts_out, rates, serving_errs = {}, {}, {}
+    for name in ZOO:
+        mt = name.lower()
+        fused = mt == "fearec"
+        common = ["--data_dir", workdir, "--data_name", "zoo_train", "--output_dir", workdir,
+                  "--device", device.type, "--model_type", name]
+        argv = common + ["--train_name", f"zoo_{mt}", "--lr", str(LR),
+                         "--batch_size", str(TRAIN_BATCH), "--epochs", "1"]
+        if fused:
+            argv += ["--prng", "rbg"]
+        with pallas_dropout_env(fused):
+            reset_counts()
+            t0 = time.perf_counter()
+            scores = port_main.main(argv)
+            torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+        counts = read_counts() | {
+            "ce_logz_onchip": ce.ce_logz.onchip_launches,
+            "ce_grads_onchip": ce.ce_grads.onchip_launches,
+            "streaming_masked_topk_onchip": rank.streaming_masked_topk.onchip_launches}
+        check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"{name}: scores {scores}")
+        want = zero_counts() | {"streaming_masked_topk": 2 * eval_steps,
+                                "streaming_masked_topk_onchip": 2 * eval_steps,
+                                "ce_logz_onchip": 0, "ce_grads_onchip": 0}
+        if mt in ZOO_CE:
+            want |= {"ce_logz": steps, "ce_grads": steps, "ce_logz_onchip": steps,
+                     "ce_grads_onchip": steps}
+        if fused:
+            want["fused_dropout"] = FEAREC_DROPOUT_PER_STEP * steps
+        check(counts == want, f"{name} train path launches {counts}, want {want}")
+        text = read_log(os.path.join(workdir, f"zoo_{mt}.log"))
+        losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+        check(len(losses) == 1 and math.isfinite(losses[0]), f"{name}: epoch losses {losses}")
+        train_rate = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+        evals = re.findall(r"eval test: (\d+) users in ([0-9.]+)s", text)
+        check(len(train_rate) == 1 and len(evals) == 1, f"{name}: rate lines")
+        users_s = int(evals[0][0]) / float(evals[0][1])
+        loss_line = re.search(r"loss: (.*)", text).group(1)
+        rates[mt] = (train_rate[0], users_s)
+        counts_out[mt] = counts
+        log(f"zoo train {name}: main(--epochs 1{' --prng rbg, fused dropout' if fused else ''}) "
+            f"on {TRAIN_USERS} users x {N_ITEMS} items, {steps} steps, returned in {seconds:.1f}s; "
+            f"loss [{loss_line}] {losses[0]:.4f}; test scores {scores}; train {train_rate[0]:.0f} "
+            f"examples/s (first epoch, warm-up included); test pass {users_s:.0f} users/s "
+            f"(first batch included); launches {counts} [{card}]")
+        if name in ZOO_SERVED:
+            serving_errs[mt] = zoo_serving_check(device, workdir, name, data, common, card)
+        torch.cuda.empty_cache()
+    return counts_out, rates, serving_errs
+
+
+def phase_zoo_profile(device, card, n_steps: int = 10, n_eval: int = 10):
+    """Per zoo model, a fresh model at the CLI defaults (dropout 0.5,
+    nn.Dropout): n_steps training steps on the host clock after warm-up
+    (train examples/s), n_eval eval batches (predict and the rank kernel,
+    eval users/s), then 5 steps under torch.profiler: the device's busy
+    share and the largest device entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.ops import rank
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    out = {}
+    for i, name in enumerate(ZOO):
+        mt = name.lower()
+        model = build_model(zoo_config(mt, dropout=0.5),
+                            generator=torch.Generator().manual_seed(i)).to(device)
+        opt = make_optimizer(model.parameters(), TrainConfig(lr=LR))
+        gen = torch.Generator(device=device).manual_seed(i)
+        batches = [tuple(x.to(device) for x in zoo_batch(900 + j)) for j in range(n_steps)]
+
+        def step(batch):
+            model.train()
+            loss = model.calculate_loss(*batch, generator=gen)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+
+        for batch in batches[:3]:
+            step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            step(batch)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n_steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in batches[:5]:
+                step(batch)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        on_device = device_kernels(prof)
+        busy = sum(e.self_device_time_total for e in on_device) / 1e6
+        seen = rank.seen_ids_to_bitmask(torch.from_numpy(rank.dedupe_seen_rows(
+            batches[0][0].cpu().numpy())).to(device), model.vocab_rows())
+        users = torch.arange(EVAL_BATCH, device=device)
+
+        @torch.inference_mode()
+        def eval_batch(ids):
+            model.eval()
+            state = model.predict(ids, users)[:, -1, :].contiguous()
+            return rank.streaming_masked_topk(state, model.item_table, seen, TOP_K, N_ITEMS)
+
+        eval_batch(batches[0][0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(n_eval):
+            eval_batch(batches[j % n_steps][0])
+        torch.cuda.synchronize()
+        eval_s = (time.perf_counter() - t0) / n_eval
+        top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:4]
+        share = f"{100 * busy / traced:.1f}%" if busy > 0 else "not measured (no device time traced)"
+        log(f"zoo profile {name}: train step {1e3 * step_s:.3f} ms = {TRAIN_BATCH / step_s:.0f} "
+            f"examples/s (host clock, {n_steps} steps after warm-up, nn.Dropout 0.5); eval batch "
+            f"{1e3 * eval_s:.3f} ms = {EVAL_BATCH / eval_s:.0f} users/s (predict + rank kernel); "
+            f"device busy {share} of 5 traced steps; top device entries "
+            f"{[(e.key[:40], round(e.self_device_time_total / 5e3, 3)) for e in top]} ms/step "
+            f"[{card}]")
+        out[mt] = {"train_examples_per_s": TRAIN_BATCH / step_s,
+                   "eval_users_per_s": EVAL_BATCH / eval_s,
+                   "busy_share": busy / traced if busy > 0 else None}
+        del model, opt, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_dropout(device):
+    """The fused dropout kernel at Caser's fc_dropout shape and FEARec's
+    attention-probability shape, against its plain version bit for bit."""
+    import torch
+
+    seeds = dropout_seeds(device, 5)
+    errs = [compare_dropout(f"zoo {list(shape)}", torch.randn(shape, device=device), seeds, 0.5, c)
+            for c, shape in enumerate((CASER_FC_SHAPE, DROPOUT_SHAPES["attention"]))]
+    log(f"zoo dropout kernel vs plain: bit-equal at Caser's fc_dropout {list(CASER_FC_SHAPE)} "
+        f"and FEARec's {list(DROPOUT_SHAPES['attention'])}")
+    return max(errs)
+
+
 def main() -> int:
     import torch
 
@@ -1888,6 +2388,28 @@ def main() -> int:
     with timed("dropout times and SASRec breakdown"):
         dropout_times = phase_dropout_times(device, card)
         phase_sasrec_breakdown(device, card)
+    with timed("zoo: dropout kernel at the zoo's shapes"):
+        dropout_err = max(dropout_err, phase_zoo_dropout(device))
+    with timed("zoo: one step per model, kernels on the card vs plain on the CPU"):
+        zoo_step_counts = phase_zoo_steps(device, card)
+    with timed("zoo: main per model"), tempfile.TemporaryDirectory() as workdir:
+        zoo_counts, zoo_rates, zoo_serving = phase_zoo_train(device, workdir, card)
+    with timed("zoo: step and eval times, device busy share"):
+        zoo_profile = phase_zoo_profile(device, card)
+    for mt, (train_rate, users_s) in zoo_rates.items():
+        prof = zoo_profile[mt]
+        busy = prof["busy_share"]
+        log(f"zoo {mt}: train {train_rate:.0f} examples/s (main's first epoch), "
+            f"{prof['train_examples_per_s']:.0f} (steady steps); eval {users_s:.0f} users/s "
+            f"(main's test pass), {prof['eval_users_per_s']:.0f} (steady batches); device busy "
+            f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of a traced step [{card}]")
+
+    def zoo_fields(name):
+        fields = {"zoo_launches": {mt: c[name] for mt, c in zoo_counts.items()},
+                  "zoo_step_launches": {mt: c[name] for mt, c in zoo_step_counts.items()}}
+        if f"{name}_onchip" in next(iter(zoo_counts.values())):
+            fields["zoo_onchip_launches"] = {mt: c[f"{name}_onchip"] for mt, c in zoo_counts.items()}
+        return fields
 
     kernels = [{
         "name": "streaming_masked_topk",
@@ -1901,6 +2423,8 @@ def main() -> int:
         "serving_launches": serving_fields["serving_launches"],
         "serving_onchip_launches": serving_fields["serving_onchip_launches"],
         "serving_ms": serving_fields["serving_ms"],
+        **zoo_fields("streaming_masked_topk"),
+        "zoo_serving_max_abs_err": zoo_serving,
     }]
     for name, replaces in (("ce_logz", "bsarec_tpu/ops/pallas_ce.py:222"),
                            ("gold_rows", "bsarec_tpu/ops/pallas_ce.py:152"),
@@ -1914,6 +2438,7 @@ def main() -> int:
             "max_abs_err": ce_err[name],
             **ce_times[name],
             **({"onchip_launches": train_launches[f"{name}_onchip"]} if name != "gold_rows" else {}),
+            **zoo_fields(name),
         })
     kernels.append({
         "name": "fused_dropout",
@@ -1923,6 +2448,7 @@ def main() -> int:
         "launches": sasrec_launches["fused_dropout"],
         "max_abs_err": dropout_err,
         **dropout_times,
+        **zoo_fields("fused_dropout"),
     })
     log(card)
     log(json.dumps({"kernels": kernels}))

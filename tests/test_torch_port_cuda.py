@@ -377,3 +377,117 @@ def test_cuda_dropout_kernel_matches_plain(cuda_device, n, dtype, offset, rate):
     torch.cuda.synchronize()
     assert torch.equal(y.detach(), got)
     assert torch.equal(xg.grad, fd.fused_dropout_plain(torch.ones_like(x), seeds, rate, 7))
+
+
+# the zoo's step on the card against the CPU step: item counts that make
+# every CE model's table V mod 64 == 1 (BERT4Rec adds its [mask] row), the
+# CLI's widths (Caser's fc_dropout site is then [B, 4 * 64 + 8 * 50] =
+# [B, 656]), dropout 0.5 on the fused kernel with the same seeds on both
+# sides (the CPU runs its plain version, which gives the kernel's bits)
+ZOO_ITEMS = {"bert4rec": 4096, "fmlprec": 4097, "gru4rec": 4097, "caser": 4097,
+             "duorec": 4097, "fearec": 4097}
+ZOO_B, ZOO_LR, ADAM_EPS = 64, 5e-4, 1e-8
+
+
+def _zoo_batch(item_size, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, item_size, size=(ZOO_B, 50))
+    for r, pad in enumerate(rng.integers(0, 45, size=ZOO_B)):
+        ids[r, :pad] = 0
+    return tuple(torch.from_numpy(x) for x in (
+        ids, rng.integers(1, item_size, size=ZOO_B), rng.integers(1, item_size, size=ZOO_B),
+        np.roll(ids, 5, axis=0), rng.integers(0, 101, size=ZOO_B)))
+
+
+def _zoo_step(model, batch, seeds, masked):
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.ops.losses import full_softmax_ce
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    model.train()
+    opt = make_optimizer(model.parameters(), TrainConfig(lr=ZOO_LR))
+    model.dropout_state.begin_step(seeds)
+    if masked is not None:  # BERT4Rec: the CE on ids cloze-masked once, on the host
+        loss = full_softmax_ce(model(masked)[:, -1, :], model.item_table, batch[1],
+                               impl="streaming")
+    else:
+        loss = model.calculate_loss(*batch)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = {k: p.grad.cpu().clone() for k, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    return float(loss.detach()), grads, {k: v.cpu().clone() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", sorted(ZOO_ITEMS))
+def test_cuda_zoo_step_matches_cpu(cuda_device, monkeypatch, model_type):
+    """One Adam step of a zoo model through the kernels (streaming CE,
+    fused dropout) against the same step on the CPU through their plain
+    versions: the loss within LOSS_TOL; gradients within t = GRAD_TOL of
+    each tensor's largest CPU entry (a zero-gradient tensor's: of the
+    model's largest; the item table's rows that the batch reads and its
+    other rows, the CE's softmax share or Caser's norm penalty, apart);
+    parameters within 1e-6 beyond lr * |f(G + d) - f(G)|, Adam's first
+    step f(G) = G / (|G| + eps) of the CPU gradient G moved by the
+    measured difference d clamped to +-t (a zeroed gradient with |G| > t
+    fails)."""
+    import copy
+
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.models.bert4rec import cloze_mask
+
+    monkeypatch.setenv("BSAREC_DROPOUT", "pallas")
+    item_size = ZOO_ITEMS[model_type]
+    cfg = ModelConfig(model_type=model_type, item_size=item_size, num_users=101,
+                      loss_impl="streaming")
+    cpu_model = build_model(cfg, generator=torch.Generator().manual_seed(1), prng="rbg")
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    if model_type in ("bert4rec", "duorec", "fearec"):
+        assert card_model.item_table.shape[0] % 64 == 1
+    batch = _zoo_batch(item_size, 3)
+    masked = None
+    if model_type == "bert4rec":
+        masked = cloze_mask(batch[0], 10, item_size, torch.Generator().manual_seed(2))
+    seeds = torch.tensor([123, 456])
+    want_loss, want_grads, want_params = _zoo_step(cpu_model, batch, seeds, masked)
+    launches = (ce.ce_logz.launches, ce.ce_grads.launches, fd.fused_dropout.launches)
+    loss, grads, params = _zoo_step(
+        card_model, tuple(x.to(cuda_device) for x in batch), seeds.to(cuda_device),
+        None if masked is None else masked.to(cuda_device))
+    torch.cuda.synchronize()
+    ce_calls = 1 if model_type in ("bert4rec", "duorec", "fearec") else 0
+    assert ce.ce_logz.launches - launches[0] == ce_calls == ce.ce_grads.launches - launches[1]
+    assert fd.fused_dropout.launches > launches[2]
+    assert abs(loss - want_loss) <= LOSS_TOL["rtol"] * max(1.0, abs(want_loss))
+    assert grads.keys() == want_grads.keys()
+    read = [batch[0] if masked is None else masked, batch[1]]
+    read += [batch[2]] if cpu_model.reads_negatives else []
+    read += [batch[3]] if cpu_model.reads_same_target else []
+    read_rows = torch.zeros(cpu_model.vocab_rows(), dtype=torch.bool)
+    read_rows[torch.cat([x.reshape(-1) for x in read]).long()] = True
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    tol = {}
+    for k, want in want_grads.items():
+        if k == "item_embeddings.weight":
+            t = torch.zeros(want.shape[0], 1, dtype=torch.float64)
+            for rows in (read_rows, ~read_rows):
+                t[rows] = GRAD_TOL["rtol"] * float(want[rows].abs().max())
+        else:
+            scale = float(want.abs().max())
+            t = torch.tensor(GRAD_TOL["rtol"] * (top if scale <= 1e-6 * top else scale),
+                             dtype=torch.float64)
+        assert bool(((grads[k] - want).abs().double() <= t).all()), k
+        tol[k] = t
+
+    def f(g):
+        return g / (g.abs() + ADAM_EPS)
+
+    for k, want in want_params.items():
+        diff = (params[k].double() - want.double()).abs()
+        if k in want_grads:
+            g = want_grads[k].double()  # TrainConfig's weight decay is 0
+            d = (grads[k].double() - g).clamp(min=-tol[k], max=tol[k])
+            diff = diff - ZOO_LR * (f(g + d) - f(g)).abs()
+        assert float(diff.max()) <= 1e-6, k

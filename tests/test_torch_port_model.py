@@ -95,7 +95,12 @@ def test_checkpoint_round_trip(tmp_path):
     assert all(torch.equal(v, model.state_dict()[k]) for k, v in loaded.items())
 
 
-@pytest.mark.parametrize("fields", [{"model_type": "bert4rec"}, {"compute_dtype": "bfloat16"}])
+@pytest.mark.parametrize("fields", [{"compute_dtype": "bfloat16"}])
 def test_unported_configurations_raise(fields):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(ModelConfig(**(FIELDS | fields)))
+
+
+def test_unknown_model_type_raises():
+    with pytest.raises(ValueError, match="unknown model type 'bert5rec'"):
+        build_model(ModelConfig(**(FIELDS | {"model_type": "bert5rec"})))
