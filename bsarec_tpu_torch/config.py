@@ -26,7 +26,10 @@ class ModelConfig:
     hidden_dropout_prob: float = 0.5
     attention_probs_dropout_prob: float = 0.5
     initializer_range: float = 0.02
-    # matmul compute dtype; only "float32" is ported so far
+    # mixed-precision policy (ops/precision.py): "bfloat16" runs the dense
+    # and attention matmuls and the CE products on bf16 operands;
+    # parameters, LayerNorm, softmax and loss accumulation stay float32.
+    # "float32" reproduces the reference.
     compute_dtype: str = "float32"
     # --- bsarec ---
     c: int = 3

@@ -24,9 +24,19 @@
 // The 8 threads of a row are 8 consecutive lanes of one warp, and warp w
 // holds all 64 columns of the 32 rows 4w + {0..3} + 32i.
 // Shared memory at H = 64: states 69,632 B, the table ring 34,816 B.
+//
+// The CE kernels' bf16-operand form (BF16 = true) rounds both operands to
+// bf16 where they enter shared memory: the states as they are staged, and
+// each table tile in place, by the thread whose copies brought it in,
+// after its cp.async wait and before the tile's barrier (round_tile). The
+// product loop is unchanged: a product of two bf16 values is exact in
+// fp32, so the logits are fp32 sums of exact products, as a bf16 matmul
+// with fp32 accumulation gives them. The fp32 form compiles to the code
+// it had before the template parameter.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,6 +51,14 @@ constexpr int STATE_FLOATS = ROWS * LD;
 constexpr int RING_FLOATS = 2 * VT * LD;
 static_assert(ROWS == 32 * 8 && VT == 8 * 8 && THREADS == 32 * 8,
               "8 x 8 register tiles: rows ty + 32i, columns tx + 8j");
+
+// x rounded to the nearest bf16 (ties to even), back in fp32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+}
 
 // cp.async: copies from device to shared memory that bypass the registers,
 // grouped by commit.
@@ -66,8 +84,21 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
   }
 }
 
-// Every state row into sS (row stride LD), rows >= B and columns >= H zero;
-// the ring's columns >= H zero in both slots (the copies never write them).
+// Round, in place, the elements of a tile in dst that this thread's
+// load_tile_async copies brought in (call it after cp_async_wait_all and
+// before the barrier that publishes the tile).
+__device__ __forceinline__ void round_tile(float* dst, int H) {
+  const int q = H / 4;
+  for (int i = threadIdx.x; i < VT * q; i += THREADS) {
+    float4* p = reinterpret_cast<float4*>(dst + (i / q) * LD + 4 * (i % q));
+    *p = round_bf16(*p);
+  }
+}
+
+// Every state row into sS (row stride LD), rows >= B and columns >= H zero,
+// rounded to bf16 when BF16; the ring's columns >= H zero in both slots (the
+// copies never write them).
+template <bool BF16 = false>
 __device__ __forceinline__ void stage_states(float* sS, float* sT, const float* __restrict__ states,
                                              int B, int H) {
   const int tid = threadIdx.x, q = H / 4;
@@ -75,6 +106,7 @@ __device__ __forceinline__ void stage_states(float* sS, float* sT, const float* 
     const int r = i / (MAX_H / 4), c4 = i - r * (MAX_H / 4);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < B && c4 < q) v = __ldg(reinterpret_cast<const float4*>(states + (size_t)r * H) + c4);
+    if constexpr (BF16) v = round_bf16(v);
     *reinterpret_cast<float4*>(sS + r * LD + 4 * c4) = v;
   }
   for (int i = tid; i < 2 * VT * (MAX_H - H); i += THREADS)

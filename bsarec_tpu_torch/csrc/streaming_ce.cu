@@ -1,4 +1,19 @@
-// Streaming full-catalog softmax cross-entropy for Hopper (sm_90a), fp32.
+// Streaming full-catalog softmax cross-entropy for Hopper (sm_90a): fp32
+// inputs and outputs, in two forms (a template parameter of every kernel
+// that reads a product operand, picked by the C entries' bf16 flag):
+//   - fp32: every product in fp32;
+//   - bf16-operand (the JAX package's dtype="bfloat16", pallas_ce.py:234-237,
+//     303-310, 360-362, 378, 393, 397-398): the states and the table tiles
+//     are rounded to bf16 before the logits, and the backward's
+//     p = softmax * dloss is rounded to bf16 before both of its products;
+//     every sum stays fp32 (a product of two bf16 values is exact in fp32).
+//     The forward's gold logit takes rounded operands too. The one-hot
+//     corrections dT[a_i] -= dloss_i * s_i and ds_i -= dloss_i * T[a_i]
+//     read the unrounded fp32 states and rows (pallas_ce.py:507-514,
+//     553-555). Rounding happens where an operand enters shared memory
+//     (stage_rows, onchip::stage_states, onchip::round_tile) and where p is
+//     stored, so the product loops are the fp32 form's. The tensor cores
+//     are not used yet.
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
 //   - _fwd_kernel    -> ce_fwd_partial_kernel + ce_fwd_merge_kernel:
@@ -25,7 +40,10 @@
 // tensor cores) and the backward three such products, ~98.3 GFLOP
 // (~1.47 ms); the 256 MB table read (and the 256 MB dT write) take
 // ~0.08 ms each at 3.35 TB/s. So both are bound by fp32 FMAs. The gather
-// moves B*H floats and is bound by latency.
+// moves B*H floats and is bound by latency. The bf16-operand form's
+// bound is its bytes (0.0765 and 0.1529 ms; its products at the bf16
+// tensor rate, 989 TFLOP/s, take 0.033 and 0.099), but it runs the fp32
+// form's FMA loops, so the fp32 FMAs bound it too.
 //
 // Design. The TPU kernels walk the catalog in one sequential grid and
 // carry (max, sum) or the ds accumulator in VMEM from step to step.
@@ -91,13 +109,17 @@
 // (chip_smoke.py, bsarec_tpu_torch/tools/time_kernels.py): the on-chip
 // routes' backward takes ~2.66 ms, 55% of its 1.4672 ms fp32 bound (the
 // sweep route's ~3.53 ms, 41.6%), their forward ~0.945 ms, 52% of 0.4891
-// ms (the partial-kernel route's ~1.33 ms, 37%). No wgmma or TMA.
+// ms (the partial-kernel route's ~1.33 ms, 37%); the bf16-operand form
+// ~2.86 and ~1.00 ms (chip_smoke.py, in turns with the fp32 form). No
+// wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "onchip_tile.cuh"
+
+using onchip::round_bf16;
 
 namespace {
 
@@ -129,7 +151,9 @@ __device__ __forceinline__ bool in_catalog(long long a, int n_valid) {
 }
 
 // Copy rows [row0, row0 + n) of a row-major [R, H] matrix into shared
-// memory with row stride H + 4; rows >= R are zero.
+// memory with row stride H + 4, rounded to bf16 when BF16; rows >= R are
+// zero.
+template <bool BF16>
 __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int row0,
                                            int R, int H, int n) {
   const int q = H / 4;
@@ -137,6 +161,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
     const int r = i / q, c4 = i - r * q, row = row0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < R) v = __ldg(reinterpret_cast<const float4*>(src + (size_t)row * H) + c4);
+    if constexpr (BF16) v = round_bf16(v);
     *reinterpret_cast<float4*>(dst + r * (H + 4) + 4 * c4) = v;
   }
 }
@@ -170,6 +195,7 @@ __device__ __forceinline__ void tile_logits(const float* sS, const float* sT, in
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
                       int V, int H, int n_valid, int tiles_per_split,
@@ -184,7 +210,7 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
 
-  stage_rows(sS, states, row0, B, H, BT);
+  stage_rows<BF16>(sS, states, row0, B, H, BT);
   float m[4], s[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -194,7 +220,7 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
     __syncthreads();  // earlier readers of sT are done
-    stage_rows(sT, table, j0, V, H, VT);
+    stage_rows<BF16>(sT, table, j0, V, H, VT);
     __syncthreads();
     float acc[4][4];
     tile_logits(sS, sT, H, acc);
@@ -251,6 +277,7 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
 // fixed order (offsets 1, 2, 4) and lane tx = 0 writes one (m, s) per
 // (split, row). No value goes through shared memory, so the ring's
 // barrier is the tile's only one.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
                      int V, int H, int n_valid, int tiles_per_split,
@@ -264,7 +291,7 @@ ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
 
-  onchip::stage_states(sS, sT, states, B, H);
+  onchip::stage_states<BF16>(sS, sT, states, B, H);
   float m[8], s[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -276,6 +303,7 @@ ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
     onchip::cp_async_wait_all();  // this thread's copies of tile t have landed
+    if constexpr (BF16) onchip::round_tile(sT + ((t - t_begin) & 1) * VT * OC_LD, H);
     __syncthreads();              // everyone's have; every reader of the other slot is done
     if (t + 1 < t_end)
       onchip::load_tile_async(sT + ((t + 1 - t_begin) & 1) * VT * OC_LD, table, j0 + VT, V, H);
@@ -332,7 +360,9 @@ ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
 
 // One warp per row: logz[row] from the splits' partials and, when answers
 // is not null, loss[row] = logz[row] - <states[row], table[answers[row]]>
-// (gold 0 for an answer outside [0, n_valid)).
+// (gold 0 for an answer outside [0, n_valid)), of bf16-rounded operands
+// when BF16.
+template <bool BF16>
 __global__ void __launch_bounds__(MERGE_THREADS)
 ce_fwd_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_s,
                     const float* __restrict__ states, const float* __restrict__ table,
@@ -362,7 +392,11 @@ ce_fwd_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ 
     const float4* s4 = reinterpret_cast<const float4*>(states + (size_t)row * H);
     const float4* t4 = reinterpret_cast<const float4*>(table + (size_t)a * H);
     for (int c4 = lane; c4 < H / 4; c4 += 32) {
-      const float4 x = __ldg(s4 + c4), y = __ldg(t4 + c4);
+      float4 x = __ldg(s4 + c4), y = __ldg(t4 + c4);
+      if constexpr (BF16) {
+        x = round_bf16(x);
+        y = round_bf16(y);
+      }
       gold = fmaf(x.x, y.x, gold);
       gold = fmaf(x.y, y.y, gold);
       gold = fmaf(x.z, y.z, gold);
@@ -386,6 +420,7 @@ gold_rows_kernel(const float* __restrict__ table, const int32_t* __restrict__ an
   reinterpret_cast<float4*>(out + (size_t)i * H)[c4] = v;
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ table,
                     const long long* __restrict__ answers, const float* __restrict__ logz,
@@ -410,13 +445,13 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
     __syncthreads();  // earlier readers of sT and sG are done
-    stage_rows(sT, table, j0, V, H, VT);
+    stage_rows<BF16>(sT, table, j0, V, H, VT);
     for (int i = tid; i < VT * ld; i += THREADS) sG[i] = 0.f;
 
     for (int chunk = 0; chunk < n_chunks; ++chunk) {
       const int row0 = chunk * BT;
       __syncthreads();  // earlier readers of sS and sP are done
-      stage_rows(sS, states, row0, B, H, BT);
+      stage_rows<BF16>(sS, states, row0, B, H, BT);
       if (tid < BT) {
         const int row = row0 + tid;
         sZ[tid] = row < B ? logz[row] : 0.f;
@@ -432,8 +467,9 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
-          sP[r * pld + c] =
-              (row_ok && j0 + c < n_valid) ? expf(acc[i][j] - sZ[r]) * sD[r] : 0.f;
+          float p = (row_ok && j0 + c < n_valid) ? expf(acc[i][j] - sZ[r]) * sD[r] : 0.f;
+          if constexpr (BF16) p = round_bf16(p);
+          sP[r * pld + c] = p;
         }
       }
       __syncthreads();
@@ -555,6 +591,7 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
 // Each product reads two 16-byte values from shared memory for every 32 FMAs
 // (16 FMAs per load). Rows and columns past B and H are zero in shared
 // memory, so the products run at the padded 256 x 64 shape.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__ table,
                      const long long* __restrict__ answers, const float* __restrict__ logz,
@@ -576,7 +613,7 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const int q = H / 4;
 
-  onchip::stage_states(sS, sT, states, B, H);
+  onchip::stage_states<BF16>(sS, sT, states, B, H);
   {
     const bool ok = tid < B;
     sZ[tid] = ok ? logz[tid] : 0.f;
@@ -596,6 +633,7 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
     onchip::cp_async_wait_all();  // this thread's copies of tile t have landed
+    if constexpr (BF16) onchip::round_tile(sT + ((t - t_begin) & 1) * VT * OC_LD, H);
     __syncthreads();              // everyone's have; earlier readers of sP are done
     const float* sTt = sT + ((t - t_begin) & 1) * VT * OC_LD;
 
@@ -611,7 +649,9 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = tx + 8 * j;
-          sP[r * OC_PLD + c] = (row_ok && j0 + c < n_valid) ? expf(acc[i][j] - z) * d : 0.f;
+          float p = (row_ok && j0 + c < n_valid) ? expf(acc[i][j] - z) * d : 0.f;
+          if constexpr (BF16) p = round_bf16(p);
+          sP[r * OC_PLD + c] = p;
         }
       }
     }
@@ -706,10 +746,14 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
     }
     if (hit) {  // rare: at most B of the catalog's tiles
       __syncthreads();
+      // the one-hot term takes the unrounded states: in the bf16 form sS
+      // holds rounded ones, so it reads device memory
       for (int h = tid; h < H; h += THREADS)
         for (int i = 0; i < B; ++i) {
           const int a = sA[i];
-          if (a >= j0 && a < j0 + VT) sP[(a - j0) * OC_LD + h] -= sD[i] * sS[i * OC_LD + h];
+          if (a >= j0 && a < j0 + VT)
+            sP[(a - j0) * OC_LD + h] -=
+                sD[i] * (BF16 ? __ldg(states + (size_t)i * H + h) : sS[i * OC_LD + h]);
         }
       __syncthreads();
       for (int i = tid; i < VT * q; i += THREADS) {
@@ -783,14 +827,15 @@ int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 // logZ [B] of states [B, H] against table [V, H] over columns < n_valid,
 // and, when answers (int64 [B]) and loss are not null, loss [B] = logZ -
 // <states[i], table[answers[i]]> with gold 0 for answers outside
-// [0, n_valid). answers and loss are both given or both null. The route
+// [0, n_valid). answers and loss are both given or both null. bf16 != 0
+// takes the bf16-operand form (the file's head). The route
 // is the shape's (ce_onchip_route): one block per SM suits the on-chip
 // route, two the other. The caller allocates the partials part_m, part_s
 // ([n_splits, B]); n_splits * tiles_per_split tiles must cover V. Returns
 // 0 or a cudaError_t code.
 int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
             int n_valid, int n_splits, int tiles_per_split, void* part_m, void* part_s,
-            void* logz, void* loss, void* stream) {
+            void* logz, void* loss, int bf16, void* stream) {
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -798,7 +843,8 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool onchip = onchip_route(B, H);
-  auto sweep = onchip ? ce_fwd_onchip_kernel : ce_fwd_partial_kernel;
+  auto sweep = onchip ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
+                      : (bf16 ? ce_fwd_partial_kernel<true> : ce_fwd_partial_kernel<false>);
   cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -808,7 +854,8 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   constexpr int rows_per_block = MERGE_THREADS / 32;
-  ce_fwd_merge_kernel<<<(B + rows_per_block - 1) / rows_per_block, MERGE_THREADS, 0, s>>>(
+  auto merge = bf16 ? ce_fwd_merge_kernel<true> : ce_fwd_merge_kernel<false>;
+  merge<<<(B + rows_per_block - 1) / rows_per_block, MERGE_THREADS, 0, s>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_s),
       static_cast<const float*>(states), static_cast<const float*>(table),
       static_cast<const long long*>(answers), B, H, n_valid, n_splits, static_cast<float*>(logz),
@@ -832,14 +879,16 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // p^T @ states - onehot, with p = exp(states @ table^T - logz) * dloss over
 // columns < n_valid and the one-hot term dtable[a_i] -= dloss_i * states_i,
 // for the int64 answers a_i in [0, n_valid) only (the others have neither
-// term). The route is the shape's (ce_onchip_route): one block per SM
+// term). bf16 != 0 takes the bf16-operand form (the file's head): s, T and
+// p rounded to bf16 before the products, the one-hot terms from the
+// unrounded s and T. The route is the shape's (ce_onchip_route): one block per SM
 // suits the on-chip route, two the sweep route. The caller allocates
 // ds_part ([n_splits, B, H]); n_splits * tiles_per_split tiles must cover
 // V, and every split must hold at least one tile. Returns 0 or a
 // cudaError_t code.
 int ce_grads(const void* states, const void* table, const void* answers, const void* logz,
              const void* dloss, int B, int V, int H, int n_valid, int n_splits,
-             int tiles_per_split, void* ds_part, void* ds, void* dtable, void* stream) {
+             int tiles_per_split, void* ds_part, void* ds, void* dtable, int bf16, void* stream) {
   const int n_tiles = (V + VT - 1) / VT;
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
@@ -848,7 +897,8 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
   const long long smem = streaming_ce_smem_bytes(B, H, 1);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto sweep = onchip_route(B, H) ? ce_bwd_onchip_kernel : ce_bwd_sweep_kernel;
+  auto sweep = onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_kernel<true> : ce_bwd_onchip_kernel<false>)
+                                  : (bf16 ? ce_bwd_sweep_kernel<true> : ce_bwd_sweep_kernel<false>);
   cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -24,7 +24,10 @@ and runs the test split. Either way `--export_topk` then writes the
 [num_users, 20] top-k ids, and `--export_serving scorer.pt2` the
 weights-baked serving artifact (`serving.py`; `--serving_quant`,
 `--serving_impl`, `--serving_item_chunk`), exported on `--device`; serve
-it with `python -m bsarec_tpu_torch.serve scorer.pt2`. Flags of parts not
+it with `python -m bsarec_tpu_torch.serve scorer.pt2`. `--dtype bf16`
+runs all of it under the bf16 compute policy (`ops/precision.py`): the
+streaming CE kernels in their bf16-operand form, the dense eval and the
+scorer on bf16-rounded operands. Flags of parts not
 ported yet raise when set.
 """
 
@@ -91,7 +94,9 @@ def parse_args(argv=None):
     parser.add_argument("--eval_impl", default="auto", type=str,
                         help="full-catalog eval path: auto | dense | streaming")
     parser.add_argument("--dtype", default="fp32", type=str,
-                        help="compute dtype policy: fp32 (bf16 is not ported yet)")
+                        help="compute dtype policy: fp32 (reference-exact) | bf16 (bf16 "
+                        "operands in the dense, attention and CE matmuls; fp32 parameters, "
+                        "LayerNorm, softmax and loss accumulation)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu; asking for cuda without a card raises")
     # drop-in compatibility no-ops (reference `src/utils.py:58-78`)
@@ -217,6 +222,7 @@ def main(argv=None):
             data.test.seen_items.shape[1], args.export_serving,
             quant=None if args.serving_quant == "none" else args.serving_quant,
             impl=args.serving_impl, item_chunk=args.serving_item_chunk,
+            dtype=model_cfg.compute_dtype,
         )
         logger.info(f"exported serving scorer: {meta}")
 

@@ -25,12 +25,14 @@ from bsarec_tpu_torch.models.modules import (
 )
 from bsarec_tpu_torch.ops.frequency import frequency_filter, lowpass_projection_matrix
 from bsarec_tpu_torch.ops.losses import full_softmax_ce
+from bsarec_tpu_torch.ops.precision import is_bf16
 
 
 class FrequencyLayer(nn.Module):
     def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
         self.c = cfg.c
+        self.bf16 = is_bf16(cfg.compute_dtype)
         self.sqrt_beta = nn.Parameter(torch.empty(1, 1, cfg.hidden_size))
         self.LayerNorm = TFLayerNorm(cfg.hidden_size)
         self.dropout = make_dropout(cfg.hidden_dropout_prob, dropout_state)
@@ -47,7 +49,7 @@ class FrequencyLayer(nn.Module):
         proj = self.proj
         if x.shape[1] != proj.shape[0]:  # inputs shorter than max_seq_length
             proj = torch.from_numpy(lowpass_projection_matrix(x.shape[1], self.c)).to(x.device)
-        h = frequency_filter(x, proj, self.sqrt_beta)
+        h = frequency_filter(x, proj, self.sqrt_beta, self.bf16)
         return self.LayerNorm(self.dropout(h) + x)
 
 

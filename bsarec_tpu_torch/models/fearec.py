@@ -37,6 +37,7 @@ from torch import nn
 from bsarec_tpu_torch.models.base import SequentialRecModel
 from bsarec_tpu_torch.models.duorec import contrastive_terms
 from bsarec_tpu_torch.models.modules import (
+    Dense,
     DropoutState,
     FeedForward,
     TFLayerNorm,
@@ -99,17 +100,18 @@ class FEARecLayer(nn.Module):
 
     def __init__(self, cfg, dropout_state: DropoutState, layer_num: int):
         super().__init__()
-        h = cfg.hidden_size
+        h, dt = cfg.hidden_size, cfg.compute_dtype
         self.num_heads = cfg.num_attention_heads
         self.head_dim = h // self.num_heads
         self.spatial_ratio = cfg.spatial_ratio
         self.band = fearec_band(cfg.max_seq_length, cfg.num_hidden_layers, cfg.global_ratio,
                                 layer_num)
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        # bf16 Dense layers under the bf16 policy (`bsarec_tpu/models/fearec.py:126,168`)
+        self.query = Dense(h, h, dt)
+        self.key = Dense(h, h, dt)
+        self.value = Dense(h, h, dt)
         self.attn_dropout = make_dropout(cfg.attention_probs_dropout_prob, dropout_state)
-        self.dense = nn.Linear(h, h)
+        self.dense = Dense(h, h, dt)
         self.LayerNorm = TFLayerNorm(h)
         self.out_dropout = make_dropout(cfg.hidden_dropout_prob, dropout_state)
         # on the model's device, as BSARec's projection is
@@ -127,8 +129,9 @@ class FEARecLayer(nn.Module):
         if seq_len != bp.shape[0]:
             raise ValueError(f"FEARec takes inputs of max_seq_length {bp.shape[0]}, got {seq_len}")
 
-        def heads(y):  # [B, L, H] -> [B, h, d, L]
-            return y.view(b, seq_len, self.num_heads, self.head_dim).permute(0, 2, 3, 1)
+        def heads(y):  # [B, L, H] -> [B, h, d, L]; a bf16 projection promotes to
+            # float32 against the float32 band maps, as in JAX
+            return y.float().view(b, seq_len, self.num_heads, self.head_dim).permute(0, 2, 3, 1)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
 

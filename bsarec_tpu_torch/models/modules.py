@@ -9,6 +9,13 @@ Numerics contract (reference: `src/model/_modules.py`):
   dense + dropout + LN(x + res), scores scaled by √head_dim.
 - GELU is the erf formulation.
 - Dense and embedding weights init N(0, initializer_range); biases 0.
+- The compute dtype policy (`cfg.compute_dtype`, `bsarec_tpu/models/modules.py:73-140`):
+  under "bfloat16" every Dense runs on bf16 input, weight and bias and
+  gives a bf16 output (`Dense`); the attention scores and the context
+  product take bf16 operands with a float32 result; softmax, LayerNorm
+  and the residual adds (`h + x` promotes to float32) stay float32, and
+  so do the parameters and their gradients. The GELU of a bf16 Dense
+  output runs in bf16.
 
 Parameter names follow the reference's torch modules, so a port
 `state_dict` has the reference key layout.
@@ -31,10 +38,16 @@ import torch
 from torch import nn
 
 from bsarec_tpu_torch.ops.dropout import DropoutSite, FusedDropoutFn, check_call, check_seeds, dropped
+from bsarec_tpu_torch.ops.precision import dense, is_bf16, matmul
+
+# sqrt(2) in bf16, the divisor of a bf16 GELU (JAX divides by
+# `jnp.sqrt(2.0).astype(x.dtype)`)
+_SQRT2_BF16 = float(torch.tensor(math.sqrt(2.0)).to(torch.bfloat16))
 
 
 def erf_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    root2 = _SQRT2_BF16 if x.dtype == torch.bfloat16 else math.sqrt(2.0)
+    return x * 0.5 * (1.0 + torch.erf(x / root2))
 
 
 ACT2FN = {
@@ -44,6 +57,19 @@ ACT2FN = {
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
 }
+
+
+class Dense(nn.Linear):
+    """nn.Linear under the compute dtype policy: with compute_dtype
+    "bfloat16", Flax's `nn.Dense(dtype=bf16)` (`ops.precision.dense`). The
+    parameters stay float32 under nn.Linear's names."""
+
+    def __init__(self, in_features: int, out_features: int, compute_dtype: str = "float32"):
+        super().__init__(in_features, out_features)
+        self.bf16 = is_bf16(compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.bf16)
 
 
 def init_linear(layer: nn.Linear, std: float, generator: torch.Generator | None) -> None:
@@ -139,10 +165,10 @@ class TFLayerNorm(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
-        h = cfg.hidden_size
-        self.dense_1 = nn.Linear(h, 4 * h)
+        h, dt = cfg.hidden_size, cfg.compute_dtype
+        self.dense_1 = Dense(h, 4 * h, dt)
         self.act = ACT2FN[cfg.hidden_act]
-        self.dense_2 = nn.Linear(4 * h, h)
+        self.dense_2 = Dense(4 * h, h, dt)
         self.LayerNorm = TFLayerNorm(h)
         self.dropout = make_dropout(cfg.hidden_dropout_prob, dropout_state)
 
@@ -158,14 +184,15 @@ class FeedForward(nn.Module):
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg, dropout_state: DropoutState):
         super().__init__()
-        h = cfg.hidden_size
+        h, dt = cfg.hidden_size, cfg.compute_dtype
+        self.bf16 = is_bf16(dt)
         self.num_heads = cfg.num_attention_heads
         self.head_dim = h // self.num_heads
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        self.query = Dense(h, h, dt)
+        self.key = Dense(h, h, dt)
+        self.value = Dense(h, h, dt)
         self.attn_dropout = make_dropout(cfg.attention_probs_dropout_prob, dropout_state)
-        self.dense = nn.Linear(h, h)
+        self.dense = Dense(h, h, dt)
         self.LayerNorm = TFLayerNorm(h)
         self.out_dropout = make_dropout(cfg.hidden_dropout_prob, dropout_state)
 
@@ -180,9 +207,10 @@ class MultiHeadAttention(nn.Module):
             return y.view(b, seq_len, self.num_heads, self.head_dim).transpose(1, 2)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
-        scores = q @ k.transpose(-1, -2) / math.sqrt(self.head_dim)
+        # scores and context: bf16 operands, float32 results under bf16
+        scores = matmul(q, k.transpose(-1, -2), self.bf16) / math.sqrt(self.head_dim)
         probs = torch.softmax(scores + attention_mask, dim=-1)
-        ctx = self.attn_dropout(probs) @ v
+        ctx = matmul(self.attn_dropout(probs), v, self.bf16)
         ctx = ctx.transpose(1, 2).reshape(b, seq_len, hidden)
         out = self.out_dropout(self.dense(ctx))
         return self.LayerNorm(out + x)

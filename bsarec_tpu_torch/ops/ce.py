@@ -31,10 +31,22 @@ Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
 one-hot term. So a step's CE is one kernel call each way.
 
+Two forms, as the JAX package's `dtype` argument: float32 (None or
+"float32") and the bf16-operand form ("bfloat16", the `--dtype bf16`
+policy, `pallas_ce.py:234-237,303-310,360-362,378,393,397-398`): the
+states and table rows are rounded to bf16 before every product, and so
+is the backward's p = softmax · dloss; every sum, logZ and both
+gradients stay float32, and the one-hot corrections dT[a] -= d·s and
+ds -= d·T[a] take the unrounded float32 states and rows
+(`pallas_ce.py:507-514,553-555`). Inputs and outputs are float32 in both
+forms: the kernels round as they stage, so the table is never copied.
+Any other dtype raises. `ce_logz.bf16_launches` and
+`ce_grads.bf16_launches` count the bf16 form's launches apart.
+
 Beside each kernel is its plain PyTorch version (`ce_logz_plain`,
-`ce_loss_logz_plain`, `gold_rows_plain`, `ce_grads_plain`), chunked over
-the catalog. On a CPU tensor the wrappers run the plain version; on a
-CUDA tensor they launch the kernel or raise. Only float32 is ported. The
+`ce_loss_logz_plain`, `gold_rows_plain`, `ce_grads_plain`, each with a
+`bf16` flag), chunked over the catalog. On a CPU tensor the wrappers run
+the plain version; on a CUDA tensor they launch the kernel or raise. The
 TPU layout work (lane packing, lane-replicated row scalars, 8-row-aligned
 DMA windows, padding the catalog to an even tile count) has no
 counterpart here.
@@ -49,15 +61,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from bsarec_tpu_torch.ops._launch import call_on, raw_stream, sm_count
+from bsarec_tpu_torch.ops.precision import is_bf16, rounded
 
 NEG_INF = float("-inf")
 MAX_H = 256
 PLAIN_CHUNK = 65536  # catalog columns per step of the plain versions
-
-
-def _fp32_only(dtype: str | None) -> None:
-    if dtype not in (None, "float32"):
-        raise NotImplementedError(f"streaming CE dtype {dtype!r} is not ported yet; use float32")
 
 
 def _resolve_n_valid(table: torch.Tensor, n_valid: int | None) -> int:
@@ -85,12 +93,14 @@ def _int64(answers: torch.Tensor) -> torch.Tensor:
 
 
 def ce_logz_plain(states: torch.Tensor, table: torch.Tensor, n_valid: int,
-                  chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+                  chunk: int = PLAIN_CHUNK, bf16: bool = False) -> torch.Tensor:
     """[B] logsumexp of states @ table[:n_valid].T, one chunk of the
-    catalog at a time (-inf when n_valid is 0)."""
+    catalog at a time (-inf when n_valid is 0); with `bf16`, of the
+    bf16-rounded operands' product (exact products, fp32 sums)."""
     logz = torch.full((states.shape[0],), NEG_INF, dtype=torch.float32, device=states.device)
+    s = rounded(states, bf16)
     for j0 in range(0, n_valid, chunk):
-        part = torch.logsumexp(states @ table[j0:min(n_valid, j0 + chunk)].T, dim=1)
+        part = torch.logsumexp(s @ rounded(table[j0:min(n_valid, j0 + chunk)], bf16).T, dim=1)
         logz = torch.logaddexp(logz, part)
     return logz
 
@@ -104,29 +114,34 @@ def gold_rows_plain(table: torch.Tensor, answers: torch.Tensor) -> torch.Tensor:
 
 
 def ce_loss_logz_plain(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
-                       n_valid: int, chunk: int = PLAIN_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+                       n_valid: int, chunk: int = PLAIN_CHUNK,
+                       bf16: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss, logZ) [B]: `ce_logz_plain`, and loss = logZ - <s, T[a]> from
-    the gathered rows, gold 0 for answers outside [0, n_valid)."""
-    logz = ce_logz_plain(states, table, n_valid, chunk)
-    gold = (gold_rows_plain(table, map_answers(answers, n_valid)) * states).sum(dim=1)
+    the gathered rows, gold 0 for answers outside [0, n_valid); with
+    `bf16`, both from bf16-rounded operands."""
+    logz = ce_logz_plain(states, table, n_valid, chunk, bf16)
+    rows = gold_rows_plain(table, map_answers(answers, n_valid))
+    gold = (rounded(rows, bf16) * rounded(states, bf16)).sum(dim=1)
     return logz - gold, logz
 
 
 def ce_grads_plain(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
                    logz: torch.Tensor, dloss: torch.Tensor, n_valid: int,
-                   chunk: int = PLAIN_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+                   chunk: int = PLAIN_CHUNK, bf16: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(ds, dT): ds = p @ T, dT = pᵀ @ s with p = exp(s @ Tᵀ - logz) ·
     dloss over the columns < n_valid (rows >= n_valid of dT stay 0); then,
     for every answer in [0, n_valid), dT[a_i] -= dloss_i · s_i and
-    ds_i -= dloss_i · T[a_i]."""
+    ds_i -= dloss_i · T[a_i]. With `bf16`, s, T and p are rounded to bf16
+    before the three products and the one-hot terms take them unrounded."""
     ds = torch.zeros_like(states)
     dt = torch.zeros_like(table)
+    s = rounded(states, bf16)
     for j0 in range(0, n_valid, chunk):
         j1 = min(n_valid, j0 + chunk)
-        tile = table[j0:j1]
-        p = torch.exp(states @ tile.T - logz[:, None]) * dloss[:, None]
+        tile = rounded(table[j0:j1], bf16)
+        p = rounded(torch.exp(s @ tile.T - logz[:, None]) * dloss[:, None], bf16)
         ds += p @ tile
-        dt[j0:j1] = p.T @ states
+        dt[j0:j1] = p.T @ s
     a = answers.long()
     keep = (a >= 0) & (a < n_valid)
     dt.index_add_(0, a[keep], -(dloss[keep, None] * states[keep]))
@@ -144,11 +159,11 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("streaming_ce")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
     lib.ce_logz.restype = i
     lib.ce_gold_rows.argtypes = [p, p, i, i, i, p, p]
     lib.ce_gold_rows.restype = i
-    lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, p]
+    lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
     lib.ce_grads.restype = i
     lib.streaming_ce_error.argtypes = [i]
     lib.streaming_ce_error.restype = ctypes.c_char_p
@@ -213,8 +228,9 @@ def _even_splits(n_tiles: int, n_splits: int) -> tuple[int, int]:
     return -(-n_tiles // per), per
 
 
-def _launch_logz(states, table, answers, n_valid):
-    """(loss, logZ) from one `ce_logz` call; loss is None when answers is."""
+def _launch_logz(states, table, answers, n_valid, bf16=False):
+    """(loss, logZ) from one `ce_logz` call, in the bf16-operand form when
+    `bf16`; loss is None when answers is."""
     b, v, h, index = _check_matrices(states, table)
     if answers is not None:
         _require("answers", answers, torch.int64, (b,), index)
@@ -230,11 +246,12 @@ def _launch_logz(states, table, answers, n_valid):
     rc = call_on(index, _lib().ce_logz, states.data_ptr(), table.data_ptr(),
                  None if answers is None else answers.data_ptr(), b, v, h, n_valid, n_splits, per,
                  part_m, part_m + 4 * n_splits * b, logz.data_ptr(),
-                 None if loss is None else loss.data_ptr(), raw_stream(index))
+                 None if loss is None else loss.data_ptr(), int(bf16), raw_stream(index))
     if rc != 0:
         _raise("ce_logz", rc, b, v, h, 0)
     ce_logz.launches += 1
     ce_logz.onchip_launches += onchip
+    ce_logz.bf16_launches += bf16
     return loss, logz
 
 
@@ -251,7 +268,7 @@ def _launch_gold_rows(table, answers):
     return out
 
 
-def _launch_grads(states, table, answers, logz, dloss, n_valid):
+def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     b, v, h, index = _check_matrices(states, table)
     _require("answers", answers, torch.int64, (b,), index)
     _require("logz", logz, torch.float32, (b,), index)
@@ -264,11 +281,12 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid):
     dt = table.new_empty((v, h))
     rc = call_on(index, _lib().ce_grads, states.data_ptr(), table.data_ptr(), answers.data_ptr(),
                  logz.data_ptr(), dloss.data_ptr(), b, v, h, n_valid, n_splits, per,
-                 ds_part.data_ptr(), ds.data_ptr(), dt.data_ptr(), raw_stream(index))
+                 ds_part.data_ptr(), ds.data_ptr(), dt.data_ptr(), int(bf16), raw_stream(index))
     if rc != 0:
         _raise("ce_grads", rc, b, v, h, 1)
     ce_grads.launches += 1
     ce_grads.onchip_launches += onchip
+    ce_grads.bf16_launches += bf16
     return ds, dt
 
 
@@ -284,24 +302,29 @@ def _on_card(t: torch.Tensor) -> bool:
 # ---- wrappers: plain version on the CPU, the kernel on the card --------------
 
 
-def ce_logz(states: torch.Tensor, table: torch.Tensor, n_valid: int | None = None) -> torch.Tensor:
+def ce_logz(states: torch.Tensor, table: torch.Tensor, n_valid: int | None = None,
+            dtype: str | None = None) -> torch.Tensor:
     """states [B, H] f32, table [V, H] f32 -> logZ [B] f32 over the columns
-    < n_valid."""
+    < n_valid, in the form `dtype` names."""
+    bf16 = is_bf16(dtype)
     n_valid = _resolve_n_valid(table, n_valid)
     if not _on_card(states):
-        return ce_logz_plain(states, table, n_valid)
-    return _launch_logz(states, table, None, n_valid)[1]
+        return ce_logz_plain(states, table, n_valid, bf16=bf16)
+    return _launch_logz(states, table, None, n_valid, bf16)[1]
 
 
 def ce_loss_logz(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
-                 n_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                 n_valid: int | None = None,
+                 dtype: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss [B], logZ [B]) f32: logZ over the columns < n_valid and
     loss = logZ - <states, table[answers]>, gold 0 for answers outside
-    [0, n_valid). One launch of the `ce_logz` kernel, counted there."""
+    [0, n_valid), in the form `dtype` names. One launch of the `ce_logz`
+    kernel, counted there."""
+    bf16 = is_bf16(dtype)
     n_valid = _resolve_n_valid(table, n_valid)
     if not _on_card(states):
-        return ce_loss_logz_plain(states, table, answers, n_valid)
-    return _launch_logz(states, table, _int64(answers), n_valid)
+        return ce_loss_logz_plain(states, table, answers, n_valid, bf16=bf16)
+    return _launch_logz(states, table, _int64(answers), n_valid, bf16)
 
 
 def gold_rows(table: torch.Tensor, answers: torch.Tensor) -> torch.Tensor:
@@ -315,63 +338,76 @@ def gold_rows(table: torch.Tensor, answers: torch.Tensor) -> torch.Tensor:
 
 
 def ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
-             logz: torch.Tensor, dloss: torch.Tensor, n_valid: int | None = None):
+             logz: torch.Tensor, dloss: torch.Tensor, n_valid: int | None = None,
+             dtype: str | None = None):
     """(ds [B, H], dT [V, H]) of `ce_grads_plain`: the finished gradients
-    of sum(dloss · loss). Answers are taken as they are."""
+    of sum(dloss · loss), in the form `dtype` names. Answers are taken as
+    they are."""
+    bf16 = is_bf16(dtype)
     n_valid = _resolve_n_valid(table, n_valid)
     if not _on_card(states):
-        return ce_grads_plain(states, table, answers, logz, dloss, n_valid)
-    return _launch_grads(states, table, _int64(answers), logz, dloss, n_valid)
+        return ce_grads_plain(states, table, answers, logz, dloss, n_valid, bf16=bf16)
+    return _launch_grads(states, table, _int64(answers), logz, dloss, n_valid, bf16)
 
 
 ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's included
 ce_logz.onchip_launches = 0  # the launches that took the on-chip route
+ce_logz.bf16_launches = 0  # the launches in the bf16-operand form
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route
+ce_grads.bf16_launches = 0  # the launches in the bf16-operand form
 
 
 class _StreamingCE(torch.autograd.Function):
-    """Per-row loss logZ - <s, T[a]>, one kernel call each way. `plain`
-    selects the plain versions (always on the CPU; on the card, the check
-    of the autograd wiring)."""
+    """Per-row loss logZ - <s, T[a]>, one kernel call each way, in the
+    bf16-operand form when `bf16`. `plain` selects the plain versions
+    (always on the CPU; on the card, the check of the autograd wiring)."""
 
     @staticmethod
-    def forward(ctx, states, table, answers, n_valid, plain):
-        loss, logz = (ce_loss_logz_plain if plain else _launch_logz)(states, table, answers, n_valid)
+    def forward(ctx, states, table, answers, n_valid, bf16, plain):
+        if plain:
+            loss, logz = ce_loss_logz_plain(states, table, answers, n_valid, bf16=bf16)
+        else:
+            loss, logz = _launch_logz(states, table, answers, n_valid, bf16)
         ctx.save_for_backward(states, table, answers, logz)
-        ctx.n_valid, ctx.plain = n_valid, plain
+        ctx.n_valid, ctx.bf16, ctx.plain = n_valid, bf16, plain
         return loss
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dloss):
         states, table, answers, logz = ctx.saved_tensors
-        grads = ce_grads_plain if ctx.plain else _launch_grads
-        ds, dt = grads(states, table, answers, logz, dloss.contiguous(), ctx.n_valid)
-        return ds, dt, None, None, None
+        args = (states, table, answers, logz, dloss.contiguous(), ctx.n_valid)
+        if ctx.plain:
+            ds, dt = ce_grads_plain(*args, bf16=ctx.bf16)
+        else:
+            ds, dt = _launch_grads(*args, ctx.bf16)
+        return ds, dt, None, None, None, None
 
 
 def _apply(states, table, answers, n_valid, dtype, plain):
-    _fp32_only(dtype)
+    bf16 = is_bf16(dtype)
     n_valid = _resolve_n_valid(table, n_valid)
     plain = plain or not _on_card(states)
     return _StreamingCE.apply(states.contiguous(), table.contiguous(),
-                              _int64(answers).contiguous(), n_valid, plain)
+                              _int64(answers).contiguous(), n_valid, bf16, plain)
 
 
 def streaming_softmax_ce(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
                          n_valid: int | None = None, dtype: str | None = None) -> torch.Tensor:
     """Per-row CE [B] over the full catalog, differentiable in states and
     table: logsumexp over the columns < n_valid minus the gold logit
-    (0 for answers outside [0, n_valid)). Only float32 is ported."""
+    (0 for answers outside [0, n_valid)). `dtype`: None or "float32", or
+    "bfloat16" for the bf16-operand form; others raise."""
     return _apply(states, table, answers, n_valid, dtype, plain=False)
 
 
 def streaming_softmax_ce_plain(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
-                               n_valid: int | None = None) -> torch.Tensor:
+                               n_valid: int | None = None,
+                               dtype: str | None = None) -> torch.Tensor:
     """`streaming_softmax_ce` through the plain versions on any device."""
-    return _apply(states, table, answers, n_valid, None, plain=True)
+    return _apply(states, table, answers, n_valid, dtype, plain=True)
 
 
 # ---- building blocks of the vocab-sharded composition (ROADMAP A12) ----------
@@ -382,9 +418,8 @@ def streaming_ce_stats(states: torch.Tensor, table: torch.Tensor, answers: torch
     """Per-row (loss_local, logz_local) over THIS table's rows only; not
     differentiable. Answers outside [0, n_valid) (another shard's gold)
     contribute gold 0, so there loss_local == logz_local."""
-    _fp32_only(dtype)
     with torch.no_grad():
-        return ce_loss_logz(states.contiguous(), table, answers, n_valid)
+        return ce_loss_logz(states.contiguous(), table, answers, n_valid, dtype)
 
 
 def streaming_ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
@@ -393,7 +428,6 @@ def streaming_ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch
     """(dstates_partial, dtable) for this shard given the GLOBAL per-row
     logZ: dstates sums only this shard's columns (sum it over the shards),
     dtable covers exactly this shard's rows."""
-    _fp32_only(dtype)
     with torch.no_grad():
         return ce_grads(states.contiguous(), table, answers, logz.float().contiguous(),
-                        dloss.float().contiguous(), n_valid)
+                        dloss.float().contiguous(), n_valid, dtype)

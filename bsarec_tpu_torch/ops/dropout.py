@@ -207,6 +207,7 @@ def _launch(x: torch.Tensor, seeds: torch.Tensor, site: DropoutSite, call: int) 
         raise RuntimeError(f"fused_dropout launch failed ({rc}: "
                            f"{_lib().fused_dropout_error(rc).decode()}); n={n} {x.dtype}")
     fused_dropout.launches += 1
+    fused_dropout.bf16_launches += x.dtype == torch.bfloat16
     return y
 
 
@@ -271,3 +272,4 @@ def fused_dropout(x: torch.Tensor, rate: float, seeds: torch.Tensor, call: int,
 
 
 fused_dropout.launches = 0  # kernel launches (CUDA path only)
+fused_dropout.bf16_launches = 0  # the launches on bf16 tensors

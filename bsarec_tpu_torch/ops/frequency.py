@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from bsarec_tpu_torch.ops.precision import rounded
+
 
 @functools.lru_cache(maxsize=64)
 def lowpass_projection_matrix(seq_len: int, c: int) -> np.ndarray:
@@ -39,9 +41,14 @@ def lowpass_projection_matrix(seq_len: int, c: int) -> np.ndarray:
     return proj.astype(np.float32)
 
 
-def frequency_filter(x: torch.Tensor, proj: torch.Tensor, sqrt_beta: torch.Tensor) -> torch.Tensor:
+def frequency_filter(x: torch.Tensor, proj: torch.Tensor, sqrt_beta: torch.Tensor,
+                     bf16: bool = False) -> torch.Tensor:
     """x: [B, L, H]; proj: [L, L] low-pass projection; sqrt_beta: [..., H].
-    Returns low_pass + sqrt_beta² ⊙ (x − low_pass) (high-pass rescale)."""
+    Returns low_pass + sqrt_beta² ⊙ (x − low_pass) (high-pass rescale).
+    With `bf16` (the bf16 policy, `bsarec_tpu/ops/frequency.py:44-52`), x
+    and proj are rounded to bf16, the projection takes a float32 result,
+    and the rest runs in float32 on the rounded x."""
+    x, proj = rounded(x, bf16), rounded(proj, bf16)
     low = torch.einsum("kl,blh->bkh", proj, x)
     return low + sqrt_beta**2 * (x - low)
 

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from bsarec_tpu_torch.ops.ce import streaming_softmax_ce
+from bsarec_tpu_torch.ops.precision import is_bf16, matmul
 
 # From this catalog size on (and on CUDA) "auto" replaces the dense [B, V]
 # logits with the streaming CE kernels: memory O(B) and one table read per
@@ -36,12 +37,15 @@ def full_softmax_ce(seq_state: torch.Tensor, item_table: torch.Tensor, answers: 
     seq_state [B, H] last-position states, item_table [V, H], answers [B]
     item ids. `impl`: "dense" (the [B, V] logits and logsumexp, which the
     JAX package leaves to XLA), "streaming" (`ops/ce.py`), or "auto"
-    (streaming from 262,144 items on, on CUDA). Only float32 is ported."""
-    if dtype != "float32":
-        raise NotImplementedError(f"CE compute dtype {dtype!r} is not ported yet; use float32")
+    (streaming from 262,144 items on, on CUDA). `dtype` is the matmul
+    compute dtype (`bsarec_tpu/ops/losses.py:21-72`): under "bfloat16" the
+    logits are the float32 product of bf16-rounded operands (the
+    streaming kernels' bf16-operand form on that path); logsumexp and the
+    gold logit stay float32."""
+    bf16 = is_bf16(dtype)
     if resolve_loss_impl(impl, item_table.shape[0], item_table.device) == "streaming":
-        return streaming_softmax_ce(seq_state, item_table, answers).mean()
-    logits = seq_state @ item_table.T
+        return streaming_softmax_ce(seq_state, item_table, answers, dtype=dtype).mean()
+    logits = matmul(seq_state, item_table.T, bf16)
     gold = logits.gather(1, answers.long()[:, None])[:, 0]
     return (torch.logsumexp(logits, dim=-1) - gold).mean()
 

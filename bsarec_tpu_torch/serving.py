@@ -36,6 +36,14 @@ Layouts (`impl`), all returning the same ranking:
   padding ids dropped in top-k space and a second top-k;
 - `chunked`: the catalog in `item_chunk` blocks, a top-k each, one merge.
 
+`dtype="bfloat16"` (`--dtype bf16`, `bsarec_tpu/serving.py:206-300`) scores
+every non-int8 layout from bf16-rounded operands with a float32 result:
+the item table is rounded once at export (the artifact holds the rounded
+float32 table beside the model's own) and the [b, H] states in each
+call, inside the program, so the `bitmask` layout's rank kernel, which
+takes float32, ranks exactly JAX's bf16 logits. int8 ignores the dtype,
+as in JAX. The model itself runs under its own `compute_dtype`.
+
 `torch.topk` promises no order among equal scores, so every top-k here is
 read off a stable descending sort, which orders ties by the smallest id
 as `jax.lax.top_k` does. `quant="int8"` quantizes the catalog matmul
@@ -56,6 +64,7 @@ from torch import nn
 
 # registers the custom op that bitmask artifacts call
 from bsarec_tpu_torch.ops import serving_topk
+from bsarec_tpu_torch.ops.precision import is_bf16, rounded
 from bsarec_tpu_torch.ops.topk import stable_topk
 
 SERVING_CALL_DOC = "(input_ids [b, L] i32, user_ids [b] i32, seen_items [b, S] i32) -> [b, 20] i32"
@@ -176,10 +185,11 @@ class _ScoringModule(nn.Module):
     """The serving ranking as a module of (input_ids, user_ids,
     seen_items) -> [b, k] int32 ids: the state `predict(...)[:, -1]`
     against `table[:item_size]` (the tied-table matmul of
-    `src/trainers.py:62-68`), masked by the serving contract."""
+    `src/trainers.py:62-68`), masked by the serving contract. Under a
+    bf16 `dtype` the non-int8 layouts score rounded operands."""
 
     def __init__(self, model: nn.Module, item_size: int, k: int = 20, quant: str | None = None,
-                 impl: str = "bitmask", item_chunk: int = 65536):
+                 impl: str = "bitmask", item_chunk: int = 65536, dtype: str = "float32"):
         super().__init__()
         if quant not in (None, "int8"):
             raise ValueError(f"unknown serving quantization {quant!r}")
@@ -188,15 +198,22 @@ class _ScoringModule(nn.Module):
         self.model = model
         self.item_size, self.k, self.quant, self.impl = item_size, k, quant, impl
         self.item_chunk = item_chunk
+        self.bf16 = is_bf16(dtype) and quant is None
         if quant == "int8":  # the table's int8 rows and scales, computed once
             with torch.no_grad():
                 q_table, t_scale = quantize_rows(model.item_table[:item_size])
             self.register_buffer("q_table", q_table)
             self.register_buffer("t_scale", t_scale)
+        elif self.bf16:  # the bf16-rounded table, computed once
+            with torch.no_grad():
+                self.register_buffer("rounded_table", rounded(model.item_table[:item_size], True))
 
     def forward(self, input_ids, user_ids, seen_items):
         state = self.model.predict(input_ids, user_ids)[:, -1, :].float()
-        table = self.model.item_table[:self.item_size]
+        if self.bf16:
+            state, table = rounded(state, True), self.rounded_table
+        else:
+            table = self.model.item_table[:self.item_size]
         if self.impl == "chunked":
             if self.quant == "int8":
                 _, ids = chunked_masked_topk(
@@ -217,17 +234,19 @@ class _ScoringModule(nn.Module):
 
 
 def build_scoring_fn(model: nn.Module, item_size: int, k: int = 20, quant: str | None = None,
-                     impl: str = "bitmask", item_chunk: int = 65536) -> nn.Module:
+                     impl: str = "bitmask", item_chunk: int = 65536,
+                     dtype: str = "float32") -> nn.Module:
     """The serving ranking computation over `model`'s weights, as a module
     of (input_ids, user_ids, seen_items) -> [b, k] int32 ids. `quant="int8"`
     swaps the catalog matmul for `int8_logits`; `impl` picks the layout
-    (module docstring)."""
-    return _ScoringModule(model, item_size, k=k, quant=quant, impl=impl, item_chunk=item_chunk)
+    and `dtype` the logits' operand rounding (module docstring)."""
+    return _ScoringModule(model, item_size, k=k, quant=quant, impl=impl, item_chunk=item_chunk,
+                          dtype=dtype)
 
 
 def export_scorer(model: nn.Module, item_size: int, max_len: int, seen_width: int, path: str,
                   quant: str | None = None, impl: str = "bitmask",
-                  item_chunk: int = 65536) -> dict:
+                  item_chunk: int = 65536, dtype: str = "float32") -> dict:
     """Export the weights-baked scorer on the model's device to `path`
     (`.pt2`); returns its metadata, which the artifact also holds, with
     the file's bytes and the export's seconds."""
@@ -239,7 +258,7 @@ def export_scorer(model: nn.Module, item_size: int, max_len: int, seen_width: in
     model.eval()
     try:
         module = build_scoring_fn(model, item_size, quant=quant, impl=impl,
-                                  item_chunk=item_chunk)
+                                  item_chunk=item_chunk, dtype=dtype)
         b = Dim("b", min=1)
         example = (torch.ones((2, max_len), dtype=torch.int32, device=device),
                    torch.zeros((2,), dtype=torch.int32, device=device),
@@ -255,6 +274,7 @@ def export_scorer(model: nn.Module, item_size: int, max_len: int, seen_width: in
         "num_users": model.config.num_users if model.reads_users else None,
         "seen_width": seen_width, "item_size": item_size, "quant": quant or "none",
         "impl": impl, "item_chunk": item_chunk if impl == "chunked" else None,
+        "dtype": dtype,
     }
     torch.export.save(program, path, extra_files={_META_FILE: json.dumps(meta)})
     meta["bytes"] = os.path.getsize(path)

@@ -18,7 +18,9 @@ package's rank kernel counts them, the scores inserted into a row's
 top-k list in a split, and `rank_eval_digest`: a sha256 of the rank
 kernel's eval-mode values and ids at this checkout's `chip_smoke.py`
 rank cases (read from that file: its table, seeds and inputs), so that
-two checkouts with equal digests give bit-equal results there.
+two checkouts with equal digests give bit-equal results there; and
+`ce_fp32_digest`, the same over the fp32 `ce_loss_logz` (loss, logZ) and
+`ce_grads` (ds, dT) at its CE cases (`CE_CASES`, `ce_case`).
 
     python3 bsarec_tpu_torch/tools/time_kernels.py
         # this checkout's package
@@ -79,10 +81,6 @@ def host_ms(fn, iters: int = 50) -> float:
     return ms
 
 
-def rel_err(got, want) -> float:
-    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-
-
 def rank_inputs(device):
     """chip_smoke.py's main-path rank case: N(0, 1) states and table, 20
     seen items a row (a repeat and padding among them)."""
@@ -101,15 +99,21 @@ def rank_inputs(device):
     return states, table, bitmask
 
 
+def _chip_smoke():
+    """This checkout's `chip_smoke.py` as a module (its cases and inputs)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def rank_eval_digest(device) -> str:
     """sha256 over the rank kernel's eval-mode (values, ids) at this
     checkout's `chip_smoke.py` rank cases (`RANK_CASES`), on its inputs
     (`make_case`, the i-th case seeded with i)."""
     from bsarec_tpu_torch.ops import rank
 
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     digest = hashlib.sha256()
     for i, (_, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(smoke.RANK_CASES):
         states, table, bitmask = smoke.make_case(b, v, h, n_seen, seed=i, device=device,
@@ -117,6 +121,29 @@ def rank_eval_digest(device) -> str:
         vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid)
         digest.update(vals.cpu().numpy().tobytes())
         digest.update(ids.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def ce_fp32_digest(device) -> str:
+    """sha256 over the fp32 CE entries' outputs at this checkout's
+    `chip_smoke.py` CE cases (`CE_CASES`, the i-th on `ce_case`'s inputs
+    seeded with 100 + i): loss and logZ from `ce_loss_logz`, ds and dT
+    from `ce_grads` at dloss = 1/B."""
+    import torch
+
+    from bsarec_tpu_torch.ops import ce
+
+    smoke = _chip_smoke()
+    digest = hashlib.sha256()
+    for i, (_, b, v, h, n_valid, kind) in enumerate(smoke.CE_CASES):
+        states, table, answers = smoke.ce_case(b, v, h, n_valid, seed=100 + i, device=device,
+                                               answer_kind=kind)
+        loss, logz = ce.ce_loss_logz(states, table, answers, n_valid)
+        d = torch.full((b,), 1.0 / b, device=device)
+        ds, dt = ce.ce_grads(states, table, answers, logz, d, n_valid)
+        for x in (loss, logz, ds, dt):
+            digest.update(x.cpu().numpy().tobytes())
+        del states, table, answers, ds, dt
     return digest.hexdigest()
 
 
@@ -147,6 +174,7 @@ def time_package(package_root: Path) -> dict:
     import torch
 
     from bsarec_tpu_torch.ops import ce, rank
+    from bsarec_tpu_torch.parity import rel_err
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
@@ -168,7 +196,7 @@ def time_package(package_root: Path) -> dict:
     r_states, r_table, r_mask = rank_inputs(device)
     rank_err = check_rank(r_states, r_table, r_mask)
     out = {"ce_grads_rel_err": err, "rank_abs_err": rank_err,
-           "rank_eval_digest": rank_eval_digest(device)}
+           "rank_eval_digest": rank_eval_digest(device), "ce_fp32_digest": ce_fp32_digest(device)}
     if "taken" in inspect.signature(rank._launch).parameters:
         n = torch.zeros(1, dtype=torch.int64, device=device)
         rank._launch(r_states, r_table, r_mask, K, V, taken=n)

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from bsarec_tpu_torch.ops.precision import is_bf16, rounded
 from bsarec_tpu_torch.ops.rank import seen_ids_to_bitmask, streaming_masked_topk
 from bsarec_tpu_torch.ops.topk import TOP_K, masked_topk, topk_metrics
 from bsarec_tpu_torch.utils.profiling import annotate
@@ -122,7 +123,7 @@ def resolve_eval_impl(impl: str, item_size: int, device: torch.device) -> str:
 
 def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
                   device: torch.device, impl: str = "auto", collect_topk: bool = False,
-                  seen_format: str = "bitmask"):
+                  seen_format: str = "bitmask", dtype: str = "float32"):
     """Returns `(evaluate, steps, impl)`; `evaluate(inputs, answers, seen)`
     gives the [9] float32 metric sums (`ops.topk.topk_metrics` layout),
     or with `collect_topk` the [num_users, 20] int32 top-k item ids.
@@ -135,32 +136,37 @@ def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
     (BERT4Rec's [mask] row included), with n_valid = item_size. The dense
     path always takes id lists. The last batch is padded by clamping user
     indices to num_users-1 and weighted out with `valid`. `model.predict`
-    gets the users' indices too (Caser reads them).
+    gets the users' indices too (Caser reads them). `dtype` "bfloat16"
+    scores the dense path from bf16-rounded states and table with a
+    float32 result (`bsarec_tpu/train/loop.py:341-348`); the streaming
+    path takes no dtype, as in JAX.
     """
     steps = math.ceil(num_users / batch_size)
     impl = resolve_eval_impl(impl, item_size, device)
     vocab = model.vocab_rows()
+    bf16 = is_bf16(dtype)
 
     @torch.inference_mode()
     def evaluate(inputs, answers, seen):
         model.eval()
         sums = torch.zeros(9, dtype=torch.float32, device=device)
         per_batch = []
+        # the dense path's operand, rounded once per pass under bf16
+        dense_table = None if impl == "streaming" else rounded(model.item_table[:item_size], bf16)
         for step in range(steps):
             idx = torch.arange(step * batch_size, (step + 1) * batch_size, device=device)
             valid = (idx < num_users).float()
             safe = idx.clamp(max=num_users - 1)
             state = model.predict(inputs[safe], safe)[:, -1, :]
-            table = model.item_table
             if impl == "streaming":
                 seen_batch = seen[safe]
                 if seen_format == "ids":
                     seen_batch = seen_ids_to_bitmask(seen_batch, vocab)
                 _, topk_idx = streaming_masked_topk(
-                    state.contiguous(), table, seen_batch, k=TOP_K, n_valid=item_size
+                    state.contiguous(), model.item_table, seen_batch, k=TOP_K, n_valid=item_size
                 )
             else:
-                logits = state @ table[:item_size].T
+                logits = rounded(state, bf16) @ dense_table.T
                 _, topk_idx = masked_topk(logits, seen[safe])
             if collect_topk:
                 per_batch.append(topk_idx.int())

@@ -94,6 +94,7 @@ class Trainer:
             self.model, self.model_cfg.item_size, self.train_cfg.eval_batch_size,
             self.data.valid.num_users, self.device, impl=self.train_cfg.eval_impl,
             collect_topk=collect_topk, seen_format=self._seen_format,
+            dtype=self.model_cfg.compute_dtype,
         )
 
     # ---- reference-API surface -----------------------------------------

@@ -33,7 +33,15 @@ Phases, each of which raises (exit code 1) when it fails:
    (ce_grads with every answer set to -1, which leaves out the gold
    terms, minus dloss * gold_rows); ce_grads on the route its shape
    names (on-chip at B <= 256 and H <= 64, the sweep at H in {128, 256}),
-   and two ce_grads calls on the same inputs bit-equal in ds and dT.
+   and two ce_grads calls on the same inputs bit-equal in ds and dT; dT's
+   one-hot term read off ce_grads (on the answers against answers of -1)
+   equal, up to fp32 rounding, to the sum of dloss_i * s_i over the
+   unrounded states. Every case runs twice: in the fp32 form and in the
+   bf16-operand form (`--dtype bf16`) against the plain bf16 versions: its
+   logZ apart from the fp32 form's, its ce_grads at the kernel's logZ
+   within bsarec_tpu_torch/parity.py's BF16_GRAD_TOL of the plain version
+   at that logZ (ds, dT's answer rows and dT's other rows apart), which the
+   fp32 form must exceed on ds and on dT's other rows.
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -46,7 +54,9 @@ Phases, each of which raises (exit code 1) when it fails:
    weights and batch, dropout 0): loss, gradients and parameters. Then
    one SASRec step with every dropout site on the kernel against the same
    step on its plain version (same weights, batch, negatives and seeds):
-   14 dropout launches, loss, gradients and parameters.
+   14 dropout launches, loss, gradients and parameters. Then one Adam
+   step of the same BSARec under the bf16 policy through the kernels'
+   bf16 form against the plain bf16 CE on the card.
 6. Drive the eval path through its normal entry point:
    `bsarec_tpu_torch.main --do_eval --eval_impl streaming --export_topk`
    on a seeded synthetic 1,000,000-item x 50,000-user corpus with a
@@ -88,6 +98,14 @@ Phases, each of which raises (exit code 1) when it fails:
    step, the rank kernel in every validation and no CE launch; epoch 1's
    loss below epoch 0's; the resumed run starts at epoch 2. Then 2
    epochs with nn.Dropout for the rate without the kernel.
+9b. The main paths under `--dtype bf16`: BSARec for one epoch, then
+   `--resume` to a second with `--export_topk` (one ce_logz and one
+   ce_grads launch a step, all in the bf16 form on the on-chip route;
+   the rank kernel on every eval batch); `--export_serving` of it, whose
+   artifact's top-20 at B=256 is held against the plain version on
+   bf16-rounded operands (one rank launch); SASRec under `--prng rbg`
+   and BSAREC_DROPOUT=pallas for one epoch (14 dropout launches a step,
+   8 of them on bf16 tensors).
 10. Time every kernel, its plain version and one library yardstick with
    CUDA events, print each bound, eval users/s and a steady-state eval
    pass with its per-batch breakdown, train examples/s, a per-step
@@ -102,7 +120,10 @@ Phases, each of which raises (exit code 1) when it fails:
    make 2 wrapper calls and at most 5 device operations); the dropout
    kernel against `F.dropout` back to back and through a model's site
    with its backward against `nn.Dropout`; the dropout kernel with a
-   cold and a warm L2.
+   cold and a warm L2. The CE kernels' bf16 forms in turns with their
+   fp32 forms, with their plain versions, a bf16 library yardstick and
+   their bounds at the bf16 tensor rate; BSARec's training step in bf16
+   against fp32 in turns (examples/s, device busy share).
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -140,6 +161,17 @@ CE_TOL = 1e-5
 # columns, dT up to 256 rows, each term carrying p = exp(logit - logZ)
 # with logZ's error
 GRAD_TOL = 1e-4
+# the CE kernels' bf16-operand form: loss and logZ are fp32 sums of exact
+# products of the rounded operands (CE_TOL holds); its gradients are held
+# as bsarec_tpu_torch/parity.py says. A bf16 model's step through them
+# against the same step through the plain CE: the two logZs differ by their
+# fp32 rounding, which moves some p = softmax * dloss one bf16 ulp (2^-8)
+# apart (the item table's gradient: readings up to 4.9e-5 of its largest
+# entry), and the gradients crossing each bf16 cast of the model are
+# rounded there, where such a difference can flip a rounding again (the
+# other tensors: readings up to 2.5e-3; PERF.md)
+BF16_STEP_TABLE_TOL = 1e-3
+BF16_STEP_GRAD_TOL = 1e-2
 # one Adam step from the same weights: Adam divides each gradient by its
 # own magnitude, so a gradient's relative rounding error moves its
 # parameter by that fraction of lr (5e-4)
@@ -148,6 +180,9 @@ STEP_PARAM_TOL = 1e-6
 # the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# ... and the dense bf16 tensor-core rate, the peak for the CE kernels'
+# bf16-operand form
+PEAK_BF16_FLOPS = 989e12
 
 # EVAL_BATCH is TrainConfig.eval_batch_size's default, which main uses
 N_USERS, N_ITEMS, EVAL_BATCH, TOP_K = 50_000, 1_000_000, 256, 20
@@ -560,34 +595,38 @@ def ce_case(b, v, h, n_valid, seed, device, answer_kind):
             torch.from_numpy(answers).to(device))
 
 
-def rel_err(got, want, rows=None):
-    """max |got - want| over `rows`, relative to max |want| there."""
-    if rows is not None:
-        got, want = got[rows], want[rows]
-    if want.numel() == 0:
-        return 0.0
-    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-
-
-def compare_ce(case_name, states, table, answers, n_valid):
-    """The CE kernels vs their plain versions on one input: the fused
-    entries (loss and logZ from one ce_logz call, the finished ds and dT
-    from one ce_grads call) on the raw int64 answers, the same through the
-    autograd function, and the standalone gather; then the fused ds
-    against the unfused composition of the same kernels, bit for bit.
-    Returns the largest absolute error of each kernel's outputs."""
+def compare_ce(case_name, states, table, answers, n_valid, dtype=None):
+    """The CE kernels vs their plain versions on one input, in the form
+    `dtype` names (None: fp32; "bfloat16": the bf16-operand form): the
+    fused entries (loss and logZ from one ce_logz call, the finished ds and
+    dT from one ce_grads call) on the raw int64 answers, the same through
+    the autograd function, and the standalone gather. The gradients of ds,
+    dT's answer rows and dT's other rows apart: the fp32 form's through
+    autograd within GRAD_TOL; the bf16 form's ce_grads at the kernel's logZ
+    within parity.BF16_GRAD_TOL of the plain version at that logZ, which the
+    fp32 form must exceed. Then the fused ds against the unfused
+    composition of the same kernels, bit for bit (in the bf16 form this
+    also shows that the ds correction takes the unrounded rows), and dT's
+    one-hot term read off the kernel (parity.one_hot_excess), which must
+    fail with the rounded states in its place. Returns the largest absolute
+    error of each kernel's outputs."""
     import torch
 
+    from bsarec_tpu_torch import parity
     from bsarec_tpu_torch.ops import ce
 
+    bf16 = dtype is not None
     mapped = ce.map_answers(answers, n_valid)
     logz_onchip_before = ce.ce_logz.onchip_launches
-    loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid)
+    bf16_before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
+    loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
     check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape),
           f"{case_name}: ce_logz took another route than its shape names")
+    check(ce.ce_logz.bf16_launches - bf16_before[0] == bf16,
+          f"{case_name}: ce_logz took another form than {dtype or 'float32'}")
     rows = ce.gold_rows(table, mapped)
     torch.cuda.synchronize()
-    want_loss_f, want_logz = ce.ce_loss_logz_plain(states, table, answers, n_valid)
+    want_loss_f, want_logz = ce.ce_loss_logz_plain(states, table, answers, n_valid, bf16=bf16)
     check(torch.equal(torch.isfinite(logz), torch.isfinite(want_logz)), f"{case_name}: logZ finiteness")
     logz_err = float(((logz - want_logz).abs() / want_logz.abs().clamp(min=1.0)).max())
     check(logz_err <= CE_TOL, f"{case_name}: logZ error {logz_err} > {CE_TOL}")
@@ -595,14 +634,18 @@ def compare_ce(case_name, states, table, answers, n_valid):
     check(fused_err <= CE_TOL, f"{case_name}: fused loss error {fused_err} > {CE_TOL}")
     off = (answers < 0) | (answers >= n_valid)
     check(torch.equal(loss_f[off], logz[off]), f"{case_name}: answers off the catalog need gold 0")
-    check(torch.equal(ce.ce_logz(states, table, n_valid), logz), f"{case_name}: logZ alone differs")
+    check(torch.equal(ce.ce_logz(states, table, n_valid, dtype=dtype), logz),
+          f"{case_name}: logZ alone differs")
     check(torch.equal(rows, ce.gold_rows_plain(table, mapped)), f"{case_name}: gather not bit-equal")
+    if bf16:  # the rounding is real: the fp32 form's logZ differs
+        check(not torch.equal(ce.ce_logz(states, table, n_valid), logz),
+              f"{case_name}: the bf16 form's logZ equals the fp32 form's")
 
     grads = []
     for fn in (ce.streaming_softmax_ce, ce.streaming_softmax_ce_plain):
         s = states.clone().requires_grad_()
         t = table.clone().requires_grad_()
-        loss = fn(s, t, answers, n_valid)
+        loss = fn(s, t, answers, n_valid, dtype=dtype)
         loss.mean().backward()
         grads.append((loss.detach(), s.grad, t.grad))
         del s, t
@@ -611,76 +654,116 @@ def compare_ce(case_name, states, table, answers, n_valid):
     check(torch.equal(loss, loss_f), f"{case_name}: the autograd function's loss differs from ce_loss_logz")
     loss_err = float(((loss - want_loss).abs() / want_loss.abs().clamp(min=1.0)).max())
     check(loss_err <= CE_TOL, f"{case_name}: loss error {loss_err} > {CE_TOL}")
-    ds_err = rel_err(ds, want_ds)
-    is_answer = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
-    is_answer[mapped[mapped >= 0].long()] = True
-    dt_err = max(rel_err(dt, want_dt, is_answer), rel_err(dt, want_dt, ~is_answer))
-    check(ds_err <= GRAD_TOL and dt_err <= GRAD_TOL,
-          f"{case_name}: gradient error ds {ds_err}, dT {dt_err} > {GRAD_TOL}")
     check(not dt[n_valid:].any(), f"{case_name}: dT rows past n_valid must be 0")
     d = torch.full((states.shape[0],), 1.0 / states.shape[0], device=states.device)
     # two calls on the same inputs give the same bits, on the route the shape takes
     onchip_before = ce.ce_grads.onchip_launches
-    fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid)
-    again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid)
+    grads_bf16_before = ce.ce_grads.bf16_launches
+    fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
+    again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
     route = "on-chip" if n_onchip else "sweep"
     check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0),
           f"{case_name}: ce_grads took another route than its shape names")
+    check(ce.ce_grads.bf16_launches - grads_bf16_before == 2 * bf16,
+          f"{case_name}: ce_grads took another form than {dtype or 'float32'}")
     check(torch.equal(fused_ds, again_ds) and torch.equal(fused_dt, again_dt),
           f"{case_name}: two ce_grads calls on the same inputs differ")
-    del again_ds, again_dt, fused_dt
-    # the unfused ds: ce_grads with every answer off the catalog leaves out
-    # both gold terms, and the caller subtracts the gathered rows
+    del again_ds, again_dt
+    if bf16:
+        # the backward through autograd is ce_grads at the kernel's logZ; that
+        # call is held against the plain version at the same logZ (parity.py),
+        # and the fp32 form, which rounds nothing, must fail the same limit
+        check(torch.equal(ds, fused_ds) and torch.equal(dt, fused_dt),
+              f"{case_name}: the autograd function's gradients differ from ce_grads")
+        plain = ce.ce_grads_plain(states, table, answers, logz, d, n_valid, bf16=True)
+        errs = parity.grad_errors(fused_ds, fused_dt, *plain, answers, n_valid)
+        control = parity.grad_errors(*ce.ce_grads(states, table, answers, logz, d, n_valid),
+                                     *plain, answers, n_valid)
+        grad_abs = max(float((fused_ds - plain[0]).abs().max()), float((fused_dt - plain[1]).abs().max()))
+        del plain
+        check(max(errs.values()) <= parity.BF16_GRAD_TOL,
+              f"{case_name}: gradient errors {errs} at the kernel's logZ > {parity.BF16_GRAD_TOL}")
+        check(min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL,
+              f"{case_name}: the fp32 form passes the bf16 limit on ds or dT's other rows: {control}")
+    else:
+        errs = parity.grad_errors(ds, dt, want_ds, want_dt, answers, n_valid)
+        control = None
+        grad_abs = max(float((ds - want_ds).abs().max()), float((dt - want_dt).abs().max()))
+        check(max(errs.values()) <= GRAD_TOL, f"{case_name}: gradient errors {errs} > {GRAD_TOL}")
+    # the unfused forms: ce_grads with every answer off the catalog leaves out
+    # both gold terms; the caller subtracts the gathered rows from ds (bit
+    # for bit), and dT differs on the answer rows by the one-hot term on the
+    # unrounded states (parity.one_hot_excess), in the bf16 form too
     no_answers = torch.full_like(answers, -1)
-    sum_ds, _ = ce.ce_grads(states, table, no_answers, logz, d, n_valid)
+    sum_ds, none_dt = ce.ce_grads(states, table, no_answers, logz, d, n_valid, dtype=dtype)
     unfused_ds = sum_ds - d[:, None] * ce.gold_rows(table, mapped)
     torch.cuda.synchronize()
     check(torch.equal(fused_ds, unfused_ds),
           f"{case_name}: fused ds differs from the unfused composition at "
           f"{int((fused_ds != unfused_ds).sum())} of {fused_ds.numel()} elements")
+    one_hot = parity.one_hot_excess(fused_dt, none_dt, states, answers, d, n_valid)
+    check(one_hot <= 1.0, f"{case_name}: dT's one-hot term {one_hot} of its allowance")
+    one_hot_rounded = parity.one_hot_excess(fused_dt, none_dt, states, answers, d, n_valid,
+                                            round_states=True)
+    check(one_hot_rounded > 1.0,
+          f"{case_name}: the one-hot check passes the rounded states too ({one_hot_rounded})")
+    del fused_dt, none_dt
     del fused_ds, sum_ds, unfused_ds, no_answers
     abs_err = {
         "ce_logz": max(float((logz - want_logz)[torch.isfinite(want_logz)].abs().max()),
                        float((loss_f - want_loss_f).abs().max()),
                        float((loss - want_loss).abs().max())),
         "gold_rows": 0.0,
-        "ce_grads": max(float((ds - want_ds).abs().max()), float((dt - want_dt).abs().max())),
+        "ce_grads": grad_abs,
     }
-    log(f"CE kernels vs plain {case_name}: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
-        f"loss through autograd {loss_err:.3g}, ds {ds_err:.3g}, dT {dt_err:.3g} (relative to the "
-        f"largest |plain|), {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
-        f"to ce_grads(answers -1) - dloss * gold_rows; ce_logz and ce_grads route {route}, two calls bit-equal; "
+
+    def short(e):
+        return ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+    held = ("at the kernel's logZ; the fp32 form against the bf16 plain version: " + short(control)
+            if bf16 else "through autograd")
+    log(f"CE kernels vs plain {case_name}, {dtype or 'float32'} form: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
+        f"loss through autograd {loss_err:.3g}; gradients {short(errs)} (relative to each group's "
+        f"largest |plain|, {held}); {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
+        f"to ce_grads(answers -1) - dloss * gold_rows; dT's one-hot term {one_hot:.3g} of its allowance "
+        f"(rounded states {one_hot_rounded:.3g}); ce_logz and ce_grads route {route}, two calls bit-equal; "
         f"max abs err logZ/loss {abs_err['ce_logz']:.3g}, ds/dT {abs_err['ce_grads']:.3g}")
     return abs_err
 
 
+# phase 3's CE cases, the i-th on ce_case's inputs seeded with 100 + i:
+# (tag, B, V, H, n_valid, answers). bsarec_tpu_torch/tools/time_kernels.py
+# digests the fp32 form's results here.
+CE_CASES = [
+    ("main path", 256, N_ITEMS, 64, N_ITEMS, "plain"),
+    ("odd B, n_valid < V, odd answers", 37, 5000, 64, 4990, "odd"),
+    ("V off every tile", 3, 12101, 64, 12101, "odd"),
+    ("H=32", 130, 70001, 32, 70001, "odd"),
+    ("H=48, n_valid < V", 64, 20011, 48, 20006, "odd"),
+    ("H=128", 96, 30011, 128, 30011, "odd"),
+    ("H=256, n_valid < V", 256, 40009, 256, 40000, "odd"),
+    ("repeated answers", 200, 3001, 64, 3001, "repeated"),
+    # BERT4Rec's table with its [mask] row: V mod 64 = 1, the last tile one row
+    ("BERT4Rec's table", 256, N_ITEMS + 1, 64, N_ITEMS + 1, "plain"),
+]
+CE_FORMS = (None, "bfloat16")
+
+
 def phase_ce_kernels(device):
-    """Phase 3. Returns ({kernel: largest absolute error}, the main-shape inputs)."""
+    """Phase 3, each case in both forms. Returns ({form: {kernel: largest
+    absolute error}}, the main-shape inputs)."""
     import torch
 
-    # (tag, B, V, H, n_valid, answers)
-    cases = [
-        ("main path", 256, N_ITEMS, 64, N_ITEMS, "plain"),
-        ("odd B, n_valid < V, odd answers", 37, 5000, 64, 4990, "odd"),
-        ("V off every tile", 3, 12101, 64, 12101, "odd"),
-        ("H=32", 130, 70001, 32, 70001, "odd"),
-        ("H=48, n_valid < V", 64, 20011, 48, 20006, "odd"),
-        ("H=128", 96, 30011, 128, 30011, "odd"),
-        ("H=256, n_valid < V", 256, 40009, 256, 40000, "odd"),
-        ("repeated answers", 200, 3001, 64, 3001, "repeated"),
-        # BERT4Rec's table with its [mask] row: V mod 64 = 1, the last tile one row
-        ("BERT4Rec's table", 256, N_ITEMS + 1, 64, N_ITEMS + 1, "plain"),
-    ]
-    worst = {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0}
+    worst = {form: {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0} for form in CE_FORMS}
     full = None
-    for i, (tag, b, v, h, n_valid, kind) in enumerate(cases):
+    for i, (tag, b, v, h, n_valid, kind) in enumerate(CE_CASES):
         states, table, answers = ce_case(b, v, h, n_valid, seed=100 + i, device=device,
                                          answer_kind=kind)
-        errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
-                          answers, n_valid)
-        worst = {k: max(worst[k], errs[k]) for k in worst}
+        for form in CE_FORMS:
+            errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
+                              answers, n_valid, dtype=form)
+            worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
         if i == 0:
             full = (states, table, answers)
         del states, table, answers
@@ -688,8 +771,9 @@ def phase_ce_kernels(device):
     return worst, full
 
 
-def full_width_model(device, dropout: float, loss_impl: str = "auto"):
-    """A seeded random-init BSARec at the paper's Beauty widths, 1M items."""
+def full_width_model(device, dropout: float, loss_impl: str = "auto", dtype: str = "float32"):
+    """A seeded random-init BSARec at the paper's Beauty widths, 1M items,
+    under the compute dtype `dtype`."""
     import torch
 
     from bsarec_tpu_torch.config import ModelConfig
@@ -698,7 +782,8 @@ def full_width_model(device, dropout: float, loss_impl: str = "auto"):
     cfg = ModelConfig(model_type="bsarec", item_size=N_ITEMS, num_users=TRAIN_USERS + 1,
                       max_seq_length=50, hidden_size=64, num_hidden_layers=2,
                       num_attention_heads=1, c=5, alpha=0.7, hidden_dropout_prob=dropout,
-                      attention_probs_dropout_prob=dropout, loss_impl=loss_impl)
+                      attention_probs_dropout_prob=dropout, loss_impl=loss_impl,
+                      compute_dtype=dtype)
     return build_model(cfg, generator=torch.Generator().manual_seed(0)).to(device)
 
 
@@ -719,6 +804,7 @@ def phase_step(device):
     versions, from the same weights and batch, dropout 0."""
     import torch
 
+    from bsarec_tpu_torch import parity
     from bsarec_tpu_torch.config import TrainConfig
     from bsarec_tpu_torch.ops import ce
     from bsarec_tpu_torch.train.loop import make_optimizer
@@ -747,7 +833,7 @@ def phase_step(device):
     torch.cuda.synchronize()
     loss_err = abs(float(loss) - float(want_loss))
     check(loss_err <= CE_TOL * max(1.0, abs(float(want_loss))), f"step: loss error {loss_err}")
-    grad_err = max(rel_err(grads[k], want_grads[k]) for k in grads
+    grad_err = max(parity.rel_err(grads[k], want_grads[k]) for k in grads
                    if not k.endswith("key.bias") and want_grads[k].abs().max() > 0)
     check(grad_err <= GRAD_TOL, f"step: gradient error {grad_err} > {GRAD_TOL}")
     param_err, key_bias = 0.0, 0.0
@@ -1183,14 +1269,53 @@ GOLD_ROWS_WENT = ("folded into the main path's other two CE calls: ce_logz's mer
                   "the gold logit <s, T[a]>, ce_grads' ds-reduce pass takes -dloss * T[a]")
 
 
-def phase_ce_times(full, card):
-    """The CE kernels at the training shape: the standalone gather against
-    `index_select`, back to back and in a CUDA graph, in turns; each
-    main-path entry's time, its plain version's, a library yardstick's
-    and its bound; one CE forward plus backward through the fused entries
+def bf16_yardsticks(states, table, answers):
+    """Library yardsticks for the bf16 forms: F.cross_entropy forward, and
+    backward through it, over a bf16 product with an fp32 output where this
+    PyTorch has one, else over the bf16-output product (its logits rounded
+    to bf16), the operands cast to bf16 once outside the timing. Returns
+    ((forward, its name), (backward, its name))."""
+    import torch
+    import torch.nn.functional as F
+
+    s16, t16 = states.to(torch.bfloat16), table.to(torch.bfloat16)
+    s_req = s16.clone().requires_grad_()
+    t_req = t16.clone().requires_grad_()
+    forms = ((lambda x, y: torch.mm(x, y.T, out_dtype=torch.float32),
+              "torch.mm(bf16, bf16, out_dtype=float32)"),
+             (lambda x, y: (x @ y.T).float(), "bf16 @ bf16 (its logits rounded to bf16)"))
+    chosen = {}
+    for which in ("forward", "backward"):
+        for product, product_name in forms:
+            try:
+                graph = F.cross_entropy(product(s_req, t_req), answers)
+                if which == "backward":
+                    torch.autograd.grad(graph, (s_req, t_req), retain_graph=True)
+                chosen[which] = (product, product_name, graph)
+                break
+            except (TypeError, RuntimeError, NotImplementedError):
+                continue
+    product, fwd_name, _ = chosen["forward"]
+    _, back_name, graph = chosen["backward"]
+    return ((lambda: F.cross_entropy(product(s16, t16), answers),
+             f"F.cross_entropy forward over {fwd_name}"),
+            (lambda: torch.autograd.grad(graph, (s_req, t_req), retain_graph=True),
+             f"F.cross_entropy backward over {back_name}"))
+
+
+def phase_ce_times(full, card, dtype=None):
+    """The CE kernels at the training shape, in the form `dtype` names.
+    Each main-path entry's time, its plain version's, a library
+    yardstick's and its bound: in the fp32 form against fp32 products at
+    67 TFLOP/s, and in the bf16-operand form in turns with the fp32 form
+    (fp32, bf16, bf16, fp32), against `bf16_yardsticks` and the bf16
+    tensor rate, 989 TFLOP/s. The fp32 form also times the standalone
+    gather against `index_select`, back to back and in a CUDA graph, in
+    turns, and one CE forward plus backward through the fused entries
     against the unfused composition of the public wrappers (the gather
-    and elementwise ops around ce_logz and ce_grads), in turns: host ms to issue it, device ms in a CUDA graph and
-    the device operations it issues. Returns {kernel: JSON fields}."""
+    and elementwise ops around ce_logz and ce_grads), in turns: host ms to
+    issue it, device ms in a CUDA graph and the device operations it
+    issues. Returns {kernel: JSON fields}."""
     import torch
     import torch.nn.functional as F
 
@@ -1201,10 +1326,60 @@ def phase_ce_times(full, card):
     v = table.shape[0]
     dev = states.device
     a = ce.map_answers(answers, v)
-    _, logz = ce.ce_loss_logz(states, table, answers, v)
+    bf16 = dtype is not None
+    _, logz = ce.ce_loss_logz(states, table, answers, v, dtype=dtype)
     d = torch.full((b,), 1.0 / b, device=dev)
     flops = 2 * b * v * h
     out = {}
+    if bf16:
+        (fwd_library, fwd_name), (back_library, back_name) = bf16_yardsticks(states, table, answers)
+        peak, rate, form = PEAK_BF16_FLOPS, "at the bf16 tensor rate 989 TFLOP/s", " bf16 form"
+    else:
+        s_req = states.clone().requires_grad_()
+        t_req = table.clone().requires_grad_()
+        lib_loss = F.cross_entropy(s_req @ t_req.T, answers)  # the yardstick's graph, 1 GB logits
+        fwd_library = lambda: F.cross_entropy(states @ table.T, answers)
+        fwd_name = "F.cross_entropy(states @ table.T) forward"
+        back_library = lambda: torch.autograd.grad(lib_loss, (s_req, t_req), retain_graph=True)
+        back_name = "backward of F.cross_entropy(states @ table.T)"
+        peak, rate, form = PEAK_FP32_FLOPS, "fp32 at 67 TFLOP/s", ""
+
+    # the two main-path entries, as the training step calls them
+    pieces = {
+        "ce_logz": (lambda dt: ce.ce_loss_logz(states, table, answers, v, dtype=dt),
+                    lambda: ce.ce_loss_logz_plain(states, table, answers, v, bf16=bf16),
+                    fwd_library, fwd_name, flops + 2 * b * h, 4 * (2 * b * h + v * h + 2 * b) + 8 * b),
+        "ce_grads": (lambda dt: ce.ce_grads(states, table, answers, logz, d, v, dtype=dt),
+                     lambda: ce.ce_grads_plain(states, table, answers, logz, d, v, bf16=bf16),
+                     back_library, back_name, 3 * flops, 4 * (2 * b * h + 2 * v * h + 2 * b) + 8 * b),
+    }
+    for name, (kernel, plain, library, lib_name, ops, nbytes) in pieces.items():
+        fields = {}
+        if bf16:
+            ((f1, f2), (k1, k2)) = in_turns(None, dtype, lambda dt: cuda_ms(lambda: kernel(dt), iters=20))
+            ms = (k1 + k2) / 2
+            fields["fp32_form_ms"] = (f1 + f2) / 2
+            log(f"time {name} bf16 form: {pair((k1, k2))} ms, fp32 form {pair((f1, f2))} ms (B={b} "
+                f"V={v} H={h}; turns fp32, bf16, bf16, fp32) [{card}]")
+        else:
+            ms = cuda_ms(lambda: kernel(None), iters=20)
+            log(f"time {name} kernel: {ms:.4f} ms (B={b} V={v} H={h}, gold terms fused) [{card}]")
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        library_ms = cuda_ms(library, iters=5)
+        t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"time {name}{form} plain version: {plain_ms:.4f} ms [{card}]")
+        log(f"time {name}{form} library {lib_name}: {library_ms:.4f} ms [{card}]")
+        log(f"bound {name}{form}: {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP {rate} "
+            f"= {t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.4f} ms) -> kernel at "
+            f"{100 * bound_ms / ms:.1f}% of the bound [{card}]")
+        out[name] = {"ms": ms, **fields, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms, "library": lib_name}
+    del pieces, fwd_library, back_library
+    if bf16:
+        torch.cuda.empty_cache()
+        return out
 
     # the gather alone against one PyTorch call
     back = lambda fn: cuda_ms(fn, iters=200, warmup=5)
@@ -1227,36 +1402,6 @@ def phase_ce_times(full, card):
                         "bound_by": "bytes", "library_ms": (l1 + l2) / 2,
                         "main_path": GOLD_ROWS_WENT}
 
-    # the two main-path entries, as the training step calls them
-    s_req = states.clone().requires_grad_()
-    t_req = table.clone().requires_grad_()
-    lib_loss = F.cross_entropy(s_req @ t_req.T, answers)  # the yardstick's graph, 1 GB logits
-    pieces = {
-        "ce_logz": (lambda: ce.ce_loss_logz(states, table, answers, v),
-                    lambda: ce.ce_loss_logz_plain(states, table, answers, v),
-                    lambda: F.cross_entropy(states @ table.T, answers),
-                    "F.cross_entropy(states @ table.T) forward",
-                    flops + 2 * b * h, 4 * (2 * b * h + v * h + 2 * b) + 8 * b),
-        "ce_grads": (lambda: ce.ce_grads(states, table, answers, logz, d, v),
-                     lambda: ce.ce_grads_plain(states, table, answers, logz, d, v),
-                     lambda: torch.autograd.grad(lib_loss, (s_req, t_req), retain_graph=True),
-                     "backward of F.cross_entropy(states @ table.T)",
-                     3 * flops, 4 * (2 * b * h + 2 * v * h + 2 * b) + 8 * b),
-    }
-    for name, (kernel, plain, library, lib_name, ops, nbytes) in pieces.items():
-        ms = cuda_ms(kernel, iters=20)
-        plain_ms = cuda_ms(plain, iters=3, warmup=1)
-        library_ms = cuda_ms(library, iters=5)
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        for label, t in (("kernel", ms), ("plain version", plain_ms), (f"library {lib_name}", library_ms)):
-            log(f"time {name} {label}: {t:.4f} ms (B={b} V={v} H={h}, gold terms fused) [{card}]")
-        log(f"bound {name}: {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP fp32 at 67 TFLOP/s "
-            f"= {t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.4f} ms) -> kernel at "
-            f"{100 * bound_ms / ms:.1f}% of the bound [{card}]")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms}
     del lib_loss, s_req
 
     # one forward plus backward: fused entries vs the unfused composition,
@@ -1408,11 +1553,14 @@ def kernel_wrappers():
 
 def reset_counts() -> None:
     from bsarec_tpu_torch.ops import ce, rank
+    from bsarec_tpu_torch.ops import dropout as fd
 
     for f in kernel_wrappers().values():
         f.launches = 0
     for f in (rank.streaming_masked_topk, ce.ce_logz, ce.ce_grads):
         f.onchip_launches = 0
+    for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
+        f.bf16_launches = 0
 
 
 def read_counts() -> dict:
@@ -1558,6 +1706,7 @@ def phase_sasrec_step(device):
     negatives and seeds."""
     import torch
 
+    from bsarec_tpu_torch import parity
     from bsarec_tpu_torch.config import TrainConfig
     from bsarec_tpu_torch.ops import dropout as fd
     from bsarec_tpu_torch.train.loop import make_optimizer
@@ -1588,7 +1737,8 @@ def phase_sasrec_step(device):
     (loss, grads, params), (want_loss, want_grads, want_params) = results
     loss_err = abs(float(loss) - float(want_loss))
     check(loss_err <= CE_TOL * max(1.0, abs(float(want_loss))), f"SASRec step: loss error {loss_err}")
-    grad_err = max(rel_err(grads[k], want_grads[k]) for k in grads if want_grads[k].abs().max() > 0)
+    grad_err = max(parity.rel_err(grads[k], want_grads[k]) for k in grads
+                   if want_grads[k].abs().max() > 0)
     check(grad_err <= GRAD_TOL, f"SASRec step: gradient error {grad_err} > {GRAD_TOL}")
     param_err = max(float((params[k] - want).abs().max()) for k, want in want_params.items())
     check(param_err <= STEP_PARAM_TOL, f"SASRec step: parameter error {param_err}")
@@ -1936,15 +2086,16 @@ def zoo_read_rows(model, batch, masked):
     return rows
 
 
-def zoo_grad_tolerance(grads, want_grads, read_rows):
+def zoo_grad_tolerance(grads, want_grads, read_rows, grad_tol=GRAD_TOL, table_tol=None):
     """{name: the largest gradient difference allowed, a scalar tensor or
     [V, 1] for the item table}, the errors relative to it, and the names
     of the zero-gradient tensors. Each tensor is
-    held within GRAD_TOL of its largest CPU entry; a tensor whose CPU
-    gradient stays under 1e-6 of the model's largest (a zero true
-    gradient) within GRAD_TOL of that largest; the item table's read rows
-    and its other rows apart, each within GRAD_TOL of its own largest
-    entry (0 where that is 0: the card's must then be 0 too)."""
+    held within grad_tol of its largest reference entry; a tensor whose
+    reference gradient stays under 1e-6 of the model's largest (a zero true
+    gradient) within grad_tol of that largest; the item table's read rows
+    and its other rows apart, each within table_tol (default grad_tol) of
+    its own largest entry (0 where that is 0: the card's must then be 0
+    too)."""
     import torch
 
     top = max(float(g.abs().max()) for g in want_grads.values())
@@ -1955,7 +2106,7 @@ def zoo_grad_tolerance(grads, want_grads, read_rows):
             t = torch.zeros(want.shape[0], 1)
             for part, rows in (("read rows", read_rows), ("other rows", ~read_rows)):
                 scale = float(want[rows].abs().max()) if rows.any() else 0.0
-                t[rows] = GRAD_TOL * scale
+                t[rows] = (grad_tol if table_tol is None else table_tol) * scale
                 d = float(diff[rows].max()) if rows.any() else 0.0
                 errs[f"table {part}"] = d / scale if scale > 0 else (0.0 if d == 0 else math.inf)
             tol[k] = t
@@ -1964,7 +2115,7 @@ def zoo_grad_tolerance(grads, want_grads, read_rows):
         if scale <= 1e-6 * top:
             zero.append(k)
             scale = top
-        tol[k] = torch.tensor(GRAD_TOL * scale)
+        tol[k] = torch.tensor(grad_tol * scale)
         errs["other tensors"] = max(errs.get("other tensors", 0.0), float(diff.max()) / scale)
     return tol, errs, zero
 
@@ -2333,6 +2484,305 @@ def phase_zoo_dropout(device):
     return max(errs)
 
 
+# ---- the bf16 compute policy (--dtype bf16) ------------------------------------
+
+BF16 = "bfloat16"
+# SASRec's dropout sites under bf16: the embedding's and the attention
+# probabilities' inputs stay fp32, the attention output's and the FFN's are
+# bf16 Dense outputs: 1 + 2 fp32 and 2 * 2 bf16 sites a forward
+DROPOUT_BF16_SITES = 4
+
+
+def bf16_step(model, ids, answers, plain: bool):
+    """One Adam step of a bf16 BSARec, its CE through the kernels or through
+    the plain versions; returns (loss, gradients, parameters after) on the
+    CPU."""
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.ops import ce
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    model.train()
+    opt = make_optimizer(model.parameters(), TrainConfig(lr=LR))
+    if plain:
+        state = model(ids)[:, -1, :]
+        loss = ce.streaming_softmax_ce_plain(state, model.item_table, answers, dtype=BF16).mean()
+    else:
+        loss = model.calculate_loss(ids, answers)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    opt.step()
+    params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del opt
+    return float(loss.detach()), grads, params
+
+
+def phase_bf16_step(device, card):
+    """Phase 5 in bf16: one Adam step of a full-width bf16 BSARec at 1M
+    items through the kernels (one ce_logz and one ce_grads launch, both in
+    the bf16 form on the on-chip route) against the same step through the
+    plain bf16 CE on the card, from the same weights and batch, dropout 0:
+    loss within CE_TOL, gradients as `zoo_grad_tolerance` holds them at
+    BF16_STEP_TABLE_TOL (the item table) and BF16_STEP_GRAD_TOL (the other
+    tensors), parameters within STEP_PARAM_TOL beyond Adam's share."""
+    import torch
+
+    from bsarec_tpu_torch.ops import ce
+
+    ids, answers = random_batch(device, seed=17)
+    first = full_width_model(device, dropout=0.0, loss_impl="streaming", dtype=BF16)
+    start = {k: v.detach().cpu().clone() for k, v in first.state_dict().items()}
+    read_rows = zoo_read_rows(first, (ids.cpu(), answers.cpu()), None)
+    second = copy.deepcopy(first)
+    reset_counts()
+    loss, grads, params = bf16_step(first, ids, answers, plain=False)
+    torch.cuda.synchronize()
+    counts = read_counts() | {f"{n}_{kind}": getattr(getattr(ce, n), f"{kind}_launches")
+                              for n in ("ce_logz", "ce_grads") for kind in ("onchip", "bf16")}
+    del first
+    want_loss, want_grads, want_params = bf16_step(second, ids, answers, plain=True)
+    del second
+    want = zero_counts() | {"ce_logz": 1, "ce_grads": 1, "ce_logz_onchip": 1, "ce_grads_onchip": 1,
+                            "ce_logz_bf16": 1, "ce_grads_bf16": 1}
+    check(counts == want, f"bf16 step launches {counts}, want {want}")
+    check(math.isfinite(loss) and abs(loss - want_loss) <= CE_TOL * max(1.0, abs(want_loss)),
+          f"bf16 step: loss {loss} vs {want_loss}")
+    tol, grad_errs, zero = zoo_grad_tolerance(grads, want_grads, read_rows, BF16_STEP_GRAD_TOL,
+                                              BF16_STEP_TABLE_TOL)
+    check(grad_errs["other tensors"] <= BF16_STEP_GRAD_TOL
+          and max(grad_errs["table read rows"], grad_errs["table other rows"]) <= BF16_STEP_TABLE_TOL,
+          f"bf16 step: gradient errors {grad_errs} > {BF16_STEP_TABLE_TOL} (table), "
+          f"{BF16_STEP_GRAD_TOL} (other tensors)")
+    excess = zoo_adam_excess(start, grads, want_grads, params, want_params, tol)
+    check(excess <= STEP_PARAM_TOL, f"bf16 step: parameter error beyond Adam's share {excess}")
+    check(all(g.dtype == torch.float32 for g in grads.values())
+          and all(v.dtype == torch.float32 for v in params.values()), "bf16 step: fp32 state")
+    log(f"one Adam step in bf16, kernels vs plain bf16 CE on the card (B={TRAIN_BATCH}, V={N_ITEMS}, "
+        f"H=64, dropout 0): ok, loss {loss:.6f} vs {want_loss:.6f}, gradient rel err "
+        f"{ {k: float(f'{v:.3g}') for k, v in grad_errs.items()} } ({len(zero)} zero-gradient "
+        f"tensors), parameters within {STEP_PARAM_TOL} beyond Adam's share (worst {excess:.3g}); "
+        f"launches {counts} [{card}]")
+    del grads, want_grads, params, want_params, start
+    torch.cuda.empty_cache()
+
+
+def bf16_counts() -> dict:
+    from bsarec_tpu_torch.ops import ce, rank
+    from bsarec_tpu_torch.ops import dropout as fd
+
+    return read_counts() | {
+        "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
+        "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
+        "rank_onchip": rank.streaming_masked_topk.onchip_launches,
+        "fused_dropout_bf16": fd.fused_dropout.bf16_launches}
+
+
+def zero_bf16_counts() -> dict:
+    return dict.fromkeys(bf16_counts(), 0)
+
+
+def phase_bf16_train(device, card):
+    """The main paths under --dtype bf16 on the 1M-item x 10k-user corpus:
+    BSARec at the paper widths for one epoch, then --resume to a second
+    with the test pass and --export_topk (one ce_logz and one ce_grads
+    launch a step, every one in the bf16 form on the on-chip route, the
+    rank kernel over every eval batch, on-chip); its bf16 serving artifact
+    (--export_serving), loaded on the card, whose top-20 at B=256 agrees
+    with the plain version on bf16-rounded operands, one rank launch; and
+    SASRec under --prng rbg with BSAREC_DROPOUT=pallas for one epoch, its
+    dropout launches counted per step and by dtype. Returns the JSON
+    fields."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch import serving
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.data.corpus import Corpus
+    from bsarec_tpu_torch.data.pipeline import SeqRecData
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.ops import rank, serving_topk
+    from bsarec_tpu_torch.ops.precision import rounded
+    from bsarec_tpu_torch.train.checkpoint import load_params
+
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
+        with open(os.path.join(workdir, "synth_train.txt"), "w") as fh:
+            for u, seq in enumerate(seqs):
+                fh.write(f"{u + 1} {' '.join(map(str, seq))}\n")
+        steps = math.ceil(sum(len(s[-52:-2]) for s in seqs) / TRAIN_BATCH)
+        eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+        base = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
+                "--device", device.type, "--batch_size", str(TRAIN_BATCH), "--dtype", "bf16"]
+        bsarec = base + ["--train_name", "smoke_bf16", "--lr", str(LR), *WIDTHS]
+
+        def run(argv, fused=False):
+            reset_counts()
+            t0 = time.perf_counter()
+            with pallas_dropout_env(fused):
+                scores = port_main.main(argv)
+            torch.cuda.synchronize(device)
+            check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
+            return bf16_counts(), time.perf_counter() - t0
+
+        def epoch_lines(name):
+            text = read_log(os.path.join(workdir, f"{name}.log"))
+            losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+            rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+            return text, losses, rates
+
+        counts, seconds = run(bsarec + ["--epochs", "1"])
+        ce_step = {"ce_logz": steps, "ce_grads": steps, "ce_logz_onchip": steps,
+                   "ce_grads_onchip": steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps}
+        want = zero_bf16_counts() | ce_step | {"streaming_masked_topk": 2 * eval_steps,
+                                               "rank_onchip": 2 * eval_steps}
+        check(counts == want, f"bf16 train launches {counts}, want {want}")
+        text, losses, rates = epoch_lines("smoke_bf16")
+        check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0]),
+              f"bf16 train: epoch losses {losses}")
+        out["train"] = counts
+        log(f"bf16 train path: main(--dtype bf16 --epochs 1) on {TRAIN_USERS} users x {N_ITEMS} "
+            f"items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss {losses[0]}, train "
+            f"{rates[0]:.0f} examples/s (first epoch); launches {counts} [{card}]")
+
+        topk_path = os.path.join(workdir, "bf16_topk.npy")
+        counts, seconds = run(bsarec + ["--epochs", "2", "--resume", "--export_topk", topk_path])
+        want = zero_bf16_counts() | ce_step | {"streaming_masked_topk": 3 * eval_steps,
+                                               "rank_onchip": 3 * eval_steps}
+        check(counts == want, f"bf16 resumed launches {counts}, want {want}")
+        text, losses, rates = epoch_lines("smoke_bf16")
+        check("resumed full train state" in text and len(losses) == 2
+              and math.isfinite(losses[1]) and losses[1] < losses[0],
+              f"bf16 resumed run: epoch losses {losses}, want a second, lower one")
+        topk = np.load(topk_path)
+        check(topk.shape == (TRAIN_USERS, TOP_K) and 0 <= int(topk.min())
+              and int(topk.max()) < N_ITEMS, "bf16 export after fit")
+        log(f"bf16 train path: main(--resume --epochs 2 --export_topk) returned in {seconds:.1f}s, "
+            f"epoch losses {losses}, train {rates[-1]:.0f} examples/s (second epoch); launches "
+            f"{counts} [{card}]")
+
+        # the bf16 serving artifact of that model
+        path = os.path.join(workdir, "scorer_bf16.pt2")
+        counts, seconds = run(base + ["--train_name", "smoke_bf16_serving", "--do_eval",
+                                      "--load_model", "smoke_bf16", "--export_serving", path,
+                                      *WIDTHS])
+        check(counts == zero_bf16_counts() | {"streaming_masked_topk": eval_steps,
+                                              "rank_onchip": eval_steps},
+              f"bf16 serving export launches {counts}")
+        scorer = serving.load_scorer(path, device.type)
+        check(scorer.meta["dtype"] == BF16 and scorer.meta["impl"] == "bitmask",
+              f"bf16 artifact metadata {scorer.meta}")
+        test = SeqRecData(Corpus(user_seq=seqs, max_item=N_ITEMS - 1), max_len=50).test
+        ids, seen = test.input_ids[:EVAL_BATCH], test.seen_items[:EVAL_BATCH]
+        reset_counts()
+        got = scorer.topk(ids, None, seen)
+        counts = bf16_counts()
+        check(counts == zero_bf16_counts() | {"streaming_masked_topk": 1, "rank_onchip": 1},
+              f"the bf16 artifact call at B=256: launches {counts}, want one on-chip rank launch")
+        out["serving"] = counts
+        cfg = ModelConfig(model_type="bsarec", item_size=N_ITEMS, num_users=TRAIN_USERS + 1,
+                          max_seq_length=50, hidden_size=64, num_hidden_layers=2,
+                          num_attention_heads=1, c=5, alpha=0.7, compute_dtype=BF16)
+        model = build_model(cfg)
+        model.load_state_dict(load_params(os.path.join(workdir, "smoke_bf16.ckpt")))
+        model.to(device).eval()
+        with torch.inference_mode():
+            states = rounded(model.predict(torch.from_numpy(ids).long().to(device))[:, -1, :],
+                             True).contiguous()
+            table = rounded(model.item_table, True)
+            bitmask = serving_topk.seen_bitmask(torch.from_numpy(seen).to(device), N_ITEMS)
+            want_v, _ = rank.streaming_masked_topk_plain(states, table, bitmask, TOP_K, N_ITEMS,
+                                                         seen_value=-math.inf)
+            by_id = masked_scores(states, table, bitmask, N_ITEMS,
+                                  torch.from_numpy(got).to(device), -math.inf)
+        check(bool(torch.isfinite(want_v).all()), "every row has 20 unmasked items")
+        err = float((by_id - want_v).abs().max())
+        check(err <= FLOAT_TOL, f"bf16 artifact top-20 at B=256: score error {err} > {FLOAT_TOL}")
+        out["serving_max_abs_err"] = err
+        log(f"bf16 serving path: main(--dtype bf16 --do_eval --export_serving) returned in "
+            f"{seconds:.1f}s; the artifact's top-20 at B={EVAL_BATCH} scored by the plain version "
+            f"on bf16-rounded states and table within {err:.3g} of its top-20 values; one on-chip "
+            f"rank launch [{card}]")
+        del model, states, table, bitmask, scorer
+
+        # SASRec on the fused dropout kernel, bf16 sites included
+        counts, seconds = run(base + ["--train_name", "sasrec_bf16", "--model_type", "SASRec",
+                                      "--prng", "rbg", "--lr", str(SASREC_LR), "--epochs", "1"],
+                              fused=True)
+        want = zero_bf16_counts() | {
+            "fused_dropout": 2 * DROPOUT_SITES * steps,
+            "fused_dropout_bf16": 2 * DROPOUT_BF16_SITES * steps,
+            "streaming_masked_topk": 2 * eval_steps, "rank_onchip": 2 * eval_steps}
+        check(counts == want, f"bf16 SASRec launches {counts}, want {want}")
+        text, losses, rates = epoch_lines("sasrec_bf16")
+        check("dropout: fused kernel" in text and len(losses) == 1 and math.isfinite(losses[0]),
+              f"bf16 SASRec: epoch losses {losses}")
+        out["sasrec"] = counts
+        log(f"bf16 SASRec path: main(--dtype bf16 --model_type SASRec --prng rbg, "
+            f"BSAREC_DROPOUT=pallas, --epochs 1) returned in {seconds:.1f}s, epoch 0 loss "
+            f"{losses[0]}, train {rates[0]:.0f} examples/s; launches {counts}: "
+            f"{2 * DROPOUT_SITES} dropout launches a step, {2 * DROPOUT_BF16_SITES} of them on "
+            f"bf16 tensors [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_train_turns(device, card, n_steps: int = 20):
+    """BSARec's training step at full width and 1M items (dropout 0.5),
+    fp32 against bf16 in turns (fp32, bf16, bf16, fp32) on one set of
+    batches: examples/s over n_steps steps on the host clock, then the
+    device's busy share over a 5-step window under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.train.loop import make_optimizer
+
+    batches = [random_batch(device, seed=3000 + i) for i in range(n_steps)]
+    runs = {}
+    for dt in ("float32", BF16):
+        model = full_width_model(device, dropout=0.5, loss_impl="streaming", dtype=dt)
+        runs[dt] = (model, make_optimizer(model.parameters(), TrainConfig(lr=LR)))
+
+    def step(dt, ids, answers):
+        model, opt = runs[dt]
+        model.train()
+        loss = model.calculate_loss(ids, answers)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    def measure(dt):
+        for ids, answers in batches[:2]:
+            step(dt, ids, answers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for ids, answers in batches:
+            step(dt, ids, answers)
+        torch.cuda.synchronize()
+        rate = TRAIN_BATCH * n_steps / (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for ids, answers in batches[:5]:
+                step(dt, ids, answers)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e6
+        return rate, (busy / traced if busy > 0 else None)
+
+    (f1, f2), (b1, b2) = in_turns("float32", BF16, measure)
+
+    def fmt(r):
+        return f"{r[0]:.1f} examples/s, busy " + ("not measured" if r[1] is None
+                                                  else f"{100 * r[1]:.1f}%")
+    log(f"train step bf16 vs fp32 (BSARec, B={TRAIN_BATCH}, V={N_ITEMS}, dropout 0.5; turns fp32, "
+        f"bf16, bf16, fp32): fp32 {fmt(f1)} / {fmt(f2)}; bf16 {fmt(b1)} / {fmt(b2)} [{card}]")
+    del runs, batches
+    torch.cuda.empty_cache()
+    return {"fp32": [f1, f2], "bf16": [b1, b2]}
+
+
 def main() -> int:
     import torch
 
@@ -2361,6 +2811,8 @@ def main() -> int:
         dropout_err = phase_dropout_kernels(device)
     with timed("one step, kernels vs plain"):
         phase_step(device)
+    with timed("one bf16 step, kernels vs plain"):
+        phase_bf16_step(device, card)
     with timed("one SASRec step, dropout kernel vs plain"):
         phase_sasrec_step(device)
     with timed("eval main path"), tempfile.TemporaryDirectory() as workdir:
@@ -2377,14 +2829,18 @@ def main() -> int:
         sasrec_launches, fused_rate, nn_rate = phase_sasrec_train(device, workdir, card)
     log(f"SASRec train: {fused_rate:.0f} examples/s with the fused dropout kernel, {nn_rate:.0f} "
         f"with nn.Dropout, in the second epoch of main (separate runs, in that order) [{card}]")
+    with timed("bf16 main paths (BSARec train/resume/eval/export/serve, SASRec)"):
+        bf16_paths = phase_bf16_train(device, card)
     with timed("rank times and eval breakdown"):
         times = phase_times(full, card)
         phase_breakdown(device, seqs, model, card)
     del full, model
     with timed("CE times and train breakdown"):
         ce_times = phase_ce_times(ce_full, card)
+        bf16_times = phase_ce_times(ce_full, card, BF16)
         del ce_full
         phase_train_breakdown(device, card)
+        bf16_turns = phase_bf16_train_turns(device, card)
     with timed("dropout times and SASRec breakdown"):
         dropout_times = phase_dropout_times(device, card)
         phase_sasrec_breakdown(device, card)
@@ -2426,19 +2882,32 @@ def main() -> int:
         **zoo_fields("streaming_masked_topk"),
         "zoo_serving_max_abs_err": zoo_serving,
     }]
-    for name, replaces in (("ce_logz", "bsarec_tpu/ops/pallas_ce.py:222"),
-                           ("gold_rows", "bsarec_tpu/ops/pallas_ce.py:152"),
-                           ("ce_grads", "bsarec_tpu/ops/pallas_ce.py:340")):
+    ce_replaces = {"ce_logz": "bsarec_tpu/ops/pallas_ce.py:222",
+                   "gold_rows": "bsarec_tpu/ops/pallas_ce.py:152",
+                   "ce_grads": "bsarec_tpu/ops/pallas_ce.py:340"}
+    for name, replaces in ce_replaces.items():
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
             "replaces": replaces,
             "launches": train_launches[name],
-            "max_abs_err": ce_err[name],
+            "max_abs_err": ce_err[None][name],
             **ce_times[name],
             **({"onchip_launches": train_launches[f"{name}_onchip"]} if name != "gold_rows" else {}),
             **zoo_fields(name),
+        })
+    for name in ("ce_logz", "ce_grads"):  # the bf16-operand forms, on --dtype bf16's main path
+        train = bf16_paths["train"]
+        kernels.append({
+            "name": f"{name} (bf16-operand form)",
+            "route": "cuda",
+            "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
+            "replaces": ce_replaces[name],
+            "launches": train[f"{name}_bf16"],
+            "onchip_launches": train[f"{name}_onchip"],
+            "max_abs_err": ce_err[BF16][name],
+            **bf16_times[name],
         })
     kernels.append({
         "name": "fused_dropout",
@@ -2449,7 +2918,13 @@ def main() -> int:
         "max_abs_err": dropout_err,
         **dropout_times,
         **zoo_fields("fused_dropout"),
+        "bf16_path_launches": bf16_paths["sasrec"]["fused_dropout"],
+        "bf16_path_bf16_launches": bf16_paths["sasrec"]["fused_dropout_bf16"],
     })
+    kernels[0] |= {"bf16_path_launches": bf16_paths["train"]["streaming_masked_topk"],
+                   "bf16_serving_launches": bf16_paths["serving"]["streaming_masked_topk"],
+                   "bf16_serving_max_abs_err": bf16_paths["serving_max_abs_err"]}
+    log(f"train bf16 vs fp32 examples/s and busy share: {json.dumps(bf16_turns)} [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -236,9 +236,11 @@ def test_wrappers_on_cpu_run_plain_and_validate():
     states, table, answers = _inputs(6, 50, 8, 50, seed=6)
     s, t, a = torch.from_numpy(states), torch.from_numpy(table), torch.from_numpy(answers)
     counts = lambda: (ce.ce_logz.launches, ce.gold_rows.launches, ce.ce_grads.launches,
-                      ce.ce_grads.onchip_launches)
+                      ce.ce_grads.onchip_launches, ce.ce_logz.bf16_launches,
+                      ce.ce_grads.bf16_launches)
     before = counts()
     assert torch.equal(ce.ce_logz(s, t), ce.ce_logz_plain(s, t, 50))
+    assert torch.equal(ce.ce_logz(s, t, dtype="bfloat16"), ce.ce_logz_plain(s, t, 50, bf16=True))
     assert torch.equal(ce.gold_rows(t, a), ce.gold_rows_plain(t, a))
     loss = ce.streaming_softmax_ce(s, t, a)
     assert torch.equal(loss, ce.streaming_softmax_ce_plain(s, t, a))
@@ -250,10 +252,11 @@ def test_wrappers_on_cpu_run_plain_and_validate():
     for n_valid in (-1, 51):
         with pytest.raises(ValueError):
             ce.ce_logz(s, t, n_valid)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ce.streaming_softmax_ce(s, t, a, dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        full_softmax_ce(s, t, a, dtype="bfloat16")
+    # bfloat16 is ported; a dtype the policy does not know still raises
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        ce.streaming_softmax_ce(s, t, a, dtype="float16")
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        full_softmax_ce(s, t, a, dtype="float16")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         full_softmax_ce(s, t, a, impl="sharded_streaming")
 

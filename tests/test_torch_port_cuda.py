@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from bsarec_tpu_torch import parity
 from bsarec_tpu_torch.ops import ce, rank
 from bsarec_tpu_torch.ops import dropout as fd
 
@@ -145,6 +146,60 @@ def test_cuda_fused_ce_matches_plain_and_the_unfused_composition(cuda_device, b,
     unfused = ds_sum - d[:, None] * ce.gold_rows(table, ce.map_answers(a, n_valid))
     torch.cuda.synchronize()
     assert torch.equal(ds, unfused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (256, 70001, 64, 70001), (37, 5000, 64, 4990), (3, 12101, 48, 12101),
+    (64, 20011, 128, 20006), (256, 9000, 256, 9000),
+])
+def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
+    """ce_loss_logz and ce_grads in the bf16-operand form, on both routes,
+    on raw int64 answers (-1, >= n_valid, >= V, item 0, repeats), against
+    the plain bf16 versions (the loss and logZ within LOSS_TOL, as the fp32
+    sums of exact products they are; the gradients at the kernel's logZ as
+    `parity` holds them, where the fp32 form must fail); dT's one-hot term
+    on the unrounded states; two calls bit-equal; through the autograd
+    function too; and apart from the fp32 form on the same inputs."""
+    rng = np.random.default_rng(b + h + 1)
+    states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
+    answers = rng.integers(1, n_valid, size=b)
+    special = [answers[0], answers[0], 0, -1, n_valid, v, v + 7]
+    answers[: min(b, len(special))] = special[:b]
+    a = torch.from_numpy(answers).to(cuda_device)
+    d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
+    bf16 = "bfloat16"
+    before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches, ce.ce_grads.onchip_launches)
+    loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    torch.cuda.synchronize()
+    onchip = ce.onchip_route(b, h)
+    assert (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches, ce.ce_grads.onchip_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 2 * onchip)
+    assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
+    torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+    off = (a < 0) | (a >= n_valid)
+    assert torch.equal(loss[off], logz[off])
+    want = ce.ce_grads_plain(states, table, a, logz, d, n_valid, bf16=True)
+    assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
+    control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a, n_valid)
+    assert min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL
+    assert not dt[n_valid:].any()
+    _, none_dt = ce.ce_grads(states, table, torch.full_like(a, -1), logz, d, n_valid, dtype=bf16)
+    assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid) <= 1.0
+    assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid, round_states=True) > 1.0
+    # the fp32 form rounds nothing: its logZ differs
+    assert not torch.equal(ce.ce_logz(states, table, n_valid), logz)
+    s = states.clone().requires_grad_()
+    t = table.clone().requires_grad_()
+    auto = ce.streaming_softmax_ce(s, t, a, n_valid, dtype=bf16)
+    (auto * d).sum().backward()
+    assert torch.equal(auto.detach(), loss)
+    assert torch.equal(s.grad, ds) and torch.equal(t.grad, dt)
 
 
 @pytest.mark.cuda

@@ -95,10 +95,25 @@ def test_checkpoint_round_trip(tmp_path):
     assert all(torch.equal(v, model.state_dict()[k]) for k, v in loaded.items())
 
 
-@pytest.mark.parametrize("fields", [{"compute_dtype": "bfloat16"}])
+@pytest.mark.parametrize("fields", [{"compute_dtype": "float16"}])
 def test_unported_configurations_raise(fields):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="is not ported"):
         build_model(ModelConfig(**(FIELDS | fields)))
+
+
+def test_bf16_model_builds_with_fp32_parameters():
+    """The bf16 policy changes the compute, not the parameters: the same
+    seed builds the same float32 weights, and the gradients are float32."""
+    fp32 = build_model(ModelConfig(**FIELDS), generator=torch.Generator().manual_seed(0))
+    bf16 = build_model(ModelConfig(**(FIELDS | {"compute_dtype": "bfloat16"})),
+                       generator=torch.Generator().manual_seed(0))
+    assert bf16.state_dict().keys() == fp32.state_dict().keys()
+    for k, v in bf16.state_dict().items():
+        assert v.dtype == torch.float32 and torch.equal(v, fp32.state_dict()[k]), k
+    ids = torch.randint(1, FIELDS["item_size"], (3, FIELDS["max_seq_length"]),
+                        generator=torch.Generator().manual_seed(1))
+    bf16.calculate_loss(ids, ids[:, -1]).backward()
+    assert all(p.grad.dtype == torch.float32 for p in bf16.parameters() if p.grad is not None)
 
 
 def test_unknown_model_type_raises():
