@@ -33,7 +33,9 @@
 // pass and the ds-reduce pass, which visit each row once anyway, take
 // them, so the training path runs no gather. gold_rows_kernel stays as the
 // counterpart of _gather_kernel and the yardstick of that fusion.
-// None of them writes the [B, V] logit matrix.
+// None of them writes the [B, V] logit matrix. They take any B, V and any
+// H % 4 == 0 (JAX's kernels take an H that divides 128 or is a multiple of
+// 128: all of it inside that).
 //
 // What bounds them: at B=256, V=1,000,000, H=64 the forward is 2*B*V*H ~
 // 32.8 GFLOP (~0.49 ms at the H100 SXM's 67 TFLOP/s fp32 peak outside the
@@ -53,20 +55,24 @@
 //     with fp32 FMAs, columns >= n_valid masked, each tile folded into a
 //     per-thread online (max, sum) after its max; the threads of a row
 //     merge by shuffles in a fixed order and write one partial (m, s) per
-//     (split, row). Two routes, picked by shape in the C entry:
+//     (split, row). Two kernels, picked by shape in the C entry:
 //     - the on-chip route, B <= 256 and H <= 64 (the training path):
 //       ce_fwd_onchip_kernel on onchip_tile.cuh's skeleton, one block of
 //       256 threads per SM: every state row staged once, a cp.async ring
 //       of two table tiles, 8 x 8 logits a thread, one barrier a tile;
 //     - elsewhere ce_fwd_partial_kernel, grid (vocab splits x batch tiles
 //       of 64 rows), each block staging its 64 state rows and each table
-//       tile synchronously, 4 x 4 logits a thread.
+//       tile synchronously, 4 x 4 logits a thread. Whole rows of H + 4
+//       floats would give out near H = 450, so past H = 256 (the wide
+//       route) it accumulates each logit tile over chunks of 64 hidden
+//       columns instead, a [64, 64] states chunk and a [64, 64] table
+//       chunk staged per step: 34,816 B of shared memory at any H.
 //   forward, pass 2: one warp per row. logZ = M + log(sum_s s_s *
 //     exp(m_s - M)), each lane taking every 32nd split and the lanes
 //     merged by a fixed shuffle tree; then the gold logit <s, T[a]> from
 //     coalesced float4 reads of the two rows, reduced the same way.
-//   backward, pass 1: one block per vocab split, on one of two routes that
-//     the C entry picks by shape before the launch:
+//   backward, pass 1: one block per vocab split, on one of three routes
+//     that the C entry picks by shape before the launch:
 //     - the on-chip route, B <= 256 and H <= 64 (the training path's B=256,
 //       H=64): ce_bwd_onchip_kernel, one block of 256 threads per SM. What
 //       the TPU kernel keeps in VMEM stays on chip for the whole sweep:
@@ -88,8 +94,19 @@
 //       are in flight while tile t computes. Shared memory at H=64: states 69,632 B, the table
 //       ring 34,816, p (then the dT partials) 73,728, logZ, dloss and
 //       answers 3,072: 181,248 of the 232,448 bytes a block may use.
-//     - the sweep route, B > 256 or H > 64, where the batch and its ds do
-//       not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per SM.
+//     - the wide route, H > 256, where the sweep route's four [64, H + 4]
+//       tiles no longer fit (217 KB at H = 256): ce_bwd_wide_kernel, two
+//       blocks per SM, 106,496 B of shared memory at any H. Per tile and
+//       group of up to 256 batch rows it computes p from logits
+//       accumulated over 64-column chunks of H and keeps the group's p in
+//       shared memory; then it walks dT's and ds's hidden dimension in
+//       blocks of 64: T[tile, hb] staged, and for each 64-row chunk
+//       s[chunk, hb] staged, p^T @ s into the tile's dT block in registers
+//       and p @ T into the split's ds_part rows. The one-hot term goes on
+//       the finished dT rows in device memory (the kernel's head says more);
+//     - the sweep route, B > 256 or 64 < H <= 256, where the batch and its
+//       ds do not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per
+//       SM.
 //       For each 64-column tile it loops over the batch in 64-row chunks,
 //       staging each chunk's states again: it recomputes the logits, forms
 //       p in shared memory, adds p^T @ s_chunk into the tile's dT held in
@@ -110,8 +127,10 @@
 // routes' backward takes ~2.66 ms, 55% of its 1.4672 ms fp32 bound (the
 // sweep route's ~3.53 ms, 41.6%), their forward ~0.945 ms, 52% of 0.4891
 // ms (the partial-kernel route's ~1.33 ms, 37%); the bf16-operand form
-// ~2.86 and ~1.00 ms (chip_smoke.py, in turns with the fp32 form). No
-// wgmma or TMA.
+// ~2.86 and ~1.00 ms (chip_smoke.py, in turns with the fp32 form). At
+// H = 512 the wide routes take ~29.4 ms (backward, 40% of its 11.74 ms
+// bound) and ~10.2 ms (forward, 38% of 3.913 ms), the bf16-operand form
+// ~2% more (chip_smoke.py). No wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -127,7 +146,10 @@ constexpr int BT = 64;            // batch rows per tile / chunk
 constexpr int VT = 64;            // catalog columns per tile
 constexpr int HB = 64;            // hidden columns per output block (backward)
 constexpr int THREADS = 256;      // 16 x 16 threads for 4 x 4 tiles, 32 x 8 for 8 x 8
-constexpr int MAX_H = 256;
+constexpr int MAX_H = 256;         // the older routes stage whole rows up to here; the wide ones past it
+constexpr int HC = 64;            // hidden columns per staged chunk on the wide routes
+constexpr int WLD = HC + 4;       // ... their row stride in shared memory
+constexpr int PB = 256;           // batch rows whose p the wide backward holds at once
 constexpr int MAX_SMEM = 232448;  // usable shared memory per block on sm_90
 constexpr int OC_B = onchip::ROWS;  // the on-chip routes: B <= OC_B
 constexpr int OC_H = onchip::MAX_H;  // ... and H <= OC_H
@@ -195,22 +217,98 @@ __device__ __forceinline__ void tile_logits(const float* sS, const float* sT, in
   }
 }
 
+// ---- staging in hidden chunks: the wide routes (H > MAX_H) ------------------
+// The older routes stage whole rows (H + 4 floats) of 64 states and 64
+// table columns, so their shared memory grows with H. Past MAX_H the wide
+// routes walk the hidden dimension in chunks of HC = 64 columns: a logit
+// tile is accumulated chunk by chunk, each chunk's states and table
+// columns staged beside each other, so shared memory does not depend on H.
+// Each logit is still one FMA chain over h in ascending order.
+
+// Copy columns [h0, h0 + hc) of rows [row0, row0 + n) of a row-major
+// [R, H] matrix into shared memory with row stride WLD, rounded to bf16
+// when BF16; rows >= R are zero.
 template <bool BF16>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* __restrict__ src, int row0,
+                                            int R, int H, int h0, int hc, int n) {
+  const int q = hc / 4;
+  for (int i = threadIdx.x; i < n * q; i += THREADS) {
+    const int r = i / q, c4 = i - r * q, row = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < R) v = __ldg(reinterpret_cast<const float4*>(src + (size_t)row * H + h0) + c4);
+    if constexpr (BF16) v = round_bf16(v);
+    *reinterpret_cast<float4*>(dst + r * WLD + 4 * c4) = v;
+  }
+}
+
+// acc[i][j] += <sS row ty*4+i, sT row tx+16*j> over a chunk's hc columns
+// (row stride WLD), continuing each chain in ascending h.
+__device__ __forceinline__ void chunk_logits(const float* sS, const float* sT, int hc,
+                                             float acc[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 2
+  for (int h = 0; h < hc; h += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(sS + (ty * 4 + i) * WLD + h);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(sT + (tx + 16 * j) * WLD + h);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = acc[i][j];
+        v = fmaf(a[i].x, b[j].x, v);
+        v = fmaf(a[i].y, b[j].y, v);
+        v = fmaf(a[i].z, b[j].z, v);
+        v = fmaf(a[i].w, b[j].w, v);
+        acc[i][j] = v;
+      }
+  }
+}
+
+// The logits of 64 state rows from row0 against the 64 table columns from
+// j0: acc[i][j] for rows ty*4+i and columns tx+16j, over every chunk of H.
+// Starts and ends with a barrier (sS and sT are free afterwards).
+template <bool BF16>
+__device__ __forceinline__ void wide_logits(float* sS, float* sT, const float* __restrict__ states,
+                                            const float* __restrict__ table, int row0, int B,
+                                            int j0, int V, int H, float acc[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int h0 = 0; h0 < H; h0 += HC) {
+    const int hc = min(HC, H - h0);  // H % 4 == 0, so hc % 4 == 0
+    __syncthreads();                 // earlier readers of sS and sT are done
+    stage_chunk<BF16>(sS, states, row0, B, H, h0, hc, BT);
+    stage_chunk<BF16>(sT, table, j0, V, H, h0, hc, VT);
+    __syncthreads();
+    chunk_logits(sS, sT, hc, acc);
+  }
+  __syncthreads();
+}
+
+// The forward's pass 1 off the on-chip route. WIDE (the wide route,
+// H > MAX_H): each tile's logits from wide_logits, the hidden dimension
+// staged in chunks, 34,816 B of shared memory at any H; otherwise the 64
+// state rows staged once and each table tile whole.
+template <bool BF16, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
                       int V, int H, int n_valid, int tiles_per_split,
                       float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = H + 4;
-  float* sS = smem;           // [BT][ld] states
-  float* sT = sS + BT * ld;   // [VT][ld] table tile
+  const int ld = WIDE ? WLD : H + 4;
+  float* sS = smem;           // [BT][ld] states (a chunk of their columns if WIDE)
+  float* sT = sS + BT * ld;   // [VT][ld] table tile (a chunk of it if WIDE)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int split = blockIdx.x, row0 = blockIdx.y * BT;
   const int n_tiles = (V + VT - 1) / VT;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
 
-  stage_rows<BF16>(sS, states, row0, B, H, BT);
+  if constexpr (!WIDE) stage_rows<BF16>(sS, states, row0, B, H, BT);
   float m[4], s[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -219,11 +317,15 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
   }
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
-    __syncthreads();  // earlier readers of sT are done
-    stage_rows<BF16>(sT, table, j0, V, H, VT);
-    __syncthreads();
     float acc[4][4];
-    tile_logits(sS, sT, H, acc);
+    if constexpr (WIDE) {
+      wide_logits<BF16>(sS, sT, states, table, row0, B, j0, V, H, acc);
+    } else {
+      __syncthreads();  // earlier readers of sT are done
+      stage_rows<BF16>(sT, table, j0, V, H, VT);
+      __syncthreads();
+      tile_logits(sS, sT, H, acc);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = -INFINITY;
@@ -777,6 +879,190 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   }
 }
 
+// The backward's pass 1 on the wide route: one block per vocab split, as
+// ce_bwd_sweep_kernel, with the hidden dimension walked in chunks so that
+// no [64, H] tile (the sweep route's dT tile alone is 132 KB at H = 512)
+// is held. For each 64-column tile, and each group of up to PB = 256 batch
+// rows (one group for B <= 256):
+//   1. p for the group's rows, 64 rows at a time: wide_logits, then
+//      p = exp(logit - logZ) * dloss (0 past n_valid and B) into sP,
+//      rounded to bf16 in the bf16 form. p is kept, not recomputed: the
+//      walk over H below reads every p row once for each 64-column block
+//      of H, and recomputing would redo the whole logit product that many
+//      times (8 at H = 512);
+//   2. for each block hb of HB = 64 hidden columns: stage T[tile, hb];
+//      then for each 64-row chunk of the group, stage s[chunk, hb] and add
+//        p_chunk^T @ s[chunk, hb]  into the tile's dT block, in registers,
+//        p_chunk @ T[tile, hb]     into the split's ds_part rows (the
+//                                  split's first tile writes, later tiles
+//                                  add; each element has one writer);
+//      then write the dT block (a later group adds to what an earlier
+//      one wrote; every dT row belongs to this block).
+// Then the one-hot term, for the answers in [0, n_valid) that fall in the
+// tile, in ascending answer order, on the finished dT rows in device
+// memory from the unrounded states (the block's own writes, visible to it
+// after the barrier). Every sum runs in a fixed order: two calls give the
+// same bits. Shared memory: 2 x 64 x WLD + PB x (VT + 4) + 2 PB floats,
+// 106,496 B at any H, so two blocks share an SM.
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 2)
+ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                   const long long* __restrict__ answers, const float* __restrict__ logz,
+                   const float* __restrict__ dloss, int B, int V, int H, int n_valid,
+                   int tiles_per_split, float* __restrict__ ds_part,
+                   float* __restrict__ dtable) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int pld = VT + 4;
+  float* sS = smem;             // [BT][WLD] states chunk
+  float* sT = sS + BT * WLD;    // [VT][WLD] table chunk
+  float* sP = sT + VT * WLD;    // [PB][pld] p of the group's rows
+  float* sZ = sP + PB * pld;    // [PB]      logZ
+  float* sD = sZ + PB;          // [PB]      dloss
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int split = blockIdx.x;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j0 = t * VT;
+    for (int g0 = 0; g0 < B; g0 += PB) {
+      const int n_chunks = (min(PB, B - g0) + BT - 1) / BT;
+      __syncthreads();  // earlier readers of sZ and sD are done
+      for (int r = tid; r < PB; r += THREADS) {
+        const int row = g0 + r;
+        sZ[r] = row < B ? logz[row] : 0.f;
+        sD[r] = row < B ? dloss[row] : 0.f;
+      }
+      // 1. p of the group's rows (wide_logits' first barrier publishes sZ, sD)
+      for (int c = 0; c < n_chunks; ++c) {
+        float acc[4][4];
+        wide_logits<BF16>(sS, sT, states, table, g0 + c * BT, B, j0, V, H, acc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = c * BT + ty * 4 + i;
+          const bool row_ok = g0 + r < B;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = tx + 16 * j;
+            float p = (row_ok && j0 + col < n_valid) ? expf(acc[i][j] - sZ[r]) * sD[r] : 0.f;
+            if constexpr (BF16) p = round_bf16(p);
+            sP[r * pld + col] = p;
+          }
+        }
+      }
+      // 2. dT and ds, a block of HB hidden columns at a time
+      for (int hb = 0; hb < H; hb += HB) {
+        const int hw = min(HB, H - hb);
+        const bool mine = tx * 4 < hw;  // this thread's 4 columns lie inside H
+        const int h = hb + tx * 4;
+        __syncthreads();  // earlier readers of sT (and, first, every p) are done
+        stage_chunk<BF16>(sT, table, j0, V, H, hb, hw, VT);
+        float g[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) g[i][k] = 0.f;
+        for (int c = 0; c < n_chunks; ++c) {
+          const int row0 = g0 + c * BT;
+          if (c > 0) __syncthreads();  // earlier readers of sS are done
+          stage_chunk<BF16>(sS, states, row0, B, H, hb, hw, BT);
+          __syncthreads();
+          if (!mine) continue;
+          const float* pc = sP + c * BT * pld;
+          // the tile's dT rows ty*4 .. +3 += p_chunk^T @ s[chunk, hb]
+#pragma unroll 4
+          for (int r = 0; r < BT; ++r) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pc + r * pld + ty * 4);
+            const float4 s4 = *reinterpret_cast<const float4*>(sS + r * WLD + tx * 4);
+            const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              g[i][0] = fmaf(pv[i], s4.x, g[i][0]);
+              g[i][1] = fmaf(pv[i], s4.y, g[i][1]);
+              g[i][2] = fmaf(pv[i], s4.z, g[i][2]);
+              g[i][3] = fmaf(pv[i], s4.w, g[i][3]);
+            }
+          }
+          // this split's ds rows row0 + ty*4 .. +3 += p_chunk @ T[tile, hb]
+          float e[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) e[i][k] = 0.f;
+#pragma unroll 2
+          for (int cc = 0; cc < VT; cc += 4) {
+            float4 tc[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) tc[k] = *reinterpret_cast<const float4*>(sT + (cc + k) * WLD + tx * 4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 p4 = *reinterpret_cast<const float4*>(pc + (ty * 4 + i) * pld + cc);
+              const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                e[i][0] = fmaf(pv[k], tc[k].x, e[i][0]);
+                e[i][1] = fmaf(pv[k], tc[k].y, e[i][1]);
+                e[i][2] = fmaf(pv[k], tc[k].z, e[i][2]);
+                e[i][3] = fmaf(pv[k], tc[k].w, e[i][3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = row0 + ty * 4 + i;
+            if (row >= B) continue;
+            float4* dst = reinterpret_cast<float4*>(ds_part + ((size_t)split * B + row) * H + h);
+            float4 v = make_float4(e[i][0], e[i][1], e[i][2], e[i][3]);
+            if (t != t_begin) {  // the split's first tile writes, later tiles add
+              const float4 o = *dst;
+              v.x += o.x;
+              v.y += o.y;
+              v.z += o.z;
+              v.w += o.w;
+            }
+            *dst = v;
+          }
+        }
+        if (mine) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = j0 + ty * 4 + i;
+            if (col >= V) continue;
+            float4* dst = reinterpret_cast<float4*>(dtable + (size_t)col * H + h);
+            float4 v = make_float4(g[i][0], g[i][1], g[i][2], g[i][3]);
+            if (g0 > 0) {  // a later group adds to the earlier groups' sum
+              const float4 o = *dst;
+              v.x += o.x;
+              v.y += o.y;
+              v.z += o.z;
+              v.w += o.w;
+            }
+            *dst = v;
+          }
+        }
+      }
+    }
+    // the one-hot term, as ce_bwd_sweep_kernel takes it, on the tile's
+    // finished dT rows in device memory. Most tiles hold no answer and
+    // skip the serial loop after one vote.
+    int hit = 0;
+    for (int i = tid; i < B; i += THREADS) {
+      const long long a = __ldg(answers + i);
+      hit |= in_catalog(a, n_valid) && a >= j0 && a < j0 + VT;
+    }
+    if (__syncthreads_or(hit)) {  // also the barrier after every dT write of the tile
+      for (int h = tid; h < H; h += THREADS) {
+        for (int i = 0; i < B; ++i) {
+          const long long a = __ldg(answers + i);
+          if (in_catalog(a, n_valid) && a >= j0 && a < j0 + VT)
+            dtable[(size_t)a * H + h] -= __ldg(dloss + i) * __ldg(states + (size_t)i * H + h);
+        }
+      }
+    }
+  }
+}
+
 // ds [B, H] = the splits' partials summed in split order, then minus
 // dloss_i * table[a_i][h] for a_i in [0, n_valid).
 __global__ void __launch_bounds__(REDUCE_THREADS)
@@ -795,14 +1081,15 @@ ce_ds_reduce_kernel(const float* __restrict__ ds_part, const float* __restrict__
   ds[idx] = total;
 }
 
-bool bad_shape(int B, int V, int H) {
-  return B < 1 || V < 1 || H < 4 || H > MAX_H || H % 4 != 0;
-}
+bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 != 0; }
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
-// (and the backward's ds) fit beside the tiles, ce_fwd_partial_kernel and
-// ce_bwd_sweep_kernel elsewhere.
+// (and the backward's ds) fit beside the tiles; past MAX_H the wide
+// route, which walks H in chunks (ce_fwd_partial_kernel<BF16, true>,
+// ce_bwd_wide_kernel); ce_fwd_partial_kernel and ce_bwd_sweep_kernel
+// elsewhere.
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
+bool wide_route(int H) { return H > MAX_H; }
 
 }  // namespace
 
@@ -812,6 +1099,9 @@ extern "C" {
 // pass 1 (which = 1) on the route B and H take, at batch B, hidden size H.
 long long streaming_ce_smem_bytes(int B, int H, int which) {
   const long long ld = H + 4;
+  if (wide_route(H))
+    return (long long)sizeof(float) *
+           (which == 0 ? (BT + VT) * WLD : (BT + VT) * WLD + PB * (VT + 4) + 2 * PB);
   if (which == 0)
     return (long long)sizeof(float) *
            (onchip_route(B, H) ? onchip::STATE_FLOATS + onchip::RING_FLOATS : (BT + VT) * ld);
@@ -824,15 +1114,19 @@ long long streaming_ce_smem_bytes(int B, int H, int which) {
 // hidden size H.
 int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 
+// 1 where they take their wide routes (H > 256), which stage the hidden
+// dimension in chunks of 64 columns.
+int ce_wide_route(int H) { return wide_route(H) ? 1 : 0; }
+
 // logZ [B] of states [B, H] against table [V, H] over columns < n_valid,
 // and, when answers (int64 [B]) and loss are not null, loss [B] = logZ -
 // <states[i], table[answers[i]]> with gold 0 for answers outside
 // [0, n_valid). answers and loss are both given or both null. bf16 != 0
-// takes the bf16-operand form (the file's head). The route
-// is the shape's (ce_onchip_route): one block per SM suits the on-chip
-// route, two the other. The caller allocates the partials part_m, part_s
-// ([n_splits, B]); n_splits * tiles_per_split tiles must cover V. Returns
-// 0 or a cudaError_t code.
+// takes the bf16-operand form (the file's head). The route is the shape's
+// (ce_onchip_route, ce_wide_route): one block per SM suits the on-chip
+// route, two the others, over (splits x batch tiles of 64 rows). The
+// caller allocates the partials part_m, part_s ([n_splits, B]); n_splits *
+// tiles_per_split tiles must cover V. Returns 0 or a cudaError_t code.
 int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
             int n_valid, int n_splits, int tiles_per_split, void* part_m, void* part_s,
             void* logz, void* loss, int bf16, void* stream) {
@@ -843,8 +1137,10 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool onchip = onchip_route(B, H);
-  auto sweep = onchip ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
-                      : (bf16 ? ce_fwd_partial_kernel<true> : ce_fwd_partial_kernel<false>);
+  auto sweep =
+      wide_route(H) ? (bf16 ? ce_fwd_partial_kernel<true, true> : ce_fwd_partial_kernel<false, true>)
+      : onchip      ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
+                    : (bf16 ? ce_fwd_partial_kernel<true, false> : ce_fwd_partial_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -881,11 +1177,11 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // for the int64 answers a_i in [0, n_valid) only (the others have neither
 // term). bf16 != 0 takes the bf16-operand form (the file's head): s, T and
 // p rounded to bf16 before the products, the one-hot terms from the
-// unrounded s and T. The route is the shape's (ce_onchip_route): one block per SM
-// suits the on-chip route, two the sweep route. The caller allocates
-// ds_part ([n_splits, B, H]); n_splits * tiles_per_split tiles must cover
-// V, and every split must hold at least one tile. Returns 0 or a
-// cudaError_t code.
+// unrounded s and T. The route is the shape's (ce_onchip_route,
+// ce_wide_route): one block per SM suits the on-chip route, two the
+// others. The caller allocates ds_part ([n_splits, B, H]); n_splits *
+// tiles_per_split tiles must cover V, and every split must hold at least
+// one tile. Returns 0 or a cudaError_t code.
 int ce_grads(const void* states, const void* table, const void* answers, const void* logz,
              const void* dloss, int B, int V, int H, int n_valid, int n_splits,
              int tiles_per_split, void* ds_part, void* ds, void* dtable, int bf16, void* stream) {
@@ -897,8 +1193,9 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
   const long long smem = streaming_ce_smem_bytes(B, H, 1);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto sweep = onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_kernel<true> : ce_bwd_onchip_kernel<false>)
-                                  : (bf16 ? ce_bwd_sweep_kernel<true> : ce_bwd_sweep_kernel<false>);
+  auto sweep = wide_route(H)         ? (bf16 ? ce_bwd_wide_kernel<true> : ce_bwd_wide_kernel<false>)
+               : onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_kernel<true> : ce_bwd_onchip_kernel<false>)
+                                    : (bf16 ? ce_bwd_sweep_kernel<true> : ce_bwd_sweep_kernel<false>);
   cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;

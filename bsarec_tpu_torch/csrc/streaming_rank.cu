@@ -49,6 +49,10 @@
 //       with FMAs (4 x 8 per thread), applies the seen bit and the
 //       n_valid bound, stages the masked tile in shared memory, and one
 //       warp a row inserts the scores that can enter into the row's list.
+//       Where all 64 state rows ([H][64] floats) do not fit beside the
+//       lists (H > ~670 at k = 20, H > ~454 at k = 128), its wide form
+//       (WIDE = true) stages the states a 32-wide hidden chunk at a time
+//       beside the table's, 124,416 B at k = 128 and any H.
 //     Both compute each score as one FMA chain over h in ascending order,
 //     so their scores, and with the strict order their results, are
 //     bit-equal.
@@ -60,7 +64,9 @@
 // k=20 (bsarec_tpu_torch/tools/time_kernels.py, chip_smoke.py): the
 // on-chip route takes ~1.05 ms (in an eval trace the sample pass ~0.04,
 // the sweep ~0.99), 47% of its 0.4891 ms fp32 bound; the older route
-// ~2.15 ms. No wgmma or TMA.
+// ~2.15 ms. At H = 512 (chip_smoke.py) the older route takes ~13.5 ms at
+// k = 20 (29% of its 3.913 ms bound) and its wide form ~23 ms at k = 128.
+// No wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -140,14 +146,19 @@ __device__ void warp_offer(float* lv, int* li, int k, float v, int id, int lane)
   }
 }
 
+// WIDE: the states are staged a hidden chunk at a time beside the table's
+// ([KC][BT], not [H][BT]), so shared memory does not grow with H; the
+// route the C entry takes where the [H][BT] staging does not fit. Each
+// score is the same FMA chain either way, so WIDE changes no result.
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 rank_partial_kernel(const float* __restrict__ states, const float* __restrict__ table,
                     const int32_t* __restrict__ mask, int B, int V, int H, int W,
                     int n_valid, float seen_value, int k, int tiles_per_split,
                     float* __restrict__ part_v, int32_t* __restrict__ part_i) {
   extern __shared__ __align__(16) float smem[];
-  float* sS = smem;                     // [H][BT]   states, transposed
-  float* sT = sS + H * BT;              // [KC][VT]  table chunk, transposed
+  float* sS = smem;                          // [H][BT] states, transposed ([KC][BT] if WIDE)
+  float* sT = sS + (WIDE ? KC : H) * BT;     // [KC][VT]  table chunk, transposed
   float* sC = sT + KC * VT;             // [BT][VT+1] masked score tile
   float* lv = sC + BT * (VT + 1);       // [BT][k]   running top-k values
   int* li = reinterpret_cast<int*>(lv + BT * k);                // [BT][k] ids
@@ -161,9 +172,11 @@ rank_partial_kernel(const float* __restrict__ states, const float* __restrict__ 
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
 
-  for (int i = tid; i < BT * H; i += THREADS) {
-    const int r = i / H, h = i % H, row = row0 + r;
-    sS[h * BT + r] = row < B ? states[(size_t)row * H + h] : 0.f;
+  if constexpr (!WIDE) {
+    for (int i = tid; i < BT * H; i += THREADS) {
+      const int r = i / H, h = i % H, row = row0 + r;
+      sS[h * BT + r] = row < B ? states[(size_t)row * H + h] : 0.f;
+    }
   }
   for (int i = tid; i < BT * k; i += THREADS) {
     lv[i] = -INFINITY;
@@ -196,10 +209,16 @@ rank_partial_kernel(const float* __restrict__ states, const float* __restrict__ 
         sT[(4 * q + 2) * VT + c] = t.z;
         sT[(4 * q + 3) * VT + c] = t.w;
       }
+      if constexpr (WIDE) {
+        for (int i = tid; i < BT * hc; i += THREADS) {
+          const int r = i / hc, h = i - r * hc, row = row0 + r;
+          sS[h * BT + r] = row < B ? states[(size_t)row * H + h0 + h] : 0.f;
+        }
+      }
       __syncthreads();
 #pragma unroll 4
       for (int h = 0; h < hc; ++h) {
-        const float4 a = *reinterpret_cast<const float4*>(sS + (h0 + h) * BT + ty * 4);
+        const float4 a = *reinterpret_cast<const float4*>(sS + ((WIDE ? 0 : h0) + h) * BT + ty * 4);
         const float4 b0 = *reinterpret_cast<const float4*>(sT + h * VT + tx * 4);
         const float4 b1 = *reinterpret_cast<const float4*>(sT + h * VT + 64 + tx * 4);
         const float av[4] = {a.x, a.y, a.z, a.w};
@@ -689,6 +708,17 @@ rank_merge_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ 
 // The on-chip route's domain, by shape.
 bool onchip_route(int B, int H, int k) { return B <= onchip::ROWS && H <= onchip::MAX_H && k <= OC_K; }
 
+// Shared memory of rank_partial_kernel<wide>.
+long long partial_smem(int H, int k, bool wide) {
+  return (long long)sizeof(float) * ((long long)(wide ? KC : H) * BT + KC * VT + BT * (VT + 1) + BT * k) +
+         (long long)sizeof(int) * BT * k + (long long)sizeof(uint32_t) * BT * (VT / 32) +
+         (long long)sizeof(int) * BT;
+}
+
+// The older route stages its states in hidden chunks (WIDE) where all of
+// them do not fit: past H ~ 670 at k = 20, H ~ 454 at k = 128.
+bool wide_route(int H, int k) { return partial_smem(H, k, false) > MAX_SMEM; }
+
 // Shared memory of the on-chip sweep's staging: states, the table ring and
 // the bitmask ring.
 constexpr long long ONCHIP_STAGING =
@@ -711,20 +741,23 @@ extern "C" {
 // H and top-k width k (unless its caller turns the route off).
 int streaming_rank_onchip(int B, int H, int k) { return onchip_route(B, H, k) ? 1 : 0; }
 
+// 1 where the older route stages the states in hidden chunks (its wide
+// form) at hidden size H and top-k width k.
+int streaming_rank_wide(int H, int k) { return wide_route(H, k) ? 1 : 0; }
+
 // Shared memory of pass 1 on the on-chip route (onchip = 1) or the other
-// (onchip = 0) at hidden size H and top-k width k.
+// (onchip = 0, in the form H and k take) at hidden size H and top-k width k.
 long long streaming_rank_smem_bytes(int H, int k, int onchip) {
   if (onchip) return ONCHIP_STAGING + 8LL * onchip::ROWS * (k + 8 * onchip_slice(k));
-  return (long long)sizeof(float) * ((long long)H * BT + KC * VT + BT * (VT + 1) + BT * k) +
-         (long long)sizeof(int) * BT * k + (long long)sizeof(uint32_t) * BT * (VT / 32) +
-         (long long)sizeof(int) * BT;
+  return partial_smem(H, k, wide_route(H, k));
 }
 
 // Launch the passes on `stream`. Pass 1 takes the on-chip route where the
 // shape allows it (streaming_rank_onchip) and allow_onchip is 1: a sample
 // pass (rank_sample_kernel into `buckets`, [B, 64] 32-bit words that the
 // caller allocates and this entry zeroes) and then rank_onchip_kernel.
-// Elsewhere it is rank_partial_kernel. The two routes give bit-equal
+// Elsewhere it is rank_partial_kernel, in its wide form where the shape
+// asks for it (streaming_rank_wide). The two routes give bit-equal
 // results. The caller allocates the partials ([n_splits, B, k]) and
 // outputs ([B, k]); n_splits * tiles_per_split must cover the catalog in
 // tiles of the route's width (64 columns on-chip, 128 otherwise), and
@@ -774,11 +807,11 @@ int streaming_rank(const void* states, const void* table, const void* mask, int 
         tiles_per_split, static_cast<const unsigned*>(buckets), static_cast<float*>(part_v),
         static_cast<int32_t*>(part_i), static_cast<unsigned long long*>(taken));
   } else {
-    e = cudaFuncSetAttribute(rank_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    auto sweep = wide_route(H, k) ? rank_partial_kernel<true> : rank_partial_kernel<false>;
+    e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(n_splits, (B + BT - 1) / BT);
-    rank_partial_kernel<<<grid, THREADS, (size_t)smem, s>>>(
+    sweep<<<grid, THREADS, (size_t)smem, s>>>(
         static_cast<const float*>(states), static_cast<const float*>(table),
         static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, k, tiles_per_split,
         static_cast<float*>(part_v), static_cast<int32_t*>(part_i));

@@ -19,8 +19,9 @@ it trains (`Trainer.fit`: epochs, validation, early stopping with a
 checkpoint of the best model, a train-state snapshot after each epoch,
 the final test); `--resume` continues from the snapshot. With
 `--do_eval` it loads `--load_model` (a port checkpoint) or
-`--load_torch_model` (a reference torch state_dict, the same key layout)
-and runs the test split. Either way `--export_topk` then writes the
+`--load_torch_model` (a reference torch state_dict, the same key layout;
+a pre-rename BSARec checkpoint's `filter_layer.beta` is read as
+`sqrt_beta`) and runs the test split. Either way `--export_topk` then writes the
 [num_users, 20] top-k ids, and `--export_serving scorer.pt2` the
 weights-baked serving artifact (`serving.py`; `--serving_quant`,
 `--serving_impl`, `--serving_item_chunk`), exported on `--device`; serve
@@ -197,7 +198,7 @@ def main(argv=None):
         start_epoch = trainer.resume() if args.resume else 0
         scores, result_info = trainer.fit(start_epoch)
     elif args.load_torch_model is not None:
-        trainer.install_params(ckpt.load_params(args.load_torch_model))
+        trainer.install_params(ckpt.load_reference_params(args.load_torch_model))
         logger.info(f"Imported torch checkpoint {args.load_torch_model} for test!")
         scores, result_info = trainer.test(0)
     elif args.load_model is None:

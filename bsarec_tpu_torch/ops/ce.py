@@ -21,11 +21,19 @@ building the [B, V] logit matrix on the card. Three CUDA kernels in
   package composes outside the kernel with its gather
   (`pallas_ce.py:553-555`).
 
-Both sweeps take one of two routes, by shape (`onchip_route`): at
-B <= 256 and H <= 64 the batch (and the backward's ds) stays on chip for
-the whole sweep, one block per SM; elsewhere the older sweeps re-stage
-64-row batch tiles, two blocks per SM. `ce_logz.onchip_launches` and
-`ce_grads.onchip_launches` count the first apart.
+Both sweeps take one of three routes, by shape: at B <= 256 and H <= 64
+(`onchip_route`) the batch (and the backward's ds) stays on chip for the
+whole sweep, one block per SM; at H > 256 (`wide_route`) the wide
+kernels stage the hidden dimension in chunks of 64 columns, so their
+shared memory does not grow with H (the backward keeps p of up to 256
+batch rows and walks dT's and ds's hidden dimension in blocks of 64);
+elsewhere the older sweeps re-stage 64-row batch tiles with whole rows.
+The last two run two blocks per SM. `ce_logz.onchip_launches`,
+`ce_grads.onchip_launches`, `ce_logz.wide_launches` and
+`ce_grads.wide_launches` count the first two apart. The kernels take
+every H % 4 == 0 (JAX's kernels take an H that divides 128 or is a
+multiple of 128, all of it inside that); ds_part [n_splits, B, H] and the
+outputs are the only memory that grows with H.
 
 Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
@@ -64,7 +72,6 @@ from bsarec_tpu_torch.ops._launch import call_on, raw_stream, sm_count
 from bsarec_tpu_torch.ops.precision import is_bf16, rounded
 
 NEG_INF = float("-inf")
-MAX_H = 256
 PLAIN_CHUNK = 65536  # catalog columns per step of the plain versions
 
 
@@ -171,6 +178,8 @@ def _lib() -> ctypes.CDLL:
     lib.streaming_ce_smem_bytes.restype = ctypes.c_longlong
     lib.ce_onchip_route.argtypes = [i, i]
     lib.ce_onchip_route.restype = i
+    lib.ce_wide_route.argtypes = [i]
+    lib.ce_wide_route.restype = i
     return lib
 
 
@@ -180,6 +189,13 @@ def onchip_route(b: int, h: int) -> bool:
     routes (the batch held in one block per SM for the whole sweep), by
     shape."""
     return bool(_lib().ce_onchip_route(b, h))
+
+
+@functools.cache
+def wide_route(h: int) -> bool:
+    """True where `ce_logz` and `ce_grads` take their kernels' wide routes
+    (the hidden dimension staged in chunks, H > 256), by shape."""
+    return bool(_lib().ce_wide_route(h))
 
 
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per tile
@@ -200,8 +216,8 @@ def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, index
 def _check_table(table: torch.Tensor) -> tuple[int, int, int]:
     """(V, H, device index) of a float32 table [V, H]."""
     v, h = table.shape
-    if h % 4 or not 4 <= h <= MAX_H:
-        raise ValueError(f"the CE kernels take H % 4 == 0 and 4 <= H <= {MAX_H}, got H={h}")
+    if h % 4 or h < 4:
+        raise ValueError(f"the CE kernels take H % 4 == 0 and H >= 4, got H={h}")
     index = table.get_device()
     _require("table", table, torch.float32, (v, h), index, aligned=True)
     return v, h, index
@@ -234,8 +250,8 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
     b, v, h, index = _check_matrices(states, table)
     if answers is not None:
         _require("answers", answers, torch.int64, (b,), index)
-    # one block per SM on the on-chip route; elsewhere two blocks per SM
-    # over (splits x batch tiles)
+    # one block per SM on the on-chip route; elsewhere (the wide route too)
+    # two blocks per SM over (splits x batch tiles)
     onchip = onchip_route(b, h)
     target = sm_count(index) if onchip else -(-2 * sm_count(index) // -(-b // _BT))
     n_splits, per = _even_splits(-(-v // _VT), target)
@@ -251,6 +267,7 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
         _raise("ce_logz", rc, b, v, h, 0)
     ce_logz.launches += 1
     ce_logz.onchip_launches += onchip
+    ce_logz.wide_launches += wide_route(h)
     ce_logz.bf16_launches += bf16
     return loss, logz
 
@@ -275,6 +292,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     _require("dloss", dloss, torch.float32, (b,), index)
     onchip = onchip_route(b, h)
     # one block per split: one per SM on the on-chip route, two elsewhere
+    # (the wide route too)
     n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
     ds_part = states.new_empty((n_splits, b, h))
     ds = states.new_empty((b, h))
@@ -286,6 +304,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
         _raise("ce_grads", rc, b, v, h, 1)
     ce_grads.launches += 1
     ce_grads.onchip_launches += onchip
+    ce_grads.wide_launches += wide_route(h)
     ce_grads.bf16_launches += bf16
     return ds, dt
 
@@ -352,10 +371,12 @@ def ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
 
 ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's included
 ce_logz.onchip_launches = 0  # the launches that took the on-chip route
+ce_logz.wide_launches = 0  # the launches that took the wide route
 ce_logz.bf16_launches = 0  # the launches in the bf16-operand form
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route
+ce_grads.wide_launches = 0  # the launches that took the wide route
 ce_grads.bf16_launches = 0  # the launches in the bf16-operand form
 
 
@@ -410,7 +431,7 @@ def streaming_softmax_ce_plain(states: torch.Tensor, table: torch.Tensor, answer
     return _apply(states, table, answers, n_valid, dtype, plain=True)
 
 
-# ---- building blocks of the vocab-sharded composition (ROADMAP A12) ----------
+# ---- building blocks of the vocab-sharded composition (ROADMAP A6) -----------
 
 
 def streaming_ce_stats(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,

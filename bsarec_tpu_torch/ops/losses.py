@@ -26,7 +26,7 @@ def resolve_loss_impl(impl: str, item_size: int, device: torch.device) -> str:
         big = item_size >= STREAMING_CE_MIN_VOCAB and device.type == "cuda"
         return "streaming" if big else "dense"
     if impl not in ("dense", "streaming"):
-        raise NotImplementedError(f"loss_impl {impl!r} is not ported yet (ROADMAP A12)")
+        raise NotImplementedError(f"loss_impl {impl!r} is not ported yet (ROADMAP A6)")
     return impl
 
 

@@ -8,9 +8,12 @@ the Pallas `_rank_kernel`) sweeps the catalog once, on one of two
 routes picked by shape (`onchip_route`): at B <= 256, H <= 64 and
 k <= 32 a sample pass bounds each row's k-th score from below, then one
 block per SM holds the whole batch and skips every score under the
-bound; elsewhere an older sweep re-stages 64-row batch tiles.
-`streaming_masked_topk.onchip_launches` counts the first apart. Both give
-bit-equal results. Seen items score
+bound; elsewhere an older sweep re-stages 64-row batch tiles. That sweep
+stages all of a tile's states ([H, 64]) where they fit and, past that
+(`wide_route`: H > ~670 at k = 20, H > ~454 at k = 128), a hidden chunk
+of 32 at a time beside the table's, so every H % 4 == 0 and k <= 128
+runs. `streaming_masked_topk.onchip_launches` and `.wide_launches` count
+the two apart. All give bit-equal results. Seen items score
 `seen_value`: 0.0 for eval (the reference's `src/trainers.py:134`, what
 the TPU kernel gives them) and -inf for serving (`ops/serving_topk.py`),
 where a seen item never enters the result. Columns >= n_valid score
@@ -145,6 +148,8 @@ def _lib() -> ctypes.CDLL:
     lib.streaming_rank_smem_bytes.restype = ctypes.c_longlong
     lib.streaming_rank_onchip.argtypes = [i, i, i]
     lib.streaming_rank_onchip.restype = ctypes.c_int
+    lib.streaming_rank_wide.argtypes = [i, i]
+    lib.streaming_rank_wide.restype = ctypes.c_int
     return lib
 
 
@@ -153,6 +158,13 @@ def onchip_route(b: int, h: int, k: int) -> bool:
     """True where the kernel takes its on-chip route (the whole batch held
     in one block per SM, warp-private top-k lists), by shape."""
     return bool(_lib().streaming_rank_onchip(b, h, k))
+
+
+@functools.cache
+def wide_route(h: int, k: int) -> bool:
+    """True where the older route stages the states in hidden chunks (all
+    of them do not fit in shared memory), by shape."""
+    return bool(_lib().streaming_rank_wide(h, k))
 
 
 # kernel tiling (csrc/streaming_rank.cu): rows per block and columns per
@@ -214,6 +226,7 @@ def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=No
         )
     streaming_masked_topk.launches += 1
     streaming_masked_topk.onchip_launches += onchip
+    streaming_masked_topk.wide_launches += not onchip and wide_route(h, k)
     return vals, ids
 
 
@@ -240,3 +253,4 @@ def streaming_masked_topk(states: torch.Tensor, table: torch.Tensor,
 
 streaming_masked_topk.launches = 0  # kernel launches (CUDA path only)
 streaming_masked_topk.onchip_launches = 0  # the launches that took the on-chip route
+streaming_masked_topk.wide_launches = 0  # the older route's launches in its wide form

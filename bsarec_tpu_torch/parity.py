@@ -14,6 +14,20 @@ every term by up to 2^-9: the fp32 form against the bf16 plain version
 shows it on ds and on dT's other rows, where the one-hot term that hides
 it on the answer rows is absent. The one-hot term itself is read off the
 kernel exactly (`one_hot_excess`).
+
+A logit is an H-term fp32 sum, and two summation orders round it apart.
+Rounding p to bf16 turns such a difference into a whole bf16 ulp of p
+wherever p sits near a rounding boundary, and one large p of a peaked
+softmax moves a gradient row by up to 2^-8 of it. At H <= 256 the
+readings stay far inside BF16_GRAD_TOL; at H >= 384 the kernel against
+the plain version read up to 2.1e-3 on the H100, and the plain version
+is as far from itself with its hidden sum reordered (PERF.md). So the
+wide routes' bf16 form is held against `ce_grads_bf16_in_order`:
+the plain version with each logit summed as the kernels sum it, over h in
+ascending order with one rounding per step. A product of two bf16 values
+is exact in fp32, so the kernels' FMA chain and a multiply-then-add round
+alike, and both sides see the same logits and, through the same expf, the
+same p.
 """
 
 from __future__ import annotations
@@ -92,3 +106,34 @@ def one_hot_excess(dt, dt_none, states, answers, dloss, n_valid, round_states=Fa
     none = dt_none[rows]
     allowed = ONE_HOT_ULPS * 2.0 ** -24 * (count + 1) * (none.abs() + size) + 1e-30
     return float(((dt[rows] - (none - term)).abs() / allowed).max())
+
+
+def logits_in_order(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[B, C] logits s @ t.T of bf16-rounded s [B, H] and t [C, H], each
+    summed over h in ascending order with one fp32 rounding per step, as
+    the CE kernels' FMA chains sum them (the products are exact)."""
+    acc = torch.zeros((s.shape[0], t.shape[0]), dtype=torch.float32, device=s.device)
+    for h in range(s.shape[1]):
+        acc.addcmul_(s[:, h, None], t[None, :, h])
+    return acc
+
+
+def ce_grads_bf16_in_order(states, table, answers, logz, dloss, n_valid,
+                           chunk: int = 65536) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ce_grads_plain(..., bf16=True)` with the logits from
+    `logits_in_order`: ds = p @ T and dT = p^T @ s of the rounded s, T
+    and p, then the one-hot terms of the unrounded states and rows."""
+    s = states.bfloat16().float()
+    ds = torch.zeros_like(states)
+    dt = torch.zeros_like(table)
+    for j0 in range(0, n_valid, chunk):
+        j1 = min(n_valid, j0 + chunk)
+        tile = table[j0:j1].bfloat16().float()
+        p = (torch.exp(logits_in_order(s, tile) - logz[:, None]) * dloss[:, None]).bfloat16().float()
+        ds += p @ tile
+        dt[j0:j1] = p.T @ s
+    a = answers.long()
+    keep = (a >= 0) & (a < n_valid)
+    dt.index_add_(0, a[keep], -(dloss[keep, None] * states[keep]))
+    rows = table[torch.where(keep, a, 0)] * keep[:, None]
+    return ds - dloss[:, None] * rows, dt

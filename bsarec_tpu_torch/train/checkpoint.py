@@ -3,6 +3,13 @@
 - `save_params` / `load_params`: parameters only, as the reference saves
   them (`src/utils.py:171-176`), a `torch.save`d state_dict in the
   reference's key layout.
+- `load_reference_params`: a state_dict that the reference's torch code
+  saved, for `--load_torch_model`. It reads an older BSARec
+  checkpoint's `filter_layer.beta` as `sqrt_beta`, as the reference's own
+  loader does (`src/trainers.py:47-60`) and as the JAX package's importer
+  does (`bsarec_tpu/train/torch_import.py:76-78`).
+  `load_params` renames nothing: a port checkpoint with an unknown key
+  is refused by the strict `load_state_dict` behind `Trainer.load`.
 - `save_train_state` / `load_train_state`: the full training state, so
   that `--resume` continues an interrupted run where it stopped: params,
   the Adam state, the epoch, the random generators' states (the
@@ -55,6 +62,21 @@ def save_params(state_dict: dict, path: str | Path) -> None:
 def load_params(path: str | Path) -> dict:
     """The saved `state_dict`, as CPU tensors."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_reference_params(path: str | Path) -> dict:
+    """A reference torch checkpoint's `state_dict`, as CPU tensors, with
+    each `...filter_layer.beta` of an older BSARec checkpoint named
+    `...filter_layer.sqrt_beta`, its name since the reference renamed it,
+    where the file does not hold that key already."""
+    params = load_params(path)
+    old, new = ".filter_layer.beta", ".filter_layer.sqrt_beta"
+    renamed = {}
+    for key, value in params.items():
+        if key.endswith(old) and key[: -len(old)] + new not in params:
+            key = key[: -len(old)] + new
+        renamed[key] = value
+    return renamed
 
 
 def save_train_state(path: str | Path, params: dict, opt_state: dict, epoch: int,

@@ -5,7 +5,7 @@ Mirrors the reference `Trainer` surface (`src/trainers.py:9-60`):
 `fit()`, the run loop of `src/main.py:51-64` (early stop on NDCG@20, reload
 the best checkpoint, final test), and full train-state snapshots for
 `--resume`. The JAX package's mesh and multihost branches are not ported
-(ROADMAP A12).
+(ROADMAP A6).
 """
 
 from __future__ import annotations

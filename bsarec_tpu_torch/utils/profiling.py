@@ -6,7 +6,7 @@
   observation, which carries one-time start-up costs (on the card: the
   kernels' build and CUDA's lazy initialisation).
 
-`trace(dir)` behind `--profile` is not ported yet (ROADMAP A13).
+`trace(dir)` behind `--profile` is not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations

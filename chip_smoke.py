@@ -42,6 +42,25 @@ Phases, each of which raises (exit code 1) when it fails:
    within bsarec_tpu_torch/parity.py's BF16_GRAD_TOL of the plain version
    at that logZ (ds, dT's answer rows and dT's other rows apart), which the
    fp32 form must exceed on ds and on dT's other rows.
+3b. The wide routes (H > 256; the wide phase): the CE kernels in both
+   forms at WIDE_CE_CASES (H in {260, 384, 512, 1024}, the main path's
+   B=256, V=1M, H=512 among them, odd B, B over one group of 256 rows, V
+   off every tile, n_valid < V, raw int64 answers of -1, >= n_valid and
+   >= V, repeated answers) with phase 3's checks, the bf16 form's
+   gradients against the plain version with its logits summed in the
+   kernels' order (parity.ce_grads_bf16_in_order); the rank kernel in
+   both modes at WIDE_RANK_CASES (H in {512, 1024}, k in {20, 128}, its
+   older route with all states staged or in hidden chunks as the shape
+   names) with phase 2's checks, two calls bit-equal. Then `main
+   --hidden_size 512` on a 1M-item x 5k-user corpus: one epoch, then
+   `--resume --epochs 2 --export_topk`, which must start at epoch 1 (one
+   ce_logz and one ce_grads launch a step, every one on the wide route;
+   the rank kernel on every eval batch; finite losses; the first 512
+   users' exported top-20 against the plain version), and one `--dtype
+   bf16` epoch (the bf16 forms on the wide route). Then the wide main
+   path's kernels timed as phase 10 times them (the CE entries in both
+   forms, the rank kernel at k=20 and, in its wide form, at k=128), and
+   the phase's seconds.
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -301,10 +320,10 @@ RANK_CASES = [
 ]
 
 
-def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False):
-    """Seeded inputs: states [b, h], table [v, h], a seen bitmask built on
-    the device from 0-padded id lists with repeats (and checked against
-    the host builder)."""
+def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False, scale=1.0):
+    """Seeded inputs: states [b, h], table [v, h] (N(0, 1) times `scale`, or
+    integers), a seen bitmask built on the device from 0-padded id lists
+    with repeats (and checked against the host builder)."""
     import torch
 
     from bsarec_tpu_torch.ops import rank
@@ -316,6 +335,8 @@ def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False):
     else:
         states = rng.standard_normal((b, h), dtype=np.float32)
         table = rng.standard_normal((v, h), dtype=np.float32)
+        if scale != 1.0:
+            table *= np.float32(scale)
     seen = rng.integers(1, v, size=(b, n_seen + 4)).astype(np.int32)
     seen[:, 1] = seen[:, 0]  # a repeated item
     seen[:, -3:] = 0  # padding
@@ -336,11 +357,18 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
 
     case_name = f"{case_name}, {'eval' if seen_value == 0.0 else 'serving'} mode"
     onchip_before = rank.streaming_masked_topk.onchip_launches
+    wide_before = rank.streaming_masked_topk.wide_launches
     vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid, seen_value)
+    again_v, again_i = rank.streaming_masked_topk(states, table, bitmask, k, n_valid, seen_value)
     torch.cuda.synchronize()
-    onchip = rank.streaming_masked_topk.onchip_launches - onchip_before
-    check(onchip == rank.onchip_route(states.shape[0], states.shape[1], k),
+    onchip = (rank.streaming_masked_topk.onchip_launches - onchip_before) // 2
+    wide = (rank.streaming_masked_topk.wide_launches - wide_before) // 2
+    check(onchip == rank.onchip_route(states.shape[0], states.shape[1], k)
+          and wide == (not onchip and rank.wide_route(states.shape[1], k)),
           f"{case_name}: the rank kernel took another route than its shape names")
+    check(torch.equal(vals, again_v) and torch.equal(ids, again_i),
+          f"{case_name}: two calls on the same inputs differ")
+    del again_v, again_i
     if onchip:  # the older route on the same inputs gives the same bits
         old_v, old_i = rank._launch(states, table, bitmask, k, n_valid, allow_onchip=False,
                                     seen_value=seen_value)
@@ -367,9 +395,10 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
         for r in range(ids.shape[0]):
             row = ids[r][finite[r]]
             check(row.unique().numel() == row.numel(), f"{case_name}: row {r} repeats an id")
-    route = "on-chip, bit-equal to the older route" if onchip else "older route"
+    route = ("on-chip, bit-equal to the older route" if onchip
+             else "older route, states in hidden chunks" if wide else "older route")
     log(f"kernel vs plain {case_name}: ok, max |value error| {err:.3g}"
-        f"{' (bit-equal ids and values)' if exact else ''}; {route}")
+        f"{' (bit-equal ids and values)' if exact else ''}; {route}; two calls bit-equal")
     return err
 
 
@@ -595,7 +624,7 @@ def ce_case(b, v, h, n_valid, seed, device, answer_kind):
             torch.from_numpy(answers).to(device))
 
 
-def compare_ce(case_name, states, table, answers, n_valid, dtype=None):
+def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=False):
     """The CE kernels vs their plain versions on one input, in the form
     `dtype` names (None: fp32; "bfloat16": the bf16-operand form): the
     fused entries (loss and logZ from one ce_logz call, the finished ds and
@@ -608,8 +637,11 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None):
     composition of the same kernels, bit for bit (in the bf16 form this
     also shows that the ds correction takes the unrounded rows), and dT's
     one-hot term read off the kernel (parity.one_hot_excess), which must
-    fail with the rounded states in its place. Returns the largest absolute
-    error of each kernel's outputs."""
+    fail with the rounded states in its place. `in_order` holds the bf16
+    form's gradients against parity.ce_grads_bf16_in_order (the plain
+    version with the logits summed in the kernels' order) instead: the
+    wide phase's. Returns the largest absolute error of each kernel's
+    outputs."""
     import torch
 
     from bsarec_tpu_torch import parity
@@ -618,9 +650,11 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None):
     bf16 = dtype is not None
     mapped = ce.map_answers(answers, n_valid)
     logz_onchip_before = ce.ce_logz.onchip_launches
+    logz_wide_before = ce.ce_logz.wide_launches
     bf16_before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
     loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
-    check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape),
+    check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape)
+          and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1]),
           f"{case_name}: ce_logz took another route than its shape names")
     check(ce.ce_logz.bf16_launches - bf16_before[0] == bf16,
           f"{case_name}: ce_logz took another form than {dtype or 'float32'}")
@@ -658,13 +692,16 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None):
     d = torch.full((states.shape[0],), 1.0 / states.shape[0], device=states.device)
     # two calls on the same inputs give the same bits, on the route the shape takes
     onchip_before = ce.ce_grads.onchip_launches
+    wide_before = ce.ce_grads.wide_launches
     grads_bf16_before = ce.ce_grads.bf16_launches
     fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
-    route = "on-chip" if n_onchip else "sweep"
-    check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0),
+    n_wide = ce.ce_grads.wide_launches - wide_before
+    route = "on-chip" if n_onchip else "wide" if n_wide else "sweep"
+    check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0)
+          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0),
           f"{case_name}: ce_grads took another route than its shape names")
     check(ce.ce_grads.bf16_launches - grads_bf16_before == 2 * bf16,
           f"{case_name}: ce_grads took another form than {dtype or 'float32'}")
@@ -677,7 +714,8 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None):
         # and the fp32 form, which rounds nothing, must fail the same limit
         check(torch.equal(ds, fused_ds) and torch.equal(dt, fused_dt),
               f"{case_name}: the autograd function's gradients differ from ce_grads")
-        plain = ce.ce_grads_plain(states, table, answers, logz, d, n_valid, bf16=True)
+        plain = (parity.ce_grads_bf16_in_order(states, table, answers, logz, d, n_valid) if in_order
+                 else ce.ce_grads_plain(states, table, answers, logz, d, n_valid, bf16=True))
         errs = parity.grad_errors(fused_ds, fused_dt, *plain, answers, n_valid)
         control = parity.grad_errors(*ce.ce_grads(states, table, answers, logz, d, n_valid),
                                      *plain, answers, n_valid)
@@ -721,8 +759,8 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None):
 
     def short(e):
         return ", ".join(f"{k} {v:.3g}" for k, v in e.items())
-    held = ("at the kernel's logZ; the fp32 form against the bf16 plain version: " + short(control)
-            if bf16 else "through autograd")
+    held = (f"at the kernel's logZ{', logits in the kernels order' if in_order else ''}; the fp32 "
+            f"form against the bf16 plain version: {short(control)}" if bf16 else "through autograd")
     log(f"CE kernels vs plain {case_name}, {dtype or 'float32'} form: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
         f"loss through autograd {loss_err:.3g}; gradients {short(errs)} (relative to each group's "
         f"largest |plain|, {held}); {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
@@ -1559,6 +1597,7 @@ def reset_counts() -> None:
         f.launches = 0
     for f in (rank.streaming_masked_topk, ce.ce_logz, ce.ce_grads):
         f.onchip_launches = 0
+        f.wide_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
 
@@ -2783,6 +2822,251 @@ def phase_bf16_train_turns(device, card, n_steps: int = 20):
     return {"fp32": [f1, f2], "bf16": [b1, b2]}
 
 
+# ---- the wide routes (H > 256) ---------------------------------------------------
+
+# BSARec at hidden 512 (the paper's other widths), the width the wide
+# phase trains and ranks at over 1M items, on a corpus of WIDE_USERS users
+# from synth_corpus: half of phase 7's users, so that the phase's three runs
+# of main stay near two minutes (a step at H = 512 runs ~40 ms of CE kernels)
+WIDE_H = 512
+WIDE_USERS = 5_000
+WIDE_WIDTHS = ["--model_type", "BSARec", "--hidden_size", str(WIDE_H), "--num_hidden_layers", "2",
+               "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7", "--max_seq_length", "50"]
+# the wide phase's CE cases, the i-th on ce_case's inputs seeded with 200 + i:
+# (tag, B, V, H, n_valid, answers). H = 260 is just past the older routes
+# and no multiple of 128; B = 300 takes two groups of p rows. The bf16
+# form's gradients are held against parity.ce_grads_bf16_in_order: at these
+# widths the fp32 rounding of an H-term logit moves single bf16 roundings
+# of p (parity.py's head)
+WIDE_CE_CASES = [
+    ("main path at H=512", 256, N_ITEMS, WIDE_H, N_ITEMS, "plain"),
+    ("H=260, odd B, n_valid < V, odd answers", 37, 5000, 260, 4990, "odd"),
+    ("H=384, B over one group, n_valid < V", 300, 20011, 384, 20006, "odd"),
+    ("H=512, V off every tile", 3, 12101, WIDE_H, 12101, "odd"),
+    ("H=512, repeated answers", 200, 3001, WIDE_H, 3001, "repeated"),
+    ("H=1024, n_valid < V", 256, 40009, 1024, 40000, "odd"),
+]
+# the wide phase's rank cases, the i-th on make_case's inputs seeded with
+# 300 + i: (tag, B, V, H, k, n_valid, seen per row, integer, all-seen row).
+# Float cases draw the table at sqrt(64 / H) N(0, 1), so that the scores
+# keep the spread they have at phase 2's H = 64 (std 8, top scores below
+# ~50), for which FLOAT_TOL is stated; the integer cases are exact at any H
+WIDE_RANK_CASES = [
+    ("main path at H=512", 256, N_ITEMS, WIDE_H, TOP_K, N_ITEMS, 16, False, False),
+    ("H=512, k=128", 64, 33333, WIDE_H, 128, 33333, 16, False, False),
+    ("H=1024, odd B, V off the tile", 5, 12101, 1024, 20, 12101, 16, False, False),
+    ("integer, H=512, k=20", 37, 20011, WIDE_H, 20, 20006, 16, True, False),
+    ("integer, H=512, k=128", 37, 20011, WIDE_H, 128, 20006, 16, True, False),
+    ("integer, all-seen row, H=1024, k=20", 70, 20011, 1024, 20, 20011, 16, True, True),
+    ("integer, H=1024, k=128", 37, 20011, 1024, 128, 20006, 16, True, True),
+]
+
+
+def wide_counts() -> dict:
+    from bsarec_tpu_torch.ops import ce, rank
+
+    return read_counts() | {
+        "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
+        "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
+        "rank_wide": rank.streaming_masked_topk.wide_launches,
+        "rank_onchip": rank.streaming_masked_topk.onchip_launches}
+
+
+def zero_wide_counts() -> dict:
+    return dict.fromkeys(wide_counts(), 0)
+
+
+def phase_wide_kernels(device):
+    """The CE kernels in both forms at WIDE_CE_CASES and the rank kernel in
+    both modes at WIDE_RANK_CASES, against their plain versions with phase
+    3's and phase 2's checks. Returns ({form: {kernel: largest absolute
+    error}}, the largest rank value error, the CE and rank main-shape
+    inputs)."""
+    import torch
+
+    worst = {form: {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0} for form in CE_FORMS}
+    ce_full = rank_full = None
+    for i, (tag, b, v, h, n_valid, kind) in enumerate(WIDE_CE_CASES):
+        states, table, answers = ce_case(b, v, h, n_valid, seed=200 + i, device=device,
+                                         answer_kind=kind)
+        for form in CE_FORMS:
+            errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
+                              answers, n_valid, dtype=form, in_order=True)
+            worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
+        if i == 0:
+            ce_full = (states, table, answers)
+        del states, table, answers
+        torch.cuda.empty_cache()
+    rank_worst = 0.0
+    for i, (tag, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(WIDE_RANK_CASES):
+        name = f"{tag} (B={b} V={v} H={h} k={k} n_valid={n_valid})"
+        states, table, bitmask = make_case(b, v, h, n_seen, seed=300 + i, device=device,
+                                           integer=integer, all_seen_row=all_seen,
+                                           scale=math.sqrt(64 / h))
+        for seen_value in (0.0, -math.inf):
+            rank_worst = max(rank_worst, compare_kernel(name, states, table, bitmask, k, n_valid,
+                                                        integer, seen_value))
+        if i == 0:
+            rank_full = (states, table, bitmask)
+        del states, table, bitmask
+    torch.cuda.empty_cache()
+    return worst, rank_worst, ce_full, rank_full
+
+
+def phase_wide_train(device, card):
+    """`main --hidden_size 512` on the 1M-item x 5k-user corpus: one epoch,
+    then --resume --epochs 2 --export_topk, which must start at epoch 1;
+    then one --dtype bf16 epoch. Every step one ce_logz and one ce_grads
+    launch, every one on the wide route (in the bf16 form under --dtype
+    bf16), the rank kernel on every eval batch, every epoch's loss finite,
+    and the first 512 users' exported top-20 against the plain version.
+    Returns {run: launch counts}."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.data.corpus import Corpus
+    from bsarec_tpu_torch.data.pipeline import SeqRecData
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.ops import rank
+    from bsarec_tpu_torch.train.checkpoint import load_params
+
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        seqs = synth_corpus(WIDE_USERS, N_ITEMS, seed=1)
+        with open(os.path.join(workdir, "synth_wide.txt"), "w") as fh:
+            for u, seq in enumerate(seqs):
+                fh.write(f"{u + 1} {' '.join(map(str, seq))}\n")
+        steps = math.ceil(sum(len(s[-52:-2]) for s in seqs) / TRAIN_BATCH)
+        eval_steps = math.ceil(WIDE_USERS / EVAL_BATCH)
+        base = ["--data_dir", workdir, "--data_name", "synth_wide", "--output_dir", workdir,
+                "--device", device.type, "--batch_size", str(TRAIN_BATCH), "--lr", str(LR),
+                *WIDE_WIDTHS]
+
+        def run(argv):
+            reset_counts()
+            t0 = time.perf_counter()
+            scores = port_main.main(argv)
+            torch.cuda.synchronize(device)
+            counts = wide_counts()
+            check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
+            return counts, scores, time.perf_counter() - t0
+
+        def epoch_lines(name):
+            text = read_log(os.path.join(workdir, f"{name}.log"))
+            losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+            rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+            return text, losses, rates
+
+        # the rank kernel at H = 512, k = 20: the older route (all of a
+        # tile's states fit), not its wide form
+        rank_route = {"rank_wide": 0, "rank_onchip": 0}
+        ce_step = {"ce_logz": steps, "ce_grads": steps, "ce_logz_wide": steps,
+                   "ce_grads_wide": steps}
+        counts, scores, seconds = run(base + ["--train_name", "smoke_wide", "--epochs", "1"])
+        want = zero_wide_counts() | ce_step | rank_route | {"streaming_masked_topk": 2 * eval_steps}
+        check(counts == want, f"wide train launches {counts}, want {want}")
+        text, losses, rates = epoch_lines("smoke_wide")
+        check(len(losses) == 1 and math.isfinite(losses[0]), f"wide train: epoch losses {losses}")
+        out["train"] = counts
+        log(f"wide train path: main(--hidden_size {WIDE_H} --epochs 1) on {WIDE_USERS} users x "
+            f"{N_ITEMS} items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss {losses[0]}, "
+            f"train {rates[0]:.0f} examples/s (first epoch), test scores {scores}; launches "
+            f"{counts} [{card}]")
+
+        topk_path = os.path.join(workdir, "wide_topk.npy")
+        counts, scores, seconds = run(base + ["--train_name", "smoke_wide", "--epochs", "2",
+                                              "--resume", "--export_topk", topk_path])
+        want = zero_wide_counts() | ce_step | rank_route | {"streaming_masked_topk": 3 * eval_steps}
+        check(counts == want, f"wide resumed launches {counts}, want {want}")
+        text, losses, rates = epoch_lines("smoke_wide")
+        check("resumed full train state" in text and "(epoch 0)" in text and "'epoch': 1," in text
+              and len(losses) == 2 and all(math.isfinite(x) for x in losses),
+              f"wide resumed run: epoch losses {losses}, want epoch 1 after the resume")
+        out["resume"] = counts
+        log(f"wide train path: main(--resume --epochs 2 --export_topk) started at epoch 1 and "
+            f"returned in {seconds:.1f}s, epoch losses {losses}, train {rates[-1]:.0f} examples/s "
+            f"(second epoch), test scores {scores}; launches {counts} [{card}]")
+
+        # the first 512 users' exported top-20 against the plain version, on
+        # the best checkpoint that the export ranked with
+        topk = np.load(topk_path)
+        check(topk.shape == (WIDE_USERS, TOP_K) and 0 <= int(topk.min())
+              and int(topk.max()) < N_ITEMS, "wide export after fit")
+        head = SeqRecData(Corpus(user_seq=seqs[:512], max_item=N_ITEMS - 1), max_len=50).test
+        cfg = ModelConfig(model_type="bsarec", item_size=N_ITEMS, num_users=WIDE_USERS + 1,
+                          max_seq_length=50, hidden_size=WIDE_H, num_hidden_layers=2,
+                          num_attention_heads=1, c=5, alpha=0.7)
+        model = build_model(cfg)
+        model.load_state_dict(load_params(os.path.join(workdir, "smoke_wide.ckpt")))
+        model.to(device).eval()
+        with torch.inference_mode():
+            states = model.predict(torch.from_numpy(head.input_ids).long().to(device))[:, -1, :]
+            table = model.item_table
+            bitmask = torch.from_numpy(rank.build_seen_bitmask(head.seen_items, N_ITEMS)).to(device)
+            want_v, _ = rank.streaming_masked_topk_plain(states, table, bitmask, TOP_K, N_ITEMS)
+            got = masked_scores(states, table, bitmask, N_ITEMS,
+                                torch.from_numpy(topk[:512]).to(device))
+        err = float((got - want_v).abs().max())
+        check(err <= FLOAT_TOL, f"wide export: first 512 users' top-20 score error {err}")
+        log(f"wide train path: the first 512 users' exported top-20 agree with the plain version "
+            f"(score error {err:.3g}, largest |score| {float(want_v.abs().max()):.3g})")
+        del model, states, table, bitmask
+
+        counts, scores, seconds = run(base + ["--train_name", "smoke_wide_bf16", "--epochs", "1",
+                                              "--dtype", "bf16"])
+        want = zero_wide_counts() | ce_step | rank_route | {
+            "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps}
+        check(counts == want, f"wide bf16 train launches {counts}, want {want}")
+        text, losses, rates = epoch_lines("smoke_wide_bf16")
+        check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0]),
+              f"wide bf16 train: epoch losses {losses}")
+        out["bf16"] = counts
+        log(f"wide bf16 train path: main(--hidden_size {WIDE_H} --dtype bf16 --epochs 1) returned "
+            f"in {seconds:.1f}s, epoch 0 loss {losses[0]}, train {rates[0]:.0f} examples/s, test "
+            f"scores {scores}; launches {counts} [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_times(ce_full, rank_full, card):
+    """The wide main path's kernels at B=256, V=1M, H=512: the CE entries in
+    both forms (phase_ce_times), the rank kernel at k=20 (phase_times: the
+    older route with all states staged) and at k=128 (its wide form). Each
+    with its plain version, a library yardstick and its bound. Returns
+    {entry: JSON fields}."""
+    import torch
+
+    from bsarec_tpu_torch.ops import rank
+
+    ce32 = phase_ce_times(ce_full, card)
+    ce16 = phase_ce_times(ce_full, card, BF16)
+    rank20 = phase_times(rank_full, card)
+    states, table, bitmask = rank_full
+    b, h = states.shape
+    v, k = table.shape[0], 128
+    check(rank.wide_route(h, k) and not rank.wide_route(h, TOP_K), "rank routes at H=512")
+    ms = cuda_ms(lambda: rank.streaming_masked_topk(states, table, bitmask, k, v), iters=10)
+    plain_ms = cuda_ms(lambda: rank.streaming_masked_topk_plain(states, table, bitmask, k, v),
+                       iters=2, warmup=1)
+    cols = torch.arange(v, device=states.device)
+    seen = ((bitmask[:, cols >> 5] >> (cols & 31).int()) & 1).bool()
+    library_ms = cuda_ms(lambda: torch.topk(torch.matmul(states, table.T).masked_fill_(seen, 0.0), k),
+                         iters=5)
+    flops = 2 * b * v * h
+    bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+    log(f"time streaming_masked_topk k=128 (older route, states in hidden chunks): kernel "
+        f"{ms:.4f} ms, plain version {plain_ms:.4f} ms, library matmul+masked_fill+topk "
+        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms (operations: {flops / 1e9:.2f} GFLOP fp32 at "
+        f"67 TFLOP/s) -> kernel at {100 * bound_ms / ms:.1f}% of the bound (B={b} V={v} H={h}) "
+        f"[{card}]")
+    del seen, cols
+    torch.cuda.empty_cache()
+    rank20["k128"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "operations", "library_ms": library_ms}
+    return {"ce32": ce32, "ce16": ce16, "rank": rank20}
+
+
 def main() -> int:
     import torch
 
@@ -2807,6 +3091,11 @@ def main() -> int:
         worst_err, full = phase_kernels(device)
     with timed("CE kernels vs plain"):
         ce_err, ce_full = phase_ce_kernels(device)
+    with timed("wide: kernels vs plain, main --hidden_size 512 (train, resume, export, bf16), times"):
+        wide_err, wide_rank_err, wide_ce_full, wide_rank_full = phase_wide_kernels(device)
+        wide_paths = phase_wide_train(device, card)
+        wide_times = phase_wide_times(wide_ce_full, wide_rank_full, card)
+        del wide_ce_full, wide_rank_full
     with timed("dropout kernel vs plain"):
         dropout_err = phase_dropout_kernels(device)
     with timed("one step, kernels vs plain"):
@@ -2921,6 +3210,41 @@ def main() -> int:
         "bf16_path_launches": bf16_paths["sasrec"]["fused_dropout"],
         "bf16_path_bf16_launches": bf16_paths["sasrec"]["fused_dropout_bf16"],
     })
+    # the wide main path (H = 512): the rank kernel on its older route, the CE
+    # kernels on their wide routes; launches from its first run (one epoch)
+    wide_train = wide_paths["train"]
+    kernels.append({
+        "name": f"streaming_masked_topk (H={WIDE_H})",
+        "route": "cuda",
+        "source": "bsarec_tpu_torch/csrc/streaming_rank.cu",
+        "replaces": "bsarec_tpu/ops/pallas_rank.py:165",
+        "launches": wide_train["streaming_masked_topk"],
+        "resume_launches": wide_paths["resume"]["streaming_masked_topk"],
+        "bf16_path_launches": wide_paths["bf16"]["streaming_masked_topk"],
+        "max_abs_err": wide_rank_err,
+        **{k: v for k, v in wide_times["rank"].items() if k != "k128"},
+        "k128_wide_form": wide_times["rank"]["k128"],
+    })
+    for name in ("ce_logz", "ce_grads"):
+        kernels.append({
+            "name": f"{name} (wide route, H={WIDE_H})",
+            "route": "cuda",
+            "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
+            "replaces": ce_replaces[name],
+            "launches": wide_train[f"{name}_wide"],
+            "resume_launches": wide_paths["resume"][f"{name}_wide"],
+            "max_abs_err": wide_err[None][name],
+            **wide_times["ce32"][name],
+        })
+        kernels.append({
+            "name": f"{name} (bf16-operand form, wide route, H={WIDE_H})",
+            "route": "cuda",
+            "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
+            "replaces": ce_replaces[name],
+            "launches": wide_paths["bf16"][f"{name}_bf16"],
+            "max_abs_err": wide_err[BF16][name],
+            **wide_times["ce16"][name],
+        })
     kernels[0] |= {"bf16_path_launches": bf16_paths["train"]["streaming_masked_topk"],
                    "bf16_serving_launches": bf16_paths["serving"]["streaming_masked_topk"],
                    "bf16_serving_max_abs_err": bf16_paths["serving_max_abs_err"]}

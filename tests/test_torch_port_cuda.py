@@ -22,6 +22,7 @@ LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -60,16 +61,27 @@ def _masked_logits(states, table, seen, n_valid):
     (3, 12101, 48, 1, 12101, False),
     (64, 20011, 64, 128, 20006, True),
     (37, 20011, 64, 20, 20011, True),
+    # the older route's wide form (states staged in hidden chunks) at k = 128
+    # and H = 1024, and its whole-state form at H = 512, k = 20
+    (37, 5003, 512, 20, 4990, True),
+    (37, 5003, 512, 128, 4990, True),
+    (5, 3001, 1024, 20, 3001, True),
+    (70, 3001, 1024, 128, 2990, False),
 ])
 def test_cuda_kernel_matches_plain(cuda_device, b, v, h, k, n_valid, integer):
     states, table, seen = _rank_inputs(b, v, h, seed=b, integer=integer)
     s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
     bm = rank.seen_ids_to_bitmask(torch.from_numpy(rank.dedupe_seen_rows(seen)).to(cuda_device), v)
     np.testing.assert_array_equal(bm.cpu().numpy(), rank.build_seen_bitmask(seen, v))
-    before = rank.streaming_masked_topk.launches
+    before = (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.wide_launches)
     got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
+    got_v2, got_i2 = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
     torch.cuda.synchronize()
-    assert rank.streaming_masked_topk.launches == before + 1
+    wide = rank.wide_route(h, k)
+    assert wide == (h == 1024 or (h == 512 and k == 128))
+    assert (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.wide_launches) == (
+        before[0] + 2, before[1] + 2 * wide)
+    assert torch.equal(got_v, got_v2) and torch.equal(got_i, got_i2)
     want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
     if integer:
         assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
@@ -202,15 +214,85 @@ def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
     assert torch.equal(s.grad, ds) and torch.equal(t.grad, dt)
 
 
+# the CE kernels' wide routes (H > 256): H just past the older routes (no
+# multiple of 128), 384 with B over one group of 256 p rows, 512 and 1024
+WIDE_CE_SHAPES = [(37, 5000, 260, 4990), (300, 7001, 384, 7000), (256, 9000, 512, 9000),
+                  (200, 3001, 512, 3001), (5, 3001, 1024, 2990)]
+# the wide cases' fp32 gradients, relative to each group's largest |plain|
+# entry (chip_smoke.py's GRAD_TOL): elementwise, an H-term logit's fp32
+# rounding, which grows with H, passed on through exp() to p, puts single
+# elements of dT near cancellation past atol 1e-5 (1.49e-5 at H = 384,
+# B = 300 on the H100)
+WIDE_GRAD_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,v,h,n_valid", WIDE_CE_SHAPES)
+def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
+    """ce_loss_logz, gold_rows and ce_grads on the wide routes, in both
+    forms, on raw int64 answers (-1, >= n_valid, >= V, item 0, repeats):
+    the route the shape names; loss and logZ within LOSS_TOL; the gather
+    bit-equal; two ce_grads calls bit-equal; the gradients within
+    WIDE_GRAD_TOL of the plain version (fp32) or, in the bf16 form, within
+    `parity.BF16_GRAD_TOL` of `parity.ce_grads_bf16_in_order` at the
+    kernel's logZ, which the fp32 form must fail; the fused ds bit-equal to
+    the unfused composition; dT's one-hot term on the unrounded states."""
+    rng = np.random.default_rng(b + h + 2)
+    states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy((0.25 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
+    answers = rng.integers(1, n_valid, size=b)
+    special = [answers[0], answers[0], 0, -1, n_valid, v, v + 7]
+    answers[: min(b, len(special))] = special[:b]
+    a = torch.from_numpy(answers).to(cuda_device)
+    d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
+    bf16 = dtype is not None
+    assert ce.wide_route(h) and not ce.onchip_route(b, h)
+    counts = lambda: (ce.ce_logz.wide_launches, ce.ce_grads.wide_launches, ce.gold_rows.launches,
+                      ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
+    before = counts()
+    loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
+    rows = ce.gold_rows(table, ce.map_answers(a, n_valid))
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=dtype)
+    ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=dtype)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 1, before[3] + bf16,
+                        before[4] + 2 * bf16)
+    assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    assert torch.equal(rows, ce.gold_rows_plain(table, ce.map_answers(a, n_valid)))
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=bf16)
+    torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+    off = (a < 0) | (a >= n_valid)
+    assert torch.equal(loss[off], logz[off])
+    assert not dt[n_valid:].any()
+    if bf16:
+        want = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid)
+        assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
+        control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a,
+                                     n_valid)
+        assert min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL
+    else:
+        want = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
+        assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= WIDE_GRAD_TOL
+    ds_sum, none_dt = ce.ce_grads(states, table, torch.full_like(a, -1), logz, d, n_valid,
+                                  dtype=dtype)
+    assert torch.equal(ds, ds_sum - d[:, None] * rows)
+    assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid) <= 1.0
+    assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid, round_states=True) > 1.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,onchip", [
     (256, 64, True), (257, 64, False), (255, 64, True), (1, 64, True),
     (256, 60, True), (64, 128, False), (64, 64, True),
+    (256, 256, False), (256, 260, False), (257, 260, False),
 ])
 def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
     """ce_grads on both sides of the on-chip route's bounds (B <= 256,
-    H <= 64): the route the shape names, the plain version's gradients
-    within the tolerance, and two calls bit-equal."""
+    H <= 64) and of the wide route's (H > 256): the route the shape names,
+    the plain version's gradients within the tolerance, and two calls
+    bit-equal."""
     v, n_valid = 9001, 8999
     rng = np.random.default_rng(b * 1000 + h)
     states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
@@ -221,12 +303,14 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
     d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
     logz = ce.ce_logz(states, table, n_valid)
     assert ce.onchip_route(b, h) == onchip
-    before = (ce.ce_grads.launches, ce.ce_grads.onchip_launches)
+    wide = h > 256
+    assert ce.wide_route(h) == wide
+    before = (ce.ce_grads.launches, ce.ce_grads.onchip_launches, ce.ce_grads.wide_launches)
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid)
     torch.cuda.synchronize()
-    assert (ce.ce_grads.launches, ce.ce_grads.onchip_launches) == (
-        before[0] + 2, before[1] + 2 * onchip)
+    assert (ce.ce_grads.launches, ce.ce_grads.onchip_launches, ce.ce_grads.wide_launches) == (
+        before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide)
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
     torch.testing.assert_close(ds, want_ds, **GRAD_TOL)
@@ -236,24 +320,27 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,onchip", [
     (1, 64, True), (255, 64, True), (256, 64, True), (257, 64, False),
-    (256, 48, True), (256, 128, False),
+    (256, 48, True), (256, 128, False), (256, 256, False), (256, 260, False), (1, 260, False),
 ])
 def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip):
     """ce_loss_logz on both sides of the on-chip route's bounds (B <= 256,
-    H <= 64): the route the shape names, loss and logZ within the
-    tolerance of the plain version, and two calls bit-equal."""
+    H <= 64) and of the wide route's (H > 256): the route the shape names,
+    loss and logZ within the tolerance of the plain version, and two calls
+    bit-equal."""
     v, n_valid = 9001, 8999
     rng = np.random.default_rng(b * 1000 + h + 7)
     states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
     table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
     a = torch.from_numpy(rng.integers(-1, v + 3, size=b)).to(cuda_device)  # some off the catalog
     assert ce.onchip_route(b, h) == onchip
-    before = (ce.ce_logz.launches, ce.ce_logz.onchip_launches)
+    wide = h > 256
+    assert ce.wide_route(h) == wide
+    before = (ce.ce_logz.launches, ce.ce_logz.onchip_launches, ce.ce_logz.wide_launches)
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid)
     loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid)
     torch.cuda.synchronize()
-    assert (ce.ce_logz.launches, ce.ce_logz.onchip_launches) == (
-        before[0] + 2, before[1] + 2 * onchip)
+    assert (ce.ce_logz.launches, ce.ce_logz.onchip_launches, ce.ce_logz.wide_launches) == (
+        before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide)
     assert torch.equal(loss, loss2) and torch.equal(logz, logz2)
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid)
     torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
@@ -324,19 +411,21 @@ def test_cuda_rank_onchip_scores_along_the_catalog(cuda_device, direction):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,v,k,onchip", [
-    (37, 5000, 20, True), (9, 300, 20, True), (257, 30011, 20, False), (64, 20011, 128, False),
+@pytest.mark.parametrize("b,v,k,onchip,h", [
+    (37, 5000, 20, True, 64), (9, 300, 20, True, 64), (257, 30011, 20, False, 64),
+    (64, 20011, 128, False, 64), (37, 5003, 128, False, 512), (9, 300, 20, False, 1024),
 ])
-def test_cuda_rank_serving_mode_matches_plain(cuda_device, b, v, k, onchip):
+def test_cuda_rank_serving_mode_matches_plain(cuda_device, b, v, k, onchip, h):
     """The rank kernel with seen -> -inf (serving) on both routes, integer
     inputs (exact scores, many ties): values and ids bit-equal to the plain
     version and, on the on-chip route, to the older route; an all-seen row
     and rows with fewer than k unmasked items end in (-inf, 0) slots. The
     custom op on top gives them JAX's fill: 0, then the row's seen ids
-    ascending, and on the card launches the kernel once."""
+    ascending, and on the card launches the kernel once. At H = 512 and
+    1024 the older route runs in its wide form."""
     from bsarec_tpu_torch.ops import serving_topk
 
-    states, table, seen = _rank_inputs(b, v, 64, seed=v + k, integer=True)
+    states, table, seen = _rank_inputs(b, v, h, seed=v + k, integer=True)
     if v == 300:  # rows 1..4 see all but 10 items, row 0 every item
         seen = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
         seen[:5, :20] = 0
@@ -348,7 +437,8 @@ def test_cuda_rank_serving_mode_matches_plain(cuda_device, b, v, k, onchip):
     sd = torch.from_numpy(seen).to(cuda_device)
     bm = serving_topk.seen_bitmask(sd, v)
     np.testing.assert_array_equal(bm.cpu().numpy(), rank.build_seen_bitmask(seen, v))
-    assert rank.onchip_route(b, 64, k) == onchip
+    assert rank.onchip_route(b, h, k) == onchip
+    assert rank.wide_route(h, k) == (h > 256)
     got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, seen_value=float("-inf"))
     want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, seen_value=float("-inf"))
     torch.cuda.synchronize()

@@ -167,6 +167,46 @@ def test_main_do_eval_matches_jax_main(tmp_path, eval_impl):
     assert again == got
 
 
+def test_main_reads_a_pre_rename_reference_checkpoint(tmp_path):
+    """A reference BSARec checkpoint from before the rename holds
+    `filter_layer.beta` where newer ones hold `sqrt_beta`. Both CLIs read
+    it with `--load_torch_model` and export the same top-k with the same
+    scores; the port's own checkpoints stay strict: `--load_model` of one
+    with an unknown key raises."""
+    from bsarec_tpu.main import main as jax_main
+    from bsarec_tpu_torch.main import main as port_main
+
+    seqs = synthetic_seqs()
+    (tmp_path / "Toy.txt").write_text(
+        "".join(f"{u + 1} {' '.join(map(str, s))}\n" for u, s in enumerate(seqs)))
+    fields = MODEL | dict(item_size=max(map(max, seqs)) + 1, num_users=len(seqs) + 1)
+    model = build_model(ModelConfig(**fields), generator=torch.Generator().manual_seed(11))
+    old = {k.replace(".filter_layer.sqrt_beta", ".filter_layer.beta"): v
+           for k, v in model.state_dict().items()}
+    assert sum(k.endswith(".filter_layer.beta") for k in old) == MODEL["num_hidden_layers"]
+    save_params(old, tmp_path / "old.pt")
+    common = [
+        "--data_dir", str(tmp_path), "--data_name", "Toy", "--output_dir", str(tmp_path),
+        "--do_eval", "--model_type", "BSARec", "--max_seq_length", "10", "--hidden_size", "16",
+        "--num_hidden_layers", "2", "--num_attention_heads", "2", "--c", "5", "--alpha", "0.7",
+        "--load_torch_model", str(tmp_path / "old.pt"),
+    ]
+    got = port_main(common + ["--device", "cpu", "--train_name", "port",
+                              "--export_topk", str(tmp_path / "port.npy")])
+    want = jax_main(common + ["--train_name", "jax", "--export_topk", str(tmp_path / "jax.npy")])
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(np.load(tmp_path / "port.npy"), np.load(tmp_path / "jax.npy"))
+    # the same weights under today's names give the same scores
+    save_params(model.state_dict(), tmp_path / "new.pt")
+    assert port_main([*common[:-1], str(tmp_path / "new.pt"), "--device", "cpu",
+                      "--train_name", "port_new"]) == got
+    # a port checkpoint is loaded as it is: the old name is an unknown key
+    save_params(old, tmp_path / "old_port.ckpt")
+    with pytest.raises(RuntimeError, match="sqrt_beta"):
+        port_main([*common[:-2], "--device", "cpu", "--train_name", "port_strict",
+                   "--load_model", "old_port"])
+
+
 def test_main_refuses_training_and_unported_flags(tmp_path):
     """Training asks for the card unless --device cpu is given; flags of
     parts not ported yet raise."""

@@ -1,0 +1,199 @@
+"""The port at hidden widths past 256, against the JAX package, on the CPU.
+
+On the card the streaming-CE kernels take their wide routes at H > 256
+and the rank kernel stages its states in hidden chunks where all of them
+do not fit in shared memory; those are held against the plain versions
+in `tests/test_torch_port_cuda.py` and `chip_smoke.py`. Here the plain
+versions, which the wrappers run on the CPU, are held against the JAX
+package's Pallas kernels in interpret mode at such widths, and both CLIs
+train BSARec at hidden 384 through the streaming CE from the same
+weights.
+
+Tolerances: the fp32 CE as `tests/test_torch_port_ce.py` states them
+(loss and logZ rtol 1e-5, gradients rtol 1e-4: fp32 sums of H products
+and of V exponentials in another order); the bf16-operand form's
+gradients within `parity.BF16_GRAD_TOL` of each tensor's largest entry;
+the rank kernel on integer inputs (exact dot products), values and ids
+equal, tie order included; the two CLIs' epoch losses within rtol 1e-5,
+as `tests/test_torch_port_train.py` holds an Adam step."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bsarec_tpu.ops.pallas_ce import streaming_ce_grads as jax_streaming_ce_grads
+from bsarec_tpu.ops.pallas_ce import streaming_ce_stats as jax_streaming_ce_stats
+from bsarec_tpu.ops.pallas_ce import streaming_softmax_ce as jax_streaming_softmax_ce
+from bsarec_tpu.ops.pallas_rank import build_seen_bitmask as jax_build_seen_bitmask
+from bsarec_tpu.ops.pallas_rank import streaming_masked_topk as jax_streaming_masked_topk
+from bsarec_tpu_torch.config import ModelConfig
+from bsarec_tpu_torch.data.corpus import Corpus
+from bsarec_tpu_torch.data.pipeline import SeqRecData
+from bsarec_tpu_torch.models import build_model
+from bsarec_tpu_torch.ops import ce, rank
+from bsarec_tpu_torch.parity import BF16_GRAD_TOL, rel_err
+from bsarec_tpu_torch.train.checkpoint import save_params
+
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+LOSS_RTOL = 1e-5
+BF16 = "bfloat16"
+
+
+def _ce_inputs(b, v, h, n_valid, seed):
+    """N(0, 1) states, 0.25 N(0, 1) table; answers in [1, n_valid), with a
+    repeat, item 0, -1 and ids >= n_valid and >= V (gold 0, no one-hot
+    term)."""
+    rng = np.random.default_rng(seed)
+    states = rng.standard_normal((b, h), dtype=np.float32)
+    table = 0.25 * rng.standard_normal((v, h), dtype=np.float32)
+    answers = rng.integers(1, n_valid, size=b).astype(np.int32)
+    answers[:6] = [answers[6], 0, -1, n_valid, v + 7, answers[6]]
+    return states, table, answers
+
+
+@pytest.mark.parametrize("h", [384, 512])
+@pytest.mark.parametrize("dtype", [None, BF16], ids=["fp32", "bf16"])
+def test_ce_plain_matches_jax_at_wide_h(h, dtype):
+    """The loss through autograd, its gradients, and the building blocks
+    (`ce_loss_logz` through `streaming_ce_stats`, `ce_grads` at an uneven
+    dloss through `streaming_ce_grads`) against JAX's interpret-mode
+    kernels, odd B and n_valid < V."""
+    b, v, n_valid = 13, 1000, 990
+    states, table, answers = _ce_inputs(b, v, h, n_valid, seed=h)
+    js, jt, ja = jnp.asarray(states), jnp.asarray(table), jnp.asarray(answers)
+    args = (n_valid, 8, 128, True, dtype)
+
+    def jax_mean(s, t):
+        return jnp.mean(jax_streaming_softmax_ce(s, t, ja, *args))
+
+    j_loss = jax_streaming_softmax_ce(js, jt, ja, *args)
+    j_ds, j_dt = jax.grad(jax_mean, argnums=(0, 1))(js, jt)
+    s = torch.from_numpy(states).requires_grad_()
+    t = torch.from_numpy(table).requires_grad_()
+    loss = ce.streaming_softmax_ce(s, t, torch.from_numpy(answers), n_valid, dtype=dtype)
+    loss.mean().backward()
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(j_loss), **LOSS_TOL)
+    assert not t.grad[n_valid:].any()
+
+    j_stats = jax_streaming_ce_stats(js, jt, ja, *args)
+    a = torch.from_numpy(answers).long()
+    got_loss, logz = ce.ce_loss_logz(s.detach(), t.detach(), a, n_valid, dtype=dtype)
+    for got, want in zip((got_loss, logz), j_stats):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOSS_TOL)
+    dloss = np.random.default_rng(h + 1).uniform(0.5, 1.5, size=b).astype(np.float32)
+    j_grads = jax_streaming_ce_grads(js, jt, ja, jnp.asarray(logz.numpy()), jnp.asarray(dloss),
+                                     *args)
+    grads = ce.ce_grads(s.detach(), t.detach(), a, logz, torch.from_numpy(dloss), n_valid,
+                        dtype=dtype)
+    if dtype is None:
+        for got, want in zip((s.grad, t.grad), (j_ds, j_dt)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+        for got, want in zip(grads, j_grads):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+    else:
+        assert max(rel_err(s.grad, j_ds), rel_err(t.grad, j_dt)) <= BF16_GRAD_TOL
+        assert max(rel_err(g, w) for g, w in zip(grads, j_grads)) <= BF16_GRAD_TOL
+        # the fp32 form rounds nothing and fails that limit at the same logZ
+        fp32 = ce.ce_grads(s.detach(), t.detach(), a, logz, torch.from_numpy(dloss), n_valid)
+        assert min(rel_err(g, w) for g, w in zip(fp32, j_grads)) > BF16_GRAD_TOL
+
+
+@pytest.mark.parametrize("h", [512, 1024])
+@pytest.mark.parametrize("k", [20, 128])
+def test_rank_plain_matches_jax_at_wide_h(h, k):
+    """Integer inputs (exact dot products, many ties), V off JAX's 4096-wide
+    tile, n_valid < V and a row that has seen every item: values and ids
+    equal to JAX's kernel, in the eval mode (seen items score 0.0)."""
+    b, v, n_valid = 6, 5000, 4990
+    rng = np.random.default_rng(h + k)
+    states = rng.integers(-2, 3, size=(b, h)).astype(np.float32)
+    table = rng.integers(-2, 3, size=(v, h)).astype(np.float32)
+    seen = rng.integers(1, v, size=(b, 20)).astype(np.int32)
+    seen[:, 1] = seen[:, 0]
+    seen[:, 14:] = 0
+    seen = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
+    seen[2, 20:] = np.arange(v)
+    want_v, want_i = jax_streaming_masked_topk(
+        jnp.asarray(states), jnp.asarray(table), jnp.asarray(jax_build_seen_bitmask(seen, v)),
+        k=k, n_valid=n_valid, interpret=True,
+    )
+    got_v, got_i = rank.streaming_masked_topk(
+        torch.from_numpy(states), torch.from_numpy(table),
+        torch.from_numpy(rank.build_seen_bitmask(seen, v)), k=k, n_valid=n_valid,
+    )
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    assert got_i[2].tolist() == list(range(k)) and not got_v[2].any()
+
+
+def _toy_seqs(n_users=24, n_items=80, seed=3):
+    rng = np.random.default_rng(seed)
+    seqs = []
+    for _ in range(n_users):
+        start, stride, length = rng.integers(1, n_items), rng.integers(1, 5), rng.integers(4, 10)
+        seqs.append([int((start + stride * i - 1) % (n_items - 1) + 1) for i in range(length)])
+    seqs[-1][-1] = n_items - 1  # the file's largest id is the catalog's last item
+    return seqs
+
+
+def test_main_trains_at_hidden_384_like_jax_main(tmp_path, monkeypatch):
+    """`bsarec_tpu_torch.main --device cpu` and `bsarec_tpu.main` train
+    BSARec at hidden 384 for two epochs through the streaming CE (the
+    port's plain versions, JAX's Pallas kernels in interpret mode) from the
+    same weights, dropout 0, one full batch an epoch (so the sample order
+    drops out): epoch 0's loss is taken at those weights, epoch 1's after
+    one Adam step, and each agrees within LOSS_RTOL. Each CLI's Trainer is
+    wrapped to install the weights after it is built, to train through
+    the streaming CE (`loss_impl`, which no flag sets) and to record each
+    epoch's loss."""
+    import bsarec_tpu.main as jax_main_module
+    import bsarec_tpu_torch.main as port_main_module
+    from bsarec_tpu.train.torch_import import import_torch_checkpoint
+
+    seqs = _toy_seqs()
+    (tmp_path / "Toy.txt").write_text(
+        "".join(f"{u + 1} {' '.join(map(str, s))}\n" for u, s in enumerate(seqs)))
+    n_items = max(map(max, seqs)) + 1
+    n_samples = SeqRecData(Corpus(user_seq=seqs, max_item=n_items - 1), 10).train.num_samples
+    widths = dict(max_seq_length=10, hidden_size=384, num_hidden_layers=2, num_attention_heads=1,
+                  c=5, alpha=0.7, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model = build_model(ModelConfig(model_type="bsarec", item_size=n_items,
+                                    num_users=len(seqs) + 1, **widths),
+                        generator=torch.Generator().manual_seed(5))
+    save_params(model.state_dict(), tmp_path / "init.pt")
+    losses = {}
+
+    def wrap(module, name, weights):
+        base = module.Trainer
+
+        class Wrapped(base):
+            def __init__(self, model_cfg, *args, **kwargs):
+                super().__init__(dataclasses.replace(model_cfg, loss_impl="streaming"), *args,
+                                 **kwargs)
+                self.install_params(weights())
+
+            def train(self, epoch):
+                loss = super().train(epoch)
+                losses.setdefault(name, []).append(loss)
+                return loss
+
+        monkeypatch.setattr(module, "Trainer", Wrapped)
+
+    wrap(port_main_module, "port", lambda: model.state_dict())
+    wrap(jax_main_module, "jax", lambda: import_torch_checkpoint(
+        "bsarec", str(tmp_path / "init.pt"), 2, max_seq_length=10))
+    flags = [f"--{k}={v}" for k, v in widths.items()] + [
+        "--data_dir", str(tmp_path), "--data_name", "Toy", "--output_dir", str(tmp_path),
+        "--model_type", "BSARec", "--epochs", "2", "--batch_size", str(n_samples),
+        "--lr", "5e-4", "--scan_unroll", "1",
+    ]
+    port_main_module.main(flags + ["--device", "cpu", "--train_name", "port"])
+    jax_main_module.main(flags + ["--train_name", "jax"])
+    assert len(losses["port"]) == len(losses["jax"]) == 2
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=LOSS_RTOL)
+    assert losses["port"][1] < losses["port"][0]
