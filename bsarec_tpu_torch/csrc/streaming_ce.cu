@@ -12,8 +12,9 @@
 //     read the unrounded fp32 states and rows (pallas_ce.py:507-514,
 //     553-555). Rounding happens where an operand enters shared memory
 //     (stage_rows, onchip::stage_states, onchip::round_tile) and where p is
-//     stored, so the product loops are the fp32 form's. The tensor cores
-//     are not used yet.
+//     stored, so the product loops are the fp32 form's; except on the wide
+//     route's backward, ce_bwd_wide_tc_kernel, whose three products run on
+//     the tensor cores (its head says more).
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
 //   - _fwd_kernel    -> ce_fwd_partial_kernel + ce_fwd_merge_kernel:
@@ -21,8 +22,9 @@
 //       when answers are given, loss = logZ - <s, T[a]>;
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
 //       (zeros where a is outside [0, V));
-//   - _grads_kernel  -> ce_bwd_onchip_kernel or ce_bwd_sweep_kernel, then
-//       ce_ds_reduce_kernel: with
+//   - _grads_kernel  -> ce_bwd_onchip_kernel, ce_bwd_sweep_kernel,
+//       ce_bwd_wide_kernel or (the bf16 form past H = 256)
+//       ce_bwd_wide_tc_kernel, then ce_ds_reduce_kernel: with
 //       p = exp(s . T^T - logZ) * dloss (0 past n_valid),
 //         ds = p @ T - dloss * T[a]   and   dT = p^T @ s,  then
 //         dT[a_i] -= dloss_i * s_i.
@@ -45,7 +47,8 @@
 // moves B*H floats and is bound by latency. The bf16-operand form's
 // bound is its bytes (0.0765 and 0.1529 ms; its products at the bf16
 // tensor rate, 989 TFLOP/s, take 0.033 and 0.099), but it runs the fp32
-// form's FMA loops, so the fp32 FMAs bound it too.
+// form's FMA loops, so the fp32 FMAs bound it too (but for
+// ce_bwd_wide_tc_kernel, on the tensor cores).
 //
 // Design. The TPU kernels walk the catalog in one sequential grid and
 // carry (max, sum) or the ds accumulator in VMEM from step to step.
@@ -103,7 +106,10 @@
 //       blocks of 64: T[tile, hb] staged, and for each 64-row chunk
 //       s[chunk, hb] staged, p^T @ s into the tile's dT block in registers
 //       and p @ T into the split's ds_part rows. The one-hot term goes on
-//       the finished dT rows in device memory (the kernel's head says more);
+//       the finished dT rows in device memory (the kernel's head says more).
+//       In the bf16 form the wide route takes ce_bwd_wide_tc_kernel instead:
+//       one block per SM, the three products on the tensor cores, tiles of
+//       256 catalog columns with their p held as bf16 (its head says more);
 //     - the sweep route, B > 256 or 64 < H <= 256, where the batch and its
 //       ds do not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per
 //       SM.
@@ -137,6 +143,7 @@
 #include <stdint.h>
 
 #include "onchip_tile.cuh"
+#include "tensor_core.cuh"
 
 using onchip::round_bf16;
 
@@ -879,14 +886,15 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   }
 }
 
-// The backward's pass 1 on the wide route: one block per vocab split, as
+// The backward's pass 1 on the wide route in the fp32 form (the bf16
+// form takes ce_bwd_wide_tc_kernel): one block per vocab split, as
 // ce_bwd_sweep_kernel, with the hidden dimension walked in chunks so that
 // no [64, H] tile (the sweep route's dT tile alone is 132 KB at H = 512)
 // is held. For each 64-column tile, and each group of up to PB = 256 batch
 // rows (one group for B <= 256):
 //   1. p for the group's rows, 64 rows at a time: wide_logits, then
-//      p = exp(logit - logZ) * dloss (0 past n_valid and B) into sP,
-//      rounded to bf16 in the bf16 form. p is kept, not recomputed: the
+//      p = exp(logit - logZ) * dloss (0 past n_valid and B) into sP.
+//      p is kept, not recomputed: the
 //      walk over H below reads every p row once for each 64-column block
 //      of H, and recomputing would redo the whole logit product that many
 //      times (8 at H = 512);
@@ -900,11 +908,9 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
 //      one wrote; every dT row belongs to this block).
 // Then the one-hot term, for the answers in [0, n_valid) that fall in the
 // tile, in ascending answer order, on the finished dT rows in device
-// memory from the unrounded states (the block's own writes, visible to it
-// after the barrier). Every sum runs in a fixed order: two calls give the
+// memory (the block's own writes, visible to it after the barrier). Every sum runs in a fixed order: two calls give the
 // same bits. Shared memory: 2 x 64 x WLD + PB x (VT + 4) + 2 PB floats,
 // 106,496 B at any H, so two blocks share an SM.
-template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ table,
                    const long long* __restrict__ answers, const float* __restrict__ logz,
@@ -937,7 +943,7 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
       // 1. p of the group's rows (wide_logits' first barrier publishes sZ, sD)
       for (int c = 0; c < n_chunks; ++c) {
         float acc[4][4];
-        wide_logits<BF16>(sS, sT, states, table, g0 + c * BT, B, j0, V, H, acc);
+        wide_logits<false>(sS, sT, states, table, g0 + c * BT, B, j0, V, H, acc);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = c * BT + ty * 4 + i;
@@ -945,9 +951,7 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int col = tx + 16 * j;
-            float p = (row_ok && j0 + col < n_valid) ? expf(acc[i][j] - sZ[r]) * sD[r] : 0.f;
-            if constexpr (BF16) p = round_bf16(p);
-            sP[r * pld + col] = p;
+            sP[r * pld + col] = (row_ok && j0 + col < n_valid) ? expf(acc[i][j] - sZ[r]) * sD[r] : 0.f;
           }
         }
       }
@@ -957,7 +961,7 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
         const bool mine = tx * 4 < hw;  // this thread's 4 columns lie inside H
         const int h = hb + tx * 4;
         __syncthreads();  // earlier readers of sT (and, first, every p) are done
-        stage_chunk<BF16>(sT, table, j0, V, H, hb, hw, VT);
+        stage_chunk<false>(sT, table, j0, V, H, hb, hw, VT);
         float g[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -966,7 +970,7 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
         for (int c = 0; c < n_chunks; ++c) {
           const int row0 = g0 + c * BT;
           if (c > 0) __syncthreads();  // earlier readers of sS are done
-          stage_chunk<BF16>(sS, states, row0, B, H, hb, hw, BT);
+          stage_chunk<false>(sS, states, row0, B, H, hb, hw, BT);
           __syncthreads();
           if (!mine) continue;
           const float* pc = sP + c * BT * pld;
@@ -1063,6 +1067,397 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
   }
 }
 
+// ---- the bf16-operand form of the wide backward, on the tensor cores --------
+//
+// ce_bwd_wide_tc_kernel: the backward's pass 1 in the bf16-operand form at
+// H > MAX_H (the counterpart of pallas_ce.py:340 _grads_kernel with
+// dtype="bfloat16", whose products run on the MXU with f32 accumulation,
+// pallas_ce.py:303, 360-362). All three products run on the tensor cores
+// (tensor_core.cuh: mma.sync m16n8k16, bf16 operands, fp32 accumulators,
+// fragments through ldmatrix), so the bf16 form no longer runs the fp32
+// form's FMA loops (786 GFLOP at B=256, V=1M, H=512: 11.74 ms at the fp32
+// FMA peak, 0.795 ms at the bf16 tensor rate).
+//
+// Operands on chip are bf16. states_bf16_kernel first writes the states,
+// rounded, into a [Bp, Hp] bf16 scratch sb (Bp = B rounded up to TC_ROWS,
+// Hp = H up to TC_HL = 64, zero-padded: H = 260 takes 60 zero columns), so
+// state chunks come by cp.async.cg straight into shared memory. The table,
+// fp32 in device memory, is read from there once per tile, by register
+// prefetch two steps ahead: each thread loads its float4s, then rounds and
+// stores them (TMA copies bytes and cannot convert, and a cp.async ring of
+// fp32 tiles would need shared memory this kernel has no room for). The
+// rounded rows also go to the split's bf16 tile in the scratch tb (256 KB
+// at H = 512, meant to stay in L2), from which the products steps copy
+// them back by cp.async.
+//
+// One block of 256 threads per SM walks its split in tiles of TC_SV = 256
+// catalog columns, and each group of up to TC_ROWS = 256 batch rows (one
+// group for B <= 256) in 4 Hp / 64 + Hp / 32 steps, the next step's state
+// chunk and table rows in flight while a step computes (a ring of two
+// slots, one barrier a step):
+//   logits  for each 64-column sub-tile of the tile, Hp / 64 steps of 64
+//           hidden columns: the group's [256 x 64] logits S . T_sub^T
+//           accumulated over the hidden chunks (8 warps as 4 x 2, 64 x 32
+//           each); then p = bf16(exp(logit - logZ) * dloss), 0 past
+//           n_valid and B, into the tile's p [256 x 256] in shared memory;
+//   products Hp / 32 steps, each for one 32-column hidden chunk of the tile's 256
+//           table rows: warps 0-3 dT[tile, chunk] = p^T . S[:, chunk] (64
+//           catalog columns each), warps 4-7 ds[:, chunk] += p . T[tile,
+//           chunk] (64 batch rows each), both K = 256; dT written once (a
+//           later group adds to it), the split's ds_part read and written
+//           once per tile (the split's first tile only writes), in the ds
+//           warps' fragment order, so that every warp-wide access moves 512
+//           contiguous bytes (ce_ds_reduce_tc_kernel reads that order). A
+//           step's accumulators are loaded at the end of the step before.
+// Then the one-hot term dT[a_i] -= dloss_i * s_i as ce_bwd_wide_kernel
+// takes it: on the tile's finished dT rows in device memory, from the
+// unrounded states, in ascending i. The sums run in a fixed order and
+// ds_part is summed by ce_ds_reduce_tc_kernel in split order: two calls
+// give the same bits.
+//
+// Bytes at B=256, V=1M, H=512, per 256-column tile: from and to device
+// memory the table rows once (512 KB) and dT once (512 KB), ds_part read
+// and written once (1 MB): 2 MB, 8.2 GB over 3,907 tiles (2.45 ms at 3.35
+// TB/s, against the 4.10 GB, 1.22 ms, of reading the table and writing dT
+// once); through L2 besides, the bf16 states 5 x 256 KB and the bf16 tile
+// written and read (512 KB). (A tile's 256 rows in bf16, 256 KB, and its
+// p, 128 KB, do not fit beside each other; holding p lets ds_part move 4x
+// fewer bytes than 64-column tiles would.) Shared memory: p 135,168 B, two
+// slots 92,160 (a logits slot, 46,080, holds a products slot, 40,960),
+// logZ and dloss 2,048: 229,376 B at any H. A logits step is twice as wide
+// as a products step, so it pays its fixed latency (a barrier, a chunk's
+// round trip) once for twice the tensor-core work. Rows are padded by 16
+// bytes (p's to 528 B, the slots' to 144 and 80 B), so the eight rows of
+// each ldmatrix matrix fall on distinct banks.
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at B=256, V=1M, H=512 it takes
+// ~5.3 ms (PERF.md row 4bw): the logits steps ~2.1 ms, bound by L2's
+// bandwidth (every SM streams the same states four times a tile), the
+// products steps ~3.3 (ds_part and dT in device memory).
+
+constexpr int TC_ROWS = 256;             // batch rows per group
+constexpr int TC_SV = 256;               // catalog columns per tile: one ds_part update
+constexpr int TC_SUB = 64;               // catalog columns per logits sub-tile
+constexpr int TC_HL = 64;                // hidden columns per logits step
+constexpr int TC_HP = 32;                // hidden columns per products step (H is padded to a multiple of TC_HL)
+constexpr int TC_LDL = TC_HL + 8;        // a logits slot's row stride (bf16)
+constexpr int TC_LDC = TC_HP + 8;        // a products slot's row stride (bf16)
+constexpr int TC_LDP = TC_SV + 8;        // p's row stride (bf16)
+// a logits slot: states [TC_ROWS][TC_LDL], then table rows [TC_SUB][TC_LDL];
+// a products slot: states [TC_ROWS][TC_LDC], then table rows [TC_SV][TC_LDC]
+constexpr int TC_LSLOT = (TC_ROWS + TC_SUB) * TC_LDL;
+constexpr int TC_PSLOT = (TC_ROWS + TC_SV) * TC_LDC;
+constexpr long long TC_SMEM =
+    2LL * (TC_ROWS * TC_LDP + 2 * TC_LSLOT) + 4LL * 2 * TC_ROWS;  // 229,376 B
+static_assert(TC_SV == TC_ROWS && TC_SV % VT == 0 && TC_SV == 4 * TC_SUB && THREADS == 256,
+              "8 warps: logits as 4 x 2 warps of 64 x 32, products 2 x 4 warps of 64 rows");
+// Both kinds of slot share one region of two logits slots. The last logits
+// step is odd (4 Hp / TC_HL - 1) and reads logits slot 1 while the first
+// products step's copies land in products slot 0, so those two must not
+// overlap; every other reuse of the region is behind a barrier.
+static_assert(TC_PSLOT <= TC_LSLOT && TC_HL % TC_HP == 0, "products slot 0 ends before logits slot 1");
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// out [Bp, Hp] bf16 = states rounded (nearest, ties to even), zero past B
+// and H.
+__global__ void __launch_bounds__(256)
+states_bf16_kernel(const float* __restrict__ states, int B, int H, int Bp, int Hp,
+                   __nv_bfloat16* __restrict__ out) {
+  const int q = Hp / 4;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= Bp * q) return;
+  const int r = idx / q, c = (idx - r * q) * 4;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r < B && c < H) v = __ldg(reinterpret_cast<const float4*>(states + (size_t)r * H + c));
+  *reinterpret_cast<uint2*>(out + (size_t)r * Hp + c) =
+      make_uint2(tc::pack_bf16(v.x, v.y), tc::pack_bf16(v.z, v.w));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, __nv_bfloat16* __restrict__ tb,
+                      const float* __restrict__ states,
+                      const float* __restrict__ table, const long long* __restrict__ answers,
+                      const float* __restrict__ logz, const float* __restrict__ dloss, int B,
+                      int V, int H, int n_valid, int tiles_per_split,
+                      float* __restrict__ ds_part, float* __restrict__ dtable) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [TC_ROWS][TC_LDP] p
+  __nv_bfloat16* sR = sP + TC_ROWS * TC_LDP;                       // [2][TC_LSLOT] the slots
+  float* sZ = reinterpret_cast<float*>(sR + 2 * TC_LSLOT);         // [TC_ROWS] logZ
+  float* sD = sZ + TC_ROWS;                                        // [TC_ROWS] dloss
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int Hp = round_up(H, TC_HL), nl = Hp / TC_HL, np = Hp / TC_HP;
+  const int n_lg = 4 * nl, n_steps = n_lg + np, n_groups = (B + TC_ROWS - 1) / TC_ROWS;
+  const int split = blockIdx.x;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  // the logits' warp tile (rows 64 wm, columns 32 wn of a sub-tile); the
+  // products' (warps 0-3: dT's catalog columns 64 warp; 4-7: ds's rows 64 (warp - 4))
+  const int wm = warp & 3, wn = warp >> 2;
+  const bool dt_warp = warp < 4;
+  const int pm = 64 * (warp & 3);
+
+  for (int t = t_begin; t < t_end; t += TC_SV / VT) {
+    const int j0 = t * VT;
+    for (int g0 = 0; g0 < B; g0 += TC_ROWS) {
+      // step s: s < n_lg the logits of sub-tile s / nl at hidden chunk
+      // s % nl (TC_HL wide, 64 table rows), else the products at chunk
+      // s - n_lg (TC_HP wide, 256 table rows); its slot is s & 1. A logits
+      // step's table rows come as fp32 into pre_a or pre_b (4 float4s a
+      // thread, loaded two steps ahead), are rounded and stored into the
+      // slot and into the split's bf16 tile in tb; a products step copies
+      // its states and table rows by cp.async (from sb and tb), 4 16-byte
+      // pieces a thread each.
+      float4 pre_a[4], pre_b[4];  // the table rows of two logits steps ahead, alternating
+      __nv_bfloat16* tile_bf16 = tb + (size_t)split * TC_SV * Hp;
+      auto slot = [&](int s) { return sR + (s & 1) * (s < n_lg ? TC_LSLOT : TC_PSLOT); };
+      auto issue = [&](int s) {
+        __nv_bfloat16* dst = slot(s);
+        if (s < n_lg) {
+          const int h0 = (s % nl) * TC_HL;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int i = tid + THREADS * q, r = i >> 3, c8 = (i & 7) * 8;
+            tc::cp_async_16(dst + r * TC_LDL + c8, sb + (size_t)(g0 + r) * Hp + h0 + c8);
+          }
+        } else {
+          const int h0 = (s - n_lg) * TC_HP;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = tid + THREADS * q, r = i >> 2, c8 = (i & 3) * 8;
+            tc::cp_async_16(dst + r * TC_LDC + c8, sb + (size_t)(g0 + r) * Hp + h0 + c8);
+            tc::cp_async_16(dst + (TC_ROWS + r) * TC_LDC + c8, tile_bf16 + (size_t)r * Hp + h0 + c8);
+          }
+        }
+      };
+      auto load_table = [&](int s, float4 (&pre)[4]) {  // a logits step's table rows into pre
+        if (s >= n_lg) return;
+        const int h0 = (s % nl) * TC_HL, col0 = j0 + (s / nl) * TC_SUB;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = tid + THREADS * q, r = i >> 4, h = h0 + (i & 15) * 4;
+          pre[q] = (col0 + r < V && h < H)
+                       ? __ldg(reinterpret_cast<const float4*>(table + (size_t)(col0 + r) * H + h))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      };
+      auto fill = [&](int s, const float4 (&pre)[4]) {  // pre, rounded, into the slot and tb
+        if (s >= n_lg) return;
+        const int h0 = (s % nl) * TC_HL, c0 = (s / nl) * TC_SUB;
+        __nv_bfloat16* dst = slot(s) + TC_ROWS * TC_LDL;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = tid + THREADS * q, r = i >> 4, c4 = (i & 15) * 4;
+          const uint2 v =
+              make_uint2(tc::pack_bf16(pre[q].x, pre[q].y), tc::pack_bf16(pre[q].z, pre[q].w));
+          *reinterpret_cast<uint2*>(dst + r * TC_LDL + c4) = v;
+          *reinterpret_cast<uint2*>(tile_bf16 + (size_t)(c0 + r) * Hp + h0 + c4) = v;
+        }
+      };
+      float acc[4][4][4];
+      // this ds warp's fragments of products step s in ds_part, which
+      // holds them in fragment order (ce_ds_reduce_tc_kernel's head):
+      // float4 q = 4 i + j of lane l at (q * 32 + l) * 4, so that each
+      // warp-wide access moves 512 contiguous bytes
+      auto ds_frag = [&](int s) {
+        return ds_part + ((((size_t)split * n_groups + g0 / TC_ROWS) * np + (s - n_lg)) * 4 +
+                          (warp - 4)) * (32 * 64) + lane * 4;
+      };
+      // a products step's accumulators start from what an earlier group
+      // (dT) or tile (ds_part) wrote there, by this same thread, else from
+      // 0; they are loaded at the end of the step before, so that the loads
+      // are in flight while it waits at the barrier
+      auto carry = [&](int s) {
+        const int h0 = (s - n_lg) * TC_HP;
+        if (dt_warp) {
+          const bool from = g0 > 0;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; e += 2) {
+                const int m = pm + 16 * i + g + 4 * e, h = h0 + 8 * j + 2 * t4;
+                float2 v = make_float2(0.f, 0.f);
+                if (from && h < H && j0 + m < V)
+                  v = *reinterpret_cast<const float2*>(dtable + (size_t)(j0 + m) * H + h);
+                acc[i][j][e] = v.x;
+                acc[i][j][e + 1] = v.y;
+              }
+        } else {
+          const float4* src = reinterpret_cast<const float4*>(ds_frag(s));
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 v = t != t_begin ? src[(4 * i + j) * 32] : make_float4(0.f, 0.f, 0.f, 0.f);
+              acc[i][j][0] = v.x;
+              acc[i][j][1] = v.y;
+              acc[i][j][2] = v.z;
+              acc[i][j][3] = v.w;
+            }
+        }
+      };
+
+      __syncthreads();  // every reader of the slots, sZ and sD before is done
+      for (int r = tid; r < TC_ROWS; r += THREADS) {
+        const int row = g0 + r;
+        sZ[r] = row < B ? logz[row] : 0.f;
+        sD[r] = row < B ? dloss[row] : 0.f;
+      }
+      issue(0);
+      onchip::cp_async_commit();
+      load_table(0, pre_a);
+      fill(0, pre_a);
+      load_table(1, pre_b);
+
+      // step s: cur holds nothing (its rows went to the slot at the end of
+      // step s - 1) and takes step s + 2's rows; nxt holds step s + 1's
+      auto step = [&](int s, float4 (&cur)[4], const float4 (&nxt)[4]) {
+        const bool lg = s < n_lg;
+        const int kc = lg ? s % nl : s - n_lg;
+        const int h0 = kc * TC_HP;  // (products steps)
+        if (lg && kc == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+        }
+        onchip::cp_async_wait_all();  // this thread's copies of step s have landed
+        __syncthreads();              // everyone's, and the table slot; step s - 1 is done
+        if (s + 1 < n_steps) issue(s + 1);
+        onchip::cp_async_commit();
+        if (s + 2 < n_steps) load_table(s + 2, cur);
+        const __nv_bfloat16* S = slot(s);
+        if (lg) {
+          // acc[i][j] += S[64 wm + 16 i, :] . T[32 wn + 8 j, :]^T over the chunk
+          const __nv_bfloat16* T = S + TC_ROWS * TC_LDL;
+#pragma unroll 2
+          for (int kk = 0; kk < TC_HL; kk += 16) {
+            uint32_t a[4][4], b[4][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              tc::ldmatrix_x4(a[i], S + (64 * wm + 16 * i + tc::a_row(lane)) * TC_LDL + kk +
+                                        tc::a_col(lane));
+#pragma unroll
+            for (int jp = 0; jp < 2; ++jp) {
+              uint32_t r[4];
+              tc::ldmatrix_x4(r, T + (32 * wn + 16 * jp + tc::b_row(lane)) * TC_LDL + kk +
+                                     tc::b_col(lane));
+              b[2 * jp][0] = r[0];
+              b[2 * jp][1] = r[1];
+              b[2 * jp + 1][0] = r[2];
+              b[2 * jp + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) tc::mma_bf16(acc[i][j], a[i], b[j]);
+          }
+          if (kc == nl - 1) {  // the sub-tile's logits are complete: p into sP
+            const int sub = s / nl;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int r = 64 * wm + 16 * i + g + 8 * half;
+                const bool row_ok = g0 + r < B;
+                const float z = sZ[r], d = sD[r];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  const int c = TC_SUB * sub + 32 * wn + 8 * j + 2 * t4, col = j0 + c;
+                  const float p0 = (row_ok && col < n_valid) ? expf(acc[i][j][2 * half] - z) * d : 0.f;
+                  const float p1 =
+                      (row_ok && col + 1 < n_valid) ? expf(acc[i][j][2 * half + 1] - z) * d : 0.f;
+                  *reinterpret_cast<uint32_t*>(sP + r * TC_LDP + c) = tc::pack_bf16(p0, p1);
+                }
+              }
+          }
+        } else {
+          // warps 0-3: acc[i][j] += p[:, pm + 16 i]^T . S[:, 8 j] (dT rows);
+          // warps 4-7: acc[i][j] += p[pm + 16 i, :] . T[:, 8 j]   (ds rows)
+          const __nv_bfloat16* Bsrc = dt_warp ? S : S + TC_ROWS * TC_LDC;
+#pragma unroll 2
+          for (int k = 0; k < TC_SV; k += 16) {
+            uint32_t a[4][4], b[4][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (dt_warp)
+                tc::ldmatrix_x4_trans(a[i], sP + (k + tc::b_row(lane)) * TC_LDP + pm + 16 * i +
+                                                tc::b_col(lane));
+              else
+                tc::ldmatrix_x4(a[i], sP + (pm + 16 * i + tc::a_row(lane)) * TC_LDP + k +
+                                          tc::a_col(lane));
+            }
+#pragma unroll
+            for (int jp = 0; jp < 2; ++jp) {
+              uint32_t r[4];
+              tc::ldmatrix_x4_trans(r, Bsrc + (k + tc::bt_row(lane)) * TC_LDC + 16 * jp +
+                                           tc::bt_col(lane));
+              b[2 * jp][0] = r[0];
+              b[2 * jp][1] = r[1];
+              b[2 * jp + 1][0] = r[2];
+              b[2 * jp + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) tc::mma_bf16(acc[i][j], a[i], b[j]);
+          }
+          if (dt_warp) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; e += 2) {
+                  const int m = pm + 16 * i + g + 4 * e, h = h0 + 8 * j + 2 * t4;
+                  if (h < H && j0 + m < V)  // H % 4 == 0 and h is even: h + 1 < H too
+                    *reinterpret_cast<float2*>(dtable + (size_t)(j0 + m) * H + h) =
+                        make_float2(acc[i][j][e], acc[i][j][e + 1]);
+                }
+          } else {
+            float4* dst = reinterpret_cast<float4*>(ds_frag(s));
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                dst[(4 * i + j) * 32] = make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]);
+          }
+        }
+        if (s + 1 < n_steps) {
+          if (s + 1 >= n_lg) carry(s + 1);  // (after the epilogue or the stores: acc is free)
+          fill(s + 1, nxt);
+        }
+      };
+      for (int s = 0; s < n_steps; s += 2) {  // n_steps = 6 Hp / 64 is even
+        step(s, pre_a, pre_b);
+        step(s + 1, pre_b, pre_a);
+      }
+    }
+    // the one-hot term, as ce_bwd_wide_kernel takes it, on the tile's
+    // finished dT rows in device memory, from the unrounded states
+    int hit = 0;
+    for (int i = tid; i < B; i += THREADS) {
+      const long long a = __ldg(answers + i);
+      hit |= in_catalog(a, n_valid) && a >= j0 && a < j0 + TC_SV;
+    }
+    if (__syncthreads_or(hit)) {  // also the barrier after every dT write of the tile
+      for (int h = tid; h < H; h += THREADS) {
+        for (int i = 0; i < B; ++i) {
+          const long long a = __ldg(answers + i);
+          if (in_catalog(a, n_valid) && a >= j0 && a < j0 + TC_SV)
+            dtable[(size_t)a * H + h] -= __ldg(dloss + i) * __ldg(states + (size_t)i * H + h);
+        }
+      }
+    }
+  }
+}
+
 // ds [B, H] = the splits' partials summed in split order, then minus
 // dloss_i * table[a_i][h] for a_i in [0, n_valid).
 __global__ void __launch_bounds__(REDUCE_THREADS)
@@ -1081,24 +1476,57 @@ ce_ds_reduce_kernel(const float* __restrict__ ds_part, const float* __restrict__
   ds[idx] = total;
 }
 
+// ds [B, H] from ce_bwd_wide_tc_kernel's partials, which hold each
+// split's [Bp, Hp] in the fragment order of its ds warps: blocks of 2,048
+// floats for (row group of 256, products step kc, ds warp w), in which
+// float c of float4 q = 4 i + j of lane l (g = l >> 2, t = l & 3) is
+// row 256 group + 64 w + 16 i + g + 8 (c >> 1), column 32 kc + 8 j + 2 t +
+// (c & 1). One thread per float of that order (reads coalesced): the sum
+// over the splits in split order, then, as ce_ds_reduce_kernel, minus
+// dloss_i * table[a_i][h] with one rounding each, written to its row and
+// column when they lie inside [B, H].
+__global__ void __launch_bounds__(REDUCE_THREADS)
+ce_ds_reduce_tc_kernel(const float* __restrict__ ds_part, const float* __restrict__ table,
+                       const long long* __restrict__ answers, const float* __restrict__ dloss,
+                       int B, int H, int Bp, int Hp, int n_valid, int n_splits,
+                       float* __restrict__ ds) {
+  const int n = Bp * Hp;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int blk = idx >> 11, f = idx & 2047, w = blk & 3, kc = (blk >> 2) % (Hp / TC_HP);
+  const int grp = (blk >> 2) / (Hp / TC_HP), q = f >> 7, l = (f >> 2) & 31, c = f & 3;
+  const int row = TC_ROWS * grp + 64 * w + 16 * (q >> 2) + (l >> 2) + 8 * (c >> 1);
+  const int h = TC_HP * kc + 8 * (q & 3) + 2 * (l & 3) + (c & 1);
+  if (row >= B || h >= H) return;
+  float total = 0.f;
+  for (int s = 0; s < n_splits; ++s) total += ds_part[(size_t)s * n + idx];
+  const long long a = __ldg(answers + row);
+  if (in_catalog(a, n_valid))
+    total = __fsub_rn(total, __fmul_rn(__ldg(dloss + row), __ldg(table + (size_t)a * H + h)));
+  ds[(size_t)row * H + h] = total;
+}
+
 bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 != 0; }
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
 // (and the backward's ds) fit beside the tiles; past MAX_H the wide
-// route, which walks H in chunks (ce_fwd_partial_kernel<BF16, true>,
-// ce_bwd_wide_kernel); ce_fwd_partial_kernel and ce_bwd_sweep_kernel
-// elsewhere.
+// route, which walks H in chunks (ce_fwd_partial_kernel<BF16, true>; the
+// backward ce_bwd_wide_kernel in the fp32 form, ce_bwd_wide_tc_kernel in
+// the bf16 form); ce_fwd_partial_kernel and ce_bwd_sweep_kernel elsewhere.
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 bool wide_route(int H) { return H > MAX_H; }
+bool tc_route(int H, int bf16) { return bf16 && wide_route(H); }
 
 }  // namespace
 
 extern "C" {
 
 // Shared memory of the forward's pass 1 (which = 0) and of the backward's
-// pass 1 (which = 1) on the route B and H take, at batch B, hidden size H.
-long long streaming_ce_smem_bytes(int B, int H, int which) {
+// pass 1 (which = 1) on the route B, H and the form (bf16 != 0: the
+// bf16-operand form) take.
+long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
   const long long ld = H + 4;
+  if (which == 1 && tc_route(H, bf16)) return TC_SMEM;
   if (wide_route(H))
     return (long long)sizeof(float) *
            (which == 0 ? (BT + VT) * WLD : (BT + VT) * WLD + PB * (VT + 4) + 2 * PB);
@@ -1115,8 +1543,25 @@ long long streaming_ce_smem_bytes(int B, int H, int which) {
 int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 
 // 1 where they take their wide routes (H > 256), which stage the hidden
-// dimension in chunks of 64 columns.
+// dimension in chunks.
 int ce_wide_route(int H) { return wide_route(H) ? 1 : 0; }
+
+// 1 where ce_grads takes ce_bwd_wide_tc_kernel (the bf16 form on the wide
+// route), whose tiles are TC_SV = 256 columns: its tiles_per_split is a
+// multiple of 4.
+int ce_grads_tc_route(int H, int bf16) { return tc_route(H, bf16) ? 1 : 0; }
+
+// Bytes of the workspace that ce_grads takes at batch B, hidden size H,
+// form bf16 and n_splits splits: ds_part, the splits' partial ds, fp32
+// [n_splits, B, H]; on the tensor-core route instead [n_splits, Bp, Hp] in
+// ce_bwd_wide_tc_kernel's fragment order (ce_ds_reduce_tc_kernel), then its
+// bf16 states [Bp, Hp] and one bf16 table tile [256, Hp] a split (Bp = B
+// up to a multiple of 256, Hp = H up to a multiple of 64).
+long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
+  if (!tc_route(H, bf16)) return 4LL * n_splits * B * H;
+  const long long Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL);
+  return 4LL * n_splits * Bp * Hp + 2LL * (Bp + (long long)n_splits * TC_SV) * Hp;
+}
 
 // logZ [B] of states [B, H] against table [V, H] over columns < n_valid,
 // and, when answers (int64 [B]) and loss are not null, loss [B] = logZ -
@@ -1133,7 +1578,7 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr))
     return (int)cudaErrorInvalidValue;
-  const long long smem = streaming_ce_smem_bytes(B, H, 0);
+  const long long smem = streaming_ce_smem_bytes(B, H, 0, bf16);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool onchip = onchip_route(B, H);
@@ -1177,40 +1622,72 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // for the int64 answers a_i in [0, n_valid) only (the others have neither
 // term). bf16 != 0 takes the bf16-operand form (the file's head): s, T and
 // p rounded to bf16 before the products, the one-hot terms from the
-// unrounded s and T. The route is the shape's (ce_onchip_route,
-// ce_wide_route): one block per SM suits the on-chip route, two the
-// others. The caller allocates ds_part ([n_splits, B, H]); n_splits *
+// unrounded s and T. The route is the shape's and the form's
+// (ce_onchip_route, ce_wide_route, ce_grads_tc_route): one block per SM
+// suits the on-chip and tensor-core routes, two the others. The caller
+// allocates the workspace (ce_grads_workspace_bytes); n_splits *
 // tiles_per_split tiles must cover V, and every split must hold at least
 // one tile. Returns 0 or a cudaError_t code.
 int ce_grads(const void* states, const void* table, const void* answers, const void* logz,
              const void* dloss, int B, int V, int H, int n_valid, int n_splits,
-             int tiles_per_split, void* ds_part, void* ds, void* dtable, int bf16, void* stream) {
+             int tiles_per_split, void* workspace, void* ds, void* dtable, int bf16,
+             void* stream) {
   const int n_tiles = (V + VT - 1) / VT;
+  const bool tc = tc_route(H, bf16);
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
-      (long long)(n_splits - 1) * tiles_per_split >= n_tiles)
+      (long long)(n_splits - 1) * tiles_per_split >= n_tiles ||
+      (tc && tiles_per_split % (TC_SV / VT) != 0))
     return (int)cudaErrorInvalidValue;
-  const long long smem = streaming_ce_smem_bytes(B, H, 1);
+  const long long smem = streaming_ce_smem_bytes(B, H, 1, bf16);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto sweep = wide_route(H)         ? (bf16 ? ce_bwd_wide_kernel<true> : ce_bwd_wide_kernel<false>)
-               : onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_kernel<true> : ce_bwd_onchip_kernel<false>)
-                                    : (bf16 ? ce_bwd_sweep_kernel<true> : ce_bwd_sweep_kernel<false>);
-  cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  sweep<<<n_splits, THREADS, (size_t)smem, s>>>(
-      static_cast<const float*>(states), static_cast<const float*>(table),
-      static_cast<const long long*>(answers), static_cast<const float*>(logz),
-      static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
-      static_cast<float*>(ds_part), static_cast<float*>(dtable));
+  float* ds_part = static_cast<float*>(workspace);
+  cudaError_t e;
+  if (tc) {
+    const int Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL);
+    __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(ds_part + (size_t)n_splits * Bp * Hp);
+    __nv_bfloat16* tb = sb + (size_t)Bp * Hp;
+    const int n4 = Bp * (Hp / 4);
+    states_bf16_kernel<<<(n4 + 255) / 256, 256, 0, s>>>(static_cast<const float*>(states), B, H,
+                                                         Bp, Hp, sb);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(ce_bwd_wide_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ce_bwd_wide_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+        sb, tb, static_cast<const float*>(states), static_cast<const float*>(table),
+        static_cast<const long long*>(answers), static_cast<const float*>(logz),
+        static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
+        ds_part, static_cast<float*>(dtable));
+  } else {
+    auto sweep = wide_route(H)         ? ce_bwd_wide_kernel
+                 : onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_kernel<true> : ce_bwd_onchip_kernel<false>)
+                                      : (bf16 ? ce_bwd_sweep_kernel<true> : ce_bwd_sweep_kernel<false>);
+    e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sweep<<<n_splits, THREADS, (size_t)smem, s>>>(
+        static_cast<const float*>(states), static_cast<const float*>(table),
+        static_cast<const long long*>(answers), static_cast<const float*>(logz),
+        static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
+        ds_part, static_cast<float*>(dtable));
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int n = B * H;
-  ce_ds_reduce_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
-      static_cast<const float*>(ds_part), static_cast<const float*>(table),
-      static_cast<const long long*>(answers), static_cast<const float*>(dloss),
-      B, H, n_valid, n_splits, static_cast<float*>(ds));
+  if (tc) {
+    const int Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL), n = Bp * Hp;
+    ce_ds_reduce_tc_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
+        ds_part, static_cast<const float*>(table),
+        static_cast<const long long*>(answers), static_cast<const float*>(dloss),
+        B, H, Bp, Hp, n_valid, n_splits, static_cast<float*>(ds));
+  } else {
+    const int n = B * H;
+    ce_ds_reduce_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
+        ds_part, static_cast<const float*>(table),
+        static_cast<const long long*>(answers), static_cast<const float*>(dloss),
+        B, H, n_valid, n_splits, static_cast<float*>(ds));
+  }
   return (int)cudaGetLastError();
 }
 

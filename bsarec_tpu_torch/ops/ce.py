@@ -30,10 +30,15 @@ batch rows and walks dT's and ds's hidden dimension in blocks of 64);
 elsewhere the older sweeps re-stage 64-row batch tiles with whole rows.
 The last two run two blocks per SM. `ce_logz.onchip_launches`,
 `ce_grads.onchip_launches`, `ce_logz.wide_launches` and
-`ce_grads.wide_launches` count the first two apart. The kernels take
-every H % 4 == 0 (JAX's kernels take an H that divides 128 or is a
-multiple of 128, all of it inside that); ds_part [n_splits, B, H] and the
-outputs are the only memory that grows with H.
+`ce_grads.wide_launches` count the first two apart. In the bf16-operand
+form the wide route's backward is a kernel of its own on the tensor cores
+(`ce_bwd_wide_tc_kernel`: 256-column tiles, one block per SM, the states
+rounded into bf16 first); `ce_grads.tc_launches` counts it. The kernels
+take every H % 4 == 0 (JAX's kernels take an H that divides 128 or is a
+multiple of 128, all of it inside that); `ce_grads`' workspace (the
+splits' partial ds, and on the tensor-core route bf16 copies of the
+states and of a table tile a split) and the outputs are the only memory
+that grows with H.
 
 Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
@@ -172,14 +177,18 @@ def _lib() -> ctypes.CDLL:
     lib.ce_gold_rows.restype = i
     lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
     lib.ce_grads.restype = i
+    lib.ce_grads_workspace_bytes.argtypes = [i, i, i, i]
+    lib.ce_grads_workspace_bytes.restype = ctypes.c_longlong
     lib.streaming_ce_error.argtypes = [i]
     lib.streaming_ce_error.restype = ctypes.c_char_p
-    lib.streaming_ce_smem_bytes.argtypes = [i, i, i]
+    lib.streaming_ce_smem_bytes.argtypes = [i, i, i, i]
     lib.streaming_ce_smem_bytes.restype = ctypes.c_longlong
     lib.ce_onchip_route.argtypes = [i, i]
     lib.ce_onchip_route.restype = i
     lib.ce_wide_route.argtypes = [i]
     lib.ce_wide_route.restype = i
+    lib.ce_grads_tc_route.argtypes = [i, i]
+    lib.ce_grads_tc_route.restype = i
     return lib
 
 
@@ -198,8 +207,16 @@ def wide_route(h: int) -> bool:
     return bool(_lib().ce_wide_route(h))
 
 
-# kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per tile
-_BT, _VT = 64, 64
+@functools.cache
+def tc_route(h: int, bf16: bool) -> bool:
+    """True where `ce_grads` takes the tensor-core kernel: the bf16-operand
+    form on the wide route."""
+    return bool(_lib().ce_grads_tc_route(h, int(bf16)))
+
+
+# kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per
+# tile, columns per tile of the tensor-core kernel
+_BT, _VT, _TC_VT = 64, 64, 256
 
 
 def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, index: int,
@@ -231,9 +248,11 @@ def _check_matrices(states: torch.Tensor, table: torch.Tensor) -> tuple[int, int
     return b, v, h, index
 
 
-def _raise(what: str, rc: int, b: int, v: int, h: int, which: int | None = None) -> None:
+def _raise(what: str, rc: int, b: int, v: int, h: int, which: int | None = None,
+           bf16: bool = False) -> None:
     lib = _lib()
-    smem = "" if which is None else f", shared memory {lib.streaming_ce_smem_bytes(b, h, which)} bytes"
+    smem = ("" if which is None else
+            f", shared memory {lib.streaming_ce_smem_bytes(b, h, which, int(bf16))} bytes")
     raise RuntimeError(f"{what} launch failed ({rc}: {lib.streaming_ce_error(rc).decode()}); "
                        f"B={b} V={v} H={h}{smem}")
 
@@ -264,7 +283,7 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
                  part_m, part_m + 4 * n_splits * b, logz.data_ptr(),
                  None if loss is None else loss.data_ptr(), int(bf16), raw_stream(index))
     if rc != 0:
-        _raise("ce_logz", rc, b, v, h, 0)
+        _raise("ce_logz", rc, b, v, h, 0, bf16)
     ce_logz.launches += 1
     ce_logz.onchip_launches += onchip
     ce_logz.wide_launches += wide_route(h)
@@ -291,21 +310,29 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     _require("logz", logz, torch.float32, (b,), index)
     _require("dloss", dloss, torch.float32, (b,), index)
     onchip = onchip_route(b, h)
-    # one block per split: one per SM on the on-chip route, two elsewhere
-    # (the wide route too)
-    n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
-    ds_part = states.new_empty((n_splits, b, h))
+    tc = tc_route(h, bf16)
+    # one block per split: one per SM on the on-chip and tensor-core routes
+    # (the latter's splits whole 256-column tiles), two elsewhere
+    if tc:
+        n_splits, per = _even_splits(-(-v // _TC_VT), sm_count(index))
+        per *= _TC_VT // _VT
+    else:
+        n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
+    lib = _lib()
+    work = states.new_empty((lib.ce_grads_workspace_bytes(b, h, int(bf16), n_splits),),
+                            dtype=torch.uint8)
     ds = states.new_empty((b, h))
     dt = table.new_empty((v, h))
-    rc = call_on(index, _lib().ce_grads, states.data_ptr(), table.data_ptr(), answers.data_ptr(),
+    rc = call_on(index, lib.ce_grads, states.data_ptr(), table.data_ptr(), answers.data_ptr(),
                  logz.data_ptr(), dloss.data_ptr(), b, v, h, n_valid, n_splits, per,
-                 ds_part.data_ptr(), ds.data_ptr(), dt.data_ptr(), int(bf16), raw_stream(index))
+                 work.data_ptr(), ds.data_ptr(), dt.data_ptr(), int(bf16), raw_stream(index))
     if rc != 0:
-        _raise("ce_grads", rc, b, v, h, 1)
+        _raise("ce_grads", rc, b, v, h, 1, bf16)
     ce_grads.launches += 1
     ce_grads.onchip_launches += onchip
     ce_grads.wide_launches += wide_route(h)
     ce_grads.bf16_launches += bf16
+    ce_grads.tc_launches += tc
     return ds, dt
 
 
@@ -378,6 +405,7 @@ ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route
 ce_grads.wide_launches = 0  # the launches that took the wide route
 ce_grads.bf16_launches = 0  # the launches in the bf16-operand form
+ce_grads.tc_launches = 0  # the launches that took the tensor-core kernel (bf16 form, wide route)
 
 
 class _StreamingCE(torch.autograd.Function):

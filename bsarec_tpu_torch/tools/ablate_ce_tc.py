@@ -1,0 +1,178 @@
+"""Where `ce_bwd_wide_tc_kernel` spends its time: build copies of
+`csrc/streaming_ce.cu` with parts of the kernel cut out, and time each at
+B=256, V=1,000,000, H=512 in the bf16-operand form.
+
+Each variant is this checkout's source with text replacements (each must
+match exactly once, so a variant that no longer applies fails loudly):
+the whole kernel, its logits steps alone and its products steps alone,
+then each of those without one kind of work (state copies, table loads,
+the bf16 tile stores, the MMAs; the carry loads, the stores). The cut
+variants compute wrong results and are timed only. Every library is built
+with `ops/_build.py`'s flags into `build/ablate/`, one nvcc each, all
+started together, and called through the C entry `ce_grads` on the same
+inputs; one reading is the mean of 10 calls (CUDA events, after one
+warm-up), the variants timed in order and then in reverse.
+
+    python3 bsarec_tpu_torch/tools/ablate_ce_tc.py            # needs a card and nvcc
+    python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --check    # the replacements apply (no card)
+
+Prints one JSON line per variant, then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+CSRC = ROOT / "bsarec_tpu_torch" / "csrc"
+OUT = ROOT / "build" / "ablate"
+B, V, H = 256, 1_000_000, 512
+
+LOGITS_ONLY = [("  const int n_lg = 4 * nl, n_steps = n_lg + np,",
+                "  const int n_lg = 4 * nl, n_steps = n_lg,")]
+PRODUCTS_ONLY = [
+    ("      for (int s = 0; s < n_steps; s += 2) {",
+     "      for (int s = n_lg; s < n_steps; s += 2) {"),
+    ("      load_table(0, pre_a);\n      fill(0, pre_a);\n      load_table(1, pre_b);", ""),
+    ("      issue(0);\n      onchip::cp_async_commit();",
+     "      issue(n_lg);\n      onchip::cp_async_commit();"),
+]
+NO_STATE_COPIES = [
+    ("            tc::cp_async_16(dst + r * TC_LDL + c8, sb + (size_t)(g0 + r) * Hp + h0 + c8);\n",
+     "")]
+NO_TABLE_LOADS = [("          pre[q] = (col0 + r < V && h < H)",
+                   "          pre[q] = (col0 + r < 0 && h < H)")]
+NO_TILE_STORES = [
+    ("          *reinterpret_cast<uint2*>(tile_bf16 + (size_t)(c0 + r) * Hp + h0 + c4) = v;\n", "")]
+NO_LOGITS_MMA = [("          for (int kk = 0; kk < TC_HL; kk += 16) {",
+                  "          for (int kk = 0; kk < 0; kk += 16) {")]
+NO_CARRY = [("          const float4 v = t != t_begin ? src[(4 * i + j) * 32]",
+             "          const float4 v = false ? src[(4 * i + j) * 32]"),
+            ("                if (from && h < H && j0 + m < V)", "                if (false)")]
+NO_STORES = [("                  if (h < H && j0 + m < V)  // H % 4 == 0 and h is even: h + 1 < H too",
+              "                  if (false)"),
+             ("                dst[(4 * i + j) * 32] = make_float4(",
+              "                if (false) dst[(4 * i + j) * 32] = make_float4(")]
+NO_PRODUCTS_MMA = [("          for (int k = 0; k < TC_SV; k += 16) {",
+                    "          for (int k = 0; k < 0; k += 16) {")]
+
+VARIANTS = {
+    "kernel": [],
+    "logits steps only": LOGITS_ONLY,
+    "logits: no state copies": LOGITS_ONLY + NO_STATE_COPIES,
+    "logits: no table loads": LOGITS_ONLY + NO_TABLE_LOADS,
+    "logits: no bf16 tile stores": LOGITS_ONLY + NO_TILE_STORES,
+    "logits: no MMAs": LOGITS_ONLY + NO_LOGITS_MMA,
+    "logits: MMAs alone": LOGITS_ONLY + NO_STATE_COPIES + NO_TABLE_LOADS + NO_TILE_STORES,
+    "products steps only": PRODUCTS_ONLY,
+    "products: no carry loads": PRODUCTS_ONLY + NO_CARRY,
+    "products: no stores": PRODUCTS_ONLY + NO_STORES,
+    "products: no MMAs": PRODUCTS_ONLY + NO_PRODUCTS_MMA,
+}
+
+
+def sources() -> dict[str, str]:
+    """{variant: source text}; raises unless every replacement matches once."""
+    base = (CSRC / "streaming_ce.cu").read_text()
+    out = {}
+    for name, replacements in VARIANTS.items():
+        text = base
+        for old, new in replacements:
+            if text.count(old) != 1:
+                raise SystemExit(f"ablate_ce_tc: {name!r}: {old.strip()[:60]!r} matches "
+                                 f"{text.count(old)} times")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def build(texts: dict[str, str]) -> dict[str, Path]:
+    sys.path.insert(0, str(ROOT))
+    from bsarec_tpu_torch.ops import _build
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    for header in CSRC.glob("*.cuh"):
+        (OUT / header.name).write_text(header.read_text())
+    jobs = {}
+    for k, (name, text) in enumerate(texts.items()):
+        src, lib = OUT / f"v{k}.cu", OUT / f"v{k}.so"
+        src.write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, lib)
+    for name, (proc, _) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"ablate_ce_tc: nvcc failed for {name!r}:\n{log}")
+    return {name: lib for name, (_, lib) in jobs.items()}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--check", action="store_true", help="only check that the replacements apply")
+    args = ap.parse_args()
+    texts = sources()
+    if args.check:
+        print(f"ablate_ce_tc: {len(texts)} variants apply")
+        return
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate_ce_tc: no CUDA device")
+    libs = build(texts)
+    sys.path.insert(0, str(ROOT))
+    from bsarec_tpu_torch.ops import ce
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(100)
+    states = torch.from_numpy(rng.standard_normal((B, H), dtype=np.float32)).to(dev)
+    table = torch.from_numpy(0.25 * rng.standard_normal((V, H), dtype=np.float32)).to(dev)
+    answers = torch.from_numpy(rng.integers(1, V, size=B)).to(dev)
+    dloss = torch.full((B,), 1.0 / B, device=dev)
+    _, logz = ce.ce_loss_logz(states, table, answers, V, dtype="bfloat16")
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_splits, per = ce._even_splits(-(-V // ce._TC_VT), sm)
+    per *= ce._TC_VT // ce._VT
+    work = torch.empty((ce._lib().ce_grads_workspace_bytes(B, H, 1, n_splits),),
+                       dtype=torch.uint8, device=dev)
+    ds, dt = torch.empty((B, H), device=dev), torch.empty((V, H), device=dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    calls = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        args = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
+                dloss.data_ptr(), B, V, H, V, n_splits, per, work.data_ptr(), ds.data_ptr(),
+                dt.data_ptr(), 1)
+        calls[name] = lambda lib=lib, args=args: lib.ce_grads(
+            *args, torch.cuda.current_stream().cuda_stream)
+
+    def ms(fn, iters=10):
+        if fn() != 0:
+            raise SystemExit("ablate_ce_tc: launch failed")
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    readings = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        readings[name].append(ms(calls[name]))
+    for name, r in readings.items():
+        print(json.dumps({"variant": name, "ms": r, "B": B, "V": V, "H": H}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

@@ -5,14 +5,18 @@ One reading is the mean of 20 calls (CUDA events, after warm-up) of
 `ce_grads` and of `ce_loss_logz` at B=256, V=1,000,000, H=64, and of
 `streaming_masked_topk` at B=256, V=1,000,000, H=64, k=20, in fp32 on
 seeded inputs, as `chip_smoke.py` times them (`time ce_grads kernel`,
-`time ce_logz kernel`, `time streaming_masked_topk kernel`); two readings
-each, in turns (grads, logz, rank, rank, logz, grads). All three are
-public entries that every version of the port has, so an older
-checkout's package is timed by the same code. Each process first holds
-`ce_grads` against `ce_grads_plain` (GRAD_TOL relative to the largest
-|plain| entry) and two calls bit for bit, and the rank kernel against
-its plain version (values within FLOAT_TOL, each returned id by the
-plain score of that id). It also reports the rank wrapper's host ms per
+`time ce_logz kernel`, `time streaming_masked_topk kernel`), and of
+`ce_grads(..., dtype="bfloat16")` at B=256, V=1,000,000, H=512 (the wide
+route's bf16 form, `ce_grads_bf16_wide`); two readings each, in turns
+(wide, grads, logz, rank, rank, logz, grads, wide). All four are public
+entries that every version of the port has, so an older checkout's
+package is timed by the same code. Each process first holds `ce_grads`
+against `ce_grads_plain` (GRAD_TOL relative to the largest |plain|
+entry) and two calls bit for bit, the wide bf16 form against
+`parity.ce_grads_bf16_in_order` (WIDE_BF16_TOL, each group relative to
+its largest |plain| entry) and two calls bit for bit, and the rank
+kernel against its plain version (values within FLOAT_TOL, each
+returned id by the plain score of that id). It also reports the rank wrapper's host ms per
 call (perf_counter around 50 calls, no sync inside), where the
 package's rank kernel counts them, the scores inserted into a row's
 top-k list in a split, and `rank_eval_digest`: a sha256 of the rank
@@ -20,7 +24,9 @@ kernel's eval-mode values and ids at this checkout's `chip_smoke.py`
 rank cases (read from that file: its table, seeds and inputs), so that
 two checkouts with equal digests give bit-equal results there; and
 `ce_fp32_digest`, the same over the fp32 `ce_loss_logz` (loss, logZ) and
-`ce_grads` (ds, dT) at its CE cases (`CE_CASES`, `ce_case`).
+`ce_grads` (ds, dT) at its CE cases (`CE_CASES`, `ce_case`), and
+`ce_wide_fp32_digest`, the same at its wide CE cases (`WIDE_CE_CASES`,
+the i-th seeded with 200 + i).
 
     python3 bsarec_tpu_torch/tools/time_kernels.py
         # this checkout's package
@@ -47,8 +53,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 B, V, H, K = 256, 1_000_000, 64, 20
 ITERS = 20
+WIDE_H = 512
 GRAD_TOL = 1e-4  # chip_smoke.py's
 FLOAT_TOL = 1e-4  # chip_smoke.py's
+WIDE_BF16_TOL = 6e-3  # parity.BF16_WIDE_GRAD_TOL (an older package's parity.py lacks it)
 
 
 def cuda_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
@@ -124,19 +132,21 @@ def rank_eval_digest(device) -> str:
     return digest.hexdigest()
 
 
-def ce_fp32_digest(device) -> str:
+def ce_fp32_digest(device, wide: bool = False) -> str:
     """sha256 over the fp32 CE entries' outputs at this checkout's
     `chip_smoke.py` CE cases (`CE_CASES`, the i-th on `ce_case`'s inputs
-    seeded with 100 + i): loss and logZ from `ce_loss_logz`, ds and dT
-    from `ce_grads` at dloss = 1/B."""
+    seeded with 100 + i; with `wide`, `WIDE_CE_CASES` seeded with 200 + i):
+    loss and logZ from `ce_loss_logz`, ds and dT from `ce_grads` at
+    dloss = 1/B."""
     import torch
 
     from bsarec_tpu_torch.ops import ce
 
     smoke = _chip_smoke()
     digest = hashlib.sha256()
-    for i, (_, b, v, h, n_valid, kind) in enumerate(smoke.CE_CASES):
-        states, table, answers = smoke.ce_case(b, v, h, n_valid, seed=100 + i, device=device,
+    cases, seed0 = (smoke.WIDE_CE_CASES, 200) if wide else (smoke.CE_CASES, 100)
+    for i, (_, b, v, h, n_valid, kind) in enumerate(cases):
+        states, table, answers = smoke.ce_case(b, v, h, n_valid, seed=seed0 + i, device=device,
                                                answer_kind=kind)
         loss, logz = ce.ce_loss_logz(states, table, answers, n_valid)
         d = torch.full((b,), 1.0 / b, device=device)
@@ -144,6 +154,7 @@ def ce_fp32_digest(device) -> str:
         for x in (loss, logz, ds, dt):
             digest.update(x.cpu().numpy().tobytes())
         del states, table, answers, ds, dt
+        torch.cuda.empty_cache()
     return digest.hexdigest()
 
 
@@ -173,6 +184,7 @@ def time_package(package_root: Path) -> dict:
     import numpy as np
     import torch
 
+    from bsarec_tpu_torch import parity
     from bsarec_tpu_torch.ops import ce, rank
     from bsarec_tpu_torch.parity import rel_err
 
@@ -195,8 +207,23 @@ def time_package(package_root: Path) -> dict:
     del ds, dt, ds2, dt2, want_ds, want_dt
     r_states, r_table, r_mask = rank_inputs(device)
     rank_err = check_rank(r_states, r_table, r_mask)
-    out = {"ce_grads_rel_err": err, "rank_abs_err": rank_err,
-           "rank_eval_digest": rank_eval_digest(device), "ce_fp32_digest": ce_fp32_digest(device)}
+    # the wide route's bf16 form, chip_smoke.py's main wide case's scales
+    w_states = torch.from_numpy(rng.standard_normal((B, WIDE_H), dtype=np.float32)).to(device)
+    w_table = torch.from_numpy(0.25 * rng.standard_normal((V, WIDE_H), dtype=np.float32)).to(device)
+    _, w_logz = ce.ce_loss_logz(w_states, w_table, answers, V, dtype="bfloat16")
+    wide = lambda: ce.ce_grads(w_states, w_table, answers, w_logz, d, V, dtype="bfloat16")
+    (ds, dt), (ds2, dt2) = wide(), wide()
+    want = parity.ce_grads_bf16_in_order(w_states, w_table, answers, w_logz, d, V)
+    wide_err = max(parity.grad_errors(ds, dt, *want, answers, V).values())
+    if wide_err > WIDE_BF16_TOL or not (torch.equal(ds, ds2) and torch.equal(dt, dt2)):
+        raise SystemExit(f"time_kernels: bf16 ce_grads at H={WIDE_H} off the in-order plain "
+                         f"version ({wide_err}) or not deterministic")
+    del ds, dt, ds2, dt2, want
+    torch.cuda.empty_cache()
+    out = {"ce_grads_rel_err": err, "ce_grads_bf16_wide_rel_err": wide_err,
+           "rank_abs_err": rank_err, "rank_eval_digest": rank_eval_digest(device),
+           "ce_fp32_digest": ce_fp32_digest(device),
+           "ce_wide_fp32_digest": ce_fp32_digest(device, wide=True)}
     if "taken" in inspect.signature(rank._launch).parameters:
         n = torch.zeros(1, dtype=torch.int64, device=device)
         rank._launch(r_states, r_table, r_mask, K, V, taken=n)
@@ -205,13 +232,14 @@ def time_package(package_root: Path) -> dict:
     grads = lambda: ce.ce_grads(states, table, answers, logz, d, V)
     logz_fn = lambda: ce.ce_loss_logz(states, table, answers, V)
     rank_fn = lambda: rank.streaming_masked_topk(r_states, r_table, r_mask, K, V)
-    g1, l1, r1 = cuda_ms(grads), cuda_ms(logz_fn), cuda_ms(rank_fn)
-    r2, l2, g2 = cuda_ms(rank_fn), cuda_ms(logz_fn), cuda_ms(grads)
+    w1, g1, l1, r1 = cuda_ms(wide), cuda_ms(grads), cuda_ms(logz_fn), cuda_ms(rank_fn)
+    r2, l2, g2, w2 = cuda_ms(rank_fn), cuda_ms(logz_fn), cuda_ms(grads), cuda_ms(wide)
     out |= {"ce_grads": [g1, g2], "ce_logz": [l1, l2], "streaming_masked_topk": [r1, r2],
-            "rank_host_ms": host_ms(rank_fn)}
+            "ce_grads_bf16_wide": [w1, w2], "rank_host_ms": host_ms(rank_fn)}
     for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads),
                     ("streaming_masked_topk", rank.streaming_masked_topk)):
         out[f"{name}_onchip_launches"] = getattr(f, "onchip_launches", None)
+    out["ce_grads_tc_launches"] = getattr(ce.ce_grads, "tc_launches", None)
     return out
 
 
@@ -230,7 +258,8 @@ def main() -> None:
     args = ap.parse_args()
     if args.against is None:
         print(json.dumps({"package": str(args.package_root), "B": B, "V": V, "H": H, "k": K,
-                          "ms": time_package(args.package_root.resolve())}), flush=True)
+                          "wide_H": WIDE_H, "ms": time_package(args.package_root.resolve())}),
+              flush=True)
         return
     order = [*args.against, args.package_root]
     for root in order + order[::-1]:

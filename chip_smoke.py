@@ -47,8 +47,13 @@ Phases, each of which raises (exit code 1) when it fails:
    B=256, V=1M, H=512 among them, odd B, B over one group of 256 rows, V
    off every tile, n_valid < V, raw int64 answers of -1, >= n_valid and
    >= V, repeated answers) with phase 3's checks, the bf16 form's
-   gradients against the plain version with its logits summed in the
-   kernels' order (parity.ce_grads_bf16_in_order); the rank kernel in
+   ce_grads on the tensor-core kernel (ce_bwd_wide_tc_kernel), its
+   gradients within parity.BF16_WIDE_GRAD_TOL of the plain version with
+   its logits summed in ascending h (parity.ce_grads_bf16_in_order), which
+   the fp32 form must fail; and at WIDE_EXACT_CASES (parity.exact_logit_case
+   inputs, H in {260, 512, 1024}, the main path's shape among them, whose
+   logits are exact in any summation order) within parity.BF16_GRAD_TOL
+   of it, which the fp32 form must fail; the rank kernel in
    both modes at WIDE_RANK_CASES (H in {512, 1024}, k in {20, 128}, its
    older route with all states staged or in hidden chunks as the shape
    names) with phase 2's checks, two calls bit-equal. Then `main
@@ -57,7 +62,8 @@ Phases, each of which raises (exit code 1) when it fails:
    ce_logz and one ce_grads launch a step, every one on the wide route;
    the rank kernel on every eval batch; finite losses; the first 512
    users' exported top-20 against the plain version), and one `--dtype
-   bf16` epoch (the bf16 forms on the wide route). Then the wide main
+   bf16` epoch (the bf16 forms on the wide route, every ce_grads launch
+   on the tensor-core kernel). Then the wide main
    path's kernels timed as phase 10 times them (the CE entries in both
    forms, the rank kernel at k=20 and, in its wide form, at k=128), and
    the phase's seconds.
@@ -624,7 +630,8 @@ def ce_case(b, v, h, n_valid, seed, device, answer_kind):
             torch.from_numpy(answers).to(device))
 
 
-def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=False):
+def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=False,
+               exact=False):
     """The CE kernels vs their plain versions on one input, in the form
     `dtype` names (None: fp32; "bfloat16": the bf16-operand form): the
     fused entries (loss and logZ from one ce_logz call, the finished ds and
@@ -639,9 +646,14 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     one-hot term read off the kernel (parity.one_hot_excess), which must
     fail with the rounded states in its place. `in_order` holds the bf16
     form's gradients against parity.ce_grads_bf16_in_order (the plain
-    version with the logits summed in the kernels' order) instead: the
-    wide phase's. Returns the largest absolute error of each kernel's
-    outputs."""
+    version with the logits summed in ascending h) instead, within
+    parity.BF16_WIDE_GRAD_TOL, which the fp32 form must exceed: the wide
+    phase's, where ce_grads' bf16 form sums its logits on the tensor
+    cores. `exact` (parity.exact_logit_case inputs, whose logits are exact
+    in any order) holds it there within parity.BF16_GRAD_TOL instead, and
+    asks nothing of the one-hot check's rounded-states control (the
+    states are bf16-exact). Returns the largest absolute error of each
+    kernel's outputs."""
     import torch
 
     from bsarec_tpu_torch import parity
@@ -671,7 +683,7 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     check(torch.equal(ce.ce_logz(states, table, n_valid, dtype=dtype), logz),
           f"{case_name}: logZ alone differs")
     check(torch.equal(rows, ce.gold_rows_plain(table, mapped)), f"{case_name}: gather not bit-equal")
-    if bf16:  # the rounding is real: the fp32 form's logZ differs
+    if bf16 and not exact:  # the rounding is real: the fp32 form's logZ differs
         check(not torch.equal(ce.ce_logz(states, table, n_valid), logz),
               f"{case_name}: the bf16 form's logZ equals the fp32 form's")
 
@@ -694,15 +706,19 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     onchip_before = ce.ce_grads.onchip_launches
     wide_before = ce.ce_grads.wide_launches
     grads_bf16_before = ce.ce_grads.bf16_launches
+    tc_before = ce.ce_grads.tc_launches
     fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
     n_wide = ce.ce_grads.wide_launches - wide_before
-    route = "on-chip" if n_onchip else "wide" if n_wide else "sweep"
+    n_tc = ce.ce_grads.tc_launches - tc_before
+    route = ("on-chip" if n_onchip else "wide, tensor cores" if n_tc else "wide" if n_wide
+             else "sweep")
     check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0)
-          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0),
-          f"{case_name}: ce_grads took another route than its shape names")
+          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0)
+          and n_tc == (2 if ce.tc_route(states.shape[1], bf16) else 0),
+          f"{case_name}: ce_grads took another route than its shape and form name")
     check(ce.ce_grads.bf16_launches - grads_bf16_before == 2 * bf16,
           f"{case_name}: ce_grads took another form than {dtype or 'float32'}")
     check(torch.equal(fused_ds, again_ds) and torch.equal(fused_dt, again_dt),
@@ -721,10 +737,12 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
                                      *plain, answers, n_valid)
         grad_abs = max(float((fused_ds - plain[0]).abs().max()), float((fused_dt - plain[1]).abs().max()))
         del plain
-        check(max(errs.values()) <= parity.BF16_GRAD_TOL,
-              f"{case_name}: gradient errors {errs} at the kernel's logZ > {parity.BF16_GRAD_TOL}")
-        check(min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL,
-              f"{case_name}: the fp32 form passes the bf16 limit on ds or dT's other rows: {control}")
+        tol = parity.BF16_WIDE_GRAD_TOL if in_order and not exact else parity.BF16_GRAD_TOL
+        check(max(errs.values()) <= tol,
+              f"{case_name}: gradient errors {errs} at the kernel's logZ > {tol}")
+        check(min(control["ds"], control["dT other rows"]) > tol,
+              f"{case_name}: the fp32 form passes the bf16 limit {tol} on ds or dT's other rows: "
+              f"{control}")
     else:
         errs = parity.grad_errors(ds, dt, want_ds, want_dt, answers, n_valid)
         control = None
@@ -745,7 +763,7 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     check(one_hot <= 1.0, f"{case_name}: dT's one-hot term {one_hot} of its allowance")
     one_hot_rounded = parity.one_hot_excess(fused_dt, none_dt, states, answers, d, n_valid,
                                             round_states=True)
-    check(one_hot_rounded > 1.0,
+    check(exact or one_hot_rounded > 1.0,
           f"{case_name}: the one-hot check passes the rounded states too ({one_hot_rounded})")
     del fused_dt, none_dt
     del fused_ds, sum_ds, unfused_ds, no_answers
@@ -759,8 +777,9 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
 
     def short(e):
         return ", ".join(f"{k} {v:.3g}" for k, v in e.items())
-    held = (f"at the kernel's logZ{', logits in the kernels order' if in_order else ''}; the fp32 "
-            f"form against the bf16 plain version: {short(control)}" if bf16 else "through autograd")
+    order = ", exact logits" if exact else ", logits in ascending h" if in_order else ""
+    held = (f"at the kernel's logZ{order}, limit {tol}; the fp32 form against the bf16 plain "
+            f"version: {short(control)}" if bf16 else "through autograd")
     log(f"CE kernels vs plain {case_name}, {dtype or 'float32'} form: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
         f"loss through autograd {loss_err:.3g}; gradients {short(errs)} (relative to each group's "
         f"largest |plain|, {held}); {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
@@ -1600,6 +1619,7 @@ def reset_counts() -> None:
         f.wide_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
+    ce.ce_grads.tc_launches = 0
 
 
 def read_counts() -> dict:
@@ -2613,6 +2633,7 @@ def bf16_counts() -> dict:
     return read_counts() | {
         "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
+        "ce_grads_tc": ce.ce_grads.tc_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches,
         "fused_dropout_bf16": fd.fused_dropout.bf16_launches}
 
@@ -2834,10 +2855,11 @@ WIDE_WIDTHS = ["--model_type", "BSARec", "--hidden_size", str(WIDE_H), "--num_hi
                "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7", "--max_seq_length", "50"]
 # the wide phase's CE cases, the i-th on ce_case's inputs seeded with 200 + i:
 # (tag, B, V, H, n_valid, answers). H = 260 is just past the older routes
-# and no multiple of 128; B = 300 takes two groups of p rows. The bf16
-# form's gradients are held against parity.ce_grads_bf16_in_order: at these
-# widths the fp32 rounding of an H-term logit moves single bf16 roundings
-# of p (parity.py's head)
+# and no multiple of 128; B = 300 takes two groups of batch rows. The bf16
+# form's gradients are held against parity.ce_grads_bf16_in_order within
+# parity.BF16_WIDE_GRAD_TOL: at these widths the fp32 rounding of an H-term
+# logit, which the tensor cores sum in their own order, moves single bf16
+# roundings of p (parity.py's head)
 WIDE_CE_CASES = [
     ("main path at H=512", 256, N_ITEMS, WIDE_H, N_ITEMS, "plain"),
     ("H=260, odd B, n_valid < V, odd answers", 37, 5000, 260, 4990, "odd"),
@@ -2845,6 +2867,15 @@ WIDE_CE_CASES = [
     ("H=512, V off every tile", 3, 12101, WIDE_H, 12101, "odd"),
     ("H=512, repeated answers", 200, 3001, WIDE_H, 3001, "repeated"),
     ("H=1024, n_valid < V", 256, 40009, 1024, 40000, "odd"),
+]
+# ... and on parity.exact_logit_case's inputs, the i-th seeded with 400 + i:
+# (tag, B, V, H, n_valid). Every logit is exact there in any summation
+# order, so the bf16 form is held within parity.BF16_GRAD_TOL
+WIDE_EXACT_CASES = [
+    ("exact logits at the main path's shape", 256, N_ITEMS, WIDE_H, N_ITEMS),
+    ("exact logits, H=260, odd B, n_valid < V", 37, 5000, 260, 4990),
+    ("exact logits, H=512, B over one group, n_valid < V", 300, 20011, WIDE_H, 20006),
+    ("exact logits, H=1024, odd B, n_valid < V", 37, 12101, 1024, 12000),
 ]
 # the wide phase's rank cases, the i-th on make_case's inputs seeded with
 # 300 + i: (tag, B, V, H, k, n_valid, seen per row, integer, all-seen row).
@@ -2868,6 +2899,7 @@ def wide_counts() -> dict:
     return read_counts() | {
         "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
+        "ce_grads_tc": ce.ce_grads.tc_launches,
         "rank_wide": rank.streaming_masked_topk.wide_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches}
 
@@ -2877,12 +2909,14 @@ def zero_wide_counts() -> dict:
 
 
 def phase_wide_kernels(device):
-    """The CE kernels in both forms at WIDE_CE_CASES and the rank kernel in
-    both modes at WIDE_RANK_CASES, against their plain versions with phase
-    3's and phase 2's checks. Returns ({form: {kernel: largest absolute
-    error}}, the largest rank value error, the CE and rank main-shape
-    inputs)."""
+    """The CE kernels in both forms at WIDE_CE_CASES and WIDE_EXACT_CASES
+    and the rank kernel in both modes at WIDE_RANK_CASES, against their
+    plain versions with phase 3's and phase 2's checks. Returns ({form:
+    {kernel: largest absolute error}}, the largest rank value error, the CE
+    and rank main-shape inputs)."""
     import torch
+
+    from bsarec_tpu_torch import parity
 
     worst = {form: {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0} for form in CE_FORMS}
     ce_full = rank_full = None
@@ -2895,6 +2929,15 @@ def phase_wide_kernels(device):
             worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
         if i == 0:
             ce_full = (states, table, answers)
+        del states, table, answers
+        torch.cuda.empty_cache()
+    for i, (tag, b, v, h, n_valid) in enumerate(WIDE_EXACT_CASES):
+        states, table, answers, _ = parity.exact_logit_case(b, v, h, n_valid, seed=400 + i,
+                                                            device=device)
+        for form in CE_FORMS:
+            errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
+                              answers, n_valid, dtype=form, in_order=True, exact=True)
+            worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
         del states, table, answers
         torch.cuda.empty_cache()
     rank_worst = 0.0
@@ -3016,7 +3059,8 @@ def phase_wide_train(device, card):
         counts, scores, seconds = run(base + ["--train_name", "smoke_wide_bf16", "--epochs", "1",
                                               "--dtype", "bf16"])
         want = zero_wide_counts() | ce_step | rank_route | {
-            "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps}
+            "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps,
+            "ce_grads_tc": steps}
         check(counts == want, f"wide bf16 train launches {counts}, want {want}")
         text, losses, rates = epoch_lines("smoke_wide_bf16")
         check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0]),
@@ -3236,12 +3280,15 @@ def main() -> int:
             "max_abs_err": wide_err[None][name],
             **wide_times["ce32"][name],
         })
+        tc = name == "ce_grads"  # its bf16 form runs ce_bwd_wide_tc_kernel on the tensor cores
         kernels.append({
-            "name": f"{name} (bf16-operand form, wide route, H={WIDE_H})",
+            "name": f"{name} (bf16-operand form, wide route{', tensor cores' if tc else ''}, "
+                    f"H={WIDE_H})",
             "route": "cuda",
             "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
             "replaces": ce_replaces[name],
             "launches": wide_paths["bf16"][f"{name}_bf16"],
+            **({"tc_launches": wide_paths["bf16"]["ce_grads_tc"]} if tc else {}),
             "max_abs_err": wide_err[BF16][name],
             **wide_times["ce16"][name],
         })

@@ -30,3 +30,14 @@ def test_library_path_follows_the_source_and_its_headers(tmp_path, monkeypatch):
     source = csrc / "streaming_ce.cu"
     source.write_text(source.read_text() + "\n// edited\n")
     assert _build.library_path("streaming_ce") not in (first, second)
+
+
+def test_ablation_variants_apply_to_the_source():
+    """`tools/ablate_ce_tc.py` cuts parts out of the tensor-core kernel by
+    text replacement; each replacement still matches the source exactly
+    once (so the tool's readings mean what PERF.md says)."""
+    from bsarec_tpu_torch.tools import ablate_ce_tc
+
+    texts = ablate_ce_tc.sources()
+    assert list(texts) == list(ablate_ce_tc.VARIANTS)
+    assert len(set(texts.values())) == len(texts)

@@ -182,14 +182,15 @@ def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
     a = torch.from_numpy(answers).to(cuda_device)
     d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
     bf16 = "bfloat16"
-    before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches, ce.ce_grads.onchip_launches)
+    counts = lambda: (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches,
+                      ce.ce_grads.onchip_launches, ce.ce_grads.tc_launches)
+    before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     torch.cuda.synchronize()
     onchip = ce.onchip_route(b, h)
-    assert (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches, ce.ce_grads.onchip_launches) == (
-        before[0] + 1, before[1] + 2, before[2] + 2 * onchip)
+    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 2 * onchip, before[3])
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
     torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
@@ -232,10 +233,11 @@ WIDE_GRAD_TOL = 1e-4
 def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     """ce_loss_logz, gold_rows and ce_grads on the wide routes, in both
     forms, on raw int64 answers (-1, >= n_valid, >= V, item 0, repeats):
-    the route the shape names; loss and logZ within LOSS_TOL; the gather
-    bit-equal; two ce_grads calls bit-equal; the gradients within
+    the route the shape names (the bf16 form's ce_grads on the tensor-core
+    kernel, the fp32 form's never); loss and logZ within LOSS_TOL; the
+    gather bit-equal; two ce_grads calls bit-equal; the gradients within
     WIDE_GRAD_TOL of the plain version (fp32) or, in the bf16 form, within
-    `parity.BF16_GRAD_TOL` of `parity.ce_grads_bf16_in_order` at the
+    `parity.BF16_WIDE_GRAD_TOL` of `parity.ce_grads_bf16_in_order` at the
     kernel's logZ, which the fp32 form must fail; the fused ds bit-equal to
     the unfused composition; dT's one-hot term on the unrounded states."""
     rng = np.random.default_rng(b + h + 2)
@@ -249,7 +251,7 @@ def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     bf16 = dtype is not None
     assert ce.wide_route(h) and not ce.onchip_route(b, h)
     counts = lambda: (ce.ce_logz.wide_launches, ce.ce_grads.wide_launches, ce.gold_rows.launches,
-                      ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
+                      ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches, ce.ce_grads.tc_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
     rows = ce.gold_rows(table, ce.map_answers(a, n_valid))
@@ -257,7 +259,7 @@ def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 2, before[2] + 1, before[3] + bf16,
-                        before[4] + 2 * bf16)
+                        before[4] + 2 * bf16, before[5] + 2 * bf16)
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     assert torch.equal(rows, ce.gold_rows_plain(table, ce.map_answers(a, n_valid)))
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=bf16)
@@ -268,10 +270,11 @@ def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     assert not dt[n_valid:].any()
     if bf16:
         want = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid)
-        assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
+        errs = parity.grad_errors(ds, dt, *want, a, n_valid)
+        assert max(errs.values()) <= parity.BF16_WIDE_GRAD_TOL
         control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a,
                                      n_valid)
-        assert min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL
+        assert min(control["ds"], control["dT other rows"]) > parity.BF16_WIDE_GRAD_TOL
     else:
         want = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
         assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= WIDE_GRAD_TOL
@@ -280,6 +283,71 @@ def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     assert torch.equal(ds, ds_sum - d[:, None] * rows)
     assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid) <= 1.0
     assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid, round_states=True) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (37, 5000, 260, 4990), (300, 7001, 260, 6990), (37, 9000, 512, 8990), (300, 7001, 512, 7000),
+    (37, 3001, 1024, 2990), (300, 3001, 1024, 2999),
+])
+def test_cuda_ce_wide_bf16_exact_logits(cuda_device, b, v, h, n_valid):
+    """The tensor-core kernel (ce_grads' bf16 form on the wide route) on
+    `parity.exact_logit_case` inputs, whose logits are exact in fp32 in any
+    summation order: within `parity.BF16_GRAD_TOL` of
+    `parity.ce_grads_bf16_in_order` at the kernel's logZ, which the fp32
+    form (here apart only by not rounding p) must fail; one tensor-core
+    launch a call; two calls bit-equal; the fused ds bit-equal to the
+    unfused composition; dT past n_valid zero; dT's one-hot term on the
+    unrounded states (the states are bf16-exact here, so the rounded-states
+    control cannot fail and is not asked to)."""
+    states, table, a, d = parity.exact_logit_case(b, v, h, n_valid, seed=b + h, device=cuda_device)
+    bf16 = "bfloat16"
+    _, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
+    before = (ce.ce_grads.tc_launches, ce.ce_grads.bf16_launches)
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    torch.cuda.synchronize()
+    assert (ce.ce_grads.tc_launches, ce.ce_grads.bf16_launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    assert not dt[n_valid:].any()
+    want = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid)
+    assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
+    control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a, n_valid)
+    assert min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL
+    assert ce.ce_grads.tc_launches == before[0] + 2  # the fp32 control took its own kernel
+    rows = ce.gold_rows(table, ce.map_answers(a, n_valid))
+    ds_sum, none_dt = ce.ce_grads(states, table, torch.full_like(a, -1), logz, d, n_valid,
+                                  dtype=bf16)
+    assert torch.equal(ds, ds_sum - d[:, None] * rows)
+    assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (1, 1, 260, 1), (3, 257, 512, 256), (256, 255, 288, 0), (513, 640, 512, 600),
+])
+def test_cuda_ce_grads_tc_edge_shapes(cuda_device, b, v, h, n_valid):
+    """The tensor-core kernel at edge shapes, on `parity.exact_logit_case`
+    inputs: one catalog row, a tile one row past 256, no valid column
+    (n_valid = 0: ds is the gold term alone and dT zero), three groups of
+    batch rows; within `parity.BF16_GRAD_TOL` of
+    `parity.ce_grads_bf16_in_order`, two calls bit-equal, dT past n_valid
+    zero."""
+    states, table, a, d = parity.exact_logit_case(b, v, h, max(n_valid, 2), seed=v + h,
+                                                  device=cuda_device)
+    logz = ce.ce_logz(states, table, n_valid, dtype="bfloat16")
+    before = ce.ce_grads.tc_launches
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype="bfloat16")
+    ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert ce.ce_grads.tc_launches == before + 2
+    assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    assert not dt[n_valid:].any()
+    want = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid)
+    if n_valid == 0:
+        assert torch.equal(ds, want[0]) and not dt.any()
+    else:
+        assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
 
 
 @pytest.mark.cuda
@@ -305,12 +373,13 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
     assert ce.onchip_route(b, h) == onchip
     wide = h > 256
     assert ce.wide_route(h) == wide
-    before = (ce.ce_grads.launches, ce.ce_grads.onchip_launches, ce.ce_grads.wide_launches)
+    counts = lambda: (ce.ce_grads.launches, ce.ce_grads.onchip_launches,
+                      ce.ce_grads.wide_launches, ce.ce_grads.tc_launches)
+    before = counts()
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid)
     torch.cuda.synchronize()
-    assert (ce.ce_grads.launches, ce.ce_grads.onchip_launches, ce.ce_grads.wide_launches) == (
-        before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide)
+    assert counts() == (before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide, before[3])
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
     torch.testing.assert_close(ds, want_ds, **GRAD_TOL)

@@ -12,8 +12,11 @@ weights.
 Tolerances: the fp32 CE as `tests/test_torch_port_ce.py` states them
 (loss and logZ rtol 1e-5, gradients rtol 1e-4: fp32 sums of H products
 and of V exponentials in another order); the bf16-operand form's
-gradients within `parity.BF16_GRAD_TOL` of each tensor's largest entry;
-the rank kernel on integer inputs (exact dot products), values and ids
+gradients within `parity.BF16_GRAD_TOL` of each tensor's largest entry
+(on random inputs and on `parity.exact_logit_case`'s, whose logits are
+exact in any summation order; `parity.BF16_WIDE_GRAD_TOL`, the card's
+limit for random inputs, is held between the plain version reordered and
+the fp32 form); the rank kernel on integer inputs (exact dot products), values and ids
 equal, tie order included; the two CLIs' epoch losses within rtol 1e-5,
 as `tests/test_torch_port_train.py` holds an Adam step."""
 
@@ -35,6 +38,7 @@ from bsarec_tpu_torch.data.corpus import Corpus
 from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.models import build_model
 from bsarec_tpu_torch.ops import ce, rank
+from bsarec_tpu_torch import parity
 from bsarec_tpu_torch.parity import BF16_GRAD_TOL, rel_err
 from bsarec_tpu_torch.train.checkpoint import save_params
 
@@ -101,6 +105,97 @@ def test_ce_plain_matches_jax_at_wide_h(h, dtype):
         # the fp32 form rounds nothing and fails that limit at the same logZ
         fp32 = ce.ce_grads(s.detach(), t.detach(), a, logz, torch.from_numpy(dloss), n_valid)
         assert min(rel_err(g, w) for g, w in zip(fp32, j_grads)) > BF16_GRAD_TOL
+
+
+def _logits_descending(s, t):
+    """`parity.logits_in_order` with h summed in descending order."""
+    acc = torch.zeros((s.shape[0], t.shape[0]))
+    for h in reversed(range(s.shape[1])):
+        acc.addcmul_(s[:, h, None], t[None, :, h])
+    return acc
+
+
+@pytest.mark.parametrize("b,v,h,n_valid", [(37, 700, 260, 690), (300, 500, 512, 500),
+                                           (37, 300, 1024, 290)])
+def test_exact_logit_case_is_exact_and_the_fp32_form_fails_there(b, v, h, n_valid):
+    """The premise of the tensor-core kernel's sharp check: on
+    `parity.exact_logit_case` inputs every logit is the same in ascending,
+    descending and matmul order, bit for bit, and the plain fp32 ce_grads,
+    which differs from the bf16 form there only by not rounding p, misses
+    BF16_GRAD_TOL against the plain bf16 version on ds and on dT's other
+    rows (so the card's control can fail on these inputs)."""
+    states, table, answers, dloss = parity.exact_logit_case(b, v, h, n_valid, seed=h)
+    assert torch.equal(states.bfloat16().float(), states)
+    assert torch.equal(table.bfloat16().float(), table)
+    ascending = parity.logits_in_order(states, table)
+    assert torch.equal(ascending, states @ table.T)
+    assert torch.equal(ascending, _logits_descending(states, table))
+    logz = ce.ce_logz(states, table, n_valid, dtype=BF16)
+    want = ce.ce_grads(states, table, answers, logz, dloss, n_valid, dtype=BF16)
+    assert all(torch.equal(x, y) for x, y in zip(
+        want, parity.ce_grads_bf16_in_order(states, table, answers, logz, dloss, n_valid)))
+    control = parity.grad_errors(*ce.ce_grads(states, table, answers, logz, dloss, n_valid), *want,
+                                 answers, n_valid)
+    assert min(control["ds"], control["dT other rows"]) > BF16_GRAD_TOL
+
+
+def test_ce_plain_matches_jax_on_exact_logits():
+    """On `parity.exact_logit_case` inputs at H = 512, the plain bf16
+    ce_grads against JAX's interpret-mode `streaming_ce_grads` with
+    dtype="bfloat16" (its logits on the MXU's path, in its own order, exact
+    here) within BF16_GRAD_TOL of each tensor's largest entry, at one logZ;
+    the fp32 form misses that limit."""
+    b, v, h, n_valid = 37, 1000, 512, 990
+    states, table, answers, dloss = parity.exact_logit_case(b, v, h, n_valid, seed=7)
+    logz = ce.ce_logz(states, table, n_valid, dtype=BF16)
+    j_grads = jax_streaming_ce_grads(
+        jnp.asarray(states.numpy()), jnp.asarray(table.numpy()), jnp.asarray(answers.numpy()),
+        jnp.asarray(logz.numpy()), jnp.asarray(dloss.numpy()), n_valid, 8, 128, True, BF16)
+    grads = ce.ce_grads(states, table, answers, logz, dloss, n_valid, dtype=BF16)
+    assert max(rel_err(g, w) for g, w in zip(grads, j_grads)) <= BF16_GRAD_TOL
+    fp32 = ce.ce_grads(states, table, answers, logz, dloss, n_valid)
+    assert min(rel_err(g, w) for g, w in zip(fp32, j_grads)) > BF16_GRAD_TOL
+
+
+def test_bf16_wide_limit_lies_between_reordering_and_the_fp32_form():
+    """`parity.BF16_WIDE_GRAD_TOL` is above BF16_GRAD_TOL and holds the
+    plain bf16 version with its logits summed in descending h against
+    `parity.ce_grads_bf16_in_order` on `chip_smoke.py`'s "H=512, repeated
+    answers" inputs (its largest such reading, 2.09e-3); the fp32 form
+    misses it on ds and on dT's other rows there and on
+    `tests/test_torch_port_cuda.py`'s H = 260 inputs (its smallest reading,
+    7.22e-3 on ds)."""
+    assert BF16_GRAD_TOL < parity.BF16_WIDE_GRAD_TOL
+    # chip_smoke.py's ce_case(200, 3001, 512, 3001, seed=204, "repeated"), dloss 1/B
+    rng = np.random.default_rng(204)
+    states = torch.from_numpy(rng.standard_normal((200, 512), dtype=np.float32))
+    table = torch.from_numpy(0.25 * rng.standard_normal((3001, 512), dtype=np.float32))
+    rng.integers(1, 3001, size=200)  # ce_case draws these first, then replaces them
+    answers = torch.from_numpy(rng.choice(rng.integers(1, 3001, size=5), size=200))
+    dloss = torch.full((200,), 1.0 / 200)
+    # tests/test_torch_port_cuda.py's wide case (37, 5000, 260, 4990)
+    rng = np.random.default_rng(37 + 260 + 2)
+    states2 = torch.from_numpy(rng.normal(size=(37, 260)).astype(np.float32))
+    table2 = torch.from_numpy((0.25 * rng.normal(size=(5000, 260))).astype(np.float32))
+    answers2 = rng.integers(1, 4990, size=37)
+    answers2[:7] = [answers2[0], answers2[0], 0, -1, 4990, 5000, 5007]
+    answers2 = torch.from_numpy(answers2)
+    dloss2 = torch.from_numpy(rng.uniform(0.5, 1.5, size=37).astype(np.float32))
+    for s, t, a, d, n_valid, reordered in ((states, table, answers, dloss, 3001, True),
+                                           (states2, table2, answers2, dloss2, 4990, False)):
+        logz = ce.ce_logz(s, t, n_valid, dtype=BF16)
+        want = parity.ce_grads_bf16_in_order(s, t, a, logz, d, n_valid)
+        if reordered:
+            sb, tb = s.bfloat16().float(), t.bfloat16().float()
+            p = (torch.exp(_logits_descending(sb, tb) - logz[:, None]) * d[:, None]).bfloat16().float()
+            dt = p.T @ sb
+            keep = (a >= 0) & (a < n_valid)
+            dt.index_add_(0, a[keep], -(d[keep, None] * s[keep]))
+            ds = p @ tb - d[:, None] * t[torch.where(keep, a, 0)] * keep[:, None]
+            got = parity.grad_errors(ds, dt, *want, a, n_valid)
+            assert 2e-3 < max(got.values()) <= parity.BF16_WIDE_GRAD_TOL
+        control = parity.grad_errors(*ce.ce_grads(s, t, a, logz, d, n_valid), *want, a, n_valid)
+        assert min(control["ds"], control["dT other rows"]) > parity.BF16_WIDE_GRAD_TOL
 
 
 @pytest.mark.parametrize("h", [512, 1024])
