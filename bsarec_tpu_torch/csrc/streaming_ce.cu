@@ -13,11 +13,14 @@
 //     553-555). Rounding happens where an operand enters shared memory
 //     (stage_rows, onchip::stage_states, onchip::round_tile) and where p is
 //     stored, so the product loops are the fp32 form's; except on the wide
-//     route's backward, ce_bwd_wide_tc_kernel, whose three products run on
-//     the tensor cores (its head says more).
+//     route (H > 256), whose bf16 form runs ce_fwd_wide_tc_kernel and
+//     ce_bwd_wide_tc_kernel, every product on the tensor cores (their heads
+//     say more).
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
-//   - _fwd_kernel    -> ce_fwd_partial_kernel + ce_fwd_merge_kernel:
+//   - _fwd_kernel    -> ce_fwd_onchip_kernel, ce_fwd_partial_kernel or (the
+//       bf16 form past H = 256) ce_fwd_wide_tc_kernel, then
+//       ce_fwd_merge_kernel:
 //       per row, logZ = logsumexp(s . T^T) over the columns < n_valid and,
 //       when answers are given, loss = logZ - <s, T[a]>;
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
@@ -47,8 +50,8 @@
 // moves B*H floats and is bound by latency. The bf16-operand form's
 // bound is its bytes (0.0765 and 0.1529 ms; its products at the bf16
 // tensor rate, 989 TFLOP/s, take 0.033 and 0.099), but it runs the fp32
-// form's FMA loops, so the fp32 FMAs bound it too (but for
-// ce_bwd_wide_tc_kernel, on the tensor cores).
+// form's FMA loops, so the fp32 FMAs bound it too (but for the wide
+// route's two tensor-core kernels).
 //
 // Design. The TPU kernels walk the catalog in one sequential grid and
 // carry (max, sum) or the ds accumulator in VMEM from step to step.
@@ -69,7 +72,10 @@
 //       floats would give out near H = 450, so past H = 256 (the wide
 //       route) it accumulates each logit tile over chunks of 64 hidden
 //       columns instead, a [64, 64] states chunk and a [64, 64] table
-//       chunk staged per step: 34,816 B of shared memory at any H.
+//       chunk staged per step: 34,816 B of shared memory at any H;
+//     - the wide route's bf16 form: ce_fwd_wide_tc_kernel, one block per
+//       SM, the logits of 256 batch rows x 128 catalog columns on the
+//       tensor cores, the table read once (its head says more).
 //   forward, pass 2: one warp per row. logZ = M + log(sum_s s_s *
 //     exp(m_s - M)), each lane taking every 32nd split and the lanes
 //     merged by a fixed shuffle tree; then the gold logit <s, T[a]> from
@@ -134,9 +140,11 @@
 // sweep route's ~3.53 ms, 41.6%), their forward ~0.945 ms, 52% of 0.4891
 // ms (the partial-kernel route's ~1.33 ms, 37%); the bf16-operand form
 // ~2.86 and ~1.00 ms (chip_smoke.py, in turns with the fp32 form). At
-// H = 512 the wide routes take ~29.4 ms (backward, 40% of its 11.74 ms
-// bound) and ~10.2 ms (forward, 38% of 3.913 ms), the bf16-operand form
-// ~2% more (chip_smoke.py). No wgmma or TMA.
+// H = 512 the wide routes' fp32 form takes ~29.4 ms (backward, 40% of its
+// 11.74 ms bound) and ~10.2 ms (forward, 38% of 3.913 ms); the bf16 form's
+// tensor-core kernels ~5.3 ms (backward, 23% of its 1.223 ms byte bound)
+// and ~1.08 ms (forward, 57% of 0.612 ms) (chip_smoke.py,
+// tools/time_kernels.py). No wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -233,9 +241,8 @@ __device__ __forceinline__ void tile_logits(const float* sS, const float* sT, in
 // Each logit is still one FMA chain over h in ascending order.
 
 // Copy columns [h0, h0 + hc) of rows [row0, row0 + n) of a row-major
-// [R, H] matrix into shared memory with row stride WLD, rounded to bf16
-// when BF16; rows >= R are zero.
-template <bool BF16>
+// [R, H] matrix into shared memory with row stride WLD; rows >= R are
+// zero. (fp32 only: the bf16 form's wide routes run on the tensor cores.)
 __device__ __forceinline__ void stage_chunk(float* dst, const float* __restrict__ src, int row0,
                                             int R, int H, int h0, int hc, int n) {
   const int q = hc / 4;
@@ -243,7 +250,6 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* __restrict_
     const int r = i / q, c4 = i - r * q, row = row0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < R) v = __ldg(reinterpret_cast<const float4*>(src + (size_t)row * H + h0) + c4);
-    if constexpr (BF16) v = round_bf16(v);
     *reinterpret_cast<float4*>(dst + r * WLD + 4 * c4) = v;
   }
 }
@@ -277,7 +283,6 @@ __device__ __forceinline__ void chunk_logits(const float* sS, const float* sT, i
 // The logits of 64 state rows from row0 against the 64 table columns from
 // j0: acc[i][j] for rows ty*4+i and columns tx+16j, over every chunk of H.
 // Starts and ends with a barrier (sS and sT are free afterwards).
-template <bool BF16>
 __device__ __forceinline__ void wide_logits(float* sS, float* sT, const float* __restrict__ states,
                                             const float* __restrict__ table, int row0, int B,
                                             int j0, int V, int H, float acc[4][4]) {
@@ -288,8 +293,8 @@ __device__ __forceinline__ void wide_logits(float* sS, float* sT, const float* _
   for (int h0 = 0; h0 < H; h0 += HC) {
     const int hc = min(HC, H - h0);  // H % 4 == 0, so hc % 4 == 0
     __syncthreads();                 // earlier readers of sS and sT are done
-    stage_chunk<BF16>(sS, states, row0, B, H, h0, hc, BT);
-    stage_chunk<BF16>(sT, table, j0, V, H, h0, hc, VT);
+    stage_chunk(sS, states, row0, B, H, h0, hc, BT);
+    stage_chunk(sT, table, j0, V, H, h0, hc, VT);
     __syncthreads();
     chunk_logits(sS, sT, hc, acc);
   }
@@ -297,14 +302,16 @@ __device__ __forceinline__ void wide_logits(float* sS, float* sT, const float* _
 }
 
 // The forward's pass 1 off the on-chip route. WIDE (the wide route,
-// H > MAX_H): each tile's logits from wide_logits, the hidden dimension
-// staged in chunks, 34,816 B of shared memory at any H; otherwise the 64
-// state rows staged once and each table tile whole.
+// H > MAX_H, fp32 form only: the bf16 form's is ce_fwd_wide_tc_kernel):
+// each tile's logits from wide_logits, the hidden dimension staged in
+// chunks, 34,816 B of shared memory at any H; otherwise the 64 state rows
+// staged once and each table tile whole.
 template <bool BF16, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
                       int V, int H, int n_valid, int tiles_per_split,
                       float* __restrict__ part_m, float* __restrict__ part_s) {
+  static_assert(!(BF16 && WIDE), "the bf16 form's wide forward runs on the tensor cores");
   extern __shared__ __align__(16) float smem[];
   const int ld = WIDE ? WLD : H + 4;
   float* sS = smem;           // [BT][ld] states (a chunk of their columns if WIDE)
@@ -326,7 +333,7 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
     const int j0 = t * VT;
     float acc[4][4];
     if constexpr (WIDE) {
-      wide_logits<BF16>(sS, sT, states, table, row0, B, j0, V, H, acc);
+      wide_logits(sS, sT, states, table, row0, B, j0, V, H, acc);
     } else {
       __syncthreads();  // earlier readers of sT are done
       stage_rows<BF16>(sT, table, j0, V, H, VT);
@@ -943,7 +950,7 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
       // 1. p of the group's rows (wide_logits' first barrier publishes sZ, sD)
       for (int c = 0; c < n_chunks; ++c) {
         float acc[4][4];
-        wide_logits<false>(sS, sT, states, table, g0 + c * BT, B, j0, V, H, acc);
+        wide_logits(sS, sT, states, table, g0 + c * BT, B, j0, V, H, acc);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = c * BT + ty * 4 + i;
@@ -961,7 +968,7 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
         const bool mine = tx * 4 < hw;  // this thread's 4 columns lie inside H
         const int h = hb + tx * 4;
         __syncthreads();  // earlier readers of sT (and, first, every p) are done
-        stage_chunk<false>(sT, table, j0, V, H, hb, hw, VT);
+        stage_chunk(sT, table, j0, V, H, hb, hw, VT);
         float g[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -970,7 +977,7 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
         for (int c = 0; c < n_chunks; ++c) {
           const int row0 = g0 + c * BT;
           if (c > 0) __syncthreads();  // earlier readers of sS are done
-          stage_chunk<false>(sS, states, row0, B, H, hb, hw, BT);
+          stage_chunk(sS, states, row0, B, H, hb, hw, BT);
           __syncthreads();
           if (!mine) continue;
           const float* pc = sP + c * BT * pld;
@@ -1506,13 +1513,268 @@ ce_ds_reduce_tc_kernel(const float* __restrict__ ds_part, const float* __restric
   ds[(size_t)row * H + h] = total;
 }
 
+// ---- the bf16-operand form of the wide forward, on the tensor cores ---------
+//
+// ce_fwd_wide_tc_kernel: the forward's pass 1 in the bf16-operand form at
+// H > MAX_H, the counterpart of pallas_ce.py:222 _fwd_kernel with
+// dtype="bfloat16", which rounds the states and each table tile to bf16
+// (pallas_ce.py:234-237) and takes the dot on the MXU with fp32
+// accumulation. It replaces ce_fwd_partial_kernel<true, true>, which ran
+// the rounded operands through the fp32 form's FMA loops.
+//
+// Bound at B=256, V=1M, H=512: the fp32 table read once, 2.05 GB, 0.612
+// ms at 3.35 TB/s; the logits' 262 GFLOP take 0.265 ms at the bf16 tensor
+// rate (989 TFLOP/s). Each table element (4 bytes) buys 2 B = 512 flop,
+// 128 flop a byte, under the H100's ~295 bf16 flop a byte: a design that
+// reads the table once is bound by its bytes, and needs ~430 TFLOP/s of
+// tensor-core work (43% of the rate) to reach that bound.
+//
+// What the design does about it:
+//   - the table is read from device memory once: one block of 256
+//     threads per SM walks its split in tiles of FT_COLS = 128 catalog
+//     columns, each tile against a whole group of up to TC_ROWS = 256
+//     batch rows (one group for B <= 256), so no tile is read twice;
+//   - the logits run on the tensor cores (tensor_core.cuh, mma.sync
+//     m16n8k16, bf16 operands, fp32 accumulators): 8 warps as 4 x 2 warp
+//     tiles of 64 rows x 64 columns, 128 accumulators a thread, summed
+//     over Hp / 64 steps of 64 hidden columns (Hp = H up to a multiple of
+//     64, the padding zero). A step is 128 MMAs a warp behind one barrier,
+//     and every ldmatrix feeds 8 MMAs (ce_bwd_wide_tc_kernel's logits
+//     steps: 64 and 4);
+//   - copies overlap the MMAs through a ring of FT_STAGES = 4 slots, each
+//     a states chunk [256][64] and a table chunk [128][64] in bf16. The
+//     states come rounded from a [Bp, Hp] bf16 scratch (states_bf16_kernel,
+//     Bp = B up to a multiple of 256), by cp.async three steps ahead. The
+//     table is fp32 in device memory and cp.async and TMA cannot convert,
+//     so each thread loads its 8 float4s of step s + 1 into registers at
+//     the top of step s and rounds (nearest, ties to even) and stores them
+//     into their slot after step s's MMAs: the loads are in flight for a
+//     whole step, and nothing writes the rounded tile back;
+//   - after a tile's last step each thread folds its logits, in
+//     registers, into an online (max, sum) for each of its 8 rows
+//     (columns >= n_valid masked); nothing goes through shared memory.
+// Then, once per group, the 4 lanes of a quad merge their (m, s) by
+// shuffles, the two warps that share rows merge through shared memory
+// (warp column 0's first), and lane t = 0 of warp column 0 writes one
+// (m, s) per (split, row); ce_fwd_merge_kernel merges the splits in split
+// order. Every merge runs in a fixed order: two calls give the same bits.
+// The states are re-read from L2 once a tile (256 KB at H = 512, as many
+// bytes as the tile's table rows): a wider tile would halve that but
+// needs twice the accumulators. Rows are padded by 16 bytes (144 B), so
+// the eight rows of each ldmatrix matrix fall on distinct banks. Shared
+// memory: 4 slots of 55,296 B and the warps' exchange, 2,048: 223,232 B
+// at any H; 253 registers, no spills.
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at B=256, V=1M, H=512 it takes
+// ~1.08 ms, 57% of its bound (the form it replaced ~10.1-10.5 ms, in turns,
+// tools/time_kernels.py). tools/ablate_ce_tc.py: with only its MMAs and
+// epilogue (no copies, loads or stores) ~0.82 ms, with everything but the
+// MMAs ~1.02: the mma.sync rate (~370 TFLOP/s) and the memory path (the
+// table from device memory, the states again from L2 every tile) each
+// come near the whole, so a gain needs both: wgmma, and fewer bytes
+// through L2 (states shared by the blocks of a cluster). Prefetching the
+// table into L2 two to six steps ahead, streaming (evict-first) loads,
+// issuing each step's loads before its barrier and __expf in the epilogue
+// were each no faster.
+
+constexpr int FT_COLS = 128;          // catalog columns per tile
+constexpr int FT_LD = TC_HL + 8;      // a slot's row stride (bf16)
+constexpr int FT_STAGES = 4;          // slots in the ring
+constexpr int FT_SLOT = (TC_ROWS + FT_COLS) * FT_LD;  // states [TC_ROWS][FT_LD], then table [FT_COLS][FT_LD]
+constexpr long long FT_SMEM = 2LL * FT_STAGES * FT_SLOT + 4LL * 2 * TC_ROWS;  // 223,232 B
+static_assert(FT_SMEM <= MAX_SMEM && FT_COLS % VT == 0 && THREADS == 256 && TC_ROWS == 256,
+              "8 warps as 4 x 2 warp tiles of 64 x 64 over a 256 x 128 tile");
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, const float* __restrict__ table,
+                      int B, int V, int H, int n_valid, int tiles_per_split,
+                      float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(tc_smem);   // [FT_STAGES][FT_SLOT]
+  float* xm = reinterpret_cast<float*>(ring + FT_STAGES * FT_SLOT);  // [TC_ROWS] warp column 1's m
+  float* xs = xm + TC_ROWS;                                           // [TC_ROWS] ... and its sum
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;  // the warp tile: rows 64 wm, columns 64 wn of a tile
+  const int Hp = round_up(H, TC_HL), nk = Hp / TC_HL;
+  const int per = tiles_per_split / (FT_COLS / VT);
+  const int n_tiles = (V + FT_COLS - 1) / FT_COLS;
+  const int t_begin = blockIdx.x * per, t_end = min(t_begin + per, n_tiles);
+  const int n_steps = max(t_end - t_begin, 0) * nk;
+
+  // step s: hidden chunk s % nk of tile t_begin + s / nk, in slot s % FT_STAGES
+  auto slot = [&](int s) { return ring + (s % FT_STAGES) * FT_SLOT; };
+  float4 rows[8];  // a step's table rows in fp32, loaded a step ahead
+  auto load_rows = [&](int s) {
+    const int h0 = (s % nk) * TC_HL, c0 = (t_begin + s / nk) * FT_COLS;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = tid + THREADS * q, r = i >> 4, h = h0 + (i & 15) * 4;
+      rows[q] = (c0 + r < V && h < H)
+                    ? __ldg(reinterpret_cast<const float4*>(table + (size_t)(c0 + r) * H + h))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_rows = [&](int s) {  // rows, rounded to bf16, into step s's slot
+    __nv_bfloat16* dst = slot(s) + TC_ROWS * FT_LD;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = tid + THREADS * q, r = i >> 4, c4 = (i & 15) * 4;
+      *reinterpret_cast<uint2*>(dst + r * FT_LD + c4) =
+          make_uint2(tc::pack_bf16(rows[q].x, rows[q].y), tc::pack_bf16(rows[q].z, rows[q].w));
+    }
+  };
+
+  for (int g0 = 0; g0 < B; g0 += TC_ROWS) {
+    auto copy_states = [&](int s) {  // step s's states chunk, by cp.async from sb
+      __nv_bfloat16* dst = slot(s);
+      const int h0 = (s % nk) * TC_HL;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = tid + THREADS * q, r = i >> 3, c8 = (i & 7) * 8;
+        tc::cp_async_16(dst + r * FT_LD + c8, sb + (size_t)(g0 + r) * Hp + h0 + c8);
+      }
+    };
+    // row q = 2 i + half of this thread is 64 wm + 16 i + g + 8 half
+    float m[8], sum[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      m[q] = -INFINITY;
+      sum[q] = 0.f;
+    }
+    float acc[4][8][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    __syncthreads();  // the group before is done with the ring, xm and xs
+#pragma unroll
+    for (int s = 0; s < FT_STAGES - 1; ++s) {
+      if (s < n_steps) copy_states(s);
+      onchip::cp_async_commit();
+    }
+    if (n_steps > 0) {
+      load_rows(0);
+      store_rows(0);
+    }
+    for (int s = 0; s < n_steps; ++s) {
+      tc::cp_async_wait_group<FT_STAGES - 2>();  // this thread's copies of step s have landed
+      __syncthreads();  // everyone's, and step s's table rows; step s - 1's MMAs are done
+      if (s + FT_STAGES - 1 < n_steps) copy_states(s + FT_STAGES - 1);
+      onchip::cp_async_commit();  // (empty past the last step: one group a step)
+      if (s + 1 < n_steps) load_rows(s + 1);
+      const __nv_bfloat16* S = slot(s);
+      const __nv_bfloat16* T = S + TC_ROWS * FT_LD;
+      // acc[i][j] += S[64 wm + 16 i, :] . T[64 wn + 8 j, :]^T over the chunk
+#pragma unroll
+      for (int k16 = 0; k16 < TC_HL; k16 += 16) {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tc::ldmatrix_x4(a[i], S + (64 * wm + 16 * i + tc::a_row(lane)) * FT_LD + k16 +
+                                    tc::a_col(lane));
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t r[4];
+          tc::ldmatrix_x4(r, T + (64 * wn + 16 * jp + tc::b_row(lane)) * FT_LD + k16 +
+                                 tc::b_col(lane));
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            tc::mma_bf16(acc[i][2 * jp], a[i], b0);
+            tc::mma_bf16(acc[i][2 * jp + 1], a[i], b1);
+          }
+        }
+      }
+      if (s % nk == nk - 1) {  // the tile's logits are complete: fold them into (m, sum)
+        const int j0 = (t_begin + s / nk) * FT_COLS;
+        const int c0 = j0 + 64 * wn + 2 * t4;  // this thread's columns: c0 + 8 j + {0, 1}
+        const bool ragged = j0 + FT_COLS > n_valid;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int q = 2 * i + half;
+            float tmax = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (ragged && c0 + 8 * j + e >= n_valid) acc[i][j][2 * half + e] = -INFINITY;
+                tmax = fmaxf(tmax, acc[i][j][2 * half + e]);
+              }
+            if (tmax > -INFINITY) {
+              if (tmax > m[q]) {
+                sum[q] *= expf(m[q] - tmax);  // exp(-inf) = 0 on the row's first column
+                m[q] = tmax;
+              }
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) sum[q] += expf(acc[i][j][2 * half + e] - m[q]);
+            }
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
+      if (s + 1 < n_steps) store_rows(s + 1);  // its slot was last read by step s - 3
+    }
+
+    // the 4 lanes of a quad (offsets 1, 2), then the two warp columns
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float om = __shfl_xor_sync(FULL, m[q], off);
+        const float os = __shfl_xor_sync(FULL, sum[q], off);
+        const float mm = fmaxf(m[q], om);
+        if (mm > -INFINITY) {
+          sum[q] = sum[q] * expf(m[q] - mm) + os * expf(om - mm);
+          m[q] = mm;
+        }
+      }
+    if (wn == 1 && t4 == 0) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1);
+        xm[r] = m[q];
+        xs[r] = sum[q];
+      }
+    }
+    __syncthreads();
+    if (wn == 0 && t4 == 0) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1), row = g0 + r;
+        const float om = xm[r], os = xs[r];
+        const float mm = fmaxf(m[q], om);
+        if (mm > -INFINITY) {
+          sum[q] = sum[q] * expf(m[q] - mm) + os * expf(om - mm);
+          m[q] = mm;
+        }
+        if (row < B) {
+          part_m[(size_t)blockIdx.x * B + row] = m[q];
+          part_s[(size_t)blockIdx.x * B + row] = sum[q];
+        }
+      }
+    }
+  }
+}
+
 bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 != 0; }
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
 // (and the backward's ds) fit beside the tiles; past MAX_H the wide
-// route, which walks H in chunks (ce_fwd_partial_kernel<BF16, true>; the
-// backward ce_bwd_wide_kernel in the fp32 form, ce_bwd_wide_tc_kernel in
-// the bf16 form); ce_fwd_partial_kernel and ce_bwd_sweep_kernel elsewhere.
+// route, which walks H in chunks (in the fp32 form ce_fwd_partial_kernel<false,
+// true> and ce_bwd_wide_kernel; in the bf16 form the tensor-core kernels
+// ce_fwd_wide_tc_kernel and ce_bwd_wide_tc_kernel); ce_fwd_partial_kernel
+// and ce_bwd_sweep_kernel elsewhere.
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 bool wide_route(int H) { return H > MAX_H; }
 bool tc_route(int H, int bf16) { return bf16 && wide_route(H); }
@@ -1526,7 +1788,7 @@ extern "C" {
 // bf16-operand form) take.
 long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
   const long long ld = H + 4;
-  if (which == 1 && tc_route(H, bf16)) return TC_SMEM;
+  if (tc_route(H, bf16)) return which == 0 ? FT_SMEM : TC_SMEM;
   if (wide_route(H))
     return (long long)sizeof(float) *
            (which == 0 ? (BT + VT) * WLD : (BT + VT) * WLD + PB * (VT + 4) + 2 * PB);
@@ -1546,10 +1808,22 @@ int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 // dimension in chunks.
 int ce_wide_route(int H) { return wide_route(H) ? 1 : 0; }
 
-// 1 where ce_grads takes ce_bwd_wide_tc_kernel (the bf16 form on the wide
-// route), whose tiles are TC_SV = 256 columns: its tiles_per_split is a
-// multiple of 4.
-int ce_grads_tc_route(int H, int bf16) { return tc_route(H, bf16) ? 1 : 0; }
+// 1 where ce_logz and ce_grads take their tensor-core kernels (the bf16
+// form on the wide route): ce_fwd_wide_tc_kernel, whose tiles are FT_COLS =
+// 128 columns, and ce_bwd_wide_tc_kernel, whose tiles are TC_SV = 256: their
+// tiles_per_split is a multiple of 2 and of 4.
+int ce_tc_route(int H, int bf16) { return tc_route(H, bf16) ? 1 : 0; }
+
+// Bytes of the workspace that ce_logz takes at batch B, hidden size H, form
+// bf16 and n_splits splits: the splits' partials (max, then sum), fp32
+// [2, n_splits, B]; on the tensor-core route then, 256-byte aligned, its
+// bf16 states [Bp, Hp] (Bp = B up to a multiple of 256, Hp = H up to a
+// multiple of 64).
+long long ce_logz_workspace_bytes(int B, int H, int bf16, int n_splits) {
+  const long long parts = (8LL * n_splits * B + 255) / 256 * 256;
+  if (!tc_route(H, bf16)) return parts;
+  return parts + 2LL * round_up(B, TC_ROWS) * round_up(H, TC_HL);
+}
 
 // Bytes of the workspace that ce_grads takes at batch B, hidden size H,
 // form bf16 and n_splits splits: ds_part, the splits' partial ds, fp32
@@ -1568,37 +1842,59 @@ long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
 // <states[i], table[answers[i]]> with gold 0 for answers outside
 // [0, n_valid). answers and loss are both given or both null. bf16 != 0
 // takes the bf16-operand form (the file's head). The route is the shape's
-// (ce_onchip_route, ce_wide_route): one block per SM suits the on-chip
-// route, two the others, over (splits x batch tiles of 64 rows). The
-// caller allocates the partials part_m, part_s ([n_splits, B]); n_splits *
-// tiles_per_split tiles must cover V. Returns 0 or a cudaError_t code.
+// and the form's (ce_onchip_route, ce_wide_route, ce_tc_route): one block
+// per SM suits the on-chip and tensor-core routes, two the others, over
+// (splits x batch tiles of 64 rows). The caller allocates the workspace
+// (ce_logz_workspace_bytes); n_splits * tiles_per_split tiles must cover
+// V, and on the tensor-core route tiles_per_split is even and every split
+// holds at least one tile. Returns 0 or a cudaError_t code.
 int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
-            int n_valid, int n_splits, int tiles_per_split, void* part_m, void* part_s,
-            void* logz, void* loss, int bf16, void* stream) {
+            int n_valid, int n_splits, int tiles_per_split, void* workspace, void* logz,
+            void* loss, int bf16, void* stream) {
+  const bool tc = tc_route(H, bf16);
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
-      (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr))
+      (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr) ||
+      (tc && (tiles_per_split % (FT_COLS / VT) != 0 ||
+              (long long)(n_splits - 1) * tiles_per_split * VT >= V)))
     return (int)cudaErrorInvalidValue;
   const long long smem = streaming_ce_smem_bytes(B, H, 0, bf16);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool onchip = onchip_route(B, H);
-  auto sweep =
-      wide_route(H) ? (bf16 ? ce_fwd_partial_kernel<true, true> : ce_fwd_partial_kernel<false, true>)
-      : onchip      ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
-                    : (bf16 ? ce_fwd_partial_kernel<true, false> : ce_fwd_partial_kernel<false, false>);
-  cudaError_t e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  sweep<<<dim3(n_splits, onchip ? 1 : (B + BT - 1) / BT), THREADS, (size_t)smem, s>>>(
-      static_cast<const float*>(states), static_cast<const float*>(table), B, V, H, n_valid,
-      tiles_per_split, static_cast<float*>(part_m), static_cast<float*>(part_s));
+  float* part_m = static_cast<float*>(workspace);
+  float* part_s = part_m + (size_t)n_splits * B;
+  cudaError_t e;
+  if (tc) {
+    const int Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL);
+    __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(
+        static_cast<char*>(workspace) + (8LL * n_splits * B + 255) / 256 * 256);
+    const int n4 = Bp * (Hp / 4);
+    states_bf16_kernel<<<(n4 + 255) / 256, 256, 0, s>>>(static_cast<const float*>(states), B, H,
+                                                         Bp, Hp, sb);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(ce_fwd_wide_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ce_fwd_wide_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+        sb, static_cast<const float*>(table), B, V, H, n_valid, tiles_per_split, part_m, part_s);
+  } else {
+    const bool onchip = onchip_route(B, H);
+    auto sweep = wide_route(H) ? ce_fwd_partial_kernel<false, true>
+                 : onchip      ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
+                               : (bf16 ? ce_fwd_partial_kernel<true, false>
+                                       : ce_fwd_partial_kernel<false, false>);
+    e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sweep<<<dim3(n_splits, onchip ? 1 : (B + BT - 1) / BT), THREADS, (size_t)smem, s>>>(
+        static_cast<const float*>(states), static_cast<const float*>(table), B, V, H, n_valid,
+        tiles_per_split, part_m, part_s);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   constexpr int rows_per_block = MERGE_THREADS / 32;
   auto merge = bf16 ? ce_fwd_merge_kernel<true> : ce_fwd_merge_kernel<false>;
   merge<<<(B + rows_per_block - 1) / rows_per_block, MERGE_THREADS, 0, s>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_s),
-      static_cast<const float*>(states), static_cast<const float*>(table),
+      part_m, part_s, static_cast<const float*>(states), static_cast<const float*>(table),
       static_cast<const long long*>(answers), B, H, n_valid, n_splits, static_cast<float*>(logz),
       static_cast<float*>(loss));
   return (int)cudaGetLastError();
@@ -1623,7 +1919,7 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // term). bf16 != 0 takes the bf16-operand form (the file's head): s, T and
 // p rounded to bf16 before the products, the one-hot terms from the
 // unrounded s and T. The route is the shape's and the form's
-// (ce_onchip_route, ce_wide_route, ce_grads_tc_route): one block per SM
+// (ce_onchip_route, ce_wide_route, ce_tc_route): one block per SM
 // suits the on-chip and tensor-core routes, two the others. The caller
 // allocates the workspace (ce_grads_workspace_bytes); n_splits *
 // tiles_per_split tiles must cover V, and every split must hold at least

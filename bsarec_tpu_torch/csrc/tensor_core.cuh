@@ -1,6 +1,6 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a), warp-level
-// (mma.sync, not wgmma): the products of ce_bwd_wide_tc_kernel
-// (streaming_ce.cu). Every fragment is that of
+// (mma.sync, not wgmma): the products of ce_bwd_wide_tc_kernel and
+// ce_fwd_wide_tc_kernel (streaming_ce.cu). Every fragment is that of
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane l of a
 // warp, g = l >> 2 and t = l & 3:
 //   A (16 x 16, row-major)  a[0]: (row g,     k 2t, 2t+1)  a[1]: (row g + 8, k 2t, 2t+1)
@@ -70,6 +70,12 @@ __device__ __forceinline__ int bt_col(int l) { return (l >> 4) << 3; }
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
+}
+
+// Wait until at most N of this thread's cp.async commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Two fp32 values rounded to bf16 (nearest, ties to even), packed: a low.

@@ -31,14 +31,16 @@ elsewhere the older sweeps re-stage 64-row batch tiles with whole rows.
 The last two run two blocks per SM. `ce_logz.onchip_launches`,
 `ce_grads.onchip_launches`, `ce_logz.wide_launches` and
 `ce_grads.wide_launches` count the first two apart. In the bf16-operand
-form the wide route's backward is a kernel of its own on the tensor cores
-(`ce_bwd_wide_tc_kernel`: 256-column tiles, one block per SM, the states
-rounded into bf16 first); `ce_grads.tc_launches` counts it. The kernels
-take every H % 4 == 0 (JAX's kernels take an H that divides 128 or is a
-multiple of 128, all of it inside that); `ce_grads`' workspace (the
-splits' partial ds, and on the tensor-core route bf16 copies of the
-states and of a table tile a split) and the outputs are the only memory
-that grows with H.
+form the wide route runs a kernel of its own each way on the tensor cores
+(`tc_route`; one block per SM, the states rounded into a bf16 scratch
+first): `ce_fwd_wide_tc_kernel` (256 batch rows x 128 catalog columns a
+tile, the table read once) and `ce_bwd_wide_tc_kernel` (256-column
+tiles); `ce_logz.tc_launches` and `ce_grads.tc_launches` count them. The
+kernels take every H % 4 == 0 (JAX's kernels take an H that divides 128
+or is a multiple of 128, all of it inside that); the workspaces (the
+splits' partials, and on the tensor-core routes bf16 copies of the states
+and, backward, of a table tile a split) and the outputs are the only
+memory that grows with H.
 
 Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
@@ -171,7 +173,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("streaming_ce")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
+    lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
     lib.ce_logz.restype = i
     lib.ce_gold_rows.argtypes = [p, p, i, i, i, p, p]
     lib.ce_gold_rows.restype = i
@@ -179,6 +181,8 @@ def _lib() -> ctypes.CDLL:
     lib.ce_grads.restype = i
     lib.ce_grads_workspace_bytes.argtypes = [i, i, i, i]
     lib.ce_grads_workspace_bytes.restype = ctypes.c_longlong
+    lib.ce_logz_workspace_bytes.argtypes = [i, i, i, i]
+    lib.ce_logz_workspace_bytes.restype = ctypes.c_longlong
     lib.streaming_ce_error.argtypes = [i]
     lib.streaming_ce_error.restype = ctypes.c_char_p
     lib.streaming_ce_smem_bytes.argtypes = [i, i, i, i]
@@ -187,8 +191,8 @@ def _lib() -> ctypes.CDLL:
     lib.ce_onchip_route.restype = i
     lib.ce_wide_route.argtypes = [i]
     lib.ce_wide_route.restype = i
-    lib.ce_grads_tc_route.argtypes = [i, i]
-    lib.ce_grads_tc_route.restype = i
+    lib.ce_tc_route.argtypes = [i, i]
+    lib.ce_tc_route.restype = i
     return lib
 
 
@@ -209,14 +213,15 @@ def wide_route(h: int) -> bool:
 
 @functools.cache
 def tc_route(h: int, bf16: bool) -> bool:
-    """True where `ce_grads` takes the tensor-core kernel: the bf16-operand
+    """True where `ce_logz` and `ce_grads` take their tensor-core kernels,
+    `ce_fwd_wide_tc_kernel` and `ce_bwd_wide_tc_kernel`: the bf16-operand
     form on the wide route."""
-    return bool(_lib().ce_grads_tc_route(h, int(bf16)))
+    return bool(_lib().ce_tc_route(h, int(bf16)))
 
 
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per
-# tile, columns per tile of the tensor-core kernel
-_BT, _VT, _TC_VT = 64, 64, 256
+# tile, columns per tile of the tensor-core kernels (forward, backward)
+_BT, _VT, _TC_FWD_VT, _TC_VT = 64, 64, 128, 256
 
 
 def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, index: int,
@@ -263,31 +268,48 @@ def _even_splits(n_tiles: int, n_splits: int) -> tuple[int, int]:
     return -(-n_tiles // per), per
 
 
+def tc_splits(v: int, tile: int, sms: int) -> tuple[int, int]:
+    """(n_splits, tiles_per_split) of a tensor-core kernel that walks V
+    catalog columns in tiles of `tile` columns, one block per SM of `sms`:
+    each split whole tiles, at least one, the splits covering V;
+    tiles_per_split in the C entries' 64-column units."""
+    n_splits, per = _even_splits(-(-v // tile), sms)
+    return n_splits, per * (tile // _VT)
+
+
 def _launch_logz(states, table, answers, n_valid, bf16=False):
     """(loss, logZ) from one `ce_logz` call, in the bf16-operand form when
     `bf16`; loss is None when answers is."""
     b, v, h, index = _check_matrices(states, table)
     if answers is not None:
         _require("answers", answers, torch.int64, (b,), index)
-    # one block per SM on the on-chip route; elsewhere (the wide route too)
-    # two blocks per SM over (splits x batch tiles)
+    # one block per SM on the on-chip and tensor-core routes (the latter's
+    # splits whole 128-column tiles); elsewhere two blocks per SM over
+    # (splits x batch tiles)
     onchip = onchip_route(b, h)
-    target = sm_count(index) if onchip else -(-2 * sm_count(index) // -(-b // _BT))
-    n_splits, per = _even_splits(-(-v // _VT), target)
-    part = states.new_empty((2, n_splits, b))  # (max, sum) partials
+    tc = tc_route(h, bf16)
+    if tc:
+        n_splits, per = tc_splits(v, _TC_FWD_VT, sm_count(index))
+    else:
+        target = sm_count(index) if onchip else -(-2 * sm_count(index) // -(-b // _BT))
+        n_splits, per = _even_splits(-(-v // _VT), target)
+    lib = _lib()
+    # the (max, sum) partials, and on the tensor-core route the bf16 states
+    work = states.new_empty((lib.ce_logz_workspace_bytes(b, h, int(bf16), n_splits),),
+                            dtype=torch.uint8)
     logz = states.new_empty((b,))
     loss = None if answers is None else states.new_empty((b,))
-    part_m = part.data_ptr()
-    rc = call_on(index, _lib().ce_logz, states.data_ptr(), table.data_ptr(),
+    rc = call_on(index, lib.ce_logz, states.data_ptr(), table.data_ptr(),
                  None if answers is None else answers.data_ptr(), b, v, h, n_valid, n_splits, per,
-                 part_m, part_m + 4 * n_splits * b, logz.data_ptr(),
-                 None if loss is None else loss.data_ptr(), int(bf16), raw_stream(index))
+                 work.data_ptr(), logz.data_ptr(), None if loss is None else loss.data_ptr(),
+                 int(bf16), raw_stream(index))
     if rc != 0:
         _raise("ce_logz", rc, b, v, h, 0, bf16)
     ce_logz.launches += 1
     ce_logz.onchip_launches += onchip
     ce_logz.wide_launches += wide_route(h)
     ce_logz.bf16_launches += bf16
+    ce_logz.tc_launches += tc
     return loss, logz
 
 
@@ -314,8 +336,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     # one block per split: one per SM on the on-chip and tensor-core routes
     # (the latter's splits whole 256-column tiles), two elsewhere
     if tc:
-        n_splits, per = _even_splits(-(-v // _TC_VT), sm_count(index))
-        per *= _TC_VT // _VT
+        n_splits, per = tc_splits(v, _TC_VT, sm_count(index))
     else:
         n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
     lib = _lib()
@@ -400,6 +421,7 @@ ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's include
 ce_logz.onchip_launches = 0  # the launches that took the on-chip route
 ce_logz.wide_launches = 0  # the launches that took the wide route
 ce_logz.bf16_launches = 0  # the launches in the bf16-operand form
+ce_logz.tc_launches = 0  # the launches that took the tensor-core kernel (bf16 form, wide route)
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route

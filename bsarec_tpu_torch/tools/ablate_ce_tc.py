@@ -1,17 +1,21 @@
-"""Where `ce_bwd_wide_tc_kernel` spends its time: build copies of
-`csrc/streaming_ce.cu` with parts of the kernel cut out, and time each at
+"""Where the two tensor-core kernels spend their time: build copies of
+`csrc/streaming_ce.cu` with parts of a kernel cut out, and time each at
 B=256, V=1,000,000, H=512 in the bf16-operand form.
 
 Each variant is this checkout's source with text replacements (each must
-match exactly once, so a variant that no longer applies fails loudly):
-the whole kernel, its logits steps alone and its products steps alone,
-then each of those without one kind of work (state copies, table loads,
-the bf16 tile stores, the MMAs; the carry loads, the stores). The cut
+match exactly once, so a variant that no longer applies fails loudly).
+For `ce_bwd_wide_tc_kernel` (through the C entry `ce_grads`): the whole
+kernel, its logits steps alone and its products steps alone, then each
+of those without one kind of work (state copies, table loads, the bf16
+tile stores, the MMAs; the carry loads, the stores). For
+`ce_fwd_wide_tc_kernel` (through `ce_logz`, the "forward" variants): the
+whole kernel, then without the state copies, the table loads, the table
+stores, the MMAs or the (max, sum) epilogue, and the MMAs alone. The cut
 variants compute wrong results and are timed only. Every library is built
 with `ops/_build.py`'s flags into `build/ablate/`, one nvcc each, all
-started together, and called through the C entry `ce_grads` on the same
-inputs; one reading is the mean of 10 calls (CUDA events, after one
-warm-up), the variants timed in order and then in reverse.
+started together, and called on the same inputs; one reading is the
+mean of 10 calls (CUDA events, after one warm-up), the variants timed in
+order and then in reverse.
 
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py            # needs a card and nvcc
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --check    # the replacements apply (no card)
@@ -61,6 +65,18 @@ NO_STORES = [("                  if (h < H && j0 + m < V)  // H % 4 == 0 and h i
 NO_PRODUCTS_MMA = [("          for (int k = 0; k < TC_SV; k += 16) {",
                     "          for (int k = 0; k < 0; k += 16) {")]
 
+FWD_NO_STATE_COPIES = [
+    ("        tc::cp_async_16(dst + r * FT_LD + c8, sb + (size_t)(g0 + r) * Hp + h0 + c8);\n", "")]
+FWD_NO_TABLE_LOADS = [("      rows[q] = (c0 + r < V && h < H)", "      rows[q] = (c0 + r < 0 && h < H)")]
+FWD_NO_TABLE_STORES = [  # the loads kept: a store that never runs still reads them
+    ("      *reinterpret_cast<uint2*>(dst + r * FT_LD + c4) =\n",
+     "      if (V < 0) *reinterpret_cast<uint2*>(dst + r * FT_LD + c4) =\n")]
+FWD_NO_MMA = [("      for (int k16 = 0; k16 < TC_HL; k16 += 16) {",
+               "      for (int k16 = 0; k16 < 0; k16 += 16) {")]
+FWD_NO_EPILOGUE = [("      if (s % nk == nk - 1) {  // the tile's logits are complete",
+                    "      if (false) {  // the tile's logits are complete")]
+
+# variant: replacements; "kernel" (the source as it is) is timed through both entries
 VARIANTS = {
     "kernel": [],
     "logits steps only": LOGITS_ONLY,
@@ -73,6 +89,12 @@ VARIANTS = {
     "products: no carry loads": PRODUCTS_ONLY + NO_CARRY,
     "products: no stores": PRODUCTS_ONLY + NO_STORES,
     "products: no MMAs": PRODUCTS_ONLY + NO_PRODUCTS_MMA,
+    "forward: no state copies": FWD_NO_STATE_COPIES,
+    "forward: no table loads": FWD_NO_TABLE_LOADS,
+    "forward: no table stores": FWD_NO_TABLE_STORES,
+    "forward: no MMAs": FWD_NO_MMA,
+    "forward: no epilogue": FWD_NO_EPILOGUE,
+    "forward: MMAs alone": FWD_NO_STATE_COPIES + FWD_NO_TABLE_LOADS + FWD_NO_TABLE_STORES,
 }
 
 
@@ -137,21 +159,31 @@ def main() -> None:
     dloss = torch.full((B,), 1.0 / B, device=dev)
     _, logz = ce.ce_loss_logz(states, table, answers, V, dtype="bfloat16")
     sm = torch.cuda.get_device_properties(0).multi_processor_count
-    n_splits, per = ce._even_splits(-(-V // ce._TC_VT), sm)
-    per *= ce._TC_VT // ce._VT
+    n_splits, per = ce.tc_splits(V, ce._TC_VT, sm)
     work = torch.empty((ce._lib().ce_grads_workspace_bytes(B, H, 1, n_splits),),
                        dtype=torch.uint8, device=dev)
     ds, dt = torch.empty((B, H), device=dev), torch.empty((V, H), device=dev)
+    f_splits, f_per = ce.tc_splits(V, ce._TC_FWD_VT, sm)
+    f_work = torch.empty((ce._lib().ce_logz_workspace_bytes(B, H, 1, f_splits),),
+                         dtype=torch.uint8, device=dev)
+    f_logz = torch.empty((B,), device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     calls = {}
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
-        lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
-        args = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
-                dloss.data_ptr(), B, V, H, V, n_splits, per, work.data_ptr(), ds.data_ptr(),
-                dt.data_ptr(), 1)
-        calls[name] = lambda lib=lib, args=args: lib.ce_grads(
-            *args, torch.cuda.current_stream().cuda_stream)
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+        if not name.startswith("forward"):
+            lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+            args = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
+                    dloss.data_ptr(), B, V, H, V, n_splits, per, work.data_ptr(), ds.data_ptr(),
+                    dt.data_ptr(), 1)
+            calls[name] = lambda lib=lib, args=args: lib.ce_grads(*args, stream())
+        if name == "kernel" or name.startswith("forward"):
+            lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+            args = (states.data_ptr(), table.data_ptr(), None, B, V, H, V, f_splits, f_per,
+                    f_work.data_ptr(), f_logz.data_ptr(), None, 1)
+            calls["forward kernel" if name == "kernel" else name] = (
+                lambda lib=lib, args=args: lib.ce_logz(*args, stream()))
 
     def ms(fn, iters=10):
         if fn() != 0:

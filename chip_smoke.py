@@ -47,7 +47,8 @@ Phases, each of which raises (exit code 1) when it fails:
    B=256, V=1M, H=512 among them, odd B, B over one group of 256 rows, V
    off every tile, n_valid < V, raw int64 answers of -1, >= n_valid and
    >= V, repeated answers) with phase 3's checks, the bf16 form's
-   ce_grads on the tensor-core kernel (ce_bwd_wide_tc_kernel), its
+   ce_logz and ce_grads on the tensor-core kernels (ce_fwd_wide_tc_kernel,
+   ce_bwd_wide_tc_kernel), its
    gradients within parity.BF16_WIDE_GRAD_TOL of the plain version with
    its logits summed in ascending h (parity.ce_grads_bf16_in_order), which
    the fp32 form must fail; and at WIDE_EXACT_CASES (parity.exact_logit_case
@@ -62,8 +63,8 @@ Phases, each of which raises (exit code 1) when it fails:
    ce_logz and one ce_grads launch a step, every one on the wide route;
    the rank kernel on every eval batch; finite losses; the first 512
    users' exported top-20 against the plain version), and one `--dtype
-   bf16` epoch (the bf16 forms on the wide route, every ce_grads launch
-   on the tensor-core kernel). Then the wide main
+   bf16` epoch (the bf16 forms on the wide route, every ce_logz and
+   ce_grads launch on its tensor-core kernel). Then the wide main
    path's kernels timed as phase 10 times them (the CE entries in both
    forms, the rank kernel at k=20 and, in its wide form, at k=128), and
    the phase's seconds.
@@ -663,11 +664,13 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     mapped = ce.map_answers(answers, n_valid)
     logz_onchip_before = ce.ce_logz.onchip_launches
     logz_wide_before = ce.ce_logz.wide_launches
+    logz_tc_before = ce.ce_logz.tc_launches
     bf16_before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
     loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
     check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape)
-          and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1]),
-          f"{case_name}: ce_logz took another route than its shape names")
+          and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1])
+          and ce.ce_logz.tc_launches - logz_tc_before == ce.tc_route(states.shape[1], bf16),
+          f"{case_name}: ce_logz took another route than its shape and form name")
     check(ce.ce_logz.bf16_launches - bf16_before[0] == bf16,
           f"{case_name}: ce_logz took another form than {dtype or 'float32'}")
     rows = ce.gold_rows(table, mapped)
@@ -1619,7 +1622,8 @@ def reset_counts() -> None:
         f.wide_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
-    ce.ce_grads.tc_launches = 0
+    for f in (ce.ce_logz, ce.ce_grads):
+        f.tc_launches = 0
 
 
 def read_counts() -> dict:
@@ -2633,7 +2637,7 @@ def bf16_counts() -> dict:
     return read_counts() | {
         "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
-        "ce_grads_tc": ce.ce_grads.tc_launches,
+        "ce_logz_tc": ce.ce_logz.tc_launches, "ce_grads_tc": ce.ce_grads.tc_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches,
         "fused_dropout_bf16": fd.fused_dropout.bf16_launches}
 
@@ -2899,7 +2903,7 @@ def wide_counts() -> dict:
     return read_counts() | {
         "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
-        "ce_grads_tc": ce.ce_grads.tc_launches,
+        "ce_logz_tc": ce.ce_logz.tc_launches, "ce_grads_tc": ce.ce_grads.tc_launches,
         "rank_wide": rank.streaming_masked_topk.wide_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches}
 
@@ -3060,7 +3064,7 @@ def phase_wide_train(device, card):
                                               "--dtype", "bf16"])
         want = zero_wide_counts() | ce_step | rank_route | {
             "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps,
-            "ce_grads_tc": steps}
+            "ce_logz_tc": steps, "ce_grads_tc": steps}
         check(counts == want, f"wide bf16 train launches {counts}, want {want}")
         text, losses, rates = epoch_lines("smoke_wide_bf16")
         check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0]),
@@ -3280,15 +3284,14 @@ def main() -> int:
             "max_abs_err": wide_err[None][name],
             **wide_times["ce32"][name],
         })
-        tc = name == "ce_grads"  # its bf16 form runs ce_bwd_wide_tc_kernel on the tensor cores
+        # the bf16 forms run ce_fwd_wide_tc_kernel and ce_bwd_wide_tc_kernel
         kernels.append({
-            "name": f"{name} (bf16-operand form, wide route{', tensor cores' if tc else ''}, "
-                    f"H={WIDE_H})",
+            "name": f"{name} (bf16-operand form, wide route, tensor cores, H={WIDE_H})",
             "route": "cuda",
             "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
             "replaces": ce_replaces[name],
             "launches": wide_paths["bf16"][f"{name}_bf16"],
-            **({"tc_launches": wide_paths["bf16"]["ce_grads_tc"]} if tc else {}),
+            "tc_launches": wide_paths["bf16"][f"{name}_tc"],
             "max_abs_err": wide_err[BF16][name],
             **wide_times["ce16"][name],
         })
