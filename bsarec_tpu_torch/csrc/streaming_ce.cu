@@ -15,7 +15,8 @@
 //     stored, so the product loops are the fp32 form's; except on the wide
 //     route (H > 256), whose bf16 form runs ce_fwd_wide_tc_kernel and
 //     ce_bwd_wide_tc_kernel, every product on the tensor cores (their heads
-//     say more).
+//     say more). There the fp32 form's backward runs on the tensor cores
+//     too, in 3xTF32, which keeps fp32 accuracy: ce_bwd_wide_tf32_kernel.
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
 //   - _fwd_kernel    -> ce_fwd_onchip_kernel, ce_fwd_partial_kernel or (the
@@ -25,9 +26,9 @@
 //       when answers are given, loss = logZ - <s, T[a]>;
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
 //       (zeros where a is outside [0, V));
-//   - _grads_kernel  -> ce_bwd_onchip_kernel, ce_bwd_sweep_kernel,
-//       ce_bwd_wide_kernel or (the bf16 form past H = 256)
-//       ce_bwd_wide_tc_kernel, then ce_ds_reduce_kernel: with
+//   - _grads_kernel  -> ce_bwd_onchip_kernel, ce_bwd_sweep_kernel or, past
+//       H = 256, ce_bwd_wide_tf32_kernel (fp32) and ce_bwd_wide_tc_kernel
+//       (bf16), then ce_ds_reduce_kernel (ce_ds_reduce_tc_kernel): with
 //       p = exp(s . T^T - logZ) * dloss (0 past n_valid),
 //         ds = p @ T - dloss * T[a]   and   dT = p^T @ s,  then
 //         dT[a_i] -= dloss_i * s_i.
@@ -51,7 +52,9 @@
 // bound is its bytes (0.0765 and 0.1529 ms; its products at the bf16
 // tensor rate, 989 TFLOP/s, take 0.033 and 0.099), but it runs the fp32
 // form's FMA loops, so the fp32 FMAs bound it too (but for the wide
-// route's two tensor-core kernels).
+// route's tensor-core kernels). The wide fp32 backward's 3xTF32 products
+// are bound by three passes at the TF32 tensor rate (495 TFLOP/s): 4.77 ms
+// at B=256, V=1M, H=512, against 11.74 ms for the same work in fp32 FMAs.
 //
 // Design. The TPU kernels walk the catalog in one sequential grid and
 // carry (max, sum) or the ds accumulator in VMEM from step to step.
@@ -104,18 +107,17 @@
 //       ring 34,816, p (then the dT partials) 73,728, logZ, dloss and
 //       answers 3,072: 181,248 of the 232,448 bytes a block may use.
 //     - the wide route, H > 256, where the sweep route's four [64, H + 4]
-//       tiles no longer fit (217 KB at H = 256): ce_bwd_wide_kernel, two
-//       blocks per SM, 106,496 B of shared memory at any H. Per tile and
-//       group of up to 256 batch rows it computes p from logits
-//       accumulated over 64-column chunks of H and keeps the group's p in
-//       shared memory; then it walks dT's and ds's hidden dimension in
-//       blocks of 64: T[tile, hb] staged, and for each 64-row chunk
-//       s[chunk, hb] staged, p^T @ s into the tile's dT block in registers
-//       and p @ T into the split's ds_part rows. The one-hot term goes on
-//       the finished dT rows in device memory (the kernel's head says more).
-//       In the bf16 form the wide route takes ce_bwd_wide_tc_kernel instead:
-//       one block per SM, the three products on the tensor cores, tiles of
-//       256 catalog columns with their p held as bf16 (its head says more);
+//       tiles no longer fit (217 KB at H = 256): a tensor-core kernel in
+//       either form, one block per SM, 229,376 B of shared memory at any
+//       H. Per tile of catalog columns and group of up to 256 batch rows it
+//       computes p from logits accumulated over hidden chunks and holds
+//       the group's p in shared memory; then it walks dT's and ds's hidden
+//       dimension in chunks, each chunk's p^T @ s written to dT and p @ T
+//       added to the split's ds_part. The one-hot term goes on the
+//       finished dT rows in device memory. ce_bwd_wide_tf32_kernel in the
+//       fp32 form (128-column tiles, p fp32, every product in 3xTF32) and
+//       ce_bwd_wide_tc_kernel in the bf16 form (256-column tiles, p bf16);
+//       their heads say more;
 //     - the sweep route, B > 256 or 64 < H <= 256, where the batch and its
 //       ds do not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per
 //       SM.
@@ -140,11 +142,11 @@
 // sweep route's ~3.53 ms, 41.6%), their forward ~0.945 ms, 52% of 0.4891
 // ms (the partial-kernel route's ~1.33 ms, 37%); the bf16-operand form
 // ~2.86 and ~1.00 ms (chip_smoke.py, in turns with the fp32 form). At
-// H = 512 the wide routes' fp32 form takes ~29.4 ms (backward, 40% of its
-// 11.74 ms bound) and ~10.2 ms (forward, 38% of 3.913 ms); the bf16 form's
-// tensor-core kernels ~5.3 ms (backward, 23% of its 1.223 ms byte bound)
-// and ~1.08 ms (forward, 57% of 0.612 ms) (chip_smoke.py,
-// tools/time_kernels.py). No wgmma or TMA.
+// H = 512 the wide fp32 forward takes ~10.2 ms (38% of 3.913 ms) and the
+// 3xTF32 backward ~14.7 ms (32% of 4.766 ms); the bf16 form's tensor-core
+// kernels ~5.3 ms (backward, 23% of its 1.223 ms byte bound) and ~1.08 ms
+// (forward, 57% of 0.612 ms) (chip_smoke.py, tools/time_kernels.py). No
+// wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -164,7 +166,6 @@ constexpr int THREADS = 256;      // 16 x 16 threads for 4 x 4 tiles, 32 x 8 for
 constexpr int MAX_H = 256;         // the older routes stage whole rows up to here; the wide ones past it
 constexpr int HC = 64;            // hidden columns per staged chunk on the wide routes
 constexpr int WLD = HC + 4;       // ... their row stride in shared memory
-constexpr int PB = 256;           // batch rows whose p the wide backward holds at once
 constexpr int MAX_SMEM = 232448;  // usable shared memory per block on sm_90
 constexpr int OC_B = onchip::ROWS;  // the on-chip routes: B <= OC_B
 constexpr int OC_H = onchip::MAX_H;  // ... and H <= OC_H
@@ -893,187 +894,6 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   }
 }
 
-// The backward's pass 1 on the wide route in the fp32 form (the bf16
-// form takes ce_bwd_wide_tc_kernel): one block per vocab split, as
-// ce_bwd_sweep_kernel, with the hidden dimension walked in chunks so that
-// no [64, H] tile (the sweep route's dT tile alone is 132 KB at H = 512)
-// is held. For each 64-column tile, and each group of up to PB = 256 batch
-// rows (one group for B <= 256):
-//   1. p for the group's rows, 64 rows at a time: wide_logits, then
-//      p = exp(logit - logZ) * dloss (0 past n_valid and B) into sP.
-//      p is kept, not recomputed: the
-//      walk over H below reads every p row once for each 64-column block
-//      of H, and recomputing would redo the whole logit product that many
-//      times (8 at H = 512);
-//   2. for each block hb of HB = 64 hidden columns: stage T[tile, hb];
-//      then for each 64-row chunk of the group, stage s[chunk, hb] and add
-//        p_chunk^T @ s[chunk, hb]  into the tile's dT block, in registers,
-//        p_chunk @ T[tile, hb]     into the split's ds_part rows (the
-//                                  split's first tile writes, later tiles
-//                                  add; each element has one writer);
-//      then write the dT block (a later group adds to what an earlier
-//      one wrote; every dT row belongs to this block).
-// Then the one-hot term, for the answers in [0, n_valid) that fall in the
-// tile, in ascending answer order, on the finished dT rows in device
-// memory (the block's own writes, visible to it after the barrier). Every sum runs in a fixed order: two calls give the
-// same bits. Shared memory: 2 x 64 x WLD + PB x (VT + 4) + 2 PB floats,
-// 106,496 B at any H, so two blocks share an SM.
-__global__ void __launch_bounds__(THREADS, 2)
-ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ table,
-                   const long long* __restrict__ answers, const float* __restrict__ logz,
-                   const float* __restrict__ dloss, int B, int V, int H, int n_valid,
-                   int tiles_per_split, float* __restrict__ ds_part,
-                   float* __restrict__ dtable) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int pld = VT + 4;
-  float* sS = smem;             // [BT][WLD] states chunk
-  float* sT = sS + BT * WLD;    // [VT][WLD] table chunk
-  float* sP = sT + VT * WLD;    // [PB][pld] p of the group's rows
-  float* sZ = sP + PB * pld;    // [PB]      logZ
-  float* sD = sZ + PB;          // [PB]      dloss
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int split = blockIdx.x;
-  const int n_tiles = (V + VT - 1) / VT;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * VT;
-    for (int g0 = 0; g0 < B; g0 += PB) {
-      const int n_chunks = (min(PB, B - g0) + BT - 1) / BT;
-      __syncthreads();  // earlier readers of sZ and sD are done
-      for (int r = tid; r < PB; r += THREADS) {
-        const int row = g0 + r;
-        sZ[r] = row < B ? logz[row] : 0.f;
-        sD[r] = row < B ? dloss[row] : 0.f;
-      }
-      // 1. p of the group's rows (wide_logits' first barrier publishes sZ, sD)
-      for (int c = 0; c < n_chunks; ++c) {
-        float acc[4][4];
-        wide_logits(sS, sT, states, table, g0 + c * BT, B, j0, V, H, acc);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = c * BT + ty * 4 + i;
-          const bool row_ok = g0 + r < B;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = tx + 16 * j;
-            sP[r * pld + col] = (row_ok && j0 + col < n_valid) ? expf(acc[i][j] - sZ[r]) * sD[r] : 0.f;
-          }
-        }
-      }
-      // 2. dT and ds, a block of HB hidden columns at a time
-      for (int hb = 0; hb < H; hb += HB) {
-        const int hw = min(HB, H - hb);
-        const bool mine = tx * 4 < hw;  // this thread's 4 columns lie inside H
-        const int h = hb + tx * 4;
-        __syncthreads();  // earlier readers of sT (and, first, every p) are done
-        stage_chunk(sT, table, j0, V, H, hb, hw, VT);
-        float g[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) g[i][k] = 0.f;
-        for (int c = 0; c < n_chunks; ++c) {
-          const int row0 = g0 + c * BT;
-          if (c > 0) __syncthreads();  // earlier readers of sS are done
-          stage_chunk(sS, states, row0, B, H, hb, hw, BT);
-          __syncthreads();
-          if (!mine) continue;
-          const float* pc = sP + c * BT * pld;
-          // the tile's dT rows ty*4 .. +3 += p_chunk^T @ s[chunk, hb]
-#pragma unroll 4
-          for (int r = 0; r < BT; ++r) {
-            const float4 p4 = *reinterpret_cast<const float4*>(pc + r * pld + ty * 4);
-            const float4 s4 = *reinterpret_cast<const float4*>(sS + r * WLD + tx * 4);
-            const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              g[i][0] = fmaf(pv[i], s4.x, g[i][0]);
-              g[i][1] = fmaf(pv[i], s4.y, g[i][1]);
-              g[i][2] = fmaf(pv[i], s4.z, g[i][2]);
-              g[i][3] = fmaf(pv[i], s4.w, g[i][3]);
-            }
-          }
-          // this split's ds rows row0 + ty*4 .. +3 += p_chunk @ T[tile, hb]
-          float e[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) e[i][k] = 0.f;
-#pragma unroll 2
-          for (int cc = 0; cc < VT; cc += 4) {
-            float4 tc[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) tc[k] = *reinterpret_cast<const float4*>(sT + (cc + k) * WLD + tx * 4);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float4 p4 = *reinterpret_cast<const float4*>(pc + (ty * 4 + i) * pld + cc);
-              const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                e[i][0] = fmaf(pv[k], tc[k].x, e[i][0]);
-                e[i][1] = fmaf(pv[k], tc[k].y, e[i][1]);
-                e[i][2] = fmaf(pv[k], tc[k].z, e[i][2]);
-                e[i][3] = fmaf(pv[k], tc[k].w, e[i][3]);
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = row0 + ty * 4 + i;
-            if (row >= B) continue;
-            float4* dst = reinterpret_cast<float4*>(ds_part + ((size_t)split * B + row) * H + h);
-            float4 v = make_float4(e[i][0], e[i][1], e[i][2], e[i][3]);
-            if (t != t_begin) {  // the split's first tile writes, later tiles add
-              const float4 o = *dst;
-              v.x += o.x;
-              v.y += o.y;
-              v.z += o.z;
-              v.w += o.w;
-            }
-            *dst = v;
-          }
-        }
-        if (mine) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int col = j0 + ty * 4 + i;
-            if (col >= V) continue;
-            float4* dst = reinterpret_cast<float4*>(dtable + (size_t)col * H + h);
-            float4 v = make_float4(g[i][0], g[i][1], g[i][2], g[i][3]);
-            if (g0 > 0) {  // a later group adds to the earlier groups' sum
-              const float4 o = *dst;
-              v.x += o.x;
-              v.y += o.y;
-              v.z += o.z;
-              v.w += o.w;
-            }
-            *dst = v;
-          }
-        }
-      }
-    }
-    // the one-hot term, as ce_bwd_sweep_kernel takes it, on the tile's
-    // finished dT rows in device memory. Most tiles hold no answer and
-    // skip the serial loop after one vote.
-    int hit = 0;
-    for (int i = tid; i < B; i += THREADS) {
-      const long long a = __ldg(answers + i);
-      hit |= in_catalog(a, n_valid) && a >= j0 && a < j0 + VT;
-    }
-    if (__syncthreads_or(hit)) {  // also the barrier after every dT write of the tile
-      for (int h = tid; h < H; h += THREADS) {
-        for (int i = 0; i < B; ++i) {
-          const long long a = __ldg(answers + i);
-          if (in_catalog(a, n_valid) && a >= j0 && a < j0 + VT)
-            dtable[(size_t)a * H + h] -= __ldg(dloss + i) * __ldg(states + (size_t)i * H + h);
-        }
-      }
-    }
-  }
-}
-
 // ---- the bf16-operand form of the wide backward, on the tensor cores --------
 //
 // ce_bwd_wide_tc_kernel: the backward's pass 1 in the bf16-operand form at
@@ -1116,8 +936,8 @@ ce_bwd_wide_kernel(const float* __restrict__ states, const float* __restrict__ t
 //           warps' fragment order, so that every warp-wide access moves 512
 //           contiguous bytes (ce_ds_reduce_tc_kernel reads that order). A
 //           step's accumulators are loaded at the end of the step before.
-// Then the one-hot term dT[a_i] -= dloss_i * s_i as ce_bwd_wide_kernel
-// takes it: on the tile's finished dT rows in device memory, from the
+// Then the one-hot term dT[a_i] -= dloss_i * s_i, in ascending i as every
+// route takes it: on the tile's finished dT rows in device memory, from the
 // unrounded states, in ascending i. The sums run in a fixed order and
 // ds_part is summed by ce_ds_reduce_tc_kernel in split order: two calls
 // give the same bits.
@@ -1446,7 +1266,7 @@ ce_bwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, __nv_bfloat16* __res
         step(s + 1, pre_b, pre_a);
       }
     }
-    // the one-hot term, as ce_bwd_wide_kernel takes it, on the tile's
+    // the one-hot term, in ascending i as every route takes it, on the tile's
     // finished dT rows in device memory, from the unrounded states
     int hit = 0;
     for (int i = tid; i < B; i += THREADS) {
@@ -1458,6 +1278,412 @@ ce_bwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, __nv_bfloat16* __res
         for (int i = 0; i < B; ++i) {
           const long long a = __ldg(answers + i);
           if (in_catalog(a, n_valid) && a >= j0 && a < j0 + TC_SV)
+            dtable[(size_t)a * H + h] -= __ldg(dloss + i) * __ldg(states + (size_t)i * H + h);
+        }
+      }
+    }
+  }
+}
+
+// ---- the fp32 form of the wide backward, on the tensor cores in 3xTF32 -------
+//
+// ce_bwd_wide_tf32_kernel: the backward's pass 1 in the fp32 form at
+// H > MAX_H, the counterpart of pallas_ce.py:340 _grads_kernel at f32,
+// whose three products are f32 dot_generals (pallas_ce.py:399-406). It
+// computes what ce_bwd_wide_tc_kernel does without a rounding: p =
+// exp(s . T^T - logZ) * dloss in fp32 (0 past n_valid and B), ds_part +=
+// p . T, dT = p^T . s, then the one-hot term. Every product runs on the
+// tensor cores in 3xTF32 (tensor_core.cuh: each fp32 operand split in
+// registers into a TF32 hi and lo, three mma.sync m16n8k8 a product), which
+// keeps fp32 accuracy; 1xTF32 keeps about three digits and would not be
+// the same function.
+//
+// Bound at B=256, V=1M, H=512: 3 x 2BVH = 786.43 GFLOP, three TF32 passes
+// of it at the dense TF32 rate (495 TFLOP/s) 4.77 ms; the fp32 table read
+// once and dT written once, 4.10 GB, 1.22 ms at 3.35 TB/s. (The same work
+// in fp32 FMAs is 11.74 ms at 67 TFLOP/s: a kernel on the FMA pipes could
+// at best tie cuBLAS's SGEMM.)
+//
+// The skeleton is ce_bwd_wide_tc_kernel's, with the widths halved for
+// fp32 operands so that the same shared memory holds them. One block of
+// 256 threads per SM walks its split in tiles of TF_COLS = 128 catalog
+// columns, and each group of up to TC_ROWS = 256 batch rows (one group for
+// B <= 256) in 2 Hp / 32 + Hp / 16 steps (Hp = H up to a multiple of 32),
+// the next step's state chunk and table rows in flight by cp.async while a
+// step computes (a ring of two slots, one barrier a step). The copies read
+// the fp32 inputs as they are, zero-filled past B, V and H:
+//   logits   for each 64-column sub-tile of the tile, Hp / 32 steps of 32
+//            hidden columns: the group's [256 x 64] logits S . T_sub^T
+//            accumulated over the hidden chunks (8 warps as 4 x 2, 64 x 32
+//            each, A and B through ldmatrix); then p into the tile's p
+//            [256 x 128], fp32, in shared memory;
+//   products Hp / 16 steps, each for one 16-column hidden chunk of the
+//            tile's 128 table rows: warps 0-3 dT[tile, chunk] = p^T .
+//            S[:, chunk] (32 catalog columns each, K = 256), warps 4-7
+//            ds[:, chunk] += p . T[tile, chunk] (64 batch rows each, K =
+//            128): 128 three-pass MMAs a warp either way. dT is written once
+//            (a later group adds to it); the split's ds_part is read and
+//            written once per tile (the split's first tile only writes), in
+//            the ds warps' fragment order (ce_ds_reduce_tc_kernel<true>).
+// Then the one-hot term dT[a_i] -= dloss_i * s_i as the other routes take
+// it: on the tile's finished dT rows in device memory, from the states,
+// in ascending i. The sums run in a fixed order and ds_part is summed in
+// split order: two calls give the same bits.
+//
+// Accuracy. A tensor core aligns the addends of its sum to the largest,
+// the accumulator included, and truncates: every MMA into a large running
+// sum loses up to an ulp of it (tensor_core.cuh). So no sum runs long on
+// the tensor cores: each step's sums start from 0 (the logits' over 32
+// hidden columns, dT's over the group's rows in two interleaved halves,
+// ds's over the tile's 128 columns) and are added to the running logits,
+// to dT from an earlier group and to ds_part from an earlier tile with one
+// fp32 rounding each (the carried values are loaded at the end of the step
+// before, so that the loads are in flight while it waits at the barrier).
+// With every sum carried through the tensor cores, a first version of this
+// kernel missed parity.WIDE_GRAD_TOL on the H100; with the sums a step
+// long it comes nearer an fp64 reference than the fp32 plain version does
+// (PERF.md, tools/ablate_ce_tc.py).
+//
+// Fragments. Where k lies along a stored row (the logits' S and T, the ds
+// product's p) the fragments come by ldmatrix. Elsewhere a lane loads
+// 32-bit values itself, and the products choose the order of k and of the
+// rows and columns (tensor_core.cuh) so that each load takes two
+// neighbours: the dT product's lane (g, t) takes batch rows k + 2t and
+// k + 2t + 1 for k t and t + 4, p's catalog columns 2g and 2g + 1 for rows
+// g and g + 8, and hidden columns 2g + j for column g of n8 fragment j, as
+// does the ds product's B. Every load of a warp falls on distinct banks:
+// row strides of 36 floats for the logits slot, 132 for p, 20 for the
+// products slot's states and 24 for its table rows. A lane's two n8
+// fragments then hold four neighbouring hidden columns, so dT goes out as
+// float4 stores. The hi/lo split is done in registers once per fragment
+// load: hi as cvt.rna.tf32.f32 rounds, in two integer instructions, and an
+// fp32 subtract for lo (tensor_core.cuh: split_tf32).
+//
+// Bytes at B=256, V=1M, H=512, per 128-column tile: the table rows from
+// device memory once (256 KB; the products steps take them again from
+// L2), dT written once (256 KB), ds_part read and written once (1 MB):
+// 11.8 GB over 7,813 tiles; through L2 besides, the fp32 states three
+// times (1.5 MB). Shared memory: p 135,168 B, two slots 92,160 (a logits
+// slot, 46,080, holds a products slot, 32,768), logZ and dloss 2,048:
+// 229,376 B at any H; 251 registers, no spills.
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at B=256, V=1M, H=512 it takes
+// ~14.7 ms (PERF.md row 4w; the FMA kernel it replaced ~29.3), 32% of its
+// bound and 1.24x the library call (cuBLAS SGEMM). It issues its 1.15 G
+// mma.sync at ~79 G/s, the rate ce_fwd_wide_tc_kernel's MMAs reach alone
+// (tools/ablate_ce_tc.py): mma.sync issue bounds it, and wgmma, whose TF32
+// form takes both operands K-major from shared memory, is the next step.
+
+constexpr int TF_COLS = 128;             // catalog columns per tile: one ds_part update
+constexpr int TF_SUB = 64;               // catalog columns per logits sub-tile
+constexpr int TF_HL = 32;                // hidden columns per logits step (H is padded to a multiple)
+constexpr int TF_HP = 16;                // hidden columns per products step
+constexpr int TF_LDL = TF_HL + 4;        // a logits slot's row stride (floats)
+constexpr int TF_LDS = TF_HP + 4;        // a products slot's states row stride
+constexpr int TF_LDT = TF_HP + 8;        // ... and its table rows'
+constexpr int TF_LDP = TF_COLS + 4;      // p's row stride
+// a logits slot: states [TC_ROWS][TF_LDL], then table rows [TF_SUB][TF_LDL];
+// a products slot: states [TC_ROWS][TF_LDS], then table rows [TF_COLS][TF_LDT]
+constexpr int TF_LSLOT = (TC_ROWS + TF_SUB) * TF_LDL;
+constexpr int TF_PSLOT = TC_ROWS * TF_LDS + TF_COLS * TF_LDT;
+constexpr long long TF_SMEM = 4LL * (TC_ROWS * TF_LDP + 2 * TF_LSLOT + 2 * TC_ROWS);  // 229,376 B
+static_assert(TF_SMEM <= MAX_SMEM && TF_COLS == 2 * TF_SUB && TF_COLS % VT == 0 &&
+                  TF_HL == 2 * TF_HP && THREADS == 256 && TC_ROWS == 256,
+              "8 warps: logits 4 x 2 warps of 64 x 32, products 4 dT warps of 32 columns and 4 ds "
+              "warps of 64 rows");
+// As in ce_bwd_wide_tc_kernel, both kinds of slot share one region of two
+// logits slots, and products slot 0 must end before logits slot 1 begins.
+static_assert(TF_PSLOT <= TF_LSLOT, "products slot 0 ends before logits slot 1");
+// ldmatrix rows (and k t of a scalar load) 16 bytes apart mod 128: strides
+// of 4 mod 8 floats; the ds product's B loads k t four rows of 24 apart
+static_assert(TF_LDL % 8 == 4 && TF_LDP % 8 == 4 && TF_LDS % 8 == 4 && TF_LDT % 32 == 24,
+              "every fragment load of a warp on distinct banks");
+
+// Rows [row0, row0 + N) of a row-major [R, H] fp32 matrix, hidden columns
+// [h0, h0 + W), into shared memory with row stride ld by 16-byte
+// cp.async.cg, zero past R and H (H % 4 == 0: a piece lies inside H or past
+// it).
+template <int N, int W>
+__device__ __forceinline__ void copy_chunk_async(float* dst, int ld, const float* __restrict__ src,
+                                                 int row0, int R, int H, int h0) {
+  constexpr int Q = W / 4;  // pieces a row
+  static_assert(N * Q % THREADS == 0, "whole pieces a thread");
+#pragma unroll
+  for (int q = 0; q < N * Q / THREADS; ++q) {
+    const int i = threadIdx.x + THREADS * q, r = i / Q, c = (i % Q) * 4;
+    const bool full = row0 + r < R && h0 + c < H;
+    tc::cp_async_16_zfill(dst + r * ld + c, full ? src + (size_t)(row0 + r) * H + h0 + c : src, full);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_wide_tf32_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                        const long long* __restrict__ answers, const float* __restrict__ logz,
+                        const float* __restrict__ dloss, int B, int V, int H, int n_valid,
+                        int tiles_per_split, float* __restrict__ ds_part,
+                        float* __restrict__ dtable) {
+  extern __shared__ __align__(16) float smem[];
+  float* sP = smem;                   // [TC_ROWS][TF_LDP] p of the tile
+  float* sR = sP + TC_ROWS * TF_LDP;  // [2][TF_LSLOT] the slots
+  float* sZ = sR + 2 * TF_LSLOT;      // [TC_ROWS] logZ
+  float* sD = sZ + TC_ROWS;           // [TC_ROWS] dloss
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int Hp = round_up(H, TF_HL), nl = Hp / TF_HL, np = Hp / TF_HP;
+  const int n_lg = (TF_COLS / TF_SUB) * nl, n_steps = n_lg + np;
+  const int n_groups = (B + TC_ROWS - 1) / TC_ROWS;
+  const int split = blockIdx.x;
+  const int n_tiles = (V + VT - 1) / VT;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  // the logits' warp tile (rows 64 wm, columns 32 wn of a sub-tile); the
+  // products' (warps 0-3: dT's catalog columns pm, 32 of them; 4-7: ds's
+  // batch rows pm, 64 of them)
+  const int wm = warp & 3, wn = warp >> 2;
+  const bool dt_warp = warp < 4;
+  const int pm = dt_warp ? 32 * warp : 64 * (warp - 4);
+
+  for (int t = t_begin; t < t_end; t += TF_COLS / VT) {
+    const int j0 = t * VT;
+    for (int g0 = 0; g0 < B; g0 += TC_ROWS) {
+      // step s: s < n_lg the logits of sub-tile s / nl at hidden chunk
+      // s % nl, else the products at chunk s - n_lg; its slot is s & 1
+      auto slot = [&](int s) { return sR + (s & 1) * (s < n_lg ? TF_LSLOT : TF_PSLOT); };
+      auto issue = [&](int s) {
+        float* dst = slot(s);
+        if (s < n_lg) {
+          const int h0 = (s % nl) * TF_HL;
+          copy_chunk_async<TC_ROWS, TF_HL>(dst, TF_LDL, states, g0, B, H, h0);
+          copy_chunk_async<TF_SUB, TF_HL>(dst + TC_ROWS * TF_LDL, TF_LDL, table,
+                                          j0 + (s / nl) * TF_SUB, V, H, h0);
+        } else {
+          const int h0 = (s - n_lg) * TF_HP;
+          copy_chunk_async<TC_ROWS, TF_HP>(dst, TF_LDS, states, g0, B, H, h0);
+          copy_chunk_async<TF_COLS, TF_HP>(dst + TC_ROWS * TF_LDS, TF_LDT, table, j0, V, H, h0);
+        }
+      };
+      // step s begins: its copies have landed and every thread is done
+      // with step s - 1's slot; step s + 1's copies go out
+      auto begin = [&](int s) {
+        onchip::cp_async_wait_all();
+        __syncthreads();
+        if (s + 1 < n_steps) issue(s + 1);
+        onchip::cp_async_commit();
+      };
+      // this ds warp's fragments of products step s in ds_part: blocks of
+      // 64 x TF_HP floats for (group, step, ds warp), float4 q = 2 i + half
+      // of lane l at (q * 32 + l) * 4 (ce_ds_reduce_tc_kernel<true>), so
+      // that each warp-wide access moves 512 contiguous bytes
+      auto ds_frag = [&](int s) {
+        return reinterpret_cast<float4*>(
+            ds_part + ((((size_t)split * n_groups + g0 / TC_ROWS) * np + (s - n_lg)) * 4 +
+                       (warp - 4)) * (64 * TF_HP) + lane * 4);
+      };
+      // A products step's sums start from 0 and are added, with one fp32
+      // rounding, to what an earlier group (dT) or tile (ds_part) wrote
+      // there, by this same thread: prev, loaded at the end of the step
+      // before, so that the loads are in flight while it waits at the
+      // barrier. A
+      // lane's float4 q = 2 i + e / 2 holds, of m16 fragment i, hidden
+      // columns 4t .. 4t + 3 of the chunk for its row e = 0 or 2: dT's
+      // catalog column pm + 16 i + 2g + e / 2, ds's batch row pm + 16 i +
+      // g + 4e.
+      float4 prev[8];
+      auto dt_at = [&](int q, int h0) -> float* {
+        const int m = j0 + pm + 16 * (q >> 1) + 2 * g + (q & 1), h = h0 + 4 * t4;
+        return m < V && h < H ? dtable + (size_t)m * H + h : nullptr;
+      };
+      auto carry = [&](int s) {
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (dt_warp) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float* src = g0 > 0 ? dt_at(q, (s - n_lg) * TF_HP) : nullptr;
+            prev[q] = src ? *reinterpret_cast<const float4*>(src) : zero;
+          }
+        } else {
+          const float4* src = ds_frag(s);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) prev[q] = t != t_begin ? src[q * 32] : zero;
+        }
+      };
+
+      __syncthreads();  // every reader of the slots, sZ and sD before is done
+      for (int r = tid; r < TC_ROWS; r += THREADS) {
+        const int row = g0 + r;
+        sZ[r] = row < B ? logz[row] : 0.f;
+        sD[r] = row < B ? dloss[row] : 0.f;
+      }
+      issue(0);
+      onchip::cp_async_commit();
+
+      // the logits steps: acc[i][j] += S[64 wm + 16 i, :] . T[32 wn + 8 j, :]^T,
+      // half the warp tile's rows at a time, each step's sum taken on the
+      // tensor cores from 0 and added to acc with one fp32 rounding
+      // (tensor_core.cuh: mma_3xtf32)
+      float acc[4][4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int s = 0; s < n_lg; ++s) {
+        begin(s);
+        const float* S = slot(s);
+        const float* T = S + TC_ROWS * TF_LDL;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float part[2][4][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < TF_HL; kk += 8) {
+            uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              uint32_t r[4];
+              tc::ldmatrix_x4(r, S + (64 * wm + 32 * hf + 16 * i + tc::a_row(lane)) * TF_LDL + kk +
+                                     tc::a_col32(lane));
+#pragma unroll
+              for (int e = 0; e < 4; ++e) tc::split_tf32(r[e], ah[i][e], al[i][e]);
+            }
+#pragma unroll
+            for (int jp = 0; jp < 2; ++jp) {
+              uint32_t r[4];
+              tc::ldmatrix_x4(r, T + (32 * wn + 16 * jp + tc::b_row(lane)) * TF_LDL + kk +
+                                     tc::b_col32(lane));
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                tc::split_tf32(r[e], bh[2 * jp + (e >> 1)][e & 1], bl[2 * jp + (e >> 1)][e & 1]);
+            }
+            tc::mma_3xtf32(part, ah, al, bh, bl);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[2 * hf + i][j][e] += part[i][j][e];
+        }
+        if (s % nl == nl - 1) {  // the sub-tile's logits are complete: p into sP
+          const int sub = s / nl;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int r = 64 * wm + 16 * i + g + 8 * half;
+              const bool row_ok = g0 + r < B;
+              const float z = sZ[r], d = sD[r];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int c = TF_SUB * sub + 32 * wn + 8 * j + 2 * t4, col = j0 + c;
+                const float p0 = (row_ok && col < n_valid) ? expf(acc[i][j][2 * half] - z) * d : 0.f;
+                const float p1 =
+                    (row_ok && col + 1 < n_valid) ? expf(acc[i][j][2 * half + 1] - z) * d : 0.f;
+                *reinterpret_cast<float2*>(sP + r * TF_LDP + c) = make_float2(p0, p1);
+                acc[i][j][2 * half] = acc[i][j][2 * half + 1] = 0.f;
+              }
+            }
+        }
+      }
+      carry(n_lg);
+
+      // the products steps
+      for (int s = n_lg; s < n_steps; ++s) {
+        begin(s);
+        const float* S = slot(s);
+        const int h0 = (s - n_lg) * TF_HP;
+        if (dt_warp) {
+          // c[u][i][j] += p[:, pm + 16 i]^T . S[:, j], K = the group's rows,
+          // the k8 blocks k + 8u (u = 0, 1) summed apart and added at the
+          // end (twice the independent accumulators): lane (g, t) takes rows
+          // k + 8u + 2t (k t) and k + 8u + 2t + 1 (k t + 4), p's columns 2g
+          // (row g) and 2g + 1 (row g + 8), S's columns 2g + j
+          float c[2][2][2][4] = {};
+          const float* P = sP + pm + 2 * g;
+          const float* Sg = S + 2 * g;
+#pragma unroll 2
+          for (int k = 0; k < TC_ROWS; k += 16) {
+            uint32_t ah[2][2][4], al[2][2][4], bh[2][2][2], bl[2][2][2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int r0 = k + 8 * u + 2 * t4;
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {  // rows r0 + e: (a[0], a[1]), then (a[2], a[3])
+                  const float2 v = *reinterpret_cast<const float2*>(P + (r0 + e) * TF_LDP + 16 * i);
+                  tc::split_tf32(__float_as_uint(v.x), ah[u][i][2 * e], al[u][i][2 * e]);
+                  tc::split_tf32(__float_as_uint(v.y), ah[u][i][2 * e + 1], al[u][i][2 * e + 1]);
+                }
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {  // rows r0 + e: (b[0][e], b[1][e])
+                const float2 v = *reinterpret_cast<const float2*>(Sg + (r0 + e) * TF_LDS);
+                tc::split_tf32(__float_as_uint(v.x), bh[u][0][e], bl[u][0][e]);
+                tc::split_tf32(__float_as_uint(v.y), bh[u][1][e], bl[u][1][e]);
+              }
+            }
+#pragma unroll
+            for (int pass = 0; pass < 3; ++pass)  // the two blocks' passes interleaved
+#pragma unroll
+              for (int u = 0; u < 2; ++u) tc::mma_pass(pass, c[u], ah[u], al[u], bh[u], bl[u]);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = q >> 1, e = 2 * (q & 1);
+            float* dst = dt_at(q, h0);
+            if (dst)
+              *reinterpret_cast<float4*>(dst) = make_float4(
+                  prev[q].x + (c[0][i][0][e] + c[1][i][0][e]), prev[q].y + (c[0][i][1][e] + c[1][i][1][e]),
+                  prev[q].z + (c[0][i][0][e + 1] + c[1][i][0][e + 1]),
+                  prev[q].w + (c[0][i][1][e + 1] + c[1][i][1][e + 1]));
+          }
+        } else {
+          // c[i][j] += p[pm + 16 i, :] . T[:, j], K = the tile's columns:
+          // A by ldmatrix; B's lane (g, t) takes T rows k + t and k + t + 4,
+          // columns 2g + j
+          float c[4][2][4] = {};
+          const float* Tg = S + TC_ROWS * TF_LDS + 2 * g;
+#pragma unroll 2
+          for (int k = 0; k < TF_COLS; k += 8) {
+            uint32_t ah[4][4], al[4][4], bh[2][2], bl[2][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              uint32_t r[4];
+              tc::ldmatrix_x4(r, sP + (pm + 16 * i + tc::a_row(lane)) * TF_LDP + k +
+                                     tc::a_col32(lane));
+#pragma unroll
+              for (int e = 0; e < 4; ++e) tc::split_tf32(r[e], ah[i][e], al[i][e]);
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {  // rows k + t + 4e: (b[0][e], b[1][e])
+              const float2 v = *reinterpret_cast<const float2*>(Tg + (k + t4 + 4 * e) * TF_LDT);
+              tc::split_tf32(__float_as_uint(v.x), bh[0][e], bl[0][e]);
+              tc::split_tf32(__float_as_uint(v.y), bh[1][e], bl[1][e]);
+            }
+            tc::mma_3xtf32(c, ah, al, bh, bl);
+          }
+          float4* dst = ds_frag(s);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int i = q >> 1, e = 2 * (q & 1);
+            dst[q * 32] = make_float4(prev[q].x + c[i][0][e], prev[q].y + c[i][1][e],
+                                      prev[q].z + c[i][0][e + 1], prev[q].w + c[i][1][e + 1]);
+          }
+        }
+        if (s + 1 < n_steps) carry(s + 1);
+      }
+    }
+    // the one-hot term, as ce_bwd_wide_tc_kernel takes it, on the tile's
+    // finished dT rows in device memory
+    int hit = 0;
+    for (int i = tid; i < B; i += THREADS) {
+      const long long a = __ldg(answers + i);
+      hit |= in_catalog(a, n_valid) && a >= j0 && a < j0 + TF_COLS;
+    }
+    if (__syncthreads_or(hit)) {  // also the barrier after every dT write of the tile
+      for (int h = tid; h < H; h += THREADS) {
+        for (int i = 0; i < B; ++i) {
+          const long long a = __ldg(answers + i);
+          if (in_catalog(a, n_valid) && a >= j0 && a < j0 + TF_COLS)
             dtable[(size_t)a * H + h] -= __ldg(dloss + i) * __ldg(states + (size_t)i * H + h);
         }
       }
@@ -1483,27 +1709,33 @@ ce_ds_reduce_kernel(const float* __restrict__ ds_part, const float* __restrict__
   ds[idx] = total;
 }
 
-// ds [B, H] from ce_bwd_wide_tc_kernel's partials, which hold each
-// split's [Bp, Hp] in the fragment order of its ds warps: blocks of 2,048
-// floats for (row group of 256, products step kc, ds warp w), in which
-// float c of float4 q = 4 i + j of lane l (g = l >> 2, t = l & 3) is
-// row 256 group + 64 w + 16 i + g + 8 (c >> 1), column 32 kc + 8 j + 2 t +
-// (c & 1). One thread per float of that order (reads coalesced): the sum
-// over the splits in split order, then, as ce_ds_reduce_kernel, minus
-// dloss_i * table[a_i][h] with one rounding each, written to its row and
-// column when they lie inside [B, H].
+// ds [B, H] from the wide tensor-core kernels' partials, which hold each
+// split's [Bp, Hp] in the fragment order of their ds warps: blocks of
+// 64 x HPW floats for (row group of 256, products step kc, ds warp w), in
+// which, for lane l (g = l >> 2, t = l & 3), float c of float4 q is
+//   - ce_bwd_wide_tc_kernel (HPW = TC_HP = 32, q = 4 i + j): row 256 group
+//     + 64 w + 16 i + g + 8 (c >> 1), column 32 kc + 8 j + 2 t + (c & 1);
+//   - ce_bwd_wide_tf32_kernel (TF32, HPW = TF_HP = 16, q = 2 i + half):
+//     row 256 group + 64 w + 16 i + g + 8 half, column 16 kc + 4 t + c.
+// One thread per float of that order (reads coalesced): the sum over the
+// splits in split order, then, as ce_ds_reduce_kernel, minus dloss_i *
+// table[a_i][h] with one rounding each, written to its row and column when
+// they lie inside [B, H].
+template <bool TF32>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 ce_ds_reduce_tc_kernel(const float* __restrict__ ds_part, const float* __restrict__ table,
                        const long long* __restrict__ answers, const float* __restrict__ dloss,
                        int B, int H, int Bp, int Hp, int n_valid, int n_splits,
                        float* __restrict__ ds) {
+  constexpr int HPW = TF32 ? TF_HP : TC_HP, BLK = 64 * HPW;
   const int n = Bp * Hp;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const int blk = idx >> 11, f = idx & 2047, w = blk & 3, kc = (blk >> 2) % (Hp / TC_HP);
-  const int grp = (blk >> 2) / (Hp / TC_HP), q = f >> 7, l = (f >> 2) & 31, c = f & 3;
-  const int row = TC_ROWS * grp + 64 * w + 16 * (q >> 2) + (l >> 2) + 8 * (c >> 1);
-  const int h = TC_HP * kc + 8 * (q & 3) + 2 * (l & 3) + (c & 1);
+  const int blk = idx / BLK, f = idx % BLK, w = blk & 3, kc = (blk >> 2) % (Hp / HPW);
+  const int grp = (blk >> 2) / (Hp / HPW), q = f >> 7, l = (f >> 2) & 31, c = f & 3;
+  const int row = TF32 ? TC_ROWS * grp + 64 * w + 16 * (q >> 1) + (l >> 2) + 8 * (q & 1)
+                       : TC_ROWS * grp + 64 * w + 16 * (q >> 2) + (l >> 2) + 8 * (c >> 1);
+  const int h = TF32 ? HPW * kc + 4 * (l & 3) + c : HPW * kc + 8 * (q & 3) + 2 * (l & 3) + (c & 1);
   if (row >= B || h >= H) return;
   float total = 0.f;
   for (int s = 0; s < n_splits; ++s) total += ds_part[(size_t)s * n + idx];
@@ -1771,13 +2003,18 @@ bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 !=
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
 // (and the backward's ds) fit beside the tiles; past MAX_H the wide
-// route, which walks H in chunks (in the fp32 form ce_fwd_partial_kernel<false,
-// true> and ce_bwd_wide_kernel; in the bf16 form the tensor-core kernels
-// ce_fwd_wide_tc_kernel and ce_bwd_wide_tc_kernel); ce_fwd_partial_kernel
-// and ce_bwd_sweep_kernel elsewhere.
+// route, which walks H in chunks: forward, ce_fwd_partial_kernel<false,
+// true> in the fp32 form and the tensor-core kernel ce_fwd_wide_tc_kernel
+// in the bf16 form; backward, a tensor-core kernel in either form,
+// ce_bwd_wide_tf32_kernel (fp32, 3xTF32) and ce_bwd_wide_tc_kernel (bf16);
+// ce_fwd_partial_kernel and ce_bwd_sweep_kernel elsewhere.
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 bool wide_route(int H) { return H > MAX_H; }
-bool tc_route(int H, int bf16) { return bf16 && wide_route(H); }
+bool logz_tc_route(int H, int bf16) { return bf16 && wide_route(H); }
+// ... and the backward tensor-core kernel's tile: catalog columns, and the
+// multiple of 64 that H is padded to
+int grads_tc_cols(int bf16) { return bf16 ? TC_SV : TF_COLS; }
+int grads_tc_hp(int H, int bf16) { return round_up(H, bf16 ? TC_HL : TF_HL); }
 
 }  // namespace
 
@@ -1788,10 +2025,9 @@ extern "C" {
 // bf16-operand form) take.
 long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
   const long long ld = H + 4;
-  if (tc_route(H, bf16)) return which == 0 ? FT_SMEM : TC_SMEM;
-  if (wide_route(H))
-    return (long long)sizeof(float) *
-           (which == 0 ? (BT + VT) * WLD : (BT + VT) * WLD + PB * (VT + 4) + 2 * PB);
+  if (which == 0 && logz_tc_route(H, bf16)) return FT_SMEM;
+  if (which == 1 && wide_route(H)) return bf16 ? TC_SMEM : TF_SMEM;
+  if (wide_route(H)) return (long long)sizeof(float) * (BT + VT) * WLD;  // the fp32 forward
   if (which == 0)
     return (long long)sizeof(float) *
            (onchip_route(B, H) ? onchip::STATE_FLOATS + onchip::RING_FLOATS : (BT + VT) * ld);
@@ -1805,14 +2041,16 @@ long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
 int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 
 // 1 where they take their wide routes (H > 256), which stage the hidden
-// dimension in chunks.
+// dimension in chunks. There ce_grads takes a tensor-core kernel in either
+// form: ce_bwd_wide_tf32_kernel in the fp32 form, whose tiles are TF_COLS
+// = 128 columns, ce_bwd_wide_tc_kernel in the bf16 form, TC_SV = 256: its
+// tiles_per_split is a multiple of 2, or of 4.
 int ce_wide_route(int H) { return wide_route(H) ? 1 : 0; }
 
-// 1 where ce_logz and ce_grads take their tensor-core kernels (the bf16
-// form on the wide route): ce_fwd_wide_tc_kernel, whose tiles are FT_COLS =
-// 128 columns, and ce_bwd_wide_tc_kernel, whose tiles are TC_SV = 256: their
-// tiles_per_split is a multiple of 2 and of 4.
-int ce_tc_route(int H, int bf16) { return tc_route(H, bf16) ? 1 : 0; }
+// 1 where ce_logz takes its tensor-core kernel, ce_fwd_wide_tc_kernel (the
+// bf16 form on the wide route), whose tiles are FT_COLS = 128 columns: its
+// tiles_per_split is a multiple of 2.
+int ce_logz_tc_route(int H, int bf16) { return logz_tc_route(H, bf16) ? 1 : 0; }
 
 // Bytes of the workspace that ce_logz takes at batch B, hidden size H, form
 // bf16 and n_splits splits: the splits' partials (max, then sum), fp32
@@ -1821,20 +2059,21 @@ int ce_tc_route(int H, int bf16) { return tc_route(H, bf16) ? 1 : 0; }
 // multiple of 64).
 long long ce_logz_workspace_bytes(int B, int H, int bf16, int n_splits) {
   const long long parts = (8LL * n_splits * B + 255) / 256 * 256;
-  if (!tc_route(H, bf16)) return parts;
+  if (!logz_tc_route(H, bf16)) return parts;
   return parts + 2LL * round_up(B, TC_ROWS) * round_up(H, TC_HL);
 }
 
 // Bytes of the workspace that ce_grads takes at batch B, hidden size H,
 // form bf16 and n_splits splits: ds_part, the splits' partial ds, fp32
 // [n_splits, B, H]; on the tensor-core route instead [n_splits, Bp, Hp] in
-// ce_bwd_wide_tc_kernel's fragment order (ce_ds_reduce_tc_kernel), then its
-// bf16 states [Bp, Hp] and one bf16 table tile [256, Hp] a split (Bp = B
-// up to a multiple of 256, Hp = H up to a multiple of 64).
+// the kernel's fragment order (ce_ds_reduce_tc_kernel; Bp = B up to a
+// multiple of 256, Hp = H up to a multiple of 32 in the fp32 form, of 64
+// in the bf16 form), and in the bf16 form then its bf16 states [Bp, Hp]
+// and one bf16 table tile [256, Hp] a split.
 long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
-  if (!tc_route(H, bf16)) return 4LL * n_splits * B * H;
-  const long long Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL);
-  return 4LL * n_splits * Bp * Hp + 2LL * (Bp + (long long)n_splits * TC_SV) * Hp;
+  if (!wide_route(H)) return 4LL * n_splits * B * H;
+  const long long Bp = round_up(B, TC_ROWS), Hp = grads_tc_hp(H, bf16);
+  return 4LL * n_splits * Bp * Hp + (bf16 ? 2LL * (Bp + (long long)n_splits * TC_SV) * Hp : 0);
 }
 
 // logZ [B] of states [B, H] against table [V, H] over columns < n_valid,
@@ -1842,7 +2081,7 @@ long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
 // <states[i], table[answers[i]]> with gold 0 for answers outside
 // [0, n_valid). answers and loss are both given or both null. bf16 != 0
 // takes the bf16-operand form (the file's head). The route is the shape's
-// and the form's (ce_onchip_route, ce_wide_route, ce_tc_route): one block
+// and the form's (ce_onchip_route, ce_wide_route, ce_logz_tc_route): one block
 // per SM suits the on-chip and tensor-core routes, two the others, over
 // (splits x batch tiles of 64 rows). The caller allocates the workspace
 // (ce_logz_workspace_bytes); n_splits * tiles_per_split tiles must cover
@@ -1851,7 +2090,7 @@ long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
 int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
             int n_valid, int n_splits, int tiles_per_split, void* workspace, void* logz,
             void* loss, int bf16, void* stream) {
-  const bool tc = tc_route(H, bf16);
+  const bool tc = logz_tc_route(H, bf16);
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr) ||
       (tc && (tiles_per_split % (FT_COLS / VT) != 0 ||
@@ -1918,30 +2157,31 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // for the int64 answers a_i in [0, n_valid) only (the others have neither
 // term). bf16 != 0 takes the bf16-operand form (the file's head): s, T and
 // p rounded to bf16 before the products, the one-hot terms from the
-// unrounded s and T. The route is the shape's and the form's
-// (ce_onchip_route, ce_wide_route, ce_tc_route): one block per SM
-// suits the on-chip and tensor-core routes, two the others. The caller
-// allocates the workspace (ce_grads_workspace_bytes); n_splits *
-// tiles_per_split tiles must cover V, and every split must hold at least
-// one tile. Returns 0 or a cudaError_t code.
+// unrounded s and T. The route is the shape's (ce_onchip_route,
+// ce_wide_route): one block per SM suits the on-chip
+// and tensor-core routes, two the sweep route. The caller allocates the
+// workspace (ce_grads_workspace_bytes); n_splits * tiles_per_split tiles
+// must cover V, every split must hold at least one tile, and on the
+// tensor-core route tiles_per_split is whole tiles of its kernel. Returns
+// 0 or a cudaError_t code.
 int ce_grads(const void* states, const void* table, const void* answers, const void* logz,
              const void* dloss, int B, int V, int H, int n_valid, int n_splits,
              int tiles_per_split, void* workspace, void* ds, void* dtable, int bf16,
              void* stream) {
   const int n_tiles = (V + VT - 1) / VT;
-  const bool tc = tc_route(H, bf16);
+  const bool tc = wide_route(H);  // a tensor-core kernel in either form
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
       (long long)(n_splits - 1) * tiles_per_split >= n_tiles ||
-      (tc && tiles_per_split % (TC_SV / VT) != 0))
+      (tc && tiles_per_split % (grads_tc_cols(bf16) / VT) != 0))
     return (int)cudaErrorInvalidValue;
   const long long smem = streaming_ce_smem_bytes(B, H, 1, bf16);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ds_part = static_cast<float*>(workspace);
+  const int Bp = round_up(B, TC_ROWS), Hp = grads_tc_hp(H, bf16);  // (the tensor-core route's)
   cudaError_t e;
-  if (tc) {
-    const int Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL);
+  if (tc && bf16) {
     __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(ds_part + (size_t)n_splits * Bp * Hp);
     __nv_bfloat16* tb = sb + (size_t)Bp * Hp;
     const int n4 = Bp * (Hp / 4);
@@ -1958,7 +2198,7 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
         static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
         ds_part, static_cast<float*>(dtable));
   } else {
-    auto sweep = wide_route(H)         ? ce_bwd_wide_kernel
+    auto sweep = tc                   ? ce_bwd_wide_tf32_kernel
                  : onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_kernel<true> : ce_bwd_onchip_kernel<false>)
                                       : (bf16 ? ce_bwd_sweep_kernel<true> : ce_bwd_sweep_kernel<false>);
     e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1972,8 +2212,9 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (tc) {
-    const int Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL), n = Bp * Hp;
-    ce_ds_reduce_tc_kernel<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
+    const int n = Bp * Hp;
+    auto reduce = bf16 ? ce_ds_reduce_tc_kernel<false> : ce_ds_reduce_tc_kernel<true>;
+    reduce<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(
         ds_part, static_cast<const float*>(table),
         static_cast<const long long*>(answers), static_cast<const float*>(dloss),
         B, H, Bp, Hp, n_valid, n_splits, static_cast<float*>(ds));

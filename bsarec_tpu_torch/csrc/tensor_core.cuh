@@ -1,6 +1,8 @@
-// bf16 tensor-core building blocks for Hopper (sm_90a), warp-level
-// (mma.sync, not wgmma): the products of ce_bwd_wide_tc_kernel and
-// ce_fwd_wide_tc_kernel (streaming_ce.cu). Every fragment is that of
+// Tensor-core building blocks for Hopper (sm_90a), warp-level (mma.sync,
+// not wgmma): the products of ce_bwd_wide_tc_kernel and
+// ce_fwd_wide_tc_kernel (bf16) and of ce_bwd_wide_tf32_kernel (fp32 in
+// 3xTF32, the second half of this file) in streaming_ce.cu. The bf16
+// fragments are those of
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane l of a
 // warp, g = l >> 2 and t = l & 3:
 //   A (16 x 16, row-major)  a[0]: (row g,     k 2t, 2t+1)  a[1]: (row g + 8, k 2t, 2t+1)
@@ -82,6 +84,92 @@ __device__ __forceinline__ void cp_async_wait_group() {
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16-byte cp.async.cg of src, or 16 zero bytes when !full (src is then not
+// read, but must still be a valid address).
+__device__ __forceinline__ void cp_async_16_zfill(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// ---- fp32 products in 3xTF32 ---------------------------------------------------
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 takes one 32-bit
+// value a register, for lane l, g = l >> 2 and t = l & 3:
+//   A (16 x 8, row-major)   a[0]: (row g, k t)      a[1]: (row g + 8, k t)
+//                           a[2]: (row g, k t + 4)  a[3]: (row g + 8, k t + 4)
+//   B (8 x 8, by column)    b[0]: (k t, column g)   b[1]: (k t + 4, column g)
+//   C (16 x 8, fp32)        as the bf16 form's.
+// The tensor core reads the top 19 bits of each operand (sign, exponent,
+// 10 mantissa bits: TF32, the rest truncated) and sums in fp32. 3xTF32
+// keeps fp32 accuracy: x = hi + lo with hi = x rounded to TF32 (nearest,
+// ties away from zero) and lo = x - hi (exact in fp32), and a . b taken as
+// lo_a . hi_b + hi_a . lo_b + hi_a . hi_b; the lo . lo term left out is
+// 2^-22 of a product at most. Any permutation of k applied to A and B
+// alike gives the same sum, and a permutation of A's rows or B's columns
+// moves C's with it: the users pick the ones that let a lane load two
+// neighbours at once.
+//
+// ldmatrix reads fp32 tiles too: each 16-byte row of an 8 x 8 b16 matrix is
+// four fp32 values, and lane l receives (row g, fp32 column t) of it, the
+// A and B fragments above for a tile stored with k along the row.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// The fp32 columns of a_col and b_col (lane l's row is a_row or b_row).
+__device__ __forceinline__ int a_col32(int l) { return (l >> 4) << 2; }
+__device__ __forceinline__ int b_col32(int l) { return ((l >> 3) & 1) << 2; }
+
+// x (fp32 bits) into hi and lo as above. hi is cvt.rna.tf32.f32's result
+// on every finite x, taken in two integer instructions: half a TF32 ulp
+// added to the magnitude's bits, the 13 low bits cleared (a carry moves
+// into the exponent as rounding up should). The cvt form gives the same
+// bits and is slower on the H100 (tools/ablate_ce_tc.py, PERF.md).
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// c += a . b, one TF32 pass.
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One pass over every i < M, j < N of c[i][j] += a[i] . b[j]: pass 0 takes
+// lo . hi, pass 1 hi . lo, pass 2 hi . hi.
+template <int M, int N>
+__device__ __forceinline__ void mma_pass(int pass, float (&c)[M][N][4], const uint32_t (&ah)[M][4],
+                                         const uint32_t (&al)[M][4], const uint32_t (&bh)[N][2],
+                                         const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(c[i][j], pass == 0 ? al[i] : ah[i], pass == 1 ? bl[j] : bh[j]);
+}
+
+// c[i][j] += a[i] . b[j] in 3xTF32 from the split operands: the two small
+// terms first, then the large one (the order of CUTLASS's
+// mma_tensor_op_fast_f32.h), pass by pass, so that consecutive MMAs write
+// different accumulators and none waits on the one before.
+//
+// Keep each c a short sum, and add the short sums in fp32, one rounding
+// each: a tensor core aligns every addend of its sum to the largest, C
+// included, and truncates the rest, so a sum carried through many MMAs
+// loses up to an ulp of the running total to each of them, and a total
+// that one large term dominates drifts.
+template <int M, int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[M][N][4], const uint32_t (&ah)[M][4],
+                                           const uint32_t (&al)[M][4], const uint32_t (&bh)[N][2],
+                                           const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) mma_pass(pass, c, ah, al, bh, bl);
 }
 
 }  // namespace tc

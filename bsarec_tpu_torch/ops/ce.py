@@ -24,23 +24,27 @@ building the [B, V] logit matrix on the card. Three CUDA kernels in
 Both sweeps take one of three routes, by shape: at B <= 256 and H <= 64
 (`onchip_route`) the batch (and the backward's ds) stays on chip for the
 whole sweep, one block per SM; at H > 256 (`wide_route`) the wide
-kernels stage the hidden dimension in chunks of 64 columns, so their
-shared memory does not grow with H (the backward keeps p of up to 256
-batch rows and walks dT's and ds's hidden dimension in blocks of 64);
-elsewhere the older sweeps re-stage 64-row batch tiles with whole rows.
-The last two run two blocks per SM. `ce_logz.onchip_launches`,
+kernels stage the hidden dimension in chunks, so their shared memory does
+not grow with H; elsewhere the older sweeps re-stage 64-row batch tiles
+with whole rows, two blocks per SM. `ce_logz.onchip_launches`,
 `ce_grads.onchip_launches`, `ce_logz.wide_launches` and
-`ce_grads.wide_launches` count the first two apart. In the bf16-operand
-form the wide route runs a kernel of its own each way on the tensor cores
-(`tc_route`; one block per SM, the states rounded into a bf16 scratch
-first): `ce_fwd_wide_tc_kernel` (256 batch rows x 128 catalog columns a
-tile, the table read once) and `ce_bwd_wide_tc_kernel` (256-column
-tiles); `ce_logz.tc_launches` and `ce_grads.tc_launches` count them. The
-kernels take every H % 4 == 0 (JAX's kernels take an H that divides 128
-or is a multiple of 128, all of it inside that); the workspaces (the
-splits' partials, and on the tensor-core routes bf16 copies of the states
-and, backward, of a table tile a split) and the outputs are the only
-memory that grows with H.
+`ce_grads.wide_launches` count the first two apart. On the wide route
+the backward runs on the tensor cores in both forms, one block per SM
+holding the p of up to 256 batch rows for a tile of catalog columns: `ce_bwd_wide_tf32_kernel` in the fp32 form (128-column
+tiles, every product in 3xTF32: each fp32 operand split into two TF32
+parts, three tensor-core passes, fp32 accuracy) and
+`ce_bwd_wide_tc_kernel` in the bf16 form (256-column tiles, the states
+rounded into a bf16 scratch first). The forward takes the tensor cores
+there in the bf16 form only (`logz_tc_route`): `ce_fwd_wide_tc_kernel`
+(256 batch rows x 128 catalog columns a tile, the table read once); the
+fp32 form's wide forward runs fp32 FMAs over 64-column hidden chunks.
+`ce_logz.tc_launches` counts the forward's tensor-core launches; every
+wide `ce_grads` launch is a tensor-core one, so `ce_grads.wide_launches`
+counts them. The kernels take every H % 4 == 0 (JAX's kernels take an H
+that divides 128 or is a multiple of 128, all of it inside that); the
+workspaces (the splits' partials, and in the bf16 form's tensor-core
+kernels bf16 copies of the states and, backward, of a table tile a
+split) and the outputs are the only memory that grows with H.
 
 Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
@@ -191,8 +195,8 @@ def _lib() -> ctypes.CDLL:
     lib.ce_onchip_route.restype = i
     lib.ce_wide_route.argtypes = [i]
     lib.ce_wide_route.restype = i
-    lib.ce_tc_route.argtypes = [i, i]
-    lib.ce_tc_route.restype = i
+    lib.ce_logz_tc_route.argtypes = [i, i]
+    lib.ce_logz_tc_route.restype = i
     return lib
 
 
@@ -212,16 +216,16 @@ def wide_route(h: int) -> bool:
 
 
 @functools.cache
-def tc_route(h: int, bf16: bool) -> bool:
-    """True where `ce_logz` and `ce_grads` take their tensor-core kernels,
-    `ce_fwd_wide_tc_kernel` and `ce_bwd_wide_tc_kernel`: the bf16-operand
-    form on the wide route."""
-    return bool(_lib().ce_tc_route(h, int(bf16)))
+def logz_tc_route(h: int, bf16: bool) -> bool:
+    """True where `ce_logz` takes its tensor-core kernel,
+    `ce_fwd_wide_tc_kernel`: the bf16-operand form on the wide route."""
+    return bool(_lib().ce_logz_tc_route(h, int(bf16)))
 
 
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per
-# tile, columns per tile of the tensor-core kernels (forward, backward)
-_BT, _VT, _TC_FWD_VT, _TC_VT = 64, 64, 128, 256
+# tile, columns per tile of the tensor-core kernels (the bf16 forward, the
+# bf16 backward, the fp32 backward)
+_BT, _VT, _TC_FWD_VT, _TC_VT, _TF_VT = 64, 64, 128, 256, 128
 
 
 def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, index: int,
@@ -287,7 +291,7 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
     # splits whole 128-column tiles); elsewhere two blocks per SM over
     # (splits x batch tiles)
     onchip = onchip_route(b, h)
-    tc = tc_route(h, bf16)
+    tc = logz_tc_route(h, bf16)
     if tc:
         n_splits, per = tc_splits(v, _TC_FWD_VT, sm_count(index))
     else:
@@ -331,12 +335,12 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     _require("answers", answers, torch.int64, (b,), index)
     _require("logz", logz, torch.float32, (b,), index)
     _require("dloss", dloss, torch.float32, (b,), index)
-    onchip = onchip_route(b, h)
-    tc = tc_route(h, bf16)
-    # one block per split: one per SM on the on-chip and tensor-core routes
-    # (the latter's splits whole 256-column tiles), two elsewhere
-    if tc:
-        n_splits, per = tc_splits(v, _TC_VT, sm_count(index))
+    onchip, wide = onchip_route(b, h), wide_route(h)
+    # one block per split: one per SM on the on-chip and wide routes (the
+    # latter's tensor-core kernels take splits of whole tiles of the form's
+    # kernel), two elsewhere
+    if wide:
+        n_splits, per = tc_splits(v, _TC_VT if bf16 else _TF_VT, sm_count(index))
     else:
         n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
     lib = _lib()
@@ -351,9 +355,8 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
         _raise("ce_grads", rc, b, v, h, 1, bf16)
     ce_grads.launches += 1
     ce_grads.onchip_launches += onchip
-    ce_grads.wide_launches += wide_route(h)
+    ce_grads.wide_launches += wide
     ce_grads.bf16_launches += bf16
-    ce_grads.tc_launches += tc
     return ds, dt
 
 
@@ -425,9 +428,8 @@ ce_logz.tc_launches = 0  # the launches that took the tensor-core kernel (bf16 f
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route
-ce_grads.wide_launches = 0  # the launches that took the wide route
+ce_grads.wide_launches = 0  # the launches that took the wide route (a tensor-core kernel, either form)
 ce_grads.bf16_launches = 0  # the launches in the bf16-operand form
-ce_grads.tc_launches = 0  # the launches that took the tensor-core kernel (bf16 form, wide route)
 
 
 class _StreamingCE(torch.autograd.Function):

@@ -34,6 +34,14 @@ logit summed over h in ascending order, one rounding per step):
 - on random-normal inputs, within BF16_WIDE_GRAD_TOL, which allows single
   bf16 roundings of p to land apart and which the fp32 form must still
   fail.
+
+The wide routes' fp32 backward takes its products on the tensor cores in
+3xTF32 and is held within WIDE_GRAD_TOL of the plain version. On the CPU
+`ce_grads_tf32` emulates that number format (and 1xTF32, the control
+that must fail the limit) against the JAX package
+(`tests/test_torch_port_tf32.py`). That checks the format and the limit,
+not the kernel: no fault of the kernel can fail it, only the card checks
+can.
 """
 
 from __future__ import annotations
@@ -69,6 +77,56 @@ ONE_HOT_ULPS = 8
 # CPU) and 9.49e-3 over chip_smoke.py's cases (PERF.md). The limit sits
 # between the kernel's worst reading and the fp32 form's least.
 BF16_WIDE_GRAD_TOL = 6e-3
+# the fp32 form's gradients on the wide routes (H > 256), each group
+# relative to its largest |plain| entry: elementwise, an H-term logit's
+# fp32 rounding, which grows with H, passed on through exp() to p, puts
+# single elements of dT near cancellation past atol 1e-5 (1.49e-5 at
+# H = 384, B = 300 on the H100, from the wide kernel that summed fp32 FMAs)
+WIDE_GRAD_TOL = 1e-4
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 `x` as a 3xTF32 product on the tensor cores takes
+    them (csrc/tensor_core.cuh): hi = x rounded to TF32, 10 mantissa bits,
+    nearest with ties away from zero (cvt.rna.tf32.f32); lo = x - hi, exact
+    in fp32, then truncated to TF32 as the tensor core reads it."""
+    keep = -(1 << 13)  # the 13 low mantissa bits that TF32 drops
+    hi = ((x.float().contiguous().view(torch.int32) + (1 << 12)) & keep).view(torch.float32)
+    lo = ((x - hi).contiguous().view(torch.int32) & keep).view(torch.float32)
+    return hi, lo
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as the tensor cores take an fp32 product: passes=3 (3xTF32)
+    sums lo_a @ hi_b + hi_a @ lo_b, then hi_a @ hi_b, in fp32 (the products
+    of TF32 values are exact); passes=1 (1xTF32) takes hi_a @ hi_b alone."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    if passes == 1:
+        return ah @ bh
+    if passes != 3:
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def ce_grads_tf32(states, table, answers, logz, dloss, n_valid,
+                  passes: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ce_grads_plain`'s fp32 form with its three products (the logits,
+    p @ T and p^T @ s) in `matmul_tf32`'s number format: passes=3 is the
+    format of the wide fp32 kernel on the card (ce_bwd_wide_tf32_kernel),
+    passes=1 the control that keeps only TF32's three digits. The one-hot
+    terms stay fp32, as in the kernel. It checks the format, not the
+    kernel: nothing here runs ce_bwd_wide_tf32_kernel or its CPU path."""
+    tile = table[:n_valid]
+    p = torch.exp(matmul_tf32(states, tile.T, passes) - logz[:, None]) * dloss[:, None]
+    ds = matmul_tf32(p, tile, passes)
+    dt = torch.zeros_like(table)
+    dt[:n_valid] = matmul_tf32(p.T, states, passes)
+    a = answers.long()
+    keep = (a >= 0) & (a < n_valid)
+    dt.index_add_(0, a[keep], -(dloss[keep, None] * states[keep]))
+    rows = table[torch.where(keep, a, 0)] * keep[:, None]
+    return ds - dloss[:, None] * rows, dt
 
 
 def _tensor(x) -> torch.Tensor:

@@ -1,17 +1,33 @@
-"""Where the two tensor-core kernels spend their time: build copies of
+"""Where the three tensor-core kernels spend their time: build copies of
 `csrc/streaming_ce.cu` with parts of a kernel cut out, and time each at
-B=256, V=1,000,000, H=512 in the bf16-operand form.
+B=256, V=1,000,000, H=512.
 
-Each variant is this checkout's source with text replacements (each must
-match exactly once, so a variant that no longer applies fails loudly).
+Each variant is this checkout's source, `csrc/tensor_core.cuh` inlined,
+with text replacements (each must match exactly once, so a variant that
+no longer applies fails loudly).
 For `ce_bwd_wide_tc_kernel` (through the C entry `ce_grads`): the whole
 kernel, its logits steps alone and its products steps alone, then each
 of those without one kind of work (state copies, table loads, the bf16
 tile stores, the MMAs; the carry loads, the stores). For
 `ce_fwd_wide_tc_kernel` (through `ce_logz`, the "forward" variants): the
 whole kernel, then without the state copies, the table loads, the table
-stores, the MMAs or the (max, sum) epilogue, and the MMAs alone. The cut
-variants compute wrong results and are timed only. Every library is built
+stores, the MMAs or the (max, sum) epilogue, and the MMAs alone. For
+`ce_bwd_wide_tf32_kernel` (through `ce_grads` in the fp32 form, the "fp32"
+variants): the whole kernel, its logits steps alone and its products
+steps alone, without its copies, without its MMAs (and so without the
+fragment loads and hi/lo splits that feed only them), the MMAs alone (no
+copies, no carry loads, no stores of dT and ds_part), hi split by
+cvt.rna.tf32.f32 (the same rounding as the kernel's integer form), and
+1xTF32: the two correction passes of every product cut, which shows what
+fp32 accuracy costs. The cut variants compute wrong results and are timed
+only, but for the cvt.rna split, which must give the kernel's bits, and
+1xTF32, which are held beside the kernel against the plain fp32
+version and an fp64 one (`ce_grads_plain` on float64 inputs) at the main
+shape and at `tests/test_torch_port_cuda.py`'s H = 260 route-boundary
+case: `parity.grad_errors` (each group relative to its largest plain
+entry) and, elementwise, the largest |error| / (atol + rtol |want|) at
+that test's GRAD_TOL (rtol 1e-4, atol 1e-5); the plain fp32 version
+against the fp64 one too. Every library is built
 with `ops/_build.py`'s flags into `build/ablate/`, one nvcc each, all
 started together, and called on the same inputs; one reading is the
 mean of 10 calls (CUDA events, after one warm-up), the variants timed in
@@ -42,8 +58,8 @@ LOGITS_ONLY = [("  const int n_lg = 4 * nl, n_steps = n_lg + np,",
 PRODUCTS_ONLY = [
     ("      for (int s = 0; s < n_steps; s += 2) {",
      "      for (int s = n_lg; s < n_steps; s += 2) {"),
-    ("      load_table(0, pre_a);\n      fill(0, pre_a);\n      load_table(1, pre_b);", ""),
-    ("      issue(0);\n      onchip::cp_async_commit();",
+    ("      issue(0);\n      onchip::cp_async_commit();\n"
+     "      load_table(0, pre_a);\n      fill(0, pre_a);\n      load_table(1, pre_b);",
      "      issue(n_lg);\n      onchip::cp_async_commit();"),
 ]
 NO_STATE_COPIES = [
@@ -76,7 +92,34 @@ FWD_NO_MMA = [("      for (int k16 = 0; k16 < TC_HL; k16 += 16) {",
 FWD_NO_EPILOGUE = [("      if (s % nk == nk - 1) {  // the tile's logits are complete",
                     "      if (false) {  // the tile's logits are complete")]
 
-# variant: replacements; "kernel" (the source as it is) is timed through both entries
+FP32_LOGITS_ONLY = [("  const int n_lg = (TF_COLS / TF_SUB) * nl, n_steps = n_lg + np;",
+                     "  const int n_lg = (TF_COLS / TF_SUB) * nl, n_steps = n_lg;")]
+FP32_PRODUCTS_ONLY = [
+    ("      for (int s = 0; s < n_lg; ++s) {\n        begin(s);",
+     "      for (int s = n_lg; s < n_lg; ++s) {\n        begin(s);"),
+    ("      issue(0);\n      onchip::cp_async_commit();\n\n      // the logits steps",
+     "      issue(n_lg);\n      onchip::cp_async_commit();\n\n      // the logits steps")]
+FP32_NO_COPIES = [("    tc::cp_async_16_zfill(dst + r * ld + c, full ?", "    if (R < 0) tc::cp_async_16_zfill(dst + r * ld + c, full ?")]
+FP32_NO_CARRY = [("            prev[q] = src ? *reinterpret_cast<const float4*>(src) : zero;",
+                  "            prev[q] = zero;"),
+                 ("          for (int q = 0; q < 8; ++q) prev[q] = t != t_begin ? src[q * 32] : zero;",
+                  "          for (int q = 0; q < 8; ++q) prev[q] = zero;")]
+FP32_NO_STORES = [("            if (dst)\n              *reinterpret_cast<float4*>(dst) = make_float4(",
+                   "            if (V < 0)\n              *reinterpret_cast<float4*>(dst) = make_float4("),
+                  ("            dst[q * 32] = make_float4(prev[q].x + c[i][0][e]",
+                   "            if (V < 0) dst[q * 32] = make_float4(prev[q].x + c[i][0][e]")]
+FP32_PASSES = [("            tc::mma_3xtf32(part, ah, al, bh, bl);", "            tc::mma_pass(2, part, ah, al, bh, bl);"),
+               ("            tc::mma_3xtf32(c, ah, al, bh, bl);", "            tc::mma_pass(2, c, ah, al, bh, bl);"),
+               ("            for (int pass = 0; pass < 3; ++pass)  // the two blocks'",
+                "            for (int pass = 2; pass < 3; ++pass)  // the two blocks'")]
+FP32_CVT_SPLIT = [("  hi = (x + 0x1000u) & 0xffffe000u;",
+                   '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(__uint_as_float(x)));')]
+FP32_NO_MMA = [("            tc::mma_3xtf32(part, ah, al, bh, bl);", ""),
+               ("            tc::mma_3xtf32(c, ah, al, bh, bl);", ""),
+               ("            for (int pass = 0; pass < 3; ++pass)  // the two blocks'",
+                "            for (int pass = 3; pass < 3; ++pass)  // the two blocks'")]
+
+# variant: replacements; "kernel" (the source as it is) is timed through every entry
 VARIANTS = {
     "kernel": [],
     "logits steps only": LOGITS_ONLY,
@@ -95,12 +138,20 @@ VARIANTS = {
     "forward: no MMAs": FWD_NO_MMA,
     "forward: no epilogue": FWD_NO_EPILOGUE,
     "forward: MMAs alone": FWD_NO_STATE_COPIES + FWD_NO_TABLE_LOADS + FWD_NO_TABLE_STORES,
+    "fp32: logits steps only": FP32_LOGITS_ONLY,
+    "fp32: products steps only": FP32_PRODUCTS_ONLY,
+    "fp32: no copies": FP32_NO_COPIES,
+    "fp32: no MMAs": FP32_NO_MMA,
+    "fp32: MMAs alone": FP32_NO_COPIES + FP32_NO_CARRY + FP32_NO_STORES,
+    "fp32: hi by cvt.rna": FP32_CVT_SPLIT,
+    "fp32: 1xTF32": FP32_PASSES,
 }
 
 
 def sources() -> dict[str, str]:
     """{variant: source text}; raises unless every replacement matches once."""
-    base = (CSRC / "streaming_ce.cu").read_text()
+    base = (CSRC / "streaming_ce.cu").read_text().replace(
+        '#include "tensor_core.cuh"', (CSRC / "tensor_core.cuh").read_text())
     out = {}
     for name, replacements in VARIANTS.items():
         text = base
@@ -134,6 +185,65 @@ def build(texts: dict[str, str]) -> dict[str, Path]:
     return {name: lib for name, (_, lib) in jobs.items()}
 
 
+def accuracy(libs: dict, states, table, answers, dev) -> None:
+    """The fp32 form's wide ce_grads of each library in `libs` against the
+    plain fp32 version and an fp64 one, at the main shape (these inputs,
+    dloss 1/B) and at tests/test_torch_port_cuda.py's route-boundary case
+    (B=256, V=9001, H=260, n_valid 8999, its seeds); one JSON line each."""
+    import numpy as np
+    import torch
+
+    from bsarec_tpu_torch import parity
+    from bsarec_tpu_torch.ops import ce
+
+    def worst(got, want):  # elementwise, against rtol 1e-4, atol 1e-5
+        return float(((got.double() - want.double()).abs() / (1e-5 + 1e-4 * want.double().abs())).max())
+
+    b, v, h, n_valid = 256, 9001, 260, 8999
+    rng = np.random.default_rng(b * 1000 + h)
+    s2 = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(dev)
+    t2 = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(dev)
+    a2 = rng.integers(0, v + 3, size=b)
+    a2[:4] = a2[0]
+    d2 = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(dev)
+    cases = [("main shape", states, table, answers, torch.full((B,), 1.0 / B, device=dev), V),
+             ("H=260 route boundary", s2, t2, torch.from_numpy(a2).to(dev), d2, n_valid)]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for case, s, t, a, d, nv in cases:
+        bb, vv, hh = s.shape[0], t.shape[0], s.shape[1]
+        logz = ce.ce_logz(s, t, nv)
+        plain = ce.ce_grads_plain(s, t, a, logz, d, nv)
+        exact = ce.ce_grads_plain(s.double(), t.double(), a, logz.double(), d.double(), nv)
+        rows = [("plain fp32", plain)]
+        n_splits, per = ce.tc_splits(vv, ce._TF_VT, sm)
+        work = torch.empty((ce._lib().ce_grads_workspace_bytes(bb, hh, 0, n_splits),),
+                           dtype=torch.uint8, device=dev)
+        for name, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+            ds, dt = torch.empty((bb, hh), device=dev), torch.empty((vv, hh), device=dev)
+            rc = lib.ce_grads(s.data_ptr(), t.data_ptr(), a.data_ptr(), logz.data_ptr(), d.data_ptr(),
+                              bb, vv, hh, nv, n_splits, per, work.data_ptr(), ds.data_ptr(),
+                              dt.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise SystemExit(f"ablate_ce_tc: {name!r} launch failed")
+            rows.append(("fp32 kernel" if name == "kernel" else name, (ds, dt)))
+        kernel = rows[1][1]
+        for name, got in rows:
+            out = {"accuracy": name, "case": case, "B": bb, "V": vv, "H": hh,
+                   "bit-equal to the kernel": bool(torch.equal(got[0], kernel[0])
+                                                   and torch.equal(got[1], kernel[1]))}
+            if name != "plain fp32":
+                out["vs plain: groups"] = parity.grad_errors(*got, *plain, a, nv)
+                out["vs plain: elementwise"] = [worst(got[0], plain[0]), worst(got[1], plain[1])]
+            out["vs fp64: groups"] = parity.grad_errors(*got, *exact, a, nv)
+            out["vs fp64: elementwise"] = [worst(got[0], exact[0]), worst(got[1], exact[1])]
+            print(json.dumps(out), flush=True)
+        del plain, exact, rows, work
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true", help="only check that the replacements apply")
@@ -162,6 +272,10 @@ def main() -> None:
     n_splits, per = ce.tc_splits(V, ce._TC_VT, sm)
     work = torch.empty((ce._lib().ce_grads_workspace_bytes(B, H, 1, n_splits),),
                        dtype=torch.uint8, device=dev)
+    _, x_logz = ce.ce_loss_logz(states, table, answers, V)
+    x_splits, x_per = ce.tc_splits(V, ce._TF_VT, sm)
+    x_work = torch.empty((ce._lib().ce_grads_workspace_bytes(B, H, 0, x_splits),),
+                         dtype=torch.uint8, device=dev)
     ds, dt = torch.empty((B, H), device=dev), torch.empty((V, H), device=dev)
     f_splits, f_per = ce.tc_splits(V, ce._TC_FWD_VT, sm)
     f_work = torch.empty((ce._lib().ce_logz_workspace_bytes(B, H, 1, f_splits),),
@@ -172,12 +286,18 @@ def main() -> None:
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         stream = lambda: torch.cuda.current_stream().cuda_stream
-        if not name.startswith("forward"):
-            lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        if not name.startswith(("forward", "fp32")):
             args = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
                     dloss.data_ptr(), B, V, H, V, n_splits, per, work.data_ptr(), ds.data_ptr(),
                     dt.data_ptr(), 1)
             calls[name] = lambda lib=lib, args=args: lib.ce_grads(*args, stream())
+        if name == "kernel" or name.startswith("fp32"):
+            args = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), x_logz.data_ptr(),
+                    dloss.data_ptr(), B, V, H, V, x_splits, x_per, x_work.data_ptr(),
+                    ds.data_ptr(), dt.data_ptr(), 0)
+            calls["fp32 kernel" if name == "kernel" else name] = (
+                lambda lib=lib, args=args: lib.ce_grads(*args, stream()))
         if name == "kernel" or name.startswith("forward"):
             lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
             args = (states.data_ptr(), table.data_ptr(), None, B, V, H, V, f_splits, f_per,
@@ -202,6 +322,10 @@ def main() -> None:
         readings[name].append(ms(calls[name]))
     for name, r in readings.items():
         print(json.dumps({"variant": name, "ms": r, "B": B, "V": V, "H": H}), flush=True)
+    del work, f_work, ds, dt
+    torch.cuda.empty_cache()
+    accuracy({name: libs[name] for name in ("kernel", "fp32: hi by cvt.rna", "fp32: 1xTF32")},
+             states, table, answers, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
 

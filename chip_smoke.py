@@ -209,6 +209,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # ... and the dense bf16 tensor-core rate, the peak for the CE kernels'
 # bf16-operand form
 PEAK_BF16_FLOPS = 989e12
+# ... and the dense TF32 tensor-core rate: the fp32 form's wide ce_grads
+# takes every product in 3xTF32, three TF32 passes
+PEAK_TF32_FLOPS = 495e12
 
 # EVAL_BATCH is TrainConfig.eval_batch_size's default, which main uses
 N_USERS, N_ITEMS, EVAL_BATCH, TOP_K = 50_000, 1_000_000, 256, 20
@@ -669,7 +672,7 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
     check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape)
           and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1])
-          and ce.ce_logz.tc_launches - logz_tc_before == ce.tc_route(states.shape[1], bf16),
+          and ce.ce_logz.tc_launches - logz_tc_before == ce.logz_tc_route(states.shape[1], bf16),
           f"{case_name}: ce_logz took another route than its shape and form name")
     check(ce.ce_logz.bf16_launches - bf16_before[0] == bf16,
           f"{case_name}: ce_logz took another form than {dtype or 'float32'}")
@@ -709,18 +712,15 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     onchip_before = ce.ce_grads.onchip_launches
     wide_before = ce.ce_grads.wide_launches
     grads_bf16_before = ce.ce_grads.bf16_launches
-    tc_before = ce.ce_grads.tc_launches
     fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
     n_wide = ce.ce_grads.wide_launches - wide_before
-    n_tc = ce.ce_grads.tc_launches - tc_before
-    route = ("on-chip" if n_onchip else "wide, tensor cores" if n_tc else "wide" if n_wide
-             else "sweep")
+    # every wide launch takes a tensor-core kernel, in either form
+    route = "on-chip" if n_onchip else "wide, tensor cores" if n_wide else "sweep"
     check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0)
-          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0)
-          and n_tc == (2 if ce.tc_route(states.shape[1], bf16) else 0),
+          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0),
           f"{case_name}: ce_grads took another route than its shape and form name")
     check(ce.ce_grads.bf16_launches - grads_bf16_before == 2 * bf16,
           f"{case_name}: ce_grads took another form than {dtype or 'float32'}")
@@ -1427,13 +1427,21 @@ def phase_ce_times(full, card, dtype=None):
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
         library_ms = cuda_ms(library, iters=5)
         t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        basis, fma = f"{ops / 1e9:.2f} GFLOP {rate}", ""
+        if not bf16 and name == "ce_grads" and ce.wide_route(h):
+            # 3xTF32 on the tensor cores: three passes of the work at the TF32
+            # rate; the same work in fp32 FMAs, for comparison
+            t_fma, t_ops = t_ops, 3 * ops / PEAK_TF32_FLOPS * 1e3
+            basis = f"3 x {ops / 1e9:.2f} GFLOP in 3xTF32 at the TF32 tensor rate 495 TFLOP/s"
+            fma = (f"; in fp32 FMAs at 67 TFLOP/s the work takes {t_fma:.4f} ms, the kernel at "
+                   f"{100 * t_fma / ms:.1f}% of that")
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"time {name}{form} plain version: {plain_ms:.4f} ms [{card}]")
         log(f"time {name}{form} library {lib_name}: {library_ms:.4f} ms [{card}]")
-        log(f"bound {name}{form}: {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP {rate} "
+        log(f"bound {name}{form}: {bound_ms:.4f} ms ({bound_by}: {basis} "
             f"= {t_ops:.4f} ms; {nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.4f} ms) -> kernel at "
-            f"{100 * bound_ms / ms:.1f}% of the bound [{card}]")
+            f"{100 * bound_ms / ms:.1f}% of the bound{fma} [{card}]")
         out[name] = {"ms": ms, **fields, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms, "library": lib_name}
     del pieces, fwd_library, back_library
@@ -1622,8 +1630,7 @@ def reset_counts() -> None:
         f.wide_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
-    for f in (ce.ce_logz, ce.ce_grads):
-        f.tc_launches = 0
+    ce.ce_logz.tc_launches = 0
 
 
 def read_counts() -> dict:
@@ -2637,7 +2644,7 @@ def bf16_counts() -> dict:
     return read_counts() | {
         "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
-        "ce_logz_tc": ce.ce_logz.tc_launches, "ce_grads_tc": ce.ce_grads.tc_launches,
+        "ce_logz_tc": ce.ce_logz.tc_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches,
         "fused_dropout_bf16": fd.fused_dropout.bf16_launches}
 
@@ -2903,7 +2910,7 @@ def wide_counts() -> dict:
     return read_counts() | {
         "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
-        "ce_logz_tc": ce.ce_logz.tc_launches, "ce_grads_tc": ce.ce_grads.tc_launches,
+        "ce_logz_tc": ce.ce_logz.tc_launches,
         "rank_wide": rank.streaming_masked_topk.wide_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches}
 
@@ -3064,7 +3071,7 @@ def phase_wide_train(device, card):
                                               "--dtype", "bf16"])
         want = zero_wide_counts() | ce_step | rank_route | {
             "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps,
-            "ce_logz_tc": steps, "ce_grads_tc": steps}
+            "ce_logz_tc": steps}
         check(counts == want, f"wide bf16 train launches {counts}, want {want}")
         text, losses, rates = epoch_lines("smoke_wide_bf16")
         check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0]),
@@ -3291,7 +3298,7 @@ def main() -> int:
             "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
             "replaces": ce_replaces[name],
             "launches": wide_paths["bf16"][f"{name}_bf16"],
-            "tc_launches": wide_paths["bf16"][f"{name}_tc"],
+            **({"tc_launches": wide_paths["bf16"]["ce_logz_tc"]} if name == "ce_logz" else {}),
             "max_abs_err": wide_err[BF16][name],
             **wide_times["ce16"][name],
         })
