@@ -15,13 +15,14 @@
 //     stored, so the product loops are the fp32 form's; except on the wide
 //     route (H > 256), whose bf16 form runs ce_fwd_wide_tc_kernel and
 //     ce_bwd_wide_tc_kernel, every product on the tensor cores (their heads
-//     say more). There the fp32 form's backward runs on the tensor cores
-//     too, in 3xTF32, which keeps fp32 accuracy: ce_bwd_wide_tf32_kernel.
+//     say more). There the fp32 form runs on the tensor cores too, in
+//     3xTF32, which keeps fp32 accuracy: ce_fwd_wide_tf32_kernel and
+//     ce_bwd_wide_tf32_kernel.
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
-//   - _fwd_kernel    -> ce_fwd_onchip_kernel, ce_fwd_partial_kernel or (the
-//       bf16 form past H = 256) ce_fwd_wide_tc_kernel, then
-//       ce_fwd_merge_kernel:
+//   - _fwd_kernel    -> ce_fwd_onchip_kernel, ce_fwd_partial_kernel or, past
+//       H = 256, ce_fwd_wide_tf32_kernel (fp32) and ce_fwd_wide_tc_kernel
+//       (bf16), then ce_fwd_merge_kernel:
 //       per row, logZ = logsumexp(s . T^T) over the columns < n_valid and,
 //       when answers are given, loss = logZ - <s, T[a]>;
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
@@ -52,9 +53,10 @@
 // bound is its bytes (0.0765 and 0.1529 ms; its products at the bf16
 // tensor rate, 989 TFLOP/s, take 0.033 and 0.099), but it runs the fp32
 // form's FMA loops, so the fp32 FMAs bound it too (but for the wide
-// route's tensor-core kernels). The wide fp32 backward's 3xTF32 products
-// are bound by three passes at the TF32 tensor rate (495 TFLOP/s): 4.77 ms
-// at B=256, V=1M, H=512, against 11.74 ms for the same work in fp32 FMAs.
+// route's tensor-core kernels). The wide fp32 form's 3xTF32 products are
+// bound by three passes at the TF32 tensor rate (495 TFLOP/s): at B=256,
+// V=1M, H=512 the backward 4.77 ms and the forward 1.589 ms, against
+// 11.74 and 3.913 ms for the same work in fp32 FMAs.
 //
 // Design. The TPU kernels walk the catalog in one sequential grid and
 // carry (max, sum) or the ds accumulator in VMEM from step to step.
@@ -69,16 +71,17 @@
 //       ce_fwd_onchip_kernel on onchip_tile.cuh's skeleton, one block of
 //       256 threads per SM: every state row staged once, a cp.async ring
 //       of two table tiles, 8 x 8 logits a thread, one barrier a tile;
-//     - elsewhere ce_fwd_partial_kernel, grid (vocab splits x batch tiles
-//       of 64 rows), each block staging its 64 state rows and each table
-//       tile synchronously, 4 x 4 logits a thread. Whole rows of H + 4
-//       floats would give out near H = 450, so past H = 256 (the wide
-//       route) it accumulates each logit tile over chunks of 64 hidden
-//       columns instead, a [64, 64] states chunk and a [64, 64] table
-//       chunk staged per step: 34,816 B of shared memory at any H;
-//     - the wide route's bf16 form: ce_fwd_wide_tc_kernel, one block per
-//       SM, the logits of 256 batch rows x 128 catalog columns on the
-//       tensor cores, the table read once (its head says more).
+//     - the wide route, H > 256: a tensor-core kernel in either form, one
+//       block per SM, the logits of 256 batch rows x 128 catalog columns a
+//       tile, the table read once, the hidden dimension staged in chunks,
+//       the online (max, sum) folded and merged by one pair of functions
+//       for both (fold_tile, merge_group): ce_fwd_wide_tf32_kernel in the fp32 form
+//       (3xTF32, each fragment split into TF32 hi and lo in registers),
+//       ce_fwd_wide_tc_kernel in the bf16 form; their heads say more;
+//     - elsewhere (B > 256, or 64 < H <= 256) ce_fwd_partial_kernel, grid
+//       (vocab splits x batch tiles of 64 rows), each block staging its 64
+//       state rows and each table tile synchronously, 4 x 4 logits a
+//       thread.
 //   forward, pass 2: one warp per row. logZ = M + log(sum_s s_s *
 //     exp(m_s - M)), each lane taking every 32nd split and the lanes
 //     merged by a fixed shuffle tree; then the gold logit <s, T[a]> from
@@ -142,8 +145,8 @@
 // sweep route's ~3.53 ms, 41.6%), their forward ~0.945 ms, 52% of 0.4891
 // ms (the partial-kernel route's ~1.33 ms, 37%); the bf16-operand form
 // ~2.86 and ~1.00 ms (chip_smoke.py, in turns with the fp32 form). At
-// H = 512 the wide fp32 forward takes ~10.2 ms (38% of 3.913 ms) and the
-// 3xTF32 backward ~14.7 ms (32% of 4.766 ms); the bf16 form's tensor-core
+// H = 512 the 3xTF32 kernels take ~5.0 ms (forward, 32% of 1.589 ms) and
+// ~14.6 ms (backward, 33% of 4.766 ms); the bf16 form's tensor-core
 // kernels ~5.3 ms (backward, 23% of its 1.223 ms byte bound) and ~1.08 ms
 // (forward, 57% of 0.612 ms) (chip_smoke.py, tools/time_kernels.py). No
 // wgmma or TMA.
@@ -164,8 +167,6 @@ constexpr int VT = 64;            // catalog columns per tile
 constexpr int HB = 64;            // hidden columns per output block (backward)
 constexpr int THREADS = 256;      // 16 x 16 threads for 4 x 4 tiles, 32 x 8 for 8 x 8
 constexpr int MAX_H = 256;         // the older routes stage whole rows up to here; the wide ones past it
-constexpr int HC = 64;            // hidden columns per staged chunk on the wide routes
-constexpr int WLD = HC + 4;       // ... their row stride in shared memory
 constexpr int MAX_SMEM = 232448;  // usable shared memory per block on sm_90
 constexpr int OC_B = onchip::ROWS;  // the on-chip routes: B <= OC_B
 constexpr int OC_H = onchip::MAX_H;  // ... and H <= OC_H
@@ -233,97 +234,24 @@ __device__ __forceinline__ void tile_logits(const float* sS, const float* sT, in
   }
 }
 
-// ---- staging in hidden chunks: the wide routes (H > MAX_H) ------------------
-// The older routes stage whole rows (H + 4 floats) of 64 states and 64
-// table columns, so their shared memory grows with H. Past MAX_H the wide
-// routes walk the hidden dimension in chunks of HC = 64 columns: a logit
-// tile is accumulated chunk by chunk, each chunk's states and table
-// columns staged beside each other, so shared memory does not depend on H.
-// Each logit is still one FMA chain over h in ascending order.
-
-// Copy columns [h0, h0 + hc) of rows [row0, row0 + n) of a row-major
-// [R, H] matrix into shared memory with row stride WLD; rows >= R are
-// zero. (fp32 only: the bf16 form's wide routes run on the tensor cores.)
-__device__ __forceinline__ void stage_chunk(float* dst, const float* __restrict__ src, int row0,
-                                            int R, int H, int h0, int hc, int n) {
-  const int q = hc / 4;
-  for (int i = threadIdx.x; i < n * q; i += THREADS) {
-    const int r = i / q, c4 = i - r * q, row = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < R) v = __ldg(reinterpret_cast<const float4*>(src + (size_t)row * H + h0) + c4);
-    *reinterpret_cast<float4*>(dst + r * WLD + 4 * c4) = v;
-  }
-}
-
-// acc[i][j] += <sS row ty*4+i, sT row tx+16*j> over a chunk's hc columns
-// (row stride WLD), continuing each chain in ascending h.
-__device__ __forceinline__ void chunk_logits(const float* sS, const float* sT, int hc,
-                                             float acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 2
-  for (int h = 0; h < hc; h += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(sS + (ty * 4 + i) * WLD + h);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(sT + (tx + 16 * j) * WLD + h);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v = acc[i][j];
-        v = fmaf(a[i].x, b[j].x, v);
-        v = fmaf(a[i].y, b[j].y, v);
-        v = fmaf(a[i].z, b[j].z, v);
-        v = fmaf(a[i].w, b[j].w, v);
-        acc[i][j] = v;
-      }
-  }
-}
-
-// The logits of 64 state rows from row0 against the 64 table columns from
-// j0: acc[i][j] for rows ty*4+i and columns tx+16j, over every chunk of H.
-// Starts and ends with a barrier (sS and sT are free afterwards).
-__device__ __forceinline__ void wide_logits(float* sS, float* sT, const float* __restrict__ states,
-                                            const float* __restrict__ table, int row0, int B,
-                                            int j0, int V, int H, float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int h0 = 0; h0 < H; h0 += HC) {
-    const int hc = min(HC, H - h0);  // H % 4 == 0, so hc % 4 == 0
-    __syncthreads();                 // earlier readers of sS and sT are done
-    stage_chunk(sS, states, row0, B, H, h0, hc, BT);
-    stage_chunk(sT, table, j0, V, H, h0, hc, VT);
-    __syncthreads();
-    chunk_logits(sS, sT, hc, acc);
-  }
-  __syncthreads();
-}
-
-// The forward's pass 1 off the on-chip route. WIDE (the wide route,
-// H > MAX_H, fp32 form only: the bf16 form's is ce_fwd_wide_tc_kernel):
-// each tile's logits from wide_logits, the hidden dimension staged in
-// chunks, 34,816 B of shared memory at any H; otherwise the 64 state rows
-// staged once and each table tile whole.
-template <bool BF16, bool WIDE>
+// The forward's pass 1 on the older route (64 < H <= MAX_H, or B > OC_B):
+// the 64 state rows staged once and each table tile whole.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
                       int V, int H, int n_valid, int tiles_per_split,
                       float* __restrict__ part_m, float* __restrict__ part_s) {
-  static_assert(!(BF16 && WIDE), "the bf16 form's wide forward runs on the tensor cores");
   extern __shared__ __align__(16) float smem[];
-  const int ld = WIDE ? WLD : H + 4;
-  float* sS = smem;           // [BT][ld] states (a chunk of their columns if WIDE)
-  float* sT = sS + BT * ld;   // [VT][ld] table tile (a chunk of it if WIDE)
+  const int ld = H + 4;
+  float* sS = smem;           // [BT][ld] states
+  float* sT = sS + BT * ld;   // [VT][ld] table tile
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int split = blockIdx.x, row0 = blockIdx.y * BT;
   const int n_tiles = (V + VT - 1) / VT;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
 
-  if constexpr (!WIDE) stage_rows<BF16>(sS, states, row0, B, H, BT);
+  stage_rows<BF16>(sS, states, row0, B, H, BT);
   float m[4], s[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -333,14 +261,10 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
     float acc[4][4];
-    if constexpr (WIDE) {
-      wide_logits(sS, sT, states, table, row0, B, j0, V, H, acc);
-    } else {
-      __syncthreads();  // earlier readers of sT are done
-      stage_rows<BF16>(sT, table, j0, V, H, VT);
-      __syncthreads();
-      tile_logits(sS, sT, H, acc);
-    }
+    __syncthreads();  // earlier readers of sT are done
+    stage_rows<BF16>(sT, table, j0, V, H, VT);
+    __syncthreads();
+    tile_logits(sS, sT, H, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = -INFINITY;
@@ -1751,8 +1675,8 @@ ce_ds_reduce_tc_kernel(const float* __restrict__ ds_part, const float* __restric
 // H > MAX_H, the counterpart of pallas_ce.py:222 _fwd_kernel with
 // dtype="bfloat16", which rounds the states and each table tile to bf16
 // (pallas_ce.py:234-237) and takes the dot on the MXU with fp32
-// accumulation. It replaces ce_fwd_partial_kernel<true, true>, which ran
-// the rounded operands through the fp32 form's FMA loops.
+// accumulation; before it, the rounded operands ran through the fp32
+// form's FMA loops.
 //
 // Bound at B=256, V=1M, H=512: the fp32 table read once, 2.05 GB, 0.612
 // ms at 3.35 TB/s; the logits' 262 GFLOP take 0.265 ms at the bf16 tensor
@@ -1784,12 +1708,14 @@ ce_ds_reduce_tc_kernel(const float* __restrict__ ds_part, const float* __restric
 //     whole step, and nothing writes the rounded tile back;
 //   - after a tile's last step each thread folds its logits, in
 //     registers, into an online (max, sum) for each of its 8 rows
-//     (columns >= n_valid masked); nothing goes through shared memory.
+//     (columns >= n_valid masked; fold_tile); nothing goes through shared
+//     memory.
 // Then, once per group, the 4 lanes of a quad merge their (m, s) by
 // shuffles, the two warps that share rows merge through shared memory
 // (warp column 0's first), and lane t = 0 of warp column 0 writes one
-// (m, s) per (split, row); ce_fwd_merge_kernel merges the splits in split
-// order. Every merge runs in a fixed order: two calls give the same bits.
+// (m, s) per (split, row) (merge_group); ce_fwd_merge_kernel merges the
+// splits in split order. Every merge runs in a fixed order: two calls
+// give the same bits.
 // The states are re-read from L2 once a tile (256 KB at H = 512, as many
 // bytes as the tile's table rows): a wider tile would halve that but
 // needs twice the accumulators. Rows are padded by 16 bytes (144 B), so
@@ -1816,6 +1742,106 @@ constexpr long long FT_SMEM = 2LL * FT_STAGES * FT_SLOT + 4LL * 2 * TC_ROWS;  //
 static_assert(FT_SMEM <= MAX_SMEM && FT_COLS % VT == 0 && THREADS == 256 && TC_ROWS == 256,
               "8 warps as 4 x 2 warp tiles of 64 x 64 over a 256 x 128 tile");
 
+// The epilogue of both wide forward kernels, whose 8 warps hold the logits
+// of a group of up to 256 batch rows x FT_COLS catalog columns as 4 x 2
+// warp tiles of 64 x 64 (warp w: rows 64 (w & 3), columns 64 (w >> 2)), in
+// mma.sync's accumulator layout: acc[i][j][2 half + e] at row 16 i + g +
+// 8 half and column 8 j + 2 t + e of the warp tile (lane l, g = l >> 2,
+// t = l & 3). Each thread keeps an online (max, sum) for each of its 8
+// rows q = 2 i + half.
+//
+// fold_tile folds a finished tile's logits (catalog columns j0 ..) into
+// them: the columns >= n_valid masked, the 16 logits of a row first
+// maxed, the sum rescaled at most once; then it zeroes acc for the next
+// tile.
+__device__ __forceinline__ void fold_tile(float (&acc)[4][8][4], float (&m)[8], float (&sum)[8],
+                                          int j0, int n_valid) {
+  // this thread's columns: c0 + 8 j + {0, 1}
+  const int c0 = j0 + 64 * (threadIdx.x >> 7) + 2 * (threadIdx.x & 3);
+  const bool ragged = j0 + FT_COLS > n_valid;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q = 2 * i + half;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (ragged && c0 + 8 * j + e >= n_valid) acc[i][j][2 * half + e] = -INFINITY;
+          tmax = fmaxf(tmax, acc[i][j][2 * half + e]);
+        }
+      if (tmax > -INFINITY) {
+        if (tmax > m[q]) {
+          sum[q] *= expf(m[q] - tmax);  // exp(-inf) = 0 on the row's first column
+          m[q] = tmax;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) sum[q] += expf(acc[i][j][2 * half + e] - m[q]);
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// merge_group ends a group (rows g0 + r, r < 256) after its last fold:
+// the 4 lanes of a quad merge their (m, sum) by shuffles (offsets 1, 2),
+// warp column 1 hands its rows to warp column 0 through xm and xs
+// ([256] each in shared memory), which merges them after its own, and
+// lane t = 0 of warp column 0 writes one (m, s) per (split, row < B). A
+// barrier inside: every thread of the block calls it. Every merge runs in
+// a fixed order, so two calls give the same bits.
+__device__ __forceinline__ void merge_group(float (&m)[8], float (&sum)[8], float* xm, float* xs,
+                                            int g0, int B, float* __restrict__ part_m,
+                                            float* __restrict__ part_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, wm = warp & 3, wn = warp >> 2;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float om = __shfl_xor_sync(FULL, m[q], off);
+      const float os = __shfl_xor_sync(FULL, sum[q], off);
+      const float mm = fmaxf(m[q], om);
+      if (mm > -INFINITY) {
+        sum[q] = sum[q] * expf(m[q] - mm) + os * expf(om - mm);
+        m[q] = mm;
+      }
+    }
+  if (wn == 1 && t4 == 0) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1);
+      xm[r] = m[q];
+      xs[r] = sum[q];
+    }
+  }
+  __syncthreads();
+  if (wn == 0 && t4 == 0) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1), row = g0 + r;
+      const float om = xm[r], os = xs[r];
+      const float mm = fmaxf(m[q], om);
+      if (mm > -INFINITY) {
+        sum[q] = sum[q] * expf(m[q] - mm) + os * expf(om - mm);
+        m[q] = mm;
+      }
+      if (row < B) {
+        part_m[(size_t)blockIdx.x * B + row] = m[q];
+        part_s[(size_t)blockIdx.x * B + row] = sum[q];
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 ce_fwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, const float* __restrict__ table,
                       int B, int V, int H, int n_valid, int tiles_per_split,
@@ -1825,7 +1851,6 @@ ce_fwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, const float* __restr
   float* xm = reinterpret_cast<float*>(ring + FT_STAGES * FT_SLOT);  // [TC_ROWS] warp column 1's m
   float* xs = xm + TC_ROWS;                                           // [TC_ROWS] ... and its sum
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp & 3, wn = warp >> 2;  // the warp tile: rows 64 wm, columns 64 wn of a tile
   const int Hp = round_up(H, TC_HL), nk = Hp / TC_HL;
   const int per = tiles_per_split / (FT_COLS / VT);
@@ -1920,82 +1945,192 @@ ce_fwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, const float* __restr
           }
         }
       }
-      if (s % nk == nk - 1) {  // the tile's logits are complete: fold them into (m, sum)
-        const int j0 = (t_begin + s / nk) * FT_COLS;
-        const int c0 = j0 + 64 * wn + 2 * t4;  // this thread's columns: c0 + 8 j + {0, 1}
-        const bool ragged = j0 + FT_COLS > n_valid;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int q = 2 * i + half;
-            float tmax = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                if (ragged && c0 + 8 * j + e >= n_valid) acc[i][j][2 * half + e] = -INFINITY;
-                tmax = fmaxf(tmax, acc[i][j][2 * half + e]);
-              }
-            if (tmax > -INFINITY) {
-              if (tmax > m[q]) {
-                sum[q] *= expf(m[q] - tmax);  // exp(-inf) = 0 on the row's first column
-                m[q] = tmax;
-              }
-#pragma unroll
-              for (int j = 0; j < 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) sum[q] += expf(acc[i][j][2 * half + e] - m[q]);
-            }
-          }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      }
+      if (s % nk == nk - 1)  // the tile's logits are complete: fold them into (m, sum)
+        fold_tile(acc, m, sum, (t_begin + s / nk) * FT_COLS, n_valid);
       if (s + 1 < n_steps) store_rows(s + 1);  // its slot was last read by step s - 3
     }
 
-    // the 4 lanes of a quad (offsets 1, 2), then the two warp columns
+    merge_group(m, sum, xm, xs, g0, B, part_m, part_s);
+  }
+}
+
+// ---- the fp32 form of the wide forward, on the tensor cores in 3xTF32 --------
+//
+// ce_fwd_wide_tf32_kernel: the forward's pass 1 in the fp32 form at
+// H > MAX_H, the counterpart of pallas_ce.py:222 _fwd_kernel at f32, whose
+// logits are an f32 dot_general (pallas_ce.py:242-244). It takes
+// ce_fwd_wide_tc_kernel's grid and epilogue and ce_bwd_wide_tf32_kernel's
+// number format: the logits on the tensor cores in 3xTF32 (tensor_core.cuh:
+// each fp32 operand as a TF32 hi and lo, three mma.sync m16n8k8 a
+// product), which keeps fp32 accuracy; 1xTF32 keeps about three digits
+// and would not be the same function.
+//
+// Bound at B=256, V=1M, H=512: 3 x 2BVH = 786.43 GFLOP, three TF32 passes
+// of the logits at the dense TF32 rate (495 TFLOP/s), 1.589 ms; the fp32
+// table read once, 2.05 GB, 0.612 ms at 3.35 TB/s. (The same work in fp32
+// FMAs is 3.913 ms at 67 TFLOP/s; the FMA kernel this one replaced took
+// ~10.2 ms: it read the table once per 64-row batch tile and fed 8 FMAs
+// per shared-memory load.)
+//
+// What the design does about it:
+//   - the table is read from device memory once: one block of 256 threads
+//     per SM walks its split in tiles of FT_COLS = 128 catalog columns,
+//     each against a whole group of up to TC_ROWS = 256 batch rows, as
+//     ce_fwd_wide_tc_kernel does;
+//   - 8 warps as 4 x 2 warp tiles of 64 x 64 (that kernel's, so that the
+//     epilogue is one function for both), the running logits in 128 fp32
+//     registers a thread. Per k8 block of a step and per m16 fragment i
+//     the three passes' sums start from 0 (part, 32 registers) and are
+//     added to the running logits with one fp32 rounding: a tensor core
+//     truncates its sum to its largest addend, so a sum carried through
+//     many MMAs drifts (ce_bwd_wide_tf32_kernel's head);
+//   - a step's state rows and table rows come by cp.async as they are,
+//     zero-filled past B, V and H, two steps ahead through a ring of
+//     FW_STAGES = 3 slots of 16 hidden columns ([256][20] states, [128][20]
+//     table rows), one barrier a step; each fragment is one ldmatrix, split
+//     into hi and lo in registers (tensor_core.cuh: split_tf32), as
+//     ce_bwd_wide_tf32_kernel takes its fragments;
+//   - each thread's (max, sum) of its 8 rows waits in shared memory between
+//     folds (16 KB), which leaves the registers to the MMA loop.
+// A deviation from the design first planned: the hi/lo split was to be
+// done once per staged element, into hi and lo planes in shared memory,
+// so that the MMA loop would hold no split instruction. On the H100 that
+// form (tools/ablate_ce_tc.py, "fwd32: split once per staged chunk": the
+// rows copied into lo planes and each thread's pieces split in place a
+// step ahead of the MMAs) was slower, ~5.8 ms against ~4.9 (PERF.md §6):
+// the split pass, its shared-memory stores and the second ldmatrix of
+// every fragment cost more than the split instructions they remove. (A
+// first form split the states once a call into a hi/lo scratch by a
+// kernel of its own: slower than the split per fragment load as well,
+// and one device operation more a training step than chip_smoke.py
+// allows.)
+// Shared memory: 3 slots of 30,720 B, the (max, sum) 16,384, the warps'
+// exchange 2,048: 110,592 B at any H; 255 registers, 48 bytes of spills.
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at B=256, V=1M, H=512 it takes
+// ~5.0 ms (PERF.md row 2w; the FMA kernel ~10.0 in turns), 32% of its
+// bound and 0.74x its library call (cuBLAS SGEMM, then the softmax); its
+// MMAs alone (with their fragment loads and splits) ~4.15 ms, its memory
+// path alone ~1.55 (tools/ablate_ce_tc.py): the MMA loop bounds it.
+
+constexpr int FW_HC = 16;                        // hidden columns per step
+constexpr int FW_LD = FW_HC + 4;                 // a row's stride in a slot (floats)
+constexpr int FW_STAGES = 3;                     // slots in the ring
+constexpr int FW_SPLANE = TC_ROWS * FW_LD;       // a slot's states
+constexpr int FW_SLOT = FW_SPLANE + FT_COLS * FW_LD;  // states, then table rows
+constexpr long long FW_SMEM = 4LL * (FW_STAGES * FW_SLOT + 16 * THREADS + 2 * TC_ROWS);  // 110,592 B
+static_assert(FW_SMEM <= MAX_SMEM && FT_COLS == 128 && TC_ROWS == 256 && THREADS == 256,
+              "8 warps as 4 x 2 warp tiles of 64 x 64 over a 256 x 128 tile");
+static_assert(FW_LD % 8 == 4 && FW_HC % 8 == 0,
+              "the eight 16-byte rows of an ldmatrix matrix on distinct banks; whole k8 blocks");
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_wide_tf32_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
+                        int V, int H, int n_valid, int tiles_per_split,
+                        float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                      // [FW_STAGES][FW_SLOT]
+  float* kept = ring + FW_STAGES * FW_SLOT;  // [16][THREADS] each thread's m[8], then sum[8]
+  float* xm = kept + 16 * THREADS;         // [TC_ROWS] warp column 1's m
+  float* xs = xm + TC_ROWS;                // [TC_ROWS] ... and its sum
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // the warp tile: rows 64 wm, columns 64 wn of a tile
+  const int nk = round_up(H, FW_HC) / FW_HC;
+  const int per = tiles_per_split / (FT_COLS / VT);
+  const int n_tiles = (V + FT_COLS - 1) / FT_COLS;
+  const int t_begin = blockIdx.x * per, t_end = min(t_begin + per, n_tiles);
+  const int n_steps = max(t_end - t_begin, 0) * nk;
+
+  // step s: hidden chunk s % nk of tile t_begin + s / nk, in slot s % FW_STAGES
+  auto slot = [&](int s) { return ring + (s % FW_STAGES) * FW_SLOT; };
+  // a fragment's hi and lo, split in registers from one ldmatrix at p
+  auto frags = [](uint32_t (&h)[4], uint32_t (&l)[4], const float* p) {
+    tc::ldmatrix_x4(h, p);
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
+    for (int e = 0; e < 4; ++e) tc::split_tf32(h[e], h[e], l[e]);
+  };
+
+  for (int g0 = 0; g0 < B; g0 += TC_ROWS) {
+    auto issue = [&](int s) {  // step s's state and table rows, as they are
+      float* S = slot(s);
+      const int h0 = (s % nk) * FW_HC;
+      copy_chunk_async<TC_ROWS, FW_HC>(S, FW_LD, states, g0, B, H, h0);
+      copy_chunk_async<FT_COLS, FW_HC>(S + FW_SPLANE, FW_LD, table, (t_begin + s / nk) * FT_COLS,
+                                       V, H, h0);
+    };
+    float acc[4][8][4];
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float om = __shfl_xor_sync(FULL, m[q], off);
-        const float os = __shfl_xor_sync(FULL, sum[q], off);
-        const float mm = fmaxf(m[q], om);
-        if (mm > -INFINITY) {
-          sum[q] = sum[q] * expf(m[q] - mm) + os * expf(om - mm);
-          m[q] = mm;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      kept[q * THREADS + tid] = -INFINITY;
+      kept[(8 + q) * THREADS + tid] = 0.f;
+    }
+
+    __syncthreads();  // the group before is done with the ring, xm and xs
+#pragma unroll
+    for (int s = 0; s < FW_STAGES - 1; ++s) {
+      if (s < n_steps) issue(s);
+      onchip::cp_async_commit();
+    }
+    for (int s = 0; s < n_steps; ++s) {
+      tc::cp_async_wait_group<FW_STAGES - 2>();  // this thread's copies of step s have landed
+      __syncthreads();  // everyone's; step s - 1's MMAs are done
+      if (s + FW_STAGES - 1 < n_steps) issue(s + FW_STAGES - 1);
+      onchip::cp_async_commit();  // (empty past the last step: one group a step)
+      const float* S = slot(s);
+      const float* T = S + FW_SPLANE;
+      // acc[i][j] += S[64 wm + 16 i, :] . T[64 wn + 8 j, :]^T over the chunk
+#pragma unroll
+      for (int kk = 0; kk < FW_HC; kk += 8) {
+        uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t rh[4], rl[4];
+          frags(rh, rl, T + (64 * wn + 16 * jp + tc::b_row(lane)) * FW_LD + kk + tc::b_col32(lane));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bh[2 * jp + (e >> 1)][e & 1] = rh[e];
+            bl[2 * jp + (e >> 1)][e & 1] = rl[e];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t ah[1][4], al[1][4];
+          frags(ah[0], al[0], S + (64 * wm + 16 * i + tc::a_row(lane)) * FW_LD + kk + tc::a_col32(lane));
+          float part[1][8][4] = {};
+          tc::mma_3xtf32(part, ah, al, bh, bl);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[0][j][e];
         }
       }
-    if (wn == 1 && t4 == 0) {
+      if (s % nk == nk - 1) {  // the tile's logits are complete: fold them into (m, sum)
+        float m[8], sum[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1);
-        xm[r] = m[q];
-        xs[r] = sum[q];
+        for (int q = 0; q < 8; ++q) {
+          m[q] = kept[q * THREADS + tid];
+          sum[q] = kept[(8 + q) * THREADS + tid];
+        }
+        fold_tile(acc, m, sum, (t_begin + s / nk) * FT_COLS, n_valid);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          kept[q * THREADS + tid] = m[q];
+          kept[(8 + q) * THREADS + tid] = sum[q];
+        }
       }
     }
-    __syncthreads();
-    if (wn == 0 && t4 == 0) {
+    float m[8], sum[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1), row = g0 + r;
-        const float om = xm[r], os = xs[r];
-        const float mm = fmaxf(m[q], om);
-        if (mm > -INFINITY) {
-          sum[q] = sum[q] * expf(m[q] - mm) + os * expf(om - mm);
-          m[q] = mm;
-        }
-        if (row < B) {
-          part_m[(size_t)blockIdx.x * B + row] = m[q];
-          part_s[(size_t)blockIdx.x * B + row] = sum[q];
-        }
-      }
+    for (int q = 0; q < 8; ++q) {
+      m[q] = kept[q * THREADS + tid];
+      sum[q] = kept[(8 + q) * THREADS + tid];
     }
+    merge_group(m, sum, xm, xs, g0, B, part_m, part_s);
   }
 }
 
@@ -2003,14 +2138,12 @@ bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 !=
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
 // (and the backward's ds) fit beside the tiles; past MAX_H the wide
-// route, which walks H in chunks: forward, ce_fwd_partial_kernel<false,
-// true> in the fp32 form and the tensor-core kernel ce_fwd_wide_tc_kernel
-// in the bf16 form; backward, a tensor-core kernel in either form,
-// ce_bwd_wide_tf32_kernel (fp32, 3xTF32) and ce_bwd_wide_tc_kernel (bf16);
+// route, which walks H in chunks on the tensor cores in either form:
+// forward, ce_fwd_wide_tf32_kernel (fp32, 3xTF32) and ce_fwd_wide_tc_kernel
+// (bf16); backward, ce_bwd_wide_tf32_kernel and ce_bwd_wide_tc_kernel;
 // ce_fwd_partial_kernel and ce_bwd_sweep_kernel elsewhere.
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 bool wide_route(int H) { return H > MAX_H; }
-bool logz_tc_route(int H, int bf16) { return bf16 && wide_route(H); }
 // ... and the backward tensor-core kernel's tile: catalog columns, and the
 // multiple of 64 that H is padded to
 int grads_tc_cols(int bf16) { return bf16 ? TC_SV : TF_COLS; }
@@ -2025,9 +2158,7 @@ extern "C" {
 // bf16-operand form) take.
 long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
   const long long ld = H + 4;
-  if (which == 0 && logz_tc_route(H, bf16)) return FT_SMEM;
-  if (which == 1 && wide_route(H)) return bf16 ? TC_SMEM : TF_SMEM;
-  if (wide_route(H)) return (long long)sizeof(float) * (BT + VT) * WLD;  // the fp32 forward
+  if (wide_route(H)) return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);
   if (which == 0)
     return (long long)sizeof(float) *
            (onchip_route(B, H) ? onchip::STATE_FLOATS + onchip::RING_FLOATS : (BT + VT) * ld);
@@ -2041,25 +2172,21 @@ long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
 int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 
 // 1 where they take their wide routes (H > 256), which stage the hidden
-// dimension in chunks. There ce_grads takes a tensor-core kernel in either
-// form: ce_bwd_wide_tf32_kernel in the fp32 form, whose tiles are TF_COLS
-// = 128 columns, ce_bwd_wide_tc_kernel in the bf16 form, TC_SV = 256: its
-// tiles_per_split is a multiple of 2, or of 4.
+// dimension in chunks, on a tensor-core kernel in either form. ce_logz's
+// tiles there are FT_COLS = 128 columns in both forms (ce_fwd_wide_tf32_kernel,
+// ce_fwd_wide_tc_kernel); ce_grads' TF_COLS = 128 in the fp32 form
+// (ce_bwd_wide_tf32_kernel) and TC_SV = 256 in the bf16 form
+// (ce_bwd_wide_tc_kernel): tiles_per_split is a multiple of 2, or of 4.
 int ce_wide_route(int H) { return wide_route(H) ? 1 : 0; }
-
-// 1 where ce_logz takes its tensor-core kernel, ce_fwd_wide_tc_kernel (the
-// bf16 form on the wide route), whose tiles are FT_COLS = 128 columns: its
-// tiles_per_split is a multiple of 2.
-int ce_logz_tc_route(int H, int bf16) { return logz_tc_route(H, bf16) ? 1 : 0; }
 
 // Bytes of the workspace that ce_logz takes at batch B, hidden size H, form
 // bf16 and n_splits splits: the splits' partials (max, then sum), fp32
-// [2, n_splits, B]; on the tensor-core route then, 256-byte aligned, its
-// bf16 states [Bp, Hp] (Bp = B up to a multiple of 256, Hp = H up to a
-// multiple of 64).
+// [2, n_splits, B]; in the bf16 form on the wide route then, 256-byte
+// aligned, its bf16 states [Bp, Hp] (Bp = B up to a multiple of 256, Hp =
+// H up to a multiple of 64).
 long long ce_logz_workspace_bytes(int B, int H, int bf16, int n_splits) {
   const long long parts = (8LL * n_splits * B + 255) / 256 * 256;
-  if (!logz_tc_route(H, bf16)) return parts;
+  if (!(bf16 && wide_route(H))) return parts;
   return parts + 2LL * round_up(B, TC_ROWS) * round_up(H, TC_HL);
 }
 
@@ -2081,20 +2208,20 @@ long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
 // <states[i], table[answers[i]]> with gold 0 for answers outside
 // [0, n_valid). answers and loss are both given or both null. bf16 != 0
 // takes the bf16-operand form (the file's head). The route is the shape's
-// and the form's (ce_onchip_route, ce_wide_route, ce_logz_tc_route): one block
-// per SM suits the on-chip and tensor-core routes, two the others, over
-// (splits x batch tiles of 64 rows). The caller allocates the workspace
-// (ce_logz_workspace_bytes); n_splits * tiles_per_split tiles must cover
-// V, and on the tensor-core route tiles_per_split is even and every split
-// holds at least one tile. Returns 0 or a cudaError_t code.
+// (ce_onchip_route, ce_wide_route): one block per SM suits the on-chip and
+// wide routes, two the older one, over (splits x batch tiles of 64 rows).
+// The caller allocates the workspace (ce_logz_workspace_bytes); n_splits *
+// tiles_per_split tiles must cover V, and on the wide route
+// tiles_per_split is even and every split holds at least one tile.
+// Returns 0 or a cudaError_t code.
 int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
             int n_valid, int n_splits, int tiles_per_split, void* workspace, void* logz,
             void* loss, int bf16, void* stream) {
-  const bool tc = logz_tc_route(H, bf16);
+  const bool wide = wide_route(H);  // a tensor-core kernel in either form
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr) ||
-      (tc && (tiles_per_split % (FT_COLS / VT) != 0 ||
-              (long long)(n_splits - 1) * tiles_per_split * VT >= V)))
+      (wide && (tiles_per_split % (FT_COLS / VT) != 0 ||
+                (long long)(n_splits - 1) * tiles_per_split * VT >= V)))
     return (int)cudaErrorInvalidValue;
   const long long smem = streaming_ce_smem_bytes(B, H, 0, bf16);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -2102,11 +2229,10 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
   float* part_m = static_cast<float*>(workspace);
   float* part_s = part_m + (size_t)n_splits * B;
   cudaError_t e;
-  if (tc) {
-    const int Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL);
+  if (wide && bf16) {
+    const int Bp = round_up(B, TC_ROWS), Hp = round_up(H, TC_HL), n4 = Bp * (Hp / 4);
     __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(
         static_cast<char*>(workspace) + (8LL * n_splits * B + 255) / 256 * 256);
-    const int n4 = Bp * (Hp / 4);
     states_bf16_kernel<<<(n4 + 255) / 256, 256, 0, s>>>(static_cast<const float*>(states), B, H,
                                                          Bp, Hp, sb);
     e = cudaGetLastError();
@@ -2116,12 +2242,17 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
     if (e != cudaSuccess) return (int)e;
     ce_fwd_wide_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
         sb, static_cast<const float*>(table), B, V, H, n_valid, tiles_per_split, part_m, part_s);
+  } else if (wide) {
+    e = cudaFuncSetAttribute(ce_fwd_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ce_fwd_wide_tf32_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+        static_cast<const float*>(states), static_cast<const float*>(table), B, V, H, n_valid,
+        tiles_per_split, part_m, part_s);
   } else {
     const bool onchip = onchip_route(B, H);
-    auto sweep = wide_route(H) ? ce_fwd_partial_kernel<false, true>
-                 : onchip      ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
-                               : (bf16 ? ce_fwd_partial_kernel<true, false>
-                                       : ce_fwd_partial_kernel<false, false>);
+    auto sweep = onchip ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
+                        : (bf16 ? ce_fwd_partial_kernel<true> : ce_fwd_partial_kernel<false>);
     e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     sweep<<<dim3(n_splits, onchip ? 1 : (B + BT - 1) / BT), THREADS, (size_t)smem, s>>>(

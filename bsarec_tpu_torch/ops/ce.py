@@ -29,22 +29,22 @@ not grow with H; elsewhere the older sweeps re-stage 64-row batch tiles
 with whole rows, two blocks per SM. `ce_logz.onchip_launches`,
 `ce_grads.onchip_launches`, `ce_logz.wide_launches` and
 `ce_grads.wide_launches` count the first two apart. On the wide route
-the backward runs on the tensor cores in both forms, one block per SM
-holding the p of up to 256 batch rows for a tile of catalog columns: `ce_bwd_wide_tf32_kernel` in the fp32 form (128-column
-tiles, every product in 3xTF32: each fp32 operand split into two TF32
-parts, three tensor-core passes, fp32 accuracy) and
-`ce_bwd_wide_tc_kernel` in the bf16 form (256-column tiles, the states
-rounded into a bf16 scratch first). The forward takes the tensor cores
-there in the bf16 form only (`logz_tc_route`): `ce_fwd_wide_tc_kernel`
-(256 batch rows x 128 catalog columns a tile, the table read once); the
-fp32 form's wide forward runs fp32 FMAs over 64-column hidden chunks.
-`ce_logz.tc_launches` counts the forward's tensor-core launches; every
-wide `ce_grads` launch is a tensor-core one, so `ce_grads.wide_launches`
-counts them. The kernels take every H % 4 == 0 (JAX's kernels take an H
-that divides 128 or is a multiple of 128, all of it inside that); the
-workspaces (the splits' partials, and in the bf16 form's tensor-core
-kernels bf16 copies of the states and, backward, of a table tile a
-split) and the outputs are the only memory that grows with H.
+both sweeps run on the tensor cores in both forms, one block per SM, so
+`wide_launches` (with `bf16_launches` for the form) counts the
+tensor-core kernels' launches. The forward takes 256 batch rows x 128
+catalog columns a tile and reads the table once:
+`ce_fwd_wide_tf32_kernel` in the fp32 form (the logits in 3xTF32: each
+fp32 operand split into two TF32 parts, three tensor-core passes, fp32
+accuracy) and `ce_fwd_wide_tc_kernel` in the bf16 form (the states
+rounded into a bf16 scratch first). The backward holds the p of up to
+256 batch rows for a tile of catalog columns: `ce_bwd_wide_tf32_kernel`
+in the fp32 form (128-column tiles, every product in 3xTF32) and
+`ce_bwd_wide_tc_kernel` in the bf16 form (256-column tiles). The kernels take every H % 4 == 0
+(JAX's kernels take an H that divides 128 or is a multiple of 128, all
+of it inside that); the workspaces (the splits' partials, and in the
+bf16 form's wide kernels bf16 copies of the states and, backward, of a
+table tile a split) and the outputs are the only memory that grows with
+H.
 
 Answers are the model's ids as they are. The kernels test 0 <= a <
 n_valid themselves: a row whose answer fails it has gold 0 and no
@@ -195,8 +195,6 @@ def _lib() -> ctypes.CDLL:
     lib.ce_onchip_route.restype = i
     lib.ce_wide_route.argtypes = [i]
     lib.ce_wide_route.restype = i
-    lib.ce_logz_tc_route.argtypes = [i, i]
-    lib.ce_logz_tc_route.restype = i
     return lib
 
 
@@ -215,16 +213,9 @@ def wide_route(h: int) -> bool:
     return bool(_lib().ce_wide_route(h))
 
 
-@functools.cache
-def logz_tc_route(h: int, bf16: bool) -> bool:
-    """True where `ce_logz` takes its tensor-core kernel,
-    `ce_fwd_wide_tc_kernel`: the bf16-operand form on the wide route."""
-    return bool(_lib().ce_logz_tc_route(h, int(bf16)))
-
-
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per
-# tile, columns per tile of the tensor-core kernels (the bf16 forward, the
-# bf16 backward, the fp32 backward)
+# tile, columns per tile of the tensor-core kernels (the forward in both
+# forms, the bf16 backward, the fp32 backward)
 _BT, _VT, _TC_FWD_VT, _TC_VT, _TF_VT = 64, 64, 128, 256, 128
 
 
@@ -287,18 +278,18 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
     b, v, h, index = _check_matrices(states, table)
     if answers is not None:
         _require("answers", answers, torch.int64, (b,), index)
-    # one block per SM on the on-chip and tensor-core routes (the latter's
-    # splits whole 128-column tiles); elsewhere two blocks per SM over
-    # (splits x batch tiles)
-    onchip = onchip_route(b, h)
-    tc = logz_tc_route(h, bf16)
-    if tc:
+    # one block per SM on the on-chip and wide routes (the latter's splits
+    # whole 128-column tiles of a tensor-core kernel); elsewhere two blocks
+    # per SM over (splits x batch tiles)
+    onchip, wide = onchip_route(b, h), wide_route(h)
+    if wide:
         n_splits, per = tc_splits(v, _TC_FWD_VT, sm_count(index))
     else:
         target = sm_count(index) if onchip else -(-2 * sm_count(index) // -(-b // _BT))
         n_splits, per = _even_splits(-(-v // _VT), target)
     lib = _lib()
-    # the (max, sum) partials, and on the tensor-core route the bf16 states
+    # the (max, sum) partials, and in the bf16 form on the wide route the
+    # bf16 states
     work = states.new_empty((lib.ce_logz_workspace_bytes(b, h, int(bf16), n_splits),),
                             dtype=torch.uint8)
     logz = states.new_empty((b,))
@@ -311,9 +302,8 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
         _raise("ce_logz", rc, b, v, h, 0, bf16)
     ce_logz.launches += 1
     ce_logz.onchip_launches += onchip
-    ce_logz.wide_launches += wide_route(h)
+    ce_logz.wide_launches += wide
     ce_logz.bf16_launches += bf16
-    ce_logz.tc_launches += tc
     return loss, logz
 
 
@@ -422,9 +412,8 @@ def ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
 
 ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's included
 ce_logz.onchip_launches = 0  # the launches that took the on-chip route
-ce_logz.wide_launches = 0  # the launches that took the wide route
+ce_logz.wide_launches = 0  # the launches that took the wide route (a tensor-core kernel, either form)
 ce_logz.bf16_launches = 0  # the launches in the bf16-operand form
-ce_logz.tc_launches = 0  # the launches that took the tensor-core kernel (bf16 form, wide route)
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route

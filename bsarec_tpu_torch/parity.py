@@ -35,13 +35,14 @@ logit summed over h in ascending order, one rounding per step):
   bf16 roundings of p to land apart and which the fp32 form must still
   fail.
 
-The wide routes' fp32 backward takes its products on the tensor cores in
-3xTF32 and is held within WIDE_GRAD_TOL of the plain version. On the CPU
-`ce_grads_tf32` emulates that number format (and 1xTF32, the control
-that must fail the limit) against the JAX package
-(`tests/test_torch_port_tf32.py`). That checks the format and the limit,
-not the kernel: no fault of the kernel can fail it, only the card checks
-can.
+The wide routes' fp32 kernels take their products on the tensor cores in
+3xTF32: the backward is held within WIDE_GRAD_TOL of the plain version,
+the forward's logZ within chip_smoke.py's CE_TOL. On the CPU
+`ce_grads_tf32` and `matmul_tf32` emulate that number format (and
+1xTF32, the control that must fail the limits) against the JAX package
+(`tests/test_torch_port_tf32.py`). That checks the format and the
+limits, not the kernels: no fault of a kernel can fail it, only the card
+checks can.
 """
 
 from __future__ import annotations

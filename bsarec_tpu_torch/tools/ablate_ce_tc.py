@@ -1,4 +1,4 @@
-"""Where the three tensor-core kernels spend their time: build copies of
+"""Where the four tensor-core kernels spend their time: build copies of
 `csrc/streaming_ce.cu` with parts of a kernel cut out, and time each at
 B=256, V=1,000,000, H=512.
 
@@ -19,15 +19,25 @@ fragment loads and hi/lo splits that feed only them), the MMAs alone (no
 copies, no carry loads, no stores of dT and ds_part), hi split by
 cvt.rna.tf32.f32 (the same rounding as the kernel's integer form), and
 1xTF32: the two correction passes of every product cut, which shows what
-fp32 accuracy costs. The cut variants compute wrong results and are timed
-only, but for the cvt.rna split, which must give the kernel's bits, and
-1xTF32, which are held beside the kernel against the plain fp32
-version and an fp64 one (`ce_grads_plain` on float64 inputs) at the main
-shape and at `tests/test_torch_port_cuda.py`'s H = 260 route-boundary
-case: `parity.grad_errors` (each group relative to its largest plain
-entry) and, elementwise, the largest |error| / (atol + rtol |want|) at
-that test's GRAD_TOL (rtol 1e-4, atol 1e-5); the plain fp32 version
-against the fp64 one too. Every library is built
+fp32 accuracy costs. For `ce_fwd_wide_tf32_kernel` (through `ce_logz` in
+the fp32 form, the "fwd32" variants): the whole kernel, its MMAs alone
+(no copies; every fragment load and hi/lo split, MMA and fold kept), its
+memory path alone (the copies and the fold; no fragment loads, splits
+or MMAs), 1xTF32, and the hi/lo split once per staged element in place
+of once per fragment load (each slot doubled into hi and lo planes, the
+rows split in place a step ahead of the MMAs, two ldmatrix a fragment:
+the form first planned). The cut variants compute wrong
+results and are timed only, but for the cvt.rna split and the split once
+per staged chunk, which must give their kernel's bits, and the 1xTF32
+ones, which are held beside their kernel against the plain fp32 version
+and an fp64 one (`ce_grads_plain`, `ce_logz_plain` on float64 inputs):
+the backward at the main shape and at `tests/test_torch_port_cuda.py`'s
+H = 260 route-boundary case, by `parity.grad_errors` (each group
+relative to its largest plain entry) and, elementwise, the largest
+|error| / (atol + rtol |want|) at that test's GRAD_TOL (rtol 1e-4, atol
+1e-5); the forward's logZ at the main shape, the largest |error| /
+max(1, |want|) (chip_smoke.py's CE_TOL); the plain fp32 version against
+the fp64 one too. Every library is built
 with `ops/_build.py`'s flags into `build/ablate/`, one nvcc each, all
 started together, and called on the same inputs; one reading is the
 mean of 10 calls (CUDA events, after one warm-up), the variants timed in
@@ -89,8 +99,8 @@ FWD_NO_TABLE_STORES = [  # the loads kept: a store that never runs still reads t
      "      if (V < 0) *reinterpret_cast<uint2*>(dst + r * FT_LD + c4) =\n")]
 FWD_NO_MMA = [("      for (int k16 = 0; k16 < TC_HL; k16 += 16) {",
                "      for (int k16 = 0; k16 < 0; k16 += 16) {")]
-FWD_NO_EPILOGUE = [("      if (s % nk == nk - 1) {  // the tile's logits are complete",
-                    "      if (false) {  // the tile's logits are complete")]
+FWD_NO_EPILOGUE = [("      if (s % nk == nk - 1)  // the tile's logits are complete",
+                    "      if (false)  // the tile's logits are complete")]
 
 FP32_LOGITS_ONLY = [("  const int n_lg = (TF_COLS / TF_SUB) * nl, n_steps = n_lg + np;",
                      "  const int n_lg = (TF_COLS / TF_SUB) * nl, n_steps = n_lg;")]
@@ -119,6 +129,62 @@ FP32_NO_MMA = [("            tc::mma_3xtf32(part, ah, al, bh, bl);", ""),
                ("            for (int pass = 0; pass < 3; ++pass)  // the two blocks'",
                 "            for (int pass = 3; pass < 3; ++pass)  // the two blocks'")]
 
+# ce_fwd_wide_tf32_kernel
+FW32_NO_COPIES = [
+    ("      copy_chunk_async<TC_ROWS, FW_HC>(S, FW_LD, states, g0, B, H, h0);\n"
+     "      copy_chunk_async<FT_COLS, FW_HC>(S + FW_SPLANE, FW_LD, table, (t_begin + s / nk) * FT_COLS,\n"
+     "                                       V, H, h0);\n", "")]
+FW32_NO_MMA = [("      for (int kk = 0; kk < FW_HC; kk += 8) {", "      for (int kk = 0; kk < 0; kk += 8) {")]
+FW32_PASSES = [("\n          tc::mma_3xtf32(part, ah, al, bh, bl);",
+                "\n          tc::mma_pass(2, part, ah, al, bh, bl);")]
+# the hi/lo split once per staged element instead of once per fragment
+# load: each slot doubled into hi planes (states, table rows) and lo
+# planes, the rows copied into the lo planes, each thread's copied pieces
+# split in place one step ahead of the MMAs (so the copies of step s + 1
+# are awaited at step s), and a fragment's hi and lo two ldmatrix; the
+# same bits
+FW32_SPLIT_ONCE = [
+    ("constexpr int FW_SLOT = FW_SPLANE + FT_COLS * FW_LD;  // states, then table rows",
+     "constexpr int FW_SLOT = 2 * (FW_SPLANE + FT_COLS * FW_LD);  // hi planes, then lo planes"),
+    ("      copy_chunk_async<TC_ROWS, FW_HC>(S, FW_LD, states, g0, B, H, h0);\n"
+     "      copy_chunk_async<FT_COLS, FW_HC>(S + FW_SPLANE, FW_LD, table, (t_begin + s / nk) * FT_COLS,\n"
+     "                                       V, H, h0);\n    };\n",
+     "      copy_chunk_async<TC_ROWS, FW_HC>(S + FW_SLOT / 2, FW_LD, states, g0, B, H, h0);\n"
+     "      copy_chunk_async<FT_COLS, FW_HC>(S + FW_SLOT / 2 + FW_SPLANE, FW_LD, table,\n"
+     "                                       (t_begin + s / nk) * FT_COLS, V, H, h0);\n    };\n"
+     "    auto split_slot = [&](int s) {\n"
+     "      for (int half = 0; half < 2; ++half) {\n"
+     "        float* lo = slot(s) + FW_SLOT / 2 + half * FW_SPLANE;\n"
+     "        const int n = half ? FT_COLS : TC_ROWS;\n"
+     "        for (int q = 0; q < n * (FW_HC / 4) / THREADS; ++q) {\n"
+     "          const int i = tid + THREADS * q, r = i / (FW_HC / 4), c = (i % (FW_HC / 4)) * 4;\n"
+     "          float* x = lo + r * FW_LD + c;\n"
+     "          const float4 v = *reinterpret_cast<const float4*>(x);\n"
+     "          const float w[4] = {v.x, v.y, v.z, v.w};\n"
+     "          uint32_t h[4], l[4];\n"
+     "          for (int e = 0; e < 4; ++e) tc::split_tf32(__float_as_uint(w[e]), h[e], l[e]);\n"
+     "          *reinterpret_cast<float4*>(x - FW_SLOT / 2) = make_float4(\n"
+     "              __uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));\n"
+     "          *reinterpret_cast<float4*>(x) = make_float4(\n"
+     "              __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));\n"
+     "        }\n"
+     "      }\n"
+     "    };\n"),
+    ("    for (int s = 0; s < n_steps; ++s) {\n"
+     "      tc::cp_async_wait_group<FW_STAGES - 2>();  // this thread's copies of step s have landed\n",
+     "    onchip::cp_async_wait_all();\n"
+     "    if (n_steps > 0) split_slot(0);\n"
+     "    for (int s = 0; s < n_steps; ++s) {\n"
+     "      onchip::cp_async_wait_all();  // step s + 1's copies too\n"),
+    ("      onchip::cp_async_commit();  // (empty past the last step: one group a step)\n"
+     "      const float* S = slot(s);\n",
+     "      onchip::cp_async_commit();\n"
+     "      if (s + 1 < n_steps) split_slot(s + 1);\n"
+     "      const float* S = slot(s);\n"),
+    ("#pragma unroll\n    for (int e = 0; e < 4; ++e) tc::split_tf32(h[e], h[e], l[e]);",
+     "    tc::ldmatrix_x4(l, p + FW_SLOT / 2);"),
+]
+
 # variant: replacements; "kernel" (the source as it is) is timed through every entry
 VARIANTS = {
     "kernel": [],
@@ -145,6 +211,10 @@ VARIANTS = {
     "fp32: MMAs alone": FP32_NO_COPIES + FP32_NO_CARRY + FP32_NO_STORES,
     "fp32: hi by cvt.rna": FP32_CVT_SPLIT,
     "fp32: 1xTF32": FP32_PASSES,
+    "fwd32: MMAs alone": FW32_NO_COPIES,
+    "fwd32: memory path alone": FW32_NO_MMA,
+    "fwd32: 1xTF32": FW32_PASSES,
+    "fwd32: split once per staged chunk": FW32_SPLIT_ONCE,
 }
 
 
@@ -244,6 +314,47 @@ def accuracy(libs: dict, states, table, answers, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def accuracy_forward(libs: dict, states, table, dev) -> None:
+    """The fp32 form's wide ce_logz of each library in `libs` against the
+    plain fp32 version and an fp64 one (`ce_logz_plain` on float64
+    inputs) at the main shape: the largest |error| / max(1, |want|), as
+    chip_smoke.py's CE_TOL is applied, and bit-equality to the kernel; one
+    JSON line each."""
+    import torch
+
+    from bsarec_tpu_torch.ops import ce
+
+    def worst(got, want):
+        return float(((got.double() - want.double()).abs() / want.double().abs().clamp(min=1.0)).max())
+
+    plain = ce.ce_logz_plain(states, table, V)
+    exact = ce.ce_logz_plain(states.double(), table.double(), V)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    n_splits, per = ce.tc_splits(V, ce._TC_FWD_VT, torch.cuda.get_device_properties(0).multi_processor_count)
+    work = torch.empty((ce._lib().ce_logz_workspace_bytes(B, H, 0, n_splits),), dtype=torch.uint8,
+                       device=dev)
+    rows = [("plain fp32", plain)]
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        logz = torch.empty((B,), device=dev)
+        if lib.ce_logz(states.data_ptr(), table.data_ptr(), None, B, V, H, V, n_splits, per,
+                       work.data_ptr(), logz.data_ptr(), None, 0,
+                       torch.cuda.current_stream().cuda_stream) != 0:
+            raise SystemExit(f"ablate_ce_tc: {name!r} ce_logz launch failed")
+        rows.append(("fp32 forward kernel" if name == "kernel" else name, logz))
+    kernel = rows[1][1]
+    for name, got in rows:
+        out = {"accuracy": name, "case": "main shape", "B": B, "V": V, "H": H,
+               "bit-equal to the kernel": bool(torch.equal(got, kernel))}
+        if name != "plain fp32":
+            out["logZ vs plain"] = worst(got, plain)
+        out["logZ vs fp64"] = worst(got, exact)
+        print(json.dumps(out), flush=True)
+    del plain, exact, work
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true", help="only check that the replacements apply")
@@ -280,6 +391,8 @@ def main() -> None:
     f_splits, f_per = ce.tc_splits(V, ce._TC_FWD_VT, sm)
     f_work = torch.empty((ce._lib().ce_logz_workspace_bytes(B, H, 1, f_splits),),
                          dtype=torch.uint8, device=dev)
+    w_work = torch.empty((ce._lib().ce_logz_workspace_bytes(B, H, 0, f_splits),),
+                         dtype=torch.uint8, device=dev)
     f_logz = torch.empty((B,), device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     calls = {}
@@ -287,7 +400,7 @@ def main() -> None:
         lib = ctypes.CDLL(str(path))
         stream = lambda: torch.cuda.current_stream().cuda_stream
         lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
-        if not name.startswith(("forward", "fp32")):
+        if not name.startswith(("forward", "fp32", "fwd32")):
             args = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
                     dloss.data_ptr(), B, V, H, V, n_splits, per, work.data_ptr(), ds.data_ptr(),
                     dt.data_ptr(), 1)
@@ -298,11 +411,16 @@ def main() -> None:
                     ds.data_ptr(), dt.data_ptr(), 0)
             calls["fp32 kernel" if name == "kernel" else name] = (
                 lambda lib=lib, args=args: lib.ce_grads(*args, stream()))
+        lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
         if name == "kernel" or name.startswith("forward"):
-            lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
             args = (states.data_ptr(), table.data_ptr(), None, B, V, H, V, f_splits, f_per,
                     f_work.data_ptr(), f_logz.data_ptr(), None, 1)
             calls["forward kernel" if name == "kernel" else name] = (
+                lambda lib=lib, args=args: lib.ce_logz(*args, stream()))
+        if name == "kernel" or name.startswith("fwd32"):
+            args = (states.data_ptr(), table.data_ptr(), None, B, V, H, V, f_splits, f_per,
+                    w_work.data_ptr(), f_logz.data_ptr(), None, 0)
+            calls["fwd32 kernel" if name == "kernel" else name] = (
                 lambda lib=lib, args=args: lib.ce_logz(*args, stream()))
 
     def ms(fn, iters=10):
@@ -322,10 +440,13 @@ def main() -> None:
         readings[name].append(ms(calls[name]))
     for name, r in readings.items():
         print(json.dumps({"variant": name, "ms": r, "B": B, "V": V, "H": H}), flush=True)
-    del work, f_work, ds, dt
+    del work, f_work, w_work, ds, dt
     torch.cuda.empty_cache()
     accuracy({name: libs[name] for name in ("kernel", "fp32: hi by cvt.rna", "fp32: 1xTF32")},
              states, table, answers, dev)
+    accuracy_forward({name: libs[name] for name in
+                      ("kernel", "fwd32: split once per staged chunk", "fwd32: 1xTF32")},
+                     states, table, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
 

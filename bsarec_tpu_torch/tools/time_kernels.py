@@ -6,19 +6,21 @@ One reading is the mean of 20 calls (CUDA events, after warm-up) of
 `streaming_masked_topk` at B=256, V=1,000,000, H=64, k=20, in fp32 on
 seeded inputs, as `chip_smoke.py` times them (`time ce_grads kernel`,
 `time ce_logz kernel`, `time streaming_masked_topk kernel`), and of
-`ce_grads` at B=256, V=1,000,000, H=512 (the wide route's fp32 form, row
-4w: `ce_grads_fp32_wide`), and of `ce_grads(..., dtype="bfloat16")` and
+`ce_loss_logz` and `ce_grads` at B=256, V=1,000,000, H=512 (the wide
+route's fp32 form, rows 2w and 4w: `ce_logz_fp32_wide`,
+`ce_grads_fp32_wide`), and of `ce_grads(..., dtype="bfloat16")` and
 `ce_loss_logz(..., dtype="bfloat16")` there (the bf16 forms,
 `ce_grads_bf16_wide` and `ce_logz_bf16_wide`); two readings each, in
-turns (fp32 wide grads, wide grads, wide logz, grads, logz, rank, rank,
-logz, grads, wide logz, wide grads, fp32 wide grads). All are public
+turns (fp32 wide logz, fp32 wide grads, wide grads, wide logz, grads,
+logz, rank, rank, logz, grads, wide logz, wide grads, fp32 wide grads,
+fp32 wide logz). All are public
 entries that every version of the port has, so an older checkout's
 package is timed by the same code. Each process first holds `ce_grads`
 against `ce_grads_plain` (GRAD_TOL relative to the largest |plain|
 entry) and two calls bit for bit, at H=64 and, each group of
-`parity.grad_errors` apart, at H=512, the wide bf16 `ce_loss_logz`
-against its plain version (CE_TOL, relative to max(1, |plain|)) and two
-calls bit for bit, the wide bf16 `ce_grads` against
+`parity.grad_errors` apart, at H=512, the wide `ce_loss_logz` in both
+forms against its plain version (CE_TOL, relative to max(1, |plain|))
+and two calls bit for bit, the wide bf16 `ce_grads` against
 `parity.ce_grads_bf16_in_order` (WIDE_BF16_TOL, each group relative to
 its largest |plain| entry) and two calls bit for bit, and the rank kernel
 against its plain version (values within FLOAT_TOL, each returned id by
@@ -34,10 +36,11 @@ two checkouts with equal digests give bit-equal results there; and
 `ce_wide_fp32_fwd_digest`, the fp32 `ce_loss_logz` (loss, logZ) alone at
 its wide CE cases (`WIDE_CE_CASES`, the i-th seeded with 200 + i), and
 `ce_wide_fp32_grads_digest`, the fp32 `ce_grads` (ds, dT) there, apart,
-so that a change to one wide fp32 kernel leaves the other's digest equal;
-`ce_bf16_digest`, the bf16 forms' outputs at `CE_CASES`, and
-`ce_wide_bf16_grads_digest`, the bf16 `ce_grads` (ds, dT) at
-`WIDE_CE_CASES` at the fp32 form's logZ.
+at the plain version's logZ (`ce_logz_plain`), so that a change to one
+wide kernel leaves the other kernels' digests equal; `ce_bf16_digest`,
+the bf16 forms' outputs at `CE_CASES`, and `ce_wide_bf16_grads_digest`,
+the bf16 `ce_grads` (ds, dT) at `WIDE_CE_CASES` at the plain logZ too.
+The wide ce_grads readings take the plain logZ as well.
 
     python3 bsarec_tpu_torch/tools/time_kernels.py
         # this checkout's package
@@ -151,8 +154,8 @@ def ce_digest(device, wide: bool = False, dtype=None, grads_only: bool = False,
     `ce_case`'s inputs seeded with 100 + i; with `wide`, `WIDE_CE_CASES`
     seeded with 200 + i): loss and logZ from `ce_loss_logz`, ds and dT from
     `ce_grads` at that logZ and dloss = 1/B; with `grads_only`, ds and dT
-    alone, at the fp32 form's logZ; with `forward_only`, loss and logZ
-    alone."""
+    alone, at the fp32 plain version's logZ (no kernel's); with
+    `forward_only`, loss and logZ alone."""
     import torch
 
     from bsarec_tpu_torch.ops import ce
@@ -163,8 +166,10 @@ def ce_digest(device, wide: bool = False, dtype=None, grads_only: bool = False,
     for i, (_, b, v, h, n_valid, kind) in enumerate(cases):
         states, table, answers = smoke.ce_case(b, v, h, n_valid, seed=seed0 + i, device=device,
                                                answer_kind=kind)
-        loss, logz = ce.ce_loss_logz(states, table, answers, n_valid,
-                                     dtype=None if grads_only else dtype)
+        if grads_only:
+            loss, logz = None, ce.ce_logz_plain(states, table, n_valid)
+        else:
+            loss, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
         if forward_only:
             outputs = (loss, logz)
         else:
@@ -231,8 +236,17 @@ def time_package(package_root: Path) -> dict:
     # the wide route's bf16 forms, chip_smoke.py's main wide case's scales
     w_states = torch.from_numpy(rng.standard_normal((B, WIDE_H), dtype=np.float32)).to(device)
     w_table = torch.from_numpy(0.25 * rng.standard_normal((V, WIDE_H), dtype=np.float32)).to(device)
-    # the fp32 form's wide ce_grads (row 4w) at the fp32 logZ
-    _, x_logz = ce.ce_loss_logz(w_states, w_table, answers, V)
+    # the fp32 form's wide ce_loss_logz (row 2w) against its plain version
+    wide_fwd32 = lambda: ce.ce_loss_logz(w_states, w_table, answers, V)
+    (y_loss, y_logz), (y_loss2, y_logz2) = wide_fwd32(), wide_fwd32()
+    want_loss, x_logz = ce.ce_loss_logz_plain(w_states, w_table, answers, V)
+    fwd32_err = max(float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                    for x, y in ((y_loss, want_loss), (y_logz, x_logz)))
+    if fwd32_err > CE_TOL or not (torch.equal(y_loss, y_loss2) and torch.equal(y_logz, y_logz2)):
+        raise SystemExit(f"time_kernels: fp32 ce_loss_logz at H={WIDE_H} off its plain version "
+                         f"({fwd32_err}) or not deterministic")
+    del y_loss, y_logz, y_loss2, y_logz2, want_loss
+    # the fp32 form's wide ce_grads (row 4w) at the plain logZ
     wide32 = lambda: ce.ce_grads(w_states, w_table, answers, x_logz, d, V)
     (ds, dt), (ds2, dt2) = wide32(), wide32()
     want = ce.ce_grads_plain(w_states, w_table, answers, x_logz, d, V)
@@ -260,6 +274,7 @@ def time_package(package_root: Path) -> dict:
     del ds, dt, ds2, dt2, want
     torch.cuda.empty_cache()
     out = {"ce_grads_rel_err": err, "ce_grads_fp32_wide_rel_err": wide32_err,
+           "ce_logz_fp32_wide_rel_err": fwd32_err,
            "ce_grads_bf16_wide_rel_err": wide_err,
            "ce_logz_bf16_wide_rel_err": fwd_err,
            "rank_abs_err": rank_err, "rank_eval_digest": rank_eval_digest(device),
@@ -277,18 +292,20 @@ def time_package(package_root: Path) -> dict:
     grads = lambda: ce.ce_grads(states, table, answers, logz, d, V)
     logz_fn = lambda: ce.ce_loss_logz(states, table, answers, V)
     rank_fn = lambda: rank.streaming_masked_topk(r_states, r_table, r_mask, K, V)
-    x1, w1, f1, g1, l1 = cuda_ms(wide32), cuda_ms(wide), cuda_ms(wide_fwd), cuda_ms(grads), cuda_ms(logz_fn)
+    y1, x1, w1, f1 = cuda_ms(wide_fwd32), cuda_ms(wide32), cuda_ms(wide), cuda_ms(wide_fwd)
+    g1, l1 = cuda_ms(grads), cuda_ms(logz_fn)
     r1, r2 = cuda_ms(rank_fn), cuda_ms(rank_fn)
-    l2, g2, f2, w2, x2 = cuda_ms(logz_fn), cuda_ms(grads), cuda_ms(wide_fwd), cuda_ms(wide), cuda_ms(wide32)
+    l2, g2 = cuda_ms(logz_fn), cuda_ms(grads)
+    f2, w2, x2, y2 = cuda_ms(wide_fwd), cuda_ms(wide), cuda_ms(wide32), cuda_ms(wide_fwd32)
     out |= {"ce_grads": [g1, g2], "ce_logz": [l1, l2], "streaming_masked_topk": [r1, r2],
-            "ce_grads_fp32_wide": [x1, x2],
+            "ce_logz_fp32_wide": [y1, y2], "ce_grads_fp32_wide": [x1, x2],
             "ce_grads_bf16_wide": [w1, w2], "ce_logz_bf16_wide": [f1, f2],
             "rank_host_ms": host_ms(rank_fn)}
     for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads),
                     ("streaming_masked_topk", rank.streaming_masked_topk)):
         out[f"{name}_onchip_launches"] = getattr(f, "onchip_launches", None)
-    out["ce_grads_wide_launches"] = getattr(ce.ce_grads, "wide_launches", None)
-    out["ce_logz_tc_launches"] = getattr(ce.ce_logz, "tc_launches", None)
+    for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads)):
+        out[f"{name}_wide_launches"] = getattr(f, "wide_launches", None)
     return out
 
 

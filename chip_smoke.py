@@ -46,15 +46,18 @@ Phases, each of which raises (exit code 1) when it fails:
    forms at WIDE_CE_CASES (H in {260, 384, 512, 1024}, the main path's
    B=256, V=1M, H=512 among them, odd B, B over one group of 256 rows, V
    off every tile, n_valid < V, raw int64 answers of -1, >= n_valid and
-   >= V, repeated answers) with phase 3's checks, the bf16 form's
-   ce_logz and ce_grads on the tensor-core kernels (ce_fwd_wide_tc_kernel,
-   ce_bwd_wide_tc_kernel), its
+   >= V, repeated answers) with phase 3's checks, both forms' ce_logz and
+   ce_grads on the tensor-core kernels (fp32: ce_fwd_wide_tf32_kernel,
+   ce_bwd_wide_tf32_kernel, in 3xTF32; bf16: ce_fwd_wide_tc_kernel,
+   ce_bwd_wide_tc_kernel), the bf16 form's
    gradients within parity.BF16_WIDE_GRAD_TOL of the plain version with
    its logits summed in ascending h (parity.ce_grads_bf16_in_order), which
    the fp32 form must fail; and at WIDE_EXACT_CASES (parity.exact_logit_case
    inputs, H in {260, 512, 1024}, the main path's shape among them, whose
    logits are exact in any summation order) within parity.BF16_GRAD_TOL
-   of it, which the fp32 form must fail; the rank kernel in
+   of it, which the fp32 form must fail, and the fp32 form's loss and logZ
+   bit-equal to the bf16 form's (both forward kernels see the same exact
+   logits and fold them in the same order); the rank kernel in
    both modes at WIDE_RANK_CASES (H in {512, 1024}, k in {20, 128}, its
    older route with all states staged or in hidden chunks as the shape
    names) with phase 2's checks, two calls bit-equal. Then `main
@@ -62,7 +65,8 @@ Phases, each of which raises (exit code 1) when it fails:
    `--resume --epochs 2 --export_topk`, which must start at epoch 1 (one
    ce_logz and one ce_grads launch a step, every one on the wide route;
    the rank kernel on every eval batch; finite losses; the first 512
-   users' exported top-20 against the plain version), and one `--dtype
+   users' exported top-20 against the plain version; every launch on an
+   fp32 tensor-core kernel), and one `--dtype
    bf16` epoch (the bf16 forms on the wide route, every ce_logz and
    ce_grads launch on its tensor-core kernel). Then the wide main
    path's kernels timed as phase 10 times them (the CE entries in both
@@ -209,8 +213,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # ... and the dense bf16 tensor-core rate, the peak for the CE kernels'
 # bf16-operand form
 PEAK_BF16_FLOPS = 989e12
-# ... and the dense TF32 tensor-core rate: the fp32 form's wide ce_grads
-# takes every product in 3xTF32, three TF32 passes
+# ... and the dense TF32 tensor-core rate: the fp32 form's wide ce_logz and
+# ce_grads take every product in 3xTF32, three TF32 passes
 PEAK_TF32_FLOPS = 495e12
 
 # EVAL_BATCH is TrainConfig.eval_batch_size's default, which main uses
@@ -656,8 +660,13 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     cores. `exact` (parity.exact_logit_case inputs, whose logits are exact
     in any order) holds it there within parity.BF16_GRAD_TOL instead, and
     asks nothing of the one-hot check's rounded-states control (the
-    states are bf16-exact). Returns the largest absolute error of each
-    kernel's outputs."""
+    states are bf16-exact); on the wide route it holds the fp32 form's
+    loss and logZ bit-equal to the bf16 form's: there every operand is
+    TF32- and bf16-exact (lo = 0) and every partial sum exact, so both
+    tensor-core forward kernels hold the same logits bit for bit and fold
+    them by one function in one order, and any difference is a fault of
+    the fp32 kernel's tiles, masking or fold. Returns the largest absolute
+    error of each kernel's outputs."""
     import torch
 
     from bsarec_tpu_torch import parity
@@ -667,12 +676,10 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     mapped = ce.map_answers(answers, n_valid)
     logz_onchip_before = ce.ce_logz.onchip_launches
     logz_wide_before = ce.ce_logz.wide_launches
-    logz_tc_before = ce.ce_logz.tc_launches
     bf16_before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
     loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
     check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape)
-          and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1])
-          and ce.ce_logz.tc_launches - logz_tc_before == ce.logz_tc_route(states.shape[1], bf16),
+          and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1]),
           f"{case_name}: ce_logz took another route than its shape and form name")
     check(ce.ce_logz.bf16_launches - bf16_before[0] == bf16,
           f"{case_name}: ce_logz took another form than {dtype or 'float32'}")
@@ -692,6 +699,13 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     if bf16 and not exact:  # the rounding is real: the fp32 form's logZ differs
         check(not torch.equal(ce.ce_logz(states, table, n_valid), logz),
               f"{case_name}: the bf16 form's logZ equals the fp32 form's")
+    same_as_bf16 = ""
+    if exact and not bf16 and ce.wide_route(states.shape[1]):  # the sharp limit: none
+        loss_b, logz_b = ce.ce_loss_logz(states, table, answers, n_valid, dtype=BF16)
+        check(torch.equal(loss_f, loss_b) and torch.equal(logz, logz_b),
+              f"{case_name}: the fp32 form's loss or logZ differs from the bf16 form's on exact "
+              f"logits (logZ at {int((logz != logz_b).sum())} of {logz.numel()} rows)")
+        same_as_bf16 = ", loss and logZ bit-equal to the bf16 form's"
 
     grads = []
     for fn in (ce.streaming_softmax_ce, ce.streaming_softmax_ce_plain):
@@ -783,7 +797,7 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     order = ", exact logits" if exact else ", logits in ascending h" if in_order else ""
     held = (f"at the kernel's logZ{order}, limit {tol}; the fp32 form against the bf16 plain "
             f"version: {short(control)}" if bf16 else "through autograd")
-    log(f"CE kernels vs plain {case_name}, {dtype or 'float32'} form: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}, "
+    log(f"CE kernels vs plain {case_name}, {dtype or 'float32'} form: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}{same_as_bf16}, "
         f"loss through autograd {loss_err:.3g}; gradients {short(errs)} (relative to each group's "
         f"largest |plain|, {held}); {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
         f"to ce_grads(answers -1) - dloss * gold_rows; dT's one-hot term {one_hot:.3g} of its allowance "
@@ -1367,7 +1381,10 @@ def phase_ce_times(full, card, dtype=None):
     """The CE kernels at the training shape, in the form `dtype` names.
     Each main-path entry's time, its plain version's, a library
     yardstick's and its bound: in the fp32 form against fp32 products at
-    67 TFLOP/s, and in the bf16-operand form in turns with the fp32 form
+    67 TFLOP/s (on the wide route, H > 256, three TF32 passes at 495
+    TFLOP/s: its kernels take every product in 3xTF32; the fp32 FMA figure
+    on the `bound` log line only), and in the bf16-operand form in turns
+    with the fp32 form
     (fp32, bf16, bf16, fp32), against `bf16_yardsticks` and the bf16
     tensor rate, 989 TFLOP/s. The fp32 form also times the standalone
     gather against `index_select`, back to back and in a CUDA graph, in
@@ -1428,9 +1445,10 @@ def phase_ce_times(full, card, dtype=None):
         library_ms = cuda_ms(library, iters=5)
         t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         basis, fma = f"{ops / 1e9:.2f} GFLOP {rate}", ""
-        if not bf16 and name == "ce_grads" and ce.wide_route(h):
-            # 3xTF32 on the tensor cores: three passes of the work at the TF32
-            # rate; the same work in fp32 FMAs, for comparison
+        if not bf16 and ce.wide_route(h):
+            # both wide fp32 kernels take 3xTF32 on the tensor cores: three
+            # passes of the work at the TF32 rate; the same work in fp32
+            # FMAs, for comparison
             t_fma, t_ops = t_ops, 3 * ops / PEAK_TF32_FLOPS * 1e3
             basis = f"3 x {ops / 1e9:.2f} GFLOP in 3xTF32 at the TF32 tensor rate 495 TFLOP/s"
             fma = (f"; in fp32 FMAs at 67 TFLOP/s the work takes {t_fma:.4f} ms, the kernel at "
@@ -1630,7 +1648,6 @@ def reset_counts() -> None:
         f.wide_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
-    ce.ce_logz.tc_launches = 0
 
 
 def read_counts() -> dict:
@@ -2644,7 +2661,6 @@ def bf16_counts() -> dict:
     return read_counts() | {
         "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
-        "ce_logz_tc": ce.ce_logz.tc_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches,
         "fused_dropout_bf16": fd.fused_dropout.bf16_launches}
 
@@ -2910,7 +2926,6 @@ def wide_counts() -> dict:
     return read_counts() | {
         "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
-        "ce_logz_tc": ce.ce_logz.tc_launches,
         "rank_wide": rank.streaming_masked_topk.wide_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches}
 
@@ -3013,7 +3028,9 @@ def phase_wide_train(device, card):
             return text, losses, rates
 
         # the rank kernel at H = 512, k = 20: the older route (all of a
-        # tile's states fit), not its wide form
+        # tile's states fit), not its wide form; every CE launch on the wide
+        # route, where each form runs its tensor-core kernels (fp32:
+        # ce_fwd_wide_tf32_kernel and ce_bwd_wide_tf32_kernel)
         rank_route = {"rank_wide": 0, "rank_onchip": 0}
         ce_step = {"ce_logz": steps, "ce_grads": steps, "ce_logz_wide": steps,
                    "ce_grads_wide": steps}
@@ -3026,7 +3043,7 @@ def phase_wide_train(device, card):
         log(f"wide train path: main(--hidden_size {WIDE_H} --epochs 1) on {WIDE_USERS} users x "
             f"{N_ITEMS} items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss {losses[0]}, "
             f"train {rates[0]:.0f} examples/s (first epoch), test scores {scores}; launches "
-            f"{counts} [{card}]")
+            f"{counts}, every CE launch on the fp32 tensor-core kernels [{card}]")
 
         topk_path = os.path.join(workdir, "wide_topk.npy")
         counts, scores, seconds = run(base + ["--train_name", "smoke_wide", "--epochs", "2",
@@ -3040,7 +3057,8 @@ def phase_wide_train(device, card):
         out["resume"] = counts
         log(f"wide train path: main(--resume --epochs 2 --export_topk) started at epoch 1 and "
             f"returned in {seconds:.1f}s, epoch losses {losses}, train {rates[-1]:.0f} examples/s "
-            f"(second epoch), test scores {scores}; launches {counts} [{card}]")
+            f"(second epoch), test scores {scores}; launches {counts}, every CE launch on the fp32 "
+            f"tensor-core kernels [{card}]")
 
         # the first 512 users' exported top-20 against the plain version, on
         # the best checkpoint that the export ranked with
@@ -3070,8 +3088,7 @@ def phase_wide_train(device, card):
         counts, scores, seconds = run(base + ["--train_name", "smoke_wide_bf16", "--epochs", "1",
                                               "--dtype", "bf16"])
         want = zero_wide_counts() | ce_step | rank_route | {
-            "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps,
-            "ce_logz_tc": steps}
+            "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps}
         check(counts == want, f"wide bf16 train launches {counts}, want {want}")
         text, losses, rates = epoch_lines("smoke_wide_bf16")
         check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0]),
@@ -3298,7 +3315,6 @@ def main() -> int:
             "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
             "replaces": ce_replaces[name],
             "launches": wide_paths["bf16"][f"{name}_bf16"],
-            **({"tc_launches": wide_paths["bf16"]["ce_logz_tc"]} if name == "ce_logz" else {}),
             "max_abs_err": wide_err[BF16][name],
             **wide_times["ce16"][name],
         })

@@ -230,9 +230,8 @@ WIDE_GRAD_TOL = parity.WIDE_GRAD_TOL
 def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     """ce_loss_logz, gold_rows and ce_grads on the wide routes, in both
     forms, on raw int64 answers (-1, >= n_valid, >= V, item 0, repeats):
-    the route the shape names (ce_grads on a tensor-core kernel in both
-    forms, ce_loss_logz in the bf16 form only); loss and logZ within
-    LOSS_TOL; the
+    the route the shape names (ce_loss_logz and ce_grads on a tensor-core
+    kernel in both forms); loss and logZ within LOSS_TOL; the
     gather bit-equal; two ce_grads calls bit-equal; the gradients within
     WIDE_GRAD_TOL of the plain version (fp32) or, in the bf16 form, within
     `parity.BF16_WIDE_GRAD_TOL` of `parity.ce_grads_bf16_in_order` at the
@@ -249,7 +248,7 @@ def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     bf16 = dtype is not None
     assert ce.wide_route(h) and not ce.onchip_route(b, h)
     counts = lambda: (ce.ce_logz.wide_launches, ce.ce_grads.wide_launches, ce.gold_rows.launches,
-                      ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches, ce.ce_logz.tc_launches)
+                      ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
     rows = ce.gold_rows(table, ce.map_answers(a, n_valid))
@@ -257,7 +256,7 @@ def test_cuda_ce_wide_routes_match_plain(cuda_device, b, v, h, n_valid, dtype):
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 2, before[2] + 1, before[3] + bf16,
-                        before[4] + 2 * bf16, before[5] + bf16)
+                        before[4] + 2 * bf16)
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     assert torch.equal(rows, ce.gold_rows_plain(table, ce.map_answers(a, n_valid)))
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=bf16)
@@ -407,9 +406,9 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
 def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip, dtype):
     """ce_loss_logz on both sides of the on-chip route's bounds (B <= 256,
     H <= 64) and of the wide route's (H > 256), in both forms: the route
-    the shape and the form name (the bf16 form's past H = 256 on the
-    tensor-core kernel), loss and logZ within the tolerance of the plain
-    version, and two calls bit-equal."""
+    the shape names (past H = 256 a tensor-core kernel in either form),
+    loss and logZ within the tolerance of the plain version, and two calls
+    bit-equal."""
     v, n_valid = 9001, 8999
     rng = np.random.default_rng(b * 1000 + h + 7)
     states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
@@ -418,15 +417,15 @@ def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip, dtype):
     bf16 = dtype is not None
     assert ce.onchip_route(b, h) == onchip
     wide = h > 256
-    assert ce.wide_route(h) == wide and ce.logz_tc_route(h, bf16) == (wide and bf16)
+    assert ce.wide_route(h) == wide
     counts = lambda: (ce.ce_logz.launches, ce.ce_logz.onchip_launches, ce.ce_logz.wide_launches,
-                      ce.ce_logz.tc_launches)
+                      ce.ce_logz.bf16_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
     loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide,
-                        before[3] + 2 * (wide and bf16))
+                        before[3] + 2 * bf16)
     assert torch.equal(loss, loss2) and torch.equal(logz, logz2)
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=bf16)
     torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
@@ -434,6 +433,7 @@ def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("inputs", ["exact", "normal"])
 @pytest.mark.parametrize("b,v,h,n_valid", [
     (1, 1, 260, 1), (3, 257, 512, 256), (256, 255, 288, 0), (513, 640, 512, 600),
@@ -442,15 +442,19 @@ def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip, dtype):
     (37, 5000, 260, 4990), (300, 7001, 260, 6990), (37, 9000, 512, 8990), (300, 7001, 512, 7000),
     (37, 3001, 1024, 2990), (300, 3001, 1024, 2999),
 ])
-def test_cuda_ce_logz_tc_edge_shapes(cuda_device, b, v, h, n_valid, inputs):
-    """The tensor-core forward (ce_loss_logz's bf16 form past H = 256) at
-    edge shapes: one catalog row, a tile one row past 256, no valid column
-    (logZ -inf), three groups of batch rows, H off the 64-column step, on
+def test_cuda_ce_logz_tc_edge_shapes(cuda_device, b, v, h, n_valid, inputs, dtype):
+    """The tensor-core forward kernels (ce_loss_logz past H = 256, the
+    fp32 form's in 3xTF32 and the bf16 form's) at edge shapes: one catalog
+    row, a tile one row past 256, no valid column (logZ -inf), three
+    groups of batch rows, H off the 64-column step, on
     `parity.exact_logit_case` inputs (every logit exact in any summation
-    order) and on normal ones: one tensor-core launch a call; loss and
-    logZ within LOSS_TOL of the bf16 plain version; two calls bit-equal;
-    ce_logz equal to ce_loss_logz's logZ; gold 0 for answers off the
-    catalog."""
+    order) and on normal ones: one wide launch a call in the form asked
+    for; loss and logZ within LOSS_TOL of the plain version of that form;
+    two calls bit-equal; ce_logz equal to ce_loss_logz's logZ; gold 0 for
+    answers off the catalog. On the exact inputs the fp32 form's loss and
+    logZ are bit-equal to the bf16 form's: every operand is TF32- and
+    bf16-exact there and every partial sum exact, so both kernels hold the
+    same logits and fold them by one function in one order."""
     if inputs == "exact":
         states, table, a, _ = parity.exact_logit_case(b, v, h, max(n_valid, 2), seed=b + v + h,
                                                       device=cuda_device)
@@ -459,16 +463,20 @@ def test_cuda_ce_logz_tc_edge_shapes(cuda_device, b, v, h, n_valid, inputs):
         states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
         table = torch.from_numpy((0.25 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
         a = torch.from_numpy(rng.integers(-1, v + 3, size=b)).to(cuda_device)
-    bf16 = "bfloat16"
-    assert ce.logz_tc_route(h, True)
-    before = (ce.ce_logz.tc_launches, ce.ce_logz.bf16_launches)
-    loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
-    loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
-    alone = ce.ce_logz(states, table, n_valid, dtype=bf16)
+    bf16 = dtype is not None
+    assert ce.wide_route(h)
+    before = (ce.ce_logz.wide_launches, ce.ce_logz.bf16_launches)
+    loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
+    loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
+    alone = ce.ce_logz(states, table, n_valid, dtype=dtype)
     torch.cuda.synchronize()
-    assert (ce.ce_logz.tc_launches, ce.ce_logz.bf16_launches) == (before[0] + 3, before[1] + 3)
+    assert (ce.ce_logz.wide_launches, ce.ce_logz.bf16_launches) == (before[0] + 3,
+                                                                   before[1] + 3 * bf16)
     assert torch.equal(loss, loss2) and torch.equal(logz, logz2) and torch.equal(alone, logz)
-    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
+    if inputs == "exact" and not bf16:
+        loss_b, logz_b = ce.ce_loss_logz(states, table, a, n_valid, dtype="bfloat16")
+        assert torch.equal(loss, loss_b) and torch.equal(logz, logz_b)
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=bf16)
     if n_valid == 0:
         assert torch.equal(logz, torch.full_like(logz, float("-inf")))
     torch.testing.assert_close(logz, want_logz, **LOSS_TOL)

@@ -1,6 +1,6 @@
-"""3xTF32, the number format of the wide fp32 `ce_grads` kernel on the card
-(`ce_bwd_wide_tf32_kernel`, `csrc/tensor_core.cuh`), against the JAX
-package on the CPU.
+"""3xTF32, the number format of the wide fp32 `ce_grads` and `ce_logz`
+kernels on the card (`ce_bwd_wide_tf32_kernel`, `ce_fwd_wide_tf32_kernel`,
+`csrc/tensor_core.cuh`), against the JAX package on the CPU.
 
 The kernel takes each of its three products on the tensor cores, each
 fp32 operand split into a TF32 hi and lo and every product taken as
@@ -11,9 +11,11 @@ fp32 within the fp32 tolerances of `tests/test_torch_port_wide.py`
 (elementwise rtol 1e-4, atol 1e-5, and `parity.WIDE_GRAD_TOL` of each
 group's largest entry, the card's limit), while 1xTF32 (hi alone, about
 three digits) must fail `parity.WIDE_GRAD_TOL`: the limit tells the two
-formats apart. This checks the number format and the limit, not the
-kernel, which only the card checks (`tests/test_torch_port_cuda.py`,
-`chip_smoke.py`) run."""
+formats apart. In the same way, logZ from 3xTF32 logits must hold JAX's
+interpret-mode `streaming_ce_stats` within `chip_smoke.py`'s CE_TOL, and
+from 1xTF32 logits must fail it. This checks the number format and the
+limits, not the kernels, which only the card checks
+(`tests/test_torch_port_cuda.py`, `chip_smoke.py`) run."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +23,13 @@ import pytest
 import torch
 
 from bsarec_tpu.ops.pallas_ce import streaming_ce_grads as jax_streaming_ce_grads
+from bsarec_tpu.ops.pallas_ce import streaming_ce_stats as jax_streaming_ce_stats
 from bsarec_tpu_torch import parity
 from bsarec_tpu_torch.ops import ce
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# chip_smoke.py's limit on logZ and the loss, relative to max(1, |plain|)
+CE_TOL = 1e-5
 
 
 def _ce_inputs(b, v, h, n_valid, seed):
@@ -82,3 +87,32 @@ def test_3xtf32_ce_grads_match_jax_and_1xtf32_does_not(h):
     control = parity.grad_errors(*parity.ce_grads_tf32(s, t, a, logz, d, n_valid, passes=1),
                                  *want, a, n_valid)
     assert min(control["ds"], control["dT other rows"]) > parity.WIDE_GRAD_TOL
+
+
+def _logz_tf32(states, table, n_valid, passes):
+    """logZ [B] over the columns < n_valid of logits in `parity.matmul_tf32`'s
+    format: passes=3 is the number format of the wide fp32 forward on the
+    card (ce_fwd_wide_tf32_kernel), passes=1 the control. It emulates the
+    format, not the kernel: nothing here runs the kernel or its CPU path."""
+    return torch.logsumexp(parity.matmul_tf32(states, table[:n_valid].T, passes), dim=1)
+
+
+@pytest.mark.parametrize("h", [384, 512])
+def test_3xtf32_logz_matches_jax_and_1xtf32_does_not(h):
+    """logZ of 3xTF32 logits against JAX's interpret-mode f32
+    `streaming_ce_stats`, odd B, n_valid < V: within CE_TOL relative to
+    max(1, |logZ|); of 1xTF32 logits, past it (a logit keeps about three
+    digits there, and logZ follows the largest logits)."""
+    b, v, n_valid = 13, 1000, 990
+    states, table, answers = _ce_inputs(b, v, h, n_valid, seed=h + 2)
+    _, j_logz = jax_streaming_ce_stats(jnp.asarray(states), jnp.asarray(table),
+                                       jnp.asarray(answers), n_valid, 8, 128, True)
+    want = torch.from_numpy(np.array(j_logz))
+    s, t = torch.from_numpy(states), torch.from_numpy(table)
+
+    def err(passes):
+        got = _logz_tf32(s, t, n_valid, passes)
+        return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+    assert err(3) <= CE_TOL
+    assert err(1) > CE_TOL
