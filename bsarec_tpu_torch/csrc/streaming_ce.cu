@@ -1322,22 +1322,10 @@ static_assert(TF_PSLOT <= TF_LSLOT, "products slot 0 ends before logits slot 1")
 static_assert(TF_LDL % 8 == 4 && TF_LDP % 8 == 4 && TF_LDS % 8 == 4 && TF_LDT % 32 == 24,
               "every fragment load of a warp on distinct banks");
 
-// Rows [row0, row0 + N) of a row-major [R, H] fp32 matrix, hidden columns
-// [h0, h0 + W), into shared memory with row stride ld by 16-byte
-// cp.async.cg, zero past R and H (H % 4 == 0: a piece lies inside H or past
-// it).
-template <int N, int W>
-__device__ __forceinline__ void copy_chunk_async(float* dst, int ld, const float* __restrict__ src,
-                                                 int row0, int R, int H, int h0) {
-  constexpr int Q = W / 4;  // pieces a row
-  static_assert(N * Q % THREADS == 0, "whole pieces a thread");
-#pragma unroll
-  for (int q = 0; q < N * Q / THREADS; ++q) {
-    const int i = threadIdx.x + THREADS * q, r = i / Q, c = (i % Q) * 4;
-    const bool full = row0 + r < R && h0 + c < H;
-    tc::cp_async_16_zfill(dst + r * ld + c, full ? src + (size_t)(row0 + r) * H + h0 + c : src, full);
-  }
-}
+// Rows of a row-major fp32 matrix into shared memory by cp.async
+// (tensor_core.cuh, shared with streaming_rank.cu), 256 threads a block.
+using tc::copy_chunk_async;
+static_assert(THREADS == 256, "copy_chunk_async's threads");
 
 __global__ void __launch_bounds__(THREADS, 1)
 ce_bwd_wide_tf32_kernel(const float* __restrict__ states, const float* __restrict__ table,
@@ -2012,13 +2000,16 @@ ce_fwd_wide_tc_kernel(const __nv_bfloat16* __restrict__ sb, const float* __restr
 // MMAs alone (with their fragment loads and splits) ~4.15 ms, its memory
 // path alone ~1.55 (tools/ablate_ce_tc.py): the MMA loop bounds it.
 
-constexpr int FW_HC = 16;                        // hidden columns per step
-constexpr int FW_LD = FW_HC + 4;                 // a row's stride in a slot (floats)
-constexpr int FW_STAGES = 3;                     // slots in the ring
+// tensor_core.cuh's wide geometry, shared with streaming_rank.cu's
+// rank_wide_tf32_kernel
+constexpr int FW_HC = tc::WIDE_HC;               // hidden columns per step
+constexpr int FW_LD = tc::WIDE_LD;               // a row's stride in a slot (floats)
+constexpr int FW_STAGES = tc::WIDE_STAGES;       // slots in the ring
 constexpr int FW_SPLANE = TC_ROWS * FW_LD;       // a slot's states
 constexpr int FW_SLOT = FW_SPLANE + FT_COLS * FW_LD;  // states, then table rows
 constexpr long long FW_SMEM = 4LL * (FW_STAGES * FW_SLOT + 16 * THREADS + 2 * TC_ROWS);  // 110,592 B
-static_assert(FW_SMEM <= MAX_SMEM && FT_COLS == 128 && TC_ROWS == 256 && THREADS == 256,
+static_assert(FW_SMEM <= MAX_SMEM && FT_COLS == tc::WIDE_COLS && TC_ROWS == tc::WIDE_ROWS &&
+                  THREADS == 256,
               "8 warps as 4 x 2 warp tiles of 64 x 64 over a 256 x 128 tile");
 static_assert(FW_LD % 8 == 4 && FW_HC % 8 == 0,
               "the eight 16-byte rows of an ldmatrix matrix on distinct banks; whole k8 blocks");

@@ -14,7 +14,10 @@
 // What bounds it: at B=256, V=1,000,000, H=64 the work is 2*B*V*H ~ 32.8
 // GFLOP, ~0.49 ms at the H100 SXM's 67 TFLOP/s fp32 (non-tensor-core,
 // data-sheet) peak, while the 256 MB table read is ~0.08 ms at 3.35 TB/s.
-// So the bound is fp32 compute, unless TF32/bf16 is admitted later.
+// So the bound is fp32 compute there. At H = 512 the tensor-core route
+// takes the scores in 3xTF32 (three TF32 passes, which keep fp32
+// accuracy): 3 x 262.14 GFLOP at the dense TF32 rate, 1.589 ms at B=256,
+// against 3.913 ms in fp32 FMAs and the 2.05 GB table's 0.612 ms.
 //
 // Design. The TPU kernel walks the catalog in one sequential grid and
 // carries a running top-k in VMEM across steps. Hopper blocks run in no
@@ -23,7 +26,7 @@
 //     folded into a sorted top-k list per row. Only scores that beat the
 //     row's current k-th entry are offered (the counted-merge idea of
 //     pallas_rank.py:209-247), so after the first tiles a row costs a
-//     compare. Two routes, picked by shape in the C entry:
+//     compare. Three routes, picked by shape in the C entry:
 //     - the on-chip route, B <= 256, H <= 64 and k <= 32 (the eval path's
 //       B=256, H=64, k=20): first rank_sample_kernel scores 4 tiles a
 //       split from the catalog's start and keeps, per row, the largest
@@ -41,6 +44,13 @@
 //       counting when a slice fills and at the split's end. Shared memory
 //       at k=20: states 69,632 B, the table ring 34,816, the bitmask ring
 //       4,096, the lists 40,960, the pending slices 65,536.
+//     - the tensor-core route, H > 256 and k <= 32 (the hidden-512 eval
+//       path's B=256, H=512, k=20), any B: rank_wide_tf32_kernel, on
+//       streaming_ce.cu's ce_fwd_wide_tf32_kernel's grid, product and ring
+//       (tensor_core.cuh: one block per SM, 256 batch rows x 128 catalog
+//       columns a tile, the table read once per 256 rows, the scores in
+//       3xTF32 on mma.sync), with a top-k epilogue over the accumulator
+//       fragments; its head says more.
 //     - elsewhere rank_partial_kernel: the grid is (vocab splits x batch
 //       tiles of 64 rows), sized by the caller to fill the SMs. Each block
 //       keeps its 64 state rows in shared memory, walks its split in
@@ -52,10 +62,16 @@
 //       Where all 64 state rows ([H][64] floats) do not fit beside the
 //       lists (H > ~670 at k = 20, H > ~454 at k = 128), its wide form
 //       (WIDE = true) stages the states a 32-wide hidden chunk at a time
-//       beside the table's, 124,416 B at k = 128 and any H.
-//     Both compute each score as one FMA chain over h in ascending order,
-//     so their scores, and with the strict order their results, are
-//     bit-equal.
+//       beside the table's, 124,416 B at k = 128 and any H. It serves
+//       B > 256 at H <= 64, 64 < H <= 256, and k > 32 at any H.
+//     The on-chip and older routes compute each score as one FMA chain
+//     over h in ascending order, so their scores, and with the strict
+//     order their results, are bit-equal. The tensor-core route sums each
+//     score in another order (three TF32 passes a k8 block, the blocks'
+//     sums added in fp32): where every score is exact in any order
+//     (integer inputs) its values and ids are bit-equal to the others';
+//     elsewhere its values lie within fp32 rounding of theirs, and an id
+//     can differ only where two scores lie that close.
 //   pass 2 (rank_merge_kernel): one warp per row folds the n_splits
 //     partial lists into the final k, offering each list's entries in
 //     split order; at k <= 32 the running list sits in the warp's
@@ -64,9 +80,10 @@
 // k=20 (bsarec_tpu_torch/tools/time_kernels.py, chip_smoke.py): the
 // on-chip route takes ~1.05 ms (in an eval trace the sample pass ~0.04,
 // the sweep ~0.99), 47% of its 0.4891 ms fp32 bound; the older route
-// ~2.15 ms. At H = 512 (chip_smoke.py) the older route takes ~13.5 ms at
-// k = 20 (29% of its 3.913 ms bound) and its wide form ~23 ms at k = 128.
-// No wgmma or TMA.
+// ~2.15 ms. At H = 512 (chip_smoke.py) the tensor-core route takes ~5.9 ms
+// at k = 20 (27% of its 1.589 ms 3xTF32 bound; the older route ~13.4, 29%
+// of its 3.913 ms FMA bound) and the older route's wide form ~23 ms at
+// k = 128. No wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -74,6 +91,7 @@
 #include <stdint.h>
 
 #include "onchip_tile.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -274,15 +292,18 @@ rank_partial_kernel(const float* __restrict__ states, const float* __restrict__ 
   }
 }
 
-// Issue the 4-byte cp.async copies of bitmask words [w0, w0 + OC_WORDS) of
-// every row into dst ([ROWS][OC_WORDS]); rows >= B and words >= W are
-// zero-filled. (W can be odd, so 8-byte copies would be misaligned.)
+// Issue the 4-byte cp.async copies of bitmask words [w0, w0 + WORDS) of
+// rows row0 .. row0 + ROWS - 1 into dst ([ROWS][WORDS]), the block's 256
+// threads sharing them; rows >= B and words >= W are zero-filled. (W can be
+// odd, so 8-byte copies would be misaligned.)
+template <int ROWS, int WORDS>
 __device__ __forceinline__ void load_mask_async(uint32_t* dst, const int32_t* __restrict__ mask,
-                                                int B, int W, int w0) {
-  for (int i = threadIdx.x; i < onchip::ROWS * OC_WORDS; i += onchip::THREADS) {
-    const int r = i / OC_WORDS, w = w0 + i % OC_WORDS;
-    const bool ok = r < B && w < W;
-    const int32_t* src = mask + (ok ? (size_t)r * W + w : 0);
+                                                int row0, int B, int W, int w0) {
+  static_assert(onchip::THREADS == THREADS, "the kernels that call it run 256 threads");
+  for (int i = threadIdx.x; i < ROWS * WORDS; i += THREADS) {
+    const int r = i / WORDS, w = w0 + i % WORDS;
+    const bool ok = row0 + r < B && w < W;
+    const int32_t* src = mask + (ok ? (size_t)(row0 + r) * W + w : 0);
     const unsigned dst_s = (unsigned)__cvta_generic_to_shared(dst + i);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst_s), "l"(src),
                  "r"(ok ? 4 : 0)
@@ -491,7 +512,7 @@ rank_onchip_kernel(const float* __restrict__ states, const float* __restrict__ t
 
   onchip::stage_states(sS, sT, states, B, H);
   onchip::load_tile_async(sT, table, t_begin * OC_VT, V, H);
-  load_mask_async(sM, mask, B, W, t_begin * OC_WORDS);
+  load_mask_async<onchip::ROWS, OC_WORDS>(sM, mask, 0, B, W, t_begin * OC_WORDS);
   onchip::cp_async_commit();
   for (int e = lane; e < 32 * k; e += 32) {  // this warp's lists start empty
     const int rr = e / k, row = 4 * warp + (rr & 3) + 32 * (rr >> 2);
@@ -538,7 +559,8 @@ rank_onchip_kernel(const float* __restrict__ states, const float* __restrict__ t
     __syncthreads();              // everyone's have; every reader of the other slot is done
     if (t + 1 < t_end) {
       onchip::load_tile_async(sT + (slot ^ 1) * SLOT, table, j0 + OC_VT, V, H);
-      load_mask_async(sM + (slot ^ 1) * MSLOT, mask, B, W, (j0 + OC_VT) / 32);
+      load_mask_async<onchip::ROWS, OC_WORDS>(sM + (slot ^ 1) * MSLOT, mask, 0, B, W,
+                                              (j0 + OC_VT) / 32);
     }
     onchip::cp_async_commit();
     float acc[8][8];
@@ -633,6 +655,372 @@ rank_onchip_kernel(const float* __restrict__ states, const float* __restrict__ t
   if (taken != nullptr) atomicAdd(taken, n_taken);
 }
 
+// ---- the tensor-core route: rank_wide_tf32_kernel ------------------------------
+//
+// Pass 1 at H > TW_MIN_H and k <= TW_K (the hidden-512 eval path's B=256,
+// H=512, k=20), the counterpart of pallas_rank.py:165 _rank_kernel at f32,
+// whose scores are an f32 dot_general (pallas_rank.py:193-196). The scores
+// are streaming_ce.cu's ce_fwd_wide_tf32_kernel's product S . T^T (row 2w):
+// the same operands, the same shape, both K-major as stored. So it takes
+// that kernel's grid, product and ring (tensor_core.cuh's wide geometry),
+// and puts a top-k epilogue where that kernel folds (max, sum).
+//
+// Bound at B=256, V=1M, H=512: 3 x 2BVH = 786.43 GFLOP, three TF32 passes at
+// the dense TF32 rate (495 TFLOP/s), 1.589 ms; the fp32 table read once,
+// 2.05 GB, 0.612 ms at 3.35 TB/s. (The same work in fp32 FMAs is 3.913 ms;
+// rank_partial_kernel, which took this shape before, reads the table once
+// per 64-row batch tile, 8.2 GB, and runs ~13.56 ms.)
+//
+// What the design does about it:
+//   - the table is read once per group of up to TW_ROWS = 256 batch rows:
+//     one block of 256 threads per SM walks its split in tiles of
+//     TW_COLS = 128 catalog columns against the whole group (a loop over
+//     groups for B > 256), 8 warps as 4 x 2 warp tiles of 64 x 64;
+//   - the scores on the tensor cores in 3xTF32 (tensor_core.cuh: each fp32
+//     operand as a TF32 hi and lo, three mma.sync m16n8k8 a product), which
+//     keeps fp32 accuracy; 1xTF32 keeps about three digits, and FLOAT_TOL
+//     (1e-4 on scores up to ~50) would not hold. Per k8 block and m16
+//     fragment the three passes' sums start from 0 and are added to the
+//     running scores with one fp32 rounding (ce_bwd_wide_tf32_kernel's head);
+//   - the state and table rows come as they are, by cp.async two steps
+//     ahead through a ring of TW_STAGES = 3 slots of 16 hidden columns, one
+//     barrier a step; each fragment is one ldmatrix split into hi and lo in
+//     registers (tensor_core.cuh: split_tf32). The tile's bitmask words (4 a
+//     row) come with its first step's copies, 4 bytes each (load_mask_async:
+//     a row of W = 31,250 words at V = 1M is 8-byte aligned, not 16), into
+//     one of two mask slots;
+//   - the epilogue, after a tile's last step (offer_tile, then
+//     merge_pending): each thread holds 8 rows x 16 columns of scores in
+//     mma.sync's accumulator layout (a row's 128 columns spread over the 4
+//     lanes of a quad in two warps). Seen items take seen_value, columns
+//     >= n_valid -inf, and a score is offered when it ranks ahead of its
+//     row's bar, the row's k-th (value, id) as of the last merge (-inf
+//     never is). A row whose 16 raw scores in a thread all lie below the
+//     bar, with no seen column that seen_value would lift to it, offers
+//     nothing from that thread (the usual case past a split's first
+//     tiles: one max and one compare). An offered score is written at
+//     once, unsorted, to the row's next pending entry, which a per-row
+//     shared count hands out (atomicAdd): the first TW_PEND = 16 in shared
+//     memory, the rest in the split's overflow area in device memory (a
+//     row offers at most 128 a tile; only a split's first tiles offer more
+//     than 16). After one barrier (__syncthreads_or, skipped past when no
+//     thread offered), each thread merges one row's entries into its
+//     sorted list: the slot by binary search, the entries below it moved
+//     down a slot. On random data a row's t-th tile of a split offers ~k/t
+//     scores;
+//   - the lists and pending entries live in shared memory for the group
+//     (row strides of 33 and 17, odd, so that a warp's 32 rows fall on
+//     distinct banks); nothing is held in registers across the MMA loop
+//     or across a barrier. Row 2w's loop alone runs at 255 registers: a
+//     longer epilogue (offers kept for rounds of merges when the shared
+//     slots filled, one warp merging a row at a time) made the compiler
+//     spill inside the MMA loop, and moving it into a call cost as much
+//     in local-memory traffic, since the 204 KB of shared memory leave
+//     L1 little room (PERF.md §6);
+//   - a warp whose m16 fragments hold no row < B skips their MMAs, and one
+//     whose fragments are not all full runs the loop with a branch per
+//     fragment, so a small batch (the exported scorer serves b = 1-256)
+//     does not pay for 256 rows of products; the barriers are still
+//     reached by every warp.
+// The keys (value, id) are distinct under a strict order, so the order of
+// the offers and merges does not change a list: two calls give the same
+// bits. The lists of rows < B are written as the split's partial
+// ([n_splits, B, k]) at the group's end; slots never filled stay (-inf,
+// NO_ID) and rank_merge_kernel gives them (-inf, 0).
+// Why the MMA loop is written here again rather than shared with
+// ce_fwd_wide_tf32_kernel: this loop skips the m16 fragments past B, and
+// that kernel's loop is the text tools/ablate_ce_tc.py cuts for its fwd32
+// readings (PERF.md §6); the pieces (ldmatrix, split_tf32, mma_3xtf32,
+// copy_chunk_async) and the geometry are tensor_core.cuh's.
+// Shared memory: the ring 92,160 B, the mask slots 8,192, the counts
+// 1,024, the pending slots 34,816, the lists at 32 slots a row 67,584:
+// 203,776 B at any k <= 32. At k > 32 the lists alone would need 256 KB at
+// k = 128: those widths keep rank_partial_kernel. 255 registers, 12 bytes
+// of spills.
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at V=1M, H=512, k=20
+// (chip_smoke.py, tools/time_kernels.py, tools/ablate_rank_tc.py; PERF.md
+// row 1w): ~5.9 ms at B=256, 27% of its bound and 0.65x its library call
+// (rank_partial_kernel ~13.4 in turns); without the epilogue ~4.9, the MMA
+// loop's time in ce_fwd_wide_tf32_kernel too, so the epilogue costs ~1 ms
+// with the tensor cores idle. At B=16 ~2.8 ms against rank_partial_kernel's
+// ~3.4 in turns: the route keeps every B.
+constexpr int TW_ROWS = tc::WIDE_ROWS;       // batch rows a group
+constexpr int TW_COLS = tc::WIDE_COLS;       // catalog columns a tile
+constexpr int TW_WORDS = TW_COLS / 32;       // bitmask words of a row a tile
+constexpr int TW_HC = tc::WIDE_HC;           // hidden columns a step
+constexpr int TW_LD = tc::WIDE_LD;           // a row's stride in a slot (floats)
+constexpr int TW_STAGES = tc::WIDE_STAGES;   // slots in the ring
+constexpr int TW_SPLANE = TW_ROWS * TW_LD;   // a slot's states
+constexpr int TW_SLOT = TW_SPLANE + TW_COLS * TW_LD;  // states, then table rows
+constexpr int TW_MSLOT = TW_ROWS * TW_WORDS;  // a mask slot
+constexpr int TW_PEND = 16;                  // pending slots a row
+constexpr int TW_PLD = TW_PEND + 1;          // their row stride (odd: a warp's rows on distinct banks)
+constexpr int TW_K = 32;                     // the route: k <= TW_K ...
+constexpr int TW_MIN_H = 256;                // ... and H > TW_MIN_H (the CE kernels' wide boundary)
+constexpr int TW_LLD = TW_K + 1;             // a list's row stride (odd, as TW_PLD)
+// Shared memory, every region at a fixed offset (the lists at TW_K slots a
+// row whatever k, so that no region's address depends on k): the ring, the
+// mask slots, the pending counts, the pending slots, the lists
+constexpr int TW_MASK_AT = TW_STAGES * TW_SLOT;              // (in 4-byte words)
+constexpr int TW_CNT_AT = TW_MASK_AT + 2 * TW_MSLOT;
+constexpr int TW_PV_AT = TW_CNT_AT + TW_ROWS;
+constexpr int TW_PI_AT = TW_PV_AT + TW_ROWS * TW_PLD;
+constexpr int TW_LV_AT = TW_PI_AT + TW_ROWS * TW_PLD;
+constexpr int TW_LI_AT = TW_LV_AT + TW_ROWS * TW_LLD;
+constexpr long long TW_SMEM = 4LL * (TW_LI_AT + TW_ROWS * TW_LLD);  // 203,776 B
+static_assert(THREADS == TW_ROWS && TW_COLS == 128 && TW_HC % 8 == 0 && TW_K <= 32 &&
+                  TW_PEND <= 32 && TW_SMEM <= MAX_SMEM,
+              "8 warps of 64 x 64 over a 256 x 128 tile; merge_into_list takes k, m <= 32");
+// The mask slot of local tile T is refilled at step (T + 2) nk - 2, after
+// tile T's epilogue at step (T + 1) nk - 1 as long as a tile takes two steps
+static_assert(TW_MIN_H >= 2 * TW_HC, "at least two steps a tile");
+
+// Merge row r = threadIdx.x's pending entries into its sorted list and empty
+// them: one row a thread, so that the 256 rows merge at once. Entry q of
+// the row lies in its shared slots for q < TW_PEND, past that in the
+// block's overflow area (ov, oi: [TW_ROWS][TW_COLS] values, then ids). An
+// entry no longer ahead of the k-th is dropped; one that is finds its slot
+// by binary search and the entries below it move down a slot (a loop with
+// no compare in it), while the next entry's load is in flight.
+__device__ __forceinline__ void merge_pending(float* lv, int* li, int* cnt, const float* pv,
+                                              const int* pi, const float* ov, const int* oi,
+                                              int k) {
+  const int r = threadIdx.x, n = cnt[r];
+  if (n == 0) return;
+  float* L = lv + r * TW_LLD;
+  int* I = li + r * TW_LLD;
+  auto entry_v = [&](int q) { return q < TW_PEND ? pv[r * TW_PLD + q] : ov[r * TW_COLS + q]; };
+  auto entry_i = [&](int q) { return q < TW_PEND ? pi[r * TW_PLD + q] : oi[r * TW_COLS + q]; };
+  float nv = entry_v(0);
+  int nid = entry_i(0);
+  for (int q = 0; q < n; ++q) {
+    const float v = nv;
+    const int id = nid;
+    if (q + 1 < n) {
+      nv = entry_v(q + 1);
+      nid = entry_i(q + 1);
+    }
+    if (!ahead(v, id, L[k - 1], I[k - 1])) continue;
+    int lo = 0, hi = k - 1;  // the slot: the first entry that (v, id) ranks ahead of
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ahead(L[mid], I[mid], v, id)) lo = mid + 1;
+      else hi = mid;
+    }
+    for (int j = k - 1; j > lo; --j) {
+      L[j] = L[j - 1];
+      I[j] = I[j - 1];
+    }
+    L[lo] = v;
+    I[lo] = id;
+  }
+  cnt[r] = 0;
+}
+
+// The top-k epilogue of a finished tile (catalog columns j0 ..): this
+// thread's scores acc[i][j][2 half + e] of row 64 wm + 16 i + g + 8 half
+// and tile column 64 wn + 8 j + 2 t + e (lane l, g = l >> 2, t = l & 3),
+// masked in place (the tile's bitmask words in sMt), and each that ranks
+// ahead of its row's bar offered: written, unsorted, to the row's next
+// entry (a per-row shared count hands them out), in its shared slots or
+// past them in the block's overflow area. Rows >= rows (past B) offer
+// nothing. Returns whether this thread offered a score. Nothing waits
+// between two offers and nothing is kept for later: with the 128
+// accumulators live, a longer epilogue made the compiler spill inside the
+// MMA loop.
+__device__ __forceinline__ bool offer_tile(float (&acc)[4][8][4], const uint32_t* sMt,
+                                           const float* lv, const int* li, int* cnt, float* pv,
+                                           int* pi, float* ov, int* oi, int k, int j0,
+                                           int n_valid, float seen_value, int rows) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int c0 = j0 + 64 * wn + 2 * t4;  // this thread's columns: c0 + 8 j + e
+  const bool ragged = c0 + 63 >= n_valid;
+  bool offered = false;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int i = q >> 1, half = q & 1, r = 64 * wm + 16 * i + g + 8 * half;
+    if (r >= rows) continue;
+    const float kv = lv[r * TW_LLD + k - 1];
+    const int ki = li[r * TW_LLD + k - 1];
+    // words 2 wn, 2 wn + 1 of the row's 4 hold this thread's columns: bit
+    // 8 (j & 3) + 2 t + e of word j >> 2
+    const uint2 w = *reinterpret_cast<const uint2*>(sMt + r * TW_WORDS + 2 * wn);
+    // the usual case past a split's first tiles: every raw score below the
+    // bar, and no seen column that seen_value would lift to it; the masks
+    // can then only lower a score (to seen_value or -inf), so none is offered
+    const bool seen_here = ((w.x | w.y) >> (2 * t4)) & 0x03030303u;
+    float top = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      top = fmaxf(top, fmaxf(acc[i][j][2 * half], acc[i][j][2 * half + 1]));
+    if (top < kv && (!seen_here || seen_value < kv)) continue;
+    unsigned cand = 0;  // bit 2 j + e: that score is offered
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = acc[i][j][2 * half + e];
+        if ((((j < 4) ? w.x : w.y) >> (8 * (j & 3) + 2 * t4 + e)) & 1u) v = seen_value;
+        if (ragged && c0 + 8 * j + e >= n_valid) v = -INFINITY;
+        if (v > -INFINITY && ahead(v, c0 + 8 * j + e, kv, ki)) cand |= 1u << (2 * j + e);
+      }
+    if (cand == 0) continue;
+    offered = true;
+    int at = atomicAdd(cnt + r, __popc(cand));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if ((cand >> (2 * j + e)) & 1u) {
+          if (at < TW_PEND) {
+            pv[r * TW_PLD + at] = acc[i][j][2 * half + e];
+            pi[r * TW_PLD + at] = c0 + 8 * j + e;
+          } else {
+            ov[r * TW_COLS + at] = acc[i][j][2 * half + e];
+            oi[r * TW_COLS + at] = c0 + 8 * j + e;
+          }
+          ++at;
+        }
+  }
+  return offered;
+}
+
+// acc[i][j] += S[64 wm + 16 i, :] . T[64 wn + 8 j, :]^T over one slot's
+// TW_HC hidden columns (states S, table rows T, rows TW_LD floats apart) in
+// 3xTF32, for the m16 fragments i < n_i; ALL: all four, with no branch
+// between them, so that the compiler can overlap one fragment's loads with
+// the MMAs before them.
+template <bool ALL>
+__device__ __forceinline__ void wide_step(float (&acc)[4][8][4], const float* S, const float* T,
+                                          int wm, int wn, int lane, int n_i) {
+  // a fragment's hi and lo, split in registers from one ldmatrix at p
+  auto frags = [](uint32_t (&h)[4], uint32_t (&l)[4], const float* p) {
+    tc::ldmatrix_x4(h, p);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tc::split_tf32(h[e], h[e], l[e]);
+  };
+#pragma unroll
+  for (int kk = 0; kk < TW_HC; kk += 8) {
+    uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t rh[4], rl[4];
+      frags(rh, rl, T + (64 * wn + 16 * jp + tc::b_row(lane)) * TW_LD + kk + tc::b_col32(lane));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bh[2 * jp + (e >> 1)][e & 1] = rh[e];
+        bl[2 * jp + (e >> 1)][e & 1] = rl[e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!ALL && i >= n_i) break;
+      uint32_t ah[1][4], al[1][4];
+      frags(ah[0], al[0], S + (64 * wm + 16 * i + tc::a_row(lane)) * TW_LD + kk + tc::a_col32(lane));
+      float part[1][8][4] = {};
+      tc::mma_3xtf32(part, ah, al, bh, bl);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[0][j][e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+rank_wide_tf32_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                      const int32_t* __restrict__ mask, int B, int V, int H, int W, int n_valid,
+                      float seen_value, int k, int tiles_per_split, float* __restrict__ overflow,
+                      float* __restrict__ part_v, int32_t* __restrict__ part_i) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                                   // [TW_STAGES][TW_SLOT]
+  uint32_t* sM = reinterpret_cast<uint32_t*>(smem + TW_MASK_AT);        // [2][TW_ROWS][TW_WORDS]
+  int* cnt = reinterpret_cast<int*>(smem + TW_CNT_AT);                  // [TW_ROWS] pending counts
+  float* pv = smem + TW_PV_AT;                                          // [TW_ROWS][TW_PLD] pending
+  int* pi = reinterpret_cast<int*>(smem + TW_PI_AT);                    // [TW_ROWS][TW_PLD]
+  float* lv = smem + TW_LV_AT;                                          // [TW_ROWS][TW_LLD] lists
+  int* li = reinterpret_cast<int*>(smem + TW_LI_AT);                    // [TW_ROWS][TW_LLD]
+  // this block's overflow area: [TW_ROWS][TW_COLS] values, then ids
+  float* ov = overflow + (size_t)blockIdx.x * 2 * TW_ROWS * TW_COLS;
+  int* oi = reinterpret_cast<int*>(ov + TW_ROWS * TW_COLS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // the warp tile: rows 64 wm, columns 64 wn of a tile
+  const int nk = (H + TW_HC - 1) / TW_HC;
+  const int n_tiles = (V + TW_COLS - 1) / TW_COLS;
+  const int t_begin = blockIdx.x * tiles_per_split, t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int n_steps = max(t_end - t_begin, 0) * nk;
+
+  // step s: hidden chunk s % nk of local tile s / nk, in slot s % TW_STAGES
+  auto slot = [&](int s) { return ring + (s % TW_STAGES) * TW_SLOT; };
+
+  for (int g0 = 0; g0 < B; g0 += TW_ROWS) {
+    const int rows = min(TW_ROWS, B - g0);  // the group's rows
+    // this warp's m16 fragments that hold a row < B (warp-uniform)
+    const int n_i = min(4, max(0, (rows - 64 * wm + 15) / 16));
+    auto issue = [&](int s) {  // step s's state and table rows, as they are; a tile's mask words
+      float* S = slot(s);
+      const int h0 = (s % nk) * TW_HC, tile = t_begin + s / nk;
+      tc::copy_chunk_async<TW_ROWS, TW_HC>(S, TW_LD, states, g0, B, H, h0);
+      tc::copy_chunk_async<TW_COLS, TW_HC>(S + TW_SPLANE, TW_LD, table, tile * TW_COLS, V, H, h0);
+      if (s % nk == 0)
+        load_mask_async<TW_ROWS, TW_WORDS>(sM + ((s / nk) & 1) * TW_MSLOT, mask, g0, B, W,
+                                           tile * TW_WORDS);
+    };
+    float acc[4][8][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    __syncthreads();  // the group before is done with the ring, the mask slots and the lists
+    for (int e = tid; e < TW_ROWS * TW_LLD; e += THREADS) {
+      lv[e] = -INFINITY;
+      li[e] = NO_ID;
+    }
+    cnt[tid] = 0;
+#pragma unroll
+    for (int s = 0; s < TW_STAGES - 1; ++s) {
+      if (s < n_steps) issue(s);
+      onchip::cp_async_commit();
+    }
+    for (int s = 0; s < n_steps; ++s) {
+      tc::cp_async_wait_group<TW_STAGES - 2>();  // this thread's copies of step s have landed
+      __syncthreads();  // everyone's; step s - 1's MMAs and epilogue are done
+      if (s + TW_STAGES - 1 < n_steps) issue(s + TW_STAGES - 1);
+      onchip::cp_async_commit();  // (empty past the last step: one group a step)
+      const float* S = slot(s);
+      if (n_i == 4)  // (warp-uniform) the usual case: no branch inside the loop
+        wide_step<true>(acc, S, S + TW_SPLANE, wm, wn, lane, 4);
+      else if (n_i > 0)
+        wide_step<false>(acc, S, S + TW_SPLANE, wm, wn, lane, n_i);
+      if (s % nk == nk - 1) {  // the tile's scores are complete: offer them, then merge
+        const bool offered =
+            offer_tile(acc, sM + ((s / nk) & 1) * TW_MSLOT, lv, li, cnt, pv, pi, ov, oi, k,
+                       (t_begin + s / nk) * TW_COLS, n_valid, seen_value, rows);
+        // every offer is written; the merges are seen by the next tile's
+        // offers after the next step's barrier
+        if (__syncthreads_or(offered)) merge_pending(lv, li, cnt, pv, pi, ov, oi, k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
+    }
+    __syncthreads();  // every warp's last merges are done
+    for (int e = tid; e < rows * k; e += THREADS) {
+      const int r = e / k, j = e - r * k;
+      const size_t o = ((size_t)blockIdx.x * B + g0 + r) * k + j;
+      part_v[o] = lv[r * TW_LLD + j];
+      part_i[o] = li[r * TW_LLD + j];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 rank_merge_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ part_i,
                   int B, int k, int n_splits, float* __restrict__ out_v,
@@ -708,6 +1096,9 @@ rank_merge_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ 
 // The on-chip route's domain, by shape.
 bool onchip_route(int B, int H, int k) { return B <= onchip::ROWS && H <= onchip::MAX_H && k <= OC_K; }
 
+// The tensor-core route's domain (rank_wide_tf32_kernel), by shape.
+bool tc_route(int B, int H, int k) { return H > TW_MIN_H && k <= TW_K; }
+
 // Shared memory of rank_partial_kernel<wide>.
 long long partial_smem(int H, int k, bool wide) {
   return (long long)sizeof(float) * ((long long)(wide ? KC : H) * BT + KC * VT + BT * (VT + 1) + BT * k) +
@@ -741,44 +1132,65 @@ extern "C" {
 // H and top-k width k (unless its caller turns the route off).
 int streaming_rank_onchip(int B, int H, int k) { return onchip_route(B, H, k) ? 1 : 0; }
 
+// 1 where streaming_rank takes the tensor-core route at batch B, hidden
+// size H and top-k width k (unless its caller turns the route off).
+int streaming_rank_tc(int B, int H, int k) { return tc_route(B, H, k) ? 1 : 0; }
+
 // 1 where the older route stages the states in hidden chunks (its wide
 // form) at hidden size H and top-k width k.
 int streaming_rank_wide(int H, int k) { return wide_route(H, k) ? 1 : 0; }
 
-// Shared memory of pass 1 on the on-chip route (onchip = 1) or the other
-// (onchip = 0, in the form H and k take) at hidden size H and top-k width k.
-long long streaming_rank_smem_bytes(int H, int k, int onchip) {
-  if (onchip) return ONCHIP_STAGING + 8LL * onchip::ROWS * (k + 8 * onchip_slice(k));
+// Bytes of the tensor-core route's overflow area at n_splits splits: a
+// block's offers of a tile past a row's shared slots (256 rows x 128
+// columns, values and ids).
+long long streaming_rank_overflow_bytes(int n_splits) {
+  return 8LL * n_splits * TW_ROWS * TW_COLS;
+}
+
+// Shared memory of pass 1 on the on-chip route (route = 1), the
+// tensor-core route (route = 2) or the older one (route = 0, in the form H
+// and k take) at hidden size H and top-k width k.
+long long streaming_rank_smem_bytes(int H, int k, int route) {
+  if (route == 1) return ONCHIP_STAGING + 8LL * onchip::ROWS * (k + 8 * onchip_slice(k));
+  if (route == 2) return TW_SMEM;
   return partial_smem(H, k, wide_route(H, k));
 }
 
 // Launch the passes on `stream`. Pass 1 takes the on-chip route where the
 // shape allows it (streaming_rank_onchip) and allow_onchip is 1: a sample
 // pass (rank_sample_kernel into `buckets`, [B, 64] 32-bit words that the
-// caller allocates and this entry zeroes) and then rank_onchip_kernel.
-// Elsewhere it is rank_partial_kernel, in its wide form where the shape
-// asks for it (streaming_rank_wide). The two routes give bit-equal
-// results. The caller allocates the partials ([n_splits, B, k]) and
-// outputs ([B, k]); n_splits * tiles_per_split must cover the catalog in
-// tiles of the route's width (64 columns on-chip, 128 otherwise), and
-// on-chip every split must hold a tile. `taken`, when not null, receives
-// the on-chip route's count of scores its lists took. A seen item scores
-// seen_value (0.0 for eval, -inf for serving). Returns 0 or a cudaError_t
-// code.
+// caller allocates and this entry zeroes) and then rank_onchip_kernel; the
+// tensor-core route (rank_wide_tf32_kernel) where the shape allows it
+// (streaming_rank_tc) and allow_tc is 1, with `overflow`, n_splits * 256 KB
+// that the caller allocates (streaming_rank_overflow_bytes). Elsewhere it is
+// rank_partial_kernel, in its wide form where the shape asks for it
+// (streaming_rank_wide). The on-chip and older routes give bit-equal
+// results; the tensor-core route sums each score in another order, so its
+// results are bit-equal to theirs where the scores are exact in any order
+// (integer inputs) and within fp32 rounding elsewhere. The caller
+// allocates the partials ([n_splits, B, k]) and outputs ([B, k]);
+// n_splits * tiles_per_split must cover the catalog in tiles of the
+// route's width (64 columns on-chip, 128 otherwise), and on the on-chip and
+// tensor-core routes every split must hold a tile. `taken`, when not
+// null, receives the on-chip route's count of scores its lists took. A
+// seen item scores seen_value (0.0 for eval, -inf for serving). Returns 0
+// or a cudaError_t code.
 int streaming_rank(const void* states, const void* table, const void* mask, int B, int V,
                    int H, int W, int n_valid, float seen_value, int k, int n_splits,
-                   int tiles_per_split,
-                   int allow_onchip, void* buckets, void* part_v, void* part_i, void* out_v,
-                   void* out_i, void* taken, void* stream) {
+                   int tiles_per_split, int allow_onchip, int allow_tc, void* buckets,
+                   void* overflow, void* part_v, void* part_i, void* out_v, void* out_i,
+                   void* taken, void* stream) {
   const bool onchip = allow_onchip && onchip_route(B, H, k);
+  const bool tc = !onchip && allow_tc && tc_route(B, H, k);
   const int width = onchip ? OC_VT : VT;
   const long long n_tiles = (V + width - 1) / width;
   if (B < 1 || V < 1 || H < 4 || H % 4 != 0 || k < 1 || k > MAX_K || n_splits < 1 ||
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
-      (onchip && ((long long)(n_splits - 1) * tiles_per_split >= n_tiles || buckets == nullptr)) ||
-      W < (V + 31) / 32 || n_valid < 0 || n_valid > V)
+      ((onchip || tc) && (long long)(n_splits - 1) * tiles_per_split >= n_tiles) ||
+      (onchip && buckets == nullptr) || (tc && overflow == nullptr) || W < (V + 31) / 32 ||
+      n_valid < 0 || n_valid > V)
     return (int)cudaErrorInvalidValue;
-  const long long smem = streaming_rank_smem_bytes(H, k, onchip);
+  const long long smem = streaming_rank_smem_bytes(H, k, onchip ? 1 : tc ? 2 : 0);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -806,6 +1218,14 @@ int streaming_rank(const void* states, const void* table, const void* mask, int 
         static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, k, onchip_slice(k),
         tiles_per_split, static_cast<const unsigned*>(buckets), static_cast<float*>(part_v),
         static_cast<int32_t*>(part_i), static_cast<unsigned long long*>(taken));
+  } else if (tc) {
+    e = cudaFuncSetAttribute(rank_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    rank_wide_tf32_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+        static_cast<const float*>(states), static_cast<const float*>(table),
+        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, k, tiles_per_split,
+        static_cast<float*>(overflow), static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
   } else {
     auto sweep = wide_route(H, k) ? rank_partial_kernel<true> : rank_partial_kernel<false>;
     e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,7 +1,9 @@
 // Tensor-core building blocks for Hopper (sm_90a), warp-level (mma.sync,
 // not wgmma): the products of ce_bwd_wide_tc_kernel and
-// ce_fwd_wide_tc_kernel (bf16) and of ce_bwd_wide_tf32_kernel (fp32 in
-// 3xTF32, the second half of this file) in streaming_ce.cu. The bf16
+// ce_fwd_wide_tc_kernel (bf16) and of ce_bwd_wide_tf32_kernel and
+// ce_fwd_wide_tf32_kernel (fp32 in 3xTF32, the second half of this file) in
+// streaming_ce.cu, and of rank_wide_tf32_kernel (3xTF32) in
+// streaming_rank.cu. The bf16
 // fragments are those of
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane l of a
 // warp, g = l >> 2 and t = l & 3:
@@ -170,6 +172,37 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[M][N][4], const uint32_t (
                                            const uint32_t (&bl)[N][2]) {
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass) mma_pass(pass, c, ah, al, bh, bl);
+}
+
+// ---- the wide sweeps over S . T^T in 3xTF32 ---------------------------------------
+// ce_fwd_wide_tf32_kernel (streaming_ce.cu) and rank_wide_tf32_kernel
+// (streaming_rank.cu) share one geometry: one block of 256 threads per SM, a
+// group of WIDE_ROWS batch rows against tiles of WIDE_COLS catalog columns,
+// 8 warps as 4 x 2 warp tiles of 64 x 64; the state and table rows, as they
+// are stored, WIDE_HC hidden columns a step, by cp.async through a ring of
+// WIDE_STAGES slots, rows WIDE_LD floats apart (4 mod 8: the eight 16-byte
+// rows of an ldmatrix matrix on distinct banks).
+constexpr int WIDE_ROWS = 256;
+constexpr int WIDE_COLS = 128;
+constexpr int WIDE_HC = 16;
+constexpr int WIDE_LD = WIDE_HC + 4;
+constexpr int WIDE_STAGES = 3;
+
+// Rows [row0, row0 + N) of a row-major [R, H] fp32 matrix, hidden columns
+// [h0, h0 + W), into shared memory with row stride ld by 16-byte
+// cp.async.cg, zero past R and H (H % 4 == 0: a piece lies inside H or past
+// it). The NT threads of the block share the pieces.
+template <int N, int W, int NT = 256>
+__device__ __forceinline__ void copy_chunk_async(float* dst, int ld, const float* __restrict__ src,
+                                                 int row0, int R, int H, int h0) {
+  constexpr int Q = W / 4;  // pieces a row
+  static_assert(N * Q % NT == 0, "whole pieces a thread");
+#pragma unroll
+  for (int q = 0; q < N * Q / NT; ++q) {
+    const int i = threadIdx.x + NT * q, r = i / Q, c = (i % Q) * 4;
+    const bool full = row0 + r < R && h0 + c < H;
+    tc::cp_async_16_zfill(dst + r * ld + c, full ? src + (size_t)(row0 + r) * H + h0 + c : src, full);
+  }
 }
 
 }  // namespace tc

@@ -4,16 +4,29 @@
 `streaming_masked_topk` returns, per user, the top k of the catalog
 scores `states @ table.T` without building the [B, V] score matrix on
 the card: the CUDA kernel in `csrc/streaming_rank.cu` (which replaces
-the Pallas `_rank_kernel`) sweeps the catalog once, on one of two
-routes picked by shape (`onchip_route`): at B <= 256, H <= 64 and
-k <= 32 a sample pass bounds each row's k-th score from below, then one
-block per SM holds the whole batch and skips every score under the
-bound; elsewhere an older sweep re-stages 64-row batch tiles. That sweep
-stages all of a tile's states ([H, 64]) where they fit and, past that
-(`wide_route`: H > ~670 at k = 20, H > ~454 at k = 128), a hidden chunk
-of 32 at a time beside the table's, so every H % 4 == 0 and k <= 128
-runs. `streaming_masked_topk.onchip_launches` and `.wide_launches` count
-the two apart. All give bit-equal results. Seen items score
+the Pallas `_rank_kernel`) sweeps the catalog once, on one of three
+routes picked by shape:
+- the on-chip route (`onchip_route`: B <= 256, H <= 64, k <= 32): a
+  sample pass bounds each row's k-th score from below, then one block per
+  SM holds the whole batch and skips every score under the bound;
+- the tensor-core route (`tc_route`: H > 256, k <= 32, any B): one block
+  per SM takes the scores of 256 rows x 128 items a tile on the tensor
+  cores in 3xTF32, which keeps fp32 accuracy, reads the table once per
+  256 rows, and offers each tile's scores to the rows' lists from the
+  accumulator fragments;
+- elsewhere an older sweep that re-stages 64-row batch tiles, with fp32
+  FMAs. It stages all of a tile's states ([H, 64]) where they fit and,
+  past that (`wide_route`: H > ~670 at k = 20, H > ~454 at k = 128), a
+  hidden chunk of 32 at a time beside the table's, so every H % 4 == 0
+  and k <= 128 runs.
+`streaming_masked_topk.onchip_launches`, `.tc_launches` and
+`.wide_launches` count them apart. The on-chip and older routes give
+bit-equal results (one FMA chain a score, in ascending h). The
+tensor-core route sums each score in another order: where every score
+is exact in any order (integer inputs) its values and ids are bit-equal
+to theirs, elsewhere its values lie within fp32 rounding of the plain
+version's, and an id can differ from another route's only where two
+scores lie that close. Seen items score
 `seen_value`: 0.0 for eval (the reference's `src/trainers.py:134`, what
 the TPU kernel gives them) and -inf for serving (`ops/serving_topk.py`),
 where a seen item never enters the result. Columns >= n_valid score
@@ -138,9 +151,13 @@ def _lib() -> ctypes.CDLL:
     """The kernel library (built at first use) with its C signatures."""
     from bsarec_tpu_torch.ops import _build
 
-    lib = _build.load("streaming_rank")
+    return bind(_build.load("streaming_rank"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of `csrc/streaming_rank.cu`) with its C signatures set."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i, i, p, p, p, p, p, p, p]
+    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.streaming_rank.restype = ctypes.c_int
     lib.streaming_rank_error.argtypes = [i]
     lib.streaming_rank_error.restype = ctypes.c_char_p
@@ -148,8 +165,12 @@ def _lib() -> ctypes.CDLL:
     lib.streaming_rank_smem_bytes.restype = ctypes.c_longlong
     lib.streaming_rank_onchip.argtypes = [i, i, i]
     lib.streaming_rank_onchip.restype = ctypes.c_int
+    lib.streaming_rank_tc.argtypes = [i, i, i]
+    lib.streaming_rank_tc.restype = ctypes.c_int
     lib.streaming_rank_wide.argtypes = [i, i]
     lib.streaming_rank_wide.restype = ctypes.c_int
+    lib.streaming_rank_overflow_bytes.argtypes = [i]
+    lib.streaming_rank_overflow_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -161,6 +182,13 @@ def onchip_route(b: int, h: int, k: int) -> bool:
 
 
 @functools.cache
+def tc_route(b: int, h: int, k: int) -> bool:
+    """True where the kernel takes its tensor-core route (the scores in
+    3xTF32, a top-k epilogue over the accumulator fragments), by shape."""
+    return bool(_lib().streaming_rank_tc(b, h, k))
+
+
+@functools.cache
 def wide_route(h: int, k: int) -> bool:
     """True where the older route stages the states in hidden chunks (all
     of them do not fit in shared memory), by shape."""
@@ -168,25 +196,27 @@ def wide_route(h: int, k: int) -> bool:
 
 
 # kernel tiling (csrc/streaming_rank.cu): rows per block and columns per
-# tile of the older route; columns per tile of the on-chip route
+# tile of the older route and of the tensor-core route; columns per tile
+# of the on-chip route
 _BT, _VT, _ONCHIP_VT = 64, 128, 64
 
 
-def _splits(b: int, v: int, onchip: bool, sms: int) -> tuple[int, int]:
-    """(n_splits, tiles_per_split), every split holding a tile: one block
-    per SM on the on-chip route, enough blocks for two per SM on the other."""
+def _splits(b: int, v: int, onchip: bool, sms: int, tc: bool = False) -> tuple[int, int]:
+    """(n_splits, tiles_per_split) in tiles of the route's width, every
+    split holding a tile: one block per SM on the on-chip and tensor-core
+    routes, enough blocks for two per SM on the older one."""
     n_tiles = -(-v // (_ONCHIP_VT if onchip else _VT))
-    target = sms if onchip else -(-2 * sms // -(-b // _BT))
+    target = sms if onchip or tc else -(-2 * sms // -(-b // _BT))
     per = -(-n_tiles // max(1, min(n_tiles, target)))
     return -(-n_tiles // per), per
 
 
 def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=None,
-            seen_value=0.0):
-    """Both passes of the kernel. `allow_onchip=False` keeps the older
-    route at any shape, and `taken` (an int64 [1] tensor on the card)
-    receives the count of scores the on-chip route's lists took: both
-    serve only the checks and the timing tool."""
+            seen_value=0.0, allow_tc=True):
+    """Both passes of the kernel. `allow_onchip=False` and `allow_tc=False`
+    keep the older route at any shape, and `taken` (an int64 [1] tensor on
+    the card) receives the count of scores the on-chip route's lists took:
+    all three serve only the checks and the timing tools."""
     b, h = states.shape
     v = table.shape[0]
     dev = states.device
@@ -204,29 +234,35 @@ def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=No
     lib = _lib()
     index = states.get_device()
     onchip = allow_onchip and onchip_route(b, h, k)
-    n_splits, per = _splits(b, v, onchip, sm_count(index))
+    tc = not onchip and allow_tc and tc_route(b, h, k)
+    n_splits, per = _splits(b, v, onchip, sm_count(index), tc)
     part_v = torch.empty((n_splits, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, b, k), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    # the on-chip route's sample: 64 bucket maxima a row
+    # the on-chip route's sample: 64 bucket maxima a row; the tensor-core
+    # route's overflow area: a split's offers of a tile past a row's shared
+    # slots
     buckets = torch.empty((b, 64), dtype=torch.int32, device=dev) if onchip else None
+    overflow = (torch.empty((lib.streaming_rank_overflow_bytes(n_splits),), dtype=torch.uint8,
+                            device=dev) if tc else None)
     rc = call_on(index, lib.streaming_rank, states.data_ptr(), table.data_ptr(),
                  seen_bitmask.data_ptr(), b, v, h, seen_bitmask.shape[1], n_valid, seen_value,
-                 k, n_splits, per, int(allow_onchip),
+                 k, n_splits, per, int(allow_onchip), int(allow_tc),
                  None if buckets is None else buckets.data_ptr(),
-                 part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-                 ids.data_ptr(), None if taken is None else taken.data_ptr(),
-                 raw_stream(index))
+                 None if overflow is None else overflow.data_ptr(),
+                 part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+                 None if taken is None else taken.data_ptr(), raw_stream(index))
     if rc != 0:
         raise RuntimeError(
             f"streaming_rank launch failed ({rc}: {lib.streaming_rank_error(rc).decode()}); "
             f"B={b} V={v} H={h} k={k}, shared memory "
-            f"{lib.streaming_rank_smem_bytes(h, k, int(onchip))} bytes"
+            f"{lib.streaming_rank_smem_bytes(h, k, 1 if onchip else 2 if tc else 0)} bytes"
         )
     streaming_masked_topk.launches += 1
     streaming_masked_topk.onchip_launches += onchip
-    streaming_masked_topk.wide_launches += not onchip and wide_route(h, k)
+    streaming_masked_topk.tc_launches += tc
+    streaming_masked_topk.wide_launches += not onchip and not tc and wide_route(h, k)
     return vals, ids
 
 
@@ -253,4 +289,5 @@ def streaming_masked_topk(states: torch.Tensor, table: torch.Tensor,
 
 streaming_masked_topk.launches = 0  # kernel launches (CUDA path only)
 streaming_masked_topk.onchip_launches = 0  # the launches that took the on-chip route
+streaming_masked_topk.tc_launches = 0  # ... the tensor-core route (rank_wide_tf32_kernel)
 streaming_masked_topk.wide_launches = 0  # the older route's launches in its wide form

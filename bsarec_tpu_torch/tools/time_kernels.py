@@ -10,10 +10,13 @@ seeded inputs, as `chip_smoke.py` times them (`time ce_grads kernel`,
 route's fp32 form, rows 2w and 4w: `ce_logz_fp32_wide`,
 `ce_grads_fp32_wide`), and of `ce_grads(..., dtype="bfloat16")` and
 `ce_loss_logz(..., dtype="bfloat16")` there (the bf16 forms,
-`ce_grads_bf16_wide` and `ce_logz_bf16_wide`); two readings each, in
-turns (fp32 wide logz, fp32 wide grads, wide grads, wide logz, grads,
-logz, rank, rank, logz, grads, wide logz, wide grads, fp32 wide grads,
-fp32 wide logz). All are public
+`ce_grads_bf16_wide` and `ce_logz_bf16_wide`), and of
+`streaming_masked_topk` at B=256, V=1,000,000, H=512, k=20 (row 1w,
+`streaming_masked_topk_wide`) and on its first 16 rows
+(`streaming_masked_topk_wide_b16`); two readings each, in turns (wide
+rank, wide rank at B=16, fp32 wide logz, fp32 wide grads, wide grads,
+wide logz, grads, logz, rank, rank, logz, grads, wide logz, wide grads,
+fp32 wide grads, fp32 wide logz, wide rank at B=16, wide rank). All are public
 entries that every version of the port has, so an older checkout's
 package is timed by the same code. Each process first holds `ce_grads`
 against `ce_grads_plain` (GRAD_TOL relative to the largest |plain|
@@ -23,14 +26,19 @@ forms against its plain version (CE_TOL, relative to max(1, |plain|))
 and two calls bit for bit, the wide bf16 `ce_grads` against
 `parity.ce_grads_bf16_in_order` (WIDE_BF16_TOL, each group relative to
 its largest |plain| entry) and two calls bit for bit, and the rank kernel
-against its plain version (values within FLOAT_TOL, each returned id by
-the plain score of that id). It also reports the rank wrapper's host ms per
+against its plain version at H=64 and at H=512 (values within FLOAT_TOL,
+each returned id by the plain score of that id; at H=512 two calls bit
+for bit). It also reports the rank wrapper's host ms per
 call (perf_counter around 50 calls, no sync inside), where the
 package's rank kernel counts them, the scores inserted into a row's
 top-k list in a split, and `rank_eval_digest`: a sha256 of the rank
 kernel's eval-mode values and ids at this checkout's `chip_smoke.py`
 rank cases (read from that file: its table, seeds and inputs), so that
-two checkouts with equal digests give bit-equal results there; and
+two checkouts with equal digests give bit-equal results there;
+`rank_wide_eval_digest`, the same at its wide rank cases
+(`WIDE_RANK_CASES`, the i-th seeded with 300 + i), and
+`rank_wide_int_digest`, over their integer cases alone (exact scores:
+equal across any two routes that rank correctly); and
 `ce_fp32_digest`, the same over the fp32 `ce_loss_logz` (loss, logZ) and
 `ce_grads` (ds, dT) at its CE cases (`CE_CASES`, `ce_case`);
 `ce_wide_fp32_fwd_digest`, the fp32 `ce_loss_logz` (loss, logZ) alone at
@@ -59,6 +67,7 @@ import hashlib
 import importlib.util
 import inspect
 import json
+import math
 import subprocess
 import sys
 import time
@@ -130,20 +139,31 @@ def _chip_smoke():
     return smoke
 
 
-def rank_eval_digest(device) -> str:
+def rank_eval_digest(device, wide: bool = False, integer_only: bool = False) -> str:
     """sha256 over the rank kernel's eval-mode (values, ids) at this
     checkout's `chip_smoke.py` rank cases (`RANK_CASES`), on its inputs
-    (`make_case`, the i-th case seeded with i)."""
+    (`make_case`, the i-th case seeded with i); with `wide`, at
+    `WIDE_RANK_CASES` (seeded with 300 + i, the float tables scaled by
+    sqrt(64 / H) as the wide phase draws them); with `integer_only`, at
+    the integer cases alone."""
+    import torch
+
     from bsarec_tpu_torch.ops import rank
 
     smoke = _chip_smoke()
     digest = hashlib.sha256()
-    for i, (_, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(smoke.RANK_CASES):
-        states, table, bitmask = smoke.make_case(b, v, h, n_seen, seed=i, device=device,
-                                                 integer=integer, all_seen_row=all_seen)
+    cases, seed0 = (smoke.WIDE_RANK_CASES, 300) if wide else (smoke.RANK_CASES, 0)
+    for i, (_, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(cases):
+        if integer_only and not integer:
+            continue
+        states, table, bitmask = smoke.make_case(b, v, h, n_seen, seed=seed0 + i, device=device,
+                                                 integer=integer, all_seen_row=all_seen,
+                                                 scale=math.sqrt(64 / h) if wide else 1.0)
         vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid)
         digest.update(vals.cpu().numpy().tobytes())
         digest.update(ids.cpu().numpy().tobytes())
+        del states, table, bitmask
+        torch.cuda.empty_cache()
     return digest.hexdigest()
 
 
@@ -185,12 +205,17 @@ def ce_digest(device, wide: bool = False, dtype=None, grads_only: bool = False,
 
 
 def check_rank(states, table, bitmask) -> float:
-    """The kernel against the plain version; returns the value error."""
+    """The kernel against the plain version, and at H=512 two calls bit for
+    bit; returns the value error."""
     import torch
 
     from bsarec_tpu_torch.ops import rank
 
     vals, ids = rank.streaming_masked_topk(states, table, bitmask, K, V)
+    if states.shape[1] == WIDE_H:
+        again_v, again_i = rank.streaming_masked_topk(states, table, bitmask, K, V)
+        if not (torch.equal(vals, again_v) and torch.equal(ids, again_i)):
+            raise SystemExit(f"time_kernels: rank kernel at H={WIDE_H} not deterministic")
     want_v, _ = rank.streaming_masked_topk_plain(states, table, bitmask, K, V)
     err = float((vals - want_v).abs().max())
     ids = ids.long()
@@ -199,7 +224,8 @@ def check_rank(states, table, bitmask) -> float:
     by_id = torch.where(seen, torch.zeros_like(by_id), by_id)
     id_err = float((by_id - want_v).abs().max())
     if not (err <= FLOAT_TOL and id_err <= FLOAT_TOL):
-        raise SystemExit(f"time_kernels: rank kernel off its plain version ({err}, ids {id_err})")
+        raise SystemExit(f"time_kernels: rank kernel at H={states.shape[1]} off its plain version "
+                         f"({err}, ids {id_err})")
     return err
 
 
@@ -236,6 +262,10 @@ def time_package(package_root: Path) -> dict:
     # the wide route's bf16 forms, chip_smoke.py's main wide case's scales
     w_states = torch.from_numpy(rng.standard_normal((B, WIDE_H), dtype=np.float32)).to(device)
     w_table = torch.from_numpy(0.25 * rng.standard_normal((V, WIDE_H), dtype=np.float32)).to(device)
+    # the rank kernel at H=512 (row 1w) on these states and table and the
+    # H=64 case's seen items; and on the first 16 rows
+    wide_rank_err = check_rank(w_states, w_table, r_mask)
+    q_states, q_mask = w_states[:16].contiguous(), r_mask[:16].contiguous()
     # the fp32 form's wide ce_loss_logz (row 2w) against its plain version
     wide_fwd32 = lambda: ce.ce_loss_logz(w_states, w_table, answers, V)
     (y_loss, y_logz), (y_loss2, y_logz2) = wide_fwd32(), wide_fwd32()
@@ -277,7 +307,10 @@ def time_package(package_root: Path) -> dict:
            "ce_logz_fp32_wide_rel_err": fwd32_err,
            "ce_grads_bf16_wide_rel_err": wide_err,
            "ce_logz_bf16_wide_rel_err": fwd_err,
-           "rank_abs_err": rank_err, "rank_eval_digest": rank_eval_digest(device),
+           "rank_abs_err": rank_err, "rank_wide_abs_err": wide_rank_err,
+           "rank_eval_digest": rank_eval_digest(device),
+           "rank_wide_eval_digest": rank_eval_digest(device, wide=True),
+           "rank_wide_int_digest": rank_eval_digest(device, wide=True, integer_only=True),
            "ce_fp32_digest": ce_digest(device),
            "ce_wide_fp32_fwd_digest": ce_digest(device, wide=True, forward_only=True),
            "ce_wide_fp32_grads_digest": ce_digest(device, wide=True, grads_only=True),
@@ -292,12 +325,17 @@ def time_package(package_root: Path) -> dict:
     grads = lambda: ce.ce_grads(states, table, answers, logz, d, V)
     logz_fn = lambda: ce.ce_loss_logz(states, table, answers, V)
     rank_fn = lambda: rank.streaming_masked_topk(r_states, r_table, r_mask, K, V)
+    wide_rank = lambda: rank.streaming_masked_topk(w_states, w_table, r_mask, K, V)
+    wide_rank16 = lambda: rank.streaming_masked_topk(q_states, w_table, q_mask, K, V)
+    k1, q1 = cuda_ms(wide_rank), cuda_ms(wide_rank16)
     y1, x1, w1, f1 = cuda_ms(wide_fwd32), cuda_ms(wide32), cuda_ms(wide), cuda_ms(wide_fwd)
     g1, l1 = cuda_ms(grads), cuda_ms(logz_fn)
     r1, r2 = cuda_ms(rank_fn), cuda_ms(rank_fn)
     l2, g2 = cuda_ms(logz_fn), cuda_ms(grads)
     f2, w2, x2, y2 = cuda_ms(wide_fwd), cuda_ms(wide), cuda_ms(wide32), cuda_ms(wide_fwd32)
+    q2, k2 = cuda_ms(wide_rank16), cuda_ms(wide_rank)
     out |= {"ce_grads": [g1, g2], "ce_logz": [l1, l2], "streaming_masked_topk": [r1, r2],
+            "streaming_masked_topk_wide": [k1, k2], "streaming_masked_topk_wide_b16": [q1, q2],
             "ce_logz_fp32_wide": [y1, y2], "ce_grads_fp32_wide": [x1, x2],
             "ce_grads_bf16_wide": [w1, w2], "ce_logz_bf16_wide": [f1, f2],
             "rank_host_ms": host_ms(rank_fn)}
@@ -306,6 +344,7 @@ def time_package(package_root: Path) -> dict:
         out[f"{name}_onchip_launches"] = getattr(f, "onchip_launches", None)
     for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads)):
         out[f"{name}_wide_launches"] = getattr(f, "wide_launches", None)
+    out["streaming_masked_topk_tc_launches"] = getattr(rank.streaming_masked_topk, "tc_launches", None)
     return out
 
 

@@ -58,20 +58,27 @@ Phases, each of which raises (exit code 1) when it fails:
    of it, which the fp32 form must fail, and the fp32 form's loss and logZ
    bit-equal to the bf16 form's (both forward kernels see the same exact
    logits and fold them in the same order); the rank kernel in
-   both modes at WIDE_RANK_CASES (H in {512, 1024}, k in {20, 128}, its
-   older route with all states staged or in hidden chunks as the shape
-   names) with phase 2's checks, two calls bit-equal. Then `main
+   both modes at WIDE_RANK_CASES (H in {260, 512, 1024}, k in {1, 20, 32,
+   33, 128}, B in {1, 5, 9, 37, 64, 70, 256, 300}, n_valid < V and < k,
+   all-seen rows) with phase 2's checks, two calls bit-equal, on the route
+   its shape names: at k <= 32 the tensor-core route (rank_wide_tf32_kernel,
+   3xTF32), held besides against the older route on the same inputs,
+   values and ids bit-equal on the integer cases and values within
+   FLOAT_TOL on the float ones; at k > 32 the older route with all states
+   staged or in hidden chunks. Then `main
    --hidden_size 512` on a 1M-item x 5k-user corpus: one epoch, then
    `--resume --epochs 2 --export_topk`, which must start at epoch 1 (one
    ce_logz and one ce_grads launch a step, every one on the wide route;
-   the rank kernel on every eval batch; finite losses; the first 512
-   users' exported top-20 against the plain version; every launch on an
+   the rank kernel on every eval batch, every launch on
+   rank_wide_tf32_kernel; finite losses; the first 512
+   users' exported top-20 against the plain version; every CE launch on an
    fp32 tensor-core kernel), and one `--dtype
    bf16` epoch (the bf16 forms on the wide route, every ce_logz and
-   ce_grads launch on its tensor-core kernel). Then the wide main
-   path's kernels timed as phase 10 times them (the CE entries in both
-   forms, the rank kernel at k=20 and, in its wide form, at k=128), and
-   the phase's seconds.
+   ce_grads launch on its tensor-core kernel, every rank launch on
+   rank_wide_tf32_kernel). Then the wide main path's kernels timed as
+   phase 10 times them (the CE entries in both forms; the rank kernel at
+   k=20 at B=256 and B=16, with its older route in turns, and, in the
+   older route's wide form, at k=128), and the phase's seconds.
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -370,15 +377,17 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
     from bsarec_tpu_torch.ops import rank
 
     case_name = f"{case_name}, {'eval' if seen_value == 0.0 else 'serving'} mode"
-    onchip_before = rank.streaming_masked_topk.onchip_launches
-    wide_before = rank.streaming_masked_topk.wide_launches
+    b, h = states.shape
+    f = rank.streaming_masked_topk
+    before = (f.onchip_launches, f.tc_launches, f.wide_launches)
     vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid, seen_value)
     again_v, again_i = rank.streaming_masked_topk(states, table, bitmask, k, n_valid, seen_value)
     torch.cuda.synchronize()
-    onchip = (rank.streaming_masked_topk.onchip_launches - onchip_before) // 2
-    wide = (rank.streaming_masked_topk.wide_launches - wide_before) // 2
-    check(onchip == rank.onchip_route(states.shape[0], states.shape[1], k)
-          and wide == (not onchip and rank.wide_route(states.shape[1], k)),
+    onchip, tc, wide = ((n - n0) // 2 for n, n0 in
+                        zip((f.onchip_launches, f.tc_launches, f.wide_launches), before))
+    check(onchip == rank.onchip_route(b, h, k)
+          and tc == (not onchip and rank.tc_route(b, h, k))
+          and wide == (not onchip and not tc and rank.wide_route(h, k)),
           f"{case_name}: the rank kernel took another route than its shape names")
     check(torch.equal(vals, again_v) and torch.equal(ids, again_i),
           f"{case_name}: two calls on the same inputs differ")
@@ -390,6 +399,22 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
         check(torch.equal(vals, old_v) and torch.equal(ids, old_i),
               f"{case_name}: the on-chip route differs from the older route at "
               f"{int(((vals != old_v) | (ids != old_i)).sum())} of {vals.numel()} slots")
+        del old_v, old_i
+    tc_err = None
+    if tc:  # the older route on the same inputs: bit-equal where the scores are exact
+        old_v, old_i = rank._launch(states, table, bitmask, k, n_valid, allow_tc=False,
+                                    seen_value=seen_value)
+        torch.cuda.synchronize()
+        old_finite = torch.isfinite(old_v)
+        check(torch.equal(torch.isfinite(vals), old_finite),
+              f"{case_name}: the tensor-core route fills other slots than the older route")
+        tc_err = float((vals[old_finite] - old_v[old_finite]).abs().max()) if old_finite.any() else 0.0
+        if exact:
+            check(torch.equal(vals, old_v) and torch.equal(ids, old_i),
+                  f"{case_name}: the tensor-core route differs from the older route at "
+                  f"{int(((vals != old_v) | (ids != old_i)).sum())} of {vals.numel()} slots")
+        else:
+            check(tc_err <= FLOAT_TOL, f"{case_name}: tensor-core route {tc_err} off the older route")
         del old_v, old_i
     want_v, want_i = rank.streaming_masked_topk_plain(states, table, bitmask, k, n_valid,
                                                       seen_value=seen_value)
@@ -410,6 +435,8 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
             row = ids[r][finite[r]]
             check(row.unique().numel() == row.numel(), f"{case_name}: row {r} repeats an id")
     route = ("on-chip, bit-equal to the older route" if onchip
+             else "tensor cores (rank_wide_tf32_kernel), bit-equal to the older route" if tc and exact
+             else f"tensor cores (rank_wide_tf32_kernel), {tc_err:.3g} off the older route" if tc
              else "older route, states in hidden chunks" if wide else "older route")
     log(f"kernel vs plain {case_name}: ok, max |value error| {err:.3g}"
         f"{' (bit-equal ids and values)' if exact else ''}; {route}; two calls bit-equal")
@@ -1646,6 +1673,7 @@ def reset_counts() -> None:
     for f in (rank.streaming_masked_topk, ce.ce_logz, ce.ce_grads):
         f.onchip_launches = 0
         f.wide_launches = 0
+    rank.streaming_masked_topk.tc_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
 
@@ -2909,6 +2937,11 @@ WIDE_EXACT_CASES = [
 # Float cases draw the table at sqrt(64 / H) N(0, 1), so that the scores
 # keep the spread they have at phase 2's H = 64 (std 8, top scores below
 # ~50), for which FLOAT_TOL is stated; the integer cases are exact at any H
+# and in any summation order. At k <= 32 every case takes the tensor-core
+# route (rank_wide_tf32_kernel), at k > 32 the older route; the cases from
+# "B over one group" on hold the tensor-core route's edges: two groups of
+# 256 rows, B = 1, k = 1 and 32 against k = 33, H off its 16-column step,
+# fewer valid items than k, an all-seen row (serving mode: all -inf)
 WIDE_RANK_CASES = [
     ("main path at H=512", 256, N_ITEMS, WIDE_H, TOP_K, N_ITEMS, 16, False, False),
     ("H=512, k=128", 64, 33333, WIDE_H, 128, 33333, 16, False, False),
@@ -2917,7 +2950,25 @@ WIDE_RANK_CASES = [
     ("integer, H=512, k=128", 37, 20011, WIDE_H, 128, 20006, 16, True, False),
     ("integer, all-seen row, H=1024, k=20", 70, 20011, 1024, 20, 20011, 16, True, True),
     ("integer, H=1024, k=128", 37, 20011, 1024, 128, 20006, 16, True, True),
+    ("B over one group, n_valid < V", 300, 20011, WIDE_H, 20, 20006, 16, False, False),
+    ("integer, all-seen row, B over one group, n_valid < V", 300, 20011, WIDE_H, 20, 20006, 16,
+     True, True),
+    ("B=1", 1, 12101, WIDE_H, 20, 12101, 16, False, False),
+    ("integer, B=1", 1, 12101, WIDE_H, 20, 12101, 16, True, False),
+    ("k=32", 256, 40009, WIDE_H, 32, 40000, 16, False, False),
+    ("integer, k=1", 37, 20011, WIDE_H, 1, 20006, 16, True, False),
+    ("integer, k=32", 37, 20011, WIDE_H, 32, 20006, 16, True, True),
+    ("integer, k=33 (the older route)", 37, 20011, WIDE_H, 33, 20006, 16, True, False),
+    ("H=260, off the 16-column step", 37, 20011, 260, 20, 20006, 16, False, False),
+    ("integer, H=260", 37, 20011, 260, 20, 20006, 16, True, False),
+    ("n_valid < k", 5, 300, WIDE_H, 20, 10, 4, False, False),
+    ("all-seen row", 9, 4099, WIDE_H, 20, 4099, 16, False, True),
 ]
+
+
+def eval_passes(text: str) -> list[float]:
+    """The seconds of each eval pass that a `main` log records."""
+    return [float(x) for x in re.findall(r"eval (?:valid|test): \d+ users in ([0-9.]+)s", text)]
 
 
 def wide_counts() -> dict:
@@ -2927,6 +2978,7 @@ def wide_counts() -> dict:
         "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
         "rank_wide": rank.streaming_masked_topk.wide_launches,
+        "rank_tc": rank.streaming_masked_topk.tc_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches}
 
 
@@ -3027,28 +3079,35 @@ def phase_wide_train(device, card):
             rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
             return text, losses, rates
 
-        # the rank kernel at H = 512, k = 20: the older route (all of a
-        # tile's states fit), not its wide form; every CE launch on the wide
-        # route, where each form runs its tensor-core kernels (fp32:
-        # ce_fwd_wide_tf32_kernel and ce_bwd_wide_tf32_kernel)
-        rank_route = {"rank_wide": 0, "rank_onchip": 0}
+        # the rank kernel at H = 512, k = 20 on every eval batch (the last
+        # one 136 rows) on its tensor-core route, rank_wide_tf32_kernel (in
+        # both forms: under bf16 it ranks rounded operands in fp32); every
+        # CE launch on the wide route, where each form runs its tensor-core
+        # kernels (fp32: ce_fwd_wide_tf32_kernel and ce_bwd_wide_tf32_kernel)
+        def rank_route(n):
+            return {"streaming_masked_topk": n, "rank_tc": n, "rank_wide": 0, "rank_onchip": 0}
+
         ce_step = {"ce_logz": steps, "ce_grads": steps, "ce_logz_wide": steps,
                    "ce_grads_wide": steps}
         counts, scores, seconds = run(base + ["--train_name", "smoke_wide", "--epochs", "1"])
-        want = zero_wide_counts() | ce_step | rank_route | {"streaming_masked_topk": 2 * eval_steps}
+        want = zero_wide_counts() | ce_step | rank_route(2 * eval_steps)
         check(counts == want, f"wide train launches {counts}, want {want}")
         text, losses, rates = epoch_lines("smoke_wide")
         check(len(losses) == 1 and math.isfinite(losses[0]), f"wide train: epoch losses {losses}")
         out["train"] = counts
+        # the eval passes (validation, then test), each 20 rank launches
+        out["eval_s"] = eval_passes(text)
         log(f"wide train path: main(--hidden_size {WIDE_H} --epochs 1) on {WIDE_USERS} users x "
             f"{N_ITEMS} items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss {losses[0]}, "
-            f"train {rates[0]:.0f} examples/s (first epoch), test scores {scores}; launches "
-            f"{counts}, every CE launch on the fp32 tensor-core kernels [{card}]")
+            f"train {rates[0]:.0f} examples/s (first epoch), eval passes {out['eval_s']} s "
+            f"(valid, test; {WIDE_USERS} users each), test scores {scores}; launches "
+            f"{counts}, every CE launch on the fp32 tensor-core kernels, every rank launch on "
+            f"rank_wide_tf32_kernel [{card}]")
 
         topk_path = os.path.join(workdir, "wide_topk.npy")
         counts, scores, seconds = run(base + ["--train_name", "smoke_wide", "--epochs", "2",
                                               "--resume", "--export_topk", topk_path])
-        want = zero_wide_counts() | ce_step | rank_route | {"streaming_masked_topk": 3 * eval_steps}
+        want = zero_wide_counts() | ce_step | rank_route(3 * eval_steps)
         check(counts == want, f"wide resumed launches {counts}, want {want}")
         text, losses, rates = epoch_lines("smoke_wide")
         check("resumed full train state" in text and "(epoch 0)" in text and "'epoch': 1," in text
@@ -3058,7 +3117,7 @@ def phase_wide_train(device, card):
         log(f"wide train path: main(--resume --epochs 2 --export_topk) started at epoch 1 and "
             f"returned in {seconds:.1f}s, epoch losses {losses}, train {rates[-1]:.0f} examples/s "
             f"(second epoch), test scores {scores}; launches {counts}, every CE launch on the fp32 "
-            f"tensor-core kernels [{card}]")
+            f"tensor-core kernels, every rank launch on rank_wide_tf32_kernel [{card}]")
 
         # the first 512 users' exported top-20 against the plain version, on
         # the best checkpoint that the export ranked with
@@ -3087,37 +3146,88 @@ def phase_wide_train(device, card):
 
         counts, scores, seconds = run(base + ["--train_name", "smoke_wide_bf16", "--epochs", "1",
                                               "--dtype", "bf16"])
-        want = zero_wide_counts() | ce_step | rank_route | {
-            "streaming_masked_topk": 2 * eval_steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps}
+        want = zero_wide_counts() | ce_step | rank_route(2 * eval_steps) | {
+            "ce_logz_bf16": steps, "ce_grads_bf16": steps}
         check(counts == want, f"wide bf16 train launches {counts}, want {want}")
         text, losses, rates = epoch_lines("smoke_wide_bf16")
         check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0]),
               f"wide bf16 train: epoch losses {losses}")
         out["bf16"] = counts
         log(f"wide bf16 train path: main(--hidden_size {WIDE_H} --dtype bf16 --epochs 1) returned "
-            f"in {seconds:.1f}s, epoch 0 loss {losses[0]}, train {rates[0]:.0f} examples/s, test "
-            f"scores {scores}; launches {counts} [{card}]")
+            f"in {seconds:.1f}s, epoch 0 loss {losses[0]}, train {rates[0]:.0f} examples/s, eval "
+            f"passes {eval_passes(text)} s (valid, test), test scores {scores}; launches {counts}, "
+            f"every rank launch on rank_wide_tf32_kernel [{card}]")
     torch.cuda.empty_cache()
     return out
 
 
+def wide_rank_times(rank_full, card, b):
+    """The rank kernel at H=512, k=20 on the first b rows of the main wide
+    case: the kernel (its tensor-core route) and its older route in turns
+    (kernel, older, older, kernel), the plain version, the library call and
+    the bound (3xTF32 at the dense TF32 rate, or the bytes; the same work
+    in fp32 FMAs on the bound line only). Returns the JSON fields."""
+    import torch
+
+    from bsarec_tpu_torch.ops import rank
+
+    full_states, table, full_mask = rank_full
+    states, bitmask = full_states[:b].contiguous(), full_mask[:b].contiguous()
+    h, v, k = states.shape[1], table.shape[0], TOP_K
+    check(rank.tc_route(b, h, k), f"the rank kernel's tensor-core route at B={b} H={h} k={k}")
+    kernel = lambda: rank.streaming_masked_topk(states, table, bitmask, k, v)
+    older = lambda: rank._launch(states, table, bitmask, k, v, allow_tc=False)
+    ms1, old1, old2, ms2 = (cuda_ms(fn, iters=10) for fn in (kernel, older, older, kernel))
+    plain_ms = cuda_ms(lambda: rank.streaming_masked_topk_plain(states, table, bitmask, k, v),
+                       iters=3, warmup=1)
+    # yardstick only (the port never calls it), as phase_times builds it
+    cols = torch.arange(v, device=states.device)
+    seen = ((bitmask[:, cols >> 5] >> (cols & 31).int()) & 1).bool()
+    library_ms = cuda_ms(lambda: torch.topk(torch.matmul(states, table.T).masked_fill_(seen, 0.0), k),
+                         iters=5)
+    del seen, cols
+    flops = 2 * b * v * h
+    nbytes = 4 * (b * h + v * h + bitmask.numel()) + 8 * b * k
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    ms = (ms1 + ms2) / 2
+    for name, t in (("kernel (rank_wide_tf32_kernel)", pair([ms1, ms2])),
+                    ("kernel, older route (rank_partial_kernel)", pair([old1, old2])),
+                    ("plain version", f"{plain_ms:.4f}"),
+                    ("library matmul+masked_fill+topk", f"{library_ms:.4f}")):
+        log(f"time streaming_masked_topk at H={h} {name}: {t} ms per {b}-user batch (B={b} V={v} "
+            f"H={h} k={k}; the kernel and the older route in turns) [{card}]")
+    log(f"bound streaming_masked_topk at H={h}, B={b}: {bound_ms:.4f} ms ({bound_by}: 3 x "
+        f"{flops / 1e9:.2f} GFLOP in 3xTF32 at 495 TFLOP/s = {t_ops:.4f} ms; {nbytes / 1e6:.1f} MB "
+        f"at 3.35 TB/s = {t_bytes:.4f} ms; the same work in fp32 FMAs at 67 TFLOP/s = "
+        f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms) -> kernel at {100 * bound_ms / ms:.1f}% of the "
+        f"bound, {ms / library_ms:.3f}x the library call, the older route {(old1 + old2) / 2 / ms:.2f}x "
+        f"the kernel [{card}]")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "readings_ms": [ms1, ms2], "older_route_ms": [old1, old2]}
+
+
 def phase_wide_times(ce_full, rank_full, card):
     """The wide main path's kernels at B=256, V=1M, H=512: the CE entries in
-    both forms (phase_ce_times), the rank kernel at k=20 (phase_times: the
-    older route with all states staged) and at k=128 (its wide form). Each
-    with its plain version, a library yardstick and its bound. Returns
-    {entry: JSON fields}."""
+    both forms (phase_ce_times), the rank kernel at k=20 (its tensor-core
+    route, at B=256 and B=16, wide_rank_times) and at k=128 (the older
+    route's wide form). Each with its plain version, a library yardstick
+    and its bound. Returns {entry: JSON fields}."""
     import torch
 
     from bsarec_tpu_torch.ops import rank
 
     ce32 = phase_ce_times(ce_full, card)
     ce16 = phase_ce_times(ce_full, card, BF16)
-    rank20 = phase_times(rank_full, card)
+    rank20 = wide_rank_times(rank_full, card, rank_full[0].shape[0])
+    rank20["b16"] = wide_rank_times(rank_full, card, 16)
     states, table, bitmask = rank_full
     b, h = states.shape
     v, k = table.shape[0], 128
-    check(rank.wide_route(h, k) and not rank.wide_route(h, TOP_K), "rank routes at H=512")
+    check(rank.wide_route(h, k) and not rank.tc_route(b, h, k) and not rank.wide_route(h, TOP_K),
+          "rank routes at H=512")
     ms = cuda_ms(lambda: rank.streaming_masked_topk(states, table, bitmask, k, v), iters=10)
     plain_ms = cuda_ms(lambda: rank.streaming_masked_topk_plain(states, table, bitmask, k, v),
                        iters=2, warmup=1)
@@ -3282,19 +3392,24 @@ def main() -> int:
         "bf16_path_launches": bf16_paths["sasrec"]["fused_dropout"],
         "bf16_path_bf16_launches": bf16_paths["sasrec"]["fused_dropout_bf16"],
     })
-    # the wide main path (H = 512): the rank kernel on its older route, the CE
-    # kernels on their wide routes; launches from its first run (one epoch)
+    # the wide main path (H = 512): the rank kernel on its tensor-core route,
+    # the CE kernels on their wide routes; launches from its first run (one
+    # epoch), every one on rank_wide_tf32_kernel (phase_wide_train checks it)
     wide_train = wide_paths["train"]
     kernels.append({
         "name": f"streaming_masked_topk (H={WIDE_H})",
+        "kernel": "rank_wide_tf32_kernel",
         "route": "cuda",
         "source": "bsarec_tpu_torch/csrc/streaming_rank.cu",
         "replaces": "bsarec_tpu/ops/pallas_rank.py:165",
         "launches": wide_train["streaming_masked_topk"],
+        "tc_launches": wide_train["rank_tc"],
         "resume_launches": wide_paths["resume"]["streaming_masked_topk"],
         "bf16_path_launches": wide_paths["bf16"]["streaming_masked_topk"],
+        "eval_pass_s": wide_paths["eval_s"],
         "max_abs_err": wide_rank_err,
-        **{k: v for k, v in wide_times["rank"].items() if k != "k128"},
+        **{k: v for k, v in wide_times["rank"].items() if k not in ("k128", "b16")},
+        "b16": wide_times["rank"]["b16"],
         "k128_wide_form": wide_times["rank"]["k128"],
     })
     for name in ("ce_logz", "ce_grads"):

@@ -41,3 +41,14 @@ def test_ablation_variants_apply_to_the_source():
     texts = ablate_ce_tc.sources()
     assert list(texts) == list(ablate_ce_tc.VARIANTS)
     assert len(set(texts.values())) == len(texts)
+
+
+def test_rank_ablation_variants_apply_to_the_source():
+    """`tools/ablate_rank_tc.py` cuts parts out of the rank kernel's
+    tensor-core route by text replacement; each replacement still matches
+    the source exactly once."""
+    from bsarec_tpu_torch.tools import ablate_rank_tc
+
+    texts = ablate_rank_tc.sources()
+    assert list(texts) == list(ablate_rank_tc.VARIANTS)
+    assert len(set(texts.values())) == len(texts)

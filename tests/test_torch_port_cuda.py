@@ -61,8 +61,9 @@ def _masked_logits(states, table, seen, n_valid):
     (3, 12101, 48, 1, 12101, False),
     (64, 20011, 64, 128, 20006, True),
     (37, 20011, 64, 20, 20011, True),
-    # the older route's wide form (states staged in hidden chunks) at k = 128
-    # and H = 1024, and its whole-state form at H = 512, k = 20
+    # past H = 256 at k <= 32 the tensor-core route (H = 512 and 1024, k =
+    # 20); at k = 128 the older route's wide form (states staged in hidden
+    # chunks)
     (37, 5003, 512, 20, 4990, True),
     (37, 5003, 512, 128, 4990, True),
     (5, 3001, 1024, 20, 3001, True),
@@ -73,14 +74,17 @@ def test_cuda_kernel_matches_plain(cuda_device, b, v, h, k, n_valid, integer):
     s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
     bm = rank.seen_ids_to_bitmask(torch.from_numpy(rank.dedupe_seen_rows(seen)).to(cuda_device), v)
     np.testing.assert_array_equal(bm.cpu().numpy(), rank.build_seen_bitmask(seen, v))
-    before = (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.wide_launches)
+    f = rank.streaming_masked_topk
+    before = (f.launches, f.wide_launches, f.tc_launches)
     got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
     got_v2, got_i2 = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
     torch.cuda.synchronize()
-    wide = rank.wide_route(h, k)
-    assert wide == (h == 1024 or (h == 512 and k == 128))
-    assert (rank.streaming_masked_topk.launches, rank.streaming_masked_topk.wide_launches) == (
-        before[0] + 2, before[1] + 2 * wide)
+    tc = rank.tc_route(b, h, k)
+    assert tc == (h > 256 and k <= 32)
+    assert rank.wide_route(h, k) == (h == 1024 or (h == 512 and k == 128))
+    wide = not tc and rank.wide_route(h, k)  # the older route's form launched
+    assert (f.launches, f.wide_launches, f.tc_launches) == (
+        before[0] + 2, before[1] + 2 * wide, before[2] + 2 * tc)
     assert torch.equal(got_v, got_v2) and torch.equal(got_i, got_i2)
     want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
     if integer:
@@ -535,6 +539,103 @@ def test_cuda_rank_route_boundary(cuda_device, b, v, h, k, n_valid, all_seen, on
         old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_onchip=False)
         torch.cuda.synchronize()
         assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,k,tc", [
+    (256, 256, 20, False), (256, 260, 20, True), (256, 512, 32, True), (256, 512, 33, False),
+    (1, 512, 20, True), (256, 512, 20, True), (257, 512, 20, True), (300, 260, 32, True),
+    (300, 256, 32, False),
+])
+def test_cuda_rank_tc_route_boundary(cuda_device, b, h, k, tc):
+    """The tensor-core route's bounds (H > 256, k <= 32, any B): the route
+    the shape names, its counter, and on integer inputs (exact scores, many
+    ties) values and ids bit-equal to the plain version and, on that route,
+    to the older route on the same inputs (n_valid < V, an all-seen row)."""
+    v, n_valid = 3001, 2990
+    states, table, seen = _rank_inputs(b, v, h, seed=b + h + k, integer=True)
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    bm = torch.from_numpy(rank.build_seen_bitmask(seen, v)).to(cuda_device)
+    bm[b // 2] = -1
+    assert rank.tc_route(b, h, k) == tc and not rank.onchip_route(b, h, k)
+    f = rank.streaming_masked_topk
+    before = (f.launches, f.tc_launches, f.wide_launches)
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert (f.launches, f.tc_launches, f.wide_launches) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc and rank.wide_route(h, k)))
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert got_i[b // 2].tolist() == list(range(k)) and not got_v[b // 2].any()
+    old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_tc=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seen_value", [0.0, float("-inf")], ids=["eval", "serving"])
+@pytest.mark.parametrize("b,v,h,k,n_valid,integer", [
+    (300, 20011, 512, 20, 20006, False),  # two groups of 256 rows
+    (1, 12101, 512, 20, 12101, False),
+    (256, 40009, 512, 32, 40000, False),
+    (37, 5003, 260, 32, 4990, True),  # H off the 16-column step
+    (37, 5003, 1024, 1, 5003, True),
+    (5, 300, 512, 20, 10, False),  # fewer valid items than k
+    (9, 4099, 512, 20, 4099, True),
+])
+def test_cuda_rank_tc_matches_plain_and_the_older_route(cuda_device, b, v, h, k, n_valid, integer,
+                                                        seen_value):
+    """The tensor-core route (rank_wide_tf32_kernel, 3xTF32) in both modes,
+    with an all-seen row where B > 1: on integer inputs values and ids bit-equal to the
+    plain version and to the older route; on float inputs (the table scaled
+    by sqrt(64 / H), so that the scores keep H = 64's spread) values within
+    RTOL/ATOL of both, each returned id checked by its plain score, no id
+    twice in a row; two calls bit-equal; unfilled slots (-inf, 0)."""
+    states, table, seen = _rank_inputs(b, v, h, seed=v + k, integer=integer)
+    if not integer:
+        table *= np.float32(np.sqrt(64 / h))
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    bm = torch.from_numpy(rank.build_seen_bitmask(seen, v)).to(cuda_device)
+    all_seen = b > 1
+    if all_seen:
+        bm[b // 2] = -1
+    assert rank.tc_route(b, h, k)
+    before = rank.streaming_masked_topk.tc_launches
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid, seen_value=seen_value)
+    again_v, again_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid,
+                                                  seen_value=seen_value)
+    old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_tc=False, seen_value=seen_value)
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid,
+                                                      seen_value=seen_value)
+    torch.cuda.synchronize()
+    assert rank.streaming_masked_topk.tc_launches == before + 2
+    assert torch.equal(got_v, again_v) and torch.equal(got_i, again_i)
+    finite = torch.isfinite(want_v)
+    assert torch.equal(torch.isfinite(got_v), finite) and torch.equal(torch.isfinite(old_v), finite)
+    assert (got_i[~finite] == 0).all()
+    if all_seen and seen_value == 0.0:  # every valid score 0.0: the first ids, in order
+        assert got_i[b // 2, :min(k, n_valid)].tolist() == list(range(min(k, n_valid)))
+    elif all_seen:
+        assert not finite[b // 2].any()
+    if integer:
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+        assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+        return
+    torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got_v, old_v, rtol=RTOL, atol=ATOL)
+    seen_all = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
+    if all_seen:
+        seen_all[b // 2, 20:] = np.arange(v)
+    logits = _masked_logits(states, table, seen_all, n_valid)
+    if seen_value != 0.0:  # serving: seen items (and item 0) never rank
+        logits[np.arange(b)[:, None], seen_all] = -np.inf
+        logits[:, 0] = -np.inf
+    ids = got_i.cpu().numpy().astype(np.int64)
+    by_score = np.take_along_axis(logits, ids, axis=1)
+    fin = finite.cpu().numpy()
+    np.testing.assert_allclose(by_score[fin], want_v.cpu().numpy()[fin], rtol=RTOL, atol=ATOL)
+    for r in range(b):
+        assert len(set(ids[r][fin[r]].tolist())) == int(fin[r].sum())
 
 
 @pytest.mark.cuda

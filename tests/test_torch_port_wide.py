@@ -1,8 +1,9 @@
 """The port at hidden widths past 256, against the JAX package, on the CPU.
 
-On the card the streaming-CE kernels take their wide routes at H > 256
-and the rank kernel stages its states in hidden chunks where all of them
-do not fit in shared memory; those are held against the plain versions
+On the card the streaming-CE kernels take their wide routes at H > 256,
+the rank kernel its tensor-core route at H > 256 and k <= 32, and
+elsewhere its older route, which stages its states in hidden chunks where
+all of them do not fit in shared memory; those are held against the plain versions
 in `tests/test_torch_port_cuda.py` and `chip_smoke.py`. Here the plain
 versions, which the wrappers run on the CPU, are held against the JAX
 package's Pallas kernels in interpret mode at such widths, and both CLIs
@@ -17,7 +18,9 @@ gradients within `parity.BF16_GRAD_TOL` of each tensor's largest entry
 exact in any summation order; `parity.BF16_WIDE_GRAD_TOL`, the card's
 limit for random inputs, is held between the plain version reordered and
 the fp32 form); the rank kernel on integer inputs (exact dot products), values and ids
-equal, tie order included; the two CLIs' epoch losses within rtol 1e-5,
+equal, tie order included (in the serving mode against JAX's
+`serving_masked_topk`, ids where the value is finite); the two CLIs'
+epoch losses within rtol 1e-5,
 as `tests/test_torch_port_train.py` holds an Adam step."""
 
 import dataclasses
@@ -33,6 +36,7 @@ from bsarec_tpu.ops.pallas_ce import streaming_ce_stats as jax_streaming_ce_stat
 from bsarec_tpu.ops.pallas_ce import streaming_softmax_ce as jax_streaming_softmax_ce
 from bsarec_tpu.ops.pallas_rank import build_seen_bitmask as jax_build_seen_bitmask
 from bsarec_tpu.ops.pallas_rank import streaming_masked_topk as jax_streaming_masked_topk
+from bsarec_tpu.serving import serving_masked_topk as jax_serving_masked_topk
 from bsarec_tpu_torch.config import ModelConfig
 from bsarec_tpu_torch.data.corpus import Corpus
 from bsarec_tpu_torch.data.pipeline import SeqRecData
@@ -224,6 +228,51 @@ def test_rank_plain_matches_jax_at_wide_h(h, k):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     assert got_i[2].tolist() == list(range(k)) and not got_v[2].any()
+
+
+@pytest.mark.parametrize("seen_value", [0.0, float("-inf")], ids=["eval", "serving"])
+@pytest.mark.parametrize("h,k", [(260, 1), (260, 32), (512, 1), (512, 32)])
+def test_rank_plain_matches_jax_at_the_tc_route_edges(h, k, seen_value):
+    """The plain version at the shapes of the rank kernel's tensor-core
+    route's edges (H = 260, off its 16-column step, and 512; k = 1 and its
+    bound 32; B = 300, over one group of 256 rows; V = 5000, n_valid < V; a
+    row that has seen every item), integer inputs (exact scores, many
+    ties): values and ids equal. Eval mode (seen -> 0.0) against JAX's
+    `_rank_kernel` in interpret mode; serving mode (seen -> -inf) against
+    JAX's `serving_masked_topk` on the same scores with the columns >=
+    n_valid at -inf (its ids compared where the value is finite: the port
+    fills the rest with 0)."""
+    b, v, n_valid = 300, 5000, 4990
+    rng = np.random.default_rng(h + k)
+    states = rng.integers(-2, 3, size=(b, h)).astype(np.float32)
+    table = rng.integers(-2, 3, size=(v, h)).astype(np.float32)
+    seen = rng.integers(1, v, size=(b, 20)).astype(np.int32)
+    seen[:, 1] = seen[:, 0]
+    seen[:, 14:] = 0
+    seen = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
+    seen[270, 20:] = np.arange(v)  # in the second group
+    got_v, got_i = rank.streaming_masked_topk(
+        torch.from_numpy(states), torch.from_numpy(table),
+        torch.from_numpy(rank.build_seen_bitmask(seen, v)), k=k, n_valid=n_valid,
+        seen_value=seen_value,
+    )
+    if seen_value == 0.0:
+        want_v, want_i = jax_streaming_masked_topk(
+            jnp.asarray(states), jnp.asarray(table), jnp.asarray(jax_build_seen_bitmask(seen, v)),
+            k=k, n_valid=n_valid, interpret=True,
+        )
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        assert got_i[270].tolist() == list(range(k)) and not got_v[270].any()
+        return
+    scores = jnp.asarray(states) @ jnp.asarray(table).T
+    scores = jnp.where(jnp.arange(v) < n_valid, scores, -jnp.inf)
+    want_v, want_i = jax_serving_masked_topk(scores, jnp.asarray(seen), k)
+    want_v, want_i = np.asarray(want_v), np.asarray(want_i)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    finite = np.isfinite(want_v)
+    np.testing.assert_array_equal(got_i.numpy()[finite], want_i[finite])
+    assert (got_i.numpy()[~finite] == 0).all() and not finite[270].any()
 
 
 def _toy_seqs(n_users=24, n_items=80, seed=3):
