@@ -25,14 +25,9 @@
 // holds all 64 columns of the 32 rows 4w + {0..3} + 32i.
 // Shared memory at H = 64: states 69,632 B, the table ring 34,816 B.
 //
-// The CE kernels' bf16-operand form (BF16 = true) rounds both operands to
-// bf16 where they enter shared memory: the states as they are staged, and
-// each table tile in place, by the thread whose copies brought it in,
-// after its cp.async wait and before the tile's barrier (round_tile). The
-// product loop is unchanged: a product of two bf16 values is exact in
-// fp32, so the logits are fp32 sums of exact products, as a bf16 matmul
-// with fp32 accumulation gives them. The fp32 form compiles to the code
-// it had before the template parameter.
+// The CE kernels' bf16-operand form runs its own kernels on this route, on
+// the tensor cores (tensor_core.cuh's on-chip skeleton); round_bf16 serves
+// the older sweeps' bf16 form.
 
 #pragma once
 
@@ -84,21 +79,8 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
   }
 }
 
-// Round, in place, the elements of a tile in dst that this thread's
-// load_tile_async copies brought in (call it after cp_async_wait_all and
-// before the barrier that publishes the tile).
-__device__ __forceinline__ void round_tile(float* dst, int H) {
-  const int q = H / 4;
-  for (int i = threadIdx.x; i < VT * q; i += THREADS) {
-    float4* p = reinterpret_cast<float4*>(dst + (i / q) * LD + 4 * (i % q));
-    *p = round_bf16(*p);
-  }
-}
-
-// Every state row into sS (row stride LD), rows >= B and columns >= H zero,
-// rounded to bf16 when BF16; the ring's columns >= H zero in both slots (the
-// copies never write them).
-template <bool BF16 = false>
+// Every state row into sS (row stride LD), rows >= B and columns >= H zero;
+// the ring's columns >= H zero in both slots (the copies never write them).
 __device__ __forceinline__ void stage_states(float* sS, float* sT, const float* __restrict__ states,
                                              int B, int H) {
   const int tid = threadIdx.x, q = H / 4;
@@ -106,7 +88,6 @@ __device__ __forceinline__ void stage_states(float* sS, float* sT, const float* 
     const int r = i / (MAX_H / 4), c4 = i - r * (MAX_H / 4);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < B && c4 < q) v = __ldg(reinterpret_cast<const float4*>(states + (size_t)r * H) + c4);
-    if constexpr (BF16) v = round_bf16(v);
     *reinterpret_cast<float4*>(sS + r * LD + 4 * c4) = v;
   }
   for (int i = tid; i < 2 * VT * (MAX_H - H); i += THREADS)

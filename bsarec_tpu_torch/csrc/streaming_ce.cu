@@ -10,26 +10,29 @@
 //     The forward's gold logit takes rounded operands too. The one-hot
 //     corrections dT[a_i] -= dloss_i * s_i and ds_i -= dloss_i * T[a_i]
 //     read the unrounded fp32 states and rows (pallas_ce.py:507-514,
-//     553-555). Rounding happens where an operand enters shared memory
-//     (stage_rows, onchip::stage_states, onchip::round_tile) and where p is
-//     stored, so the product loops are the fp32 form's; except on the wide
-//     route (H > 256), whose bf16 form runs ce_fwd_wide_tc_kernel and
-//     ce_bwd_wide_tc_kernel, every product on the tensor cores (their heads
-//     say more). There the fp32 form runs on the tensor cores too, in
+//     553-555). On the on-chip route (B <= 256, H <= 64) the bf16 form runs
+//     ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel and on the wide
+//     route (H > 256) ce_fwd_wide_tc_kernel and ce_bwd_wide_tc_kernel,
+//     every product on the tensor cores (their heads say more); the older
+//     sweeps round where an operand enters shared memory (stage_rows) and
+//     where p is stored, so their product loops are the fp32 form's. On
+//     the wide route the fp32 form runs on the tensor cores too, in
 //     3xTF32, which keeps fp32 accuracy: ce_fwd_wide_tf32_kernel and
 //     ce_bwd_wide_tf32_kernel.
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
-//   - _fwd_kernel    -> ce_fwd_onchip_kernel, ce_fwd_partial_kernel or, past
-//       H = 256, ce_fwd_wide_tf32_kernel (fp32) and ce_fwd_wide_tc_kernel
-//       (bf16), then ce_fwd_merge_kernel:
+//   - _fwd_kernel    -> ce_fwd_onchip_kernel (ce_fwd_onchip_tc_kernel in the
+//       bf16 form), ce_fwd_partial_kernel or, past H = 256,
+//       ce_fwd_wide_tf32_kernel (fp32) and ce_fwd_wide_tc_kernel (bf16),
+//       then ce_fwd_merge_kernel:
 //       per row, logZ = logsumexp(s . T^T) over the columns < n_valid and,
 //       when answers are given, loss = logZ - <s, T[a]>;
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
 //       (zeros where a is outside [0, V));
-//   - _grads_kernel  -> ce_bwd_onchip_kernel, ce_bwd_sweep_kernel or, past
-//       H = 256, ce_bwd_wide_tf32_kernel (fp32) and ce_bwd_wide_tc_kernel
-//       (bf16), then ce_ds_reduce_kernel (ce_ds_reduce_tc_kernel): with
+//   - _grads_kernel  -> ce_bwd_onchip_kernel (ce_bwd_onchip_tc_kernel in the
+//       bf16 form), ce_bwd_sweep_kernel or, past H = 256,
+//       ce_bwd_wide_tf32_kernel (fp32) and ce_bwd_wide_tc_kernel (bf16),
+//       then ce_ds_reduce_kernel (ce_ds_reduce_tc_kernel): with
 //       p = exp(s . T^T - logZ) * dloss (0 past n_valid),
 //         ds = p @ T - dloss * T[a]   and   dT = p^T @ s,  then
 //         dT[a_i] -= dloss_i * s_i.
@@ -51,9 +54,9 @@
 // ~0.08 ms each at 3.35 TB/s. So both are bound by fp32 FMAs. The gather
 // moves B*H floats and is bound by latency. The bf16-operand form's
 // bound is its bytes (0.0765 and 0.1529 ms; its products at the bf16
-// tensor rate, 989 TFLOP/s, take 0.033 and 0.099), but it runs the fp32
-// form's FMA loops, so the fp32 FMAs bound it too (but for the wide
-// route's tensor-core kernels). The wide fp32 form's 3xTF32 products are
+// tensor rate, 989 TFLOP/s, take 0.033 and 0.099); its on-chip and wide
+// kernels run on the tensor cores, the older sweeps' bf16 form on the fp32
+// form's FMA loops. The wide fp32 form's 3xTF32 products are
 // bound by three passes at the TF32 tensor rate (495 TFLOP/s): at B=256,
 // V=1M, H=512 the backward 4.77 ms and the forward 1.589 ms, against
 // 11.74 and 3.913 ms for the same work in fp32 FMAs.
@@ -70,7 +73,8 @@
 //     - the on-chip route, B <= 256 and H <= 64 (the training path):
 //       ce_fwd_onchip_kernel on onchip_tile.cuh's skeleton, one block of
 //       256 threads per SM: every state row staged once, a cp.async ring
-//       of two table tiles, 8 x 8 logits a thread, one barrier a tile;
+//       of two table tiles, 8 x 8 logits a thread, one barrier a tile (the
+//       bf16 form: ce_fwd_onchip_tc_kernel, on the tensor cores);
 //     - the wide route, H > 256: a tensor-core kernel in either form, one
 //       block per SM, the logits of 256 batch rows x 128 catalog columns a
 //       tile, the table read once, the hidden dimension staged in chunks,
@@ -89,7 +93,8 @@
 //   backward, pass 1: one block per vocab split, on one of three routes
 //     that the C entry picks by shape before the launch:
 //     - the on-chip route, B <= 256 and H <= 64 (the training path's B=256,
-//       H=64): ce_bwd_onchip_kernel, one block of 256 threads per SM. What
+//       H=64): ce_bwd_onchip_kernel (the bf16 form: ce_bwd_onchip_tc_kernel,
+//       on the tensor cores), one block of 256 threads per SM. What
 //       the TPU kernel keeps in VMEM stays on chip for the whole sweep:
 //       every state row is staged into shared memory once (rows past B and
 //       columns past H zero), and each thread holds an 8 x 8 block of the
@@ -143,8 +148,10 @@
 // (chip_smoke.py, bsarec_tpu_torch/tools/time_kernels.py): the on-chip
 // routes' backward takes ~2.66 ms, 55% of its 1.4672 ms fp32 bound (the
 // sweep route's ~3.53 ms, 41.6%), their forward ~0.945 ms, 52% of 0.4891
-// ms (the partial-kernel route's ~1.33 ms, 37%); the bf16-operand form
-// ~2.86 and ~1.00 ms (chip_smoke.py, in turns with the fp32 form). At
+// ms (the partial-kernel route's ~1.33 ms, 37%); the bf16-operand form's
+// tensor-core pair ~0.60 and ~0.18 ms, 25% and 42% of their byte bounds
+// (chip_smoke.py, tools/time_kernels.py, in turns; the FMA form it
+// replaced ~2.86 and ~1.00). At
 // H = 512 the 3xTF32 kernels take ~5.0 ms (forward, 32% of 1.589 ms) and
 // ~14.6 ms (backward, 33% of 4.766 ms); the bf16 form's tensor-core
 // kernels ~5.3 ms (backward, 23% of its 1.223 ms byte bound) and ~1.08 ms
@@ -318,7 +325,6 @@ ce_fwd_partial_kernel(const float* __restrict__ states, const float* __restrict_
 // fixed order (offsets 1, 2, 4) and lane tx = 0 writes one (m, s) per
 // (split, row). No value goes through shared memory, so the ring's
 // barrier is the tile's only one.
-template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
                      int V, int H, int n_valid, int tiles_per_split,
@@ -332,7 +338,7 @@ ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
 
-  onchip::stage_states<BF16>(sS, sT, states, B, H);
+  onchip::stage_states(sS, sT, states, B, H);
   float m[8], s[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -344,7 +350,6 @@ ce_fwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
     onchip::cp_async_wait_all();  // this thread's copies of tile t have landed
-    if constexpr (BF16) onchip::round_tile(sT + ((t - t_begin) & 1) * VT * OC_LD, H);
     __syncthreads();              // everyone's have; every reader of the other slot is done
     if (t + 1 < t_end)
       onchip::load_tile_async(sT + ((t + 1 - t_begin) & 1) * VT * OC_LD, table, j0 + VT, V, H);
@@ -632,7 +637,6 @@ ce_bwd_sweep_kernel(const float* __restrict__ states, const float* __restrict__ 
 // Each product reads two 16-byte values from shared memory for every 32 FMAs
 // (16 FMAs per load). Rows and columns past B and H are zero in shared
 // memory, so the products run at the padded 256 x 64 shape.
-template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__ table,
                      const long long* __restrict__ answers, const float* __restrict__ logz,
@@ -654,7 +658,7 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const int q = H / 4;
 
-  onchip::stage_states<BF16>(sS, sT, states, B, H);
+  onchip::stage_states(sS, sT, states, B, H);
   {
     const bool ok = tid < B;
     sZ[tid] = ok ? logz[tid] : 0.f;
@@ -674,7 +678,6 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
   for (int t = t_begin; t < t_end; ++t) {
     const int j0 = t * VT;
     onchip::cp_async_wait_all();  // this thread's copies of tile t have landed
-    if constexpr (BF16) onchip::round_tile(sT + ((t - t_begin) & 1) * VT * OC_LD, H);
     __syncthreads();              // everyone's have; earlier readers of sP are done
     const float* sTt = sT + ((t - t_begin) & 1) * VT * OC_LD;
 
@@ -690,9 +693,7 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = tx + 8 * j;
-          float p = (row_ok && j0 + c < n_valid) ? expf(acc[i][j] - z) * d : 0.f;
-          if constexpr (BF16) p = round_bf16(p);
-          sP[r * OC_PLD + c] = p;
+          sP[r * OC_PLD + c] = (row_ok && j0 + c < n_valid) ? expf(acc[i][j] - z) * d : 0.f;
         }
       }
     }
@@ -787,14 +788,10 @@ ce_bwd_onchip_kernel(const float* __restrict__ states, const float* __restrict__
     }
     if (hit) {  // rare: at most B of the catalog's tiles
       __syncthreads();
-      // the one-hot term takes the unrounded states: in the bf16 form sS
-      // holds rounded ones, so it reads device memory
       for (int h = tid; h < H; h += THREADS)
         for (int i = 0; i < B; ++i) {
           const int a = sA[i];
-          if (a >= j0 && a < j0 + VT)
-            sP[(a - j0) * OC_LD + h] -=
-                sD[i] * (BF16 ? __ldg(states + (size_t)i * H + h) : sS[i * OC_LD + h]);
+          if (a >= j0 && a < j0 + VT) sP[(a - j0) * OC_LD + h] -= sD[i] * sS[i * OC_LD + h];
         }
       __syncthreads();
       for (int i = tid; i < VT * q; i += THREADS) {
@@ -2125,6 +2122,574 @@ ce_fwd_wide_tf32_kernel(const float* __restrict__ states, const float* __restric
   }
 }
 
+// ---- the bf16-operand form on the on-chip route, on the tensor cores -----------
+//
+// ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel: the forward's and the
+// backward's pass 1 in the bf16-operand form at B <= OC_B and H <= OC_H (the
+// counterparts of pallas_ce.py:222 _fwd_kernel and :340 _grads_kernel with
+// dtype="bfloat16", whose products run on the MXU with f32 accumulation).
+// Both run on tensor_core.cuh's on-chip skeleton: one block of 256 threads
+// per SM over a split of whole tiles, every state row staged once in bf16
+// (256 x 64, rows past B and columns past H zero), the table tiles through
+// a cp.async ring of three fp32 staging slots (two tiles ahead in the
+// forward, three in the backward), each thread rounding its own copies
+// into a bf16 slot; every product is mma.sync m16n8k16 with bf16 operands
+// and fp32 accumulators. A warp's MMAs cover only its m16 fragments with a
+// row < B, their count a template parameter picked by one warp-uniform
+// branch (so no MMA is predicated: predicated ones cost a warp
+// synchronisation each), as rank_wide_tf32_kernel does. No scratch and no
+// extra launch: each C entry is this sweep and its pass 2
+// (ce_fwd_merge_kernel<true>, ce_ds_reduce_kernel).
+//
+// Bound at B=256, V=1M, H=64: the fp32 table read once, 256 MB (0.0765 ms
+// at 3.35 TB/s), and for the backward the dT write, 256 MB more (0.1529
+// ms); their products take 0.033 and 0.099 ms at the bf16 tensor rate
+// (989 TFLOP/s). Each 4-byte table element buys 2 B = 512 flop a product,
+// under the H100's ~295 bf16 flop a byte: read once, they are bound by
+// their bytes. Before these kernels the bf16 form ran the fp32 form's FMA
+// loops on rounded operands (0.489 and 1.467 ms of fp32 FMA work). Besides
+// the bytes, each logit costs one expf (16 a clock per SM: 0.069 ms for the
+// 256M logits of a pass) and the products' fragments come through ldmatrix
+// (128 bytes of shared memory a clock per SM).
+//
+// ce_fwd_onchip_tc_kernel: ce_fwd_wide_tc_kernel's tile at one hidden step
+// a tile. Tiles of 256 batch rows x FT_COLS = 128 catalog columns, 8 warps
+// as 4 x 2 warp tiles of 64 x 64 (acc[4][8][4]); per tile four k16 steps of
+// ldmatrix and MMAs from the staged states and the tile's bf16 slot, then
+// each thread folds its logits into an online (max, sum) for each of its 8
+// rows (columns >= n_valid masked); after the split, merge_group. One
+// barrier a tile; two bf16 slots, so a tile's rounding never waits for the
+// MMAs of the tile before. Warp column 1 folds each tile a step late, so
+// that of the two warps an SM sub-partition holds, one runs its MMAs while
+// the other folds. Shared memory: states 36,864 B, two bf16 slots 36,864,
+// three staging slots 104,448, the warps' exchange 2,048: 180,224 B.
+// Deviation from the wide kernels: at one hidden step a tile the fold, not
+// the MMAs, bounds the kernel (with fold_tile's expf and its branch a row
+// it took 0.30 ms of the main shape's ~0.30, tools/ablate_ce_tc.py
+// --onchip), so the epilogue is fold_tile_onchip (ex2.approx, no branch,
+// tree sums; its head), which keeps fold_tile's (max, sum) and merge order
+// but not its bits.
+//
+// ce_bwd_onchip_tc_kernel: tiles of VT = 64 catalog columns (64, not 128: ds
+// stays in registers for the whole split, 64 floats a thread, and a 128-column
+// tile's logits would add 128 more at once). Warp w owns batch rows 32 w ..
+// 32 w + 31 for the logits, p and ds; it holds their states' A fragments in
+// registers for the whole split (32 registers, 8 ldmatrix a tile fewer).
+// Per tile:
+//   logits   [32 x 64] = S_w . T^T, four k16 steps (acc[2][8][4]);
+//   p        = bf16(exp(logit - logZ) * dloss), 0 past n_valid and B:
+//            the logits past n_valid are set to -inf in the rare tile that
+//            reaches past it, and a row past B (every row, at n_valid = 0)
+//            takes logZ = +inf, so expf gives 0 with no branch or select an
+//            element (with a branch around each expf the kernel took 0.98
+//            ms, not 0.70: their latencies were serialized); packed in
+//            registers straight into the A fragments of the next product
+//            (an m16n8 accumulator pair is an m16k16 A fragment) and stored
+//            to p [256][72] in shared memory for dT;
+//   ds       the tile's p . T (K = the tile's 64 columns, T's fragments by
+//            ldmatrix.trans), started from 0 and added to the split's ds,
+//            held in registers, in fp32: a tensor core aligns the addends of
+//            its sum to the largest and truncates the rest, so a sum carried
+//            through every MMA of a split would drift;
+//   dT tile  [64 x 64] = p^T . S over the batch rows (K = 16 ceil(B / 16)):
+//            warps 0-3 take the first half of the k16 blocks and warps 4-7
+//            the second, each as 2 x 2 warp tiles of 32 x 32 (p and S by
+//            ldmatrix.trans), into two fp32 staging tiles [64][72] (8 rows of
+//            a quarter warp's 8-byte stores on distinct banks), summed in
+//            that order as the tile is written (half the chain a warp, and 8
+//            ldmatrix for 16 MMAs where 16 x 32 warp tiles over all of K
+//            take 12);
+//   one-hot  dT[a_i] -= dloss_i * s_i for the answers in the tile, in
+//            ascending i (duplicate answers accumulate in a fixed order),
+//            from the unrounded fp32 states in device memory;
+//            the tile's dT rows written once, coalesced.
+// Two barriers a tile: p complete (which also votes whether an answer
+// falls in the tile), then the dT halves complete; two more where an
+// answer does. Between them, while the dT product runs, each thread
+// rounds its copies of the next tile into the other of two bf16 slots (the
+// copies three tiles ahead), so the second barrier also publishes the next
+// tile. (Taking warps 4-7's ds product a step late, as the forward folds
+// warp column 1's tiles, gained nothing here: 0.60 ms either way.)
+// The split's ds is written to ds_part [n_splits, B, H] once, at the end.
+// Shared memory: states 36,864 B, two bf16 slots 18,432, three staging
+// slots 52,224, p 36,864, the dT halves 36,864, logZ, dloss and the answers
+// 3,072: 184,320 B.
+//
+// Sums run in a fixed order and pass 2 merges the splits in split order:
+// two calls give the same bits. The tensor cores sum a logit's 64 products
+// in their own order, not in ascending h as the FMA kernels did; each
+// product of two bf16 values is exact.
+
+constexpr int FO_SLOT_B = FT_COLS * tc::ONCHIP_LDB;  // a bf16 table slot [FT_COLS][LDB]
+constexpr int FO_SLOT_F = FT_COLS * tc::ONCHIP_LDF;  // an fp32 staging slot [FT_COLS][LDF]
+constexpr long long FO_SMEM = 2LL * (tc::ONCHIP_ROWS * tc::ONCHIP_LDB + 2 * FO_SLOT_B) +
+                              4LL * (tc::ONCHIP_STAGES * FO_SLOT_F + 2 * tc::ONCHIP_ROWS);  // 180,224 B
+constexpr int BO_SLOT_B = VT * tc::ONCHIP_LDB;       // the backward's: [VT][LDB]
+constexpr int BO_SLOT_F = VT * tc::ONCHIP_LDF;       // ... and [VT][LDF]
+constexpr int BO_GLD = tc::ONCHIP_K + 8;             // the dT tile's row stride (floats)
+constexpr long long BO_SMEM =
+    2LL * (2 * tc::ONCHIP_ROWS * tc::ONCHIP_LDB + 2 * BO_SLOT_B) +
+    4LL * (tc::ONCHIP_STAGES * BO_SLOT_F + 2 * VT * BO_GLD + 3 * tc::ONCHIP_ROWS);  // 184,320 B
+static_assert(tc::ONCHIP_ROWS == OC_B && tc::ONCHIP_K == OC_H && THREADS == 256 &&
+                  FO_SMEM <= MAX_SMEM && BO_SMEM <= MAX_SMEM && FT_COLS == 2 * VT,
+              "the on-chip tensor-core kernels: 8 warps over the 256 x 64 batch");
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ce_fwd_onchip_tc_kernel's epilogue: fold_tile's online (max, sum) over
+// the same tile layout, written for the on-chip route, where a tile is
+// one hidden step and the fold, not the MMAs, bounds the kernel:
+//   - each exponential one ex2.approx.ftz of x log2(e) - m log2(e), taken
+//     by one fused multiply-add (2 instructions where expf takes 9; a
+//     relative error of ~1e-6 a term, ~1e-7 on logZ);
+//   - no branch: the 8 rows' maxima, rescales and sums are independent
+//     chains the compiler interleaves (a branch a row serialized them); a
+//     row with no valid column yet keeps m = -inf and sum 0;
+//   - a row's 16 terms summed as a balanced tree, then added to its sum
+//     once (fold_tile adds them one by one), and its maximum likewise.
+// So its bits differ from fold_tile's, in a fixed order all the same.
+__device__ __forceinline__ void fold_tile_onchip(float (&acc)[4][8][4], float (&m)[8],
+                                                 float (&sum)[8], int j0, int n_valid) {
+  constexpr float L2E = 1.4426950408889634f;  // log2(e)
+  if (j0 + FT_COLS > n_valid) {  // the tile reaches past the valid columns
+    const int c0 = j0 + 64 * (threadIdx.x >> 7) + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * j + (e & 1) >= n_valid) acc[i][j][e] = -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q = 2 * i + half;
+      float t[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        t[2 * j] = acc[i][j][2 * half];
+        t[2 * j + 1] = acc[i][j][2 * half + 1];
+      }
+      float mx[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) mx[k] = fmaxf(t[k], t[k + 8]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mx[k] = fmaxf(mx[k], mx[k + 4]);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) mx[k] = fmaxf(mx[k], mx[k + 2]);
+      const float mnew = fmaxf(m[q], fmaxf(mx[0], mx[1]));
+      const bool any = mnew > -INFINITY;
+      // exp(-inf) = 0 on the row's first valid column; nothing to rescale
+      // while no column is valid
+      const float scale = any ? ex2_approx((m[q] - mnew) * L2E) : 1.f;
+      const float ml = any ? mnew * L2E : 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) t[k] = ex2_approx(fmaf(t[k], L2E, -ml));
+#pragma unroll
+      for (int k = 0; k < 8; ++k) t[k] += t[k + 8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) t[k] += t[k + 4];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) t[k] += t[k + 2];
+      sum[q] = sum[q] * scale + (t[0] + t[1]);
+      m[q] = mnew;
+    }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// acc[i][j] += S[64 wm + 16 i, :] . T[64 wn + 8 j, :]^T over the 64 hidden
+// columns, for the warp's m16 fragments with a row < B: all four when FULL
+// (B = 256: no MMA is predicated, so the compiler adds no warp
+// synchronisation around each), else the first n_i
+template <bool FULL>
+__device__ __forceinline__ void onchip_logits_64x64(float (&acc)[4][8][4], const __nv_bfloat16* sS,
+                                                   const __nv_bfloat16* T, int wm, int wn, int lane,
+                                                   int n_i) {
+  constexpr int LDB = tc::ONCHIP_LDB;
+#pragma unroll
+  for (int k16 = 0; k16 < tc::ONCHIP_K; k16 += 16) {
+    uint32_t a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (FULL || i < n_i)
+        tc::ldmatrix_x4(a[i], sS + (64 * wm + 16 * i + tc::a_row(lane)) * LDB + k16 + tc::a_col(lane));
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t r[4];
+      tc::ldmatrix_x4(r, T + (64 * wn + 16 * jp + tc::b_row(lane)) * LDB + k16 + tc::b_col(lane));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (FULL || i < n_i) {
+          tc::mma_bf16(acc[i][2 * jp], a[i], b0);
+          tc::mma_bf16(acc[i][2 * jp + 1], a[i], b1);
+        }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_onchip_tc_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
+                        int V, int H, int n_valid, int tiles_per_split,
+                        float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* sS = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [256][LDB] the states
+  __nv_bfloat16* sT = sS + tc::ONCHIP_ROWS * tc::ONCHIP_LDB;        // [2][FO_SLOT_B] bf16 tiles
+  float* sF = reinterpret_cast<float*>(sT + 2 * FO_SLOT_B);         // [STAGES][FO_SLOT_F] fp32 staging
+  float* xm = sF + tc::ONCHIP_STAGES * FO_SLOT_F;                   // [256] warp column 1's m
+  float* xs = xm + tc::ONCHIP_ROWS;                                 // [256] ... and its sum
+  constexpr int STAGES = tc::ONCHIP_STAGES;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // the warp tile: rows 64 wm, columns 64 wn of a tile
+  // the warp's m16 fragments with a row < B: i < i_end
+  const int i_end = min(max((B - 64 * wm + 15) / 16, 0), 4);
+  const int per = tiles_per_split / (FT_COLS / VT);
+  const int n_tiles = (V + FT_COLS - 1) / FT_COLS;
+  const int t_begin = blockIdx.x * per, n = max(min(t_begin + per, n_tiles) - t_begin, 0);
+
+  tc::stage_states_bf16(sS, states, B, H);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) tc::copy_table_tile<FT_COLS>(sF + s * FO_SLOT_F, table, (t_begin + s) * FT_COLS, V, H);
+    onchip::cp_async_commit();
+  }
+  // row q = 2 i + half of this thread is 64 wm + 16 i + g + 8 half
+  float m[8], sum[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    m[q] = -INFINITY;
+    sum[q] = 0.f;
+  }
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // Warp column 1 folds each tile one step late: the two warps of an SM
+  // sub-partition (w and w + 4, one of each column) then run one's MMAs
+  // while the other folds, the tensor cores beside the FMA and MUFU pipes
+  // (with both folding or both in MMAs between barriers the kernel took
+  // 0.22 ms, not 0.18). Step n only folds the late warps' last tile.
+  const bool late = wn == 1;
+  auto logits = [&](const __nv_bfloat16* T) {
+    if (i_end == 4)  // (warp-uniform) 4 but where B < 256
+      onchip_logits_64x64<true>(acc, sS, T, wm, wn, lane, 4);
+    else if (i_end > 0)
+      onchip_logits_64x64<false>(acc, sS, T, wm, wn, lane, i_end);
+  };
+  for (int s = 0; s <= n; ++s) {
+    const __nv_bfloat16* T = sT + (s & 1) * FO_SLOT_B;
+    if (s < n) {  // (block-uniform)
+      tc::cp_async_wait_group<STAGES - 2>();  // this thread's copies of tile s have landed
+      // its slot was last read by tile s - 2's MMAs, before tile s - 1's barrier
+      tc::round_table_tile<FT_COLS>(sT + (s & 1) * FO_SLOT_B, sF + (s % STAGES) * FO_SLOT_F);
+      __syncthreads();  // every thread's pieces of tile s (at s = 0 the states too)
+      // the staging slot of tile s - 1, whose pieces this thread rounded there
+      if (s + STAGES - 1 < n)
+        tc::copy_table_tile<FT_COLS>(sF + ((s + STAGES - 1) % STAGES) * FO_SLOT_F, table,
+                                     (t_begin + s + STAGES - 1) * FT_COLS, V, H);
+      onchip::cp_async_commit();  // (empty past the last tile: one group a tile)
+      if (!late) logits(T);
+    }
+    const int f = late ? s - 1 : s;  // the tile this warp folds at step s
+    if (f >= 0 && f < n) fold_tile_onchip(acc, m, sum, (t_begin + f) * FT_COLS, n_valid);
+    if (late && s < n) logits(T);
+  }
+  merge_group(m, sum, xm, xs, 0, B, part_m, part_s);
+}
+
+// The backward's two products over a warp's batch rows, for its first NI
+// m16 fragments (those with a row < B; a count known when compiled, so no
+// MMA is predicated): acc[i][j] = S[16 i, :] . T[8 j, :]^T from the
+// states' A fragments sa and the tile T; and part[i][j] = p[16 i, :] .
+// T[:, 8 j] over the tile's 64 columns from p's A fragments pa.
+template <int NI>
+__device__ __forceinline__ void onchip_bwd_logits(float (&acc)[2][8][4], const uint32_t (&sa)[2][4][4],
+                                                  const __nv_bfloat16* T, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < tc::ONCHIP_K / 16; ++kk)
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t r[4];
+      tc::ldmatrix_x4(r, T + (16 * jp + tc::b_row(lane)) * tc::ONCHIP_LDB + 16 * kk + tc::b_col(lane));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        tc::mma_bf16(acc[i][2 * jp], sa[i][kk], b0);
+        tc::mma_bf16(acc[i][2 * jp + 1], sa[i][kk], b1);
+      }
+    }
+}
+
+template <int NI>
+__device__ __forceinline__ void onchip_bwd_ds(float (&part)[2][8][4], const uint32_t (&pa)[2][4][4],
+                                              const __nv_bfloat16* T, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < VT / 16; ++kk)
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t r[4];
+      tc::ldmatrix_x4_trans(r, T + (16 * kk + tc::bt_row(lane)) * tc::ONCHIP_LDB + 16 * jp + tc::bt_col(lane));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        tc::mma_bf16(part[i][2 * jp], pa[i][kk], b0);
+        tc::mma_bf16(part[i][2 * jp + 1], pa[i][kk], b1);
+      }
+    }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_onchip_tc_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                        const long long* __restrict__ answers, const float* __restrict__ logz,
+                        const float* __restrict__ dloss, int B, int V, int H, int n_valid,
+                        int tiles_per_split, float* __restrict__ ds_part,
+                        float* __restrict__ dtable) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  constexpr int LDB = tc::ONCHIP_LDB, STAGES = tc::ONCHIP_STAGES;
+  __nv_bfloat16* sS = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [256][LDB] the states
+  __nv_bfloat16* sPb = sS + tc::ONCHIP_ROWS * LDB;                  // [256][LDB] p
+  __nv_bfloat16* sT = sPb + tc::ONCHIP_ROWS * LDB;                  // [2][BO_SLOT_B] the tiles, bf16
+  float* sF = reinterpret_cast<float*>(sT + 2 * BO_SLOT_B);         // [STAGES][BO_SLOT_F] fp32 staging
+  float* sG = sF + STAGES * BO_SLOT_F;                              // [VT][BO_GLD] the tile's dT,
+  float* sG1 = sG + VT * BO_GLD;                                    // [VT][BO_GLD] in two halves
+  float* sZ = sG1 + VT * BO_GLD;                                    // [256] logZ
+  float* sD = sZ + tc::ONCHIP_ROWS;                                 // [256] dloss
+  int* sA = reinterpret_cast<int*>(sD + tc::ONCHIP_ROWS);           // [256] the answer, -1 outside [0, n_valid)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = 32 * warp;                     // the warp's batch rows (logits, p, ds)
+  const int i_end = min(max((B - r0 + 15) / 16, 0), 2);  // its m16 fragments with a row < B
+  // the dT product: warps 0-3 sum the first half of the batch rows' k16
+  // blocks, warps 4-7 the second; a warp tile of 32 x 32 (rows cm, columns hn)
+  const int kb = (B + 15) / 16, kb0 = (kb + 1) / 2;  // k16 blocks with a row < B; the first half's
+  const int k_begin = warp < 4 ? 0 : kb0, k_end = warp < 4 ? kb0 : kb;
+  const int cm = 32 * ((warp >> 1) & 1), hn = 32 * (warp & 1);
+  const int n_tiles = (V + VT - 1) / VT;
+  const int t_begin = blockIdx.x * tiles_per_split;
+  const int n = max(min(t_begin + tiles_per_split, n_tiles) - t_begin, 0);
+
+  tc::stage_states_bf16(sS, states, B, H);
+  {
+    // logZ +inf for a row past B, or for every row when no column is
+    // valid, so that its p is exp(-inf) = 0 with no mask
+    const bool ok = tid < B;
+    sZ[tid] = ok && n_valid > 0 ? logz[tid] : INFINITY;
+    sD[tid] = ok ? dloss[tid] : 0.f;
+    const long long a = ok ? answers[tid] : -1;
+    sA[tid] = in_catalog(a, n_valid) ? (int)a : -1;
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    if (s < n) tc::copy_table_tile<VT>(sF + s * BO_SLOT_F, table, (t_begin + s) * VT, V, H);
+    onchip::cp_async_commit();
+  }
+  // tile t comes in staging slot t % STAGES, commit group t, and is rounded
+  // into bf16 slot t & 1 by the tile before (by the prologue: tile 0), after
+  // that tile's first barrier, so its second publishes it; tile t + STAGES
+  // is issued into the staging slot then free
+  tc::cp_async_wait_group<STAGES - 1>();  // this thread's copies of tile 0 have landed
+  tc::round_table_tile<VT>(sT, sF);
+  if (STAGES < n) tc::copy_table_tile<VT>(sF, table, (t_begin + STAGES) * VT, V, H);
+  onchip::cp_async_commit();
+  // the warp's states as the logits' A fragments, for the whole split:
+  // rows r0 + 16 i, hidden columns 16 kk .. + 15
+  uint32_t sa[2][4][4];
+  __syncthreads();  // the states, the row scalars and tile 0's bf16 slot
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (i < i_end)
+        tc::ldmatrix_x4(sa[i][kk], sS + (r0 + 16 * i + tc::a_row(lane)) * LDB + 16 * kk + tc::a_col(lane));
+  // the split's ds: row r0 + 16 i + g + 8 half, column 8 j + 2 t4 + e at ds[i][j][2 half + e]
+  float ds[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[i][j][e] = 0.f;
+
+  for (int s = 0; s < n; ++s) {
+    const int j0 = (t_begin + s) * VT;
+    const __nv_bfloat16* T = sT + (s & 1) * BO_SLOT_B;  // the tile, bf16
+    if (i_end > 0) {
+      // the logits: acc[i][j] = S[r0 + 16 i, :] . T[8 j, :]^T
+      float acc[2][8][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      if (i_end == 2)  // (warp-uniform) 2 but where B < 256
+        onchip_bwd_logits<2>(acc, sa, T, lane);
+      else
+        onchip_bwd_logits<1>(acc, sa, T, lane);
+      if (j0 + VT > n_valid) {  // the tile reaches past the valid columns: exp(-inf) = 0 there
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j0 + 8 * j + 2 * t4 + (e & 1) >= n_valid) acc[0][j][e] = acc[1][j][e] = -INFINITY;
+      }
+      // p, rounded to bf16: into sPb, and as the A fragments of p . T:
+      // pa[i][kk] for columns 16 kk .. + 15 takes (row g, columns 2 t4 + {0, 1})
+      // of n8 block 2 kk, then row g + 8, then n8 block 2 kk + 1 likewise.
+      // No branch or select an element: masked logits are -inf and a row past
+      // B (or any row when n_valid is 0) has logZ +inf, so exp() gives 0
+      // (a branch around each expf serialized their latencies)
+      uint32_t pa[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 16 * i + g + 8 * half;
+          const float z = sZ[r], d = sD[r];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const uint32_t u = tc::pack_bf16(expf(acc[i][j][2 * half] - z) * d,
+                                             expf(acc[i][j][2 * half + 1] - z) * d);
+            pa[i][j >> 1][2 * (j & 1) + half] = u;
+            if (i < i_end) *reinterpret_cast<uint32_t*>(sPb + r * LDB + 8 * j + 2 * t4) = u;
+          }
+        }
+      // the tile's ds: part[i][j] = p[r0 + 16 i, :] . T[:, 8 j] over its 64 columns
+      float part[2][8][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+      if (i_end == 2)
+        onchip_bwd_ds<2>(part, pa, T, lane);
+      else
+        onchip_bwd_ds<1>(part, pa, T, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ds[i][j][e] += part[i][j][e];
+    }
+    // does an answer fall in this tile? (the vote is also the barrier after p)
+    const int a_mine = sA[tid];
+    const bool hit = __syncthreads_or(a_mine >= j0 && a_mine < j0 + VT);
+    // the next tile into the other bf16 slot, last read by tile s - 1's
+    // products, before its first barrier (its copies were issued three
+    // tiles ago), while the dT product runs
+    if (s + 1 < n) {
+      tc::cp_async_wait_group<STAGES - 1>();  // this thread's copies of tile s + 1 have landed
+      tc::round_table_tile<VT>(sT + ((s + 1) & 1) * BO_SLOT_B, sF + ((s + 1) % STAGES) * BO_SLOT_F);
+      if (s + 1 + STAGES < n)
+        tc::copy_table_tile<VT>(sF + ((s + 1) % STAGES) * BO_SLOT_F, table,
+                                (t_begin + s + 1 + STAGES) * VT, V, H);
+    }
+    onchip::cp_async_commit();  // (empty past the last tiles: one group a tile)
+
+    // the dT tile, this warp's half of it: dt[i][j] = p[:, cm + 16 i .. + 15]^T .
+    // S[:, hn + 8 j .. + 7] over the k16 blocks [k_begin, k_end) of batch rows
+    {
+      float dt[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dt[i][j][e] = 0.f;
+      for (int k = 16 * k_begin; k < 16 * k_end; k += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          tc::ldmatrix_x4_trans(a[i], sPb + (k + tc::b_row(lane)) * LDB + cm + 16 * i + tc::b_col(lane));
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t r[4];
+          tc::ldmatrix_x4_trans(r, sS + (k + tc::bt_row(lane)) * LDB + hn + 16 * jp + tc::bt_col(lane));
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            tc::mma_bf16(dt[i][2 * jp], a[i], b0);
+            tc::mma_bf16(dt[i][2 * jp + 1], a[i], b1);
+          }
+        }
+      }
+      // sG and sG1 were last read by tile s - 1's write-out, before this
+      // tile's first barrier
+      float* half_tile = warp < 4 ? sG : sG1;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<float2*>(half_tile + (cm + 16 * i + g + 8 * half) * BO_GLD + hn + 8 * j + 2 * t4) =
+                make_float2(dt[i][j][2 * half], dt[i][j][2 * half + 1]);
+    }
+    __syncthreads();  // both halves of the dT tile and the next tile's bf16 slot are complete;
+                      // every reader of p is done
+    constexpr int Q4 = tc::ONCHIP_K / 4;  // float4s a dT row
+    if (hit) {  // rare: at most B of the catalog's tiles
+      // the halves summed in order into sG, then the one-hot term in
+      // ascending i, from the unrounded states (sS holds rounded ones)
+#pragma unroll
+      for (int q = 0; q < VT * Q4 / THREADS; ++q) {
+        const int f = tid + THREADS * q, c = f / Q4, h = (f % Q4) * 4;
+        float4* x = reinterpret_cast<float4*>(sG + c * BO_GLD + h);
+        const float4 y = *reinterpret_cast<const float4*>(sG1 + c * BO_GLD + h);
+        *x = make_float4(x->x + y.x, x->y + y.y, x->z + y.z, x->w + y.w);
+      }
+      __syncthreads();
+      for (int h = tid; h < H; h += THREADS)
+        for (int i = 0; i < B; ++i) {
+          const int a = sA[i];
+          if (a >= j0 && a < j0 + VT) sG[(a - j0) * BO_GLD + h] -= sD[i] * __ldg(states + (size_t)i * H + h);
+        }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int q = 0; q < VT * Q4 / THREADS; ++q) {
+      const int f = tid + THREADS * q, c = f / Q4, h = (f % Q4) * 4;
+      float4 v = *reinterpret_cast<const float4*>(sG + c * BO_GLD + h);
+      if (!hit) {
+        const float4 y = *reinterpret_cast<const float4*>(sG1 + c * BO_GLD + h);
+        v = make_float4(v.x + y.x, v.y + y.y, v.z + y.z, v.w + y.w);
+      }
+      if (j0 + c < V && h < H) *reinterpret_cast<float4*>(dtable + (size_t)(j0 + c) * H + h) = v;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 16 * i + g + 8 * half;
+      if (r >= B) continue;
+      float* dst = ds_part + ((size_t)blockIdx.x * B + r) * H;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int h = 8 * j + 2 * t4;  // H % 4 == 0 and h is even: h < H means h + 1 < H
+        if (h < H) *reinterpret_cast<float2*>(dst + h) = make_float2(ds[i][j][2 * half], ds[i][j][2 * half + 1]);
+      }
+    }
+}
+
 bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 != 0; }
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
@@ -2150,6 +2715,7 @@ extern "C" {
 long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
   const long long ld = H + 4;
   if (wide_route(H)) return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);
+  if (bf16 && onchip_route(B, H)) return which == 0 ? FO_SMEM : BO_SMEM;
   if (which == 0)
     return (long long)sizeof(float) *
            (onchip_route(B, H) ? onchip::STATE_FLOATS + onchip::RING_FLOATS : (BT + VT) * ld);
@@ -2209,10 +2775,11 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
             int n_valid, int n_splits, int tiles_per_split, void* workspace, void* logz,
             void* loss, int bf16, void* stream) {
   const bool wide = wide_route(H);  // a tensor-core kernel in either form
+  const bool tiled = wide || (bf16 && onchip_route(B, H));  // FT_COLS-column tiles
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr) ||
-      (wide && (tiles_per_split % (FT_COLS / VT) != 0 ||
-                (long long)(n_splits - 1) * tiles_per_split * VT >= V)))
+      (tiled && (tiles_per_split % (FT_COLS / VT) != 0 ||
+                 (long long)(n_splits - 1) * tiles_per_split * VT >= V)))
     return (int)cudaErrorInvalidValue;
   const long long smem = streaming_ce_smem_bytes(B, H, 0, bf16);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -2242,7 +2809,7 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
         tiles_per_split, part_m, part_s);
   } else {
     const bool onchip = onchip_route(B, H);
-    auto sweep = onchip ? (bf16 ? ce_fwd_onchip_kernel<true> : ce_fwd_onchip_kernel<false>)
+    auto sweep = onchip ? (bf16 ? ce_fwd_onchip_tc_kernel : ce_fwd_onchip_kernel)
                         : (bf16 ? ce_fwd_partial_kernel<true> : ce_fwd_partial_kernel<false>);
     e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -2321,7 +2888,7 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
         ds_part, static_cast<float*>(dtable));
   } else {
     auto sweep = tc                   ? ce_bwd_wide_tf32_kernel
-                 : onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_kernel<true> : ce_bwd_onchip_kernel<false>)
+                 : onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_tc_kernel : ce_bwd_onchip_kernel)
                                       : (bf16 ? ce_bwd_sweep_kernel<true> : ce_bwd_sweep_kernel<false>);
     e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

@@ -1,9 +1,10 @@
 // Tensor-core building blocks for Hopper (sm_90a), warp-level (mma.sync,
-// not wgmma): the products of ce_bwd_wide_tc_kernel and
-// ce_fwd_wide_tc_kernel (bf16) and of ce_bwd_wide_tf32_kernel and
-// ce_fwd_wide_tf32_kernel (fp32 in 3xTF32, the second half of this file) in
-// streaming_ce.cu, and of rank_wide_tf32_kernel (3xTF32) in
-// streaming_rank.cu. The bf16
+// not wgmma): the products of ce_bwd_wide_tc_kernel, ce_fwd_wide_tc_kernel,
+// ce_bwd_onchip_tc_kernel and ce_fwd_onchip_tc_kernel (bf16; the last two
+// on this file's on-chip skeleton, at its end) and of
+// ce_bwd_wide_tf32_kernel and ce_fwd_wide_tf32_kernel (fp32 in 3xTF32, the
+// second half of this file) in streaming_ce.cu, and of
+// rank_wide_tf32_kernel (3xTF32) in streaming_rank.cu. The bf16
 // fragments are those of
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane l of a
 // warp, g = l >> 2 and t = l & 3:
@@ -202,6 +203,77 @@ __device__ __forceinline__ void copy_chunk_async(float* dst, int ld, const float
     const int i = threadIdx.x + NT * q, r = i / Q, c = (i % Q) * 4;
     const bool full = row0 + r < R && h0 + c < H;
     tc::cp_async_16_zfill(dst + r * ld + c, full ? src + (size_t)(row0 + r) * H + h0 + c : src, full);
+  }
+}
+
+// ---- the on-chip skeleton of the bf16 form (B <= 256, H <= 64) --------------------
+// ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel (streaming_ce.cu) run
+// one block of 256 threads per SM over a vocab split of whole table tiles:
+//   - every state row is staged once (stage_states_bf16), rounded to bf16
+//     (nearest, ties to even) as it is stored, into [ONCHIP_ROWS][ONCHIP_LDB]
+//     bf16, rows >= B and columns >= H zero, so every B <= 256 and H <= 64
+//     runs at the padded 256 x 64 shape: four k16 steps a product;
+//   - table tiles of N rows come by 16-byte cp.async.cg into a ring of
+//     ONCHIP_STAGES fp32 staging slots [N][ONCHIP_LDF] (copy_table_tile,
+//     rows >= V and columns >= H zero-filled), issued ONCHIP_STAGES - 1
+//     tiles ahead, one commit group a tile; once its own copies of a tile
+//     have landed, each thread rounds the pieces they brought in into a
+//     bf16 slot [N][ONCHIP_LDB] (round_table_tile): cp.async and TMA copy
+//     bytes and cannot convert, and a thread's reads of its own copies need
+//     no barrier, so the rounding pass waits for no other thread and holds
+//     no register across a tile (ce_fwd_wide_tc_kernel loads its fp32 rows into
+//     registers a step ahead instead).
+// bf16 rows are padded by 16 bytes (144 B), so the eight rows of each
+// ldmatrix matrix fall on distinct banks; fp32 rows by 16 bytes (272 B), so
+// a quarter warp's 16-byte reads of one row do too. Thread i of the block
+// copies and rounds pieces i + 256 q, row (i + 256 q) / 16, columns
+// ((i + 256 q) % 16) * 4 .. + 3.
+constexpr int ONCHIP_ROWS = 256;             // batch rows held: B <= ONCHIP_ROWS
+constexpr int ONCHIP_K = 64;                 // hidden columns held, padded: H <= ONCHIP_K
+constexpr int ONCHIP_LDB = ONCHIP_K + 8;     // a bf16 row's stride (elements)
+constexpr int ONCHIP_LDF = ONCHIP_K + 4;     // an fp32 staging row's stride (floats)
+constexpr int ONCHIP_STAGES = 3;             // fp32 staging slots in the ring
+
+// Every state row into sS [ONCHIP_ROWS][ONCHIP_LDB], rounded to bf16, rows
+// >= B and columns >= H zero.
+__device__ __forceinline__ void stage_states_bf16(__nv_bfloat16* sS, const float* __restrict__ states,
+                                                  int B, int H) {
+  for (int i = threadIdx.x; i < ONCHIP_ROWS * (ONCHIP_K / 4); i += 256) {
+    const int r = i / (ONCHIP_K / 4), c = (i % (ONCHIP_K / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < B && c < H) v = __ldg(reinterpret_cast<const float4*>(states + (size_t)r * H + c));
+    *reinterpret_cast<uint2*>(sS + r * ONCHIP_LDB + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+}
+
+// Issue this thread's cp.async copies of table rows [row0, row0 + N), hidden
+// columns [0, ONCHIP_K), into the fp32 staging slot dst [N][ONCHIP_LDF]:
+// rows >= V and columns >= H zero-filled (H % 4 == 0: a piece lies inside H
+// or past it).
+template <int N>
+__device__ __forceinline__ void copy_table_tile(float* dst, const float* __restrict__ table, int row0,
+                                                int V, int H) {
+  constexpr int Q = ONCHIP_K / 4;  // pieces a row
+  static_assert(N * Q % 256 == 0, "whole pieces a thread");
+#pragma unroll
+  for (int q = 0; q < N * Q / 256; ++q) {
+    const int i = threadIdx.x + 256 * q, r = i / Q, c = (i % Q) * 4;
+    const bool full = row0 + r < V && c < H;
+    cp_async_16_zfill(dst + r * ONCHIP_LDF + c, full ? table + (size_t)(row0 + r) * H + c : table, full);
+  }
+}
+
+// Round the pieces of src [N][ONCHIP_LDF] that this thread's
+// copy_table_tile brought in into dst [N][ONCHIP_LDB] (call it once they
+// have landed; another thread reads dst only after a barrier).
+template <int N>
+__device__ __forceinline__ void round_table_tile(__nv_bfloat16* dst, const float* src) {
+  constexpr int Q = ONCHIP_K / 4;
+#pragma unroll
+  for (int q = 0; q < N * Q / 256; ++q) {
+    const int i = threadIdx.x + 256 * q, r = i / Q, c = (i % Q) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(src + r * ONCHIP_LDF + c);
+    *reinterpret_cast<uint2*>(dst + r * ONCHIP_LDB + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
 }
 

@@ -28,7 +28,13 @@ kernels stage the hidden dimension in chunks, so their shared memory does
 not grow with H; elsewhere the older sweeps re-stage 64-row batch tiles
 with whole rows, two blocks per SM. `ce_logz.onchip_launches`,
 `ce_grads.onchip_launches`, `ce_logz.wide_launches` and
-`ce_grads.wide_launches` count the first two apart. On the wide route
+`ce_grads.wide_launches` count the first two apart. On the on-chip route
+the fp32 form runs fp32 FMA kernels and the bf16 form its own kernels on
+the tensor cores (`mma.sync` bf16 products with fp32 sums, every state
+row staged once in bf16, the table tiles rounded on chip):
+`ce_fwd_onchip_tc_kernel` (256 batch rows x 128 catalog columns a tile)
+and `ce_bwd_onchip_tc_kernel` (64-column tiles, the split's ds held in
+registers); `onchip_launches` with `bf16_launches` counts them. On the wide route
 both sweeps run on the tensor cores in both forms, one block per SM, so
 `wide_launches` (with `bf16_launches` for the form) counts the
 tensor-core kernels' launches. The forward takes 256 batch rows x 128
@@ -272,21 +278,33 @@ def tc_splits(v: int, tile: int, sms: int) -> tuple[int, int]:
     return n_splits, per * (tile // _VT)
 
 
+def split_plan(b: int, v: int, onchip: bool, wide: bool, bf16: bool, backward: bool,
+               sms: int) -> tuple[int, int]:
+    """(n_splits, tiles_per_split) that `ce_logz` (or, with `backward`,
+    `ce_grads`) launches with on `sms` SMs, for the route (`onchip_route`,
+    `wide_route`) and form of batch `b` and catalog `v`: one block per SM on
+    the on-chip and wide routes, each split whole tiles of its kernel (the
+    wide forward's and the bf16 on-chip forward's 128 columns, the wide
+    backward's 256 (bf16) or 128 (fp32), else 64); on the older sweeps two
+    blocks per SM, the forward's over (splits x batch tiles of 64 rows)."""
+    if wide:
+        tile = (_TC_VT if bf16 else _TF_VT) if backward else _TC_FWD_VT
+        return tc_splits(v, tile, sms)
+    if onchip and bf16 and not backward:  # ce_fwd_onchip_tc_kernel's tiles
+        return tc_splits(v, _TC_FWD_VT, sms)
+    if backward or onchip:
+        return _even_splits(-(-v // _VT), (1 if onchip else 2) * sms)
+    return _even_splits(-(-v // _VT), -(-2 * sms // -(-b // _BT)))
+
+
 def _launch_logz(states, table, answers, n_valid, bf16=False):
     """(loss, logZ) from one `ce_logz` call, in the bf16-operand form when
     `bf16`; loss is None when answers is."""
     b, v, h, index = _check_matrices(states, table)
     if answers is not None:
         _require("answers", answers, torch.int64, (b,), index)
-    # one block per SM on the on-chip and wide routes (the latter's splits
-    # whole 128-column tiles of a tensor-core kernel); elsewhere two blocks
-    # per SM over (splits x batch tiles)
     onchip, wide = onchip_route(b, h), wide_route(h)
-    if wide:
-        n_splits, per = tc_splits(v, _TC_FWD_VT, sm_count(index))
-    else:
-        target = sm_count(index) if onchip else -(-2 * sm_count(index) // -(-b // _BT))
-        n_splits, per = _even_splits(-(-v // _VT), target)
+    n_splits, per = split_plan(b, v, onchip, wide, bf16, False, sm_count(index))
     lib = _lib()
     # the (max, sum) partials, and in the bf16 form on the wide route the
     # bf16 states
@@ -326,13 +344,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     _require("logz", logz, torch.float32, (b,), index)
     _require("dloss", dloss, torch.float32, (b,), index)
     onchip, wide = onchip_route(b, h), wide_route(h)
-    # one block per split: one per SM on the on-chip and wide routes (the
-    # latter's tensor-core kernels take splits of whole tiles of the form's
-    # kernel), two elsewhere
-    if wide:
-        n_splits, per = tc_splits(v, _TC_VT if bf16 else _TF_VT, sm_count(index))
-    else:
-        n_splits, per = _even_splits(-(-v // _VT), (1 if onchip else 2) * sm_count(index))
+    n_splits, per = split_plan(b, v, onchip, wide, bf16, True, sm_count(index))
     lib = _lib()
     work = states.new_empty((lib.ce_grads_workspace_bytes(b, h, int(bf16), n_splits),),
                             dtype=torch.uint8)

@@ -43,7 +43,25 @@ started together, and called on the same inputs; one reading is the
 mean of 10 calls (CUDA events, after one warm-up), the variants timed in
 order and then in reverse.
 
+With `--onchip`, the bf16 form on the on-chip route instead (B=256,
+V=1,000,000, H=64, `ONCHIP_VARIANTS`): both C entries in the bf16 form as
+the source has them (`ce_fwd_onchip_tc_kernel`, `ce_bwd_onchip_tc_kernel`),
+the same shapes routed to the wide route's tensor-core kernels
+(`ce_fwd_wide_tc_kernel`, `ce_bwd_wide_tc_kernel`, which take any
+H % 4 == 0, padding H to 64: the yardstick the on-chip kernels were
+designed against), the on-chip kernels with their MMAs and epilogue alone
+(no table copies, no rounding into bf16, no dT stores), with everything
+but their MMAs (no fragment loads or MMAs), without the forward's fold
+and the backward's expf, and the backward without its dT or its ds
+product, in turns with the fp32 form's kernels and
+the library calls of `chip_smoke.py:bf16_yardsticks`; each variant's logZ
+and gradients are printed against the plain bf16 versions. Every library
+takes one split plan: whole 128-column tiles for the forward and whole
+256-column tiles for the backward (`ops/ce.py:tc_splits`), which every
+kernel there accepts.
+
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py            # needs a card and nvcc
+    python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --onchip   # the H=64 variants
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --check    # the replacements apply (no card)
 
 Prints one JSON line per variant, then the card's name and power limit.
@@ -217,13 +235,79 @@ VARIANTS = {
     "fwd32: split once per staged chunk": FW32_SPLIT_ONCE,
 }
 
+# the bf16 form's on-chip shapes (B <= 256, H <= 64) sent to the wide
+# route's tensor-core kernels: its shared memory, workspaces and both C
+# entries' route
+TO_WIDE = [
+    ("  if (wide_route(H)) return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);",
+     "  if (wide_route(H) || (bf16 && onchip_route(B, H)))\n"
+     "    return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);"),
+    ("  if (!(bf16 && wide_route(H))) return parts;",
+     "  if (!(bf16 && (wide_route(H) || onchip_route(B, H)))) return parts;"),
+    ("  if (!wide_route(H)) return 4LL * n_splits * B * H;",
+     "  if (!(wide_route(H) || (bf16 && onchip_route(B, H)))) return 4LL * n_splits * B * H;"),
+    ("  const bool wide = wide_route(H);  // a tensor-core kernel in either form",
+     "  const bool wide = wide_route(H) || (bf16 && onchip_route(B, H));"),
+    ("  const bool tc = wide_route(H);  // a tensor-core kernel in either form",
+     "  const bool tc = wide_route(H) || (bf16 && onchip_route(B, H));"),
+]
+# ce_fwd_onchip_tc_kernel without its table traffic (the copies and the
+# rounding into bf16: the MMAs and the fold alone), or without its
+# fragment loads and MMAs (the memory path and the fold)
+FO_MMA_AND_EPILOGUE = [
+    ("    if (s < n) tc::copy_table_tile<FT_COLS>(sF + s * FO_SLOT_F, table, (t_begin + s) * FT_COLS, V, H);\n", ""),
+    ("      tc::round_table_tile<FT_COLS>(sT + (s & 1) * FO_SLOT_B, sF + (s % STAGES) * FO_SLOT_F);\n", ""),
+    ("        tc::copy_table_tile<FT_COLS>(sF + ((s + STAGES - 1) % STAGES) * FO_SLOT_F, table,\n"
+     "                                     (t_begin + s + STAGES - 1) * FT_COLS, V, H);\n", "        ;\n")]
+FO_NO_MMA = [("    if (i_end == 4)  // (warp-uniform) 4 but where B < 256\n"
+              "      onchip_logits_64x64<true>(acc, sS, T, wm, wn, lane, 4);\n"
+              "    else if (i_end > 0)\n"
+              "      onchip_logits_64x64<false>(acc, sS, T, wm, wn, lane, i_end);\n", "")]
+# ce_bwd_onchip_tc_kernel likewise: without the table copies, the rounding
+# and the dT stores to device memory; or without its three products'
+# fragment loads and MMAs
+BO_MMA_AND_EPILOGUE = [
+    ("    if (s < n) tc::copy_table_tile<VT>(sF + s * BO_SLOT_F, table, (t_begin + s) * VT, V, H);\n", ""),
+    ("  tc::round_table_tile<VT>(sT, sF);\n"
+     "  if (STAGES < n) tc::copy_table_tile<VT>(sF, table, (t_begin + STAGES) * VT, V, H);\n", ""),
+    ("      tc::round_table_tile<VT>(sT + ((s + 1) & 1) * BO_SLOT_B, sF + ((s + 1) % STAGES) * BO_SLOT_F);\n"
+     "      if (s + 1 + STAGES < n)\n", "      if (false)\n"),
+    ("      if (j0 + c < V && h < H) *reinterpret_cast<float4*>(dtable",
+     "      if (V < 0) *reinterpret_cast<float4*>(dtable")]
+BO_NO_LOGITS_MMA = [("      if (i_end == 2)  // (warp-uniform) 2 but where B < 256\n"
+                      "        onchip_bwd_logits<2>(acc, sa, T, lane);\n"
+                      "      else\n"
+                      "        onchip_bwd_logits<1>(acc, sa, T, lane);\n", "")]
+BO_NO_DS = [("      if (i_end == 2)\n        onchip_bwd_ds<2>(part, pa, T, lane);\n"
+             "      else\n        onchip_bwd_ds<1>(part, pa, T, lane);\n", "")]
+BO_NO_DT = [("      for (int k = 16 * k_begin; k < 16 * k_end; k += 16) {",
+             "      for (int k = 16 * k_begin; k < 0; k += 16) {")]
+BO_NO_MMA = BO_NO_LOGITS_MMA + BO_NO_DS + BO_NO_DT
+FO_NO_FOLD = [("    if (f >= 0 && f < n) fold_tile_onchip(acc, m, sum, (t_begin + f) * FT_COLS, n_valid);\n", "")]
+BO_NO_EXPF = [("            const uint32_t u = tc::pack_bf16(expf(acc[i][j][2 * half] - z) * d,\n"
+               "                                             expf(acc[i][j][2 * half + 1] - z) * d);",
+               "            const uint32_t u = tc::pack_bf16((acc[i][j][2 * half] - z) * d,\n"
+               "                                             (acc[i][j][2 * half + 1] - z) * d);")]
+# variant: replacements, at B=256, V=1M, H=64 (--onchip); the cut variants
+# compute wrong results and are timed only
+ONCHIP_VARIANTS = {
+    "kernel": [],
+    "bf16 on the wide tensor-core kernels": TO_WIDE,
+    "on-chip kernels: MMAs and epilogue only": FO_MMA_AND_EPILOGUE + BO_MMA_AND_EPILOGUE,
+    "on-chip kernels: everything but the MMAs": FO_NO_MMA + BO_NO_MMA,
+    "on-chip kernels: no fold (forward), no expf (backward)": FO_NO_FOLD + BO_NO_EXPF,
+    "on-chip kernels: backward without its dT product": BO_NO_DT,
+    "on-chip kernels: backward without its ds product": BO_NO_DS,
+}
 
-def sources() -> dict[str, str]:
-    """{variant: source text}; raises unless every replacement matches once."""
+
+def sources(variants: dict | None = None) -> dict[str, str]:
+    """{variant: source text} of `variants` (default VARIANTS); raises
+    unless every replacement matches once."""
     base = (CSRC / "streaming_ce.cu").read_text().replace(
         '#include "tensor_core.cuh"', (CSRC / "tensor_core.cuh").read_text())
     out = {}
-    for name, replacements in VARIANTS.items():
+    for name, replacements in (VARIANTS if variants is None else variants).items():
         text = base
         for old, new in replacements:
             if text.count(old) != 1:
@@ -234,7 +318,7 @@ def sources() -> dict[str, str]:
     return out
 
 
-def build(texts: dict[str, str]) -> dict[str, Path]:
+def build(texts: dict[str, str], prefix: str = "v") -> dict[str, Path]:
     sys.path.insert(0, str(ROOT))
     from bsarec_tpu_torch.ops import _build
 
@@ -243,7 +327,7 @@ def build(texts: dict[str, str]) -> dict[str, Path]:
         (OUT / header.name).write_text(header.read_text())
     jobs = {}
     for k, (name, text) in enumerate(texts.items()):
-        src, lib = OUT / f"v{k}.cu", OUT / f"v{k}.so"
+        src, lib = OUT / f"{prefix}{k}.cu", OUT / f"{prefix}{k}.so"
         src.write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -355,13 +439,118 @@ def accuracy_forward(libs: dict, states, table, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_in_turns(calls: dict, iters: int = 10) -> dict:
+    """Each call of `calls` ({name: fn returning a C entry's code}) timed in
+    order, then in reverse (CUDA events, one warm-up): {name: [ms, ms]}."""
+    import torch
+
+    def ms(fn):
+        if fn() != 0:
+            raise SystemExit("ablate_ce_tc: launch failed")
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    readings = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        readings[name].append(ms(calls[name]))
+    return readings
+
+
+def onchip_main() -> None:
+    """The --onchip mode (module docstring)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate_ce_tc: no CUDA device")
+    libs = build(sources(ONCHIP_VARIANTS), prefix="onchip")
+    sys.path.insert(0, str(ROOT))
+    from bsarec_tpu_torch import parity
+    from bsarec_tpu_torch.ops import ce
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    b, v, h = 256, 1_000_000, 64
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(100)  # chip_smoke.py's main CE case
+    states = torch.from_numpy(rng.standard_normal((b, h), dtype=np.float32)).to(dev)
+    table = torch.from_numpy(0.25 * rng.standard_normal((v, h), dtype=np.float32)).to(dev)
+    answers = torch.from_numpy(rng.integers(1, v, size=b)).to(dev)
+    dloss = torch.full((b,), 1.0 / b, device=dev)
+    want_loss, logz = ce.ce_loss_logz_plain(states, table, answers, v, bf16=True)
+    want_ds, want_dt = ce.ce_grads_plain(states, table, answers, logz, dloss, v, bf16=True)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    f_splits, f_per = ce.tc_splits(v, ce._TC_FWD_VT, sm)
+    g_splits, g_per = ce.tc_splits(v, ce._TC_VT, sm)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    calls, keep = {}, []
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        lib.ce_logz_workspace_bytes.argtypes = lib.ce_grads_workspace_bytes.argtypes = [i, i, i, i]
+        lib.ce_logz_workspace_bytes.restype = lib.ce_grads_workspace_bytes.restype = ctypes.c_longlong
+        forms = (1, 0) if name == "kernel" else (1,)
+        for form in forms:
+            f_work = torch.empty((lib.ce_logz_workspace_bytes(b, h, form, f_splits),),
+                                 dtype=torch.uint8, device=dev)
+            g_work = torch.empty((lib.ce_grads_workspace_bytes(b, h, form, g_splits),),
+                                 dtype=torch.uint8, device=dev)
+            loss, z = torch.empty((b,), device=dev), torch.empty((b,), device=dev)
+            ds, dt = torch.empty((b, h), device=dev), torch.empty((v, h), device=dev)
+            keep += [f_work, g_work, loss, z, ds, dt]
+            fwd = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), b, v, h, v, f_splits,
+                   f_per, f_work.data_ptr(), z.data_ptr(), loss.data_ptr(), form)
+            bwd = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
+                   dloss.data_ptr(), b, v, h, v, g_splits, g_per, g_work.data_ptr(), ds.data_ptr(),
+                   dt.data_ptr(), form)
+            tag = name if form else "fp32 kernel"
+            calls[f"forward: {tag}"] = lambda lib=lib, a=fwd: lib.ce_logz(*a, stream())
+            calls[f"backward: {tag}"] = lambda lib=lib, a=bwd: lib.ce_grads(*a, stream())
+            if not form or name.startswith("on-chip kernels:"):
+                continue
+            if calls[f"forward: {tag}"]() != 0 or calls[f"backward: {tag}"]() != 0:
+                raise SystemExit(f"ablate_ce_tc: {name!r} launch failed")
+            torch.cuda.synchronize()
+            errs = parity.grad_errors(ds, dt, want_ds, want_dt, answers, v)
+            print(json.dumps({"accuracy": name, "B": b, "V": v, "H": h,
+                              "logZ vs plain bf16": float(((z - logz).abs() / logz.abs().clamp(min=1.0)).max()),
+                              "loss vs plain bf16": float(((loss - want_loss).abs() / want_loss.abs().clamp(min=1.0)).max()),
+                              "gradients vs plain bf16": errs}), flush=True)
+    (fwd_lib, fwd_name), (back_lib, back_name) = smoke.bf16_yardsticks(states, table, answers)
+
+    def zero(fn):
+        return lambda: (fn(), 0)[1]
+    calls[f"forward: library {fwd_name}"] = zero(fwd_lib)
+    calls[f"backward: library {back_name}"] = zero(back_lib)
+    for name, r in timed_in_turns(calls).items():
+        print(json.dumps({"variant": name, "ms": r, "B": b, "V": v, "H": h}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true", help="only check that the replacements apply")
+    ap.add_argument("--onchip", action="store_true", help="the bf16 on-chip route's variants")
     args = ap.parse_args()
     texts = sources()
     if args.check:
-        print(f"ablate_ce_tc: {len(texts)} variants apply")
+        onchip = sources(ONCHIP_VARIANTS)
+        print(f"ablate_ce_tc: {len(texts)} variants and {len(onchip)} on-chip variants apply")
+        return
+    if args.onchip:
+        onchip_main()
         return
     import numpy as np
     import torch
@@ -423,22 +612,7 @@ def main() -> None:
             calls["fwd32 kernel" if name == "kernel" else name] = (
                 lambda lib=lib, args=args: lib.ce_logz(*args, stream()))
 
-    def ms(fn, iters=10):
-        if fn() != 0:
-            raise SystemExit("ablate_ce_tc: launch failed")
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    readings = {name: [] for name in calls}
-    for name in list(calls) + list(calls)[::-1]:
-        readings[name].append(ms(calls[name]))
-    for name, r in readings.items():
+    for name, r in timed_in_turns(calls).items():
         print(json.dumps({"variant": name, "ms": r, "B": B, "V": V, "H": H}), flush=True)
     del work, f_work, w_work, ds, dt
     torch.cuda.empty_cache()

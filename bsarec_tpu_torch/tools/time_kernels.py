@@ -6,6 +6,9 @@ One reading is the mean of 20 calls (CUDA events, after warm-up) of
 `streaming_masked_topk` at B=256, V=1,000,000, H=64, k=20, in fp32 on
 seeded inputs, as `chip_smoke.py` times them (`time ce_grads kernel`,
 `time ce_logz kernel`, `time streaming_masked_topk kernel`), and of
+`ce_grads(..., dtype="bfloat16")` and `ce_loss_logz(...,
+dtype="bfloat16")` there (rows 4b and 2b, `ce_grads_bf16` and
+`ce_logz_bf16`: the bf16 form on the on-chip route), and of
 `ce_loss_logz` and `ce_grads` at B=256, V=1,000,000, H=512 (the wide
 route's fp32 form, rows 2w and 4w: `ce_logz_fp32_wide`,
 `ce_grads_fp32_wide`), and of `ce_grads(..., dtype="bfloat16")` and
@@ -15,12 +18,16 @@ route's fp32 form, rows 2w and 4w: `ce_logz_fp32_wide`,
 `streaming_masked_topk_wide`) and on its first 16 rows
 (`streaming_masked_topk_wide_b16`); two readings each, in turns (wide
 rank, wide rank at B=16, fp32 wide logz, fp32 wide grads, wide grads,
-wide logz, grads, logz, rank, rank, logz, grads, wide logz, wide grads,
-fp32 wide grads, fp32 wide logz, wide rank at B=16, wide rank). All are public
+wide logz, grads, logz, bf16 grads, bf16 logz, rank, rank, bf16 logz,
+bf16 grads, logz, grads, wide logz, wide grads, fp32 wide grads, fp32
+wide logz, wide rank at B=16, wide rank). All are public
 entries that every version of the port has, so an older checkout's
 package is timed by the same code. Each process first holds `ce_grads`
 against `ce_grads_plain` (GRAD_TOL relative to the largest |plain|
-entry) and two calls bit for bit, at H=64 and, each group of
+entry) and two calls bit for bit, at H=64 (and in the bf16 form there
+against the plain bf16 version at the kernel's logZ, each group of
+`parity.grad_errors` within `parity.BF16_GRAD_TOL`, its `ce_loss_logz`
+within CE_TOL, two calls bit for bit) and, each group of
 `parity.grad_errors` apart, at H=512, the wide `ce_loss_logz` in both
 forms against its plain version (CE_TOL, relative to max(1, |plain|))
 and two calls bit for bit, the wide bf16 `ce_grads` against
@@ -257,6 +264,23 @@ def time_package(package_root: Path) -> dict:
     if err > GRAD_TOL or not (torch.equal(ds, ds2) and torch.equal(dt, dt2)):
         raise SystemExit(f"time_kernels: ce_grads off its plain version ({err}) or not deterministic")
     del ds, dt, ds2, dt2, want_ds, want_dt
+    # the bf16 forms at H=64 (rows 2b and 4b) against their plain versions
+    fwd16 = lambda: ce.ce_loss_logz(states, table, answers, V, dtype="bfloat16")
+    (b_loss, b_logz), (b_loss2, b_logz2) = fwd16(), fwd16()
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, answers, V, bf16=True)
+    fwd16_err = max(float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                    for x, y in ((b_loss, want_loss), (b_logz, want_logz)))
+    if fwd16_err > CE_TOL or not (torch.equal(b_loss, b_loss2) and torch.equal(b_logz, b_logz2)):
+        raise SystemExit(f"time_kernels: bf16 ce_loss_logz at H={H} off its plain version "
+                         f"({fwd16_err}) or not deterministic")
+    grads16 = lambda: ce.ce_grads(states, table, answers, b_logz, d, V, dtype="bfloat16")
+    (ds, dt), (ds2, dt2) = grads16(), grads16()
+    want = ce.ce_grads_plain(states, table, answers, b_logz, d, V, bf16=True)
+    grads16_err = max(parity.grad_errors(ds, dt, *want, answers, V).values())
+    if grads16_err > parity.BF16_GRAD_TOL or not (torch.equal(ds, ds2) and torch.equal(dt, dt2)):
+        raise SystemExit(f"time_kernels: bf16 ce_grads at H={H} off its plain version "
+                         f"({grads16_err}) or not deterministic")
+    del b_loss, b_loss2, b_logz2, want_loss, want_logz, ds, dt, ds2, dt2, want
     r_states, r_table, r_mask = rank_inputs(device)
     rank_err = check_rank(r_states, r_table, r_mask)
     # the wide route's bf16 forms, chip_smoke.py's main wide case's scales
@@ -303,7 +327,8 @@ def time_package(package_root: Path) -> dict:
                          f"version ({wide_err}) or not deterministic")
     del ds, dt, ds2, dt2, want
     torch.cuda.empty_cache()
-    out = {"ce_grads_rel_err": err, "ce_grads_fp32_wide_rel_err": wide32_err,
+    out = {"ce_grads_rel_err": err, "ce_grads_bf16_rel_err": grads16_err,
+           "ce_logz_bf16_rel_err": fwd16_err, "ce_grads_fp32_wide_rel_err": wide32_err,
            "ce_logz_fp32_wide_rel_err": fwd32_err,
            "ce_grads_bf16_wide_rel_err": wide_err,
            "ce_logz_bf16_wide_rel_err": fwd_err,
@@ -330,11 +355,14 @@ def time_package(package_root: Path) -> dict:
     k1, q1 = cuda_ms(wide_rank), cuda_ms(wide_rank16)
     y1, x1, w1, f1 = cuda_ms(wide_fwd32), cuda_ms(wide32), cuda_ms(wide), cuda_ms(wide_fwd)
     g1, l1 = cuda_ms(grads), cuda_ms(logz_fn)
+    bg1, bl1 = cuda_ms(grads16), cuda_ms(fwd16)
     r1, r2 = cuda_ms(rank_fn), cuda_ms(rank_fn)
+    bl2, bg2 = cuda_ms(fwd16), cuda_ms(grads16)
     l2, g2 = cuda_ms(logz_fn), cuda_ms(grads)
     f2, w2, x2, y2 = cuda_ms(wide_fwd), cuda_ms(wide), cuda_ms(wide32), cuda_ms(wide_fwd32)
     q2, k2 = cuda_ms(wide_rank16), cuda_ms(wide_rank)
     out |= {"ce_grads": [g1, g2], "ce_logz": [l1, l2], "streaming_masked_topk": [r1, r2],
+            "ce_grads_bf16": [bg1, bg2], "ce_logz_bf16": [bl1, bl2],
             "streaming_masked_topk_wide": [k1, k2], "streaming_masked_topk_wide_b16": [q1, q2],
             "ce_logz_fp32_wide": [y1, y2], "ce_grads_fp32_wide": [x1, x2],
             "ce_grads_bf16_wide": [w1, w2], "ce_logz_bf16_wide": [f1, f2],

@@ -37,11 +37,22 @@ Phases, each of which raises (exit code 1) when it fails:
    one-hot term read off ce_grads (on the answers against answers of -1)
    equal, up to fp32 rounding, to the sum of dloss_i * s_i over the
    unrounded states. Every case runs twice: in the fp32 form and in the
-   bf16-operand form (`--dtype bf16`) against the plain bf16 versions: its
-   logZ apart from the fp32 form's, its ce_grads at the kernel's logZ
-   within bsarec_tpu_torch/parity.py's BF16_GRAD_TOL of the plain version
-   at that logZ (ds, dT's answer rows and dT's other rows apart), which the
-   fp32 form must exceed on ds and on dT's other rows.
+   bf16-operand form (`--dtype bf16`; on the on-chip route its own
+   tensor-core kernels, ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel)
+   against the plain bf16 versions: its logZ apart from the fp32 form's,
+   its ce_grads at the kernel's logZ within bsarec_tpu_torch/parity.py's
+   BF16_GRAD_TOL of the plain version at that logZ (ds, dT's answer rows
+   and dT's other rows apart), which the fp32 form must exceed on ds and on
+   dT's other rows; on the on-chip route, whose bf16 pair sums its logits
+   in the tensor cores' order, within BF16_WIDE_GRAD_TOL of
+   parity.ce_grads_bf16_in_order, as the wide route's bf16 form is held
+   (the distance from the plain version printed beside), the fp32 control
+   moving to the exact-logit cases. Then both forms at ONCHIP_EXACT_CASES
+   (parity.exact_logit_case inputs at H in {48, 64}, the states scaled by
+   2, the main path's shape among them, whose logits are exact in any
+   summation order): the sharp check of the tensor cores' own summation
+   order, the bf16 form within BF16_GRAD_TOL, which the fp32 form must
+   fail.
 3b. The wide routes (H > 256; the wide phase): the CE kernels in both
    forms at WIDE_CE_CASES (H in {260, 384, 512, 1024}, the main path's
    B=256, V=1M, H=512 among them, odd B, B over one group of 256 rows, V
@@ -692,14 +703,24 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     TF32- and bf16-exact (lo = 0) and every partial sum exact, so both
     tensor-core forward kernels hold the same logits bit for bit and fold
     them by one function in one order, and any difference is a fault of
-    the fp32 kernel's tiles, masking or fold. Returns the largest absolute
-    error of each kernel's outputs."""
+    the fp32 kernel's tiles, masking or fold. The bf16 form on the on-chip
+    route (B <= 256, H <= 64) runs a tensor-core pair too, which sums its
+    logits in the tensor cores' order: on inputs that are not exact it is
+    held as the wide route's (against parity.ce_grads_bf16_in_order within
+    parity.BF16_WIDE_GRAD_TOL, its distance from the plain version printed
+    beside), and the fp32 form, which lies nearer than that limit at
+    H <= 64, must fail only on the exact-logit cases (ONCHIP_EXACT_CASES).
+    Returns the largest absolute error of each kernel's outputs."""
     import torch
 
     from bsarec_tpu_torch import parity
     from bsarec_tpu_torch.ops import ce
 
     bf16 = dtype is not None
+    # the bf16 form's on-chip tensor-core pair, on inputs whose logits are
+    # not exact: held as the wide route's bf16 form is (docstring)
+    onchip_tc = bf16 and not exact and ce.onchip_route(*states.shape)
+    in_order = in_order or onchip_tc
     mapped = ce.map_answers(answers, n_valid)
     logz_onchip_before = ce.ce_logz.onchip_launches
     logz_wide_before = ce.ce_logz.wide_launches
@@ -759,7 +780,8 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
     n_wide = ce.ce_grads.wide_launches - wide_before
     # every wide launch takes a tensor-core kernel, in either form
-    route = "on-chip" if n_onchip else "wide, tensor cores" if n_wide else "sweep"
+    route = (("on-chip, tensor cores" if bf16 else "on-chip") if n_onchip
+             else "wide, tensor cores" if n_wide else "sweep")
     check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0)
           and n_wide == (2 if ce.wide_route(states.shape[1]) else 0),
           f"{case_name}: ce_grads took another route than its shape and form name")
@@ -772,6 +794,7 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
         # the backward through autograd is ce_grads at the kernel's logZ; that
         # call is held against the plain version at the same logZ (parity.py),
         # and the fp32 form, which rounds nothing, must fail the same limit
+        # (but for the on-chip tensor-core pair's inputs that are not exact)
         check(torch.equal(ds, fused_ds) and torch.equal(dt, fused_dt),
               f"{case_name}: the autograd function's gradients differ from ce_grads")
         plain = (parity.ce_grads_bf16_in_order(states, table, answers, logz, d, n_valid) if in_order
@@ -781,10 +804,15 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
                                      *plain, answers, n_valid)
         grad_abs = max(float((fused_ds - plain[0]).abs().max()), float((fused_dt - plain[1]).abs().max()))
         del plain
+        plain_errs = None
+        if onchip_tc:  # a reading beside the limit: the distance from the plain version
+            plain_errs = parity.grad_errors(
+                fused_ds, fused_dt, *ce.ce_grads_plain(states, table, answers, logz, d, n_valid, bf16=True),
+                answers, n_valid)
         tol = parity.BF16_WIDE_GRAD_TOL if in_order and not exact else parity.BF16_GRAD_TOL
         check(max(errs.values()) <= tol,
               f"{case_name}: gradient errors {errs} at the kernel's logZ > {tol}")
-        check(min(control["ds"], control["dT other rows"]) > tol,
+        check(onchip_tc or min(control["ds"], control["dT other rows"]) > tol,
               f"{case_name}: the fp32 form passes the bf16 limit {tol} on ds or dT's other rows: "
               f"{control}")
     else:
@@ -824,6 +852,9 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     order = ", exact logits" if exact else ", logits in ascending h" if in_order else ""
     held = (f"at the kernel's logZ{order}, limit {tol}; the fp32 form against the bf16 plain "
             f"version: {short(control)}" if bf16 else "through autograd")
+    if bf16 and plain_errs is not None:
+        held += (f"; the kernel against the plain bf16 version (cuBLAS's order): {short(plain_errs)}, "
+                 f"the fp32 form required to fail on the exact-logit cases")
     log(f"CE kernels vs plain {case_name}, {dtype or 'float32'} form: ok, logZ rel err {logz_err:.3g}, fused loss {fused_err:.3g}{same_as_bf16}, "
         f"loss through autograd {loss_err:.3g}; gradients {short(errs)} (relative to each group's "
         f"largest |plain|, {held}); {int(off.sum())} answers off the catalog, gather bit-equal; fused ds bit-equal "
@@ -849,12 +880,25 @@ CE_CASES = [
     ("BERT4Rec's table", 256, N_ITEMS + 1, 64, N_ITEMS + 1, "plain"),
 ]
 CE_FORMS = (None, "bfloat16")
+# ... and on parity.exact_logit_case's inputs with the states scaled by 2
+# (at H <= 64 the unscaled logits spread too little for the fp32 control to
+# fail on ds), the i-th seeded with 500 + i: (tag, B, V, H, n_valid). Every
+# logit is exact in any summation order, so the bf16 form's on-chip
+# tensor-core kernels are held within parity.BF16_GRAD_TOL there
+ONCHIP_EXACT_CASES = [
+    ("exact logits at the main path's shape", 256, N_ITEMS, 64, N_ITEMS),
+    ("exact logits, H=48, odd B, n_valid < V", 37, 20011, 48, 20006),
+    ("exact logits, BERT4Rec's table, B=255", 255, N_ITEMS + 1, 64, N_ITEMS),
+]
 
 
 def phase_ce_kernels(device):
-    """Phase 3, each case in both forms. Returns ({form: {kernel: largest
-    absolute error}}, the main-shape inputs)."""
+    """Phase 3, each case in both forms, CE_CASES then ONCHIP_EXACT_CASES.
+    Returns ({form: {kernel: largest absolute error}}, the main-shape
+    inputs)."""
     import torch
+
+    from bsarec_tpu_torch import parity
 
     worst = {form: {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0} for form in CE_FORMS}
     full = None
@@ -867,6 +911,14 @@ def phase_ce_kernels(device):
             worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
         if i == 0:
             full = (states, table, answers)
+        del states, table, answers
+    for i, (tag, b, v, h, n_valid) in enumerate(ONCHIP_EXACT_CASES):
+        states, table, answers, _ = parity.exact_logit_case(b, v, h, n_valid, seed=500 + i,
+                                                            device=device, scale=2)
+        for form in CE_FORMS:
+            errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
+                              answers, n_valid, dtype=form, exact=True)
+            worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
         del states, table, answers
     torch.cuda.empty_cache()
     return worst, full
@@ -1404,6 +1456,47 @@ def bf16_yardsticks(states, table, answers):
              f"F.cross_entropy backward over {back_name}"))
 
 
+def step_ce_check(states, table, answers, dloss, card, dtype=None):
+    """The CE of a training step in the form `dtype` names, as the model
+    calls it: streaming_softmax_ce forward and backward on the last
+    position of a [B, L, H] state (a strided view, so the wrapper makes it
+    contiguous). Checks that it makes 2 wrapper calls (one ce_logz, one
+    ce_grads launch) and issues at most 5 device operations (the copy and
+    each kernel's two passes), but for the bf16 form on the wide route,
+    whose C entries each add their states scratch (states_bf16_kernel):
+    there the count is printed, not held."""
+    import torch
+
+    from bsarec_tpu_torch.ops import ce
+
+    b, h = states.shape
+    seq = torch.zeros((b, 2, h), device=states.device)
+    seq[:, 1] = states
+    state = seq[:, -1, :]
+    t_req = table.clone().requires_grad_()
+
+    def autograd_form():
+        loss = ce.streaming_softmax_ce(state, t_req, answers, dtype=dtype)
+        torch.autograd.grad(loss, t_req, dloss)
+
+    before = sum(f.launches for f in (ce.ce_logz, ce.gold_rows, ce.ce_grads))
+    autograd_form()
+    calls = sum(f.launches for f in (ce.ce_logz, ce.gold_rows, ce.ce_grads)) - before
+    step_ops = profiled_ops(autograd_form)
+    form = f"{dtype or 'float32'} form"
+    scratch = dtype is not None and ce.wide_route(h)
+    if scratch:
+        form += " on the wide route (a states scratch kernel each way, not held to 5)"
+    check(calls == 2 and (scratch or step_ops <= 5),
+          f"the training step's CE ({form}) made {calls} wrapper calls and {step_ops} device "
+          f"operations")
+    log(f"CE of a training step, {form} (streaming_softmax_ce forward and backward on the "
+        f"model's [B, L, H][:, -1] state): {calls} wrapper calls, {step_ops} device operations "
+        f"(torch.profiler) [{card}]")
+    del t_req, seq, state
+    torch.cuda.empty_cache()
+
+
 def phase_ce_times(full, card, dtype=None):
     """The CE kernels at the training shape, in the form `dtype` names.
     Each main-path entry's time, its plain version's, a library
@@ -1419,7 +1512,8 @@ def phase_ce_times(full, card, dtype=None):
     against the unfused composition of the public wrappers (the gather
     and elementwise ops around ce_logz and ce_grads), in turns: host ms to
     issue it, device ms in a CUDA graph and the device operations it
-    issues. Returns {kernel: JSON fields}."""
+    issues. In both forms it ends with `step_ce_check`. Returns {kernel:
+    JSON fields}."""
     import torch
     import torch.nn.functional as F
 
@@ -1491,7 +1585,7 @@ def phase_ce_times(full, card, dtype=None):
                      "bound_by": bound_by, "library_ms": library_ms, "library": lib_name}
     del pieces, fwd_library, back_library
     if bf16:
-        torch.cuda.empty_cache()
+        step_ce_check(states, table, answers, d, card, dtype)
         return out
 
     # the gather alone against one PyTorch call
@@ -1549,21 +1643,8 @@ def phase_ce_times(full, card, dtype=None):
         f"{pair((ug1, ug2))} ms per call in a CUDA graph, {unfused_ops} device operations, 4 wrapper "
         f"calls [{card}]")
 
-    def autograd_form():
-        loss = ce.streaming_softmax_ce(state, t_req, answers)
-        torch.autograd.grad(loss, t_req, d)
-
-    before = sum(f.launches for f in (ce.ce_logz, ce.gold_rows, ce.ce_grads))
-    autograd_form()
-    calls = sum(f.launches for f in (ce.ce_logz, ce.gold_rows, ce.ce_grads)) - before
-    step_ops = profiled_ops(autograd_form)
-    check(calls == 2 and step_ops <= 5,
-          f"the training step's CE made {calls} wrapper calls and {step_ops} device operations")
-    log(f"CE of a training step (streaming_softmax_ce forward and backward on the model's "
-        f"[B, L, H][:, -1] state): {calls} wrapper calls, {step_ops} device operations "
-        f"(torch.profiler) [{card}]")
     del t_req, seq, state
-    torch.cuda.empty_cache()
+    step_ce_check(states, table, answers, d, card)
     return out
 
 
@@ -2750,6 +2831,13 @@ def phase_bf16_train(device, card):
         counts, seconds = run(bsarec + ["--epochs", "1"])
         ce_step = {"ce_logz": steps, "ce_grads": steps, "ce_logz_onchip": steps,
                    "ce_grads_onchip": steps, "ce_logz_bf16": steps, "ce_grads_bf16": steps}
+        # every CE launch of the epoch an on-chip launch in the bf16 form:
+        # ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel, the tensor cores
+        for name in ("ce_logz", "ce_grads"):
+            check(counts[name] == counts[f"{name}_onchip"] == counts[f"{name}_bf16"] == steps,
+                  f"bf16 epoch: {counts[name]} {name} launches, {counts[f'{name}_onchip']} on-chip, "
+                  f"{counts[f'{name}_bf16']} in the bf16 form; want all {steps} on the on-chip "
+                  f"route's tensor-core kernels")
         want = zero_bf16_counts() | ce_step | {"streaming_masked_topk": 2 * eval_steps,
                                                "rank_onchip": 2 * eval_steps}
         check(counts == want, f"bf16 train launches {counts}, want {want}")
@@ -2759,7 +2847,9 @@ def phase_bf16_train(device, card):
         out["train"] = counts
         log(f"bf16 train path: main(--dtype bf16 --epochs 1) on {TRAIN_USERS} users x {N_ITEMS} "
             f"items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss {losses[0]}, train "
-            f"{rates[0]:.0f} examples/s (first epoch); launches {counts} [{card}]")
+            f"{rates[0]:.0f} examples/s (first epoch); all {steps} ce_logz and {steps} ce_grads "
+            f"launches on the on-chip route's tensor-core kernels (ce_fwd_onchip_tc_kernel, "
+            f"ce_bwd_onchip_tc_kernel); launches {counts} [{card}]")
 
         topk_path = os.path.join(workdir, "bf16_topk.npy")
         counts, seconds = run(bsarec + ["--epochs", "2", "--resume", "--export_topk", topk_path])
@@ -3368,10 +3458,12 @@ def main() -> int:
             **({"onchip_launches": train_launches[f"{name}_onchip"]} if name != "gold_rows" else {}),
             **zoo_fields(name),
         })
+    onchip_tc_kernels = {"ce_logz": "ce_fwd_onchip_tc_kernel", "ce_grads": "ce_bwd_onchip_tc_kernel"}
     for name in ("ce_logz", "ce_grads"):  # the bf16-operand forms, on --dtype bf16's main path
         train = bf16_paths["train"]
         kernels.append({
             "name": f"{name} (bf16-operand form)",
+            "kernel": onchip_tc_kernels[name],
             "route": "cuda",
             "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
             "replaces": ce_replaces[name],

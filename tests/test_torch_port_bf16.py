@@ -169,6 +169,38 @@ def test_streaming_ce_bf16_matches_jax():
     assert min(rel_err(ds32, j_ds), rel_err(dt32, j_dt)) > BF16_GRAD_TOL
 
 
+@pytest.mark.parametrize("b,v,h,n_valid,seed", [(12, 300, 64, 290, 3), (5, 257, 48, 257, 4)])
+def test_streaming_ce_bf16_matches_jax_on_exact_logits(b, v, h, n_valid, seed):
+    """The sharp check of the bf16 form at H <= 64, where the card's on-chip
+    kernels sum each logit on the tensor cores in their own order: on
+    `parity.exact_logit_case` inputs (states scaled by 2, every logit exact
+    in fp32 in any order) the plain bf16 `ce_loss_logz` and `ce_grads` (at
+    the port's logZ, given to both sides) against JAX's interpret-mode
+    kernels, loss within CE_RTOL and each gradient group within
+    `parity.BF16_GRAD_TOL`, which the fp32 form, apart here only by not
+    rounding p, must fail on ds and on dT's other rows. JAX's kernels take
+    an H that divides 128, so at H = 48 they get the inputs zero-padded to
+    64 columns (the port's kernels pad H to 64 on chip as well) and the
+    first 48 columns of their gradients are compared."""
+    states, table, answers, dloss = parity.exact_logit_case(b, v, h, n_valid, seed=seed, scale=2)
+    pad = ((0, 0), (0, 64 - h))
+    js = jnp.asarray(np.pad(states.numpy(), pad))
+    jt = jnp.asarray(np.pad(table.numpy(), pad))
+    ja = jnp.asarray(answers.numpy().astype(np.int32))
+    j_loss = jax_streaming_softmax_ce(js, jt, ja, n_valid, 8, 128, True, BF16)
+    loss, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=BF16)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(j_loss), rtol=CE_RTOL)
+    j_ds, j_dt = jax_streaming_ce_grads(js, jt, ja, jnp.asarray(logz.numpy()), jnp.asarray(dloss.numpy()),
+                                        n_valid, 8, 128, True, BF16)
+    j_ds = torch.from_numpy(np.asarray(j_ds)[:, :h].copy())
+    j_dt = torch.from_numpy(np.asarray(j_dt)[:, :h].copy())
+    ds, dt = ce.ce_grads(states, table, answers, logz, dloss, n_valid, dtype=BF16)
+    errs = parity.grad_errors(ds, dt, j_ds, j_dt, answers, n_valid)
+    assert max(errs.values()) <= BF16_GRAD_TOL, errs
+    control = parity.grad_errors(*ce.ce_grads(states, table, answers, logz, dloss, n_valid), j_ds,
+                                 j_dt, answers, n_valid)
+    assert min(control["ds"], control["dT other rows"]) > BF16_GRAD_TOL, control
+
 def test_ce_grads_plain_bf16_rounds_p_and_keeps_the_one_hot_terms_unrounded():
     """The plain bf16 backward, written out with numpy in float64 on the
     rounded operands: p rounded to bf16 before both products, the one-hot

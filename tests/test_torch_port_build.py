@@ -52,3 +52,15 @@ def test_rank_ablation_variants_apply_to_the_source():
     texts = ablate_rank_tc.sources()
     assert list(texts) == list(ablate_rank_tc.VARIANTS)
     assert len(set(texts.values())) == len(texts)
+
+
+def test_onchip_ablation_variants_apply_to_the_source():
+    """`tools/ablate_ce_tc.py --onchip` routes the bf16 on-chip shapes to the
+    wide tensor-core kernels and cuts parts out of the on-chip tensor-core
+    kernels by text replacement; each replacement still matches the source
+    exactly once, and every variant differs from the others."""
+    from bsarec_tpu_torch.tools import ablate_ce_tc
+
+    texts = ablate_ce_tc.sources(ablate_ce_tc.ONCHIP_VARIANTS)
+    assert list(texts) == list(ablate_ce_tc.ONCHIP_VARIANTS)
+    assert len(set(texts.values())) == len(texts)

@@ -170,11 +170,20 @@ def test_cuda_fused_ce_matches_plain_and_the_unfused_composition(cuda_device, b,
     (64, 20011, 128, 20006), (256, 9000, 256, 9000),
 ])
 def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
-    """ce_loss_logz and ce_grads in the bf16-operand form, on both routes,
-    on raw int64 answers (-1, >= n_valid, >= V, item 0, repeats), against
-    the plain bf16 versions (the loss and logZ within LOSS_TOL, as the fp32
-    sums of exact products they are; the gradients at the kernel's logZ as
-    `parity` holds them, where the fp32 form must fail); dT's one-hot term
+    """ce_loss_logz and ce_grads in the bf16-operand form, on both routes
+    (at B <= 256 and H <= 64 the on-chip route's tensor-core kernels,
+    ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel; at H in {128, 256}
+    the sweeps' bf16 form), on raw int64 answers (-1, >= n_valid, >= V,
+    item 0, repeats), against the plain bf16 versions (the loss and logZ
+    within LOSS_TOL, as the fp32 sums of exact products they are); the
+    gradients at the kernel's logZ: on the sweeps within
+    `parity.BF16_GRAD_TOL` of the plain version, where the fp32 form must
+    fail; on the on-chip route, whose tensor cores sum each logit in their
+    own order (a p on a bf16 rounding boundary can land one bf16 ulp away),
+    as the wide route's bf16 form is held, within
+    `parity.BF16_WIDE_GRAD_TOL` of `parity.ce_grads_bf16_in_order` (the
+    sharp check and its fp32 control are
+    test_cuda_ce_bf16_onchip_tc_edges' exact-logit cases); dT's one-hot term
     on the unrounded states; two calls bit-equal; through the autograd
     function too; and apart from the fp32 form on the same inputs."""
     rng = np.random.default_rng(b + h + 1)
@@ -187,24 +196,33 @@ def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
     d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
     bf16 = "bfloat16"
     counts = lambda: (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches,
-                      ce.ce_grads.onchip_launches, ce.ce_grads.wide_launches)
+                      ce.ce_grads.onchip_launches, ce.ce_grads.wide_launches,
+                      ce.ce_logz.onchip_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     torch.cuda.synchronize()
     onchip = ce.onchip_route(b, h)
-    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 2 * onchip, before[3])
+    assert onchip == (h <= 64)
+    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 2 * onchip, before[3],
+                        before[4] + onchip)
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
     torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
     torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
     off = (a < 0) | (a >= n_valid)
     assert torch.equal(loss[off], logz[off])
-    want = ce.ce_grads_plain(states, table, a, logz, d, n_valid, bf16=True)
-    assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
-    control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a, n_valid)
-    assert min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL
+    if onchip:
+        want = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid)
+        errs = parity.grad_errors(ds, dt, *want, a, n_valid)
+        assert max(errs.values()) <= parity.BF16_WIDE_GRAD_TOL, errs
+    else:
+        want = ce.ce_grads_plain(states, table, a, logz, d, n_valid, bf16=True)
+        assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
+        control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a,
+                                     n_valid)
+        assert min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL
     assert not dt[n_valid:].any()
     _, none_dt = ce.ce_grads(states, table, torch.full_like(a, -1), logz, d, n_valid, dtype=bf16)
     assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid) <= 1.0
@@ -218,6 +236,134 @@ def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
     assert torch.equal(auto.detach(), loss)
     assert torch.equal(s.grad, ds) and torch.equal(t.grad, dt)
 
+
+def _onchip_tc_inputs(b, v, h, n_valid, inputs, device):
+    """`parity.exact_logit_case` inputs (states scaled by 2, by 4 at H = 4,
+    so that the fp32 control misses BF16_GRAD_TOL on ds), or N(0, 1) states
+    and a 0.5 N(0, 1) table with exact_logit_case's answers and dloss."""
+    states, table, a, d = parity.exact_logit_case(b, v, h, max(n_valid, 2), seed=b + v + h,
+                                                  device=device, scale=4 if h == 4 else 2)
+    if inputs == "normal":
+        rng = np.random.default_rng(b + v + h)
+        states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(device)
+        table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(device)
+    return states, table, a, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["exact", "normal"])
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (1, 1, 64, 1), (3, 1, 48, 1), (1, 127, 4, 127), (3, 128, 48, 128), (255, 129, 64, 128),
+    (256, 129, 4, 129), (256, 127, 48, 127), (255, 128, 64, 128), (1, 129, 48, 129),
+    (3, 1_000_001, 64, 1_000_000), (256, 1_000_001, 48, 1_000_000), (255, 1_000_001, 4, 1_000_000),
+    (37, 129, 64, 0), (256, 128, 4, 0), (1, 127, 48, 0),
+])
+def test_cuda_ce_bf16_onchip_tc_edges(cuda_device, b, v, h, n_valid, inputs):
+    """The bf16 form's on-chip tensor-core kernels (ce_fwd_onchip_tc_kernel
+    through ce_loss_logz, ce_bwd_onchip_tc_kernel through ce_grads) at edge
+    shapes: B in {1, 3, 255, 256}, H in {4, 48, 64}, V in {1, 127, 128,
+    129, 1,000,001 with n_valid = V - 1}, n_valid = 0 (logZ -inf, dT zero, ds
+    the gold term alone). On `parity.exact_logit_case` inputs, whose logits
+    are exact in any summation order, the gradients within
+    `parity.BF16_GRAD_TOL` of the plain bf16 version at the kernel's logZ,
+    which the fp32 form (apart there only by not rounding p) must fail on ds
+    and on dT's other rows; on normal inputs, where the tensor cores' own
+    summation order can move a p one bf16 ulp, within
+    `parity.BF16_WIDE_GRAD_TOL` of `parity.ce_grads_bf16_in_order`, as
+    the wide route's bf16 form is held, and dT's one-hot term must fail
+    its check with the rounded states. Every case:
+    one on-chip bf16 launch a call; loss and logZ within LOSS_TOL; two
+    ce_grads calls bit-equal; dT past n_valid zero; dT's one-hot term on the
+    unrounded states; the autograd function equal to the wrappers."""
+    states, table, a, d = _onchip_tc_inputs(b, v, h, n_valid, inputs, cuda_device)
+    bf16 = "bfloat16"
+    assert ce.onchip_route(b, h)
+    counts = lambda: (ce.ce_logz.onchip_launches, ce.ce_logz.bf16_launches,
+                      ce.ce_grads.onchip_launches, ce.ce_grads.bf16_launches)
+    before = counts()
+    loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 2, before[3] + 2)
+    assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
+    if n_valid == 0:
+        assert torch.equal(logz, torch.full_like(logz, float("-inf")))
+    torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+    off = (a < 0) | (a >= n_valid)
+    assert torch.equal(loss[off], logz[off])
+    assert not dt[n_valid:].any()
+    exact = inputs == "exact"
+    want = (ce.ce_grads_plain(states, table, a, logz, d, n_valid, bf16=True) if exact
+            else parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid))
+    if n_valid == 0:
+        assert torch.equal(ds, want[0]) and not dt.any()
+    else:
+        errs = parity.grad_errors(ds, dt, *want, a, n_valid)
+        assert max(errs.values()) <= (parity.BF16_GRAD_TOL if exact else parity.BF16_WIDE_GRAD_TOL), errs
+    if exact and n_valid > 0:
+        control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a,
+                                     n_valid)
+        assert control["ds"] > parity.BF16_GRAD_TOL, control
+        other = ~parity.answer_rows(a, v, n_valid)
+        assert not other.any() or control["dT other rows"] > parity.BF16_GRAD_TOL, control
+    _, none_dt = ce.ce_grads(states, table, torch.full_like(a, -1), logz, d, n_valid, dtype=bf16)
+    assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid) <= 1.0
+    if inputs == "normal" and bool(((a >= 0) & (a < n_valid)).any()):
+        assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid, round_states=True) > 1.0
+    s = states.clone().requires_grad_()
+    t = table.clone().requires_grad_()
+    auto = ce.streaming_softmax_ce(s, t, a, n_valid, dtype=bf16)
+    (auto * d).sum().backward()
+    assert torch.equal(auto.detach(), loss)
+    assert torch.equal(s.grad, ds) and torch.equal(t.grad, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,onchip", [
+    (256, 64, True), (257, 64, False), (256, 68, False), (1, 4, True), (255, 48, True),
+    (64, 128, False),
+])
+def test_cuda_ce_bf16_onchip_tc_route_boundary(cuda_device, b, h, onchip):
+    """The bf16 form on both sides of the on-chip route's bounds (B <= 256,
+    H <= 64): ce_loss_logz and ce_grads take the tensor-core kernels
+    (ce_fwd_onchip_tc_kernel, ce_bwd_onchip_tc_kernel: an on-chip bf16
+    launch) inside them and the sweeps' bf16 form outside; loss and logZ
+    within LOSS_TOL; the gradients at the kernel's logZ within
+    `parity.BF16_GRAD_TOL` of the plain bf16 version outside, and inside,
+    where the tensor cores sum in their own order, within
+    `parity.BF16_WIDE_GRAD_TOL` of `parity.ce_grads_bf16_in_order`; two
+    calls bit-equal."""
+    v, n_valid = 9001, 8999
+    rng = np.random.default_rng(b * 1000 + h + 11)
+    states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(cuda_device)
+    a = torch.from_numpy(rng.integers(-1, v + 3, size=b)).to(cuda_device)
+    d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
+    bf16 = "bfloat16"
+    assert ce.onchip_route(b, h) == onchip and not ce.wide_route(h)
+    counts = lambda: (ce.ce_logz.onchip_launches, ce.ce_logz.bf16_launches,
+                      ce.ce_grads.onchip_launches, ce.ce_grads.bf16_launches)
+    before = counts()
+    loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
+    loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
+    ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 2 * onchip, before[1] + 2, before[2] + 2 * onchip, before[3] + 2)
+    assert torch.equal(loss, loss2) and torch.equal(logz, logz2)
+    assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
+    torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+    if onchip:
+        want, tol = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid), parity.BF16_WIDE_GRAD_TOL
+    else:
+        want, tol = ce.ce_grads_plain(states, table, a, logz, d, n_valid, bf16=True), parity.BF16_GRAD_TOL
+    errs = parity.grad_errors(ds, dt, *want, a, n_valid)
+    assert max(errs.values()) <= tol, errs
 
 # the CE kernels' wide routes (H > 256): H just past the older routes (no
 # multiple of 128), 384 with B over one group of 256 p rows, 512 and 1024
