@@ -173,6 +173,21 @@ Phases, each of which raises (exit code 1) when it fails:
    their bounds at the bf16 tensor rate; BSARec's training step in bf16
    against fp32 in turns (examples/s, device busy share).
 
+11. PREPRec's NewRec (`bsarec_tpu_torch/preprec/`), which runs no
+   hand-written kernel (every launch count stays 0): `python -m
+   bsarec_tpu_torch.preprec.main`'s entry at full width (maxlen 200,
+   hidden 50, 2 blocks, 1 head, batch 128, input_units 132 + 6) on a
+   20,000-user domain that the port's `preprocess` builds, one epoch with
+   a method-1 valid and test eval (finite loss, ranks in [0, 100],
+   best.ckpt written); the method-3 full-catalog eval over 1,000,000 items
+   through `PrepRecTrainer.evaluate` (4,096 users, eval batch 32, item
+   chunk 4,096, popularity tables drawn on the card: month [35, V+1, 11],
+   week [104, V+1, 6]), the first 8 users' ranks inside the window that
+   the CPU path's scores on the same params and tables allow (items
+   within PREPREC_SCORE_TOL of the ground truth on either side), users/s
+   and peak memory; 20 training steps at that scale under torch.profiler
+   (busy share, top device entries).
+
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
 
@@ -186,6 +201,7 @@ import ast
 import contextlib
 import copy
 import json
+import logging
 import math
 import os
 import re
@@ -3339,6 +3355,272 @@ def phase_wide_times(ce_full, rank_full, card):
     return {"ce32": ce32, "ce16": ce16, "rank": rank20}
 
 
+
+# ---- PREPRec (NewRec) --------------------------------------------------------
+
+PREPREC_USERS = 20_000
+PREPREC_ITEMS = 5_000
+PREPREC_SPAN_S = 2 * 365 * 24 * 3600  # two years of interactions
+PREPREC_WIDTHS = ["--maxlen", "200", "--hidden_units", "50", "--num_blocks", "2",
+                  "--num_heads", "1", "--batch_size", "128", "--input_units1", "132",
+                  "--input_units2", "6"]
+PREPREC_V = 1_000_000  # the method-3 catalog
+PREPREC_EVAL_USERS = 4_096
+PREPREC_MONTHS, PREPREC_WEEKS = 24, 104
+PREPREC_CHECK_USERS = 8
+# GPU and CPU scores differ by fp32 rounding (sums in another order); a
+# catalog item within this share of the scores' largest magnitude of the
+# ground truth may sit on either side of it
+PREPREC_SCORE_TOL = 1e-5
+
+
+def preprec_domain(n_users: int, n_items: int, seed: int = 0):
+    """`benchmarks/preprec_demo.py:synth_domain`'s popularity-lifecycle
+    process, drawn in bulk: item i's attractiveness is a Gaussian bump in
+    time (centre c_i, width w_i) times a lognormal base; each event picks
+    an item in proportion to the attractiveness in its week. 12-63 events
+    a user over two years. -> (items, users, unix times)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, PREPREC_SPAN_S, n_items)
+    widths = rng.uniform(PREPREC_SPAN_S / 24, PREPREC_SPAN_S / 6, n_items)
+    base = rng.lognormal(0.0, 1.0, n_items)
+    lens = rng.integers(12, 64, n_users)
+    users = np.repeat(np.arange(n_users), lens)
+    ts = rng.uniform(0, PREPREC_SPAN_S, users.size)
+    n_slots = 104
+    slot = np.minimum((ts / PREPREC_SPAN_S * n_slots).astype(np.int64), n_slots - 1)
+    mids = (np.arange(n_slots) + 0.5) * PREPREC_SPAN_S / n_slots
+    attr = base * np.exp(-((mids[:, None] - centers) ** 2) / (2 * widths**2)) + 1e-9
+    cdf = np.cumsum(attr / attr.sum(1, keepdims=True), axis=1)
+    u = rng.random(users.size)
+    items = np.empty(users.size, np.int64)
+    for w in range(n_slots):
+        sel = slot == w
+        items[sel] = np.minimum(np.searchsorted(cdf[w], u[sel]), n_items - 1)
+    return items, users, (1_500_000_000 + ts).astype(np.int64)
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of a logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def preprec_scale_trainer(device, workdir):
+    """A PrepRecTrainer for eval_method 3 over PREPREC_V items, as
+    `benchmarks/preprec_scale.py` builds its inputs: random histories of
+    full length, popularity tables of uniform values drawn on the card
+    from a seed (month [24 + 11, V + 1, 11], week [104, V + 1, 6])."""
+    import torch
+
+    from bsarec_tpu_torch.preprec.config import PrepRecConfig, PrepRecTrainConfig
+    from bsarec_tpu_torch.preprec.data import PrepRecDataset
+    from bsarec_tpu_torch.preprec.popularity import PopularityEncoding, PopularityTable
+    from bsarec_tpu_torch.preprec.train import PrepRecTrainer
+
+    u, v, length = PREPREC_EVAL_USERS, PREPREC_V, 200
+    rng = np.random.default_rng(0)
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape).astype(np.int32)
+
+    ds = PrepRecDataset(
+        train_seq=ints(1, v + 1, (u, length + 1)), train_t1=ints(0, PREPREC_MONTHS, (u, length + 1)),
+        train_t2=ints(0, PREPREC_WEEKS, (u, length + 1)), train_te=np.zeros((u, length), np.int32),
+        valid_item=ints(1, v + 1, u), valid_t1=ints(0, PREPREC_MONTHS, u),
+        valid_t2=ints(0, PREPREC_WEEKS, u), valid_te=np.zeros((u, length), np.int32),
+        test_item=ints(1, v + 1, u), test_t1=ints(0, PREPREC_MONTHS, u),
+        test_t2=ints(0, PREPREC_WEEKS, u), test_te=np.zeros((u, length), np.int32),
+        seq_lens=np.full(u, length + 1, np.int32), usernum=u, itemnum=v)
+    gen = torch.Generator(device=device).manual_seed(1)
+    month = PopularityTable(torch.rand((PREPREC_MONTHS + 11, v + 1, 11), generator=gen,
+                                       device=device), 11, 12)
+    week = PopularityTable(torch.rand((PREPREC_WEEKS, v + 1, 6), generator=gen, device=device), 6, 1)
+    cfg = PrepRecConfig(usernum=u, itemnum=v, maxlen=length, hidden_units=50, num_blocks=2,
+                        num_heads=1, eval_method=3)
+    tcfg = PrepRecTrainConfig(batch_size=128, seed=0, eval_batch_size=32, eval_item_chunk=4096,
+                              device=device.type)
+    logger = logging.getLogger("chip_smoke.preprec")
+    return PrepRecTrainer(cfg, tcfg, ds, logger, workdir, PopularityEncoding(month, week))
+
+
+def preprec_cpu_rows(trainer, n: int):
+    """The first n users' method-3 score rows on the CPU through the
+    port's own eval functions, same params and tables: (target scores [n],
+    catalog scores [n, V])."""
+    import torch
+
+    from bsarec_tpu_torch.preprec import evaluate
+    from bsarec_tpu_torch.preprec.popularity import PopularityEncoding, PopularityTable
+
+    cpu = torch.device("cpu")
+    model = copy.deepcopy(trainer.model).to(cpu).eval()
+    pe = trainer.pop_enc
+    pop = PopularityEncoding(PopularityTable(pe.month.table.cpu(), pe.month.base_dim, pe.month.nwin),
+                             PopularityTable(pe.week.table.cpu(), pe.week.base_dim, pe.week.nwin))
+    arrays = evaluate.build_eval_inputs(trainer.ds, trainer.cfg, "valid", None).to_device(cpu)
+    a = {k: t[:n] for k, t in arrays.items()}
+    chunk, v = 65536, trainer.ds.itemnum
+    with torch.no_grad():
+        state = evaluate.final_state(model, trainer.cfg, pop, a["seqs"], a["t1"], a["t2"], a["te"])
+        args = (a["cand_t1"], a["cand_t2"], a["users"])
+        tgt = evaluate.score_cands(model, trainer.cfg, pop, None, state, a["target"][:, None], *args)
+        parts = []
+        for c in range(math.ceil(v / chunk)):
+            ids, _ = evaluate.sweep_chunk_ids(c, chunk, v, cpu)
+            parts.append(evaluate.score_cands(model, trainer.cfg, pop, None, state,
+                                              ids[None].expand(n, -1), *args))
+    return tgt[:, 0].numpy(), torch.cat(parts, 1)[:, :v].numpy()
+
+
+def preprec_sweep_trace(trainer, device, card):
+    """One user batch's method-3 sweep (32 users, every chunk) under
+    torch.profiler: the device's busy share and top entries a chunk."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsarec_tpu_torch.preprec import evaluate
+
+    a = evaluate.build_eval_inputs(trainer.ds, trainer.cfg, "valid", None).to_device(device)
+    a = {k: t[:32] for k, t in a.items()}
+    cfg, pop, v, chunk = trainer.cfg, trainer.pop_enc, trainer.ds.itemnum, trainer.tcfg.eval_item_chunk
+    n_chunks = math.ceil(v / chunk)
+    trainer.model.eval()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = evaluate.final_state(trainer.model, cfg, pop, a["seqs"], a["t1"], a["t2"], a["te"])
+        evaluate.sweep_ranks(trainer.model, cfg, pop, None, state, a["target"], a["cand_t1"],
+                             a["cand_t2"], a["users"], v, chunk, trainer.generator)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    on_device = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in on_device) / 1e6
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    share = f"{100 * busy / traced:.1f}%" if busy > 0 else "not measured (no device time traced)"
+    log(f"preprec method-3 sweep trace: 32 users x {n_chunks} chunks in {traced:.3f}s "
+        f"({1e3 * traced / n_chunks:.3f} ms a chunk); device busy {share}; top device entries "
+        f"{[(e.key[:48], round(e.self_device_time_total / (1e3 * n_chunks), 4)) for e in top]} "
+        f"ms/chunk [{card}]")
+    return busy / traced if busy > 0 else None
+
+
+def phase_preprec(device, card, n_steps: int = 20):
+    """PREPRec's NewRec on the card (no hand-written kernel: every count
+    stays 0). 1) `bsarec_tpu_torch.preprec.main` at full width (maxlen
+    200, hidden 50, 2 blocks, 1 head, batch 128, input_units 132 + 6) on a
+    domain the port's `preprocess` builds from PREPREC_USERS users: one
+    epoch, a method-1 valid and test eval; finite loss, ranks in [0, 100],
+    best.ckpt written. 2) Method 3 over PREPREC_V items through
+    `PrepRecTrainer.evaluate` (PREPREC_EVAL_USERS users, eval batch 32,
+    item chunk 4096): ranks in [0, V], the first users' ranks inside the
+    window the CPU path's scores allow, users/s and peak memory. 3)
+    torch.profiler over n_steps training steps at that scale: the device's
+    busy share and top entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsarec_tpu_torch.preprec import main as preprec_main
+    from bsarec_tpu_torch.preprec import preprocess
+
+    out = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        prefix = os.path.join(workdir, "synth")
+        stats = preprocess.preprocess(*preprec_domain(PREPREC_USERS, PREPREC_ITEMS), prefix)
+        preprocess.eval_negatives(f"{prefix}_intwtime.csv", f"{prefix}_userneg.pickle", n=100)
+        log(f"preprec domain: {stats['n_users']} users x {stats['n_items']} items preprocessed in "
+            f"{time.perf_counter() - t0:.1f}s (host)")
+        lines = LogLines()
+        logging.getLogger("preprec").addHandler(lines)
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            t0 = time.perf_counter()
+            metrics = preprec_main.main(
+                ["--dataset", "synth", "--data_dir", workdir, "--device", device.type,
+                 "--num_epochs", "1", "--epoch_test", "1", "--eval_method", "1",
+                 "--save_ranks", "--train_dir", "smoke", *PREPREC_WIDTHS])
+            main_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            logging.getLogger("preprec").removeHandler(lines)
+        run = os.path.join(workdir, "res", "synth", "smoke")
+        epoch = [m for m in lines.lines if m.startswith("epoch 1: loss")]
+        evals = [m for m in lines.lines if " eval: " in m]
+        check(len(epoch) == 1 and len(evals) == 2, f"preprec main log: {lines.lines}")
+        loss = float(re.search(r"loss (\S+)", epoch[0]).group(1))
+        check(math.isfinite(loss), f"preprec epoch loss {loss}")
+        ranks = np.loadtxt(os.path.join(run, "ranks.txt"))
+        check(ranks.shape == (stats["n_users"],) and ranks.min() >= 0 and ranks.max() <= 100,
+              f"preprec method-1 ranks in [0, 100] (min {ranks.min()}, max {ranks.max()})")
+        check(os.path.exists(os.path.join(run, "best.ckpt")), "preprec best.ckpt written")
+        check(metrics is not None and all(np.isfinite(metrics).ravel()), f"preprec metrics {metrics}")
+        log(f"preprec main (--device {device.type}, 1 epoch, method-1 valid and test): {main_s:.1f}s; "
+            f"{epoch[0]}; {'; '.join(evals)}; test {metrics} [{card}]")
+        out["main"] = {"seconds": main_s, "epoch": epoch[0], "evals": evals}
+
+        trainer = preprec_scale_trainer(device, workdir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, ranks3 = trainer.evaluate("valid")
+        sweep_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(ranks3.shape == (PREPREC_EVAL_USERS,) and ranks3.min() >= 0
+              and ranks3.max() <= PREPREC_V, f"preprec method-3 ranks in [0, V]")
+        t0 = time.perf_counter()
+        tgt, rows = preprec_cpu_rows(trainer, PREPREC_CHECK_USERS)
+        tol = PREPREC_SCORE_TOL * max(np.abs(rows).max(), np.abs(tgt).max())
+        lo = (rows > tgt[:, None] + tol).sum(1)
+        hi = (rows >= tgt[:, None] - tol).sum(1)
+        got = ranks3[:PREPREC_CHECK_USERS]
+        check(((got >= lo) & (got <= hi)).all(),
+              f"preprec method-3 card ranks {got.tolist()} outside the CPU window "
+              f"{list(zip(lo.tolist(), hi.tolist()))}")
+        log(f"preprec method 3: {PREPREC_EVAL_USERS} users x {PREPREC_V} items in {sweep_s:.3f}s = "
+            f"{PREPREC_EVAL_USERS / sweep_s:.1f} users/s (eval batch 32, item chunk 4096, the "
+            f"process's first method-3 pass); peak device memory {peak:.2f} GiB; first {PREPREC_CHECK_USERS} ranks "
+            f"{got.tolist()} within the CPU path's windows {list(zip(lo.tolist(), hi.tolist()))} "
+            f"(tol {tol:.3g}; CPU {time.perf_counter() - t0:.1f}s) [{card}]")
+        out["method3"] = {"users_per_s": PREPREC_EVAL_USERS / sweep_s, "peak_gib": peak,
+                          "sweep_busy_share": preprec_sweep_trace(trainer, device, card)}
+
+        gen = np.random.default_rng(5)
+        batches = [torch.from_numpy(gen.integers(1, PREPREC_EVAL_USERS + 1, 128)).to(device)
+                   for _ in range(n_steps)]
+        trainer.model.train()
+        for users in batches[:3]:
+            trainer.step(users)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for users in batches:
+                trainer.step(users)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        on_device = device_kernels(prof)
+        busy = sum(e.self_device_time_total for e in on_device) / 1e6
+        top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+        share = f"{100 * busy / traced:.1f}%" if busy > 0 else "not measured (no device time traced)"
+        log(f"preprec train trace: {n_steps} NewRec steps (batch 128, maxlen 200, hidden 50, "
+            f"{PREPREC_V} items) in {traced:.3f}s = {n_steps * 128 / traced:.0f} examples/s; device "
+            f"busy {share}; top device entries "
+            f"{[(e.key[:48], round(e.self_device_time_total / (1e3 * n_steps), 3)) for e in top]} "
+            f"ms/step [{card}]")
+        out["busy_share"] = busy / traced if busy > 0 else None
+        del trainer
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    check(not any(counts.values()), f"the PREPRec phase launched no kernel of the port: {counts}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3413,6 +3695,8 @@ def main() -> int:
         zoo_counts, zoo_rates, zoo_serving = phase_zoo_train(device, workdir, card)
     with timed("zoo: step and eval times, device busy share"):
         zoo_profile = phase_zoo_profile(device, card)
+    with timed("preprec: NewRec main (epoch, method-1 eval), method 3 at 1M items, trace"):
+        preprec = phase_preprec(device, card)
     for mt, (train_rate, users_s) in zoo_rates.items():
         prof = zoo_profile[mt]
         busy = prof["busy_share"]
@@ -3529,6 +3813,7 @@ def main() -> int:
                    "bf16_serving_launches": bf16_paths["serving"]["streaming_masked_topk"],
                    "bf16_serving_max_abs_err": bf16_paths["serving_max_abs_err"]}
     log(f"train bf16 vs fp32 examples/s and busy share: {json.dumps(bf16_turns)} [{card}]")
+    log(f"preprec: {json.dumps(preprec)} [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
