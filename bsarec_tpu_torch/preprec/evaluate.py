@@ -17,14 +17,23 @@ batch the final state is encoded once, the ground truth is scored in a
 call of its own, then the catalog is swept in `item_chunk` blocks (the
 tail block's padding ids clamped to a real item before any gather and
 masked out of the counts), accumulating #better and #tied-wins on the
-device. Nothing of size [U, V] is built. Whether the ground truth ties
+device. Nothing of size [U, V] is built, except by `return_scores`,
+whose output is the [U, V+1] rows (the reference's --save_scores dump).
+Whether the ground truth ties
 its catalog copy depends on whether the one-candidate and the
 `item_chunk` products round alike; that structure is the JAX package's
 and is kept.
 
+Every model's predict factors into a final state [B, H] times candidate
+embeddings [B, C, H] (`final_state`, `cand_embed`): NewRec's and
+NewB4Rec's candidates are popularity features through the embed layer,
+BPRMF's state is its user row, the id models' candidates are item rows.
+
 The tie-break uniforms come from a torch generator (the JAX package draws
 from threefry), so tied ranks agree with the JAX package in law, not
-draw by draw.
+draw by draw. The host-side rankers (`mostpop_ranks`, `ensemble_ranks`)
+are the JAX package's numpy code: the same ranks for the same
+`np.random.default_rng` state.
 """
 
 from __future__ import annotations
@@ -158,19 +167,92 @@ def grouped_metrics(ranks: np.ndarray, userpop: np.ndarray, cfg: PrepRecConfig) 
     return result
 
 
-def final_state(model, cfg: PrepRecConfig, pop, seqs, t1, t2, te) -> torch.Tensor:
-    """[B, H]: the last position of the encoded history (the prefix of `predict`)."""
-    out = model.encode(pop(seqs, t1, t2), seqs == 0, te if cfg.time_embed else None)
+def _tiebroken_ranks(scores: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """0-based rank of column 0 with the randomized tie-break: a tied
+    column beats the ground truth when its uniform exceeds the ground
+    truth's (p = 1/2)."""
+    tie = rng.random(scores.shape)
+    better = scores > scores[:, :1]
+    tied = (scores == scores[:, :1]) & (tie > tie[:, :1])
+    tied[:, 0] = False
+    return np.sum(better | tied, axis=1)
+
+
+def mostpop_ranks(inputs: EvalInputs, rawpop: np.ndarray, rng: np.random.Generator,
+                  exclude_rated: bool = False) -> np.ndarray:
+    """The popularity baseline: candidates scored by their interaction
+    count. Under the full catalog, `exclude_rated` drops each user's
+    rated items from the candidates. That branch builds nothing of size
+    [U, V]: every user scores the same vector, so the rank is order
+    statistics of the sorted catalog minus per-user corrections, and the
+    tie group is one Binomial draw (each tied candidate beats the ground
+    truth with p = 1 - u_gt, the monolithic tie-break's conditional law)."""
+    pop = np.concatenate([[0.0], np.asarray(rawpop, dtype=np.float64)])  # item 0 pads
+    if inputs.cands is not None:
+        if exclude_rated:
+            raise ValueError(
+                "exclude_rated applies to full-catalog (eval_method 3) "
+                "candidates; sampled negatives are pre-filtered offline")
+        return _tiebroken_ranks(pop[inputs.cands], rng)
+
+    # the implicit full catalog [gt] + arange(1..V)
+    tgt_pop = pop[inputs.target]
+    cat = np.sort(pop[1:])
+    v = cat.size
+    n_ge = v - np.searchsorted(cat, tgt_pop, side="left")
+    n_gt = v - np.searchsorted(cat, tgt_pop, side="right")
+    n_tied = n_ge - n_gt  # the ground truth's own catalog copy among them
+    if exclude_rated:  # histories are 0-padded and may repeat items
+        for i in range(inputs.seqs.shape[0]):
+            rated = np.unique(inputs.seqs[i])
+            rp = pop[rated[rated > 0]]
+            n_gt[i] -= int(np.sum(rp > tgt_pop[i]))
+            n_tied[i] -= int(np.sum(rp == tgt_pop[i]))
+    u_gt = rng.random(tgt_pop.shape[0])
+    wins = rng.binomial(np.maximum(n_tied, 0), np.clip(1.0 - u_gt, 0.0, 1.0))
+    return n_gt + wins
+
+
+def ensemble_ranks(scores: np.ndarray, loaded: np.ndarray, alphas,
+                   rng: np.random.Generator | None = None) -> list[np.ndarray]:
+    """Blend fresh scores with saved ones, alpha * new + (1 - alpha) *
+    saved, and rank column 0 in each blend; one rank array per alpha.
+    With `rng` None a rank counts strictly greater scores only, as the
+    JAX package does: exact on tie-free scores, and optimistic on ties
+    (the ground truth takes the best place of its tie group, where the
+    reference's unstable argsort places it anywhere). With `rng`, ties
+    are broken at random."""
+    blends = [alpha * scores + (1.0 - alpha) * loaded for alpha in alphas]
+    if rng is None:
+        return [np.sum(b > b[:, :1], axis=1) for b in blends]
+    return [_tiebroken_ranks(b, rng) for b in blends]
+
+
+def final_state(model, cfg: PrepRecConfig, pop, seqs, t1, t2, te, users=None) -> torch.Tensor:
+    """[B, H]: the prefix of the model's `predict` (the last position of
+    the encoded history; BPRMF's user rows)."""
+    if cfg.model == "newrec":
+        out = model.encode(pop(seqs, t1, t2), seqs == 0, te if cfg.time_embed else None)
+    elif cfg.model == "newb4rec":
+        out = model.encode(pop(seqs, t1, t2), seqs > 0)
+    elif cfg.model == "bprmf":
+        return model.user_emb(users)
+    else:
+        out = model.encode(seqs)
     return out[:, -1, :]
 
 
 def cand_embed(model, cfg: PrepRecConfig, pop, eval_pop, cands, ct1, ct2, users) -> torch.Tensor:
     """[B, C, H] candidate embeddings (ct1, ct2 broadcast to [B, C])."""
-    if cfg.use_week_eval and eval_pop is not None:
-        feats = eval_pop(cands, ct1, users)
-    else:
-        feats = pop(cands, ct1, ct2)
-    return model.embed_feats(feats)
+    if cfg.model == "newrec":
+        if cfg.use_week_eval and eval_pop is not None:
+            feats = eval_pop(cands, ct1, users)
+        else:
+            feats = pop(cands, ct1, ct2)
+        return model.embed_feats(feats)
+    if cfg.model == "newb4rec":
+        return model.embed_feats(pop(cands, ct1, ct2))
+    return model.item_emb(cands)
 
 
 def score_cands(model, cfg: PrepRecConfig, pop, eval_pop, state, cands, ct1_col, ct2_col,
@@ -211,9 +293,26 @@ def sweep_ranks(model, cfg: PrepRecConfig, pop, eval_pop, state, target, ct1, ct
     return n_better + n_tiedwin
 
 
+def sweep_scores(model, cfg: PrepRecConfig, pop, eval_pop, state, target, ct1, ct2, users,
+                 itemnum: int, item_chunk: int) -> torch.Tensor:
+    """[B, V+1] score rows of the same chunked sweep: the target's score,
+    then the catalog."""
+    def score(cands):
+        return score_cands(model, cfg, pop, eval_pop, state, cands, ct1, ct2, users)
+
+    b = state.shape[0]
+    parts = [score(target[:, None])]
+    for c in range(math.ceil(itemnum / item_chunk)):
+        ids, _ = sweep_chunk_ids(c, item_chunk, itemnum, state.device)
+        parts.append(score(ids[None].expand(b, item_chunk)))
+    return torch.cat(parts, 1)[:, :1 + itemnum]
+
+
 def make_eval_fn(model, cfg: PrepRecConfig, pop_enc, eval_pop, batch: int, num_users: int,
-                 itemnum: int, item_chunk: int = 4096):
-    """-> evaluate(generator, arrays) -> ranks [U] on the device.
+                 itemnum: int, item_chunk: int = 4096, return_scores: bool = False):
+    """-> evaluate(generator, arrays) -> ranks [U] on the device, or with
+    `return_scores` the raw score rows: [U, C] of the explicit candidates,
+    [U, V+1] under the sweep (the output is O(U * V) by nature).
 
     `arrays` comes from `EvalInputs.to_device`; without a "cands" entry
     the candidates are the implicit full-catalog sweep."""
@@ -231,20 +330,23 @@ def make_eval_fn(model, cfg: PrepRecConfig, pop_enc, eval_pop, batch: int, num_u
     @torch.no_grad()
     def evaluate(generator: torch.Generator, arrays: dict) -> torch.Tensor:
         model.eval()
-        ranks = []
+        out = []
         for step in range(steps):
             sl = slice(step * batch, min((step + 1) * batch, num_users))
-            state = final_state(model, cfg, pop_enc, arrays["seqs"][sl], arrays["t1"][sl],
-                                arrays["t2"][sl], arrays["te"][sl])
-            ct1, ct2 = arrays["cand_t1"][sl], arrays["cand_t2"][sl]
             target, users = arrays["target"][sl], arrays["users"][sl]
+            state = final_state(model, cfg, pop_enc, arrays["seqs"][sl], arrays["t1"][sl],
+                                arrays["t2"][sl], arrays["te"][sl], users)
+            ct1, ct2 = arrays["cand_t1"][sl], arrays["cand_t2"][sl]
             if "cands" in arrays:
                 scores = score_cands(model, cfg, pop_enc, eval_pop, state, arrays["cands"][sl],
                                      ct1, ct2, users)
-                ranks.append(ranks_from_scores(scores, generator))
+                out.append(scores if return_scores else ranks_from_scores(scores, generator))
+            elif return_scores:
+                out.append(sweep_scores(model, cfg, pop_enc, eval_pop, state, target, ct1, ct2,
+                                          users, itemnum, item_chunk))
             else:
-                ranks.append(sweep_ranks(model, cfg, pop_enc, eval_pop, state, target, ct1, ct2,
+                out.append(sweep_ranks(model, cfg, pop_enc, eval_pop, state, target, ct1, ct2,
                                          users, itemnum, item_chunk, generator))
-        return torch.cat(ranks)
+        return torch.cat(out)
 
     return evaluate

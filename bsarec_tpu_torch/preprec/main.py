@@ -1,20 +1,36 @@
-"""PREPRec CLI for NewRec (counterpart of `bsarec_tpu/preprec/main.py`).
+"""PREPRec CLI (counterpart of `bsarec_tpu/preprec/main.py`).
 
     python -m bsarec_tpu_torch.preprec.main --dataset douban/douban_music \
         --model newrec --data_dir ./data
-    python -m bsarec_tpu_torch.preprec.main --dataset <ds> --model newrec \
-        --eval_method 3 --device cpu
+    python -m bsarec_tpu_torch.preprec.main --dataset <target> --model newrec \
+        --transfer --state_dict_path res/<src>/train/best.ckpt
 
 `parse` takes the JAX CLI's flags, flag for flag; `--device` defaults to
-cuda and raises without a card (`--device cpu` runs on the CPU). It
-trains NewRec (`PrepRecTrainer.fit`) or, with `--inference_only`,
-evaluates the freshly initialised model on `--mode`; `--eval_method 1`
-(100 sampled negatives) or 3 (the full catalog), `--sparse`,
-`--use_week_eval`, `--eval_quality` and `--save_ranks` work as there.
-Checkpoints go to `res/<dataset>/<train_dir>/` as torch state_dicts.
-`--prng` is accepted and changes nothing: PREPRec's dropout is
-nn.Dropout. The other models and the transfer, score and export flags are
-not ported yet and raise (ROADMAP A5b).
+cuda and raises without a card (`--device cpu` runs on the CPU). `--model`
+is one of newrec, newb4rec, sasrec, bert4rec, bprmf, cl4srec (trained by
+`PrepRecTrainer.fit`, or evaluated on `--mode` with `--inference_only`)
+or mostpop (the popularity baseline, no model). BERT4Rec and NewB4Rec
+train only with a nonzero `--mask_prob`: at the default 0 their loss is 0.
+Checkpoints go to `res/<dataset>/<train_dir>/` as torch state_dicts, and
+so do the other outputs, under the JAX CLI's names:
+
+- `--state_dict_path` loads a checkpoint partially before anything else
+  (`PrepRecTrainer.load_transfer`; with `--fs_emb` only the few-shot
+  adapter trains); with `--transfer` it also sets `--inference_only`;
+  `--fs_transfer` trains for `--fs_num_epochs` epochs, each `--fs_prop`
+  of the batches;
+- `--dataset2` trains NewRec on a second dataset through the same
+  parameters each epoch;
+- `--save_scores` writes the raw score rows to
+  `preds{_global}{_transf}.txt` (`_global` under `--eval_method 3`);
+  `--use_scores` with `--inference_only` blends them, loaded from
+  `--use_score_dir`, with fresh scores at each of `--alphas` and logs the
+  metrics (`evaluate.ensemble_ranks`, ties counted optimistically);
+- `--export_user_embed` writes NewRec's [U, H] user states to
+  `user_embed_<label>.txt` and stops;
+- `--export_serving <path>` writes the candidate scorer (`serving.py`).
+
+`--prng` is accepted and changes nothing: PREPRec's dropout is nn.Dropout.
 """
 
 from __future__ import annotations
@@ -22,22 +38,21 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import time
 
 import numpy as np
 
 from bsarec_tpu_torch.config import resolve_device
 from bsarec_tpu_torch.preprec.config import PrepRecConfig, PrepRecTrainConfig
 from bsarec_tpu_torch.preprec.data import load_intwtime, load_userneg
-from bsarec_tpu_torch.preprec.models import PREPREC_REGISTRY
+from bsarec_tpu_torch.preprec.evaluate import (
+    build_eval_inputs,
+    ensemble_ranks,
+    metrics_from_ranks,
+    mostpop_ranks,
+)
 from bsarec_tpu_torch.preprec.popularity import EvalPopularity, PopularityEncoding
 from bsarec_tpu_torch.preprec.train import PrepRecTrainer
-
-# flags of parts not ported yet (ROADMAP A5b), with their off values
-_NOT_PORTED_FLAGS = {
-    "transfer": False, "fs_transfer": False, "state_dict_path": None, "dataset2": "",
-    "save_scores": False, "use_scores": False, "export_user_embed": False,
-    "export_serving": None,
-}
 
 
 def parse(argv=None):
@@ -71,7 +86,7 @@ def parse(argv=None):
     p.add_argument("--mode", default="test", type=str)
     p.add_argument("--prev_time", action="store_true")
     p.add_argument("--no_valid_in_test", action="store_true")
-    p.add_argument("--state_dict_path", default=None, type=str, help="(not ported yet)")
+    p.add_argument("--state_dict_path", default=None, type=str)
     p.add_argument("--model", default="newrec", type=str)
     p.add_argument("--monthpop", default="wtembed", type=str)
     p.add_argument("--weekpop", default="week_embed2", type=str)
@@ -87,8 +102,8 @@ def parse(argv=None):
     p.add_argument("--mask_prob", default=0.0, type=float)
     p.add_argument("--seed", default=2023, type=int)
     p.add_argument("--topk", "--list", nargs="+", default=[10, 5, 1], type=int)
-    p.add_argument("--transfer", action="store_true", help="(not ported yet)")
-    p.add_argument("--fs_transfer", action="store_true", help="(not ported yet)")
+    p.add_argument("--transfer", action="store_true")
+    p.add_argument("--fs_transfer", action="store_true")
     p.add_argument("--fs_prop", default=1.0, type=float)
     p.add_argument("--fs_num_epochs", default=80, type=int)
     p.add_argument("--fs_emb", action="store_true")
@@ -122,30 +137,20 @@ def parse(argv=None):
     p.add_argument("--save_ranks", action="store_true")
     p.add_argument("--ranks_name", default="ranks", type=str)
     p.add_argument("--not_rank_scores", action="store_true")
-    p.add_argument("--dataset2", default="", type=str, help="(not ported yet)")
-    p.add_argument("--save_scores", action="store_true", help="(not ported yet)")
-    p.add_argument("--use_scores", action="store_true", help="(not ported yet)")
+    p.add_argument("--dataset2", default="", type=str)
+    p.add_argument("--save_scores", action="store_true")
+    p.add_argument("--use_scores", action="store_true")
     p.add_argument("--use_score_dir", default="", type=str)
     p.add_argument("--alphas", nargs="+", default=[0.5], type=float)
     p.add_argument("--export_user_embed", "--save_emb", dest="export_user_embed",
-                   action="store_true", help="(not ported yet)")
+                   action="store_true")
     p.add_argument("--label", default="embed", type=str)
-    p.add_argument("--export_serving", default=None, type=str, help="(not ported yet)")
+    p.add_argument("--export_serving", default=None, type=str)
     return p.parse_args(argv)
-
-
-def refuse_not_ported(args) -> None:
-    if args.model not in PREPREC_REGISTRY:
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet (ROADMAP A5b); ported: {sorted(PREPREC_REGISTRY)}")
-    for flag, off in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP A5b)")
 
 
 def main(argv=None):
     args = parse(argv)
-    refuse_not_ported(args)
     device = resolve_device(args.device)  # a missing card fails before the data is read
     logging.basicConfig(level=logging.INFO, format="%(asctime)s - %(message)s")
     logger = logging.getLogger("preprec")
@@ -160,6 +165,10 @@ def main(argv=None):
         args.weekpop = sp + args.weekpop
         args.week_eval_pop = sp + args.week_eval_pop
     ds = load_intwtime(f"{prefix}_{stem}.csv", args.maxlen, sparse=args.sparse)
+    if args.transfer and args.state_dict_path:
+        args.inference_only = True  # zero-shot transfer: load the weights, train nothing
+    if args.fs_transfer:
+        args.num_epochs = args.fs_num_epochs
 
     cfg = PrepRecConfig(
         model=args.model, usernum=ds.usernum, itemnum=ds.itemnum,
@@ -206,12 +215,27 @@ def main(argv=None):
     if args.eval_method == 1:
         usernegs = load_userneg(f"{prefix}_{args.userneg}.pickle", ds.usernum)
 
-    pop_enc = PopularityEncoding.load(
-        f"{prefix}_{args.monthpop}.txt", f"{prefix}_{args.weekpop}.txt", cfg, device)
-    eval_pop = None
-    if args.use_week_eval:
-        eval_pop = EvalPopularity.load(
-            f"{prefix}_{args.monthpop}.txt", f"{prefix}_{args.week_eval_pop}.txt", cfg, device)
+    if args.model == "mostpop":
+        rawpop = np.loadtxt(f"{prefix}_{args.rawpop}.txt").reshape(-1)
+        inputs = build_eval_inputs(ds, cfg, args.mode, usernegs)
+        t0 = time.perf_counter()
+        ranks = mostpop_ranks(inputs, rawpop, np.random.default_rng(args.seed),
+                              exclude_rated=args.eval_method == 3)
+        seconds = time.perf_counter() - t0
+        logger.info(f"mostpop {args.mode}: {ranks.size} users in {seconds:.3f}s "
+                    f"({ranks.size / seconds:.1f} users/s)")
+        metrics = metrics_from_ranks(ranks, cfg.topk)
+        for (ndcg, hr), k in zip(metrics, cfg.topk):
+            logger.info(f"{args.mode} NDCG@{k}: {ndcg}, HR@{k}: {hr}")
+        return metrics
+
+    pop_enc = eval_pop = None
+    if args.model in ("newrec", "newb4rec"):
+        pop_enc = PopularityEncoding.load(
+            f"{prefix}_{args.monthpop}.txt", f"{prefix}_{args.weekpop}.txt", cfg, device)
+        if args.use_week_eval:
+            eval_pop = EvalPopularity.load(f"{prefix}_{args.monthpop}.txt",
+                                           f"{prefix}_{args.week_eval_pop}.txt", cfg, device)
 
     user_feat = None
     if args.triplet_loss or args.cos_loss:
@@ -219,16 +243,59 @@ def main(argv=None):
 
     write = os.path.join("res", args.dataset, args.train_dir)
     trainer = PrepRecTrainer(cfg, tcfg, ds, logger, write, pop_enc, eval_pop, usernegs, user_feat)
+    if args.state_dict_path:
+        trainer.load_transfer(args.state_dict_path)
+        logger.info(f"loaded transfer weights from {args.state_dict_path}")
 
+    second = None
+    if args.dataset2:
+        prefix2 = os.path.join(args.data_dir, args.dataset2)
+        ds2 = load_intwtime(f"{prefix2}_{stem}.csv", args.maxlen, sparse=args.sparse)
+        cfg2 = cfg.replace(usernum=ds2.usernum, itemnum=ds2.itemnum)
+        pop2 = PopularityEncoding.load(
+            f"{prefix2}_{args.monthpop}.txt", f"{prefix2}_{args.weekpop}.txt", cfg2, device)
+        negs2 = None
+        if args.eval_method == 1:
+            negs2 = load_userneg(f"{prefix2}_{args.userneg}.pickle", ds2.usernum)
+        second = PrepRecTrainer(cfg2, tcfg, ds2, logger,
+                                os.path.join("res", args.dataset2, args.train_dir),
+                                pop2, None, negs2, None)
+
+    if args.export_user_embed:
+        emb = trainer.user_embeddings(args.mode)
+        np.savetxt(os.path.join(write, f"user_embed_{args.label}.txt"), emb)
+        logger.info(f"exported user embeddings {emb.shape} to {write}")
+        return None
+
+    ranks = None
     if args.inference_only:
-        metrics, ranks = trainer.evaluate(args.mode, userpop)
-        for (ndcg, hr), k in zip(metrics, cfg.topk):
-            logger.info(f"{args.mode} NDCG@{k}: {ndcg}, HR@{k}: {hr}")
+        if args.use_scores:
+            scores = trainer.eval_scores(args.mode)
+            per_alpha = ensemble_ranks(scores, np.loadtxt(args.use_score_dir), args.alphas)
+            metrics = None
+            for alpha, alpha_ranks in zip(args.alphas, per_alpha):
+                metrics = metrics_from_ranks(alpha_ranks, cfg.topk)
+                logger.info(f"alpha={alpha}: {metrics}")
+        else:
+            metrics, ranks = trainer.evaluate(args.mode, userpop)
+            for (ndcg, hr), k in zip(metrics, cfg.topk):
+                logger.info(f"{args.mode} NDCG@{k}: {ndcg}, HR@{k}: {hr}")
     else:
-        metrics, ranks = trainer.fit(userpop=userpop)
+        metrics, ranks = trainer.fit(userpop=userpop, second=second)
 
-    if args.save_ranks and ranks is not None:
+    if args.save_scores:
+        add = ("_global" if args.eval_method == 3 else "") + ("_transf" if args.transfer else "")
+        np.savetxt(os.path.join(write, f"preds{add}.txt"), trainer.eval_scores(args.mode))
+    if args.save_ranks and not args.use_scores and ranks is not None:
         np.savetxt(os.path.join(write, f"{args.ranks_name}.txt"), ranks)
+
+    if args.export_serving:
+        from bsarec_tpu_torch.preprec.serving import export_candidate_scorer
+
+        n_cands = build_eval_inputs(ds, cfg, args.mode, usernegs).num_cands
+        meta = export_candidate_scorer(trainer.model, cfg, pop_enc, eval_pop, args.maxlen,
+                                       n_cands, args.export_serving)
+        logger.info(f"exported candidate scorer: {meta}")
     return metrics
 
 

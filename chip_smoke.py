@@ -187,6 +187,23 @@ Phases, each of which raises (exit code 1) when it fails:
    within PREPREC_SCORE_TOL of the ground truth on either side), users/s
    and peak memory; 20 training steps at that scale under torch.profiler
    (busy share, top device entries).
+11b. The other five PREPRec models and the rest of the PREPRec CLI
+   (`phase_preprec_zoo`, no hand-written kernel either), in phase 11's
+   directory, on its domain: `preprec.main` at the same full width trains
+   SASRecB, BERT4RecB, NewB4Rec (both with `--mask_prob 0.2`), BPRMF and
+   CL4SRec for one epoch each with a method-1 valid and test eval (finite
+   positive losses, ranks in [0, 100], best.ckpt written; examples/s and
+   users/s per model) and ranks with mostpop (users/s); SASRecB's method
+   3 over 1,000,000 items through `PrepRecTrainer.evaluate` (item table
+   1M x 50, 4,096 users, eval batch 32, item chunk 4,096), the first 8
+   users' ranks inside the CPU path's windows, users/s and peak memory;
+   SASRecB's `--save_scores`, then `--use_scores` on them (the ensembled
+   metrics logged); `--export_user_embed` of phase 11's NewRec ([U, 50]);
+   `--fs_transfer --fs_emb` from phase 11's best.ckpt (every parameter
+   but fs_layer's bit-equal to it afterwards); `--export_serving` of that
+   NewRec with `--save_scores`, the artifact loaded on the card scoring
+   the first 64 users' candidates within PREPREC_SERVE_TOL of the eval
+   path's saved rows.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -3361,9 +3378,10 @@ def phase_wide_times(ce_full, rank_full, card):
 PREPREC_USERS = 20_000
 PREPREC_ITEMS = 5_000
 PREPREC_SPAN_S = 2 * 365 * 24 * 3600  # two years of interactions
-PREPREC_WIDTHS = ["--maxlen", "200", "--hidden_units", "50", "--num_blocks", "2",
-                  "--num_heads", "1", "--batch_size", "128", "--input_units1", "132",
-                  "--input_units2", "6"]
+PREPREC_MAXLEN, PREPREC_HIDDEN = 200, 50
+PREPREC_WIDTHS = ["--maxlen", str(PREPREC_MAXLEN), "--hidden_units", str(PREPREC_HIDDEN),
+                  "--num_blocks", "2", "--num_heads", "1", "--batch_size", "128",
+                  "--input_units1", "132", "--input_units2", "6"]
 PREPREC_V = 1_000_000  # the method-3 catalog
 PREPREC_EVAL_USERS = 4_096
 PREPREC_MONTHS, PREPREC_WEEKS = 24, 104
@@ -3372,6 +3390,11 @@ PREPREC_CHECK_USERS = 8
 # catalog item within this share of the scores' largest magnitude of the
 # ground truth may sit on either side of it
 PREPREC_SCORE_TOL = 1e-5
+# the exported scorer against the eval path's rows on the card, relative
+# to the rows' largest magnitude: the same ops, traced
+PREPREC_SERVE_TOL = 1e-5
+PREPREC_ZOO = ("sasrec", "bert4rec", "newb4rec", "bprmf", "cl4srec")
+PREPREC_SERVE_USERS = 64
 
 
 def preprec_domain(n_users: int, n_items: int, seed: int = 0):
@@ -3411,11 +3434,12 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def preprec_scale_trainer(device, workdir):
-    """A PrepRecTrainer for eval_method 3 over PREPREC_V items, as
-    `benchmarks/preprec_scale.py` builds its inputs: random histories of
-    full length, popularity tables of uniform values drawn on the card
-    from a seed (month [24 + 11, V + 1, 11], week [104, V + 1, 6])."""
+def preprec_scale_trainer(device, workdir, model: str = "newrec"):
+    """A PrepRecTrainer of `model` for eval_method 3 over PREPREC_V items,
+    as `benchmarks/preprec_scale.py` builds its inputs: random histories
+    of full length, popularity tables of uniform values drawn on the card
+    from a seed (month [24 + 11, V + 1, 11], week [104, V + 1, 6]; none for
+    the id models, whose item table is [V + 1, 50])."""
     import torch
 
     from bsarec_tpu_torch.preprec.config import PrepRecConfig, PrepRecTrainConfig
@@ -3423,7 +3447,7 @@ def preprec_scale_trainer(device, workdir):
     from bsarec_tpu_torch.preprec.popularity import PopularityEncoding, PopularityTable
     from bsarec_tpu_torch.preprec.train import PrepRecTrainer
 
-    u, v, length = PREPREC_EVAL_USERS, PREPREC_V, 200
+    u, v, length = PREPREC_EVAL_USERS, PREPREC_V, PREPREC_MAXLEN
     rng = np.random.default_rng(0)
 
     def ints(lo, hi, shape):
@@ -3437,16 +3461,21 @@ def preprec_scale_trainer(device, workdir):
         test_item=ints(1, v + 1, u), test_t1=ints(0, PREPREC_MONTHS, u),
         test_t2=ints(0, PREPREC_WEEKS, u), test_te=np.zeros((u, length), np.int32),
         seq_lens=np.full(u, length + 1, np.int32), usernum=u, itemnum=v)
-    gen = torch.Generator(device=device).manual_seed(1)
-    month = PopularityTable(torch.rand((PREPREC_MONTHS + 11, v + 1, 11), generator=gen,
-                                       device=device), 11, 12)
-    week = PopularityTable(torch.rand((PREPREC_WEEKS, v + 1, 6), generator=gen, device=device), 6, 1)
-    cfg = PrepRecConfig(usernum=u, itemnum=v, maxlen=length, hidden_units=50, num_blocks=2,
-                        num_heads=1, eval_method=3)
+    pop = None
+    if model in ("newrec", "newb4rec"):
+        gen = torch.Generator(device=device).manual_seed(1)
+        month = PopularityTable(torch.rand((PREPREC_MONTHS + 11, v + 1, 11), generator=gen,
+                                           device=device), 11, 12)
+        week = PopularityTable(torch.rand((PREPREC_WEEKS, v + 1, 6), generator=gen, device=device),
+                               6, 1)
+        pop = PopularityEncoding(month, week)
+    cfg = PrepRecConfig(model=model, usernum=u, itemnum=v, maxlen=length,
+                        hidden_units=PREPREC_HIDDEN,
+                        num_blocks=2, num_heads=1, eval_method=3)
     tcfg = PrepRecTrainConfig(batch_size=128, seed=0, eval_batch_size=32, eval_item_chunk=4096,
                               device=device.type)
     logger = logging.getLogger("chip_smoke.preprec")
-    return PrepRecTrainer(cfg, tcfg, ds, logger, workdir, PopularityEncoding(month, week))
+    return PrepRecTrainer(cfg, tcfg, ds, logger, workdir, pop)
 
 
 def preprec_cpu_rows(trainer, n: int):
@@ -3460,14 +3489,17 @@ def preprec_cpu_rows(trainer, n: int):
 
     cpu = torch.device("cpu")
     model = copy.deepcopy(trainer.model).to(cpu).eval()
-    pe = trainer.pop_enc
-    pop = PopularityEncoding(PopularityTable(pe.month.table.cpu(), pe.month.base_dim, pe.month.nwin),
-                             PopularityTable(pe.week.table.cpu(), pe.week.base_dim, pe.week.nwin))
+    pe, pop = trainer.pop_enc, None
+    if pe is not None:
+        pop = PopularityEncoding(
+            PopularityTable(pe.month.table.cpu(), pe.month.base_dim, pe.month.nwin),
+            PopularityTable(pe.week.table.cpu(), pe.week.base_dim, pe.week.nwin))
     arrays = evaluate.build_eval_inputs(trainer.ds, trainer.cfg, "valid", None).to_device(cpu)
     a = {k: t[:n] for k, t in arrays.items()}
     chunk, v = 65536, trainer.ds.itemnum
     with torch.no_grad():
-        state = evaluate.final_state(model, trainer.cfg, pop, a["seqs"], a["t1"], a["t2"], a["te"])
+        state = evaluate.final_state(model, trainer.cfg, pop, a["seqs"], a["t1"], a["t2"], a["te"],
+                                     a["users"])
         args = (a["cand_t1"], a["cand_t2"], a["users"])
         tgt = evaluate.score_cands(model, trainer.cfg, pop, None, state, a["target"][:, None], *args)
         parts = []
@@ -3509,7 +3541,7 @@ def preprec_sweep_trace(trainer, device, card):
     return busy / traced if busy > 0 else None
 
 
-def phase_preprec(device, card, n_steps: int = 20):
+def phase_preprec(device, card, workdir, n_steps: int = 20):
     """PREPRec's NewRec on the card (no hand-written kernel: every count
     stays 0). 1) `bsarec_tpu_torch.preprec.main` at full width (maxlen
     200, hidden 50, 2 blocks, 1 head, batch 128, input_units 132 + 6) on a
@@ -3520,7 +3552,8 @@ def phase_preprec(device, card, n_steps: int = 20):
     item chunk 4096): ranks in [0, V], the first users' ranks inside the
     window the CPU path's scores allow, users/s and peak memory. 3)
     torch.profiler over n_steps training steps at that scale: the device's
-    busy share and top entries."""
+    busy share and top entries. The domain and the run (`res/synth/smoke`)
+    stay in `workdir` for phase_preprec_zoo."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3529,95 +3562,260 @@ def phase_preprec(device, card, n_steps: int = 20):
 
     out = {}
     reset_counts()
-    with tempfile.TemporaryDirectory() as workdir:
+    t0 = time.perf_counter()
+    prefix = os.path.join(workdir, "synth")
+    stats = preprocess.preprocess(*preprec_domain(PREPREC_USERS, PREPREC_ITEMS), prefix)
+    preprocess.eval_negatives(f"{prefix}_intwtime.csv", f"{prefix}_userneg.pickle", n=100)
+    log(f"preprec domain: {stats['n_users']} users x {stats['n_items']} items preprocessed in "
+        f"{time.perf_counter() - t0:.1f}s (host)")
+    lines = LogLines()
+    logging.getLogger("preprec").addHandler(lines)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
         t0 = time.perf_counter()
-        prefix = os.path.join(workdir, "synth")
-        stats = preprocess.preprocess(*preprec_domain(PREPREC_USERS, PREPREC_ITEMS), prefix)
-        preprocess.eval_negatives(f"{prefix}_intwtime.csv", f"{prefix}_userneg.pickle", n=100)
-        log(f"preprec domain: {stats['n_users']} users x {stats['n_items']} items preprocessed in "
-            f"{time.perf_counter() - t0:.1f}s (host)")
-        lines = LogLines()
-        logging.getLogger("preprec").addHandler(lines)
-        cwd = os.getcwd()
-        os.chdir(workdir)
-        try:
-            t0 = time.perf_counter()
-            metrics = preprec_main.main(
-                ["--dataset", "synth", "--data_dir", workdir, "--device", device.type,
-                 "--num_epochs", "1", "--epoch_test", "1", "--eval_method", "1",
-                 "--save_ranks", "--train_dir", "smoke", *PREPREC_WIDTHS])
-            main_s = time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
-            logging.getLogger("preprec").removeHandler(lines)
-        run = os.path.join(workdir, "res", "synth", "smoke")
-        epoch = [m for m in lines.lines if m.startswith("epoch 1: loss")]
-        evals = [m for m in lines.lines if " eval: " in m]
-        check(len(epoch) == 1 and len(evals) == 2, f"preprec main log: {lines.lines}")
-        loss = float(re.search(r"loss (\S+)", epoch[0]).group(1))
-        check(math.isfinite(loss), f"preprec epoch loss {loss}")
-        ranks = np.loadtxt(os.path.join(run, "ranks.txt"))
-        check(ranks.shape == (stats["n_users"],) and ranks.min() >= 0 and ranks.max() <= 100,
-              f"preprec method-1 ranks in [0, 100] (min {ranks.min()}, max {ranks.max()})")
-        check(os.path.exists(os.path.join(run, "best.ckpt")), "preprec best.ckpt written")
-        check(metrics is not None and all(np.isfinite(metrics).ravel()), f"preprec metrics {metrics}")
-        log(f"preprec main (--device {device.type}, 1 epoch, method-1 valid and test): {main_s:.1f}s; "
-            f"{epoch[0]}; {'; '.join(evals)}; test {metrics} [{card}]")
-        out["main"] = {"seconds": main_s, "epoch": epoch[0], "evals": evals}
+        metrics = preprec_main.main(
+            ["--dataset", "synth", "--data_dir", workdir, "--device", device.type,
+             "--num_epochs", "1", "--epoch_test", "1", "--eval_method", "1",
+             "--save_ranks", "--train_dir", "smoke", *PREPREC_WIDTHS])
+        main_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        logging.getLogger("preprec").removeHandler(lines)
+    run = os.path.join(workdir, "res", "synth", "smoke")
+    epoch = [m for m in lines.lines if m.startswith("epoch 1: loss")]
+    evals = [m for m in lines.lines if " eval: " in m]
+    check(len(epoch) == 1 and len(evals) == 2, f"preprec main log: {lines.lines}")
+    loss = float(re.search(r"loss (\S+)", epoch[0]).group(1))
+    check(math.isfinite(loss), f"preprec epoch loss {loss}")
+    ranks = np.loadtxt(os.path.join(run, "ranks.txt"))
+    check(ranks.shape == (stats["n_users"],) and ranks.min() >= 0 and ranks.max() <= 100,
+          f"preprec method-1 ranks in [0, 100] (min {ranks.min()}, max {ranks.max()})")
+    check(os.path.exists(os.path.join(run, "best.ckpt")), "preprec best.ckpt written")
+    check(metrics is not None and all(np.isfinite(metrics).ravel()), f"preprec metrics {metrics}")
+    log(f"preprec main (--device {device.type}, 1 epoch, method-1 valid and test): {main_s:.1f}s; "
+        f"{epoch[0]}; {'; '.join(evals)}; test {metrics} [{card}]")
+    out["main"] = {"seconds": main_s, "epoch": epoch[0], "evals": evals}
 
-        trainer = preprec_scale_trainer(device, workdir)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        _, ranks3 = trainer.evaluate("valid")
-        sweep_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        check(ranks3.shape == (PREPREC_EVAL_USERS,) and ranks3.min() >= 0
-              and ranks3.max() <= PREPREC_V, f"preprec method-3 ranks in [0, V]")
-        t0 = time.perf_counter()
-        tgt, rows = preprec_cpu_rows(trainer, PREPREC_CHECK_USERS)
-        tol = PREPREC_SCORE_TOL * max(np.abs(rows).max(), np.abs(tgt).max())
-        lo = (rows > tgt[:, None] + tol).sum(1)
-        hi = (rows >= tgt[:, None] - tol).sum(1)
-        got = ranks3[:PREPREC_CHECK_USERS]
-        check(((got >= lo) & (got <= hi)).all(),
-              f"preprec method-3 card ranks {got.tolist()} outside the CPU window "
-              f"{list(zip(lo.tolist(), hi.tolist()))}")
-        log(f"preprec method 3: {PREPREC_EVAL_USERS} users x {PREPREC_V} items in {sweep_s:.3f}s = "
-            f"{PREPREC_EVAL_USERS / sweep_s:.1f} users/s (eval batch 32, item chunk 4096, the "
-            f"process's first method-3 pass); peak device memory {peak:.2f} GiB; first {PREPREC_CHECK_USERS} ranks "
-            f"{got.tolist()} within the CPU path's windows {list(zip(lo.tolist(), hi.tolist()))} "
-            f"(tol {tol:.3g}; CPU {time.perf_counter() - t0:.1f}s) [{card}]")
-        out["method3"] = {"users_per_s": PREPREC_EVAL_USERS / sweep_s, "peak_gib": peak,
-                          "sweep_busy_share": preprec_sweep_trace(trainer, device, card)}
+    trainer = preprec_scale_trainer(device, workdir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, ranks3 = trainer.evaluate("valid")
+    sweep_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(ranks3.shape == (PREPREC_EVAL_USERS,) and ranks3.min() >= 0
+          and ranks3.max() <= PREPREC_V, f"preprec method-3 ranks in [0, V]")
+    t0 = time.perf_counter()
+    tgt, rows = preprec_cpu_rows(trainer, PREPREC_CHECK_USERS)
+    tol = PREPREC_SCORE_TOL * max(np.abs(rows).max(), np.abs(tgt).max())
+    lo = (rows > tgt[:, None] + tol).sum(1)
+    hi = (rows >= tgt[:, None] - tol).sum(1)
+    got = ranks3[:PREPREC_CHECK_USERS]
+    check(((got >= lo) & (got <= hi)).all(),
+          f"preprec method-3 card ranks {got.tolist()} outside the CPU window "
+          f"{list(zip(lo.tolist(), hi.tolist()))}")
+    log(f"preprec method 3: {PREPREC_EVAL_USERS} users x {PREPREC_V} items in {sweep_s:.3f}s = "
+        f"{PREPREC_EVAL_USERS / sweep_s:.1f} users/s (eval batch 32, item chunk 4096, the "
+        f"process's first method-3 pass); peak device memory {peak:.2f} GiB; first {PREPREC_CHECK_USERS} ranks "
+        f"{got.tolist()} within the CPU path's windows {list(zip(lo.tolist(), hi.tolist()))} "
+        f"(tol {tol:.3g}; CPU {time.perf_counter() - t0:.1f}s) [{card}]")
+    out["method3"] = {"users_per_s": PREPREC_EVAL_USERS / sweep_s, "peak_gib": peak,
+                      "sweep_busy_share": preprec_sweep_trace(trainer, device, card)}
 
-        gen = np.random.default_rng(5)
-        batches = [torch.from_numpy(gen.integers(1, PREPREC_EVAL_USERS + 1, 128)).to(device)
-                   for _ in range(n_steps)]
-        trainer.model.train()
-        for users in batches[:3]:
+    gen = np.random.default_rng(5)
+    batches = [torch.from_numpy(gen.integers(1, PREPREC_EVAL_USERS + 1, 128)).to(device)
+               for _ in range(n_steps)]
+    trainer.model.train()
+    for users in batches[:3]:
+        trainer.step(users)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for users in batches:
             trainer.step(users)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for users in batches:
-                trainer.step(users)
-            torch.cuda.synchronize()
-            traced = time.perf_counter() - t0
-        on_device = device_kernels(prof)
-        busy = sum(e.self_device_time_total for e in on_device) / 1e6
-        top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
-        share = f"{100 * busy / traced:.1f}%" if busy > 0 else "not measured (no device time traced)"
-        log(f"preprec train trace: {n_steps} NewRec steps (batch 128, maxlen 200, hidden 50, "
-            f"{PREPREC_V} items) in {traced:.3f}s = {n_steps * 128 / traced:.0f} examples/s; device "
-            f"busy {share}; top device entries "
-            f"{[(e.key[:48], round(e.self_device_time_total / (1e3 * n_steps), 3)) for e in top]} "
-            f"ms/step [{card}]")
-        out["busy_share"] = busy / traced if busy > 0 else None
-        del trainer
-        torch.cuda.empty_cache()
+        traced = time.perf_counter() - t0
+    on_device = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in on_device) / 1e6
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+    share = f"{100 * busy / traced:.1f}%" if busy > 0 else "not measured (no device time traced)"
+    log(f"preprec train trace: {n_steps} NewRec steps (batch 128, maxlen 200, hidden 50, "
+        f"{PREPREC_V} items) in {traced:.3f}s = {n_steps * 128 / traced:.0f} examples/s; device "
+        f"busy {share}; top device entries "
+        f"{[(e.key[:48], round(e.self_device_time_total / (1e3 * n_steps), 3)) for e in top]} "
+        f"ms/step [{card}]")
+    out["busy_share"] = busy / traced if busy > 0 else None
+    del trainer
+    torch.cuda.empty_cache()
     counts = read_counts()
     check(not any(counts.values()), f"the PREPRec phase launched no kernel of the port: {counts}")
+    return out
+
+
+def preprec_cli(workdir, device, argv):
+    """`preprec.main` run in `workdir` on phase 11's domain: (its return,
+    its log lines, seconds)."""
+    from bsarec_tpu_torch.preprec import main as preprec_main
+
+    lines = LogLines()
+    logging.getLogger("preprec").addHandler(lines)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        t0 = time.perf_counter()
+        out = preprec_main.main(["--dataset", "synth", "--data_dir", workdir, "--device",
+                                 device.type, *PREPREC_WIDTHS, *argv])
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        logging.getLogger("preprec").removeHandler(lines)
+    return out, lines.lines, seconds
+
+
+def rate_of(lines, prefix: str) -> float:
+    """The examples/s or users/s of the first log line starting with `prefix`."""
+    line = next(m for m in lines if m.startswith(prefix))
+    return float(re.search(r"([\d.]+) (?:examples|users)/s\)", line).group(1))
+
+
+def phase_preprec_zoo(device, card, workdir):
+    """The other five PREPRec models and the rest of the PREPRec CLI on
+    the card, in phase 11's `workdir` (its domain and its NewRec run); no
+    hand-written kernel (every count stays 0). See the module docstring,
+    11b."""
+    import torch
+
+    from bsarec_tpu_torch.preprec.config import PrepRecConfig
+    from bsarec_tpu_torch.preprec.data import load_intwtime, load_userneg
+    from bsarec_tpu_torch.preprec.evaluate import build_eval_inputs
+    from bsarec_tpu_torch.preprec.serving import load_candidate_scorer
+
+    reset_counts()
+    out = {"models": {}}
+    res = os.path.join(workdir, "res", "synth")
+    n_users = len(np.loadtxt(os.path.join(res, "smoke", "ranks.txt")))
+    for name in PREPREC_ZOO:
+        extra = ["--mask_prob", "0.2"] if name in ("bert4rec", "newb4rec") else []
+        if name == "sasrec":
+            extra = ["--save_scores"]  # the saved rows of the ensembling check below
+        metrics, lines, seconds = preprec_cli(
+            workdir, device, ["--model", name, "--num_epochs", "1", "--epoch_test", "1",
+                              "--eval_method", "1", "--save_ranks", "--train_dir", f"zoo_{name}",
+                              *extra])
+        run = os.path.join(res, f"zoo_{name}")
+        epoch = next(m for m in lines if m.startswith("epoch 1: loss"))
+        loss = float(re.search(r"loss (\S+)", epoch).group(1))
+        check(math.isfinite(loss) and loss > 0, f"preprec {name} epoch loss {loss}")
+        ranks = np.loadtxt(os.path.join(run, "ranks.txt"))
+        check(ranks.shape == (n_users,) and ranks.min() >= 0 and ranks.max() <= 100,
+              f"preprec {name} method-1 ranks in [0, 100] (min {ranks.min()}, max {ranks.max()})")
+        check(os.path.exists(os.path.join(run, "best.ckpt")), f"preprec {name} best.ckpt written")
+        check(metrics is not None and all(np.isfinite(metrics).ravel()), f"preprec {name} {metrics}")
+        rates = {"train_examples_per_s": rate_of(lines, "epoch 1: loss"),
+                 "valid_users_per_s": rate_of(lines, "valid eval"),
+                 "test_users_per_s": rate_of(lines, "test eval"), "main_s": seconds,
+                 "loss": loss, "test": metrics}
+        out["models"][name] = rates
+        log(f"preprec zoo {name}: main (--device {device.type}, 1 epoch, method-1 valid and "
+            f"test) {seconds:.1f}s; {epoch}; train {rates['train_examples_per_s']} examples/s, "
+            f"eval {rates['valid_users_per_s']} / {rates['test_users_per_s']} users/s; "
+            f"test {metrics} [{card}]")
+    metrics, lines, seconds = preprec_cli(workdir, device, ["--model", "mostpop"])
+    out["mostpop_users_per_s"] = rate_of(lines, "mostpop test")
+    log(f"preprec zoo mostpop: {out['mostpop_users_per_s']} users/s (host numpy); test {metrics}; "
+        f"main {seconds:.1f}s [{card}]")
+
+    # SASRecB's method 3 over PREPREC_V items
+    trainer = preprec_scale_trainer(device, workdir, "sasrec")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, ranks3 = trainer.evaluate("valid")
+    sweep_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(ranks3.shape == (PREPREC_EVAL_USERS,) and ranks3.min() >= 0 and ranks3.max() <= PREPREC_V,
+          "preprec SASRecB method-3 ranks in [0, V]")
+    tgt, rows = preprec_cpu_rows(trainer, PREPREC_CHECK_USERS)
+    tol = PREPREC_SCORE_TOL * max(np.abs(rows).max(), np.abs(tgt).max())
+    lo = (rows > tgt[:, None] + tol).sum(1)
+    hi = (rows >= tgt[:, None] - tol).sum(1)
+    got = ranks3[:PREPREC_CHECK_USERS]
+    check(((got >= lo) & (got <= hi)).all(),
+          f"preprec SASRecB method-3 card ranks {got.tolist()} outside the CPU window "
+          f"{list(zip(lo.tolist(), hi.tolist()))}")
+    out["sasrec_method3"] = {"users_per_s": PREPREC_EVAL_USERS / sweep_s, "peak_gib": peak}
+    log(f"preprec zoo SASRecB method 3: {PREPREC_EVAL_USERS} users x {PREPREC_V} items in "
+        f"{sweep_s:.3f}s = {PREPREC_EVAL_USERS / sweep_s:.1f} users/s (eval batch 32, item chunk "
+        f"4096); peak device memory {peak:.2f} GiB; first {PREPREC_CHECK_USERS} ranks "
+        f"{got.tolist()} within the CPU path's windows {list(zip(lo.tolist(), hi.tolist()))} "
+        f"(tol {tol:.3g}) [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the saved scores, ensembled with fresh ones
+    sas = os.path.join(res, "zoo_sasrec")
+    saved = np.loadtxt(os.path.join(sas, "preds.txt"))
+    check(saved.shape == (n_users, 101) and np.isfinite(saved).all(), f"preds.txt {saved.shape}")
+    _, lines, seconds = preprec_cli(
+        workdir, device, ["--model", "sasrec", "--inference_only", "--state_dict_path",
+                          os.path.join(sas, "best.ckpt"), "--use_scores", "--use_score_dir",
+                          os.path.join(sas, "preds.txt"), "--alphas", "0.3", "0.7",
+                          "--train_dir", "zoo_sasrec_ens"])
+    blends = [m for m in lines if m.startswith("alpha=")]
+    check(len(blends) == 2 and all("nan" not in m for m in blends), f"ensembled metrics {blends}")
+    log(f"preprec zoo --use_scores (SASRecB, method 1): {'; '.join(blends)} ({seconds:.1f}s) [{card}]")
+
+    # phase 11's NewRec: user embeddings, few-shot transfer, the scorer
+    src = os.path.join(res, "smoke", "best.ckpt")
+    _, _, seconds = preprec_cli(workdir, device, ["--state_dict_path", src, "--export_user_embed",
+                                                  "--label", "smoke", "--train_dir", "zoo_embed"])
+    emb = np.loadtxt(os.path.join(res, "zoo_embed", "user_embed_smoke.txt"))
+    check(emb.shape == (n_users, PREPREC_HIDDEN) and np.isfinite(emb).all(),
+          f"user embeddings {emb.shape}")
+    log(f"preprec zoo --export_user_embed: {emb.shape} in {seconds:.1f}s [{card}]")
+
+    _, lines, seconds = preprec_cli(
+        workdir, device, ["--state_dict_path", src, "--fs_transfer", "--fs_emb", "--fs_num_epochs",
+                          "1", "--fs_prop", "0.25", "--epoch_test", "1", "--train_dir", "zoo_fs"])
+    loaded, after = torch.load(src), torch.load(os.path.join(res, "zoo_fs", "epoch=1.ckpt"))
+    check(all(torch.equal(after[k], v) for k, v in loaded.items()),
+          "fs_transfer: every parameter but fs_layer's bit-equal to the loaded checkpoint")
+    moved = [k for k in after if k.startswith("fs_layer")]
+    check(moved, "fs_transfer: the checkpoint holds fs_layer")
+    log(f"preprec zoo --fs_transfer --fs_emb: {len(loaded)} frozen tensors bit-equal, "
+        f"{len(moved)} fs_layer tensors trained; "
+        f"{next(m for m in lines if m.startswith('epoch 1: loss'))} ({seconds:.1f}s) [{card}]")
+
+    path = os.path.join(workdir, "preprec_scorer.pt2")
+    _, lines, seconds = preprec_cli(
+        workdir, device, ["--state_dict_path", src, "--inference_only", "--mode", "valid",
+                          "--save_scores", "--export_serving", path, "--train_dir", "zoo_serve"])
+    want = np.loadtxt(os.path.join(res, "zoo_serve", "preds.txt"))[:PREPREC_SERVE_USERS]
+    scorer = load_candidate_scorer(path, device)
+    prefix = os.path.join(workdir, "synth")
+    ds = load_intwtime(f"{prefix}_intwtime.csv", PREPREC_MAXLEN)
+    cfg = PrepRecConfig(usernum=ds.usernum, itemnum=ds.itemnum, maxlen=PREPREC_MAXLEN)
+    a = build_eval_inputs(ds, cfg, "valid", load_userneg(f"{prefix}_userneg.pickle", ds.usernum))
+    n, c = PREPREC_SERVE_USERS, a.cands.shape[1]
+    args = (a.seqs[:n], a.t1[:n], a.t2[:n], a.cands[:n], np.repeat(a.cand_t1[:n, None], c, 1),
+            np.repeat(a.cand_t2[:n, None], c, 1), a.users[:n])
+    got = scorer.scores(*args)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    check(got.shape == want.shape and err <= PREPREC_SERVE_TOL,
+          f"preprec scorer against the eval path: {got.shape} vs {want.shape}, err {err:.3g}")
+    scorer.scores(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        scorer.scores(*args)
+    call_ms = (time.perf_counter() - t0) * 100
+    out["serving"] = {"max_rel_err": err, "ms_per_call_b64": call_ms, "bytes": os.path.getsize(path)}
+    log(f"preprec zoo serving: {path.rsplit('/', 1)[-1]} ({os.path.getsize(path)} bytes) loaded "
+        f"on the card, {n} users x {c} candidates within {err:.3g} of the eval path's rows; "
+        f"{call_ms:.3f} ms a call (b={n}, host numpy in and out) [{card}]")
+    counts = read_counts()
+    check(not any(counts.values()), f"the PREPRec zoo phase launched no kernel of the port: {counts}")
     return out
 
 
@@ -3695,8 +3893,12 @@ def main() -> int:
         zoo_counts, zoo_rates, zoo_serving = phase_zoo_train(device, workdir, card)
     with timed("zoo: step and eval times, device busy share"):
         zoo_profile = phase_zoo_profile(device, card)
-    with timed("preprec: NewRec main (epoch, method-1 eval), method 3 at 1M items, trace"):
-        preprec = phase_preprec(device, card)
+    with tempfile.TemporaryDirectory() as preprec_dir:
+        with timed("preprec: NewRec main (epoch, method-1 eval), method 3 at 1M items, trace"):
+            preprec = phase_preprec(device, card, preprec_dir)
+        with timed("preprec zoo: five models' main, mostpop, SASRecB method 3 at 1M items, "
+                   "scores, user embeddings, fs_transfer, the scorer"):
+            preprec_zoo = phase_preprec_zoo(device, card, preprec_dir)
     for mt, (train_rate, users_s) in zoo_rates.items():
         prof = zoo_profile[mt]
         busy = prof["busy_share"]
@@ -3814,6 +4016,7 @@ def main() -> int:
                    "bf16_serving_max_abs_err": bf16_paths["serving_max_abs_err"]}
     log(f"train bf16 vs fp32 examples/s and busy share: {json.dumps(bf16_turns)} [{card}]")
     log(f"preprec: {json.dumps(preprec)} [{card}]")
+    log(f"preprec zoo: {json.dumps(preprec_zoo)} [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,7 +34,8 @@ def test_import_port_loads_no_jax():
         "bsarec_tpu_torch.ops.dropout, bsarec_tpu_torch.models.sasrec, "
         "bsarec_tpu_torch.serving, bsarec_tpu_torch.serve, bsarec_tpu_torch.ops.serving_topk, "
         "bsarec_tpu_torch.preprec.main, bsarec_tpu_torch.preprec.jax_import, "
-        "bsarec_tpu_torch.preprec.preprocess; "
+        "bsarec_tpu_torch.preprec.preprocess, bsarec_tpu_torch.preprec.serving, "
+        "bsarec_tpu_torch.preprec.sampler, bsarec_tpu_torch.preprec.evaluate; "
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
         "assert not bad, bad"
     )
