@@ -7,8 +7,10 @@ JAX package becomes a CUDA C++ kernel for Hopper (`csrc/`), built with
 nvcc at first use and held against a plain PyTorch version that sits
 beside it.
 
-The package imports torch, numpy and the standard library only — never
-jax, flax, optax or `bsarec_tpu`.
+Host-side data preparation runs `native/seqrec.cpp`, which the package
+builds with g++ and loads through ctypes (`native.py`), with numpy paths
+beside it. The package imports torch, numpy and the standard library
+only — never jax, flax, optax or `bsarec_tpu`.
 """
 
 from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device

@@ -1,9 +1,10 @@
 """Typed run configuration (counterpart of `bsarec_tpu/config.py`).
 
 The fields and defaults are the JAX package's; `TrainConfig.device` and
-`TrainConfig.prng` (a JAX-wide setting there, `--prng`) are new. Fields that only steer TPU machinery (`mesh`, `scan_unroll`,
-`remat`, `multihost`) are kept so that configurations carry across, and
-the parts of the port that would read them are not ported yet.
+`TrainConfig.prng` (a JAX-wide setting there, `--prng`) are new.
+`scan_unroll` steers the JAX epoch scan and has no counterpart here;
+`mesh` and `multihost` are kept so that configurations carry across,
+and the multi-device paths that would read them are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,6 +78,9 @@ class TrainConfig:
     eval_impl: str = "auto"
     mesh: str = ""
     scan_unroll: int = 0
+    # recompute each step's whole loss in the backward (train/loop.py:
+    # remat_loss); JAX's config says "each encoder block", but its loop
+    # checkpoints the whole loss too
     remat: bool = False
     multihost: bool = False
     # "cuda" (default) or "cpu"; CPU runs only when asked for

@@ -9,9 +9,12 @@ Every split is materialized once as fixed-shape int32 numpy arrays:
 
 The contrastive same-target view of DuoRec and FEARec
 (`sample_same_target`, `src/dataset.py:41-56,83-106`) is resampled on the
-host each epoch from a grouped-by-answer index, in numpy. It is JAX's
-numpy path; the JAX package's native `same_target_pick` is not ported
-(ROADMAP A7).
+host each epoch from a grouped-by-answer index.
+
+Where the native library loads (`bsarec_tpu_torch/native.py`), the
+splits and the same-target picks come from `native/seqrec.cpp`, as in
+the JAX package; the numpy code here is the path without it and the
+reference the C routines are held to (the splits bit for bit).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import dataclasses
 
 import numpy as np
 
+from bsarec_tpu_torch import native
 from bsarec_tpu_torch.data.corpus import Corpus
 
 
@@ -57,10 +61,19 @@ class SeqRecData:
         self.corpus = corpus
         self.max_len = max_len
         self.item_size = corpus.item_size
-        lists = corpus.user_seq
-        self.train = self._build_train(lists, max_len)
-        self.valid = self._build_eval(lists, max_len, mode="valid")
-        self.test = self._build_eval(lists, max_len, mode="test")
+        if native.lib() is not None:
+            offsets, items = corpus.csr
+            self.train = TrainSplit(*native.prefix_expand(offsets, items, max_len))
+            lens = (offsets[1:] - offsets[:-1]).astype(np.int64)
+            for mode, drop in (("valid", 2), ("test", 1)):
+                seen_width = max(int((lens - drop).max(initial=1)), 1)
+                setattr(self, mode, EvalSplit(
+                    *native.eval_split(offsets, items, max_len, drop, seen_width)))
+        else:
+            lists = corpus.lists
+            self.train = self._build_train(lists, max_len)
+            self.valid = self._build_eval(lists, max_len, mode="valid")
+            self.test = self._build_eval(lists, max_len, mode="test")
         self._same_target_groups = None
 
     @staticmethod
@@ -129,10 +142,13 @@ class SeqRecData:
     def sample_same_target(self, rng: np.random.Generator) -> np.ndarray:
         """One epoch's same-target view, [N, L]: for each train row the
         input row of a random *other* train row with the same answer
-        (itself when its group has no distinct member), JAX's numpy path
-        (`bsarec_tpu/data/pipeline.py:152-185`) draw for draw. JAX draws a
-        seed for its native sampler first and, without the library, drops
-        it; so does this, to stay on the same stream of `rng`."""
+        (itself when its group has no distinct member), as the JAX package
+        draws it (`bsarec_tpu/data/pipeline.py:152-185`): a seed from
+        `rng` for the native sampler, which re-picks (8 tries) a row equal
+        to its own while the group offers another; without the library,
+        the seed dropped and the numpy path, draw for draw. The native
+        sampler reads the row classes where JAX reads its row hashes: the
+        two agree on which rows are equal, so the picks are JAX's."""
         if self._same_target_groups is None:
             self._build_same_target_groups()
         order, starts, ends, diversity, row_class = self._same_target_groups
@@ -140,7 +156,11 @@ class SeqRecData:
         n = answers.shape[0]
         group_start = starts[answers]
         group_size = np.maximum(ends[answers] - group_start, 1)
-        rng.integers(0, 2**63 - 1)  # JAX's native-sampler seed
+        seed = int(rng.integers(0, 2**63 - 1))
+        pick = native.same_target_pick(order, group_start, group_size, diversity[answers],
+                                       row_class, seed)
+        if pick is not None:
+            return self.train.input_ids[pick].copy()
         pick = order[group_start + (rng.integers(0, 1 << 62, size=n) % group_size)]
         # re-pick rows that landed on an identical sequence while their
         # group offers another one (8 rounds, as JAX)

@@ -25,11 +25,15 @@ a pre-rename BSARec checkpoint's `filter_layer.beta` is read as
 [num_users, 20] top-k ids, and `--export_serving scorer.pt2` the
 weights-baked serving artifact (`serving.py`; `--serving_quant`,
 `--serving_impl`, `--serving_item_chunk`), exported on `--device`; serve
-it with `python -m bsarec_tpu_torch.serve scorer.pt2`. `--dtype bf16`
+it with `python -m bsarec_tpu_torch.serve scorer.pt2`. `--dump_seqout
+<dir>` writes the per-layer sequence outputs of the test inputs
+(`<dir>/<data_name>_<model_type>/{L}layer_{i}iter.npy`), `--profile <dir>`
+traces `Trainer.fit` with torch.profiler into `<dir>`, and `--remat`
+recomputes each step's whole loss in its backward. `--dtype bf16`
 runs all of it under the bf16 compute policy (`ops/precision.py`): the
 streaming CE kernels in their bf16-operand form, the dense eval and the
-scorer on bf16-rounded operands. Flags of parts not
-ported yet raise when set.
+scorer on bf16-rounded operands. `--mesh` and `--multihost` (the
+multi-device paths) are not ported yet and raise when set.
 """
 
 from __future__ import annotations
@@ -45,12 +49,10 @@ from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.train import checkpoint as ckpt
 from bsarec_tpu_torch.train.trainer import Trainer
 from bsarec_tpu_torch.utils.logging import get_local_time, set_logger
+from bsarec_tpu_torch.utils.profiling import trace
 
 # flags whose machinery is not ported yet, with their no-op values
-_NOT_PORTED_FLAGS = {
-    "dump_seqout": None, "profile": None,
-    "mesh": "", "multihost": False, "remat": False,
-}
+_NOT_PORTED_FLAGS = {"mesh": "", "multihost": False}
 
 
 def parse_args(argv=None):
@@ -66,7 +68,10 @@ def parse_args(argv=None):
     parser.add_argument("--export_topk", default=None, type=str,
                         help="write the [num_users, 20] seen-masked top-k item ids "
                         "of the test split to this .npy path")
-    parser.add_argument("--dump_seqout", default=None, type=str, help="(not ported yet)")
+    parser.add_argument("--dump_seqout", default=None, type=str,
+                        help="write reference-layout per-layer sequence-output dumps "
+                        "(<dir>/<data>_<model>/{L}layer_{i}iter.npy, the figure3.ipynb "
+                        "input format) from the final/test model to this directory")
     parser.add_argument("--export_serving", default=None, type=str,
                         help="export the weights-baked, batch-polymorphic top-k scorer "
                         "(torch.export .pt2) to this path; load it with "
@@ -83,7 +88,8 @@ def parse_args(argv=None):
                         "--serving_item_chunk blocks")
     parser.add_argument("--serving_item_chunk", default=65536, type=int)
     parser.add_argument("--train_name", default=get_local_time(), type=str)
-    parser.add_argument("--profile", default=None, type=str, help="(not ported yet)")
+    parser.add_argument("--profile", default=None, type=str,
+                        help="write a torch.profiler trace of the run to this directory")
     parser.add_argument("--resume", action="store_true",
                         help="continue training from the <train_name>.ckpt.state snapshot")
     parser.add_argument("--mesh", default="", type=str, help="(not ported yet)")
@@ -129,7 +135,11 @@ def parse_args(argv=None):
     parser.add_argument("--initializer_range", default=0.02, type=float)
     parser.add_argument("--scan_unroll", default=0, type=int,
                         help="(the JAX epoch scan's unroll; no counterpart in the port)")
-    parser.add_argument("--remat", action="store_true", help="(not ported yet)")
+    parser.add_argument("--remat", action="store_true",
+                        help="whole-loss rematerialization in the backward "
+                        "(torch.utils.checkpoint of each step's loss): ~1/3 more FLOPs; "
+                        "no activation is kept between the forward and the backward, "
+                        "though the backward's peak memory need not fall")
 
     args, _ = parser.parse_known_args(argv)
     mt = args.model_type.lower()
@@ -196,7 +206,8 @@ def main(argv=None):
 
     if not args.do_eval:
         start_epoch = trainer.resume() if args.resume else 0
-        scores, result_info = trainer.fit(start_epoch)
+        with trace(args.profile, trainer.device):
+            scores, result_info = trainer.fit(start_epoch)
     elif args.load_torch_model is not None:
         trainer.install_params(ckpt.load_reference_params(args.load_torch_model))
         logger.info(f"Imported torch checkpoint {args.load_torch_model} for test!")
@@ -214,6 +225,12 @@ def main(argv=None):
         np.save(args.export_topk, topk)
         logger.info(f"exported top-{topk.shape[1]} item ids for "
                     f"{topk.shape[0]} users to {args.export_topk}")
+
+    if args.dump_seqout:
+        tag = f"{args.data_name}_{args.model_type}"
+        n = trainer.dump_sequence_outputs(args.dump_seqout, tag)
+        logger.info(f"dumped {n} per-layer sequence-output batches to "
+                    f"{os.path.join(args.dump_seqout, tag)}")
 
     if args.export_serving:
         from bsarec_tpu_torch.serving import export_scorer

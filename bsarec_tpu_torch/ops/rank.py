@@ -50,6 +50,7 @@ import functools
 import numpy as np
 import torch
 
+from bsarec_tpu_torch import native
 from bsarec_tpu_torch.ops._launch import call_on, raw_stream, sm_count
 
 NEG_INF = float("-inf")
@@ -72,8 +73,13 @@ def seen_words(vocab_size: int) -> int:
 def build_seen_bitmask(seen_items: np.ndarray, vocab_size: int) -> np.ndarray:
     """[B, S] 0-padded seen-item lists -> [B, ceil(V/32)] int32 bitmask
     (host side). The padding item's bit is always set; ids outside
-    [1, vocab_size) are dropped. (The JAX builder's `id_offset` and
-    `mask_item0` serve the vocab-sharded path, which is not ported.)"""
+    [1, vocab_size) are dropped. Through the native library where it
+    loads (`native.seen_bitmask`), else in numpy, bit for bit the same.
+    (The JAX builder's `id_offset` and `mask_item0` serve the
+    vocab-sharded path, which is not ported.)"""
+    built = native.seen_bitmask(seen_items, vocab_size)
+    if built is not None:
+        return built
     out = np.zeros((seen_items.shape[0], seen_words(vocab_size)), np.uint32)
     out[:, 0] |= 1
     rows = np.repeat(np.arange(seen_items.shape[0]), seen_items.shape[1])

@@ -7,9 +7,10 @@ items[-maxlen-3:-2] left-zero-padded to maxlen+1, valid = items[-2], test
 [-maxlen-2:-1]. The relative-time-rank index (`te`) is the 1-based
 argsort of successive timestamp gaps.
 
-The rows are parsed in Python (the JAX package's numpy fallback); its
-ctypes path to `native/seqrec.cpp` is not ported (ROADMAP A7). The arrays
-are the JAX loader's, numpy [U, ...] rows indexed by user-1.
+The rows are parsed by the native library where it loads
+(`bsarec_tpu_torch/native.py`, `native/seqrec.cpp:intwtime_*`), as in
+the JAX package, else in Python, with the same result. The arrays are
+the JAX loader's, numpy [U, ...] rows indexed by user-1.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import dataclasses
 import pickle
 
 import numpy as np
+
+from bsarec_tpu_torch import native
 
 
 @dataclasses.dataclass
@@ -46,9 +49,8 @@ class PrepRecDataset:
         return (np.nonzero(counts > 1)[0] + 1).astype(np.int32)
 
 
-def _group_rows(path: str):
-    """-> ({user1: (items, t1s, t2s, tes) numpy slices in file order},
-    usernum, itemnum)."""
+def _parse_rows(path: str):
+    """The Python parser: the five int32 columns in file order, itemnum."""
     rows: list[tuple] = []
     itemnum = 0
     with open(path) as fh:
@@ -61,8 +63,18 @@ def _group_rows(path: str):
             rows.append((u, i, t1, t2, te))
     if not rows:
         raise ValueError(f"empty intwtime file: {path}")
-    u_col, i_col, t1_col, t2_col, te_col = np.asarray(rows, np.int32).reshape(-1, 5).T
-    usernum = int(u_col.max())
+    return (*np.asarray(rows, np.int32).reshape(-1, 5).T, itemnum)
+
+
+def _group_rows(path: str):
+    """-> ({user1: (items, t1s, t2s, tes) numpy slices in file order},
+    usernum, itemnum)."""
+    parsed = native.parse_intwtime(path)
+    if parsed is not None:
+        (u_col, i_col, t1_col, t2_col, te_col), usernum, itemnum = parsed
+    else:
+        u_col, i_col, t1_col, t2_col, te_col, itemnum = _parse_rows(path)
+        usernum = int(u_col.max())
 
     # group by user, keeping file order within each user
     order = np.argsort(u_col, kind="stable")

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from bsarec_tpu_torch.ops.precision import is_bf16, rounded
 from bsarec_tpu_torch.ops.rank import seen_ids_to_bitmask, streaming_masked_topk
@@ -72,8 +73,47 @@ def dropout_seeds(generator: torch.Generator, steps: int, device: torch.device) 
                          device=device)
 
 
+def remat_loss(model, ids, ans, neg, sem, uid, generator: torch.Generator | None):
+    """`model.calculate_loss` of one batch with the whole loss recomputed in
+    the backward instead of its activations kept (JAX's `jax.checkpoint`
+    of the loss, `bsarec_tpu/train/loop.py:173-177`): the same loss and
+    gradients as the eager call, bit for bit. The recompute sees what the
+    forward saw: torch's default CPU and CUDA streams (nn.Dropout) by
+    `preserve_rng_state`; the explicit generator's state (BERT4Rec's cloze
+    positions) and the fused dropout's seeds and call index, each set back
+    to its value at the loss's entry here, and the generator then returned
+    to where the forward left it, so the epoch's stream keeps its order."""
+    state = model.dropout_state
+
+    def snapshot():
+        return None if generator is None else generator.get_state(), state.seeds, state.call
+
+    def restore(saved):
+        if generator is not None:
+            generator.set_state(saved[0])
+        state.seeds, state.call = saved[1], saved[2]
+
+    entry = snapshot()
+    forward_done = False
+
+    def loss_fn(ids, ans, neg, sem, uid):
+        nonlocal forward_done
+        if forward_done:  # the recompute
+            after = snapshot()
+            restore(entry)
+            try:
+                return model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
+            finally:  # also when the recompute stops early, its saved tensors made
+                restore(after)
+        forward_done = True
+        return model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
+
+    return checkpoint(loss_fn, ids, ans, neg, sem, uid, use_reentrant=False,
+                      preserve_rng_state=True)
+
+
 def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
-                      device: torch.device):
+                      device: torch.device, remat: bool = False):
     """Returns `(epoch, steps)`; `epoch(inputs, answers, generator, users,
     same_target)` runs one pass over the [N, L] inputs, [N] answers, [N]
     user ids and [N, L] same-target view (each None where the model reads
@@ -82,7 +122,9 @@ def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
     generator, in this order: the epoch's permutation, the fused
     dropout's [steps, 2] seed words (fused models only), then per step
     the negatives (models with `reads_negatives` only) and what the loss
-    itself draws (BERT4Rec's cloze positions)."""
+    itself draws (BERT4Rec's cloze positions). `remat` recomputes each
+    step's whole loss in its backward (`remat_loss`); the epoch is then
+    bit-equal to the eager one."""
     steps = math.ceil(num_samples / batch_size)
     item_size = model.config.item_size
     dropout_state = model.dropout_state
@@ -102,7 +144,10 @@ def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
                        if model.reads_negatives else None)
                 if seeds is not None:
                     dropout_state.begin_step(seeds[step])
-                loss = model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
+                if remat:
+                    loss = remat_loss(model, ids, ans, neg, sem, uid, generator)
+                else:
+                    loss = model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 optimizer.step()

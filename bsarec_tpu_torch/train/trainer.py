@@ -55,7 +55,8 @@ class Trainer:
         self.optimizer = make_optimizer(self.model.parameters(), train_cfg)
         self.loss_impl = resolve_loss_impl(model_cfg.loss_impl, model_cfg.item_size, self.device)
         self._epoch_fn, self.steps_per_epoch = build_train_epoch(
-            self.model, self.optimizer, train_cfg.batch_size, data.train.num_samples, self.device)
+            self.model, self.optimizer, train_cfg.batch_size, data.train.num_samples, self.device,
+            remat=train_cfg.remat)
         self._train_dev = None  # moved to the device by the first train()
         # early-stopping state restored by resume(), consumed by fit()
         self._resume_stopper = None
@@ -162,6 +163,29 @@ class Trainer:
         fn, _, _ = self._build_eval(collect_topk=True)
         dev = self._eval_dev[split]
         return fn(dev["inputs"], dev["answers"], dev["seen"]).cpu().numpy()
+
+    def dump_sequence_outputs(self, out_dir: str, tag: str, split: str = "test",
+                              batch_size: int | None = None) -> int:
+        """Per-layer sequence-output dumps in the reference's layout
+        (`<out_dir>/<tag>/{L}layer_{i}iter.npy`, each [b, L, H] float32,
+        the input of its `figure3.ipynb`): eval-mode all-layers forwards
+        over the `split` inputs, one file per layer output (the embedding
+        output included) and eval batch (`main --dump_seqout`). The last
+        batch is not padded: its files hold the rows there are, as JAX's
+        (`bsarec_tpu/train/trainer.py:367-391`) after its slice. Returns
+        the number of batches written."""
+        from bsarec_tpu_torch.utils.visualize import dump_sequence_outputs as dump
+
+        b = batch_size or self.train_cfg.eval_batch_size
+        inputs = (self.data.test if split == "test" else self.data.valid).input_ids
+        n_batches = -(-len(inputs) // b)
+        self.model.eval()
+        with torch.inference_mode():
+            for i in range(n_batches):
+                batch = torch.from_numpy(inputs[i * b:(i + 1) * b]).long().to(self.device)
+                outs = self.model(batch, all_layers=True)
+                dump([o.cpu().numpy() for o in outs], out_dir, tag, i)
+        return n_batches
 
     def save(self, path: str | None = None):
         ckpt.save_params(self.model.state_dict(), path or self.checkpoint_path)

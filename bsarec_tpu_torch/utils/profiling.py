@@ -1,19 +1,39 @@
 """Throughput and trace annotations (counterpart of
 `bsarec_tpu/utils/profiling.py`).
 
-- `annotate(name)` names a region in a `torch.profiler` trace;
+- `trace(dir, device)` records the enclosed region with `torch.profiler`
+  (host activity, and the card's kernels when `device` is CUDA) and
+  writes a Chrome/Perfetto trace into `dir`, which TensorBoard's profiler
+  plugin also reads; `main --profile <dir>` wraps `Trainer.fit` in it;
+- `annotate(name)` names a region in such a trace;
 - `Throughput` accumulates steady-state examples/s and skips the first
   observation, which carries one-time start-up costs (on the card: the
   kernels' build and CUDA's lazy initialisation).
-
-`trace(dir)` behind `--profile` is not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
+from torch.profiler import ProfilerActivity
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None, device: torch.device | str = "cpu"):
+    """Profile the enclosed region into `log_dir` as
+    `<host>_<pid>.<time>.pt.trace.json` (a no-op when `log_dir` is falsy)."""
+    if not log_dir:
+        yield
+        return
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield
 
 
 def annotate(name: str):

@@ -205,6 +205,25 @@ Phases, each of which raises (exit code 1) when it fails:
    the first 64 users' candidates within PREPREC_SERVE_TOL of the eval
    path's saved rows.
 
+12. The tools (after phase 8, in phase 7's directory; `phase tools: ...`,
+   `tools ...` lines and a `tools: {...}` summary): the native host library
+   (`bsarec_tpu_torch/native.py`) built with g++ from `native/seqrec.cpp`
+   and loaded; at phase 7's corpus its corpus parse, train split, both eval
+   splits and the test split's seen bitmask at V = 1,000,000 bit-equal to
+   the port's numpy paths, the same-target sampler against its contract,
+   each host time native against numpy; `--remat`: two Adam steps at B=256,
+   V=1,000,000 eager and through `remat_loss` from the same parameters,
+   batches and seeds, for BSARec at hidden 64 (fp32 and bf16, dropout 0.5
+   on nn.Dropout), BSARec at hidden 512 and SASRec on the fused dropout,
+   the parameters after them bit-equal, the remat step's launches (two
+   ce_logz and one ce_grads, 21 dropout passes), ms and peak memory of
+   each; `main --remat` for one epoch; `main --profile` of a one-epoch
+   fit on a 1M-item x 1k-user corpus, whose trace names the CE and rank
+   kernels and the training annotations (its top device entries
+   printed); `main --do_eval --load_model smoke_train --dump_seqout`
+   (40 batches x 3 files, shapes, read back by `load_sequence_outputs`,
+   the last layer against the model's forward).
+
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
 
@@ -3819,6 +3838,342 @@ def phase_preprec_zoo(device, card, workdir):
     return out
 
 
+# ---- the tools: the native host library, --remat, --profile, --dump_seqout ------
+
+PROFILE_USERS = 1_000  # the --profile run's corpus: 1M items, few steps, a small trace
+# a --remat step computes the loss twice (its forward, then its recompute in
+# the backward), so its CE makes two ce_logz launches and one ce_grads, and
+# SASRec's fused dropout three passes a site (forward, recompute, backward)
+REMAT_STEP_CE = {"ce_logz": 2, "ce_grads": 1}
+REMAT_STEP_DROPOUT = 3 * DROPOUT_SITES
+# at most this share of the rows whose answer group holds another row may
+# keep a pick equal to their own row after the native sampler's 9 tries
+SAME_TARGET_SELF_SHARE = 0.01
+
+
+@contextlib.contextmanager
+def native_off():
+    """BSAREC_NO_NATIVE=1 while the block runs: the port's numpy paths."""
+    old = os.environ.get("BSAREC_NO_NATIVE")
+    os.environ["BSAREC_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("BSAREC_NO_NATIVE")
+        if old is not None:
+            os.environ["BSAREC_NO_NATIVE"] = old
+
+
+def host_s(fn):
+    """(fn(), seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_tools_native(workdir, card):
+    """The native library (`bsarec_tpu_torch/native.py`, g++ on
+    `native/seqrec.cpp`) at phase 7's 1M-item x 10k-user corpus: the
+    corpus parse, the train split (prefix_expand), both eval splits and the
+    seen bitmask of the test split at V = 1,000,000 bit-equal to the port's
+    numpy paths; the same-target sampler against its contract. Returns
+    {routine: [native s, numpy s]}."""
+    from bsarec_tpu_torch import native
+    from bsarec_tpu_torch.data.corpus import load_corpus
+    from bsarec_tpu_torch.data.pipeline import SeqRecData
+    from bsarec_tpu_torch.ops import rank
+
+    lib, build_s = host_s(native.lib)
+    check(lib is not None, "the native library did not build or load")
+    path = os.path.join(workdir, "synth_train.txt")
+    fast, t_fast = host_s(lambda: load_corpus(path))
+    with native_off():
+        slow, t_slow = host_s(lambda: load_corpus(path))
+    check(fast.offsets is not None and slow.offsets is None, "corpus parse: paths not as asked")
+    offsets, items = slow.csr
+    check(np.array_equal(fast.offsets, offsets) and np.array_equal(fast.items, items)
+          and fast.max_item == slow.max_item == N_ITEMS - 1, "native corpus parse != Python's")
+    times = {"parse_corpus": [t_fast, t_slow]}
+
+    (inputs, answers, users), t_fast = host_s(lambda: native.prefix_expand(offsets, items, 50))
+    train, t_slow = host_s(lambda: SeqRecData._build_train(slow.lists, 50))
+    check(np.array_equal(inputs, train.input_ids) and np.array_equal(answers, train.answers)
+          and np.array_equal(users, train.user_ids), "native prefix_expand != numpy")
+    times["prefix_expand"] = [t_fast, t_slow]
+    lens = (offsets[1:] - offsets[:-1]).astype(np.int64)
+    times["eval_split"] = [0.0, 0.0]
+    for mode, drop in (("valid", 2), ("test", 1)):
+        width = max(int((lens - drop).max(initial=1)), 1)
+        got, t_fast = host_s(lambda: native.eval_split(offsets, items, 50, drop, width))
+        want, t_slow = host_s(lambda: SeqRecData._build_eval(slow.lists, 50, mode))
+        check(all(np.array_equal(g, w) for g, w in
+                  zip(got, (want.input_ids, want.answers, want.seen_items))),
+              f"native eval_split ({mode}) != numpy")
+        times["eval_split"] = [times["eval_split"][0] + t_fast, times["eval_split"][1] + t_slow]
+        if mode == "test":
+            seen = want.seen_items
+    bits, t_fast = host_s(lambda: rank.build_seen_bitmask(seen, N_ITEMS))
+    with native_off():
+        want_bits, t_slow = host_s(lambda: rank.build_seen_bitmask(seen, N_ITEMS))
+    check(bits.shape == (TRAIN_USERS, rank.seen_words(N_ITEMS)) and np.array_equal(bits, want_bits),
+          "native seen_bitmask != numpy at V = 1M")
+    times["seen_bitmask"] = [t_fast, t_slow]
+    del bits, want_bits
+
+    data = SeqRecData(fast, 50)
+    data._build_same_target_groups()  # the answer groups, built once for both samplers
+    _, t_fast = host_s(lambda: data.sample_same_target(np.random.default_rng(0)))
+    with native_off():
+        _, t_slow = host_s(lambda: data.sample_same_target(np.random.default_rng(0)))
+    times["same_target_pick"] = [t_fast, t_slow]
+    order, starts, ends, diversity, row_class = data._same_target_groups
+    ans = data.train.answers
+    group_start = starts[ans]
+    group_size = np.maximum(ends[ans] - group_start, 1)
+    args = (order, group_start, group_size, diversity[ans], row_class)
+    pick = native.same_target_pick(*args, seed=12345)
+    check(np.array_equal(pick, native.same_target_pick(*args, seed=12345))
+          and not np.array_equal(pick, native.same_target_pick(*args, seed=54321)),
+          "same_target_pick: not a function of its seed")
+    check(np.array_equal(ans[pick], ans), "same_target_pick: a pick outside its answer group")
+    diverse = diversity[ans]
+    kept_self = int((diverse & (row_class[pick] == row_class)).sum())
+    check(diverse.any() and kept_self <= SAME_TARGET_SELF_SHARE * int(diverse.sum()),
+          f"same_target_pick: {kept_self} of {int(diverse.sum())} rows of diverse groups kept "
+          f"their own sequence")
+    log(f"tools native: library built and loaded in {build_s:.2f}s; parse_corpus, prefix_expand, "
+        f"eval_split (both splits) and seen_bitmask (V={N_ITEMS}, {TRAIN_USERS} rows) bit-equal "
+        f"to the numpy paths; same_target_pick over {len(pick)} rows in its answer groups, "
+        f"{kept_self} of {int(diverse.sum())} diverse rows on their own sequence")
+    for name, (t_native, t_numpy) in times.items():
+        log(f"tools native host time {name}: native {1e3 * t_native:.1f} ms, numpy "
+            f"{1e3 * t_numpy:.1f} ms ({t_numpy / max(t_native, 1e-9):.1f}x) [{card}]")
+    return {name: [round(a, 6), round(b, 6)] for name, (a, b) in times.items()}
+
+
+def remat_cases(device):
+    """(name, model builder, dtype, fused): the --remat step's models."""
+    import torch
+
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.models import build_model
+
+    def wide():
+        cfg = ModelConfig(model_type="bsarec", item_size=N_ITEMS, num_users=TRAIN_USERS + 1,
+                          max_seq_length=50, hidden_size=WIDE_H, num_hidden_layers=2,
+                          num_attention_heads=1, c=5, alpha=0.7, loss_impl="streaming")
+        return build_model(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+
+    return [
+        ("BSARec H=64", lambda: full_width_model(device, dropout=0.5, loss_impl="streaming")),
+        ("BSARec H=64 bf16", lambda: full_width_model(device, dropout=0.5, loss_impl="streaming",
+                                                      dtype=BF16)),
+        (f"BSARec H={WIDE_H}", wide),
+        ("SASRec fused dropout", lambda: sasrec_model(device, fused=True)),
+    ]
+
+
+def remat_steps(model, remat: bool, seed: int):
+    """Two Adam steps of `model` (batches seeded seed and seed + 1, torch's
+    CUDA stream and the loss's generator seeded alike), through `remat_loss`
+    or the eager loss. Returns (the second step's ms, its peak bytes, its
+    launch counts, the parameters after it on the card)."""
+    import torch
+
+    from bsarec_tpu_torch.config import TrainConfig
+    from bsarec_tpu_torch.ops import ce
+    from bsarec_tpu_torch.train.loop import make_optimizer, remat_loss
+
+    device = model.item_table.device
+    model.train()
+    opt = make_optimizer(model.parameters(), TrainConfig(lr=LR))
+    for step in range(2):
+        ids, answers, negs, seeds = sasrec_batch(device, seed + step)
+        torch.cuda.manual_seed(seed + step)  # nn.Dropout's stream
+        gen = torch.Generator(device=device).manual_seed(seed + step)
+        if model.dropout_state.fused:
+            model.dropout_state.begin_step(seeds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        if remat:
+            loss = remat_loss(model, ids, answers, negs, None, None, gen)
+        else:
+            loss = model.calculate_loss(ids, answers, negs, generator=gen)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    check(math.isfinite(float(loss)), "remat step: loss not finite")
+    counts = {k: v for k, v in read_counts().items() if v} | {
+        k: getattr(ce, n).wide_launches for k, n in (("ce_logz_wide", "ce_logz"),
+                                                     ("ce_grads_wide", "ce_grads"))
+        if getattr(ce, n).wide_launches}
+    peak = torch.cuda.max_memory_allocated(device)
+    del opt
+    return ms, peak, counts, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_tools_remat(device, card):
+    """--remat at B=256, V=1,000,000: per case, two Adam steps eager and
+    two through `remat_loss` from the same parameters, batches and seeds
+    (dropout on: nn.Dropout on torch's CUDA stream, SASRec's fused
+    dropout), the parameters after them bit-equal, the remat step's CE
+    and dropout launches as REMAT_STEP_CE and REMAT_STEP_DROPOUT say; the
+    second step's host ms (to its synchronize) and peak memory. Returns
+    {case: fields}."""
+    import torch
+
+    out = {}
+    for name, build in remat_cases(device):
+        first = build()
+        second = copy.deepcopy(first)
+        ms, peak, counts, params = remat_steps(first, remat=False, seed=31)
+        del first
+        r_ms, r_peak, r_counts, r_params = remat_steps(second, remat=True, seed=31)
+        del second
+        worst = max(float((params[k].float() - v.float()).abs().max()) for k, v in r_params.items())
+        check(worst == 0.0, f"remat {name}: parameters after two steps differ from the eager "
+                            f"steps' by up to {worst}")
+        if name.startswith("SASRec"):
+            want = {"fused_dropout": 2 * DROPOUT_SITES}, {"fused_dropout": REMAT_STEP_DROPOUT}
+        else:
+            want = ({"ce_logz": 1, "ce_grads": 1}, dict(REMAT_STEP_CE))
+            if name.endswith(f"H={WIDE_H}"):
+                want = tuple(w | {f"{k}_wide": v for k, v in w.items()} for w in want)
+        check((counts, r_counts) == want, f"remat {name}: launches eager {counts}, remat "
+                                          f"{r_counts}, want {want}")
+        out[name] = {"eager_ms": round(ms, 3), "remat_ms": round(r_ms, 3),
+                     "eager_peak_mib": round(peak / 2**20, 1),
+                     "remat_peak_mib": round(r_peak / 2**20, 1), "remat_launches": r_counts}
+        log(f"tools remat {name} (B={TRAIN_BATCH}, V={N_ITEMS}): parameters after two Adam steps "
+            f"bit-equal to the eager steps'; step {ms:.2f} ms eager, {r_ms:.2f} ms remat; peak "
+            f"{peak / 2**20:.1f} MiB eager, {r_peak / 2**20:.1f} MiB remat; launches eager "
+            f"{counts}, remat {r_counts} [{card}]")
+        del params, r_params
+        torch.cuda.empty_cache()
+    return out
+
+
+def tools_main(argv):
+    """main.main(argv) with the launch counts set to 0 just before and read
+    just after; returns (scores, counts, seconds)."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = port_main.main(argv)
+    torch.cuda.synchronize()
+    return scores, read_counts(), time.perf_counter() - t0
+
+
+def phase_tools_main(device, workdir, card):
+    """The flags through `main` on the card: one `--remat` epoch on phase
+    7's corpus (two ce_logz launches and one ce_grads a step, the rank
+    kernel on every eval batch); `--profile` of a one-epoch fit on a
+    1M-item x 1k-user corpus (a Chrome trace whose device events name the
+    CE and rank kernels and the training annotations); `--do_eval
+    --load_model smoke_train --dump_seqout` (batches x (layers + 1) files
+    of [b, 50, 64], read back by `load_sequence_outputs`, the last layer's
+    last position of the first batch against the model's own forward).
+    Returns the phase's summary fields."""
+    import torch
+
+    from bsarec_tpu_torch.data.corpus import load_corpus
+    from bsarec_tpu_torch.data.pipeline import SeqRecData
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.train import checkpoint as ckpt
+    from bsarec_tpu_torch.utils.visualize import load_sequence_outputs
+
+    common = ["--data_dir", workdir, "--output_dir", workdir, "--device", device.type,
+              "--lr", str(LR), "--batch_size", str(TRAIN_BATCH), *WIDTHS]
+    seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
+    steps = math.ceil(sum(len(s[-52:-2]) for s in seqs) / TRAIN_BATCH)
+    eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    scores, counts, seconds = tools_main(common + ["--data_name", "synth_train", "--train_name",
+                                                   "tools_remat", "--epochs", "1", "--remat"])
+    want = zero_counts() | {"ce_logz": REMAT_STEP_CE["ce_logz"] * steps,
+                            "ce_grads": REMAT_STEP_CE["ce_grads"] * steps,
+                            "streaming_masked_topk": 2 * eval_steps}
+    check(counts == want, f"main --remat launches {counts}, want {want}")
+    text = read_log(os.path.join(workdir, "tools_remat.log"))
+    losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+    rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+    check(len(losses) == 1 and math.isfinite(losses[0]) and len(rates) == 1,
+          f"main --remat: epoch losses {losses}")
+    log(f"tools main --remat --epochs 1 on {TRAIN_USERS} users x {N_ITEMS} items: loss {losses[0]}, "
+        f"train {rates[0]:.0f} examples/s (first epoch), test scores {scores}, {seconds:.1f}s; "
+        f"launches {counts} [{card}]")
+    fields = {"remat_main_launches": counts, "remat_main_examples_per_s": rates[0]}
+
+    with open(os.path.join(workdir, "synth_profile.txt"), "w") as fh:
+        for u, seq in enumerate(synth_corpus(PROFILE_USERS, N_ITEMS, seed=2)):
+            fh.write(f"{u + 1} {' '.join(map(str, seq))}\n")
+    prof_dir = os.path.join(workdir, "profile")
+    _, counts, seconds = tools_main(common + ["--data_name", "synth_profile", "--train_name",
+                                              "tools_profile", "--epochs", "1",
+                                              "--profile", prof_dir])
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"--profile wrote {files}")
+    trace_path = os.path.join(prof_dir, files[0])
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernel_us: dict[str, float] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernel_us[e["name"]] = kernel_us.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    names = {e.get("name") for e in events}
+    for part in ("ce_fwd_onchip_kernel", "ce_bwd_onchip_kernel", "rank_onchip_kernel"):
+        check(any(part in k for k in kernel_us), f"--profile trace: no device event of {part}")
+    check({"train_epoch", "train_step", "eval_epoch"} <= names,
+          "--profile trace: training annotations missing")
+    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]
+    log(f"tools main --profile (1 epoch, {PROFILE_USERS} users x {N_ITEMS} items, {seconds:.1f}s): "
+        f"trace {os.path.getsize(trace_path) / 2**20:.1f} MiB, {len(kernel_us)} kernel names, "
+        f"launches {counts}; top device entries (ms): "
+        f"{ {k[:60]: round(v / 1e3, 3) for k, v in top} } [{card}]")
+    fields |= {"profile_trace_mib": round(os.path.getsize(trace_path) / 2**20, 2),
+               "profile_top_kernels_ms": {k[:60]: round(v / 1e3, 3) for k, v in top}}
+
+    dump_dir = os.path.join(workdir, "seqout")
+    _, counts, seconds = tools_main(common + ["--data_name", "synth_train", "--train_name",
+                                              "tools_dump", "--do_eval", "--load_model",
+                                              "smoke_train", "--dump_seqout", dump_dir])
+    tag = "synth_train_BSARec"
+    files = os.listdir(os.path.join(dump_dir, tag))
+    layers = 2
+    check(len(files) == eval_steps * (layers + 1), f"--dump_seqout wrote {len(files)} files, "
+                                                   f"want {eval_steps * (layers + 1)}")
+    last = TRAIN_USERS - (eval_steps - 1) * EVAL_BATCH
+    for i in (0, eval_steps - 1):
+        for layer in range(layers + 1):
+            arr = np.load(os.path.join(dump_dir, tag, f"{layer}layer_{i}iter.npy"))
+            want_rows = last if i == eval_steps - 1 else EVAL_BATCH
+            check(arr.shape == (want_rows, 50, 64) and arr.dtype == np.float32
+                  and np.isfinite(arr).all(), f"dump {layer}layer_{i}iter: {arr.shape} {arr.dtype}")
+    per_layer = load_sequence_outputs(os.path.join(dump_dir, tag), layers)
+    check([x.shape for x in per_layer] == [(TRAIN_USERS, 64)] * (layers + 1),
+          f"load_sequence_outputs shapes {[x.shape for x in per_layer]}")
+    data = SeqRecData(load_corpus(os.path.join(workdir, "synth_train.txt")), 50)
+    model = full_width_model(device, dropout=0.5)
+    model.load_state_dict(ckpt.load_params(os.path.join(workdir, "smoke_train.ckpt")))
+    model.eval()
+    with torch.inference_mode():
+        ids = torch.from_numpy(data.test.input_ids[:EVAL_BATCH]).long().to(device)
+        want_states = model(ids)[:, -1, :].cpu().numpy()
+    err = float(np.abs(per_layer[-1][:EVAL_BATCH] - want_states).max())
+    check(err <= FLOAT_TOL, f"--dump_seqout: last layer vs the model's forward, error {err}")
+    del model, per_layer
+    log(f"tools main --do_eval --dump_seqout: {len(files)} files ({eval_steps} batches x "
+        f"{layers + 1} outputs), shapes checked, read back by load_sequence_outputs, the last "
+        f"layer within {err:.3g} of the model's forward, {seconds:.1f}s; launches {counts} [{card}]")
+    return fields | {"dump_files": len(files)}
+
+
 def main() -> int:
     import torch
 
@@ -3866,6 +4221,10 @@ def main() -> int:
             f"validation excluded) [{card}]")
         with timed("serving main path"):
             serving_fields = phase_serving(device, workdir, card)
+        with timed("tools: the native library, --remat steps and epoch, --profile, --dump_seqout"):
+            tools = {"native_host_s": phase_tools_native(workdir, card),
+                     "remat_steps": phase_tools_remat(device, card)}
+            tools |= phase_tools_main(device, workdir, card)
     with timed("SASRec train main path"), tempfile.TemporaryDirectory() as workdir:
         sasrec_launches, fused_rate, nn_rate = phase_sasrec_train(device, workdir, card)
     log(f"SASRec train: {fused_rate:.0f} examples/s with the fused dropout kernel, {nn_rate:.0f} "
@@ -3943,6 +4302,8 @@ def main() -> int:
             **ce_times[name],
             **({"onchip_launches": train_launches[f"{name}_onchip"]} if name != "gold_rows" else {}),
             **zoo_fields(name),
+            "remat_step_launches": tools["remat_steps"]["BSARec H=64"]["remat_launches"].get(name, 0),
+            "remat_main_launches": tools["remat_main_launches"][name],
         })
     onchip_tc_kernels = {"ce_logz": "ce_fwd_onchip_tc_kernel", "ce_grads": "ce_bwd_onchip_tc_kernel"}
     for name in ("ce_logz", "ce_grads"):  # the bf16-operand forms, on --dtype bf16's main path
@@ -3969,6 +4330,8 @@ def main() -> int:
         **zoo_fields("fused_dropout"),
         "bf16_path_launches": bf16_paths["sasrec"]["fused_dropout"],
         "bf16_path_bf16_launches": bf16_paths["sasrec"]["fused_dropout_bf16"],
+        "remat_step_launches":
+            tools["remat_steps"]["SASRec fused dropout"]["remat_launches"]["fused_dropout"],
     })
     # the wide main path (H = 512): the rank kernel on its tensor-core route,
     # the CE kernels on their wide routes; launches from its first run (one
@@ -4017,6 +4380,7 @@ def main() -> int:
     log(f"train bf16 vs fp32 examples/s and busy share: {json.dumps(bf16_turns)} [{card}]")
     log(f"preprec: {json.dumps(preprec)} [{card}]")
     log(f"preprec zoo: {json.dumps(preprec_zoo)} [{card}]")
+    log(f"tools: {json.dumps(tools)} [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

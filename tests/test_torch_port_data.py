@@ -55,7 +55,7 @@ def test_load_corpus_reference_format(tmp_path):
     path = tmp_path / "toy.txt"
     path.write_text("".join(f"{u + 1} {' '.join(map(str, s))}\n" for u, s in enumerate(TOY)))
     corpus = load_corpus(path)
-    assert corpus.user_seq == TOY
+    assert corpus.lists == TOY  # parsed into the CSR form where the native library loads
     assert corpus.item_size == 12 and corpus.num_users == 4
 
 

@@ -217,6 +217,6 @@ def test_main_refuses_training_and_unported_flags(tmp_path):
             port_main(["--output_dir", str(tmp_path), "--data_dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="--mesh"):
         port_main(["--device", "cpu", "--do_eval", "--mesh", "auto"])
-    for flag in ("--remat", "--multihost"):
+    for flag in ("--multihost",):
         with pytest.raises(NotImplementedError, match=flag):
             port_main(["--device", "cpu", "--output_dir", str(tmp_path), flag])

@@ -73,6 +73,7 @@ from bsarec_tpu.ops import masks as jmasks
 from bsarec_tpu.train.loop import make_optimizer as jax_make_optimizer
 from bsarec_tpu.train.torch_import import import_torch_checkpoint
 from bsarec_tpu.train.trainer import Trainer as JaxTrainer
+from bsarec_tpu_torch import native as port_native
 from bsarec_tpu_torch.config import ModelConfig, TrainConfig
 from bsarec_tpu_torch.data.corpus import Corpus
 from bsarec_tpu_torch.data.pipeline import SeqRecData
@@ -592,9 +593,11 @@ def _same_target_corpus(n_users=120, n_items=25, seed=3):
 
 
 def test_sample_same_target_matches_jax_numpy_path(monkeypatch):
-    """Pick for pick, three epochs from one seed, with only the JAX side's
-    native sampler switched off."""
+    """Pick for pick, three epochs from one seed, with the JAX side's
+    native sampler and the port's native library switched off (the native
+    samplers are held together in tests/test_torch_port_native.py)."""
     monkeypatch.setattr(jax_native, "same_target_pick", lambda *a, **k: None)
+    monkeypatch.setattr(port_native, "lib", lambda: None)
     seqs = _same_target_corpus()
     jdata = JaxSeqRecData(JaxCorpus(user_seq=[list(s) for s in seqs], max_item=24), 6)
     data = SeqRecData(Corpus(user_seq=[list(s) for s in seqs], max_item=24), 6)
