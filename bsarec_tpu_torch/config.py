@@ -3,8 +3,9 @@
 The fields and defaults are the JAX package's; `TrainConfig.device` and
 `TrainConfig.prng` (a JAX-wide setting there, `--prng`) are new.
 `scan_unroll` steers the JAX epoch scan and has no counterpart here;
-`mesh` and `multihost` are kept so that configurations carry across,
-and the multi-device paths that would read them are not ported yet.
+`mesh` runs the Trainer on a ("data", "model") mesh (`core/mesh.py`);
+`multihost` is kept so that configurations carry across, and the path
+that would read it is not ported yet.
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ class ModelConfig:
     fredom: bool = True
     # --- gru4rec ---
     gru_hidden_size: int = 64
-    # "auto" | "dense" | "streaming": full-vocab CE implementation
+    # "auto" | "dense" | "streaming": full-vocab CE implementation (under a
+    # vocab-sharded mesh the Trainer sets "sharded_streaming" or "sharded_dense")
     loss_impl: str = "auto"
 
     def replace(self, **kw) -> "ModelConfig":

@@ -32,18 +32,31 @@ traces `Trainer.fit` with torch.profiler into `<dir>`, and `--remat`
 recomputes each step's whole loss in its backward. `--dtype bf16`
 runs all of it under the bf16 compute policy (`ops/precision.py`): the
 streaming CE kernels in their bf16-operand form, the dense eval and the
-scorer on bf16-rounded operands. `--mesh` and `--multihost` (the
-multi-device paths) are not ported yet and raise when set.
+scorer on bf16-rounded operands.
+
+`--mesh data:N,model:M` runs all of it on a ("data", "model") mesh over
+`torch.distributed` (`core/mesh.py`), one process a rank: batches split
+over "data", the item table's rows over "model". Launch the ranks with
+`torchrun --nproc_per_node N*M -m bsarec_tpu_torch.main --mesh ...`
+(one rank a card; `--device cpu` for gloo ranks on the CPU); without the
+launcher's environment it forms a one-rank group. Rank 0 writes the log
+and every file (checkpoints, snapshots, `--export_topk`,
+`--export_serving`, `--dump_seqout`, the `--profile` trace), each with
+the full table, as a single run writes them. `--multihost` is not ported
+yet and raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device
+from bsarec_tpu_torch.core import mesh as meshlib
 from bsarec_tpu_torch.data.corpus import load_corpus
 from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.train import checkpoint as ckpt
@@ -52,7 +65,7 @@ from bsarec_tpu_torch.utils.logging import get_local_time, set_logger
 from bsarec_tpu_torch.utils.profiling import trace
 
 # flags whose machinery is not ported yet, with their no-op values
-_NOT_PORTED_FLAGS = {"mesh": "", "multihost": False}
+_NOT_PORTED_FLAGS = {"multihost": False}
 
 
 def parse_args(argv=None):
@@ -92,14 +105,18 @@ def parse_args(argv=None):
                         help="write a torch.profiler trace of the run to this directory")
     parser.add_argument("--resume", action="store_true",
                         help="continue training from the <train_name>.ckpt.state snapshot")
-    parser.add_argument("--mesh", default="", type=str, help="(not ported yet)")
+    parser.add_argument("--mesh", default="", type=str,
+                        help="'data:N,model:M' or 'auto': a (data, model) mesh over the ranks of "
+                        "the torch.distributed group (torchrun's environment, else one rank): "
+                        "batches over data, item-table rows over model")
     parser.add_argument("--prng", default="threefry", choices=("threefry", "rbg"),
                         help="rbg with BSAREC_DROPOUT=pallas in the environment runs every "
                         "dropout site on the fused CUDA kernel (Philox in the kernel, the "
                         "mask made again in the backward); otherwise torch's nn.Dropout")
     parser.add_argument("--multihost", action="store_true", help="(not ported yet)")
     parser.add_argument("--eval_impl", default="auto", type=str,
-                        help="full-catalog eval path: auto | dense | streaming")
+                        help="full-catalog eval path: auto | dense | streaming (under a "
+                        "vocab-sharded --mesh: their sharded forms)")
     parser.add_argument("--dtype", default="fp32", type=str,
                         help="compute dtype policy: fp32 (reference-exact) | bf16 (bf16 "
                         "operands in the dense, attention and CE matmuls; fp32 parameters, "
@@ -192,9 +209,30 @@ def main(argv=None):
     for flag, off in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP)")
-    resolve_device(args.device)  # a missing card fails before the data is read
+    device = resolve_device(args.device)  # a missing card fails before the data is read
+    made_group = bool(args.mesh) and not dist.is_initialized()
+    if args.mesh:
+        meshlib.init_process_group(device.type)
+    try:
+        return _run(args)
+    finally:
+        if made_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _quiet_logger() -> logging.Logger:
+    """The logger of a rank that writes no log (every rank but 0 of a mesh)."""
+    logger = logging.getLogger("seqrec.quiet")
+    logger.handlers[:] = [logging.NullHandler()]
+    logger.propagate = False
+    return logger
+
+
+def _run(args):
+    writer = not args.mesh or dist.get_rank() == 0
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = set_logger(os.path.join(args.output_dir, args.train_name + ".log"))
+    logger = (set_logger(os.path.join(args.output_dir, args.train_name + ".log")) if writer
+              else _quiet_logger())
 
     corpus = load_corpus(os.path.join(args.data_dir, args.data_name + ".txt"))
     data = SeqRecData(corpus, args.max_seq_length)
@@ -206,7 +244,7 @@ def main(argv=None):
 
     if not args.do_eval:
         start_epoch = trainer.resume() if args.resume else 0
-        with trace(args.profile, trainer.device):
+        with trace(args.profile if writer else None, trainer.device):
             scores, result_info = trainer.fit(start_epoch)
     elif args.load_torch_model is not None:
         trainer.install_params(ckpt.load_reference_params(args.load_torch_model))
@@ -222,7 +260,8 @@ def main(argv=None):
 
     if args.export_topk:
         topk = trainer.export_topk("test")
-        np.save(args.export_topk, topk)
+        if writer:
+            np.save(args.export_topk, topk)
         logger.info(f"exported top-{topk.shape[1]} item ids for "
                     f"{topk.shape[0]} users to {args.export_topk}")
 
@@ -235,14 +274,18 @@ def main(argv=None):
     if args.export_serving:
         from bsarec_tpu_torch.serving import export_scorer
 
-        meta = export_scorer(
-            trainer.model, model_cfg.item_size, args.max_seq_length,
-            data.test.seen_items.shape[1], args.export_serving,
-            quant=None if args.serving_quant == "none" else args.serving_quant,
-            impl=args.serving_impl, item_chunk=args.serving_item_chunk,
-            dtype=model_cfg.compute_dtype,
-        )
-        logger.info(f"exported serving scorer: {meta}")
+        full = trainer.full_model()
+        if writer:
+            meta = export_scorer(
+                full, model_cfg.item_size, args.max_seq_length,
+                data.test.seen_items.shape[1], args.export_serving,
+                quant=None if args.serving_quant == "none" else args.serving_quant,
+                impl=args.serving_impl, item_chunk=args.serving_item_chunk,
+                dtype=model_cfg.compute_dtype,
+            )
+            logger.info(f"exported serving scorer: {meta}")
+        if args.mesh:
+            dist.barrier()
 
     logger.info(args.train_name)
     logger.info(result_info)

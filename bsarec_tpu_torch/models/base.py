@@ -7,6 +7,9 @@ training loops. The item table has `vocab_rows()` rows (BERT4Rec adds a
 [mask] row) and `padding_idx=0`: row 0 is zero at init and lookups
 (`embed_items`) do not update it, while the tied full-catalog CE of
 training does (`bsarec_tpu/models/base.py:12-15`).
+Under `--mesh` with a vocab-sharded table (`shard_item_table`) the item
+table holds this rank's rows only: `item_table` is the shard and
+`embed_items` the sharded lookup (`parallel/embedding.py`).
 Dropout follows the module's train/eval mode, where the JAX package
 takes a `train` flag; `prng` picks the dropout path of every site
 (`modules.make_dropout`), and `dropout_state` carries the fused path's
@@ -46,6 +49,8 @@ class SequentialRecModel(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_seq_length, cfg.hidden_size)
         self.LayerNorm = TFLayerNorm(cfg.hidden_size)
         self.dropout = make_dropout(cfg.hidden_dropout_prob, self.dropout_state)
+        # the mesh whose model group holds the item table's shards, or None
+        self.vocab_mesh = None
 
     def loss_name(self, ce: str) -> str:
         """The training loss, for the log; `ce` names the full-catalog CE
@@ -67,10 +72,25 @@ class SequentialRecModel(nn.Module):
 
     @property
     def item_table(self) -> torch.Tensor:
+        """The [V, H] item table, or this rank's [V / m, H] shard of it."""
         return self.item_embeddings.weight
+
+    def shard_item_table(self, mesh) -> None:
+        """Keep this rank's rows of the item table, [model_rank * rows,
+        (model_rank + 1) * rows) with rows = V / m, as a new parameter."""
+        rows = self.vocab_rows() // mesh.model
+        start = mesh.model_rank * rows
+        full = self.item_embeddings.weight.detach()
+        self.item_embeddings.weight = nn.Parameter(full[start:start + rows].clone())
+        self.item_embeddings.num_embeddings = rows
+        self.vocab_mesh = mesh
 
     def embed_items(self, ids: torch.Tensor) -> torch.Tensor:
         """Item rows; lookups of id 0 send no gradient to row 0."""
+        if self.vocab_mesh is not None:
+            from bsarec_tpu_torch.parallel.embedding import sharded_embedding_lookup
+
+            return sharded_embedding_lookup(self.item_table, ids, self.vocab_mesh)
         return self.item_embeddings(ids.long())
 
     def add_position_embedding(self, input_ids: torch.Tensor) -> torch.Tensor:

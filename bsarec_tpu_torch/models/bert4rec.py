@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from bsarec_tpu_torch.core.mesh import global_rows
 from bsarec_tpu_torch.models.base import SequentialRecModel
 from bsarec_tpu_torch.models.modules import TransformerEncoder
 from bsarec_tpu_torch.ops.losses import full_softmax_ce
@@ -28,9 +29,12 @@ def cloze_mask(input_ids: torch.Tensor, mask_num: int, mask_token: int,
     """`input_ids` with `mask_num` distinct positions per row, uniform over
     all L positions (padding included), set to `mask_token`: the first
     `mask_num` entries of a random permutation per row, read off the
-    argsort of [B, L] uniform draws from `generator`."""
+    argsort of [B, L] uniform draws from `generator`. Under a mesh with
+    data ranks the draw is the global batch's and this rank keeps its
+    rows, so the positions are the single run's."""
     b, seq_len = input_ids.shape
-    noise = torch.rand((b, seq_len), generator=generator, device=input_ids.device)
+    rows, mine = global_rows(b)
+    noise = torch.rand((rows, seq_len), generator=generator, device=input_ids.device)[mine]
     positions = noise.argsort(dim=1)[:, :mask_num]
     return input_ids.scatter(1, positions, mask_token)
 

@@ -25,6 +25,7 @@ import math
 import torch
 from torch import nn
 
+from bsarec_tpu_torch.core.mesh import reduce_from_group
 from bsarec_tpu_torch.models.base import SequentialRecModel
 from bsarec_tpu_torch.models.modules import init_linear, make_dropout
 from bsarec_tpu_torch.ops.losses import pair_bce_masked
@@ -40,11 +41,12 @@ def _init_conv(conv: nn.Conv2d, generator) -> None:
         conv.bias.uniform_(-bound, bound, generator=generator)
 
 
-def _frobenius(w: torch.Tensor) -> torch.Tensor:
+def _frobenius(w: torch.Tensor, group=None) -> torch.Tensor:
     """sqrt(sum(w^2)), JAX's form. `sum` takes a cascaded sum on the CPU;
     `torch.linalg.vector_norm` there accumulates 64M fp32 squares (a 1M x
-    64 table) 0.56% short."""
-    return w.square().sum().sqrt()
+    64 table) 0.56% short. With `group`, `w` is one shard of a row-sharded
+    table and the sum runs over the group's shards."""
+    return reduce_from_group(w.square().sum(), group).sqrt()
 
 
 class CaserModel(SequentialRecModel):
@@ -93,8 +95,9 @@ class CaserModel(SequentialRecModel):
                        user_ids=None, *, generator=None):
         seq_out = self.forward(input_ids, user_ids)[:, -1, :]
         loss = pair_bce_masked(*self.pair_logits(seq_out, answers, neg_answers), answers)
-        reg = sum(_frobenius(w) for w in (
-            self.user_embeddings.weight, self.item_table, self.conv_v.weight,
-            self.fc1.weight, self.fc2.weight))
+        shards = None if self.vocab_mesh is None else self.vocab_mesh.model_group
+        reg = sum(_frobenius(w, group) for w, group in (
+            (self.user_embeddings.weight, None), (self.item_table, shards),
+            (self.conv_v.weight, None), (self.fc1.weight, None), (self.fc2.weight, None)))
         reg_h = sum(_frobenius(conv.weight) for conv in self.conv_h)
         return loss + self.config.reg_weight * reg + self.config.reg_weight * reg_h

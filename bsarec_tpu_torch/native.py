@@ -207,12 +207,13 @@ def eval_split(offsets: np.ndarray, items: np.ndarray, max_len: int, drop: int,
     return inputs, answers, seen
 
 
-def seen_bitmask(seen: np.ndarray, vocab: int):
+def seen_bitmask(seen: np.ndarray, vocab: int, id_offset: int = 0, mask_item0: bool = True):
     """[B, S] 0-padded seen lists -> the port's linear [B, ceil(V/32)]
-    int32 bitmask (item v at bit v & 31 of word v >> 5, item 0's bit set,
-    ids outside [1, vocab) dropped), or None. The C routine's tile of 32
-    columns has one word a tile, which is this layout; its shard
-    arguments (id_offset, mask_item0) stay at the unsharded values."""
+    int32 bitmask of the items [id_offset, id_offset + vocab) in local
+    coordinates (item v at bit v & 31 of word v >> 5; ids <= 0 or outside
+    the range dropped; local item 0's bit set where `mask_item0`), or
+    None. The C routine's tile of 32 columns has one word a tile, which
+    is this layout."""
     L = lib()
     if L is None:
         return None
@@ -220,7 +221,7 @@ def seen_bitmask(seen: np.ndarray, vocab: int):
     n_rows, n_cols = seen.shape
     out = np.zeros((n_rows, -(-vocab // WORD_BITS)), np.uint32)
     L.seen_bitmask(_ptr(seen, ctypes.c_int32), n_rows, n_cols, vocab, WORD_BITS,
-                   _ptr(out, ctypes.c_uint32), out.shape[1], 0, 1)
+                   _ptr(out, ctypes.c_uint32), out.shape[1], int(id_offset), int(mask_item0))
     return out.view(np.int32)
 
 

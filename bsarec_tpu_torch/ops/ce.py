@@ -484,7 +484,7 @@ def streaming_softmax_ce_plain(states: torch.Tensor, table: torch.Tensor, answer
     return _apply(states, table, answers, n_valid, dtype, plain=True)
 
 
-# ---- building blocks of the vocab-sharded composition (ROADMAP A6) -----------
+# ---- building blocks of the vocab-sharded composition (parallel/logits.py) ----
 
 
 def streaming_ce_stats(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,

@@ -35,7 +35,8 @@ where a seen item never enters the result. Columns >= n_valid score
 
 Seen items arrive as a packed bitmask. The port's layout is linear:
 item v is bit `v & 31` of word `v >> 5`, [B, ceil(V/32)] int32, and the
-builders always set item 0's bit. (The JAX package's bit-plane layout
+builders set item 0's bit (on a vocab-sharded table, shard 0's only:
+their `id_offset` and `mask_item0`). (The JAX package's bit-plane layout
 exists for the TPU's lanes; only the seen sets carry over.)
 
 On a CPU tensor the wrapper runs the plain PyTorch version beside it;
@@ -70,24 +71,41 @@ def seen_words(vocab_size: int) -> int:
     return -(-vocab_size // WORD_BITS)
 
 
-def build_seen_bitmask(seen_items: np.ndarray, vocab_size: int) -> np.ndarray:
+def build_seen_bitmask(seen_items: np.ndarray, vocab_size: int, id_offset: int = 0,
+                       mask_item0: bool = True) -> np.ndarray:
     """[B, S] 0-padded seen-item lists -> [B, ceil(V/32)] int32 bitmask
-    (host side). The padding item's bit is always set; ids outside
-    [1, vocab_size) are dropped. Through the native library where it
-    loads (`native.seen_bitmask`), else in numpy, bit for bit the same.
-    (The JAX builder's `id_offset` and `mask_item0` serve the
-    vocab-sharded path, which is not ported.)"""
-    built = native.seen_bitmask(seen_items, vocab_size)
+    (host side) of the items [id_offset, id_offset + vocab_size), in
+    shard-local coordinates (`pallas_rank.py:38-83`): an id v > 0 with
+    0 <= v - id_offset < vocab_size sets local bit v - id_offset, other
+    ids are dropped, and local item 0's bit is set where `mask_item0`
+    (the shard that holds the padding item). The defaults are the whole
+    table. Through the native library where it loads
+    (`native.seen_bitmask`), else in numpy, bit for bit the same."""
+    built = native.seen_bitmask(seen_items, vocab_size, id_offset, mask_item0)
     if built is not None:
         return built
     out = np.zeros((seen_items.shape[0], seen_words(vocab_size)), np.uint32)
-    out[:, 0] |= 1
+    if mask_item0:
+        out[:, 0] |= 1
     rows = np.repeat(np.arange(seen_items.shape[0]), seen_items.shape[1])
-    ids = seen_items.reshape(-1).astype(np.int64)
-    keep = (ids > 0) & (ids < vocab_size)
+    raw = seen_items.reshape(-1).astype(np.int64)
+    ids = raw - id_offset
+    keep = (raw > 0) & (ids >= 0) & (ids < vocab_size)
     rows, ids = rows[keep], ids[keep]
     np.bitwise_or.at(out, (rows, ids >> 5), np.uint32(1) << (ids & 31).astype(np.uint32))
     return out.view(np.int32)
+
+
+def build_seen_bitmask_sharded(seen_items: np.ndarray, vocab_size: int,
+                               n_shards: int) -> np.ndarray:
+    """[n_shards, B, ceil(rows/32)] int32: shard s's bitmask of its rows
+    [s * rows, (s + 1) * rows), rows = vocab_size / n_shards, in its own
+    coordinates (`pallas_rank.py:146-162`); item 0's bit on shard 0 only."""
+    if vocab_size % n_shards:
+        raise ValueError(f"{vocab_size} rows do not split into {n_shards} shards")
+    rows = vocab_size // n_shards
+    return np.stack([build_seen_bitmask(seen_items, rows, id_offset=s * rows, mask_item0=s == 0)
+                     for s in range(n_shards)])
 
 
 def dedupe_seen_rows(seen_items: np.ndarray) -> np.ndarray:
@@ -101,22 +119,30 @@ def dedupe_seen_rows(seen_items: np.ndarray) -> np.ndarray:
     return s
 
 
-def seen_ids_to_bitmask(seen_ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
+def seen_ids_to_bitmask(seen_ids: torch.Tensor, vocab_size: int, id_offset: int = 0,
+                        mask_item0: bool = True) -> torch.Tensor:
     """Device-side `build_seen_bitmask`: [B, S] 0-padded seen-id lists,
-    UNIQUE per row (`dedupe_seen_rows`) -> [B, ceil(V/32)] int32.
+    UNIQUE per row (`dedupe_seen_rows`) -> [B, ceil(V/32)] int32, with the
+    same shard arguments.
 
     torch's scatter has no bitwise OR, so single-bit words are added:
     distinct ids land on distinct (word, bit) pairs, so no carry occurs,
-    and int32 wrap-around makes bit 31 add like the others. Padding (id
-    0) adds 0 to word 0; item 0's bit, which no other id shares, is then
-    set."""
-    ids = seen_ids.long()
-    bit = torch.where(ids > 0, torch.ones_like(ids) << (ids & 31), torch.zeros_like(ids))
+    and int32 wrap-around makes bit 31 add like the others. Padding and
+    ids outside the shard add 0 to word 0; local item 0's bit, which then
+    no kept id shares but the shard's first item, is set where
+    `mask_item0`. On a shard other than the first, local item 0 is a real
+    item: its bit comes from the ids alone."""
+    raw = seen_ids.long()
+    ids = raw - id_offset
+    keep = (raw > 0) & (ids >= 0) & (ids < vocab_size)
+    ids = torch.where(keep, ids, 0)
+    bit = torch.where(keep, torch.ones_like(ids) << (ids & 31), torch.zeros_like(ids))
     bit = torch.where(bit >= 2**31, bit - 2**32, bit).int()  # two's-complement int32
     out = torch.zeros((ids.shape[0], seen_words(vocab_size)), dtype=torch.int32,
                       device=seen_ids.device)
     out.scatter_add_(1, ids >> 5, bit)
-    out[:, 0] |= 1
+    if mask_item0:
+        out[:, 0] |= 1
     return out
 
 

@@ -1,6 +1,7 @@
 """How the port's streaming-CE kernels are held against their plain
 versions: the error measures and the limits of the bf16-operand form, in
-one place for `chip_smoke.py`, `tools/time_kernels.py` and the tests.
+one place for `chip_smoke.py`, `tools/time_kernels.py` and the tests; and
+the limits of the vocab-sharded mesh (at the end).
 
 The bf16 form's backward rounds s, T and p = softmax * dloss to bf16 and
 keeps the one-hot terms in fp32, unrounded. Its gradients are compared at
@@ -137,6 +138,31 @@ def ce_grads_tf32(states, table, answers, logz, dloss, n_valid,
     rows = table[torch.where(keep, a, 0)] * keep[:, None]
     return ds - dloss[:, None] * rows, dt
 
+
+# ---- the vocab-sharded mesh (parallel/logits.py, core/mesh.py) -------------
+# The sharded CE against the JAX package or an unsharded call: the loss and
+# logZ add the merge's roundings (logZ = max + log of a sum of m exps; gold
+# = logZ - loss a shard) to fp32 sums taken in another order (rtol, atol);
+# the gradients sum one more m-term sum (ds over the shards). As the CE
+# kernels' CPU tests state them (tests/test_pallas.py); the bf16 form's
+# gradients at one logZ hold BF16_GRAD_TOL, as the unsharded form's do.
+SHARD_LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+SHARD_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# a mesh run against the single run of the port, from the same weights:
+# the epoch losses (JAX holds its own mesh to it, tests/test_train.py:255-283)
+# and the eval metrics (the same ranking: equal but for a score tie that
+# rounding flips; tests/test_train.py:336-367)
+MESH_LOSS_RTOL = 2e-4
+MESH_METRIC_ATOL = 1e-5
+# one Adam step of a mesh run against the single run's: each gradient is a
+# sum over the data ranks (or the shards) in another order, within
+# SHARD_GRAD_TOL of the single run's; Adam's first step moves a parameter
+# by lr * g / (|g| + eps), so the parameters agree to rounding (atol) where
+# |g| stands clear of the gradient's rounding noise, and within 2 lr where
+# it does not (a gradient that is zero in exact arithmetic, as the
+# attention key biases', has a sign set by rounding alone)
+MESH_STEP_PARAM_ATOL = 1e-6
+MESH_GRAD_NOISE = 1e-5  # |g| below this share of the tensor's largest |g| is noise
 
 def _tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))

@@ -7,6 +7,16 @@ to the host until the epoch ends: the loss is summed on the device; the
 epoch order, the negatives, BERT4Rec's cloze positions and the fused
 dropout's seed words come from a generator on the device; Adam keeps its
 step counts on the host.
+
+Under a mesh (`core/mesh.py`) every rank draws the global batch, its
+negatives and the fused dropout's seed words from the same generator,
+as the single run does, and keeps its data rank's rows; after each
+backward every gradient is averaged over the data group, the table
+shard's with the rest (JAX's `_data_constraint` and the partitioner's
+psums, `bsarec_tpu/train/loop.py:31-38`). The fused dropout's key word 1
+is offset by the data rank, so data ranks draw other masks while the
+ranks of one model group draw the same. An eval pass scores each data
+rank's users of every batch and sums the metrics over the data group.
 """
 
 from __future__ import annotations
@@ -16,6 +26,10 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+import torch.distributed as dist
+
+from bsarec_tpu_torch.core.mesh import data_rows
+from bsarec_tpu_torch.ops.losses import SHARDED_IMPLS
 from bsarec_tpu_torch.ops.precision import is_bf16, rounded
 from bsarec_tpu_torch.ops.rank import seen_ids_to_bitmask, streaming_masked_topk
 from bsarec_tpu_torch.ops.topk import TOP_K, masked_topk, topk_metrics
@@ -112,8 +126,34 @@ def remat_loss(model, ids, ans, neg, sem, uid, generator: torch.Generator | None
                       preserve_rng_state=True)
 
 
+def average_gradients(params, group, n: int) -> None:
+    """Every gradient of `params` averaged over the `n` ranks of `group`,
+    in one all_reduce of their concatenation."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def data_rank_seeds(seeds: torch.Tensor, mesh) -> torch.Tensor:
+    """The fused dropout's [steps, 2] seed words of this data rank: key
+    word 1 plus the data rank, mod 2^32 (data rank 0 keeps the single
+    run's words)."""
+    if mesh is None or mesh.data_rank == 0:
+        return seeds
+    seeds = seeds.clone()
+    seeds[:, 1] = (seeds[:, 1] + mesh.data_rank) % (1 << 32)
+    return seeds
+
+
 def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
-                      device: torch.device, remat: bool = False):
+                      device: torch.device, remat: bool = False, mesh=None):
     """Returns `(epoch, steps)`; `epoch(inputs, answers, generator, users,
     same_target)` runs one pass over the [N, L] inputs, [N] answers, [N]
     user ids and [N, L] same-target view (each None where the model reads
@@ -124,14 +164,20 @@ def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
     the negatives (models with `reads_negatives` only) and what the loss
     itself draws (BERT4Rec's cloze positions). `remat` recomputes each
     step's whole loss in its backward (`remat_loss`); the epoch is then
-    bit-equal to the eager one."""
+    bit-equal to the eager one. Under `mesh` each step runs on this data
+    rank's rows of the global batch, the gradients are averaged over the
+    data group, and the mean loss over the data group is returned."""
     steps = math.ceil(num_samples / batch_size)
     item_size = model.config.item_size
     dropout_state = model.dropout_state
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    data_parallel = mesh is not None and mesh.data > 1
 
     def epoch(inputs, answers, generator, users=None, same_target=None):
         perm = epoch_permutation(num_samples, batch_size, generator, device)
         seeds = dropout_seeds(generator, steps, device) if dropout_state.fused else None
+        if seeds is not None:
+            seeds = data_rank_seeds(seeds, mesh)
         model.train()
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for step in range(steps):
@@ -142,6 +188,9 @@ def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
                 sem = None if same_target is None else same_target[idx]
                 neg = (sample_negatives(generator, ids, ans, item_size)
                        if model.reads_negatives else None)
+                if mesh is not None:
+                    ids, ans, uid, sem, neg = (None if x is None else data_rows(x, mesh)
+                                               for x in (ids, ans, uid, sem, neg))
                 if seeds is not None:
                     dropout_state.begin_step(seeds[step])
                 if remat:
@@ -150,8 +199,13 @@ def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
                     loss = model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                if data_parallel:
+                    average_gradients(params, mesh.data_group, mesh.data)
                 optimizer.step()
                 loss_sum += loss.detach()
+        if mesh is not None:
+            dist.all_reduce(loss_sum, group=mesh.data_group)
+            loss_sum /= mesh.data
         return loss_sum / steps
 
     return epoch, steps
@@ -161,14 +215,14 @@ def resolve_eval_impl(impl: str, item_size: int, device: torch.device) -> str:
     if impl == "auto":
         big = item_size >= STREAMING_RANK_MIN_VOCAB and device.type == "cuda"
         return "streaming" if big else "dense"
-    if impl not in ("dense", "streaming"):
-        raise NotImplementedError(f"eval_impl {impl!r} is not ported yet")
+    if impl not in ("dense", "streaming", *SHARDED_IMPLS):
+        raise NotImplementedError(f"eval_impl {impl!r} is not ported")
     return impl
 
 
 def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
                   device: torch.device, impl: str = "auto", collect_topk: bool = False,
-                  seen_format: str = "bitmask", dtype: str = "float32"):
+                  seen_format: str = "bitmask", dtype: str = "float32", mesh=None):
     """Returns `(evaluate, steps, impl)`; `evaluate(inputs, answers, seen)`
     gives the [9] float32 metric sums (`ops.topk.topk_metrics` layout),
     or with `collect_topk` the [num_users, 20] int32 top-k item ids.
@@ -185,11 +239,21 @@ def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
     scores the dense path from bf16-rounded states and table with a
     float32 result (`bsarec_tpu/train/loop.py:341-348`); the streaming
     path takes no dtype, as in JAX.
+
+    Under `mesh` each data rank scores its rows of every batch and the
+    sums are added over the data group (the top-k ids gathered to every
+    rank). "sharded_streaming" and "sharded_dense" score this rank's
+    shard of a vocab-sharded table (`parallel/logits.py`): `seen` is then
+    the shard's own bitmask ("bitmask"; `build_seen_bitmask` with the
+    shard's `id_offset`), its deduplicated id lists ("ids"), or the id
+    lists for "sharded_dense".
     """
     steps = math.ceil(num_users / batch_size)
     impl = resolve_eval_impl(impl, item_size, device)
     vocab = model.vocab_rows()
     bf16 = is_bf16(dtype)
+    shard_rows = model.item_table.shape[0]
+    start = 0 if mesh is None else mesh.model_rank * shard_rows
 
     @torch.inference_mode()
     def evaluate(inputs, answers, seen):
@@ -197,13 +261,27 @@ def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
         sums = torch.zeros(9, dtype=torch.float32, device=device)
         per_batch = []
         # the dense path's operand, rounded once per pass under bf16
-        dense_table = None if impl == "streaming" else rounded(model.item_table[:item_size], bf16)
+        dense_table = (rounded(model.item_table[:item_size], bf16) if impl == "dense" else None)
         for step in range(steps):
             idx = torch.arange(step * batch_size, (step + 1) * batch_size, device=device)
+            idx = data_rows(idx, mesh)
             valid = (idx < num_users).float()
             safe = idx.clamp(max=num_users - 1)
             state = model.predict(inputs[safe], safe)[:, -1, :]
-            if impl == "streaming":
+            if impl == "sharded_streaming":
+                from bsarec_tpu_torch.parallel.logits import sharded_streaming_topk
+
+                seen_batch = seen[safe]
+                if seen_format == "ids":
+                    seen_batch = seen_ids_to_bitmask(seen_batch, shard_rows, start, start == 0)
+                _, topk_idx = sharded_streaming_topk(state, model.item_table, seen_batch, mesh,
+                                                     k=TOP_K, max_valid_items=item_size)
+            elif impl == "sharded_dense":
+                from bsarec_tpu_torch.parallel.logits import sharded_masked_topk
+
+                _, topk_idx = sharded_masked_topk(state, model.item_table, seen[safe], mesh,
+                                                  k=TOP_K, max_valid_items=item_size, dtype=dtype)
+            elif impl == "streaming":
                 seen_batch = seen[safe]
                 if seen_format == "ids":
                     seen_batch = seen_ids_to_bitmask(seen_batch, vocab)
@@ -218,7 +296,14 @@ def build_eval_fn(model, item_size: int, batch_size: int, num_users: int,
             else:
                 sums += topk_metrics(topk_idx, answers[safe], valid)
         if collect_topk:
-            return torch.cat(per_batch)[:num_users]
+            local = torch.stack(per_batch)  # [steps, b, k]
+            if mesh is not None and mesh.data > 1:
+                parts = [torch.empty_like(local) for _ in range(mesh.data)]
+                dist.all_gather(parts, local, group=mesh.data_group)
+                local = torch.stack(parts, dim=1)  # [steps, data, b, k]
+            return local.reshape(-1, local.shape[-1])[:num_users]
+        if mesh is not None:
+            dist.all_reduce(sums, group=mesh.data_group)
         return sums
 
     return evaluate, steps, impl

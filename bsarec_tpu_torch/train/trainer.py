@@ -4,8 +4,20 @@ Mirrors the reference `Trainer` surface (`src/trainers.py:9-60`):
 `train(epoch)` / `valid(epoch)` / `test(epoch)` / `save` / `load`, plus
 `fit()`, the run loop of `src/main.py:51-64` (early stop on NDCG@20, reload
 the best checkpoint, final test), and full train-state snapshots for
-`--resume`. The JAX package's mesh and multihost branches are not ported
-(ROADMAP A6).
+`--resume`.
+
+`--mesh data:N,model:M` (`core/mesh.py`) runs on a ("data", "model")
+mesh of N * M ranks, as the JAX Trainer's mesh branch
+(`bsarec_tpu/train/trainer.py:47-107,242-265,396-464`): batches split
+over "data"; the item table's rows and their Adam moments split over
+"model" where M > 1 divides `item_size` (BERT4Rec's table, one row
+longer, stays whole and dense); dense parameters replicated, their
+gradients averaged over "data". Every rank builds the full model from
+the seed, as the single run does, and keeps its rows, so the initial
+weights are the single run's. Files keep the single-card layout: the
+table and its moments are gathered on save and written by rank 0, and
+each rank slices its rows back out on load. The JAX package's
+multihost branch is not ported (ROADMAP A6c).
 """
 
 from __future__ import annotations
@@ -16,12 +28,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device, set_fp32_matmul
+from bsarec_tpu_torch.core import mesh as meshlib
 from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.models import build_model
 from bsarec_tpu_torch.ops import rank
-from bsarec_tpu_torch.ops.losses import resolve_loss_impl
+from bsarec_tpu_torch.ops.losses import STREAMING_CE_MIN_VOCAB, resolve_loss_impl
 from bsarec_tpu_torch.ops.topk import metrics_from_sums
 from bsarec_tpu_torch.train import checkpoint as ckpt
 from bsarec_tpu_torch.train.loop import build_eval_fn, build_train_epoch, make_optimizer
@@ -38,50 +52,91 @@ class Trainer:
         self.logger = logger
         self.checkpoint_path = checkpoint_path
         self.device = resolve_device(train_cfg.device)
+        mesh_cfg = meshlib.parse_mesh_spec(train_cfg.mesh)
+        self.mesh = meshlib.make_mesh(mesh_cfg, self.device.type) if mesh_cfg else None
+        if self.mesh is not None:
+            self.device = self.mesh.device
         set_fp32_matmul()
 
+        # the vocab-sharded rule and the impls under it (JAX's `_vocab_sharded`
+        # and `mesh_impl`): per-shard streaming kernels or each shard's dense
+        # logits; BERT4Rec's table stays whole and takes the dense paths
+        m = 1 if self.mesh is None else self.mesh.model
+        self._vocab_sharded = m > 1 and model_cfg.item_size % m == 0
+        self.table_sharded = self._vocab_sharded and model_cfg.model_type.lower() != "bert4rec"
+        if self._vocab_sharded:
+            big = model_cfg.item_size >= STREAMING_CE_MIN_VOCAB and self.device.type == "cuda"
+
+            def mesh_impl(requested: str) -> str:
+                if not self.table_sharded:
+                    return "dense"
+                if requested in ("streaming", "sharded_streaming") or (requested == "auto" and big):
+                    return "sharded_streaming"
+                return "sharded_dense"
+
+            model_cfg = model_cfg.replace(loss_impl=mesh_impl(model_cfg.loss_impl))
+            train_cfg = dataclasses.replace(train_cfg, eval_impl=mesh_impl(train_cfg.eval_impl))
+            self.model_cfg, self.train_cfg = model_cfg, train_cfg
+
         gen = torch.Generator().manual_seed(train_cfg.seed)
-        self.model = build_model(model_cfg, generator=gen, prng=train_cfg.prng).to(self.device)
+        self.model = build_model(model_cfg, generator=gen, prng=train_cfg.prng)
+        if self.table_sharded:
+            self.model.shard_item_table(self.mesh)
+        self.model.to(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
+        if self.table_sharded:
+            n_params += (self.model.vocab_rows() - self.model.item_table.shape[0]) * \
+                self.model.item_table.shape[1]
         logger.info(f"Total Parameters: {n_params}")
+        if self.mesh is not None:
+            table = (f"item table rows split over {m}" if self.table_sharded
+                     else "item table replicated")
+            logger.info(f"mesh: {self.mesh.shape} ({self.device.type}, {table}; "
+                        f"loss {model_cfg.loss_impl}, eval {train_cfg.eval_impl})")
 
         # nn.Dropout draws from torch's default generators; the epoch order,
         # the negatives, BERT4Rec's cloze positions and the fused dropout's
         # seeds from this one; the same-target view from np_rng, as in JAX.
-        # A snapshot keeps the states of all of them
-        torch.manual_seed(train_cfg.seed)
+        # A snapshot keeps the states of all of them. Under a mesh every rank
+        # draws the same from this one and from np_rng; torch's default
+        # generators are seeded per data rank, so the data ranks draw other
+        # nn.Dropout masks and the ranks of one model group the same
+        torch.manual_seed(self._default_seed())
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
         self.np_rng = np.random.default_rng(train_cfg.seed)
         self.optimizer = make_optimizer(self.model.parameters(), train_cfg)
         self.loss_impl = resolve_loss_impl(model_cfg.loss_impl, model_cfg.item_size, self.device)
         self._epoch_fn, self.steps_per_epoch = build_train_epoch(
             self.model, self.optimizer, train_cfg.batch_size, data.train.num_samples, self.device,
-            remat=train_cfg.remat)
+            remat=train_cfg.remat, mesh=self.mesh)
         self._train_dev = None  # moved to the device by the first train()
         # early-stopping state restored by resume(), consumed by fit()
         self._resume_stopper = None
 
-        # streaming eval stages one [U, ceil(V/32)] bitmask per split;
-        # above the limit the [U, S] id lists stay on the device and each
-        # batch's bitmask is built there (1M items x 50k users would stage
-        # 2 x 6.25 GB)
-        vocab = self.model.vocab_rows()
-        staged_bytes = 2 * data.valid.num_users * rank.seen_words(vocab) * 4
+        # streaming eval stages one [U, ceil(V/32)] bitmask per split (of the
+        # rank's shard under a sharded table); above the limit the [U, S] id
+        # lists stay on the device and each batch's bitmask is built there
+        # (1M items x 50k users would stage 2 x 6.25 GB)
+        rows = self.model.item_table.shape[0]
+        start = self.mesh.model_rank * rows if self.table_sharded else 0
+        staged_bytes = 2 * data.valid.num_users * rank.seen_words(rows) * 4
         self._seen_format = "ids" if staged_bytes > rank.SEEN_BITMASK_STAGE_LIMIT else "bitmask"
         self._eval_fn, _, self.eval_impl = self._build_eval(collect_topk=False)
 
         self._eval_dev = {}
         for split_name in ("valid", "test"):
             split = getattr(data, split_name)
-            if self.eval_impl == "streaming" and self._seen_format == "ids":
+            streaming = self.eval_impl in ("streaming", "sharded_streaming")
+            if streaming and self._seen_format == "ids":
                 seen = rank.dedupe_seen_rows(split.seen_items)
                 if split_name == "valid":
                     logger.info(
                         f"eval seen masks: on-device per-batch bitmasks "
                         f"(staging both splits would take {staged_bytes >> 20} MiB)"
                     )
-            elif self.eval_impl == "streaming":
-                seen = rank.build_seen_bitmask(split.seen_items, vocab)
+            elif streaming:
+                seen = rank.build_seen_bitmask(split.seen_items, rows, id_offset=start,
+                                               mask_item0=start == 0)
             else:
                 seen = split.seen_items
             self._eval_dev[split_name] = {
@@ -90,12 +145,25 @@ class Trainer:
                 "seen": torch.from_numpy(seen).to(self.device),
             }
 
+    def _default_seed(self) -> int:
+        """The seed of torch's default generators: the run's seed, or on
+        data rank d > 0 of a mesh one derived from (seed, d)."""
+        if self.mesh is None or self.mesh.data_rank == 0:
+            return self.train_cfg.seed
+        return int(np.random.SeedSequence([self.train_cfg.seed, self.mesh.data_rank])
+                   .generate_state(1, np.uint64)[0] >> 1)
+
+    @property
+    def writes_files(self) -> bool:
+        """True on the rank that writes the run's files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.is_writer
+
     def _build_eval(self, collect_topk: bool):
         return build_eval_fn(
             self.model, self.model_cfg.item_size, self.train_cfg.eval_batch_size,
             self.data.valid.num_users, self.device, impl=self.train_cfg.eval_impl,
             collect_topk=collect_topk, seen_format=self._seen_format,
-            dtype=self.model_cfg.compute_dtype,
+            dtype=self.model_cfg.compute_dtype, mesh=self.mesh,
         )
 
     # ---- reference-API surface -----------------------------------------
@@ -120,7 +188,8 @@ class Trainer:
         # the epoch's one read back to the host; the user ids only for a
         # model that reads them (a gather a step saved for the others)
         users = dev["users"] if self.model.reads_users else None
-        loss = float(self._epoch_fn(dev["inputs"], dev["answers"], self.generator, users, sem))
+        with meshlib.using_mesh(self.mesh):
+            loss = float(self._epoch_fn(dev["inputs"], dev["answers"], self.generator, users, sem))
         if (epoch + 1) % self.train_cfg.log_freq == 0:
             self.logger.info(str({"epoch": epoch, "rec_loss": f"{loss:.4f}"}))
         return loss
@@ -128,7 +197,8 @@ class Trainer:
     def evaluate_sums(self, split: str) -> np.ndarray:
         """The [9] metric sums of one eval pass over `split`."""
         dev = self._eval_dev[split]
-        return self._eval_fn(dev["inputs"], dev["answers"], dev["seen"]).cpu().numpy()
+        with meshlib.using_mesh(self.mesh):
+            return self._eval_fn(dev["inputs"], dev["answers"], dev["seen"]).cpu().numpy()
 
     def _evaluate(self, split: str, epoch: int):
         t0 = time.perf_counter()
@@ -162,7 +232,8 @@ class Trainer:
         scoring, seen items at 0.0, the ranking the metrics come from."""
         fn, _, _ = self._build_eval(collect_topk=True)
         dev = self._eval_dev[split]
-        return fn(dev["inputs"], dev["answers"], dev["seen"]).cpu().numpy()
+        with meshlib.using_mesh(self.mesh):
+            return fn(dev["inputs"], dev["answers"], dev["seen"]).cpu().numpy()
 
     def dump_sequence_outputs(self, out_dir: str, tag: str, split: str = "test",
                               batch_size: int | None = None) -> int:
@@ -180,23 +251,93 @@ class Trainer:
         inputs = (self.data.test if split == "test" else self.data.valid).input_ids
         n_batches = -(-len(inputs) // b)
         self.model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), meshlib.using_mesh(self.mesh):
             for i in range(n_batches):
                 batch = torch.from_numpy(inputs[i * b:(i + 1) * b]).long().to(self.device)
                 outs = self.model(batch, all_layers=True)
-                dump([o.cpu().numpy() for o in outs], out_dir, tag, i)
+                if self.writes_files:
+                    dump([o.cpu().numpy() for o in outs], out_dir, tag, i)
         return n_batches
 
+    # ---- the single-card layout of a sharded table ----------------------------
+    _TABLE = "item_embeddings.weight"
+
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """The full [V, ...] tensor from every model rank's rows."""
+        parts = [torch.empty_like(local) for _ in range(self.mesh.model)]
+        dist.all_gather(parts, local.detach().contiguous(), group=self.mesh.model_group)
+        return torch.cat(parts)
+
+    def _own_rows(self, full: torch.Tensor) -> torch.Tensor:
+        rows = full.shape[0] // self.mesh.model
+        return full[self.mesh.model_rank * rows:(self.mesh.model_rank + 1) * rows].clone()
+
+    def _table_index(self) -> int:
+        """The item table's index in the optimizer's state_dict."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        return next(i for i, p in enumerate(params) if p is self.model.item_table)
+
+    def full_state_dict(self) -> dict:
+        """The model's state_dict in the single-card layout (a sharded table
+        gathered; collective under a mesh)."""
+        sd = self.model.state_dict()
+        if self.table_sharded:
+            sd = dict(sd) | {self._TABLE: self._gather_rows(sd[self._TABLE])}
+        return sd
+
+    def _full_opt_state(self) -> dict:
+        opt = self.optimizer.state_dict()
+        if not self.table_sharded:
+            return opt
+        i = self._table_index()
+        table_state = dict(opt["state"][i])
+        for key in ("exp_avg", "exp_avg_sq"):
+            table_state[key] = self._gather_rows(table_state[key])
+        return {"state": {**opt["state"], i: table_state}, "param_groups": opt["param_groups"]}
+
+    def _own_opt_state(self, opt: dict) -> dict:
+        if not self.table_sharded:
+            return opt
+        i = self._table_index()
+        table_state = dict(opt["state"][i])
+        for key in ("exp_avg", "exp_avg_sq"):
+            table_state[key] = self._own_rows(table_state[key])
+        return {"state": {**opt["state"], i: table_state}, "param_groups": opt["param_groups"]}
+
+    def _written(self) -> None:
+        """Under a mesh: every rank waits here until rank 0 has written."""
+        if self.mesh is not None:
+            dist.barrier()
+
     def save(self, path: str | None = None):
-        ckpt.save_params(self.model.state_dict(), path or self.checkpoint_path)
+        sd = self.full_state_dict()
+        if self.writes_files:
+            ckpt.save_params(sd, path or self.checkpoint_path)
+        self._written()
 
     def load(self, path: str | None = None):
         self.install_params(ckpt.load_params(path or self.checkpoint_path))
 
     def install_params(self, state_dict: dict):
         """Adopt an externally produced `state_dict` (checkpoint, a
-        reference torch checkpoint, or `params_from_jax`)."""
+        reference torch checkpoint, or `params_from_jax`) in the
+        single-card layout; a sharded table keeps this rank's rows."""
+        if self.table_sharded:
+            state_dict = dict(state_dict) | {self._TABLE: self._own_rows(state_dict[self._TABLE])}
         self.model.load_state_dict(state_dict)
+
+    def full_model(self):
+        """A model on this rank's device holding the full parameters (the
+        sharded table gathered), for what needs the whole table (the
+        serving export); collective under a mesh."""
+        if not self.table_sharded:
+            return self.model
+        from bsarec_tpu_torch.models import build_model as build
+
+        sd = self.full_state_dict()
+        model = build(self.model_cfg, prng=self.train_cfg.prng)
+        model.load_state_dict(sd)
+        return model.to(self.device)
 
     # ---- crash recovery -----------------------------------------------------
     @property
@@ -218,16 +359,25 @@ class Trainer:
                   "numpy": self.np_rng.bit_generator.state}
         if self.device.type == "cuda":
             states["cuda"] = torch.cuda.get_rng_state(self.device)
+        if self.mesh is not None and self.mesh.data > 1:
+            # torch's default generators differ per data rank: each data
+            # rank's, beside rank 0's under the single-card keys
+            mine = {k: states[k] for k in ("torch", "cuda") if k in states}
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, mine)
+            states["data_ranks"] = [every[d * self.mesh.model] for d in range(self.mesh.data)]
         return states
 
     def save_state(self, epoch: int, stopper: EarlyStopping | None = None):
-        ckpt.save_train_state(
-            self.state_path, self.model.state_dict(), self.optimizer.state_dict(), epoch,
-            self._rng_states(),
-            best_score=None if stopper is None else stopper.best_score,
-            patience_counter=0 if stopper is None else stopper.counter,
-            config_fp=self._config_fingerprint(),
-        )
+        params, opt_state, rng = self.full_state_dict(), self._full_opt_state(), self._rng_states()
+        if self.writes_files:
+            ckpt.save_train_state(
+                self.state_path, params, opt_state, epoch, rng,
+                best_score=None if stopper is None else stopper.best_score,
+                patience_counter=0 if stopper is None else stopper.counter,
+                config_fp=self._config_fingerprint(),
+            )
+        self._written()
 
     def resume(self) -> int:
         """Restore params, Adam state, generators and early-stopping state
@@ -244,15 +394,21 @@ class Trainer:
                 f"original run's flags again (matching parameter shapes are not enough, e.g. "
                 f"a num_attention_heads change keeps every shape)."
             )
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        self.install_params(state["params"])
+        self.optimizer.load_state_dict(self._own_opt_state(state["opt_state"]))
         rng = state["rng"]
         self.generator.set_state(rng["epoch_order"])
-        torch.set_rng_state(rng["torch"])
         if "numpy" in rng:
             self.np_rng.bit_generator.state = rng["numpy"]
-        if "cuda" in rng and self.device.type == "cuda":
-            torch.cuda.set_rng_state(rng["cuda"], self.device)
+        # a data rank past those of the snapshot keeps its freshly seeded stream
+        mine = rng
+        if self.mesh is not None and self.mesh.data_rank > 0:
+            ranks = rng.get("data_ranks", [])
+            mine = ranks[self.mesh.data_rank] if self.mesh.data_rank < len(ranks) else {}
+        if "torch" in mine:
+            torch.set_rng_state(mine["torch"])
+        if "cuda" in mine and self.device.type == "cuda":
+            torch.cuda.set_rng_state(mine["cuda"], self.device)
         self._resume_stopper = (state["best_score"], state["patience_counter"])
         self.logger.info(f"resumed full train state from {self.state_path} (epoch {state['epoch']})")
         return state["epoch"] + 1

@@ -223,6 +223,23 @@ Phases, each of which raises (exit code 1) when it fails:
    printed); `main --do_eval --load_model smoke_train --dump_seqout`
    (40 batches x 3 files, shapes, read back by `load_sequence_outputs`,
    the last layer against the model's forward).
+13. The vocab-sharded mesh (`core/mesh.py`, `parallel/`; `mesh ...` lines
+   and a `mesh: {...}` summary). After phase 3, m shards of the 1M-item
+   table in one process through the merges of `parallel/logits.py`, one
+   kernel launch a shard: the CE at m in {2, 4}, H = 64 and m = 2, H = 512,
+   both forms (loss and logZ within CE_TOL of one unsharded call, the
+   backward at its logZ within the form's gradient limit), the top-20 at
+   n_valid 999,997 and where the last shard is empty (ids and values
+   bit-equal to the unsharded kernel's), the shard-mode seen bitmasks
+   native against numpy, bit-equal; each composition timed against the
+   unsharded call. After phase 12, in phase 7's directory: `main --mesh
+   data:1,model:1` through a one-rank NCCL group in turns with the plain
+   run (plain, mesh, mesh, plain; scores, epoch loss and checkpoint
+   bit-equal, the same launches), SASRec on the fused dropout under it,
+   and `main --mesh data:1,model:2` as two gloo processes sharing the
+   card (the epoch loss within parity.MESH_LOSS_RTOL of the plain run's,
+   one launch a step of each CE kernel and one an eval batch of the rank
+   kernel on each rank).
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -4174,6 +4191,305 @@ def phase_tools_main(device, workdir, card):
     return fields | {"dump_files": len(files)}
 
 
+
+# ---- the vocab-sharded mesh (core/mesh.py, parallel/): m shards in one process,
+# ---- main --mesh through a one-rank NCCL group, and two gloo ranks on the card --
+
+# (shards, hidden, CE form): the on-chip routes (fp32 FMA, bf16 tensor cores)
+# at H=64 and the wide routes at H=512
+MESH_CE_CASES = [(2, 64, None), (2, 64, "bfloat16"), (4, 64, None), (4, 64, "bfloat16"),
+                 (2, 512, None), (2, 512, "bfloat16")]
+# (shards, hidden, n_valid): 999,997 valid items, and n_valid at or under
+# the last shard's first row, which leaves that shard empty
+MESH_RANK_CASES = [(2, 64, N_ITEMS - 3), (4, 64, N_ITEMS - 3), (2, 64, N_ITEMS // 2),
+                   (4, 64, 3 * N_ITEMS // 4 - 3), (2, 512, N_ITEMS - 3)]
+MESH_SEEN = 50  # seen ids a user, 0-padded
+# one rank of `main --mesh data:1,model:2` over gloo, both ranks on cuda:0
+# (NCCL takes one rank a device): python -c MESH_RANK_CODE <rank> <store>
+# <result.json> <main argv...>
+MESH_RANK_CODE = """
+import json, os, sys, time
+import torch, torch.distributed as dist
+rank, store, result = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+import chip_smoke
+from bsarec_tpu_torch import main as port_main
+from bsarec_tpu_torch.config import set_fp32_matmul
+set_fp32_matmul()
+chip_smoke.reset_counts()
+scores = port_main.main(sys.argv[4:])
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+with open(result, "w") as fh:
+    json.dump({"scores": scores, "counts": chip_smoke.read_counts()}, fh)
+dist.destroy_process_group()
+"""
+
+
+def mesh_seen_items(b: int, v: int, m: int, seed: int) -> np.ndarray:
+    """[b, MESH_SEEN] seen ids: random ids, every shard's first row (local
+    item 0 of shards s > 0), a repeat and 0 padding at the end."""
+    rng = np.random.default_rng(seed)
+    seen = rng.integers(1, v, size=(b, MESH_SEEN)).astype(np.int32)
+    rows = v // m
+    seen[:, :m - 1] = np.arange(1, m) * rows
+    seen[:, m] = seen[:, m + 1]
+    pad = rng.integers(1, 10, size=b)
+    seen[np.arange(MESH_SEEN)[None, :] >= MESH_SEEN - pad[:, None]] = 0
+    return seen
+
+
+def mesh_bitmask_check(seen: np.ndarray, v: int, m: int):
+    """The shard-mode bitmasks, native against numpy, bit-equal, and shard
+    s's local bits equal to the whole table's bits of its rows (item 0's
+    bit on shard 0 only). Returns (the [m, b, w] stack, the whole table's
+    [b, W] bitmask, the native and numpy host seconds)."""
+    from bsarec_tpu_torch.ops import rank
+
+    (stack, native_s) = host_s(lambda: rank.build_seen_bitmask_sharded(seen, v, m))
+    with native_off():
+        (plain, numpy_s) = host_s(lambda: rank.build_seen_bitmask_sharded(seen, v, m))
+    check(stack.dtype == plain.dtype == np.int32 and np.array_equal(stack, plain),
+          f"shard-mode bitmask, m={m}: native and numpy differ")
+    whole = rank.build_seen_bitmask(seen, v)
+    rows = v // m
+    bits = np.unpackbits(whole[:8].view(np.uint8), axis=1, bitorder="little")
+    for s in range(m):
+        local = np.unpackbits(stack[s, :8].view(np.uint8), axis=1, bitorder="little")[:, :rows]
+        check(np.array_equal(local, bits[:, s * rows:(s + 1) * rows]),
+              f"shard {s} of {m}: its bits are not the table's")
+    return stack, whole, native_s, numpy_s
+
+
+def mesh_inputs(h: int, seed: int, device):
+    """Seeded states [256, h], table [1M, h] (0.25 N(0, 1)) and CE answers
+    (phase 3's "odd" kind: repeats, item 0, -1, n_valid and V + 7), drawn on
+    the card."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    states = torch.randn((TRAIN_BATCH, h), generator=gen, device=device)
+    table = 0.25 * torch.randn((N_ITEMS, h), generator=gen, device=device)
+    answers = torch.randint(1, N_ITEMS, (TRAIN_BATCH,), generator=gen, device=device)
+    answers[:7] = torch.tensor([answers[0], answers[0], answers[0], 0, -1, N_ITEMS, N_ITEMS + 7])
+    return states, table, answers
+
+
+def phase_mesh_kernels(device, card):
+    """m shards of the 1M-item table in one process through the merges of
+    `parallel/logits.py`, held against one unsharded kernel call: the CE
+    forward (loss and logZ within CE_TOL) and the per-shard backward at
+    the unsharded logZ (ds summed over the shards, dT concatenated; each
+    group within GRAD_TOL, WIDE_GRAD_TOL at H=512, BF16_GRAD_TOL in the bf16
+    form) at MESH_CE_CASES, and the top-20 at MESH_RANK_CASES (ids and
+    values bit-equal, a shard past n_valid on the kernel's empty case), each
+    with one launch a shard; the shard-mode bitmasks native against numpy.
+    Times the composition against the unsharded call and the merge alone.
+    Returns the phase's summary."""
+    import torch
+
+    from bsarec_tpu_torch import parity
+    from bsarec_tpu_torch.ops import ce, rank
+    from bsarec_tpu_torch.parallel import logits as plog
+
+    out = {"ce": {}, "rank": {}, "bitmask": {}}
+    inputs = {h: mesh_inputs(h, 300 + h, device) for h in (64, 512)}
+    dloss = torch.full((TRAIN_BATCH,), 1.0 / TRAIN_BATCH, device=device)
+    for m, h, dtype in MESH_CE_CASES:
+        name = f"m={m} H={h} {dtype or 'float32'}"
+        s, t, a = inputs[h]
+        loss_u, logz_u = ce.ce_loss_logz(s, t, a, dtype=dtype)
+        ds_u, dt_u = ce.ce_grads(s, t, a, logz_u, dloss, dtype=dtype)
+        tables = list(t.chunk(m))
+        reset_counts()
+        loss, logz = plog.streaming_ce_over_shards(s, tables, a, dtype)
+        ds, dt = plog.streaming_ce_grads_over_shards(s, tables, a, logz_u, dloss, dtype)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts["ce_logz"] == m and counts["ce_grads"] == m,
+              f"mesh CE {name}: launches {counts}, want {m} of each")
+        fwd = max(float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                  for x, y in ((loss, loss_u), (logz, logz_u)))
+        check(fwd <= CE_TOL, f"mesh CE {name}: loss/logZ error {fwd:.3g} > {CE_TOL}")
+        errs = parity.grad_errors(ds, dt, ds_u, dt_u, a, N_ITEMS)
+        tol = (parity.BF16_GRAD_TOL if dtype else parity.WIDE_GRAD_TOL if h > 256 else GRAD_TOL)
+        check(max(errs.values()) <= tol, f"mesh CE {name}: gradient errors {errs} > {tol}")
+        stack = logz.expand(m, -1).contiguous()
+        times = {
+            "fwd_ms": cuda_ms(lambda: plog.streaming_ce_over_shards(s, tables, a, dtype), 5),
+            "fwd_unsharded_ms": cuda_ms(lambda: ce.ce_loss_logz(s, t, a, dtype=dtype), 5),
+            "bwd_ms": cuda_ms(lambda: plog.streaming_ce_grads_over_shards(
+                s, tables, a, logz_u, dloss, dtype), 3),
+            "bwd_unsharded_ms": cuda_ms(lambda: ce.ce_grads(s, t, a, logz_u, dloss, dtype=dtype), 3),
+            "merge_ms": cuda_ms(lambda: plog.merge_ce_stats(stack, stack), 20),
+        }
+        out["ce"][name] = {"launches": {"ce_logz": m, "ce_grads": m}, "fwd_err": fwd,
+                           **errs, **times}
+        log(f"mesh CE {name}: {m} ce_logz + {m} ce_grads launches; loss/logZ error {fwd:.3g}; "
+            f"gradient errors {json.dumps(errs)}; forward {times['fwd_ms']:.3f} ms against "
+            f"{times['fwd_unsharded_ms']:.3f} unsharded, backward {times['bwd_ms']:.3f} against "
+            f"{times['bwd_unsharded_ms']:.3f}, merge {times['merge_ms']:.4f} ms [{card}]")
+        del ds, dt, ds_u, dt_u
+    bitmasks = {}
+    for m, h, n_valid in MESH_RANK_CASES:
+        name = f"m={m} H={h} n_valid={n_valid}"
+        s, t, _ = inputs[h]
+        s = s * 4.0  # scores spread past the seen items' 0.0
+        if m not in bitmasks:
+            seen = mesh_seen_items(EVAL_BATCH, N_ITEMS, m, 500 + m)
+            stack, whole, native_s, numpy_s = mesh_bitmask_check(seen, N_ITEMS, m)
+            bitmasks[m] = (torch.from_numpy(stack).to(device), torch.from_numpy(whole).to(device))
+            out["bitmask"][f"m={m}"] = {"native_s": native_s, "numpy_s": numpy_s}
+            log(f"mesh bitmask m={m}: [{m}, {EVAL_BATCH}, {stack.shape[2]}] native and numpy "
+                f"bit-equal ({native_s:.3f} s and {numpy_s:.3f} s on the host), each shard's bits "
+                f"the table's")
+        stack, whole = bitmasks[m]
+        tables = list(t.chunk(m))
+        vals_u, ids_u = rank.streaming_masked_topk(s, t, whole, TOP_K, n_valid)
+        reset_counts()
+        vals, ids = plog.streaming_topk_over_shards(s, tables, stack, TOP_K, n_valid)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts["streaming_masked_topk"] == m, f"mesh top-k {name}: launches {counts}")
+        check(torch.equal(ids, ids_u.long()) and torch.equal(vals, vals_u),
+              f"mesh top-k {name}: ids or values differ from the unsharded kernel's")
+        check(int(ids.max()) < n_valid, f"mesh top-k {name}: an id past n_valid")
+        times = {"ms": cuda_ms(lambda: plog.streaming_topk_over_shards(s, tables, stack, TOP_K,
+                                                                        n_valid), 5),
+                 "unsharded_ms": cuda_ms(lambda: rank.streaming_masked_topk(s, t, whole, TOP_K,
+                                                                             n_valid), 5)}
+        out["rank"][name] = {"launches": m, **times}
+        log(f"mesh top-k {name}: {m} launches, ids and values bit-equal to the unsharded "
+            f"kernel's; {times['ms']:.3f} ms against {times['unsharded_ms']:.3f} unsharded "
+            f"[{card}]")
+    return out
+
+
+def mesh_run(argv, fused=False):
+    """main.main(argv) with the counts set to 0 just before and read just
+    after: (scores, counts, the epoch's examples/s, its loss string, the
+    log)."""
+    import torch.distributed as dist
+
+    with pallas_dropout_env(fused):
+        scores, counts, _ = tools_main(argv)
+    check(not dist.is_initialized(), "main left its process group behind")
+    name = argv[argv.index("--train_name") + 1]
+    text = read_log(os.path.join(argv[argv.index("--output_dir") + 1], name + ".log"))
+    rates = re.findall(r"epoch 0: train (\d+) ex/s", text)
+    losses = re.findall(r"'epoch': 0, 'rec_loss': '([^']+)'", text)
+    check(len(rates) == 1 and len(losses) == 1 and math.isfinite(float(losses[0])),
+          f"{name}: epoch lines {rates} {losses}")
+    return scores, counts, float(rates[0]), losses[0], text
+
+
+def phase_mesh_main(device, workdir, card):
+    """`main --mesh data:1,model:1` through a one-rank NCCL group on phase
+    7's corpus (BSARec, one epoch, validation, the test pass), in turns with
+    the plain run (plain, mesh, mesh, plain): the scores, the epoch loss and
+    the best checkpoint bit-equal to the plain run's, the same kernel
+    launches; then SASRec on the fused dropout under the same mesh (its 14
+    launches a step, data rank 0's seed words). Returns the phase's summary."""
+    import torch
+
+    seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
+    steps = math.ceil(sum(len(s[-52:-2]) for s in seqs) / TRAIN_BATCH)
+    eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    common = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
+              "--device", device.type, "--batch_size", str(TRAIN_BATCH), "--epochs", "1"]
+    bsarec = common + ["--lr", str(LR), *WIDTHS]
+    runs = {}
+    for name, extra in (("mesh_plain", []), ("mesh_11", ["--mesh", "data:1,model:1"]),
+                        ("mesh_11b", ["--mesh", "data:1,model:1"]), ("mesh_plainb", [])):
+        runs[name] = mesh_run(bsarec + ["--train_name", name] + extra)
+    want = zero_counts() | {"ce_logz": steps, "ce_grads": steps,
+                            "streaming_masked_topk": 2 * eval_steps}
+    for name, (scores, counts, rate, loss, text) in runs.items():
+        check(counts == want, f"{name}: launches {counts}, want {want}")
+        check(scores == runs["mesh_plain"][0] and loss == runs["mesh_plain"][3],
+              f"{name}: scores {scores} / loss {loss} differ from the plain run's")
+        if name.startswith("mesh_1"):
+            check("mesh: {'data': 1, 'model': 1} (cuda" in text, f"{name}: no mesh line")
+    plain = torch.load(os.path.join(workdir, "mesh_plain.ckpt"))
+    for name in ("mesh_11", "mesh_11b"):
+        mesh = torch.load(os.path.join(workdir, name + ".ckpt"))
+        check(plain.keys() == mesh.keys() and all(torch.equal(plain[k], mesh[k]) for k in plain),
+              f"{name}: the checkpoint differs from the plain run's")
+    rates = {name: r[2] for name, r in runs.items()}
+    log(f"mesh main: --mesh data:1,model:1 (one-rank NCCL group) bit-equal to the plain run "
+        f"(scores {runs['mesh_plain'][0]}, epoch loss {runs['mesh_plain'][3]}, checkpoint); "
+        f"launches {want}; epoch examples/s in turns {json.dumps(rates)} [{card}]")
+    sasrec = common + ["--model_type", "SASRec", "--prng", "rbg", "--lr", str(SASREC_LR),
+                       "--train_name", "mesh_sasrec", "--mesh", "data:1,model:1"]
+    _, fused_counts, fused_rate, fused_loss, _ = mesh_run(sasrec, fused=True)
+    want_fused = zero_counts() | {"fused_dropout": 2 * DROPOUT_SITES * steps,
+                                  "streaming_masked_topk": 2 * eval_steps}
+    check(fused_counts == want_fused, f"mesh SASRec: launches {fused_counts}, want {want_fused}")
+    log(f"mesh main: SASRec --prng rbg BSAREC_DROPOUT=pallas --mesh data:1,model:1, epoch loss "
+        f"{fused_loss}, {fused_rate:.0f} examples/s; launches {fused_counts} [{card}]")
+    return {"launches": {k: v for k, v in want.items() if v}, "examples_per_s": rates,
+            "plain_loss": runs["mesh_plain"][3],
+            "fused_dropout_launches": fused_counts["fused_dropout"],
+            "sasrec_examples_per_s": fused_rate}
+
+
+def phase_mesh_two_ranks(device, workdir, card, plain_loss: str):
+    """`main --mesh data:1,model:2` as two processes in one gloo group, both
+    on the one card (NCCL takes one rank a device), on phase 7's corpus for
+    one epoch: every rank's scores equal, the epoch loss within
+    parity.MESH_LOSS_RTOL of the plain run's (`plain_loss`, phase_mesh_main),
+    and on each rank one launch a step of ce_logz and of ce_grads (its
+    shard) and of the rank kernel an eval batch. Returns the summary."""
+    from bsarec_tpu_torch import parity
+
+    seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
+    steps = math.ceil(sum(len(s[-52:-2]) for s in seqs) / TRAIN_BATCH)
+    eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    argv = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
+            "--device", device.type, "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+            "--lr", str(LR), *WIDTHS, "--train_name", "mesh_12", "--mesh", "data:1,model:2"]
+    store = os.path.join(workdir, "mesh_12.store")
+    env = dict(os.environ, LOCAL_RANK="0")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK_CODE, str(r), store,
+                               os.path.join(workdir, f"mesh_12.rank{r}.json"), *argv],
+                              cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"mesh_12 rank {r} exited {p.returncode}: {text[-3000:]}")
+    results = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"mesh_12.rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    want = zero_counts() | {"ce_logz": steps, "ce_grads": steps,
+                            "streaming_masked_topk": 2 * eval_steps}
+    for r, res in enumerate(results):
+        check(res["counts"] == want, f"mesh_12 rank {r}: launches {res['counts']}, want {want}")
+        check(res["scores"] == results[0]["scores"], f"mesh_12 rank {r}: scores differ")
+    text = read_log(os.path.join(workdir, "mesh_12.log"))
+    losses = re.findall(r"'epoch': 0, 'rec_loss': '([^']+)'", text)
+    rates = re.findall(r"epoch 0: train (\d+) ex/s", text)
+    check("mesh: {'data': 1, 'model': 2} (cuda, item table rows split over 2; loss "
+          "sharded_streaming, eval sharded_streaming)" in text, "mesh_12: no mesh line")
+    check(len(losses) == 1 and abs(float(losses[0]) - float(plain_loss))
+          <= parity.MESH_LOSS_RTOL * abs(float(plain_loss)),
+          f"mesh_12: epoch loss {losses} against the plain run's {plain_loss}")
+    log(f"mesh two ranks: main --mesh data:1,model:2 over gloo, both ranks on cuda:0: epoch loss "
+        f"{losses[0]} (plain {plain_loss}), scores {results[0]['scores']}, {rates[0]} examples/s; "
+        f"launches a rank {want} [{card}]")
+    return {"launches_per_rank": {k: v for k, v in want.items() if v},
+            "examples_per_s": float(rates[0]), "loss": losses[0]}
+
+
 def main() -> int:
     import torch
 
@@ -4198,6 +4514,8 @@ def main() -> int:
         worst_err, full = phase_kernels(device)
     with timed("CE kernels vs plain"):
         ce_err, ce_full = phase_ce_kernels(device)
+    with timed("mesh: m shards of the 1M-item table through the merges vs the unsharded kernels"):
+        mesh_kernels = phase_mesh_kernels(device, card)
     with timed("wide: kernels vs plain, main --hidden_size 512 (train, resume, export, bf16), times"):
         wide_err, wide_rank_err, wide_ce_full, wide_rank_full = phase_wide_kernels(device)
         wide_paths = phase_wide_train(device, card)
@@ -4225,6 +4543,10 @@ def main() -> int:
             tools = {"native_host_s": phase_tools_native(workdir, card),
                      "remat_steps": phase_tools_remat(device, card)}
             tools |= phase_tools_main(device, workdir, card)
+        with timed("mesh: main --mesh data:1,model:1 (one-rank NCCL group) in turns with the "
+                   "plain run, SASRec on the fused dropout, two gloo ranks on the card"):
+            mesh = phase_mesh_main(device, workdir, card)
+            mesh["two_ranks"] = phase_mesh_two_ranks(device, workdir, card, mesh["plain_loss"])
     with timed("SASRec train main path"), tempfile.TemporaryDirectory() as workdir:
         sasrec_launches, fused_rate, nn_rate = phase_sasrec_train(device, workdir, card)
     log(f"SASRec train: {fused_rate:.0f} examples/s with the fused dropout kernel, {nn_rate:.0f} "
@@ -4374,6 +4696,27 @@ def main() -> int:
             "max_abs_err": wide_err[BF16][name],
             **wide_times["ce16"][name],
         })
+    # the vocab-sharded mesh: launches of main --mesh data:1,model:1 (one
+    # rank), of each rank of main --mesh data:1,model:2 (two gloo ranks on
+    # the card), and one a shard of the one-process composition's checks
+    mesh_two = mesh["two_ranks"]["launches_per_rank"]
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("streaming_masked_topk", "ce_logz", "ce_grads"):
+            entry |= {"mesh_launches": mesh["launches"][name],
+                      "mesh_two_rank_launches_per_rank": mesh_two[name]}
+        if name == "streaming_masked_topk":
+            entry["mesh_shard_launches"] = {c: r["launches"] for c, r in mesh_kernels["rank"].items()}
+            entry["mesh_ms"] = {c: {"ms": r["ms"], "unsharded_ms": r["unsharded_ms"]}
+                                for c, r in mesh_kernels["rank"].items()}
+        if name in ("ce_logz", "ce_grads"):
+            key = "fwd" if name == "ce_logz" else "bwd"
+            entry["mesh_shard_launches"] = {c: r["launches"][name]
+                                            for c, r in mesh_kernels["ce"].items()}
+            entry["mesh_ms"] = {c: {"ms": r[f"{key}_ms"], "unsharded_ms": r[f"{key}_unsharded_ms"]}
+                                for c, r in mesh_kernels["ce"].items()}
+        if name == "fused_dropout":
+            entry["mesh_launches"] = mesh["fused_dropout_launches"]
     kernels[0] |= {"bf16_path_launches": bf16_paths["train"]["streaming_masked_topk"],
                    "bf16_serving_launches": bf16_paths["serving"]["streaming_masked_topk"],
                    "bf16_serving_max_abs_err": bf16_paths["serving_max_abs_err"]}
@@ -4381,6 +4724,7 @@ def main() -> int:
     log(f"preprec: {json.dumps(preprec)} [{card}]")
     log(f"preprec zoo: {json.dumps(preprec_zoo)} [{card}]")
     log(f"tools: {json.dumps(tools)} [{card}]")
+    log(f"mesh: {json.dumps(mesh | {'kernels': mesh_kernels})} [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

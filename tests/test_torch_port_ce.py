@@ -257,8 +257,12 @@ def test_wrappers_on_cpu_run_plain_and_validate():
         ce.streaming_softmax_ce(s, t, a, dtype="float16")
     with pytest.raises(NotImplementedError, match="is not ported"):
         full_softmax_ce(s, t, a, dtype="float16")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the sharded impls run on a Trainer's mesh: without an active one they
+    # raise, as JAX's `active_mesh()` does; an impl nobody knows is refused
+    with pytest.raises(RuntimeError, match="no active mesh"):
         full_softmax_ce(s, t, a, impl="sharded_streaming")
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        full_softmax_ce(s, t, a, impl="sharded")
 
 
 @pytest.mark.parametrize("impl", ["dense", "streaming"])

@@ -129,8 +129,11 @@ def test_auto_impl_and_device_rules():
     assert resolve_eval_impl("auto", STREAMING_RANK_MIN_VOCAB - 1, cuda) == "dense"
     assert resolve_eval_impl("auto", STREAMING_RANK_MIN_VOCAB, cpu) == "dense"
     assert resolve_eval_impl("streaming", 10, cpu) == "streaming"
+    # the sharded impls are the Trainer's under a vocab-sharded mesh
+    for impl in ("sharded_streaming", "sharded_dense"):
+        assert resolve_eval_impl(impl, 10, cpu) == impl
     with pytest.raises(NotImplementedError):
-        resolve_eval_impl("sharded_streaming", 10, cpu)
+        resolve_eval_impl("sharded", 10, cpu)
     if not torch.cuda.is_available():
         from bsarec_tpu_torch.config import resolve_device
 
@@ -215,8 +218,15 @@ def test_main_refuses_training_and_unported_flags(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main(["--output_dir", str(tmp_path), "--data_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        port_main(["--device", "cpu", "--do_eval", "--mesh", "auto"])
-    for flag in ("--multihost",):
-        with pytest.raises(NotImplementedError, match=flag):
-            port_main(["--device", "cpu", "--output_dir", str(tmp_path), flag])
+    # --mesh runs (a one-rank group here; tests/test_torch_port_mesh.py has
+    # the rest) and leaves no group behind; --multihost still raises, with
+    # --mesh or alone
+    import torch.distributed as dist
+
+    (tmp_path / "toy.txt").write_text("1 3 4 5\n2 4 5 6 7\n3 1 2\n")
+    assert port_main(["--device", "cpu", "--do_eval", "--mesh", "auto", "--data_dir",
+                      str(tmp_path), "--data_name", "toy", "--output_dir", str(tmp_path)]) is None
+    assert not dist.is_initialized()
+    for extra in ([], ["--mesh", "auto"]):
+        with pytest.raises(NotImplementedError, match="--multihost"):
+            port_main(["--device", "cpu", "--output_dir", str(tmp_path), "--multihost", *extra])

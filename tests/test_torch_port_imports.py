@@ -38,7 +38,22 @@ def test_import_port_loads_no_jax():
         "bsarec_tpu_torch.serving, bsarec_tpu_torch.serve, bsarec_tpu_torch.ops.serving_topk, "
         "bsarec_tpu_torch.preprec.main, bsarec_tpu_torch.preprec.jax_import, "
         "bsarec_tpu_torch.preprec.preprocess, bsarec_tpu_torch.preprec.serving, "
-        "bsarec_tpu_torch.preprec.sampler, bsarec_tpu_torch.preprec.evaluate; "
+        "bsarec_tpu_torch.preprec.sampler, bsarec_tpu_torch.preprec.evaluate, "
+        "bsarec_tpu_torch.core.mesh, bsarec_tpu_torch.parallel.logits, "
+        "bsarec_tpu_torch.parallel.embedding; "
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_mesh_worker_loads_no_jax():
+    """The spawned ranks of `tests/test_torch_port_mesh.py` run
+    `tests/test_torch_port_mesh_worker.py`, which imports the port alone:
+    no module of JAX or of the JAX package, once its cases' modules are in."""
+    code = (
+        "import sys; sys.path.insert(0, 'tests'); import test_torch_port_mesh_worker; "
+        "import bsarec_tpu_torch.train.trainer, bsarec_tpu_torch.parallel.logits; "
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
         "assert not bad, bad"
     )
