@@ -4,8 +4,8 @@ The fields and defaults are the JAX package's; `TrainConfig.device` and
 `TrainConfig.prng` (a JAX-wide setting there, `--prng`) are new.
 `scan_unroll` steers the JAX epoch scan and has no counterpart here;
 `mesh` runs the Trainer on a ("data", "model") mesh (`core/mesh.py`);
-`multihost` is kept so that configurations carry across, and the path
-that would read it is not ported yet.
+`multihost` keeps the training set on the host and feeds each step's
+rows from there (`data/multihost.py`).
 """
 
 from __future__ import annotations
@@ -84,6 +84,9 @@ class TrainConfig:
     # remat_loss); JAX's config says "each encoder block", but its loop
     # checkpoints the whole loss too
     remat: bool = False
+    # host-fed input pipeline (data/multihost.py): the training set stays
+    # on the host, each data rank moves only its rows of every global batch
+    # to its device, in the device-resident epoch's global batch order
     multihost: bool = False
     # "cuda" (default) or "cpu"; CPU runs only when asked for
     device: str = "cuda"

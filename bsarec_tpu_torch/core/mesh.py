@@ -61,24 +61,40 @@ def parse_mesh_spec(spec: str) -> MeshConfig | None:
     return MeshConfig(**kw)
 
 
+def rank_device(device_type: str) -> torch.device:
+    """This rank's device: `cuda:LOCAL_RANK` (made current) on the card,
+    the CPU otherwise."""
+    if device_type != "cuda":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("a process group on the card asked for, but CUDA is not available")
+    device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(device)
+    return device
+
+
+def join_launcher_group(device: torch.device) -> bool:
+    """Join the group of the launcher's environment (`RANK`, `WORLD_SIZE`,
+    `MASTER_ADDR`, `MASTER_PORT`): NCCL on the card, gloo on the CPU.
+    True when a group exists afterwards (joined here or before), False
+    when there is none and no launcher environment; a group that fails to
+    form raises."""
+    if dist.is_initialized():
+        return True
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method="env://")
+    return True
+
+
 def init_process_group(device_type: str) -> torch.device:
     """Join (or make) the process group; returns this rank's device. The
     launcher's environment when it is set, else a one-rank group on an
     in-process store. On the card the group is NCCL's and its failure to
     form raises."""
-    if device_type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--mesh on the card asked for, but CUDA is not available")
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-        torch.cuda.set_device(device)
-    else:
-        device = torch.device("cpu")
-    if dist.is_initialized():
-        return device
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend, init_method="env://")
-    else:
+    device = rank_device(device_type)
+    if not join_launcher_group(device):
+        backend = "nccl" if device.type == "cuda" else "gloo"
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return device
 

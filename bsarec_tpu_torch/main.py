@@ -42,8 +42,14 @@ over "data", the item table's rows over "model". Launch the ranks with
 launcher's environment it forms a one-rank group. Rank 0 writes the log
 and every file (checkpoints, snapshots, `--export_topk`,
 `--export_serving`, `--dump_seqout`, the `--profile` trace), each with
-the full table, as a single run writes them. `--multihost` is not ported
-yet and raises.
+the full table, as a single run writes them.
+
+`--multihost` keeps the training set on the host (`data/multihost.py`):
+each step moves a data rank's rows of the global batch to its device, in
+the device-resident run's order, so the run's numbers are that run's.
+Alone it is one process, a single run (JAX's `main` would train each
+process of a launcher on its own rows with no gradient sync); with
+`--mesh` each rank of the mesh feeds its data rank's rows.
 """
 
 from __future__ import annotations
@@ -63,10 +69,6 @@ from bsarec_tpu_torch.train import checkpoint as ckpt
 from bsarec_tpu_torch.train.trainer import Trainer
 from bsarec_tpu_torch.utils.logging import get_local_time, set_logger
 from bsarec_tpu_torch.utils.profiling import trace
-
-# flags whose machinery is not ported yet, with their no-op values
-_NOT_PORTED_FLAGS = {"multihost": False}
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
@@ -113,7 +115,11 @@ def parse_args(argv=None):
                         help="rbg with BSAREC_DROPOUT=pallas in the environment runs every "
                         "dropout site on the fused CUDA kernel (Philox in the kernel, the "
                         "mask made again in the backward); otherwise torch's nn.Dropout")
-    parser.add_argument("--multihost", action="store_true", help="(not ported yet)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="host-fed input pipeline (training set stays on host; "
+                        "required when no single host holds the full dataset). Without --mesh "
+                        "one process, a single run; with --mesh each rank feeds its data "
+                        "rank's rows of every batch")
     parser.add_argument("--eval_impl", default="auto", type=str,
                         help="full-catalog eval path: auto | dense | streaming (under a "
                         "vocab-sharded --mesh: their sharded forms)")
@@ -206,9 +212,6 @@ def configs_from_args(args, item_size: int, num_users: int):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, off in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP)")
     device = resolve_device(args.device)  # a missing card fails before the data is read
     made_group = bool(args.mesh) and not dist.is_initialized()
     if args.mesh:

@@ -2,8 +2,11 @@
 
 The JAX package runs a whole epoch, or a whole eval pass, as one
 `lax.scan` inside one jitted program. Here each is a Python loop over
-batches of device-resident data. The training loop reads nothing back
-to the host until the epoch ends: the loss is summed on the device; the
+batches of device-resident data, or under `--multihost` of batches that
+each data rank moves from the host (`build_host_fed_epoch`); both run
+the one step body, `build_train_step`. The training loop reads nothing
+back to the host until the epoch ends (the host-fed epoch its schedule
+once at its start): the loss is summed on the device; the
 epoch order, the negatives, BERT4Rec's cloze positions and the fused
 dropout's seed words come from a generator on the device; Adam keeps its
 step counts on the host.
@@ -28,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 import torch.distributed as dist
 
-from bsarec_tpu_torch.core.mesh import data_rows
+from bsarec_tpu_torch.core.mesh import data_rows, global_rows, using_mesh
+from bsarec_tpu_torch.data.multihost import PinnedStaging, global_batch
 from bsarec_tpu_torch.ops.losses import SHARDED_IMPLS
 from bsarec_tpu_torch.ops.precision import is_bf16, rounded
 from bsarec_tpu_torch.ops.rank import seen_ids_to_bitmask, streaming_masked_topk
@@ -57,11 +61,16 @@ def sample_negatives(generator: torch.Generator, input_ids: torch.Tensor,
     tensors' device. The pairwise losses (SASRec, FMLP-Rec, GRU4Rec,
     Caser) read these; the full-catalog CE models do not, and the JAX
     epoch's draw for them is dead code that XLA removes, so the port's
-    epoch draws them only for models with `reads_negatives`."""
+    epoch draws them only for models with `reads_negatives`. Under a mesh
+    with data ranks (`core/mesh.py:global_rows`) the rows are this rank's
+    share of the global batch: each round draws the global batch's vector
+    and keeps this rank's entries, and as the collision test is per row,
+    the negatives are the single run's rows."""
     batch, dev = answers.shape[0], answers.device
+    rows, mine = global_rows(batch)
 
     def draw():
-        return torch.randint(1, item_size, (batch,), generator=generator, device=dev)
+        return torch.randint(1, item_size, (rows,), generator=generator, device=dev)[mine]
 
     cand = draw()
     for _ in range(rounds):
@@ -152,61 +161,126 @@ def data_rank_seeds(seeds: torch.Tensor, mesh) -> torch.Tensor:
     return seeds
 
 
-def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
-                      device: torch.device, remat: bool = False, mesh=None):
-    """Returns `(epoch, steps)`; `epoch(inputs, answers, generator, users,
-    same_target)` runs one pass over the [N, L] inputs, [N] answers, [N]
-    user ids and [N, L] same-target view (each None where the model reads
-    none) in the generator's order, one Adam step per full batch, and
-    returns the mean batch loss as a 0-d tensor on the device. From the
-    generator, in this order: the epoch's permutation, the fused
-    dropout's [steps, 2] seed words (fused models only), then per step
-    the negatives (models with `reads_negatives` only) and what the loss
-    itself draws (BERT4Rec's cloze positions). `remat` recomputes each
-    step's whole loss in its backward (`remat_loss`); the epoch is then
-    bit-equal to the eager one. Under `mesh` each step runs on this data
-    rank's rows of the global batch, the gradients are averaged over the
-    data group, and the mean loss over the data group is returned."""
-    steps = math.ceil(num_samples / batch_size)
+def build_train_step(model, optimizer, remat: bool = False, mesh=None):
+    """Returns `step(ids, ans, generator, seed_words=None, uid=None,
+    sem=None)`: one Adam step on this data rank's rows of a global batch
+    (all of it without a mesh; user ids and the same-target view where the
+    model reads them), the one body of every training epoch (counterpart
+    of `bsarec_tpu/train/loop.py:218-262`). From the generator, in this
+    order: the negatives (models with `reads_negatives` only; the global
+    batch's draw, this rank's rows), then what the loss itself draws
+    (BERT4Rec's cloze positions).
+    `seed_words` are the fused dropout's [2] words of the step. `remat`
+    recomputes the whole loss in its backward (`remat_loss`), bit-equal to
+    the eager step. Under `mesh` the gradients are averaged over the data
+    group. Returns the step's loss, detached, on the device."""
     item_size = model.config.item_size
     dropout_state = model.dropout_state
     params = [p for group in optimizer.param_groups for p in group["params"]]
     data_parallel = mesh is not None and mesh.data > 1
 
+    def step(ids, ans, generator, seed_words=None, uid=None, sem=None):
+        # the global batch's draws (negatives, cloze positions, their
+        # recompute under remat) read the active mesh
+        with using_mesh(mesh):
+            neg = (sample_negatives(generator, ids, ans, item_size)
+                   if model.reads_negatives else None)
+            if seed_words is not None:
+                dropout_state.begin_step(seed_words)
+            if remat:
+                loss = remat_loss(model, ids, ans, neg, sem, uid, generator)
+            else:
+                loss = model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if data_parallel:
+            average_gradients(params, mesh.data_group, mesh.data)
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def _epoch_draws(num_samples: int, batch_size: int, steps: int, model, generator,
+                 device: torch.device, mesh):
+    """The epoch's first draws, in the order every epoch takes them: the
+    [steps, batch_size] permutation, then the fused dropout's [steps, 2]
+    seed words of this data rank (fused models only, else None)."""
+    perm = epoch_permutation(num_samples, batch_size, generator, device)
+    seeds = dropout_seeds(generator, steps, device) if model.dropout_state.fused else None
+    return perm, None if seeds is None else data_rank_seeds(seeds, mesh)
+
+
+def _epoch_mean(loss_sum: torch.Tensor, steps: int, mesh) -> torch.Tensor:
+    """The mean batch loss of an epoch, averaged over the data group."""
+    if mesh is not None:
+        dist.all_reduce(loss_sum, group=mesh.data_group)
+        loss_sum /= mesh.data
+    return loss_sum / steps
+
+
+def build_train_epoch(model, optimizer, batch_size: int, num_samples: int,
+                      device: torch.device, remat: bool = False, mesh=None):
+    """Returns `(epoch, steps)`; `epoch(inputs, answers, generator, users,
+    same_target)` runs one pass over the [N, L] inputs, [N] answers, [N]
+    user ids and [N, L] same-target view on the device (each None where
+    the model reads none) in the generator's order, one `build_train_step`
+    step per full batch, and returns the mean batch loss as a 0-d tensor
+    on the device. From the generator, in this order: the epoch's
+    permutation, the fused dropout's [steps, 2] seed words (fused models
+    only), then each step's draws. Under `mesh` each step runs on this
+    data rank's rows of the global batch and the mean loss over the data
+    group is returned."""
+    steps = math.ceil(num_samples / batch_size)
+    step_fn = build_train_step(model, optimizer, remat=remat, mesh=mesh)
+
     def epoch(inputs, answers, generator, users=None, same_target=None):
-        perm = epoch_permutation(num_samples, batch_size, generator, device)
-        seeds = dropout_seeds(generator, steps, device) if dropout_state.fused else None
-        if seeds is not None:
-            seeds = data_rank_seeds(seeds, mesh)
+        perm, seeds = _epoch_draws(num_samples, batch_size, steps, model, generator, device, mesh)
         model.train()
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for step in range(steps):
             with annotate("train_step"):
-                idx = perm[step]
-                ids, ans = inputs[idx], answers[idx]
-                uid = None if users is None else users[idx]
-                sem = None if same_target is None else same_target[idx]
-                neg = (sample_negatives(generator, ids, ans, item_size)
-                       if model.reads_negatives else None)
-                if mesh is not None:
-                    ids, ans, uid, sem, neg = (None if x is None else data_rows(x, mesh)
-                                               for x in (ids, ans, uid, sem, neg))
-                if seeds is not None:
-                    dropout_state.begin_step(seeds[step])
-                if remat:
-                    loss = remat_loss(model, ids, ans, neg, sem, uid, generator)
-                else:
-                    loss = model.calculate_loss(ids, ans, neg, sem, uid, generator=generator)
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                if data_parallel:
-                    average_gradients(params, mesh.data_group, mesh.data)
-                optimizer.step()
-                loss_sum += loss.detach()
-        if mesh is not None:
-            dist.all_reduce(loss_sum, group=mesh.data_group)
-            loss_sum /= mesh.data
-        return loss_sum / steps
+                idx = data_rows(perm[step], mesh)
+                loss_sum += step_fn(
+                    inputs[idx], answers[idx], generator,
+                    None if seeds is None else seeds[step],
+                    None if users is None else users[idx],
+                    None if same_target is None else same_target[idx])
+        return _epoch_mean(loss_sum, steps, mesh)
+
+    return epoch, steps
+
+
+def build_host_fed_epoch(model, optimizer, batch_size: int, num_samples: int,
+                         device: torch.device, remat: bool = False, mesh=None):
+    """Returns `(epoch, steps)`; `epoch(dataset, generator)` runs one pass
+    of `build_train_epoch`'s over a `data.multihost.HostShardedDataset`
+    whose fields stay on the host (`input_ids`, `answers`, and `user_ids`
+    and `same_target` where the model reads them) and returns the same
+    mean loss (`--multihost`; JAX's `Trainer._train_multihost`). It draws
+    from the generator what that epoch draws, in its order: the
+    permutation, moved to the host once (the epoch's one sync before its
+    end) as the flattened schedule `dataset.epoch_batches_from_perm`
+    slices, then the seed words, then each step's draws. Each step moves
+    this data rank's rows of its global batch to the device through a
+    pinned ring of two buffers (`data.multihost.global_batch`)."""
+    steps = math.ceil(num_samples / batch_size)
+    step_fn = build_train_step(model, optimizer, remat=remat, mesh=mesh)
+    staging = PinnedStaging(device)
+
+    def epoch(dataset, generator):
+        perm, seeds = _epoch_draws(num_samples, batch_size, steps, model, generator, device, mesh)
+        schedule = perm.reshape(-1).cpu().numpy()
+        model.train()
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for step, local in enumerate(dataset.epoch_batches_from_perm(schedule)):
+            with annotate("train_step"):
+                batch = global_batch(local, mesh, batch_size, staging=staging)
+                loss_sum += step_fn(
+                    batch["input_ids"], batch["answers"], generator,
+                    None if seeds is None else seeds[step],
+                    batch.get("user_ids"), batch.get("same_target"))
+        return _epoch_mean(loss_sum, steps, mesh)
 
     return epoch, steps
 

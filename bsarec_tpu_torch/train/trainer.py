@@ -16,8 +16,17 @@ gradients averaged over "data". Every rank builds the full model from
 the seed, as the single run does, and keeps its rows, so the initial
 weights are the single run's. Files keep the single-card layout: the
 table and its moments are gathered on save and written by rank 0, and
-each rank slices its rows back out on load. The JAX package's
-multihost branch is not ported (ROADMAP A6c).
+each rank slices its rows back out on load.
+
+`--multihost` (`TrainConfig.multihost`, JAX's `trainer.py:119-141,267-306`)
+keeps the training set on the host: a `data.multihost.HostShardedDataset`
+of its arrays, from which every step moves this data rank's rows of the
+global batch to the device (`train/loop.py:build_host_fed_epoch`). The
+epochs draw what the device-resident epochs draw, in their order, so
+the losses are theirs bit for bit, alone and under a mesh. DuoRec's and
+FEARec's same-target view is drawn on the host each epoch and stays
+there as a field. Eval stays device-resident, and snapshots and
+`resume()` are the same.
 """
 
 from __future__ import annotations
@@ -32,13 +41,15 @@ import torch.distributed as dist
 
 from bsarec_tpu_torch.config import ModelConfig, TrainConfig, resolve_device, set_fp32_matmul
 from bsarec_tpu_torch.core import mesh as meshlib
+from bsarec_tpu_torch.data.multihost import HostShardedDataset
 from bsarec_tpu_torch.data.pipeline import SeqRecData
 from bsarec_tpu_torch.models import build_model
 from bsarec_tpu_torch.ops import rank
 from bsarec_tpu_torch.ops.losses import STREAMING_CE_MIN_VOCAB, resolve_loss_impl
 from bsarec_tpu_torch.ops.topk import metrics_from_sums
 from bsarec_tpu_torch.train import checkpoint as ckpt
-from bsarec_tpu_torch.train.loop import build_eval_fn, build_train_epoch, make_optimizer
+from bsarec_tpu_torch.train.loop import (build_eval_fn, build_host_fed_epoch, build_train_epoch,
+                                         make_optimizer)
 from bsarec_tpu_torch.utils.early_stopping import EarlyStopping
 from bsarec_tpu_torch.utils.profiling import Throughput, annotate
 
@@ -106,10 +117,20 @@ class Trainer:
         self.np_rng = np.random.default_rng(train_cfg.seed)
         self.optimizer = make_optimizer(self.model.parameters(), train_cfg)
         self.loss_impl = resolve_loss_impl(model_cfg.loss_impl, model_cfg.item_size, self.device)
-        self._epoch_fn, self.steps_per_epoch = build_train_epoch(
+        self._train_dev = None  # moved to the device by the first train(), but under multihost
+        self._host_ds = None
+        build_epoch = build_host_fed_epoch if train_cfg.multihost else build_train_epoch
+        self._epoch_fn, self.steps_per_epoch = build_epoch(
             self.model, self.optimizer, train_cfg.batch_size, data.train.num_samples, self.device,
             remat=train_cfg.remat, mesh=self.mesh)
-        self._train_dev = None  # moved to the device by the first train()
+        if train_cfg.multihost:
+            fields = {"input_ids": data.train.input_ids, "answers": data.train.answers}
+            if self.model.reads_users:
+                fields["user_ids"] = data.train.user_ids
+            index, count = (0, 1) if self.mesh is None else (self.mesh.data_rank, self.mesh.data)
+            self._host_ds = HostShardedDataset(fields, train_cfg.batch_size, train_cfg.seed,
+                                               process_index=index, process_count=count)
+        self._announced = False
         # early-stopping state restored by resume(), consumed by fit()
         self._resume_stopper = None
 
@@ -167,15 +188,29 @@ class Trainer:
         )
 
     # ---- reference-API surface -----------------------------------------
-    def train(self, epoch: int) -> float:
-        if self._train_dev is None:
-            ce = f"full-catalog CE ({self.loss_impl}, {self.device.type})"
-            self.logger.info(f"loss: {self.model.loss_name(ce)}")
-            fused = self.model.dropout_state.fused
+    def _announce(self) -> None:
+        """The run's loss, dropout and input lines, logged by the first train()."""
+        ce = f"full-catalog CE ({self.loss_impl}, {self.device.type})"
+        self.logger.info(f"loss: {self.model.loss_name(ce)}")
+        fused = self.model.dropout_state.fused
+        self.logger.info(
+            "dropout: fused kernel (--prng rbg, BSAREC_DROPOUT=pallas; "
+            f"{'CUDA kernel' if self.device.type == 'cuda' else 'plain version on the CPU'})"
+            if fused else "dropout: torch nn.Dropout")
+        if self._host_ds is not None:
+            ds = self._host_ds
             self.logger.info(
-                "dropout: fused kernel (--prng rbg, BSAREC_DROPOUT=pallas; "
-                f"{'CUDA kernel' if self.device.type == 'cuda' else 'plain version on the CPU'})"
-                if fused else "dropout: torch nn.Dropout")
+                f"input: host-fed (--multihost), the training set on the host; data rank "
+                f"{ds.process_index} of {ds.process_count} moves {ds.local_batch} rows of each "
+                f"batch of {ds.batch_size} to {self.device.type}")
+        self._announced = True
+
+    def train(self, epoch: int) -> float:
+        if not self._announced:
+            self._announce()
+        if self._host_ds is not None:
+            return self._train_host_fed(epoch)
+        if self._train_dev is None:
             self._train_dev = {
                 "inputs": torch.from_numpy(self.data.train.input_ids).long().to(self.device),
                 "answers": torch.from_numpy(self.data.train.answers).long().to(self.device),
@@ -190,6 +225,18 @@ class Trainer:
         users = dev["users"] if self.model.reads_users else None
         with meshlib.using_mesh(self.mesh):
             loss = float(self._epoch_fn(dev["inputs"], dev["answers"], self.generator, users, sem))
+        return self._log_loss(epoch, loss)
+
+    def _train_host_fed(self, epoch: int) -> float:
+        """One epoch of `--multihost`: the same-target view drawn on the
+        host into the dataset's fields, then the host-fed epoch."""
+        if self.model.reads_same_target:
+            self._host_ds.fields["same_target"] = self.data.sample_same_target(self.np_rng)
+        with meshlib.using_mesh(self.mesh):
+            loss = float(self._epoch_fn(self._host_ds, self.generator))
+        return self._log_loss(epoch, loss)
+
+    def _log_loss(self, epoch: int, loss: float) -> float:
         if (epoch + 1) % self.train_cfg.log_freq == 0:
             self.logger.info(str({"epoch": epoch, "rec_loss": f"{loss:.4f}"}))
         return loss

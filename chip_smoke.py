@@ -180,7 +180,7 @@ Phases, each of which raises (exit code 1) when it fails:
    20,000-user domain that the port's `preprocess` builds, one epoch with
    a method-1 valid and test eval (finite loss, ranks in [0, 100],
    best.ckpt written); the method-3 full-catalog eval over 1,000,000 items
-   through `PrepRecTrainer.evaluate` (4,096 users, eval batch 32, item
+   through `PrepRecTrainer.evaluate` (2,048 users, eval batch 32, item
    chunk 4,096, popularity tables drawn on the card: month [35, V+1, 11],
    week [104, V+1, 6]), the first 8 users' ranks inside the window that
    the CPU path's scores on the same params and tables allow (items
@@ -195,7 +195,7 @@ Phases, each of which raises (exit code 1) when it fails:
    positive losses, ranks in [0, 100], best.ckpt written; examples/s and
    users/s per model) and ranks with mostpop (users/s); SASRecB's method
    3 over 1,000,000 items through `PrepRecTrainer.evaluate` (item table
-   1M x 50, 4,096 users, eval batch 32, item chunk 4,096), the first 8
+   1M x 50, 2,048 users, eval batch 32, item chunk 4,096), the first 8
    users' ranks inside the CPU path's windows, users/s and peak memory;
    SASRecB's `--save_scores`, then `--use_scores` on them (the ensembled
    metrics logged); `--export_user_embed` of phase 11's NewRec ([U, 50]);
@@ -233,10 +233,15 @@ Phases, each of which raises (exit code 1) when it fails:
    bit-equal to the unsharded kernel's), the shard-mode seen bitmasks
    native against numpy, bit-equal; each composition timed against the
    unsharded call. After phase 12, in phase 7's directory: `main --mesh
-   data:1,model:1` through a one-rank NCCL group in turns with the plain
-   run (plain, mesh, mesh, plain; scores, epoch loss and checkpoint
-   bit-equal, the same launches), SASRec on the fused dropout under it,
-   and `main --mesh data:1,model:2` as two gloo processes sharing the
+   data:1,model:1` through a one-rank NCCL group and `main --multihost`
+   (the host-fed pipeline, `data/multihost.py`), alone and under that
+   mesh, in turns with the plain run (plain, host-fed, mesh, host-fed
+   under the mesh, host-fed, plain; scores, epoch loss and checkpoint
+   bit-equal, the same launches, the host-fed runs' peak allocated bytes
+   below the plain runs', printed beside the device-resident training
+   set's bytes and each run's examples/s), SASRec on the fused dropout
+   under the mesh, device-resident and host-fed (14 launches a step, the
+   same epoch loss), and `main --mesh data:1,model:2` as two gloo processes sharing the
    card (the epoch loss within parity.MESH_LOSS_RTOL of the plain run's,
    one launch a step of each CE kernel and one an eval batch of the rank
    kernel on each rank).
@@ -3419,7 +3424,7 @@ PREPREC_WIDTHS = ["--maxlen", str(PREPREC_MAXLEN), "--hidden_units", str(PREPREC
                   "--num_blocks", "2", "--num_heads", "1", "--batch_size", "128",
                   "--input_units1", "132", "--input_units2", "6"]
 PREPREC_V = 1_000_000  # the method-3 catalog
-PREPREC_EVAL_USERS = 4_096
+PREPREC_EVAL_USERS = 2_048
 PREPREC_MONTHS, PREPREC_WEEKS = 24, 104
 PREPREC_CHECK_USERS = 8
 # GPU and CPU scores differ by fp32 rounding (sums in another order); a
@@ -4368,11 +4373,21 @@ def phase_mesh_kernels(device, card):
 def mesh_run(argv, fused=False):
     """main.main(argv) with the counts set to 0 just before and read just
     after: (scores, counts, the epoch's examples/s, its loss string, the
-    log)."""
+    log, the card's peak allocated bytes over the run
+    (`torch.cuda.max_memory_allocated`, reset just before) and the bytes
+    allocated at its start)."""
+    import gc
+
+    import torch
     import torch.distributed as dist
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with pallas_dropout_env(fused):
         scores, counts, _ = tools_main(argv)
+    peak = torch.cuda.max_memory_allocated()
     check(not dist.is_initialized(), "main left its process group behind")
     name = argv[argv.index("--train_name") + 1]
     text = read_log(os.path.join(argv[argv.index("--output_dir") + 1], name + ".log"))
@@ -4380,57 +4395,100 @@ def mesh_run(argv, fused=False):
     losses = re.findall(r"'epoch': 0, 'rec_loss': '([^']+)'", text)
     check(len(rates) == 1 and len(losses) == 1 and math.isfinite(float(losses[0])),
           f"{name}: epoch lines {rates} {losses}")
-    return scores, counts, float(rates[0]), losses[0], text
+    host_fed = "input: host-fed (--multihost)" in text
+    check(host_fed == ("--multihost" in argv), f"{name}: host-fed input line {host_fed}")
+    return scores, counts, float(rates[0]), losses[0], text, (peak, start)
+
+
+# the runs of phase_mesh_main, in turns: plain, host-fed, mesh, host-fed
+# under the mesh, host-fed, plain
+MESH_11 = ["--mesh", "data:1,model:1"]
+MESH_MAIN_RUNS = (("mesh_plain", []), ("mesh_host", ["--multihost"]), ("mesh_11", MESH_11),
+                  ("mesh_host_11", ["--multihost", *MESH_11]), ("mesh_hostb", ["--multihost"]),
+                  ("mesh_plainb", []))
 
 
 def phase_mesh_main(device, workdir, card):
-    """`main --mesh data:1,model:1` through a one-rank NCCL group on phase
-    7's corpus (BSARec, one epoch, validation, the test pass), in turns with
-    the plain run (plain, mesh, mesh, plain): the scores, the epoch loss and
-    the best checkpoint bit-equal to the plain run's, the same kernel
-    launches; then SASRec on the fused dropout under the same mesh (its 14
-    launches a step, data rank 0's seed words). Returns the phase's summary."""
+    """`main --mesh data:1,model:1` through a one-rank NCCL group and `main
+    --multihost` (the host-fed pipeline), alone and under that mesh, on
+    phase 7's corpus (BSARec, one epoch, validation, the test pass), in
+    turns with the plain run (MESH_MAIN_RUNS): the scores, the epoch loss
+    and the best checkpoint bit-equal to the plain run's, the same kernel
+    launches, the host-fed runs' peak allocated bytes below the plain
+    runs'; then SASRec on the fused dropout under the same mesh,
+    device-resident and host-fed (its 14 launches a step, data rank 0's
+    seed words, the same epoch loss). Returns the phase's summary."""
     import torch
 
     seqs = synth_corpus(TRAIN_USERS, N_ITEMS, seed=1)
-    steps = math.ceil(sum(len(s[-52:-2]) for s in seqs) / TRAIN_BATCH)
+    n_samples = sum(len(s[-52:-2]) for s in seqs)
+    steps = math.ceil(n_samples / TRAIN_BATCH)
     eval_steps = math.ceil(TRAIN_USERS / EVAL_BATCH)
+    # the device-resident training set: [N, L] inputs, [N] answers, [N] user
+    # ids, int64 (max_seq_length 50)
+    train_set_bytes = n_samples * (50 + 2) * 8
     common = ["--data_dir", workdir, "--data_name", "synth_train", "--output_dir", workdir,
               "--device", device.type, "--batch_size", str(TRAIN_BATCH), "--epochs", "1"]
     bsarec = common + ["--lr", str(LR), *WIDTHS]
-    runs = {}
-    for name, extra in (("mesh_plain", []), ("mesh_11", ["--mesh", "data:1,model:1"]),
-                        ("mesh_11b", ["--mesh", "data:1,model:1"]), ("mesh_plainb", [])):
-        runs[name] = mesh_run(bsarec + ["--train_name", name] + extra)
+    runs = {name: mesh_run(bsarec + ["--train_name", name] + extra)
+            for name, extra in MESH_MAIN_RUNS}
     want = zero_counts() | {"ce_logz": steps, "ce_grads": steps,
                             "streaming_masked_topk": 2 * eval_steps}
-    for name, (scores, counts, rate, loss, text) in runs.items():
+    plain_run = runs["mesh_plain"]
+    for name, (scores, counts, rate, loss, text, peak) in runs.items():
         check(counts == want, f"{name}: launches {counts}, want {want}")
-        check(scores == runs["mesh_plain"][0] and loss == runs["mesh_plain"][3],
+        check(scores == plain_run[0] and loss == plain_run[3],
               f"{name}: scores {scores} / loss {loss} differ from the plain run's")
-        if name.startswith("mesh_1"):
+        if name.endswith("11"):
             check("mesh: {'data': 1, 'model': 1} (cuda" in text, f"{name}: no mesh line")
     plain = torch.load(os.path.join(workdir, "mesh_plain.ckpt"))
-    for name in ("mesh_11", "mesh_11b"):
-        mesh = torch.load(os.path.join(workdir, name + ".ckpt"))
-        check(plain.keys() == mesh.keys() and all(torch.equal(plain[k], mesh[k]) for k in plain),
+    for name in runs:
+        if name == "mesh_plain":
+            continue
+        other = torch.load(os.path.join(workdir, name + ".ckpt"))
+        check(plain.keys() == other.keys() and all(torch.equal(plain[k], other[k]) for k in plain),
               f"{name}: the checkpoint differs from the plain run's")
     rates = {name: r[2] for name, r in runs.items()}
-    log(f"mesh main: --mesh data:1,model:1 (one-rank NCCL group) bit-equal to the plain run "
-        f"(scores {runs['mesh_plain'][0]}, epoch loss {runs['mesh_plain'][3]}, checkpoint); "
-        f"launches {want}; epoch examples/s in turns {json.dumps(rates)} [{card}]")
-    sasrec = common + ["--model_type", "SASRec", "--prng", "rbg", "--lr", str(SASREC_LR),
-                       "--train_name", "mesh_sasrec", "--mesh", "data:1,model:1"]
-    _, fused_counts, fused_rate, fused_loss, _ = mesh_run(sasrec, fused=True)
+    peaks = {name: r[5][0] - r[5][1] for name, r in runs.items()}
+    host_peak = max(peaks[n] for n in ("mesh_host", "mesh_hostb"))
+    plain_peak = min(peaks[n] for n in ("mesh_plain", "mesh_plainb"))
+    check(host_peak < plain_peak, f"host-fed peak {host_peak} not below the plain run's "
+          f"{plain_peak}")
+    log(f"mesh main: --mesh data:1,model:1 (one-rank NCCL group), --multihost and --multihost "
+        f"--mesh data:1,model:1 bit-equal to the plain run (scores {plain_run[0]}, epoch loss "
+        f"{plain_run[3]}, checkpoint); launches {want}; epoch examples/s in turns "
+        f"{json.dumps(rates)} [{card}]")
+    log(f"multihost memory: max_memory_allocated over each run (reset before it) "
+        f"{json.dumps({name: r[5][0] for name, r in runs.items()})}, allocated at its start "
+        f"{json.dumps({name: r[5][1] for name, r in runs.items()})}, the peak less the start "
+        f"{json.dumps(peaks)}; the device-resident training set {train_set_bytes} bytes "
+        f"({n_samples} samples x (50 + 2) x 8); host-fed peak {host_peak} against plain "
+        f"{plain_peak}, {plain_peak - host_peak} lower [{card}]")
+    sasrec = common + ["--model_type", "SASRec", "--prng", "rbg", "--lr", str(SASREC_LR), *MESH_11]
     want_fused = zero_counts() | {"fused_dropout": 2 * DROPOUT_SITES * steps,
                                   "streaming_masked_topk": 2 * eval_steps}
-    check(fused_counts == want_fused, f"mesh SASRec: launches {fused_counts}, want {want_fused}")
+    sas = {}
+    for name, extra in (("mesh_sasrec", []), ("mesh_sasrec_host", ["--multihost"])):
+        scores, counts, rate, loss, _, _ = mesh_run(sasrec + ["--train_name", name] + extra,
+                                                    fused=True)
+        check(counts == want_fused, f"{name}: launches {counts}, want {want_fused}")
+        sas[name] = (scores, counts, rate, loss)
+    check(sas["mesh_sasrec_host"][3] == sas["mesh_sasrec"][3]
+          and sas["mesh_sasrec_host"][0] == sas["mesh_sasrec"][0],
+          f"SASRec --multihost: loss {sas['mesh_sasrec_host'][3]} / scores differ from the "
+          f"mesh run's {sas['mesh_sasrec'][3]}")
+    fused_counts = sas["mesh_sasrec"][1]
     log(f"mesh main: SASRec --prng rbg BSAREC_DROPOUT=pallas --mesh data:1,model:1, epoch loss "
-        f"{fused_loss}, {fused_rate:.0f} examples/s; launches {fused_counts} [{card}]")
+        f"{sas['mesh_sasrec'][3]}, {sas['mesh_sasrec'][2]:.0f} examples/s; with --multihost "
+        f"the same loss and scores, {sas['mesh_sasrec_host'][2]:.0f} examples/s; launches "
+        f"{fused_counts} each [{card}]")
     return {"launches": {k: v for k, v in want.items() if v}, "examples_per_s": rates,
-            "plain_loss": runs["mesh_plain"][3],
+            "plain_loss": plain_run[3],
             "fused_dropout_launches": fused_counts["fused_dropout"],
-            "sasrec_examples_per_s": fused_rate}
+            "multihost_fused_dropout_launches": sas["mesh_sasrec_host"][1]["fused_dropout"],
+            "sasrec_examples_per_s": sas["mesh_sasrec"][2],
+            "sasrec_multihost_examples_per_s": sas["mesh_sasrec_host"][2],
+            "peak_bytes": peaks, "train_set_bytes": train_set_bytes}
 
 
 def phase_mesh_two_ranks(device, workdir, card, plain_loss: str):
@@ -4543,8 +4601,9 @@ def main() -> int:
             tools = {"native_host_s": phase_tools_native(workdir, card),
                      "remat_steps": phase_tools_remat(device, card)}
             tools |= phase_tools_main(device, workdir, card)
-        with timed("mesh: main --mesh data:1,model:1 (one-rank NCCL group) in turns with the "
-                   "plain run, SASRec on the fused dropout, two gloo ranks on the card"):
+        with timed("mesh: main --mesh data:1,model:1 (one-rank NCCL group) and --multihost in "
+                   "turns with the plain run, SASRec on the fused dropout, two gloo ranks on the "
+                   "card"):
             mesh = phase_mesh_main(device, workdir, card)
             mesh["two_ranks"] = phase_mesh_two_ranks(device, workdir, card, mesh["plain_loss"])
     with timed("SASRec train main path"), tempfile.TemporaryDirectory() as workdir:
@@ -4698,13 +4757,16 @@ def main() -> int:
         })
     # the vocab-sharded mesh: launches of main --mesh data:1,model:1 (one
     # rank), of each rank of main --mesh data:1,model:2 (two gloo ranks on
-    # the card), and one a shard of the one-process composition's checks
+    # the card), and one a shard of the one-process composition's checks;
+    # the host-fed runs' (main --multihost, alone and under the one-rank
+    # mesh: each run's launches, checked equal to the plain run's)
     mesh_two = mesh["two_ranks"]["launches_per_rank"]
     for entry in kernels:
         name = entry["name"]
         if name in ("streaming_masked_topk", "ce_logz", "ce_grads"):
             entry |= {"mesh_launches": mesh["launches"][name],
-                      "mesh_two_rank_launches_per_rank": mesh_two[name]}
+                      "mesh_two_rank_launches_per_rank": mesh_two[name],
+                      "multihost_launches": mesh["launches"][name]}
         if name == "streaming_masked_topk":
             entry["mesh_shard_launches"] = {c: r["launches"] for c, r in mesh_kernels["rank"].items()}
             entry["mesh_ms"] = {c: {"ms": r["ms"], "unsharded_ms": r["unsharded_ms"]}
@@ -4716,7 +4778,8 @@ def main() -> int:
             entry["mesh_ms"] = {c: {"ms": r[f"{key}_ms"], "unsharded_ms": r[f"{key}_unsharded_ms"]}
                                 for c, r in mesh_kernels["ce"].items()}
         if name == "fused_dropout":
-            entry["mesh_launches"] = mesh["fused_dropout_launches"]
+            entry |= {"mesh_launches": mesh["fused_dropout_launches"],
+                      "multihost_launches": mesh["multihost_fused_dropout_launches"]}
     kernels[0] |= {"bf16_path_launches": bf16_paths["train"]["streaming_masked_topk"],
                    "bf16_serving_launches": bf16_paths["serving"]["streaming_masked_topk"],
                    "bf16_serving_max_abs_err": bf16_paths["serving_max_abs_err"]}

@@ -211,22 +211,20 @@ def test_main_reads_a_pre_rename_reference_checkpoint(tmp_path):
 
 
 def test_main_refuses_training_and_unported_flags(tmp_path):
-    """Training asks for the card unless --device cpu is given; flags of
-    parts not ported yet raise."""
+    """Training asks for the card unless --device cpu is given, with
+    --multihost too; no flag is left unported (--multihost runs:
+    tests/test_torch_port_multihost.py)."""
     from bsarec_tpu_torch.main import main as port_main
 
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            port_main(["--output_dir", str(tmp_path), "--data_dir", str(tmp_path)])
+        for extra in ([], ["--multihost"]):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                port_main(["--output_dir", str(tmp_path), "--data_dir", str(tmp_path), *extra])
     # --mesh runs (a one-rank group here; tests/test_torch_port_mesh.py has
-    # the rest) and leaves no group behind; --multihost still raises, with
-    # --mesh or alone
+    # the rest) and leaves no group behind
     import torch.distributed as dist
 
     (tmp_path / "toy.txt").write_text("1 3 4 5\n2 4 5 6 7\n3 1 2\n")
     assert port_main(["--device", "cpu", "--do_eval", "--mesh", "auto", "--data_dir",
                       str(tmp_path), "--data_name", "toy", "--output_dir", str(tmp_path)]) is None
     assert not dist.is_initialized()
-    for extra in ([], ["--mesh", "auto"]):
-        with pytest.raises(NotImplementedError, match="--multihost"):
-            port_main(["--device", "cpu", "--output_dir", str(tmp_path), "--multihost", *extra])

@@ -40,7 +40,7 @@ def test_import_port_loads_no_jax():
         "bsarec_tpu_torch.preprec.preprocess, bsarec_tpu_torch.preprec.serving, "
         "bsarec_tpu_torch.preprec.sampler, bsarec_tpu_torch.preprec.evaluate, "
         "bsarec_tpu_torch.core.mesh, bsarec_tpu_torch.parallel.logits, "
-        "bsarec_tpu_torch.parallel.embedding; "
+        "bsarec_tpu_torch.parallel.embedding, bsarec_tpu_torch.data.multihost; "
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
         "assert not bad, bad"
     )

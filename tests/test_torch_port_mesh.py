@@ -12,6 +12,8 @@ single process:
   single run (`bsarec_tpu_torch/parity.py`); save -> load, install_params,
   resume and the top-k export; the files in the single-card layout;
 - one Adam step of every other zoo model in both two-rank layouts;
+- `--multihost` in every layout (BSARec's two epochs, one SASRec step)
+  bit-equal to the same layout's device-resident run;
 - the dropout masks: the same within a model group, apart across data
   ranks (data:2,model:2).
 
@@ -269,6 +271,45 @@ def test_zoo_model_steps_as_the_single_run(runs, spec, model_type):
             clear = g.abs() > parity.MESH_GRAD_NOISE * g.abs().max()
             assert float(torch.where(clear, delta, 0.0).max()) <= parity.MESH_STEP_PARAM_ATOL, k
             assert float(delta.max()) <= 2 * worker.LR + parity.MESH_STEP_PARAM_ATOL, k
+
+
+@pytest.mark.parametrize("spec", list(LAYOUTS))
+def test_host_fed_runs_equal_the_mesh_runs(runs, spec):
+    """`--multihost` under the layout, every rank: BSARec's two epoch losses
+    and valid sums bit-equal to the same layout's device-resident run and
+    within MESH_LOSS_RTOL of the single run; one SASRec step (at data:2 each
+    rank keeps its rows of the global batch's negatives) with the loss and
+    every parameter bit-equal to the device-resident step's, the loss
+    within MESH_LOSS_RTOL of the single run's; no training set on the
+    device."""
+    single = runs["single"]["host_fed"]
+    for r in runs[spec]:
+        got, mesh_run = r["host_fed"], r["bsarec"]["streaming"]
+        assert got["bsarec"]["train_dev"] is None
+        assert got["bsarec"]["losses"] == mesh_run["losses"][:2]
+        for g, w in zip(got["bsarec"]["valid"], mesh_run["valid"]):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_allclose(got["bsarec"]["losses"], single["bsarec"]["losses"],
+                                   rtol=parity.MESH_LOSS_RTOL)
+        host, mesh = got["sasrec_host"], got["sasrec_mesh"]
+        assert host["train_dev"] is None and mesh["train_dev"] is not None
+        assert host["loss"] == mesh["loss"]
+        assert host["params"].keys() == mesh["params"].keys()
+        for k, v in mesh["params"].items():
+            assert torch.equal(host["params"][k], v), k
+        np.testing.assert_allclose(host["loss"], single["sasrec_host"]["loss"],
+                                   rtol=parity.MESH_LOSS_RTOL)
+
+
+def test_host_fed_single_run_equals_the_device_resident_one(runs):
+    """The same cases without a mesh: bit-equal to the single run's own
+    device-resident BSARec epochs and SASRec step."""
+    single = runs["single"]
+    got = single["host_fed"]
+    assert got["bsarec"]["losses"] == single["bsarec"]["streaming"]["losses"][:2]
+    assert got["sasrec_host"]["loss"] == got["sasrec_mesh"]["loss"]
+    for k, v in got["sasrec_mesh"]["params"].items():
+        assert torch.equal(got["sasrec_host"]["params"][k], v), k
 
 
 def test_dropout_masks_per_data_rank(runs):

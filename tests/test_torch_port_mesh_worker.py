@@ -58,7 +58,8 @@ def make_data(path: Path) -> SeqRecData:
 
 def make_trainer(data: SeqRecData, mesh: str, model_type: str = "BSARec", out: Path | None = None,
                  name: str = "run", loss_impl: str = "auto", eval_impl: str = "auto",
-                 batch_size: int = BATCH, dropout: float = 0.0, prng: str = "threefry"):
+                 batch_size: int = BATCH, dropout: float = 0.0, prng: str = "threefry",
+                 multihost: bool = False):
     from bsarec_tpu_torch.train.trainer import Trainer
 
     fields = FIELDS | ZOO_FIELDS.get(model_type.lower(), {}) | dict(
@@ -66,7 +67,7 @@ def make_trainer(data: SeqRecData, mesh: str, model_type: str = "BSARec", out: P
     model_cfg = ModelConfig(model_type=model_type, item_size=data.item_size,
                             num_users=data.corpus.num_users + 1, loss_impl=loss_impl, **fields)
     train_cfg = TrainConfig(lr=LR, batch_size=batch_size, seed=3, device="cpu", mesh=mesh,
-                            eval_impl=eval_impl, prng=prng)
+                            eval_impl=eval_impl, prng=prng, multihost=multihost)
     out = out or Path(".")
     return Trainer(model_cfg, train_cfg, data, logging.getLogger("mesh_worker"),
                    str(out / f"{name}.ckpt"))
@@ -200,6 +201,25 @@ def _dropout_masks(data, mesh_spec) -> dict:
     return out
 
 
+def _host_fed(data, one_step, mesh_spec, out) -> dict:
+    """`--multihost` under the layout: BSARec's two epochs (streaming, as
+    `_bsarec_run`'s first two), and one SASRec step (negatives drawn for
+    the global batch, this rank's rows kept) both host-fed and
+    device-resident: the losses, valid sums and parameters after the step."""
+    tr = make_trainer(data, mesh_spec, out=out, name="host_fed", loss_impl="streaming",
+                      eval_impl="streaming", multihost=True)
+    res = {"bsarec": {"losses": [], "valid": [], "train_dev": tr._train_dev}}
+    for epoch in range(2):
+        res["bsarec"]["losses"].append(tr.train(epoch))
+        res["bsarec"]["valid"].append(tr.evaluate_sums("valid"))
+    for name, on in (("mesh", False), ("host", True)):
+        tr = make_trainer(one_step, mesh_spec, model_type="SASRec", multihost=on)
+        assert tr.steps_per_epoch == 1
+        res[f"sasrec_{name}"] = {"loss": tr.train(0), "params": tr.full_state_dict(),
+                                 "train_dev": tr._train_dev}
+    return res
+
+
 def main_argv(corpus_dir: Path, out: Path, mesh_spec: str) -> list[str]:
     """`main`'s flags of the CLI case: BSARec at the module's widths,
     dropout 0, the corpus `toy.txt` of `corpus_dir`, files in `out`."""
@@ -242,8 +262,9 @@ def run_cases(mesh_spec: str, workdir: Path, shared: Path, zoo: bool, dropout: b
                      for impl in ("streaming", "dense")}
     if zoo:  # the two-rank layouts and the single run
         res["main"] = _main_run(workdir, shared, mesh_spec, serving=mesh_spec != "data:2,model:1")
+    one_step = make_data(write_corpus(workdir / "one_step.txt", 4, seed=2))
+    res["host_fed"] = _host_fed(data, one_step, mesh_spec, shared)
     if zoo:
-        one_step = make_data(write_corpus(workdir / "one_step.txt", 4, seed=2))
         res["zoo"] = {mt: _zoo_step(one_step, mesh_spec, mt) for mt in ZOO}
     if dropout:
         res["dropout"] = _dropout_masks(data, mesh_spec)
