@@ -11,10 +11,12 @@
 //     corrections dT[a_i] -= dloss_i * s_i and ds_i -= dloss_i * T[a_i]
 //     read the unrounded fp32 states and rows (pallas_ce.py:507-514,
 //     553-555). On the on-chip route (B <= 256, H <= 64) the bf16 form runs
-//     ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel and on the wide
-//     route (H > 256) ce_fwd_wide_tc_kernel and ce_bwd_wide_tc_kernel,
-//     every product on the tensor cores (their heads say more); the older
-//     sweeps round where an operand enters shared memory (stage_rows) and
+//     ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel, on the middle
+//     route (B <= 256, 64 < H <= 256) ce_fwd_mid_tc_kernel and
+//     ce_bwd_mid_tc_kernel and on the wide route (H > 256)
+//     ce_fwd_wide_tc_kernel and ce_bwd_wide_tc_kernel, every product on the
+//     tensor cores (their heads say more); the older sweeps (B > 256 at H
+//     <= 256) round where an operand enters shared memory (stage_rows) and
 //     where p is stored, so their product loops are the fp32 form's. On
 //     the wide route the fp32 form runs on the tensor cores too, in
 //     3xTF32, which keeps fp32 accuracy: ce_fwd_wide_tf32_kernel and
@@ -22,7 +24,8 @@
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
 //   - _fwd_kernel    -> ce_fwd_onchip_kernel (ce_fwd_onchip_tc_kernel in the
-//       bf16 form), ce_fwd_partial_kernel or, past H = 256,
+//       bf16 form), ce_fwd_partial_kernel (ce_fwd_mid_tc_kernel in the bf16
+//       form at B <= 256) or, past H = 256,
 //       ce_fwd_wide_tf32_kernel (fp32) and ce_fwd_wide_tc_kernel (bf16),
 //       then ce_fwd_merge_kernel:
 //       per row, logZ = logsumexp(s . T^T) over the columns < n_valid and,
@@ -30,7 +33,8 @@
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
 //       (zeros where a is outside [0, V));
 //   - _grads_kernel  -> ce_bwd_onchip_kernel (ce_bwd_onchip_tc_kernel in the
-//       bf16 form), ce_bwd_sweep_kernel or, past H = 256,
+//       bf16 form), ce_bwd_sweep_kernel (ce_bwd_mid_tc_kernel in the bf16
+//       form at B <= 256) or, past H = 256,
 //       ce_bwd_wide_tf32_kernel (fp32) and ce_bwd_wide_tc_kernel (bf16),
 //       then ce_ds_reduce_kernel (ce_ds_reduce_tc_kernel): with
 //       p = exp(s . T^T - logZ) * dloss (0 past n_valid),
@@ -82,7 +86,9 @@
 //       for both (fold_tile, merge_group): ce_fwd_wide_tf32_kernel in the fp32 form
 //       (3xTF32, each fragment split into TF32 hi and lo in registers),
 //       ce_fwd_wide_tc_kernel in the bf16 form; their heads say more;
-//     - elsewhere (B > 256, or 64 < H <= 256) ce_fwd_partial_kernel, grid
+//     - elsewhere (B > 256, or 64 < H <= 256; but in the bf16 form at B <=
+//       256 the middle route's ce_fwd_mid_tc_kernel, its head says more)
+//       ce_fwd_partial_kernel, grid
 //       (vocab splits x batch tiles of 64 rows), each block staging its 64
 //       state rows and each table tile synchronously, 4 x 4 logits a
 //       thread.
@@ -128,7 +134,8 @@
 //       their heads say more;
 //     - the sweep route, B > 256 or 64 < H <= 256, where the batch and its
 //       ds do not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per
-//       SM.
+//       SM (but in the bf16 form at B <= 256 the middle route's
+//       ce_bwd_mid_tc_kernel, on the tensor cores; its head says more).
 //       For each 64-column tile it loops over the batch in 64-row chunks,
 //       staging each chunk's states again: it recomputes the logits, forms
 //       p in shared memory, adds p^T @ s_chunk into the tile's dT held in
@@ -155,8 +162,9 @@
 // H = 512 the 3xTF32 kernels take ~5.0 ms (forward, 32% of 1.589 ms) and
 // ~14.6 ms (backward, 33% of 4.766 ms); the bf16 form's tensor-core
 // kernels ~5.3 ms (backward, 23% of its 1.223 ms byte bound) and ~1.08 ms
-// (forward, 57% of 0.612 ms) (chip_smoke.py, tools/time_kernels.py). No
-// wgmma or TMA.
+// (forward, 57% of 0.612 ms) (chip_smoke.py, tools/time_kernels.py). The
+// middle route's bf16 pair: ce_fwd_mid_tc_kernel's and ce_bwd_mid_tc_kernel's
+// heads. No wgmma or TMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -2311,23 +2319,24 @@ __device__ __forceinline__ void fold_tile_onchip(float (&acc)[4][8][4], float (&
 // acc[i][j] += S[64 wm + 16 i, :] . T[64 wn + 8 j, :]^T over the 64 hidden
 // columns, for the warp's m16 fragments with a row < B: all four when FULL
 // (B = 256: no MMA is predicated, so the compiler adds no warp
-// synchronisation around each), else the first n_i
+// synchronisation around each), else the first n_i. S's rows lie lds
+// elements apart, T's ldt (the middle route's states are Hp + 8 wide)
 template <bool FULL>
 __device__ __forceinline__ void onchip_logits_64x64(float (&acc)[4][8][4], const __nv_bfloat16* sS,
                                                    const __nv_bfloat16* T, int wm, int wn, int lane,
-                                                   int n_i) {
-  constexpr int LDB = tc::ONCHIP_LDB;
+                                                   int n_i, int lds = tc::ONCHIP_LDB,
+                                                   int ldt = tc::ONCHIP_LDB) {
 #pragma unroll
   for (int k16 = 0; k16 < tc::ONCHIP_K; k16 += 16) {
     uint32_t a[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       if (FULL || i < n_i)
-        tc::ldmatrix_x4(a[i], sS + (64 * wm + 16 * i + tc::a_row(lane)) * LDB + k16 + tc::a_col(lane));
+        tc::ldmatrix_x4(a[i], sS + (64 * wm + 16 * i + tc::a_row(lane)) * lds + k16 + tc::a_col(lane));
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
       uint32_t r[4];
-      tc::ldmatrix_x4(r, T + (64 * wn + 16 * jp + tc::b_row(lane)) * LDB + k16 + tc::b_col(lane));
+      tc::ldmatrix_x4(r, T + (64 * wn + 16 * jp + tc::b_row(lane)) * ldt + k16 + tc::b_col(lane));
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -2690,6 +2699,483 @@ ce_bwd_onchip_tc_kernel(const float* __restrict__ states, const float* __restric
     }
 }
 
+// ---- the bf16-operand form at the middle widths, on the tensor cores ----------
+//
+// ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel: the forward's and the
+// backward's pass 1 in the bf16-operand form at B <= OC_B and OC_H < H <=
+// MAX_H (the middle route; the counterparts of pallas_ce.py:222 _fwd_kernel
+// and :340 _grads_kernel with dtype="bfloat16"). Before them these shapes
+// ran the older sweeps (ce_fwd_partial_kernel<true>, ce_bwd_sweep_kernel<true>:
+// two blocks per SM, 64-row batch tiles staged again for every table tile,
+// 4 x 4 register tiles of fp32 FMAs on rounded operands), so the tensor
+// cores sat idle. Both kernels take the wide kernels' grids and products
+// (mma.sync m16n8k16, bf16 operands, fp32 accumulators, one block of 256
+// threads per SM over a split of whole tiles) with what these widths allow
+// and H > MAX_H did not: every state row fits in shared memory, so each
+// block stages the states once, straight from the fp32 states, rounded as
+// they are stored (nearest, ties to even) into sS [256][Hp + 8] bf16 (Hp =
+// H up to a multiple of 64, rows >= B and columns >= H zero; 135,168 B at H
+// = 256). No states_bf16_kernel launch and no states scratch are left:
+// each C entry is the sweep and its pass 2 (ce_fwd_merge_kernel<true>;
+// ce_ds_reduce_tc_kernel<false>, the wide backward's fragment order).
+//
+// Bound at B=256, V=1M, H=256: the fp32 table read once, 1.02 GB (0.306 ms
+// at 3.35 TB/s), and for the backward the dT write, 2.05 GB (0.611 ms);
+// the products' 131 and 393 GFLOP take 0.133 and 0.397 ms at the bf16
+// tensor rate (989 TFLOP/s).
+//
+// ce_fwd_mid_tc_kernel: ce_fwd_wide_tc_kernel's tile (256 batch rows x
+// FT_COLS = 128 catalog columns, 8 warps as 4 x 2 warp tiles of 64 x 64,
+// acc[4][8][4]) and epilogue (fold_tile after a tile's last hidden step,
+// merge_group after the split: the wide forward's online (max, sum) and
+// merge order), in Hp / 64 steps a tile, the A fragments from the
+// resident states at the step's 64 hidden columns. The ring carries only table chunks
+// [128][72] bf16: each thread loads its 8 float4s of step s + 1 at the top
+// of step s and rounds and stores them after step s's MMAs (the wide
+// kernel's register prefetch), so two slots and one barrier a step do.
+// The MMAs of m16 fragments with no row < B are skipped (a warp-uniform
+// count, no MMA predicated at B = 256: onchip_logits_64x64). Shared memory
+// at H = 256: states 135,168 B, two slots 36,864, the warps' exchange 2,048:
+// 174,080 B. (The wide forward's four slots would sit idle here: the
+// states no longer come by cp.async a few steps ahead, and the table's
+// prefetch is one step deep in registers either way.)
+//
+// ce_bwd_mid_tc_kernel: ce_bwd_wide_tc_kernel's steps with the states
+// resident, so the logits steps read only table rows. Tiles of MID_COLS =
+// 128 catalog columns: p [256][136] bf16 (69,632 B) beside the states. (A
+// 256-column p, as the wide kernel holds, does not fit beside [256][264]
+// states; at H <= 128 it would, but only with 16-column products steps.
+// The other choice is the wide kernel's 256-column p with the states
+// streamed every step, from the fp32 states and rounded on chip, so with
+// no scratch either: tools/ablate_ce_tc.py --mid builds it two ways, the
+// chunk held in registers a step ahead or stored as soon as it is loaded,
+// and both are slower than this kernel, ~3.55 and ~3.31 ms against ~3.14
+// at H = 256, ~1.98 and ~1.84 against ~1.30 at H = 128 (255 registers
+// with 8 bytes of spills, and 254): the states then cross L2 in fp32,
+// twice the bytes, on every logits step. Only
+// ce_bwd_wide_tc_kernel itself, which streams them from the bf16 scratch
+// that states_bf16_kernel writes, is faster at H = 256, ~2.83 ms, and
+// that extra launch and scratch are what this route leaves out.) Per
+// tile, 4 Hp / 64 steps, one barrier each:
+//   logits   for each 64-column sub-tile, Hp / 64 steps of 64 hidden
+//            columns: S . T_sub^T (8 warps as 4 x 2, 64 x 32 each,
+//            acc[4][4][4]), the table rows [64][72] from the ring; after
+//            the sub-tile's last step p = bf16(exp(logit - logZ) * dloss)
+//            into sP: the logits past n_valid set to -inf in the tile that
+//            reaches past it, and a row past B (every row, at n_valid = 0)
+//            given logZ = +inf, so expf gives 0 with no branch an element
+//            (ce_bwd_onchip_tc_kernel's epilogue);
+//   products Hp / 32 steps of 32 hidden columns, the tile's table rows
+//            [128][40] from the ring: warps 0-3 dT[tile, chunk] = p^T .
+//            S[:, chunk] (32 catalog columns each, K = the batch rows up
+//            to 16 ceil(B / 16), S from the resident states by
+//            ldmatrix.trans), written once to device memory; warps 4-7
+//            ds[:, chunk] += p . T[tile, chunk] (64 batch rows each, K =
+//            128), the split's ds_part read and written once a tile in
+//            their fragment order (the split's first tile only writes),
+//            each warp-wide access 512 contiguous bytes. 128 MMAs a warp a
+//            step either way.
+// Every step's table rows come from device memory (the products steps
+// read the tile's rows a second time, which L2 holds: 17 MB a pass of the
+// 132 SMs at H = 256) into registers two steps ahead, and are rounded and
+// stored into the slot one step ahead (the wide kernel's pre_a / pre_b),
+// across tile boundaries too; so no bf16 table scratch either. The
+// one-hot term dT[a_i] -= dloss_i * s_i goes on the tile's finished dT
+// rows in device memory, from the unrounded fp32 states, in ascending i,
+// as every route takes it (the vote on the answers in the tile is the
+// barrier after the tile's dT writes). A ds warp's products step sums from
+// 0 on the tensor cores and adds the split's ds_part from the tile before
+// with one fp32 rounding after its MMAs, loaded at the end of the step
+// before (prev, 16 float4s a thread): a tensor core truncates the addends
+// of its sum to the largest, and the loads are in flight across the
+// barrier and the MMAs. (Carried through the MMAs, as the wide kernel
+// carries it, ds read further from the in-order plain version and the
+// backward took 1-2% longer; with L2 eviction hints, ds_part evict-last and
+// dT evict-first, 5-7% longer: tools/ablate_ce_tc.py --mid.)
+// Bytes a 128-column tile at H = 256, B = 256: the table rows 128 KB (and
+// 128 KB more from L2), dT 128 KB, ds_part read and written once, 512 KB:
+// ds_part moves twice the table's and dT's bytes (the wide kernel's
+// 256-column tiles move as many), 6.0 GB over 7,813 tiles at V = 1M; a
+// split's ds_part is 256 KB (33 MB over 132 splits), within L2's 50 MB.
+// Shared memory at H = 256: states 135,168 B, p 69,632, two slots 20,480
+// (a logits slot [64][72] and a products slot [128][40] share one),
+// logZ, dloss and the answers 3,072: 228,352 B.
+//
+// Sums run in a fixed order and pass 2 merges the splits in split order:
+// two calls give the same bits. The tensor cores sum a logit's products in
+// their own order; each product of two bf16 values is exact.
+//
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at B=256, V=1M (PERF.md rows 2bm
+// and 4bm; tools/time_kernels.py, in turns with the older sweeps they
+// replaced): the forward ~0.59 ms at H = 256 (52% of its bound; the sweep
+// ~5.77) and ~0.40 at H = 128 (~2.46); the backward ~3.13 ms at H = 256
+// (20% of its bound; the sweep ~18.6) and ~1.30 at H = 128 (~8.64).
+// tools/ablate_ce_tc.py --mid at H = 256: the forward with its MMAs and
+// fold alone ~0.55 ms, without its fold ~0.41: the fold and the mma.sync
+// loop share its time. The backward's products steps alone ~2.66 ms, its
+// logits steps alone ~0.87; with everything but its MMAs ~2.98, with its
+// MMAs and epilogue alone ~1.75: its memory path bounds it, ds_part's
+// traffic first (without the carry loads ~2.42 ms, without the ds_part
+// stores ~2.45, without the dT stores ~2.61). The wide kernels on these
+// shapes (256-column tiles, so half the ds_part bytes; the states streamed
+// from a scratch that an extra launch fills) take ~2.83 ms at H = 256 and
+// ~1.60 at H = 128.
+
+constexpr int MID_COLS = 128;                 // the backward's catalog columns per tile
+constexpr int MID_SUB = 64;                   // ... per logits sub-tile
+constexpr int MID_LDP = MID_COLS + 8;         // its p's row stride (bf16)
+constexpr int MID_LLD = TC_HL + 8;            // a logits slot's row stride: [MID_SUB][MID_LLD]
+constexpr int MID_PLD = TC_HP + 8;            // a products slot's row stride: [MID_COLS][MID_PLD]
+constexpr int MID_SLOT = MID_COLS * MID_PLD;  // a backward slot (either kind), bf16 elements
+constexpr int MID_FSLOT = FT_COLS * FT_LD;    // a forward slot [FT_COLS][FT_LD]
+constexpr long long mid_fwd_smem(int Hp) {
+  return 2LL * (TC_ROWS * (Hp + 8) + 2 * MID_FSLOT) + 4LL * 2 * TC_ROWS;
+}
+constexpr long long mid_bwd_smem(int Hp) {
+  return 2LL * (TC_ROWS * (Hp + 8) + TC_ROWS * MID_LDP + 2 * MID_SLOT) + 4LL * 3 * TC_ROWS;
+}
+static_assert(MID_SUB * MID_LLD <= MID_SLOT && mid_bwd_smem(MAX_H) <= MAX_SMEM &&
+                  mid_fwd_smem(MAX_H) <= MAX_SMEM && MID_COLS == 2 * MID_SUB &&
+                  MID_COLS % VT == 0 && FT_COLS % VT == 0 && TC_ROWS == THREADS && MAX_H % TC_HL == 0 &&
+                  tc::ONCHIP_ROWS == TC_ROWS && tc::ONCHIP_LDB == tc::ONCHIP_K + 8,
+              "the middle route: 8 warps over every state row, whole tiles of the C entries' units");
+// ldmatrix rows 16 bytes apart mod 128 (the eight rows of a matrix on
+// distinct banks): Hp + 8, MID_LDP, MID_LLD and MID_PLD bf16 elements
+static_assert((2 * MID_LDP) % 128 == 16 && (2 * MID_LLD) % 128 == 16 && (2 * MID_PLD) % 128 == 80 &&
+                  (2 * (TC_HL + 8)) % 128 == 16,
+              "every fragment load of a warp on distinct banks");
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_mid_tc_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
+                     int V, int H, int n_valid, int tiles_per_split,
+                     float* __restrict__ part_m, float* __restrict__ part_s) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int Hp = round_up(H, TC_HL), lds = Hp + 8, nk = Hp / TC_HL;
+  __nv_bfloat16* sS = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [TC_ROWS][lds] the states
+  __nv_bfloat16* ring = sS + TC_ROWS * lds;                          // [2][MID_FSLOT] table chunks
+  float* xm = reinterpret_cast<float*>(ring + 2 * MID_FSLOT);        // [TC_ROWS] warp column 1's m
+  float* xs = xm + TC_ROWS;                                          // [TC_ROWS] ... and its sum
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // the warp tile: rows 64 wm, columns 64 wn of a tile
+  const int i_end = min(max((B - 64 * wm + 15) / 16, 0), 4);  // its m16 fragments with a row < B
+  const int per = tiles_per_split / (FT_COLS / VT);
+  const int n_tiles = (V + FT_COLS - 1) / FT_COLS;
+  const int t_begin = blockIdx.x * per, t_end = min(t_begin + per, n_tiles);
+  const int n_steps = max(t_end - t_begin, 0) * nk;
+
+  // step s: hidden chunk s % nk of tile t_begin + s / nk, in slot s & 1
+  auto slot = [&](int s) { return ring + (s & 1) * MID_FSLOT; };
+  float4 chunk[8];  // a step's table rows in fp32, loaded a step ahead
+  auto load_chunk = [&](int s) {
+    const int h0 = (s % nk) * TC_HL, c0 = (t_begin + s / nk) * FT_COLS;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = tid + THREADS * q, r = i >> 4, h = h0 + (i & 15) * 4;
+      chunk[q] = (c0 + r < V && h < H)
+                    ? __ldg(reinterpret_cast<const float4*>(table + (size_t)(c0 + r) * H + h))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_chunk = [&](int s) {  // chunk, rounded to bf16, into step s's slot
+    __nv_bfloat16* dst = slot(s);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = tid + THREADS * q, r = i >> 4, c4 = (i & 15) * 4;
+      const uint2 v =
+          make_uint2(tc::pack_bf16(chunk[q].x, chunk[q].y), tc::pack_bf16(chunk[q].z, chunk[q].w));
+      *reinterpret_cast<uint2*>(dst + r * FT_LD + c4) = v;
+    }
+  };
+
+  tc::stage_states_bf16(sS, states, B, H, Hp);
+  // row q = 2 i + half of this thread is 64 wm + 16 i + g + 8 half
+  float m[8], sum[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    m[q] = -INFINITY;
+    sum[q] = 0.f;
+  }
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  if (n_steps > 0) {
+    load_chunk(0);
+    store_chunk(0);
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    __syncthreads();  // step s's table chunk (at s = 0 the states too); step s - 1's MMAs are done
+    if (s + 1 < n_steps) load_chunk(s + 1);
+    const __nv_bfloat16* S = sS + (s % nk) * TC_HL;
+    if (i_end == 4)  // (warp-uniform) 4 but where B < 256
+      onchip_logits_64x64<true>(acc, S, slot(s), wm, wn, lane, 4, lds, FT_LD);
+    else if (i_end > 0)
+      onchip_logits_64x64<false>(acc, S, slot(s), wm, wn, lane, i_end, lds, FT_LD);
+    if (s % nk == nk - 1)  // the tile's logits are complete: fold them into (m, sum)
+      fold_tile(acc, m, sum, (t_begin + s / nk) * FT_COLS, n_valid);
+    if (s + 1 < n_steps) store_chunk(s + 1);  // its slot was last read by step s - 1
+  }
+  merge_group(m, sum, xm, xs, 0, B, part_m, part_s);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_mid_tc_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                     const long long* __restrict__ answers, const float* __restrict__ logz,
+                     const float* __restrict__ dloss, int B, int V, int H, int n_valid,
+                     int tiles_per_split, float* __restrict__ ds_part,
+                     float* __restrict__ dtable) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int Hp = round_up(H, TC_HL), lds = Hp + 8, nl = Hp / TC_HL, np = Hp / TC_HP;
+  __nv_bfloat16* sS = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [TC_ROWS][lds] the states
+  __nv_bfloat16* sP = sS + TC_ROWS * lds;                            // [TC_ROWS][MID_LDP] p
+  __nv_bfloat16* sR = sP + TC_ROWS * MID_LDP;                        // [2][MID_SLOT] table chunks
+  float* sZ = reinterpret_cast<float*>(sR + 2 * MID_SLOT);           // [TC_ROWS] logZ, +inf past B
+  float* sD = sZ + TC_ROWS;                                          // [TC_ROWS] dloss
+  int* sA = reinterpret_cast<int*>(sD + TC_ROWS);  // [TC_ROWS] the answer, -1 outside [0, n_valid)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_lg = (MID_COLS / MID_SUB) * nl, per_tile = n_lg + np;  // 4 Hp / 64 steps: even
+  const int per = tiles_per_split / (MID_COLS / VT);
+  const int n_tiles = (V + MID_COLS - 1) / MID_COLS;
+  const int t_begin = blockIdx.x * per, n = max(min(t_begin + per, n_tiles) - t_begin, 0);
+  const int n_steps = n * per_tile;
+  const int kb = (B + 15) / 16;  // the dT product's K: k16 blocks of batch rows with a row < B
+  // the logits' warp tile (rows 64 wm, columns 32 wn of a sub-tile); the
+  // products' (warps 0-3: dT's catalog columns pm, 32 of them; 4-7: ds's
+  // batch rows pm, 64 of them)
+  const int wm = warp & 3, wn = warp >> 2;
+  const bool dt_warp = warp < 4;
+  const int pm = dt_warp ? 32 * warp : 64 * (warp - 4);
+
+  tc::stage_states_bf16(sS, states, B, H, Hp);
+  {
+    // logZ +inf for a row past B, or for every row when no column is
+    // valid, so that its p is exp(-inf) = 0 with no mask
+    const bool ok = tid < B;
+    sZ[tid] = ok && n_valid > 0 ? logz[tid] : INFINITY;
+    sD[tid] = ok ? dloss[tid] : 0.f;
+    const long long a = ok ? answers[tid] : -1;
+    sA[tid] = in_catalog(a, n_valid) ? (int)a : -1;
+  }
+
+  // step s: tile t_begin + s / per_tile; within it, step q < n_lg the
+  // logits of sub-tile q / nl at hidden chunk q % nl (TC_HL wide, 64 table
+  // rows), else the products at chunk q - n_lg (TC_HP wide, the tile's 128
+  // table rows); its slot is s & 1
+  auto slot = [&](int s) { return sR + (s & 1) * MID_SLOT; };
+  auto load_table = [&](int s, float4 (&pre)[4]) {  // step s's table rows, fp32, into pre
+    const int tt = s / per_tile, q = s - tt * per_tile, j0 = (t_begin + tt) * MID_COLS;
+    const bool lg = q < n_lg;
+    const int h0 = lg ? (q % nl) * TC_HL : (q - n_lg) * TC_HP;
+    const int col0 = lg ? j0 + (q / nl) * MID_SUB : j0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = tid + THREADS * k;
+      const int r = lg ? i >> 4 : i >> 3, h = h0 + (lg ? (i & 15) : (i & 7)) * 4;
+      pre[k] = (col0 + r < V && h < H)
+                   ? __ldg(reinterpret_cast<const float4*>(table + (size_t)(col0 + r) * H + h))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto fill = [&](int s, const float4 (&pre)[4]) {  // pre, rounded, into step s's slot
+    const bool lg = s % per_tile < n_lg;
+    __nv_bfloat16* dst = slot(s);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = tid + THREADS * k;
+      const int r = lg ? i >> 4 : i >> 3, c4 = (lg ? (i & 15) : (i & 7)) * 4;
+      *reinterpret_cast<uint2*>(dst + r * (lg ? MID_LLD : MID_PLD) + c4) =
+          make_uint2(tc::pack_bf16(pre[k].x, pre[k].y), tc::pack_bf16(pre[k].z, pre[k].w));
+    }
+  };
+  float acc[4][4][4];
+  // this ds warp's fragments of products chunk kc in ds_part, which holds
+  // them in fragment order (ce_ds_reduce_tc_kernel<false>, one group of
+  // TC_ROWS rows): float4 q = 4 i + j of lane l at (q * 32 + l) * 4
+  auto ds_frag = [&](int kc) {
+    return ds_part + (((size_t)blockIdx.x * np + kc) * 4 + (warp - 4)) * (32 * 64) + lane * 4;
+  };
+  // a ds warp's products step sums from 0 on the tensor cores and adds
+  // prev, what the split's tile before wrote to ds_part there (by this same
+  // thread; 0 in the split's first tile), with one fp32 rounding after its
+  // MMAs; prev is loaded at the end of the step before, so that the loads
+  // are in flight across the barrier and the MMAs
+  float4 prev[16];
+  auto carry = [&](int s) {
+    const int tt = s / per_tile, kc = s - tt * per_tile - n_lg;
+    const float4* src = reinterpret_cast<const float4*>(ds_frag(kc));
+    const bool from = !dt_warp && tt > 0;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) prev[q] = from ? src[q * 32] : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
+  float4 pre_a[4], pre_b[4];  // the table rows of two steps ahead, alternating
+  if (n_steps > 0) {
+    load_table(0, pre_a);
+    fill(0, pre_a);
+    load_table(1, pre_b);  // (n_steps >= per_tile >= 4)
+  }
+  // step s: cur holds nothing (its rows went to the slot at the end of
+  // step s - 1) and takes step s + 2's rows; nxt holds step s + 1's
+  auto step = [&](int s, float4 (&cur)[4], const float4 (&nxt)[4]) {
+    const int tt = s / per_tile, q = s - tt * per_tile, j0 = (t_begin + tt) * MID_COLS;
+    const bool lg = q < n_lg;
+    if (!lg || q % nl == 0) {  // a products step, or a sub-tile's first logits step
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    // every thread's rows of step s are in the slot (at s = 0 the states
+    // and row scalars too); every reader of the other slot (step s - 1)
+    // and of p (the tile before's products) is done
+    __syncthreads();
+    if (s + 2 < n_steps) load_table(s + 2, cur);
+    const __nv_bfloat16* X = slot(s);
+    if (lg) {
+      const int kc = q % nl, sub = q / nl;
+      // acc[i][j] += S[64 wm + 16 i, chunk] . T[32 wn + 8 j, chunk]^T
+#pragma unroll
+      for (int kk = 0; kk < TC_HL; kk += 16) {
+        uint32_t a[4][4], b[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tc::ldmatrix_x4(a[i], sS + (64 * wm + 16 * i + tc::a_row(lane)) * lds + kc * TC_HL + kk +
+                                    tc::a_col(lane));
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t r[4];
+          tc::ldmatrix_x4(r, X + (32 * wn + 16 * jp + tc::b_row(lane)) * MID_LLD + kk + tc::b_col(lane));
+          b[2 * jp][0] = r[0];
+          b[2 * jp][1] = r[1];
+          b[2 * jp + 1][0] = r[2];
+          b[2 * jp + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tc::mma_bf16(acc[i][j], a[i], b[j]);
+      }
+      if (kc == nl - 1) {  // the sub-tile's logits are complete: p into sP
+        const int c0 = MID_SUB * sub + 32 * wn + 2 * t4;  // this thread's columns c0 + 8 j + e
+        if (j0 + MID_COLS > n_valid) {  // the tile reaches past the valid columns: exp(-inf) = 0
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (j0 + c0 + 8 * j + (e & 1) >= n_valid) acc[i][j][e] = -INFINITY;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = 64 * wm + 16 * i + g + 8 * half;
+            const float z = sZ[r], d = sD[r];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              *reinterpret_cast<uint32_t*>(sP + r * MID_LDP + c0 + 8 * j) =
+                  tc::pack_bf16(expf(acc[i][j][2 * half] - z) * d, expf(acc[i][j][2 * half + 1] - z) * d);
+          }
+      }
+    } else {
+      const int kc = q - n_lg, h0 = kc * TC_HP;
+      if (dt_warp) {
+        // acc[i][j] += p[:, pm + 16 i]^T . S[:, h0 + 8 j] over the batch rows
+        for (int k = 0; k < 16 * kb; k += 16) {
+          uint32_t a[2][4], b[4][2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            tc::ldmatrix_x4_trans(a[i], sP + (k + tc::b_row(lane)) * MID_LDP + pm + 16 * i + tc::b_col(lane));
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t r[4];
+            tc::ldmatrix_x4_trans(r, sS + (k + tc::bt_row(lane)) * lds + h0 + 16 * jp + tc::bt_col(lane));
+            b[2 * jp][0] = r[0];
+            b[2 * jp][1] = r[1];
+            b[2 * jp + 1][0] = r[2];
+            b[2 * jp + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) tc::mma_bf16(acc[i][j], a[i], b[j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              const int m = pm + 16 * i + g + 4 * e, h = h0 + 8 * j + 2 * t4;
+              if (h < H && j0 + m < V)  // H % 4 == 0 and h is even: h + 1 < H too
+                *reinterpret_cast<float2*>(dtable + (size_t)(j0 + m) * H + h) =
+                    make_float2(acc[i][j][e], acc[i][j][e + 1]);
+            }
+      } else {
+        // acc[i][j] += p[pm + 16 i, :] . T[:, h0 + 8 j] over the tile's columns
+#pragma unroll 2
+        for (int k = 0; k < MID_COLS; k += 16) {
+          uint32_t a[4][4], b[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tc::ldmatrix_x4(a[i], sP + (pm + 16 * i + tc::a_row(lane)) * MID_LDP + k + tc::a_col(lane));
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t r[4];
+            tc::ldmatrix_x4_trans(r, X + (k + tc::bt_row(lane)) * MID_PLD + 16 * jp + tc::bt_col(lane));
+            b[2 * jp][0] = r[0];
+            b[2 * jp][1] = r[1];
+            b[2 * jp + 1][0] = r[2];
+            b[2 * jp + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) tc::mma_bf16(acc[i][j], a[i], b[j]);
+        }
+        float4* dst = reinterpret_cast<float4*>(ds_frag(kc));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 c = prev[4 * i + j];
+            dst[(4 * i + j) * 32] =
+                make_float4(c.x + acc[i][j][0], c.y + acc[i][j][1], c.z + acc[i][j][2], c.w + acc[i][j][3]);
+          }
+      }
+    }
+    if (s + 1 < n_steps) {
+      if ((s + 1) % per_tile >= n_lg) carry(s + 1);
+      fill(s + 1, nxt);
+    }
+    if (q == per_tile - 1) {
+      // the one-hot term, in ascending i as every route takes it, on the
+      // tile's finished dT rows in device memory, from the unrounded states;
+      // the vote is also the barrier after every dT write of the tile
+      const int a_mine = sA[tid];
+      if (__syncthreads_or(a_mine >= j0 && a_mine < j0 + MID_COLS)) {
+        for (int h = tid; h < H; h += THREADS)
+          for (int i = 0; i < B; ++i) {
+            const int a = sA[i];
+            if (a >= j0 && a < j0 + MID_COLS)
+              dtable[(size_t)a * H + h] -= sD[i] * __ldg(states + (size_t)i * H + h);
+          }
+      }
+    }
+  };
+  for (int s = 0; s < n_steps; s += 2) {
+    step(s, pre_a, pre_b);
+    step(s + 1, pre_b, pre_a);
+  }
+}
+
 bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 != 0; }
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
@@ -2700,6 +3186,10 @@ bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 !=
 // ce_fwd_partial_kernel and ce_bwd_sweep_kernel elsewhere.
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 bool wide_route(int H) { return H > MAX_H; }
+// ... and the middle route, B <= OC_B and OC_H < H <= MAX_H, where the bf16
+// form runs ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel (the fp32 form
+// the older sweeps)
+bool mid_route(int B, int H) { return B <= OC_B && H > OC_H && H <= MAX_H; }
 // ... and the backward tensor-core kernel's tile: catalog columns, and the
 // multiple of 64 that H is padded to
 int grads_tc_cols(int bf16) { return bf16 ? TC_SV : TF_COLS; }
@@ -2716,6 +3206,10 @@ long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
   const long long ld = H + 4;
   if (wide_route(H)) return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);
   if (bf16 && onchip_route(B, H)) return which == 0 ? FO_SMEM : BO_SMEM;
+  if (bf16 && mid_route(B, H)) {
+    const int Hp = round_up(H, TC_HL);
+    return which == 0 ? mid_fwd_smem(Hp) : mid_bwd_smem(Hp);
+  }
   if (which == 0)
     return (long long)sizeof(float) *
            (onchip_route(B, H) ? onchip::STATE_FLOATS + onchip::RING_FLOATS : (BT + VT) * ld);
@@ -2736,6 +3230,12 @@ int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 // (ce_bwd_wide_tc_kernel): tiles_per_split is a multiple of 2, or of 4.
 int ce_wide_route(int H) { return wide_route(H) ? 1 : 0; }
 
+// 1 where the bf16 form takes its middle route (B <= 256, 64 < H <= 256):
+// ce_fwd_mid_tc_kernel (tiles of FT_COLS = 128 columns) and
+// ce_bwd_mid_tc_kernel (MID_COLS = 128): tiles_per_split is a multiple of
+// 2 there. The fp32 form takes the older sweeps at these shapes.
+int ce_mid_route(int B, int H) { return mid_route(B, H) ? 1 : 0; }
+
 // Bytes of the workspace that ce_logz takes at batch B, hidden size H, form
 // bf16 and n_splits splits: the splits' partials (max, then sum), fp32
 // [2, n_splits, B]; in the bf16 form on the wide route then, 256-byte
@@ -2753,8 +3253,10 @@ long long ce_logz_workspace_bytes(int B, int H, int bf16, int n_splits) {
 // the kernel's fragment order (ce_ds_reduce_tc_kernel; Bp = B up to a
 // multiple of 256, Hp = H up to a multiple of 32 in the fp32 form, of 64
 // in the bf16 form), and in the bf16 form then its bf16 states [Bp, Hp]
-// and one bf16 table tile [256, Hp] a split.
+// and one bf16 table tile [256, Hp] a split; on the bf16 form's middle
+// route [n_splits, 256, Hp] in that order (Hp a multiple of 64) alone.
 long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
+  if (bf16 && mid_route(B, H)) return 4LL * n_splits * TC_ROWS * round_up(H, TC_HL);
   if (!wide_route(H)) return 4LL * n_splits * B * H;
   const long long Bp = round_up(B, TC_ROWS), Hp = grads_tc_hp(H, bf16);
   return 4LL * n_splits * Bp * Hp + (bf16 ? 2LL * (Bp + (long long)n_splits * TC_SV) * Hp : 0);
@@ -2765,17 +3267,19 @@ long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
 // <states[i], table[answers[i]]> with gold 0 for answers outside
 // [0, n_valid). answers and loss are both given or both null. bf16 != 0
 // takes the bf16-operand form (the file's head). The route is the shape's
-// (ce_onchip_route, ce_wide_route): one block per SM suits the on-chip and
-// wide routes, two the older one, over (splits x batch tiles of 64 rows).
-// The caller allocates the workspace (ce_logz_workspace_bytes); n_splits *
-// tiles_per_split tiles must cover V, and on the wide route
-// tiles_per_split is even and every split holds at least one tile.
+// (ce_onchip_route, ce_wide_route, ce_mid_route): one block per SM suits
+// the on-chip, middle and wide routes, two the older one, over (splits x
+// batch tiles of 64 rows). The caller allocates the workspace
+// (ce_logz_workspace_bytes); n_splits * tiles_per_split tiles must cover V,
+// and on the tensor-core kernels' 128-column tiles tiles_per_split is even
+// and every split holds at least one tile.
 // Returns 0 or a cudaError_t code.
 int ce_logz(const void* states, const void* table, const void* answers, int B, int V, int H,
             int n_valid, int n_splits, int tiles_per_split, void* workspace, void* logz,
             void* loss, int bf16, void* stream) {
   const bool wide = wide_route(H);  // a tensor-core kernel in either form
-  const bool tiled = wide || (bf16 && onchip_route(B, H));  // FT_COLS-column tiles
+  const bool mid = bf16 && mid_route(B, H);  // ce_fwd_mid_tc_kernel
+  const bool tiled = wide || mid || (bf16 && onchip_route(B, H));  // FT_COLS-column tiles
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr) ||
       (tiled && (tiles_per_split % (FT_COLS / VT) != 0 ||
@@ -2800,6 +3304,13 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
     if (e != cudaSuccess) return (int)e;
     ce_fwd_wide_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
         sb, static_cast<const float*>(table), B, V, H, n_valid, tiles_per_split, part_m, part_s);
+  } else if (mid) {
+    e = cudaFuncSetAttribute(ce_fwd_mid_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ce_fwd_mid_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+        static_cast<const float*>(states), static_cast<const float*>(table), B, V, H, n_valid,
+        tiles_per_split, part_m, part_s);
   } else if (wide) {
     e = cudaFuncSetAttribute(ce_fwd_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -2847,7 +3358,7 @@ int ce_gold_rows(const void* table, const void* answers, int B, int V, int H, vo
 // term). bf16 != 0 takes the bf16-operand form (the file's head): s, T and
 // p rounded to bf16 before the products, the one-hot terms from the
 // unrounded s and T. The route is the shape's (ce_onchip_route,
-// ce_wide_route): one block per SM suits the on-chip
+// ce_wide_route, ce_mid_route): one block per SM suits the on-chip
 // and tensor-core routes, two the sweep route. The caller allocates the
 // workspace (ce_grads_workspace_bytes); n_splits * tiles_per_split tiles
 // must cover V, every split must hold at least one tile, and on the
@@ -2859,10 +3370,12 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
              void* stream) {
   const int n_tiles = (V + VT - 1) / VT;
   const bool tc = wide_route(H);  // a tensor-core kernel in either form
+  const bool mid = bf16 && mid_route(B, H);  // ce_bwd_mid_tc_kernel
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
       (long long)(n_splits - 1) * tiles_per_split >= n_tiles ||
-      (tc && tiles_per_split % (grads_tc_cols(bf16) / VT) != 0))
+      (tc && tiles_per_split % (grads_tc_cols(bf16) / VT) != 0) ||
+      (mid && tiles_per_split % (MID_COLS / VT) != 0))
     return (int)cudaErrorInvalidValue;
   const long long smem = streaming_ce_smem_bytes(B, H, 1, bf16);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -2886,6 +3399,15 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
         static_cast<const long long*>(answers), static_cast<const float*>(logz),
         static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
         ds_part, static_cast<float*>(dtable));
+  } else if (mid) {
+    e = cudaFuncSetAttribute(ce_bwd_mid_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ce_bwd_mid_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+        static_cast<const float*>(states), static_cast<const float*>(table),
+        static_cast<const long long*>(answers), static_cast<const float*>(logz),
+        static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
+        ds_part, static_cast<float*>(dtable));
   } else {
     auto sweep = tc                   ? ce_bwd_wide_tf32_kernel
                  : onchip_route(B, H) ? (bf16 ? ce_bwd_onchip_tc_kernel : ce_bwd_onchip_kernel)
@@ -2900,7 +3422,7 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (tc) {
+  if (tc || mid) {  // ds_part in a tensor-core kernel's fragment order (mid: Bp = 256)
     const int n = Bp * Hp;
     auto reduce = bf16 ? ce_ds_reduce_tc_kernel<false> : ce_ds_reduce_tc_kernel<true>;
     reduce<<<(n + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, s>>>(

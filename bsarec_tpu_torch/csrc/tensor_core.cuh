@@ -234,15 +234,18 @@ constexpr int ONCHIP_LDB = ONCHIP_K + 8;     // a bf16 row's stride (elements)
 constexpr int ONCHIP_LDF = ONCHIP_K + 4;     // an fp32 staging row's stride (floats)
 constexpr int ONCHIP_STAGES = 3;             // fp32 staging slots in the ring
 
-// Every state row into sS [ONCHIP_ROWS][ONCHIP_LDB], rounded to bf16, rows
-// >= B and columns >= H zero.
+// Every state row into sS [ONCHIP_ROWS][kp + 8], rounded to bf16, rows
+// >= B and columns >= H zero, for kp (a multiple of 4) hidden columns:
+// ONCHIP_K on the on-chip skeleton (sS [ONCHIP_ROWS][ONCHIP_LDB]), H up to
+// a multiple of 64 on streaming_ce.cu's middle route.
 __device__ __forceinline__ void stage_states_bf16(__nv_bfloat16* sS, const float* __restrict__ states,
-                                                  int B, int H) {
-  for (int i = threadIdx.x; i < ONCHIP_ROWS * (ONCHIP_K / 4); i += 256) {
-    const int r = i / (ONCHIP_K / 4), c = (i % (ONCHIP_K / 4)) * 4;
+                                                  int B, int H, int kp = ONCHIP_K) {
+  const int q = kp / 4, ld = kp + 8;
+  for (int i = threadIdx.x; i < ONCHIP_ROWS * q; i += 256) {
+    const int r = i / q, c = (i % q) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < B && c < H) v = __ldg(reinterpret_cast<const float4*>(states + (size_t)r * H + c));
-    *reinterpret_cast<uint2*>(sS + r * ONCHIP_LDB + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    *reinterpret_cast<uint2*>(sS + r * ld + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
 }
 

@@ -26,10 +26,12 @@ Both sweeps take one of three routes, by shape: at B <= 256 and H <= 64
 whole sweep, one block per SM; at H > 256 (`wide_route`) the wide
 kernels stage the hidden dimension in chunks, so their shared memory does
 not grow with H; elsewhere the older sweeps re-stage 64-row batch tiles
-with whole rows, two blocks per SM. `ce_logz.onchip_launches`,
-`ce_grads.onchip_launches`, `ce_logz.wide_launches` and
-`ce_grads.wide_launches` count the first two apart. On the on-chip route
-the fp32 form runs fp32 FMA kernels and the bf16 form its own kernels on
+with whole rows, two blocks per SM, but for the bf16 form at B <= 256
+and 64 < H <= 256 (`mid_route`, the middle route, below).
+`ce_logz.onchip_launches`, `ce_grads.onchip_launches`,
+`ce_logz.wide_launches` and `ce_grads.wide_launches` count the first two
+apart. On the on-chip route the fp32 form runs fp32 FMA kernels and the
+bf16 form its own kernels on
 the tensor cores (`mma.sync` bf16 products with fp32 sums, every state
 row staged once in bf16, the table tiles rounded on chip):
 `ce_fwd_onchip_tc_kernel` (256 batch rows x 128 catalog columns a tile)
@@ -45,7 +47,15 @@ accuracy) and `ce_fwd_wide_tc_kernel` in the bf16 form (the states
 rounded into a bf16 scratch first). The backward holds the p of up to
 256 batch rows for a tile of catalog columns: `ce_bwd_wide_tf32_kernel`
 in the fp32 form (128-column tiles, every product in 3xTF32) and
-`ce_bwd_wide_tc_kernel` in the bf16 form (256-column tiles). The kernels take every H % 4 == 0
+`ce_bwd_wide_tc_kernel` in the bf16 form (256-column tiles). On the
+middle route the bf16 form runs its own pair on the tensor cores, one
+block per SM, every state row staged once in bf16 straight from the fp32
+states (no states scratch, no extra launch): `ce_fwd_mid_tc_kernel`
+(256 batch rows x 128 catalog columns a tile, the wide forward's
+epilogue) and `ce_bwd_mid_tc_kernel` (128-column tiles, p held beside the
+states, ds_part in the wide backward's fragment order);
+`ce_logz.mid_launches` and `ce_grads.mid_launches` count them (the fp32
+form at those shapes runs the older sweeps). The kernels take every H % 4 == 0
 (JAX's kernels take an H that divides 128 or is a multiple of 128, all
 of it inside that); the workspaces (the splits' partials, and in the
 bf16 form's wide kernels bf16 copies of the states and, backward, of a
@@ -201,6 +211,8 @@ def _lib() -> ctypes.CDLL:
     lib.ce_onchip_route.restype = i
     lib.ce_wide_route.argtypes = [i]
     lib.ce_wide_route.restype = i
+    lib.ce_mid_route.argtypes = [i, i]
+    lib.ce_mid_route.restype = i
     return lib
 
 
@@ -219,10 +231,20 @@ def wide_route(h: int) -> bool:
     return bool(_lib().ce_wide_route(h))
 
 
+@functools.cache
+def mid_route(b: int, h: int) -> bool:
+    """True where the bf16 form of `ce_logz` and `ce_grads` takes its
+    middle route (B <= 256, 64 < H <= 256: ce_fwd_mid_tc_kernel and
+    ce_bwd_mid_tc_kernel), by shape; the fp32 form takes the older sweeps
+    there."""
+    return bool(_lib().ce_mid_route(b, h))
+
+
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per
 # tile, columns per tile of the tensor-core kernels (the forward in both
-# forms, the bf16 backward, the fp32 backward)
-_BT, _VT, _TC_FWD_VT, _TC_VT, _TF_VT = 64, 64, 128, 256, 128
+# forms, the bf16 backward, the fp32 backward, the bf16 middle route's
+# backward)
+_BT, _VT, _TC_FWD_VT, _TC_VT, _TF_VT, _MID_VT = 64, 64, 128, 256, 128, 128
 
 
 def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, index: int,
@@ -279,17 +301,20 @@ def tc_splits(v: int, tile: int, sms: int) -> tuple[int, int]:
 
 
 def split_plan(b: int, v: int, onchip: bool, wide: bool, bf16: bool, backward: bool,
-               sms: int) -> tuple[int, int]:
+               sms: int, mid: bool = False) -> tuple[int, int]:
     """(n_splits, tiles_per_split) that `ce_logz` (or, with `backward`,
     `ce_grads`) launches with on `sms` SMs, for the route (`onchip_route`,
-    `wide_route`) and form of batch `b` and catalog `v`: one block per SM on
-    the on-chip and wide routes, each split whole tiles of its kernel (the
-    wide forward's and the bf16 on-chip forward's 128 columns, the wide
-    backward's 256 (bf16) or 128 (fp32), else 64); on the older sweeps two
-    blocks per SM, the forward's over (splits x batch tiles of 64 rows)."""
+    `wide_route`, `mid_route`) and form of batch `b` and catalog `v`: one
+    block per SM on the on-chip, middle (bf16) and wide routes, each split
+    whole tiles of its kernel (the wide forward's, the bf16 on-chip
+    forward's and the bf16 middle route's 128 columns, the wide backward's
+    256 (bf16) or 128 (fp32), else 64); on the older sweeps two blocks per
+    SM, the forward's over (splits x batch tiles of 64 rows)."""
     if wide:
         tile = (_TC_VT if bf16 else _TF_VT) if backward else _TC_FWD_VT
         return tc_splits(v, tile, sms)
+    if mid and bf16:  # ce_fwd_mid_tc_kernel's and ce_bwd_mid_tc_kernel's tiles
+        return tc_splits(v, _MID_VT if backward else _TC_FWD_VT, sms)
     if onchip and bf16 and not backward:  # ce_fwd_onchip_tc_kernel's tiles
         return tc_splits(v, _TC_FWD_VT, sms)
     if backward or onchip:
@@ -303,8 +328,8 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
     b, v, h, index = _check_matrices(states, table)
     if answers is not None:
         _require("answers", answers, torch.int64, (b,), index)
-    onchip, wide = onchip_route(b, h), wide_route(h)
-    n_splits, per = split_plan(b, v, onchip, wide, bf16, False, sm_count(index))
+    onchip, wide, mid = onchip_route(b, h), wide_route(h), mid_route(b, h)
+    n_splits, per = split_plan(b, v, onchip, wide, bf16, False, sm_count(index), mid)
     lib = _lib()
     # the (max, sum) partials, and in the bf16 form on the wide route the
     # bf16 states
@@ -321,6 +346,7 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
     ce_logz.launches += 1
     ce_logz.onchip_launches += onchip
     ce_logz.wide_launches += wide
+    ce_logz.mid_launches += mid and bf16
     ce_logz.bf16_launches += bf16
     return loss, logz
 
@@ -343,8 +369,8 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     _require("answers", answers, torch.int64, (b,), index)
     _require("logz", logz, torch.float32, (b,), index)
     _require("dloss", dloss, torch.float32, (b,), index)
-    onchip, wide = onchip_route(b, h), wide_route(h)
-    n_splits, per = split_plan(b, v, onchip, wide, bf16, True, sm_count(index))
+    onchip, wide, mid = onchip_route(b, h), wide_route(h), mid_route(b, h)
+    n_splits, per = split_plan(b, v, onchip, wide, bf16, True, sm_count(index), mid)
     lib = _lib()
     work = states.new_empty((lib.ce_grads_workspace_bytes(b, h, int(bf16), n_splits),),
                             dtype=torch.uint8)
@@ -358,6 +384,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     ce_grads.launches += 1
     ce_grads.onchip_launches += onchip
     ce_grads.wide_launches += wide
+    ce_grads.mid_launches += mid and bf16
     ce_grads.bf16_launches += bf16
     return ds, dt
 
@@ -425,11 +452,13 @@ def ce_grads(states: torch.Tensor, table: torch.Tensor, answers: torch.Tensor,
 ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's included
 ce_logz.onchip_launches = 0  # the launches that took the on-chip route
 ce_logz.wide_launches = 0  # the launches that took the wide route (a tensor-core kernel, either form)
+ce_logz.mid_launches = 0  # the bf16 form's launches on the middle route (ce_fwd_mid_tc_kernel)
 ce_logz.bf16_launches = 0  # the launches in the bf16-operand form
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route
 ce_grads.wide_launches = 0  # the launches that took the wide route (a tensor-core kernel, either form)
+ce_grads.mid_launches = 0  # the bf16 form's launches on the middle route (ce_bwd_mid_tc_kernel)
 ce_grads.bf16_launches = 0  # the launches in the bf16-operand form
 
 

@@ -24,8 +24,9 @@ readings stay far inside BF16_GRAD_TOL; at H >= 384 the kernel against
 the plain version read up to 2.1e-3 on the H100, and the plain version
 is as far from itself with its hidden sum reordered (PERF.md).
 
-The bf16 form's tensor-core kernels (the wide routes', and at B <= 256,
-H <= 64 the on-chip route's pair) sum their logits on the tensor cores,
+The bf16 form's tensor-core kernels (the wide routes', and at B <= 256
+the on-chip route's pair, H <= 64, and the middle route's, 64 < H <= 256)
+sum their logits on the tensor cores,
 in their own order, so no order-faithful reference exists for them. They
 are held two ways, both against `ce_grads_bf16_in_order` (the plain
 version with each logit summed over h in ascending order, one rounding
@@ -36,9 +37,9 @@ per step; on exact logits it equals the plain version):
   form, which differs there only by not rounding p, must fail it);
 - on random-normal inputs, within BF16_WIDE_GRAD_TOL, which allows single
   bf16 roundings of p to land apart and which the fp32 form must still
-  fail on the wide routes; at H <= 64 the fp32 form lies nearer than the
-  limit, so there its control is the exact-logit cases' alone (their
-  states scaled by 2: `exact_logit_case(..., scale=2)`).
+  fail on the wide routes; at H <= 256 the fp32 form can lie nearer than
+  the limit, so there its control is the exact-logit cases' alone (their
+  states scaled by 2 at H <= 64: `exact_logit_case(..., scale=2)`).
 
 The wide routes' fp32 kernels take their products on the tensor cores in
 3xTF32: the backward is held within WIDE_GRAD_TOL of the plain version,
@@ -73,8 +74,8 @@ BF16_GRAD_TOL = 1e-4
 # Readings on the card: at most 0.125 of that; with the rounded states in
 # the check (the fault it guards against) at least 51.9
 ONE_HOT_ULPS = 8
-# the bf16 form's tensor-core kernels (the wide routes', the on-chip
-# route's pair) on random-normal inputs, against `ce_grads_bf16_in_order`
+# the bf16 form's tensor-core kernels (the wide routes', the on-chip and
+# middle routes' pairs) on random-normal inputs, against `ce_grads_bf16_in_order`
 # at one logZ, each group relative to its largest |plain| entry. A logit summed in another order rounds apart in fp32, and
 # where p sits near a bf16 rounding boundary it lands one bf16 ulp away:
 # 2^-8 to 2^-7 (7.8e-3) of a term that a single p dominates, so this limit

@@ -60,8 +60,38 @@ takes one split plan: whole 128-column tiles for the forward and whole
 256-column tiles for the backward (`ops/ce.py:tc_splits`), which every
 kernel there accepts.
 
+With `--mid`, the bf16 form on the middle route instead (B=256,
+V=1,000,000, H in {128, 256}, `MID_VARIANTS`): both C entries in the bf16
+form as the source has them (`ce_fwd_mid_tc_kernel`,
+`ce_bwd_mid_tc_kernel`); the yardstick the middle pair must beat, the same
+shapes routed to the wide route's tensor-core kernels
+(`ce_fwd_wide_tc_kernel`, `ce_bwd_wide_tc_kernel`: the states rounded
+into a scratch by an extra launch and streamed from L2 every tile, the
+backward's 256-column p); the same shapes on the older sweeps
+(`ce_fwd_partial_kernel<true>`, `ce_bwd_sweep_kernel<true>`: the route
+the middle pair replaced); the middle pair with their MMAs and epilogue
+alone (no table loads, no rounding into the slots, no dT stores, no
+ds_part carry or stores), with everything but their MMAs (no fragment
+loads or MMAs), without the forward's fold, and the backward without its
+ds_part carry loads, its ds_part stores, its dT stores, its products
+steps (logits steps alone) or its logits steps (products steps alone);
+and four whole variants of the backward (their outputs held as the
+kernel's): ds_part carried through the MMAs, as the wide backward carries
+it, L2 eviction hints (ds_part evict-last, dT evict-first), and the
+backward's other choice, `ce_bwd_wide_tc_kernel`'s 256-column p with its
+states streamed from the fp32 states and rounded on chip (no scratch, no
+extra launch; `wide_streamed`), the chunk held in registers a step ahead
+or stored as soon as it is loaded;
+in turns with the fp32 form's kernels (the older sweeps at these shapes)
+and `chip_smoke.py:bf16_yardsticks`' library calls; each whole variant's
+logZ and gradients are printed against the plain bf16 versions and
+`parity.ce_grads_bf16_in_order`. Every library takes one split plan:
+whole 128-column tiles for the forward and whole 256-column tiles for
+the backward, which every kernel there accepts.
+
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py            # needs a card and nvcc
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --onchip   # the H=64 variants
+    python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --mid      # the H=128 and H=256 variants
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --check    # the replacements apply (no card)
 
 Prints one JSON line per variant, then the card's name and power limit.
@@ -301,6 +331,220 @@ ONCHIP_VARIANTS = {
 }
 
 
+# the bf16 form's middle-route shapes (B <= 256, 64 < H <= 256) sent to
+# the wide route's tensor-core kernels, as TO_WIDE sends the on-chip ones
+TO_WIDE_MID = [
+    ("  if (wide_route(H)) return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);",
+     "  if (wide_route(H) || (bf16 && mid_route(B, H)))\n"
+     "    return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);"),
+    ("  if (!(bf16 && wide_route(H))) return parts;",
+     "  if (!(bf16 && (wide_route(H) || mid_route(B, H)))) return parts;"),
+    ("  if (bf16 && mid_route(B, H)) return 4LL * n_splits * TC_ROWS * round_up(H, TC_HL);\n"
+     "  if (!wide_route(H)) return 4LL * n_splits * B * H;",
+     "  if (!(wide_route(H) || (bf16 && mid_route(B, H)))) return 4LL * n_splits * B * H;"),
+    ("  const bool wide = wide_route(H);  // a tensor-core kernel in either form\n"
+     "  const bool mid = bf16 && mid_route(B, H);  // ce_fwd_mid_tc_kernel",
+     "  const bool wide = wide_route(H) || (bf16 && mid_route(B, H));\n  const bool mid = false;"),
+    ("  const bool tc = wide_route(H);  // a tensor-core kernel in either form\n"
+     "  const bool mid = bf16 && mid_route(B, H);  // ce_bwd_mid_tc_kernel",
+     "  const bool tc = wide_route(H) || (bf16 && mid_route(B, H));\n  const bool mid = false;"),
+]
+# the bf16 form's middle-route backward alone sent to ce_bwd_wide_tc_kernel
+TO_WIDE_MID_BWD = [
+    ("  if (wide_route(H)) return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);",
+     "  if (wide_route(H)) return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);\n"
+     "  if (bf16 && which == 1 && mid_route(B, H)) return TC_SMEM;"),
+    TO_WIDE_MID[2], TO_WIDE_MID[4]]
+
+
+def wide_streamed(sync: bool) -> list:
+    """TO_WIDE_MID_BWD with ce_bwd_wide_tc_kernel's states streamed from the
+    fp32 states and rounded on chip, so no states_bf16_kernel launch and no
+    states scratch: the backward's other choice at H = 256 (256-column p,
+    the states streamed every step). Each step's state chunk comes as fp32
+    float4s, 16 a thread for a logits step and 8 for a products step,
+    loaded with step s - 1's copies and rounded into the slot after step
+    s - 1's MMAs (the table rows' register prefetch), or with `sync` rounded
+    and stored as soon as they are loaded, which frees the registers and
+    leaves the loads' latency before the MMAs."""
+    issue_old = (
+        "      auto issue = [&](int s) {\n"
+        "        __nv_bfloat16* dst = slot(s);\n"
+        "        if (s < n_lg) {\n"
+        "          const int h0 = (s % nl) * TC_HL;\n"
+        "#pragma unroll\n"
+        "          for (int q = 0; q < 8; ++q) {\n"
+        "            const int i = tid + THREADS * q, r = i >> 3, c8 = (i & 7) * 8;\n"
+        "            tc::cp_async_16(dst + r * TC_LDL + c8, sb + (size_t)(g0 + r) * Hp + h0 + c8);\n"
+        "          }\n"
+        "        } else {\n"
+        "          const int h0 = (s - n_lg) * TC_HP;\n"
+        "#pragma unroll\n"
+        "          for (int q = 0; q < 4; ++q) {\n"
+        "            const int i = tid + THREADS * q, r = i >> 2, c8 = (i & 3) * 8;\n"
+        "            tc::cp_async_16(dst + r * TC_LDC + c8, sb + (size_t)(g0 + r) * Hp + h0 + c8);\n"
+        "            tc::cp_async_16(dst + (TC_ROWS + r) * TC_LDC + c8, tile_bf16 + (size_t)r * Hp + h0 + c8);\n"
+        "          }\n"
+        "        }\n"
+        "      };\n")
+    issue_new = (
+        f"      constexpr bool kSync = {'true' if sync else 'false'};\n"
+        "      float4 sv[16];  // a step's state chunk in fp32\n"
+        "      auto fill_states = [&](int s) {  // sv, rounded, into step s's slot\n"
+        "        __nv_bfloat16* dst = slot(s);\n"
+        "        if (s < n_lg) {\n"
+        "#pragma unroll\n"
+        "          for (int q = 0; q < 16; ++q) {\n"
+        "            const int i = tid + THREADS * q, r = i >> 4, c4 = (i & 15) * 4;\n"
+        "            *reinterpret_cast<uint2*>(dst + r * TC_LDL + c4) =\n"
+        "                make_uint2(tc::pack_bf16(sv[q].x, sv[q].y), tc::pack_bf16(sv[q].z, sv[q].w));\n"
+        "          }\n"
+        "        } else {\n"
+        "#pragma unroll\n"
+        "          for (int q = 0; q < 8; ++q) {\n"
+        "            const int i = tid + THREADS * q, r = i >> 3, c4 = (i & 7) * 4;\n"
+        "            *reinterpret_cast<uint2*>(dst + r * TC_LDC + c4) =\n"
+        "                make_uint2(tc::pack_bf16(sv[q].x, sv[q].y), tc::pack_bf16(sv[q].z, sv[q].w));\n"
+        "          }\n"
+        "        }\n"
+        "      };\n"
+        "      auto issue = [&](int s) {\n"
+        "        __nv_bfloat16* dst = slot(s);\n"
+        "        auto ld = [&](int r, int h) {  // zero past B and H (H % 4 == 0)\n"
+        "          return (g0 + r < B && h < H)\n"
+        "                     ? __ldg(reinterpret_cast<const float4*>(states + (size_t)(g0 + r) * H + h))\n"
+        "                     : make_float4(0.f, 0.f, 0.f, 0.f);\n"
+        "        };\n"
+        "        if (s < n_lg) {\n"
+        "          const int h0 = (s % nl) * TC_HL;\n"
+        "#pragma unroll\n"
+        "          for (int q = 0; q < 16; ++q) {\n"
+        "            const int i = tid + THREADS * q;\n"
+        "            sv[q] = ld(i >> 4, h0 + (i & 15) * 4);\n"
+        "          }\n"
+        "        } else {\n"
+        "          const int h0 = (s - n_lg) * TC_HP;\n"
+        "#pragma unroll\n"
+        "          for (int q = 0; q < 8; ++q) {\n"
+        "            const int i = tid + THREADS * q;\n"
+        "            sv[q] = ld(i >> 3, h0 + (i & 7) * 4);\n"
+        "          }\n"
+        "#pragma unroll\n"
+        "          for (int q = 0; q < 4; ++q) {\n"
+        "            const int i = tid + THREADS * q, r = i >> 2, c8 = (i & 3) * 8;\n"
+        "            tc::cp_async_16(dst + (TC_ROWS + r) * TC_LDC + c8, tile_bf16 + (size_t)r * Hp + h0 + c8);\n"
+        "          }\n"
+        "        }\n"
+        "        if (kSync) fill_states(s);\n"
+        "      };\n")
+    prologue = "      issue(0);\n      onchip::cp_async_commit();\n      load_table(0, pre_a);\n      fill(0, pre_a);"
+    step_end = ("          if (s + 1 >= n_lg) carry(s + 1);  // (after the epilogue or the stores: acc is free)\n"
+                "          fill(s + 1, nxt);\n        }")
+    launch = ("    states_bf16_kernel<<<(n4 + 255) / 256, 256, 0, s>>>(static_cast<const float*>(states), B, H,\n"
+              "                                                         Bp, Hp, sb);\n"
+              "    e = cudaGetLastError();\n"
+              "    if (e != cudaSuccess) return (int)e;\n"
+              "    e = cudaFuncSetAttribute(ce_bwd_wide_tc_kernel,")
+    return TO_WIDE_MID_BWD + [
+        (issue_old, issue_new),
+        (prologue, prologue.replace("issue(0);\n", "issue(0);\n      if (!kSync) fill_states(0);\n")),
+        (step_end, step_end.replace("nxt);\n", "nxt);\n          if (!kSync) fill_states(s + 1);\n")),
+        (launch, "    (void)n4;\n    e = cudaFuncSetAttribute(ce_bwd_wide_tc_kernel,")]
+
+
+# ... and to the older sweeps, the route the middle pair replaced
+TO_SWEEP_MID = [("bool mid_route(int B, int H) { return B <= OC_B && H > OC_H && H <= MAX_H; }",
+                 "bool mid_route(int B, int H) { return false; }")]
+# ce_fwd_mid_tc_kernel without its table traffic (the loads, the rounding
+# into the slots), without its fragment loads and MMAs, without its fold
+MF_NO_LOADS = [("      chunk[q] = (c0 + r < V && h < H)", "      chunk[q] = (c0 + r < 0 && h < H)")]
+MF_NO_STORES = [("      *reinterpret_cast<uint2*>(dst + r * FT_LD + c4) = v;",
+                 "      if (V < 0) *reinterpret_cast<uint2*>(dst + r * FT_LD + c4) = v;")]
+MF_NO_MMA = [("    if (i_end == 4)  // (warp-uniform) 4 but where B < 256\n"
+              "      onchip_logits_64x64<true>(acc, S, slot(s), wm, wn, lane, 4, lds, FT_LD);\n"
+              "    else if (i_end > 0)\n"
+              "      onchip_logits_64x64<false>(acc, S, slot(s), wm, wn, lane, i_end, lds, FT_LD);\n", "")]
+MF_NO_FOLD = [("(m, sum)\n      fold_tile(acc", "(m, sum)\n      if (V < 0) fold_tile(acc")]
+# ce_bwd_mid_tc_kernel likewise, and without one kind of work at a time
+MB_NO_LOADS = [("      pre[k] = (col0 + r < V && h < H)", "      pre[k] = (col0 + r < 0 && h < H)")]
+MB_NO_FILL = [("      *reinterpret_cast<uint2*>(dst + r * (lg ? MID_LLD : MID_PLD) + c4) =",
+               "      if (V < 0) *reinterpret_cast<uint2*>(dst + r * (lg ? MID_LLD : MID_PLD) + c4) =")]
+MB_NO_DT_STORES = [("2 * t4;\n              if (h < H && j0 + m < V)", "2 * t4;\n              if (V < 0)")]
+MB_NO_CARRY = [("prev[q] = from ? src[q * 32]", "prev[q] = false ? src[q * 32]")]
+MB_NO_DS_STORES = [("            dst[(4 * i + j) * 32] =\n", "            if (V < 0) dst[(4 * i + j) * 32] =\n")]
+MB_NO_MMA = [("      for (int kk = 0; kk < TC_HL; kk += 16) {\n        uint32_t a[4][4], b[4][2];",
+              "      for (int kk = 0; kk < 0; kk += 16) {\n        uint32_t a[4][4], b[4][2];"),
+             ("for (int k = 0; k < 16 * kb; k += 16) {", "for (int k = 0; k < 0; k += 16) {"),
+             ("for (int k = 0; k < MID_COLS; k += 16) {", "for (int k = 0; k < 0; k += 16) {")]
+MB_LOGITS_ONLY = [("  const int n_lg = (MID_COLS / MID_SUB) * nl, per_tile = n_lg + np;",
+                   "  const int n_lg = (MID_COLS / MID_SUB) * nl, per_tile = n_lg;")]
+MB_PRODUCTS_ONLY = [("  const int n_lg = (MID_COLS / MID_SUB) * nl, per_tile = n_lg + np;",
+                     "  const int n_lg = 0 * nl, per_tile = np;")]
+# ce_bwd_mid_tc_kernel with ds_part carried through the MMAs (each products
+# step's accumulators start from it, as ce_bwd_wide_tc_kernel's do), not
+# added in fp32 after them
+MB_CARRY_THROUGH_MMA = [
+    ("        // acc[i][j] += p[pm + 16 i, :] . T[:, h0 + 8 j] over the tile's columns\n",
+     "        // acc[i][j] += p[pm + 16 i, :] . T[:, h0 + 8 j] over the tile's columns\n"
+     "        for (int q = 0; q < 16; ++q) {\n"
+     "          acc[q >> 2][q & 3][0] = prev[q].x;\n          acc[q >> 2][q & 3][1] = prev[q].y;\n"
+     "          acc[q >> 2][q & 3][2] = prev[q].z;\n          acc[q >> 2][q & 3][3] = prev[q].w;\n"
+     "        }\n"),
+    ("            const float4 c = prev[4 * i + j];", "            const float4 c = make_float4(0.f, 0.f, 0.f, 0.f);")]
+# ... with L2 eviction hints: ds_part loaded and stored evict-last (a
+# split's 256 KB at H = 256 meant to stay in L2), dT stored evict-first
+MB_L2_HINTS = [
+    ("constexpr int MID_COLS = 128;",
+     "__device__ __forceinline__ uint64_t l2_policy(bool last) {\n"
+     "  uint64_t p;\n"
+     "  if (last) asm volatile(\"createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\\n\" : \"=l\"(p));\n"
+     "  else asm volatile(\"createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\\n\" : \"=l\"(p));\n"
+     "  return p;\n}\n"
+     "__device__ __forceinline__ float4 ld_hint(const float4* p, uint64_t pol) {\n"
+     "  float4 v;\n"
+     "  asm volatile(\"ld.global.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;\\n\"\n"
+     "               : \"=f\"(v.x), \"=f\"(v.y), \"=f\"(v.z), \"=f\"(v.w) : \"l\"(p), \"l\"(pol));\n"
+     "  return v;\n}\n"
+     "__device__ __forceinline__ void st_hint(float4* p, float4 v, uint64_t pol) {\n"
+     "  asm volatile(\"st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\\n\"\n"
+     "               :: \"l\"(p), \"f\"(v.x), \"f\"(v.y), \"f\"(v.z), \"f\"(v.w), \"l\"(pol) : \"memory\");\n}\n"
+     "__device__ __forceinline__ void st_hint(float2* p, float2 v, uint64_t pol) {\n"
+     "  asm volatile(\"st.global.L2::cache_hint.v2.f32 [%0], {%1, %2}, %3;\\n\"\n"
+     "               :: \"l\"(p), \"f\"(v.x), \"f\"(v.y), \"l\"(pol) : \"memory\");\n}\n\n"
+     "constexpr int MID_COLS = 128;"),
+    ("  const int pm = dt_warp ? 32 * warp : 64 * (warp - 4);\n\n  tc::stage_states_bf16(",
+     "  const int pm = dt_warp ? 32 * warp : 64 * (warp - 4);\n"
+     "  const uint64_t keep = l2_policy(true), stream = l2_policy(false);\n\n  tc::stage_states_bf16("),
+    ("prev[q] = from ? src[q * 32] :", "prev[q] = from ? ld_hint(src + q * 32, keep) :"),
+    ("            dst[(4 * i + j) * 32] =\n"
+     "                make_float4(c.x + acc[i][j][0], c.y + acc[i][j][1], c.z + acc[i][j][2], c.w + acc[i][j][3]);",
+     "            st_hint(dst + (4 * i + j) * 32,\n"
+     "                make_float4(c.x + acc[i][j][0], c.y + acc[i][j][1], c.z + acc[i][j][2], c.w + acc[i][j][3]), keep);"),
+    ("                *reinterpret_cast<float2*>(dtable + (size_t)(j0 + m) * H + h) =\n"
+     "                    make_float2(acc[i][j][e], acc[i][j][e + 1]);\n            }\n      } else {",
+     "                st_hint(reinterpret_cast<float2*>(dtable + (size_t)(j0 + m) * H + h),\n"
+     "                        make_float2(acc[i][j][e], acc[i][j][e + 1]), stream);\n            }\n      } else {")]
+# variant: replacements, at B=256, V=1M, H in {128, 256} (--mid); the cut
+# variants compute wrong results and are timed only
+MID_VARIANTS = {
+    "kernel": [],
+    "bf16 on the wide tensor-core kernels": TO_WIDE_MID,
+    "bf16 on the older sweeps": TO_SWEEP_MID,
+    "middle kernels: MMAs and epilogue only": (MF_NO_LOADS + MF_NO_STORES + MB_NO_LOADS + MB_NO_FILL
+                                              + MB_NO_DT_STORES + MB_NO_CARRY + MB_NO_DS_STORES),
+    "middle kernels: everything but the MMAs": MF_NO_MMA + MB_NO_MMA,
+    "middle kernels: no fold (forward), no ds_part carry (backward)": MF_NO_FOLD + MB_NO_CARRY,
+    "middle kernels: backward without its ds_part stores": MB_NO_DS_STORES,
+    "middle kernels: backward without its dT stores": MB_NO_DT_STORES,
+    "middle kernels: backward, logits steps only": MB_LOGITS_ONLY,
+    "middle kernels: backward, products steps only": MB_PRODUCTS_ONLY,
+    "backward: ds_part carried through the MMAs": MB_CARRY_THROUGH_MMA,
+    "backward: L2 eviction hints on ds_part and dT": MB_L2_HINTS,
+    "backward: wide tiling, states streamed from fp32, a step ahead": wide_streamed(sync=False),
+    "backward: wide tiling, states streamed from fp32, at the step": wide_streamed(sync=True),
+}
+
+
 def sources(variants: dict | None = None) -> dict[str, str]:
     """{variant: source text} of `variants` (default VARIANTS); raises
     unless every replacement matches once."""
@@ -464,14 +708,37 @@ def timed_in_turns(calls: dict, iters: int = 10) -> dict:
 
 def onchip_main() -> None:
     """The --onchip mode (module docstring)."""
+    route_main(ONCHIP_VARIANTS, "onchip", (64,), "on-chip kernels:")
+
+
+def mid_main() -> None:
+    """The --mid mode (module docstring)."""
+    route_main(MID_VARIANTS, "mid", (128, 256), "middle kernels:")
+
+
+def route_main(variants: dict, prefix: str, widths: tuple, cut: str) -> None:
+    """Build `variants`, then at B=256, V=1M and each H of `widths` time
+    them in turns with the fp32 form and the library calls; the whole
+    variants' (not those whose name starts with `cut`) outputs against the
+    plain bf16 versions."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate_ce_tc: no CUDA device")
+    libs = build(sources(variants), prefix=prefix)
+    for h in widths:
+        route_times(libs, h, cut)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+
+
+def route_times(libs: dict, h: int, cut: str) -> None:
+    """One width of `route_main`."""
     import importlib.util
 
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("ablate_ce_tc: no CUDA device")
-    libs = build(sources(ONCHIP_VARIANTS), prefix="onchip")
     sys.path.insert(0, str(ROOT))
     from bsarec_tpu_torch import parity
     from bsarec_tpu_torch.ops import ce
@@ -479,7 +746,7 @@ def onchip_main() -> None:
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    b, v, h = 256, 1_000_000, 64
+    b, v = 256, 1_000_000
     dev = torch.device("cuda")
     rng = np.random.default_rng(100)  # chip_smoke.py's main CE case
     states = torch.from_numpy(rng.standard_normal((b, h), dtype=np.float32)).to(dev)
@@ -488,6 +755,9 @@ def onchip_main() -> None:
     dloss = torch.full((b,), 1.0 / b, device=dev)
     want_loss, logz = ce.ce_loss_logz_plain(states, table, answers, v, bf16=True)
     want_ds, want_dt = ce.ce_grads_plain(states, table, answers, logz, dloss, v, bf16=True)
+    # the tensor cores' summation order (parity.py's head): the reference of
+    # BF16_WIDE_GRAD_TOL
+    in_order = parity.ce_grads_bf16_in_order(states, table, answers, logz, dloss, v)
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     f_splits, f_per = ce.tc_splits(v, ce._TC_FWD_VT, sm)
     g_splits, g_per = ce.tc_splits(v, ce._TC_VT, sm)
@@ -517,7 +787,7 @@ def onchip_main() -> None:
             tag = name if form else "fp32 kernel"
             calls[f"forward: {tag}"] = lambda lib=lib, a=fwd: lib.ce_logz(*a, stream())
             calls[f"backward: {tag}"] = lambda lib=lib, a=bwd: lib.ce_grads(*a, stream())
-            if not form or name.startswith("on-chip kernels:"):
+            if not form or name.startswith(cut):
                 continue
             if calls[f"forward: {tag}"]() != 0 or calls[f"backward: {tag}"]() != 0:
                 raise SystemExit(f"ablate_ce_tc: {name!r} launch failed")
@@ -526,7 +796,9 @@ def onchip_main() -> None:
             print(json.dumps({"accuracy": name, "B": b, "V": v, "H": h,
                               "logZ vs plain bf16": float(((z - logz).abs() / logz.abs().clamp(min=1.0)).max()),
                               "loss vs plain bf16": float(((loss - want_loss).abs() / want_loss.abs().clamp(min=1.0)).max()),
-                              "gradients vs plain bf16": errs}), flush=True)
+                              "gradients vs plain bf16": errs,
+                              "gradients vs plain bf16, logits in ascending h":
+                                  parity.grad_errors(ds, dt, *in_order, answers, v)}), flush=True)
     (fwd_lib, fwd_name), (back_lib, back_name) = smoke.bf16_yardsticks(states, table, answers)
 
     def zero(fn):
@@ -535,22 +807,27 @@ def onchip_main() -> None:
     calls[f"backward: library {back_name}"] = zero(back_lib)
     for name, r in timed_in_turns(calls).items():
         print(json.dumps({"variant": name, "ms": r, "B": b, "V": v, "H": h}), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    del keep, calls, states, table, want_ds, want_dt, in_order
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true", help="only check that the replacements apply")
     ap.add_argument("--onchip", action="store_true", help="the bf16 on-chip route's variants")
+    ap.add_argument("--mid", action="store_true", help="the bf16 middle route's variants")
     args = ap.parse_args()
     texts = sources()
     if args.check:
-        onchip = sources(ONCHIP_VARIANTS)
-        print(f"ablate_ce_tc: {len(texts)} variants and {len(onchip)} on-chip variants apply")
+        onchip, mid = sources(ONCHIP_VARIANTS), sources(MID_VARIANTS)
+        print(f"ablate_ce_tc: {len(texts)} variants, {len(onchip)} on-chip variants and "
+              f"{len(mid)} middle-route variants apply")
         return
     if args.onchip:
         onchip_main()
+        return
+    if args.mid:
+        mid_main()
         return
     import numpy as np
     import torch

@@ -57,11 +57,41 @@ the bf16 forms' outputs at `CE_CASES`, and `ce_wide_bf16_grads_digest`,
 the bf16 `ce_grads` (ds, dT) at `WIDE_CE_CASES` at the plain logZ too.
 The wide ce_grads readings take the plain logZ as well.
 
+The middle widths (B=256, V=1,000,000, H in MID_WIDTHS = {128, 256}, the
+states N(0, 1), the table 0.25 N(0, 1), chip_smoke.py's main CE case's
+scales): the five forms there, `ce_loss_logz` and `ce_grads` in the fp32
+form (the older sweeps) and in the bf16 form (the middle route's
+tensor-core pair in this package, the older sweeps' bf16 form in one
+from before it), and `streaming_masked_topk` at k=20 (its older route),
+each first held against its plain version (the forward within CE_TOL;
+the fp32 gradients within GRAD_TOL and the bf16 ones within
+WIDE_BF16_TOL of `parity.ce_grads_bf16_in_order`, each group of
+`parity.grad_errors` apart, at the plain version's logZ of the form; two
+calls bit for bit; the rank kernel as at H=64), then timed two readings
+each in turns (fp32 logz, bf16 logz, fp32 grads, bf16 grads, rank, rank,
+bf16 grads, fp32 grads, bf16 logz, fp32 logz), with its plain version's
+ms and its library call's (`F.cross_entropy` over the fp32 product, or
+`chip_smoke.py:bf16_yardsticks`' over the bf16 one, forward and
+backward; `matmul` + `masked_fill_` + `topk`): the `mid` entry, with
+each wrapper's middle-route launch count; and `ce_mid_bf16_digest`, the
+bf16 forms' outputs at `MID_CE_CASES` (seeded with 600 + i; the
+gradients at the plain fp32 logZ), which moves by design where the
+middle route's kernels replace the older sweeps (so does
+`ce_bf16_digest`: `CE_CASES` holds two middle-route shapes).
+
     python3 bsarec_tpu_torch/tools/time_kernels.py
         # this checkout's package
     python3 bsarec_tpu_torch/tools/time_kernels.py --against DIR [DIR ...]
         # the DIRs' packages, then this one; then the same in reverse
         # order: one process each, in turns
+    python3 bsarec_tpu_torch/tools/time_kernels.py --large
+        # the bf16 CE pair at the large-catalog shape alone (below)
+
+With `--large`, this package's bf16 `ce_loss_logz` and `ce_grads` at
+B=256, V=10,000,000, H=256 (`benchmarks/large_catalog.py`'s 10M x 256
+cell; on the middle route, ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel),
+checked as the middle widths are, then timed in turns (logz, grads,
+grads, logz), with their byte bounds: one JSON line, then the card.
 
 Each process prints one JSON line; the comparison ends with the card's
 name and power limit. Needs a card and nvcc.
@@ -80,6 +110,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[2]
 B, V, H, K = 256, 1_000_000, 64, 20
 ITERS = 20
@@ -88,6 +120,7 @@ GRAD_TOL = 1e-4  # chip_smoke.py's
 FLOAT_TOL = 1e-4  # chip_smoke.py's
 CE_TOL = 1e-5  # chip_smoke.py's
 WIDE_BF16_TOL = 6e-3  # parity.BF16_WIDE_GRAD_TOL (an older package's parity.py lacks it)
+MID_WIDTHS = (128, 256)
 
 
 def cuda_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
@@ -123,7 +156,6 @@ def host_ms(fn, iters: int = 50) -> float:
 def rank_inputs(device):
     """chip_smoke.py's main-path rank case: N(0, 1) states and table, 20
     seen items a row (a repeat and padding among them)."""
-    import numpy as np
     import torch
 
     from bsarec_tpu_torch.ops import rank
@@ -175,11 +207,12 @@ def rank_eval_digest(device, wide: bool = False, integer_only: bool = False) -> 
 
 
 def ce_digest(device, wide: bool = False, dtype=None, grads_only: bool = False,
-              forward_only: bool = False) -> str:
+              forward_only: bool = False, mid: bool = False) -> str:
     """sha256 over the CE entries' outputs, in the form `dtype` names, at
     this checkout's `chip_smoke.py` CE cases (`CE_CASES`, the i-th on
     `ce_case`'s inputs seeded with 100 + i; with `wide`, `WIDE_CE_CASES`
-    seeded with 200 + i): loss and logZ from `ce_loss_logz`, ds and dT from
+    seeded with 200 + i; with `mid`, `MID_CE_CASES` seeded with 600 + i):
+    loss and logZ from `ce_loss_logz`, ds and dT from
     `ce_grads` at that logZ and dloss = 1/B; with `grads_only`, ds and dT
     alone, at the fp32 plain version's logZ (no kernel's); with
     `forward_only`, loss and logZ alone."""
@@ -189,7 +222,8 @@ def ce_digest(device, wide: bool = False, dtype=None, grads_only: bool = False,
 
     smoke = _chip_smoke()
     digest = hashlib.sha256()
-    cases, seed0 = (smoke.WIDE_CE_CASES, 200) if wide else (smoke.CE_CASES, 100)
+    cases, seed0 = ((smoke.WIDE_CE_CASES, 200) if wide else (smoke.MID_CE_CASES, 600) if mid
+                    else (smoke.CE_CASES, 100))
     for i, (_, b, v, h, n_valid, kind) in enumerate(cases):
         states, table, answers = smoke.ce_case(b, v, h, n_valid, seed=seed0 + i, device=device,
                                                answer_kind=kind)
@@ -236,11 +270,125 @@ def check_rank(states, table, bitmask) -> float:
     return err
 
 
+def time_mid(h, r_mask, rng, device) -> dict:
+    """The five middle-width forms at B=256, V=1M and hidden size `h`
+    (module docstring): each checked, then timed in turns; {form: {"ms":
+    [ms, ms], "plain_ms": ms, "library_ms": ms}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from bsarec_tpu_torch import parity
+    from bsarec_tpu_torch.ops import ce, rank
+
+    states = torch.from_numpy(rng.standard_normal((B, h), dtype=np.float32)).to(device)
+    table = torch.from_numpy(0.25 * rng.standard_normal((V, h), dtype=np.float32)).to(device)
+    answers = torch.from_numpy(rng.integers(1, V, size=B)).to(device)
+    d = torch.full((B,), 1.0 / B, device=device)
+    forms, errs = {}, {}
+    for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
+        bf16 = dtype is not None
+        want_loss, want_logz = ce.ce_loss_logz_plain(states, table, answers, V, bf16=bf16)
+        fwd = lambda dtype=dtype: ce.ce_loss_logz(states, table, answers, V, dtype=dtype)
+        (loss, logz), (loss2, logz2) = fwd(), fwd()
+        err = max(float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                  for x, y in ((loss, want_loss), (logz, want_logz)))
+        if err > CE_TOL or not (torch.equal(loss, loss2) and torch.equal(logz, logz2)):
+            raise SystemExit(f"time_kernels: {tag} ce_loss_logz at H={h} off its plain version "
+                             f"({err}) or not deterministic")
+        grads = lambda dtype=dtype, z=want_logz: ce.ce_grads(states, table, answers, z, d, V,
+                                                             dtype=dtype)
+        (ds, dt), (ds2, dt2) = grads(), grads()
+        want = (parity.ce_grads_bf16_in_order(states, table, answers, want_logz, d, V) if bf16
+                else ce.ce_grads_plain(states, table, answers, want_logz, d, V))
+        g_err = max(parity.grad_errors(ds, dt, *want, answers, V).values())
+        if g_err > (WIDE_BF16_TOL if bf16 else GRAD_TOL) or not (torch.equal(ds, ds2)
+                                                                   and torch.equal(dt, dt2)):
+            raise SystemExit(f"time_kernels: {tag} ce_grads at H={h} off its plain version "
+                             f"({g_err}) or not deterministic")
+        errs |= {f"ce_logz_{tag}": err, f"ce_grads_{tag}": g_err}
+        del loss, loss2, logz, logz2, ds, dt, ds2, dt2, want
+        plain_z = want_logz
+        forms[f"ce_logz_{tag}"] = (fwd, lambda bf16=bf16: ce.ce_loss_logz_plain(
+            states, table, answers, V, bf16=bf16))
+        forms[f"ce_grads_{tag}"] = (grads, lambda bf16=bf16, z=plain_z: ce.ce_grads_plain(
+            states, table, answers, z, d, V, bf16=bf16))
+    errs["rank"] = check_rank(states, table, r_mask)
+    forms["rank"] = (lambda: rank.streaming_masked_topk(states, table, r_mask, K, V),
+                     lambda: rank.streaming_masked_topk_plain(states, table, r_mask, K, V))
+    torch.cuda.empty_cache()
+    names = list(forms)
+    ms = {name: [] for name in names}
+    for name in names + names[::-1]:
+        ms[name].append(cuda_ms(forms[name][0], iters=10))
+    out = {name: {"ms": ms[name], "plain_ms": cuda_ms(forms[name][1], iters=2, warmup=1),
+                  "max_rel_err": errs[name]} for name in names}
+    # the library calls, on the same inputs (yardsticks only)
+    (fwd16, fwd16_name), (back16, back16_name) = _chip_smoke().bf16_yardsticks(states, table, answers)
+    s_req, t_req = states.clone().requires_grad_(), table.clone().requires_grad_()
+    graph = F.cross_entropy(s_req @ t_req.T, answers)
+    cols = torch.arange(V, device=device)
+    seen = ((r_mask[:, cols >> 5] >> (cols & 31).int()) & 1).bool()
+    library = {"ce_logz_fp32": (lambda: F.cross_entropy(states @ table.T, answers),
+                                "F.cross_entropy(states @ table.T) forward"),
+               "ce_grads_fp32": (lambda: torch.autograd.grad(graph, (s_req, t_req), retain_graph=True),
+                                 "backward of F.cross_entropy(states @ table.T)"),
+               "ce_logz_bf16": (fwd16, fwd16_name), "ce_grads_bf16": (back16, back16_name),
+               "rank": (lambda: torch.topk(torch.matmul(states, table.T).masked_fill_(seen, 0.0), K),
+                        "matmul + masked_fill_ + topk")}
+    for name, (fn, lib_name) in library.items():
+        out[name] |= {"library_ms": cuda_ms(fn, iters=5), "library": lib_name}
+    del graph, s_req, t_req, seen, cols
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_large() -> dict:
+    """The --large mode (module docstring)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from bsarec_tpu_torch import parity
+    from bsarec_tpu_torch.ops import ce
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, b, v, h = torch.device("cuda"), B, 10_000_000, 256
+    rng = np.random.default_rng(10)
+    states = torch.from_numpy(rng.standard_normal((b, h), dtype=np.float32)).to(device)
+    table = torch.from_numpy(0.25 * rng.standard_normal((v, h), dtype=np.float32)).to(device)
+    answers = torch.from_numpy(rng.integers(1, v, size=b)).to(device)
+    d = torch.full((b,), 1.0 / b, device=device)
+    fwd = lambda: ce.ce_loss_logz(states, table, answers, v, dtype="bfloat16")
+    (loss, logz), (loss2, logz2) = fwd(), fwd()
+    want_loss, want_logz = ce.ce_loss_logz_plain(states, table, answers, v, bf16=True)
+    fwd_err = max(float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                  for x, y in ((loss, want_loss), (logz, want_logz)))
+    if fwd_err > CE_TOL or not (torch.equal(loss, loss2) and torch.equal(logz, logz2)):
+        raise SystemExit(f"time_kernels: bf16 ce_loss_logz at V={v} off its plain version "
+                         f"({fwd_err}) or not deterministic")
+    grads = lambda: ce.ce_grads(states, table, answers, logz, d, v, dtype="bfloat16")
+    (ds, dt), (ds2, dt2) = grads(), grads()
+    want = parity.ce_grads_bf16_in_order(states, table, answers, logz, d, v)
+    grad_err = parity.grad_errors(ds, dt, *want, answers, v)
+    if max(grad_err.values()) > WIDE_BF16_TOL or not (torch.equal(ds, ds2) and torch.equal(dt, dt2)):
+        raise SystemExit(f"time_kernels: bf16 ce_grads at V={v} off the in-order plain version "
+                         f"({grad_err}) or not deterministic")
+    del ds, dt, ds2, dt2, want, loss2, logz2
+    torch.cuda.empty_cache()
+    f1, g1, g2, f2 = (cuda_ms(fn, iters=10) for fn in (fwd, grads, grads, fwd))
+    table_bytes = 4 * v * h
+    return {"B": b, "V": v, "H": h, "mid_route": ce.mid_route(b, h),
+            "ce_logz_bf16": [f1, f2], "ce_grads_bf16": [g1, g2],
+            "ce_logz_bf16_bound_ms": table_bytes / 3.35e12 * 1e3,
+            "ce_grads_bf16_bound_ms": 2 * table_bytes / 3.35e12 * 1e3,
+            "ce_logz_bf16_rel_err": fwd_err, "ce_grads_bf16_rel_err": grad_err}
+
+
 def time_package(package_root: Path) -> dict:
     """{"ce_grads": [ms, ms], "ce_logz": [ms, ms], "streaming_masked_topk":
     [ms, ms], ...} for the package under `package_root`."""
     sys.path.insert(0, str(package_root))
-    import numpy as np
     import torch
 
     from bsarec_tpu_torch import parity
@@ -340,6 +488,7 @@ def time_package(package_root: Path) -> dict:
            "ce_wide_fp32_fwd_digest": ce_digest(device, wide=True, forward_only=True),
            "ce_wide_fp32_grads_digest": ce_digest(device, wide=True, grads_only=True),
            "ce_bf16_digest": ce_digest(device, dtype="bfloat16"),
+           "ce_mid_bf16_digest": ce_digest(device, mid=True, dtype="bfloat16", grads_only=True),
            "ce_wide_bf16_grads_digest": ce_digest(device, wide=True, dtype="bfloat16",
                                                   grads_only=True)}
     if "taken" in inspect.signature(rank._launch).parameters:
@@ -372,6 +521,13 @@ def time_package(package_root: Path) -> dict:
         out[f"{name}_onchip_launches"] = getattr(f, "onchip_launches", None)
     for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads)):
         out[f"{name}_wide_launches"] = getattr(f, "wide_launches", None)
+    # the middle widths last: their forms at B=256, V=1M, H in MID_WIDTHS
+    mid_before = {name: getattr(f, "mid_launches", None)
+                  for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads))}
+    out["mid"] = {h: time_mid(h, r_mask, np.random.default_rng(100 + h), device) for h in MID_WIDTHS}
+    for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads)):
+        after = getattr(f, "mid_launches", None)
+        out[f"{name}_mid_launches"] = None if after is None else after - mid_before[name]
     out["streaming_masked_topk_tc_launches"] = getattr(rank.streaming_masked_topk, "tc_launches", None)
     return out
 
@@ -388,7 +544,13 @@ def main() -> None:
                     help="the checkout whose bsarec_tpu_torch is timed (default: this one)")
     ap.add_argument("--against", type=Path, nargs="+", default=None,
                     help="other checkouts: time them and this one in turns, one process each")
+    ap.add_argument("--large", action="store_true",
+                    help="the bf16 CE pair at B=256, V=10,000,000, H=256 alone")
     args = ap.parse_args()
+    if args.large:
+        print(json.dumps(time_large()), flush=True)
+        print(card_line(), flush=True)
+        return
     if args.against is None:
         print(json.dumps({"package": str(args.package_root), "B": B, "V": V, "H": H, "k": K,
                           "wide_H": WIDE_H, "ms": time_package(args.package_root.resolve())}),

@@ -32,18 +32,21 @@ Phases, each of which raises (exit code 1) when it fails:
    ds bit-equal to the unfused composition of the same kernels
    (ce_grads with every answer set to -1, which leaves out the gold
    terms, minus dloss * gold_rows); ce_grads on the route its shape
-   names (on-chip at B <= 256 and H <= 64, the sweep at H in {128, 256}),
+   names (on-chip at B <= 256 and H <= 64; at H in {128, 256} the sweep in
+   the fp32 form and the middle route's tensor-core pair in the bf16 form),
    and two ce_grads calls on the same inputs bit-equal in ds and dT; dT's
    one-hot term read off ce_grads (on the answers against answers of -1)
    equal, up to fp32 rounding, to the sum of dloss_i * s_i over the
    unrounded states. Every case runs twice: in the fp32 form and in the
    bf16-operand form (`--dtype bf16`; on the on-chip route its own
-   tensor-core kernels, ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel)
-   against the plain bf16 versions: its logZ apart from the fp32 form's,
-   its ce_grads at the kernel's logZ within bsarec_tpu_torch/parity.py's
-   BF16_GRAD_TOL of the plain version at that logZ (ds, dT's answer rows
-   and dT's other rows apart), which the fp32 form must exceed on ds and on
-   dT's other rows; on the on-chip route, whose bf16 pair sums its logits
+   tensor-core kernels, ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel;
+   on the middle route, phase 3c's ce_fwd_mid_tc_kernel and
+   ce_bwd_mid_tc_kernel) against the plain bf16 versions: its logZ apart
+   from the fp32 form's, its ce_grads at the kernel's logZ within
+   bsarec_tpu_torch/parity.py's BF16_GRAD_TOL of the plain version at that
+   logZ (ds, dT's answer rows and dT's other rows apart), which the fp32
+   form must exceed on ds and on dT's other rows; on the on-chip and
+   middle routes, whose bf16 pairs sum their logits
    in the tensor cores' order, within BF16_WIDE_GRAD_TOL of
    parity.ce_grads_bf16_in_order, as the wide route's bf16 form is held
    (the distance from the plain version printed beside), the fp32 control
@@ -77,7 +80,7 @@ Phases, each of which raises (exit code 1) when it fails:
    values and ids bit-equal on the integer cases and values within
    FLOAT_TOL on the float ones; at k > 32 the older route with all states
    staged or in hidden chunks. Then `main
-   --hidden_size 512` on a 1M-item x 5k-user corpus: one epoch, then
+   --hidden_size 512` on a 1M-item x 2.5k-user corpus: one epoch, then
    `--resume --epochs 2 --export_topk`, which must start at epoch 1 (one
    ce_logz and one ce_grads launch a step, every one on the wide route;
    the rank kernel on every eval batch, every launch on
@@ -90,6 +93,28 @@ Phases, each of which raises (exit code 1) when it fails:
    phase 10 times them (the CE entries in both forms; the rank kernel at
    k=20 at B=256 and B=16, with its older route in turns, and, in the
    older route's wide form, at k=128), and the phase's seconds.
+3c. The middle route (B <= 256, 64 < H <= 256; the mid phase, after the
+   wide phase): the CE kernels in both forms at MID_CE_CASES (the main
+   path's B=256, V=1M, H=256 among them; H in {68, 128, 192}, B in {1, 3,
+   255}, BERT4Rec's table at n_valid = V - 1, repeated answers) with phase
+   3's checks, the bf16 form on ce_fwd_mid_tc_kernel and
+   ce_bwd_mid_tc_kernel (a middle-route launch each call) held as the
+   on-chip route's tensor-core pair (parity.ce_grads_bf16_in_order within
+   BF16_WIDE_GRAD_TOL), the fp32 form on the older sweeps; two cases past
+   the route (B = 300 at H = 128, B = 257 at H = 256), where both forms
+   take the older sweeps, the bf16 form held within BF16_GRAD_TOL of the
+   plain bf16 version with its fp32 control failing; and at
+   MID_EXACT_CASES (parity.exact_logit_case inputs at scale 1, the main
+   path's shape among them) within parity.BF16_GRAD_TOL, which the fp32
+   form must fail. Then `main --hidden_size 256 --dtype bf16` (BSARec, 2
+   layers, 1 head, c=5, alpha=0.7, max_len 50) on a 1M-item x 5k-user
+   corpus for one epoch (every ce_logz and ce_grads launch on the middle
+   route's kernels, the rank kernel on every eval batch), then `--do_eval
+   --load_model --export_topk` (the rank kernel's older route, no CE
+   launch); the bf16 CE entries at H in {128, 256} timed as phase 10 times
+   them (in turns with the fp32 form, the older sweep there; plain,
+   library, bound; the training step's CE in at most 5 device operations),
+   and the step's CE ms beside main's examples/s.
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -784,24 +809,31 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     parity.BF16_WIDE_GRAD_TOL, its distance from the plain version printed
     beside), and the fp32 form, which lies nearer than that limit at
     H <= 64, must fail only on the exact-logit cases (ONCHIP_EXACT_CASES).
-    Returns the largest absolute error of each kernel's outputs."""
+    The bf16 form's middle-route pair (B <= 256, 64 < H <= 256:
+    ce_fwd_mid_tc_kernel, ce_bwd_mid_tc_kernel) is held as the on-chip
+    route's, its fp32 control on MID_EXACT_CASES. Returns the largest
+    absolute error of each kernel's outputs."""
     import torch
 
     from bsarec_tpu_torch import parity
     from bsarec_tpu_torch.ops import ce
 
     bf16 = dtype is not None
-    # the bf16 form's on-chip tensor-core pair, on inputs whose logits are
-    # not exact: held as the wide route's bf16 form is (docstring)
-    onchip_tc = bf16 and not exact and ce.onchip_route(*states.shape)
+    # the bf16 form's on-chip and middle-route tensor-core pairs, on inputs
+    # whose logits are not exact: held as the wide route's bf16 form is
+    # (docstring)
+    mid = bf16 and ce.mid_route(*states.shape)
+    onchip_tc = bf16 and not exact and (ce.onchip_route(*states.shape) or mid)
     in_order = in_order or onchip_tc
     mapped = ce.map_answers(answers, n_valid)
     logz_onchip_before = ce.ce_logz.onchip_launches
     logz_wide_before = ce.ce_logz.wide_launches
+    logz_mid_before = ce.ce_logz.mid_launches
     bf16_before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
     loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
     check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape)
-          and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1]),
+          and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1])
+          and ce.ce_logz.mid_launches - logz_mid_before == mid,
           f"{case_name}: ce_logz took another route than its shape and form name")
     check(ce.ce_logz.bf16_launches - bf16_before[0] == bf16,
           f"{case_name}: ce_logz took another form than {dtype or 'float32'}")
@@ -847,17 +879,19 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     # two calls on the same inputs give the same bits, on the route the shape takes
     onchip_before = ce.ce_grads.onchip_launches
     wide_before = ce.ce_grads.wide_launches
+    mid_before = ce.ce_grads.mid_launches
     grads_bf16_before = ce.ce_grads.bf16_launches
     fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
     n_wide = ce.ce_grads.wide_launches - wide_before
+    n_mid = ce.ce_grads.mid_launches - mid_before
     # every wide launch takes a tensor-core kernel, in either form
     route = (("on-chip, tensor cores" if bf16 else "on-chip") if n_onchip
-             else "wide, tensor cores" if n_wide else "sweep")
+             else "wide, tensor cores" if n_wide else "middle, tensor cores" if n_mid else "sweep")
     check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0)
-          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0),
+          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0) and n_mid == 2 * mid,
           f"{case_name}: ce_grads took another route than its shape and form name")
     check(ce.ce_grads.bf16_launches - grads_bf16_before == 2 * bf16,
           f"{case_name}: ce_grads took another form than {dtype or 'float32'}")
@@ -1631,8 +1665,11 @@ def phase_ce_times(full, card, dtype=None):
             ((f1, f2), (k1, k2)) = in_turns(None, dtype, lambda dt: cuda_ms(lambda: kernel(dt), iters=20))
             ms = (k1 + k2) / 2
             fields["fp32_form_ms"] = (f1 + f2) / 2
-            log(f"time {name} bf16 form: {pair((k1, k2))} ms, fp32 form {pair((f1, f2))} ms (B={b} "
-                f"V={v} H={h}; turns fp32, bf16, bf16, fp32) [{card}]")
+            # on the middle route the fp32 form runs the older sweep, whose
+            # loops the bf16 form ran before its tensor-core pair
+            sweep = " (the older sweep)" if ce.mid_route(b, h) else ""
+            log(f"time {name} bf16 form: {pair((k1, k2))} ms, fp32 form{sweep} {pair((f1, f2))} ms "
+                f"(B={b} V={v} H={h}; turns fp32, bf16, bf16, fp32) [{card}]")
         else:
             ms = cuda_ms(lambda: kernel(None), iters=20)
             log(f"time {name} kernel: {ms:.4f} ms (B={b} V={v} H={h}, gold terms fused) [{card}]")
@@ -1828,6 +1865,8 @@ def reset_counts() -> None:
     for f in (rank.streaming_masked_topk, ce.ce_logz, ce.ce_grads):
         f.onchip_launches = 0
         f.wide_launches = 0
+    for f in (ce.ce_logz, ce.ce_grads):
+        f.mid_launches = 0
     rank.streaming_masked_topk.tc_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
@@ -3069,7 +3108,7 @@ def phase_bf16_train_turns(device, card, n_steps: int = 20):
 # from synth_corpus: half of phase 7's users, so that the phase's three runs
 # of main stay near two minutes (a step at H = 512 runs ~40 ms of CE kernels)
 WIDE_H = 512
-WIDE_USERS = 5_000
+WIDE_USERS = 2_500  # 5,000 before the middle route's phase: its runs' time
 WIDE_WIDTHS = ["--model_type", "BSARec", "--hidden_size", str(WIDE_H), "--num_hidden_layers", "2",
                "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7", "--max_seq_length", "50"]
 # the wide phase's CE cases, the i-th on ce_case's inputs seeded with 200 + i:
@@ -3199,7 +3238,7 @@ def phase_wide_kernels(device):
 
 
 def phase_wide_train(device, card):
-    """`main --hidden_size 512` on the 1M-item x 5k-user corpus: one epoch,
+    """`main --hidden_size 512` on the 1M-item x 2.5k-user corpus: one epoch,
     then --resume --epochs 2 --export_topk, which must start at epoch 1;
     then one --dtype bf16 epoch. Every step one ce_logz and one ce_grads
     launch, every one on the wide route (in the bf16 form under --dtype
@@ -3411,6 +3450,169 @@ def phase_wide_times(ce_full, rank_full, card):
     rank20["k128"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": "operations", "library_ms": library_ms}
     return {"ce32": ce32, "ce16": ce16, "rank": rank20}
+
+
+
+# ---- the middle route: the bf16 form at B <= 256, 64 < H <= 256 -------------
+
+MID_H = 256
+MID_USERS = 5_000
+MID_WIDTHS = ["--model_type", "BSARec", "--hidden_size", str(MID_H), "--num_hidden_layers", "2",
+              "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7", "--max_seq_length", "50"]
+# the middle route's CE cases, the i-th on ce_case's inputs seeded with
+# 600 + i: (tag, B, V, H, n_valid, answers). In the bf16 form the first four
+# take ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel, held as the on-chip
+# route's tensor-core pair (compare_ce); the last two, at B > 256, the older
+# sweeps' bf16 form (ce_fwd_partial_kernel<true>, ce_bwd_sweep_kernel<true>),
+# held within BF16_GRAD_TOL of the plain bf16 version with the fp32 control
+# failing. The fp32 form takes the older sweeps throughout
+MID_CE_CASES = [
+    ("main path at H=256", 256, N_ITEMS, MID_H, N_ITEMS, "plain"),
+    ("H=128, B=255, BERT4Rec's table, n_valid = V - 1", 255, N_ITEMS + 1, 128, N_ITEMS, "odd"),
+    ("H=68, B=1, V off every tile", 1, 12101, 68, 12101, "odd"),
+    ("H=192, B=3, n_valid < V, repeated answers", 3, 4099, 192, 4000, "repeated"),
+    ("H=128, B=300, past the middle route", 300, 30011, 128, 30011, "odd"),
+    ("H=256, B=257, past the middle route, n_valid < V", 257, 40009, MID_H, 40000, "odd"),
+]
+# ... and on parity.exact_logit_case's inputs (scale 1), the i-th seeded with
+# 700 + i: (tag, B, V, H, n_valid). The sharp check: the bf16 form within
+# parity.BF16_GRAD_TOL, which the fp32 form must fail
+MID_EXACT_CASES = [
+    ("exact logits at the main path's shape", 256, N_ITEMS, MID_H, N_ITEMS),
+    ("exact logits, H=128", 256, 20011, 128, 20011),
+    ("exact logits, H=256, n_valid < V", 256, 20011, MID_H, 20000),
+    ("exact logits, H=192, odd B, n_valid < V", 37, 5000, 192, 4990),
+    ("exact logits, H=128, B=12, n_valid < V", 12, 300, 128, 290),
+    ("exact logits, H=256, B=5, V one past a tile", 5, 257, MID_H, 257),
+]
+
+
+def mid_counts() -> dict:
+    from bsarec_tpu_torch.ops import ce, rank
+
+    return read_counts() | {
+        "ce_logz_mid": ce.ce_logz.mid_launches, "ce_grads_mid": ce.ce_grads.mid_launches,
+        "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
+        "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
+        "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
+        "rank_onchip": rank.streaming_masked_topk.onchip_launches,
+        "rank_tc": rank.streaming_masked_topk.tc_launches,
+        "rank_wide": rank.streaming_masked_topk.wide_launches}
+
+
+def phase_mid_kernels(device):
+    """The CE kernels in both forms at MID_CE_CASES and MID_EXACT_CASES
+    against their plain versions with phase 3's checks (compare_ce). Returns
+    ({form: {kernel: largest absolute error on the middle route's shapes}},
+    {H: the main-shape inputs at B=256, V=1M} for H in {128, 256})."""
+    import torch
+
+    from bsarec_tpu_torch import parity
+    from bsarec_tpu_torch.ops import ce
+
+    worst = {form: {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0} for form in CE_FORMS}
+    full = {}
+    for i, (tag, b, v, h, n_valid, kind) in enumerate(MID_CE_CASES):
+        states, table, answers = ce_case(b, v, h, n_valid, seed=600 + i, device=device,
+                                         answer_kind=kind)
+        for form in CE_FORMS:
+            errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
+                              answers, n_valid, dtype=form)
+            if ce.mid_route(b, h):  # (the cases past the route run the older sweeps)
+                worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
+        if i == 0:
+            full[MID_H] = (states, table, answers)
+        del states, table, answers
+        torch.cuda.empty_cache()
+    for i, (tag, b, v, h, n_valid) in enumerate(MID_EXACT_CASES):
+        states, table, answers, _ = parity.exact_logit_case(b, v, h, n_valid, seed=700 + i,
+                                                            device=device)
+        for form in CE_FORMS:
+            errs = compare_ce(f"{tag} (B={b} V={v} H={h} n_valid={n_valid})", states, table,
+                              answers, n_valid, dtype=form, exact=True)
+            worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
+        del states, table, answers
+        torch.cuda.empty_cache()
+    full[128] = ce_case(TRAIN_BATCH, N_ITEMS, 128, N_ITEMS, seed=600, device=device,
+                        answer_kind="plain")
+    return worst, full
+
+
+def phase_mid_train(device, card):
+    """`main --hidden_size 256 --dtype bf16` (BSARec, 2 layers, 1 head,
+    c=5, alpha=0.7, max_len 50) on a 1M-item x 5k-user corpus: one epoch,
+    every ce_logz and ce_grads launch on the middle route's tensor-core
+    kernels (ce_fwd_mid_tc_kernel, ce_bwd_mid_tc_kernel), the rank kernel on
+    every eval batch; then `--do_eval --load_model --export_topk` (the test
+    pass and the export on the rank kernel's older route at this width, no
+    CE launch). Returns {run: launch counts, "examples_per_s": the epoch's
+    rate}."""
+    import torch
+
+    from bsarec_tpu_torch import main as port_main
+    from bsarec_tpu_torch.ops import rank
+
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        seqs = synth_corpus(MID_USERS, N_ITEMS, seed=2)
+        with open(os.path.join(workdir, "synth_mid.txt"), "w") as fh:
+            for u, seq in enumerate(seqs):
+                fh.write(f"{u + 1} {' '.join(map(str, seq))}\n")
+        steps = math.ceil(sum(len(s[-52:-2]) for s in seqs) / TRAIN_BATCH)
+        eval_steps = math.ceil(MID_USERS / EVAL_BATCH)
+        base = ["--data_dir", workdir, "--data_name", "synth_mid", "--output_dir", workdir,
+                "--device", device.type, "--batch_size", str(TRAIN_BATCH), "--lr", str(LR),
+                "--dtype", "bf16", *MID_WIDTHS]
+
+        def run(argv):
+            reset_counts()
+            t0 = time.perf_counter()
+            scores = port_main.main(argv)
+            torch.cuda.synchronize(device)
+            counts = mid_counts()
+            check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
+            return counts, scores, time.perf_counter() - t0
+
+        # the rank kernel at H = 256, k = 20: its older route (rank_partial_kernel,
+        # in the form its shared memory takes)
+        def rank_route(n):
+            return {"streaming_masked_topk": n, "rank_tc": 0, "rank_onchip": 0,
+                    "rank_wide": n * rank.wide_route(MID_H, TOP_K)}
+
+        counts, scores, seconds = run(base + ["--train_name", "smoke_mid", "--epochs", "1"])
+        ce_step = {f"{name}{route}": steps for name in ("ce_logz", "ce_grads")
+                   for route in ("", "_mid", "_bf16")}
+        want = dict.fromkeys(mid_counts(), 0) | ce_step | rank_route(2 * eval_steps)
+        check(counts == want, f"middle-route train launches {counts}, want {want}")
+        text = read_log(os.path.join(workdir, "smoke_mid.log"))
+        losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+        rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+        check("'dtype': 'bf16'" in text and len(losses) == 1 and math.isfinite(losses[0])
+              and len(rates) == 1, f"middle-route train: epoch losses {losses}, rates {rates}")
+        out["train"] = counts
+        out["examples_per_s"] = rates[0]
+        log(f"mid train path: main(--hidden_size {MID_H} --dtype bf16 --epochs 1) on {MID_USERS} "
+            f"users x {N_ITEMS} items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss "
+            f"{losses[0]}, train {rates[0]:.0f} examples/s, eval passes {eval_passes(text)} s "
+            f"(valid, test), test scores {scores}; all {steps} ce_logz and {steps} ce_grads "
+            f"launches on the middle route's tensor-core kernels (ce_fwd_mid_tc_kernel, "
+            f"ce_bwd_mid_tc_kernel); launches {counts} [{card}]")
+
+        topk_path = os.path.join(workdir, "mid_topk.npy")
+        counts, scores, seconds = run(base + ["--train_name", "smoke_mid_eval", "--do_eval",
+                                              "--load_model", "smoke_mid", "--export_topk",
+                                              topk_path])
+        want = dict.fromkeys(mid_counts(), 0) | rank_route(2 * eval_steps)
+        check(counts == want, f"middle-route eval launches {counts}, want {want}")
+        topk = np.load(topk_path)
+        check(topk.shape == (MID_USERS, TOP_K) and 0 <= int(topk.min())
+              and int(topk.max()) < N_ITEMS, "middle-route export")
+        out["eval"] = counts
+        log(f"mid eval path: main(--do_eval --load_model smoke_mid --export_topk) returned in "
+            f"{seconds:.1f}s, test scores {scores}, exported {topk.shape}; launches {counts}, the "
+            f"rank kernel on its older route at H={MID_H} [{card}]")
+    torch.cuda.empty_cache()
+    return out
 
 
 
@@ -4579,6 +4781,20 @@ def main() -> int:
         wide_paths = phase_wide_train(device, card)
         wide_times = phase_wide_times(wide_ce_full, wide_rank_full, card)
         del wide_ce_full, wide_rank_full
+    with timed("mid: the bf16 CE pair at 64 < H <= 256 vs plain, main --hidden_size 256 --dtype "
+               "bf16 (train, eval, export), times"):
+        mid_err, mid_full = phase_mid_kernels(device)
+        mid_paths = phase_mid_train(device, card)
+        # the bf16 entries at B=256, V=1M, H in {128, 256}, in turns with the
+        # fp32 form (the older sweeps there); the training step's CE in at
+        # most 5 device operations (no states scratch)
+        mid_times = {h: phase_ce_times(mid_full[h], card, BF16) for h in sorted(mid_full)}
+        del mid_full
+        step_ms = 1e3 * TRAIN_BATCH / mid_paths["examples_per_s"]
+        ce_ms = mid_times[MID_H]["ce_logz"]["ms"] + mid_times[MID_H]["ce_grads"]["ms"]
+        log(f"mid train path: the step's CE kernels (ce_loss_logz + ce_grads at B={TRAIN_BATCH} "
+            f"V={N_ITEMS} H={MID_H}, bf16 form, timed above) {ce_ms:.4f} ms of a {step_ms:.2f} ms "
+            f"step ({mid_paths['examples_per_s']:.0f} examples/s in main's epoch) [{card}]")
     with timed("dropout kernel vs plain"):
         dropout_err = phase_dropout_kernels(device)
     with timed("one step, kernels vs plain"):
@@ -4754,6 +4970,21 @@ def main() -> int:
             "launches": wide_paths["bf16"][f"{name}_bf16"],
             "max_abs_err": wide_err[BF16][name],
             **wide_times["ce16"][name],
+        })
+    # the middle route's bf16 pair (B <= 256, 64 < H <= 256): launches from
+    # main --hidden_size 256 --dtype bf16's epoch, every one on these kernels
+    mid_kernels = {"ce_logz": "ce_fwd_mid_tc_kernel", "ce_grads": "ce_bwd_mid_tc_kernel"}
+    for name in ("ce_logz", "ce_grads"):
+        kernels.append({
+            "name": f"{name} (bf16-operand form, middle route, tensor cores, H={MID_H})",
+            "kernel": mid_kernels[name],
+            "route": "cuda",
+            "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
+            "replaces": ce_replaces[name],
+            "launches": mid_paths["train"][f"{name}_mid"],
+            "max_abs_err": mid_err[BF16][name],
+            **mid_times[MID_H][name],
+            "h128": mid_times[128][name],
         })
     # the vocab-sharded mesh: launches of main --mesh data:1,model:1 (one
     # rank), of each rank of main --mesh data:1,model:2 (two gloo ranks on

@@ -169,21 +169,26 @@ def test_streaming_ce_bf16_matches_jax():
     assert min(rel_err(ds32, j_ds), rel_err(dt32, j_dt)) > BF16_GRAD_TOL
 
 
-@pytest.mark.parametrize("b,v,h,n_valid,seed", [(12, 300, 64, 290, 3), (5, 257, 48, 257, 4)])
+@pytest.mark.parametrize("b,v,h,n_valid,seed", [(12, 300, 64, 290, 3), (5, 257, 48, 257, 4),
+                                                (12, 300, 128, 290, 3), (5, 257, 256, 257, 4)])
 def test_streaming_ce_bf16_matches_jax_on_exact_logits(b, v, h, n_valid, seed):
-    """The sharp check of the bf16 form at H <= 64, where the card's on-chip
-    kernels sum each logit on the tensor cores in their own order: on
-    `parity.exact_logit_case` inputs (states scaled by 2, every logit exact
-    in fp32 in any order) the plain bf16 `ce_loss_logz` and `ce_grads` (at
-    the port's logZ, given to both sides) against JAX's interpret-mode
-    kernels, loss within CE_RTOL and each gradient group within
-    `parity.BF16_GRAD_TOL`, which the fp32 form, apart here only by not
-    rounding p, must fail on ds and on dT's other rows. JAX's kernels take
-    an H that divides 128, so at H = 48 they get the inputs zero-padded to
-    64 columns (the port's kernels pad H to 64 on chip as well) and the
-    first 48 columns of their gradients are compared."""
-    states, table, answers, dloss = parity.exact_logit_case(b, v, h, n_valid, seed=seed, scale=2)
-    pad = ((0, 0), (0, 64 - h))
+    """The sharp check of the bf16 form at H <= 256, where the card's
+    on-chip (H <= 64) and middle-route (64 < H <= 256) kernels sum each
+    logit on the tensor cores in their own order: on
+    `parity.exact_logit_case` inputs (every logit exact in fp32 in any
+    order; the states scaled by 2 at H <= 64, where the unscaled logits
+    spread too little for the control, by 1 above) the plain bf16
+    `ce_loss_logz` and `ce_grads` (at the port's logZ, given to both
+    sides) against JAX's interpret-mode kernels, loss within CE_RTOL and
+    each gradient group within `parity.BF16_GRAD_TOL`, which the fp32
+    form, apart here only by not rounding p, must fail on ds and on dT's
+    other rows. JAX's kernels take an H that divides 128 or is a multiple
+    of it, so at H = 48 they get the inputs zero-padded to 64 columns (the
+    port's kernels pad H to 64 on chip as well) and the first 48 columns
+    of their gradients are compared; H = 128 and 256 go unpadded."""
+    states, table, answers, dloss = parity.exact_logit_case(b, v, h, n_valid, seed=seed,
+                                                            scale=2 if h <= 64 else 1)
+    pad = ((0, 0), (0, max(64 - h, 0)))
     js = jnp.asarray(np.pad(states.numpy(), pad))
     jt = jnp.asarray(np.pad(table.numpy(), pad))
     ja = jnp.asarray(answers.numpy().astype(np.int32))

@@ -64,3 +64,25 @@ def test_onchip_ablation_variants_apply_to_the_source():
     texts = ablate_ce_tc.sources(ablate_ce_tc.ONCHIP_VARIANTS)
     assert list(texts) == list(ablate_ce_tc.ONCHIP_VARIANTS)
     assert len(set(texts.values())) == len(texts)
+
+
+def test_mid_ablation_variants_apply_to_the_source():
+    """`tools/ablate_ce_tc.py --mid` routes the bf16 middle-route shapes to
+    the wide kernels and the older sweeps, cuts parts out of the middle
+    pair and builds the backward's other choice (the wide kernel's tiling
+    with the states streamed from fp32, no scratch); each replacement still
+    matches the source exactly once, every variant differs from the
+    others, and the streamed variants launch no states_bf16_kernel from
+    ce_grads."""
+    from bsarec_tpu_torch.tools import ablate_ce_tc
+
+    texts = ablate_ce_tc.sources(ablate_ce_tc.MID_VARIANTS)
+    assert list(texts) == list(ablate_ce_tc.MID_VARIANTS)
+    assert len(set(texts.values())) == len(texts)
+    streamed = [name for name in texts if "states streamed from fp32" in name]
+    assert len(streamed) == 2
+    for name in streamed:
+        entry = texts[name][texts[name].index("int ce_grads("):]
+        assert "states_bf16_kernel<<<" not in entry
+        assert "ce_bwd_wide_tc_kernel<<<" in entry
+    assert "states_bf16_kernel<<<" in texts["kernel"][texts["kernel"].index("int ce_grads("):]

@@ -170,20 +170,19 @@ def test_cuda_fused_ce_matches_plain_and_the_unfused_composition(cuda_device, b,
     (64, 20011, 128, 20006), (256, 9000, 256, 9000),
 ])
 def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
-    """ce_loss_logz and ce_grads in the bf16-operand form, on both routes
-    (at B <= 256 and H <= 64 the on-chip route's tensor-core kernels,
+    """ce_loss_logz and ce_grads in the bf16-operand form, on both
+    tensor-core routes at B <= 256 (at H <= 64 the on-chip route's kernels,
     ce_fwd_onchip_tc_kernel and ce_bwd_onchip_tc_kernel; at H in {128, 256}
-    the sweeps' bf16 form), on raw int64 answers (-1, >= n_valid, >= V,
-    item 0, repeats), against the plain bf16 versions (the loss and logZ
-    within LOSS_TOL, as the fp32 sums of exact products they are); the
-    gradients at the kernel's logZ: on the sweeps within
-    `parity.BF16_GRAD_TOL` of the plain version, where the fp32 form must
-    fail; on the on-chip route, whose tensor cores sum each logit in their
-    own order (a p on a bf16 rounding boundary can land one bf16 ulp away),
-    as the wide route's bf16 form is held, within
-    `parity.BF16_WIDE_GRAD_TOL` of `parity.ce_grads_bf16_in_order` (the
-    sharp check and its fp32 control are
-    test_cuda_ce_bf16_onchip_tc_edges' exact-logit cases); dT's one-hot term
+    the middle route's, ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel), on
+    raw int64 answers (-1, >= n_valid, >= V, item 0, repeats), against the
+    plain bf16 versions (the loss and logZ within LOSS_TOL, as the fp32 sums
+    of exact products they are); the gradients at the kernel's logZ, whose
+    tensor cores sum each logit in their own order (a p on a bf16 rounding
+    boundary can land one bf16 ulp away), as the wide route's bf16 form is
+    held, within `parity.BF16_WIDE_GRAD_TOL` of
+    `parity.ce_grads_bf16_in_order` (the sharp check and its fp32 control
+    are the exact-logit cases of test_cuda_ce_bf16_onchip_tc_edges and
+    test_cuda_ce_bf16_mid_tc_edges); dT's one-hot term
     on the unrounded states; two calls bit-equal; through the autograd
     function too; and apart from the fp32 form on the same inputs."""
     rng = np.random.default_rng(b + h + 1)
@@ -197,32 +196,26 @@ def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
     bf16 = "bfloat16"
     counts = lambda: (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches,
                       ce.ce_grads.onchip_launches, ce.ce_grads.wide_launches,
-                      ce.ce_logz.onchip_launches)
+                      ce.ce_logz.onchip_launches, ce.ce_logz.mid_launches,
+                      ce.ce_grads.mid_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     torch.cuda.synchronize()
-    onchip = ce.onchip_route(b, h)
-    assert onchip == (h <= 64)
+    onchip, mid = ce.onchip_route(b, h), ce.mid_route(b, h)
+    assert onchip == (h <= 64) and mid == (h > 64)
     assert counts() == (before[0] + 1, before[1] + 2, before[2] + 2 * onchip, before[3],
-                        before[4] + onchip)
+                        before[4] + onchip, before[5] + mid, before[6] + 2 * mid)
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
     torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
     torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
     off = (a < 0) | (a >= n_valid)
     assert torch.equal(loss[off], logz[off])
-    if onchip:
-        want = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid)
-        errs = parity.grad_errors(ds, dt, *want, a, n_valid)
-        assert max(errs.values()) <= parity.BF16_WIDE_GRAD_TOL, errs
-    else:
-        want = ce.ce_grads_plain(states, table, a, logz, d, n_valid, bf16=True)
-        assert max(parity.grad_errors(ds, dt, *want, a, n_valid).values()) <= parity.BF16_GRAD_TOL
-        control = parity.grad_errors(*ce.ce_grads(states, table, a, logz, d, n_valid), *want, a,
-                                     n_valid)
-        assert min(control["ds"], control["dT other rows"]) > parity.BF16_GRAD_TOL
+    want = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid)
+    errs = parity.grad_errors(ds, dt, *want, a, n_valid)
+    assert max(errs.values()) <= parity.BF16_WIDE_GRAD_TOL, errs
     assert not dt[n_valid:].any()
     _, none_dt = ce.ce_grads(states, table, torch.full_like(a, -1), logz, d, n_valid, dtype=bf16)
     assert parity.one_hot_excess(dt, none_dt, states, a, d, n_valid) <= 1.0
@@ -239,7 +232,8 @@ def test_cuda_ce_bf16_form_matches_plain(cuda_device, b, v, h, n_valid):
 
 def _onchip_tc_inputs(b, v, h, n_valid, inputs, device):
     """`parity.exact_logit_case` inputs (states scaled by 2, by 4 at H = 4,
-    so that the fp32 control misses BF16_GRAD_TOL on ds), or N(0, 1) states
+    so that the fp32 control misses BF16_GRAD_TOL on ds: unscaled, it read
+    7.1e-5 on ds at B=3, V=1,000,001, H=256 on the card), or N(0, 1) states
     and a 0.5 N(0, 1) table with exact_logit_case's answers and dloss."""
     states, table, a, d = parity.exact_logit_case(b, v, h, max(n_valid, 2), seed=b + v + h,
                                                   device=device, scale=4 if h == 4 else 2)
@@ -275,11 +269,37 @@ def test_cuda_ce_bf16_onchip_tc_edges(cuda_device, b, v, h, n_valid, inputs):
     one on-chip bf16 launch a call; loss and logZ within LOSS_TOL; two
     ce_grads calls bit-equal; dT past n_valid zero; dT's one-hot term on the
     unrounded states; the autograd function equal to the wrappers."""
+    assert ce.onchip_route(b, h)
+    _bf16_tc_edges(cuda_device, b, v, h, n_valid, inputs, "onchip_launches")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["exact", "normal"])
+@pytest.mark.parametrize("b,v,h,n_valid", [
+    (1, 1, 68, 1), (3, 1, 256, 1), (1, 127, 128, 127), (3, 128, 192, 128), (255, 129, 256, 128),
+    (256, 129, 68, 129), (256, 127, 128, 127), (255, 128, 256, 128), (1, 129, 192, 129),
+    (3, 1_000_001, 256, 1_000_000), (256, 1_000_001, 128, 1_000_000), (255, 1_000_001, 68, 1_000_000),
+    (37, 129, 256, 0), (256, 128, 68, 0), (1, 127, 192, 0),
+])
+def test_cuda_ce_bf16_mid_tc_edges(cuda_device, b, v, h, n_valid, inputs):
+    """The bf16 form's middle-route tensor-core kernels (ce_fwd_mid_tc_kernel
+    through ce_loss_logz, ce_bwd_mid_tc_kernel through ce_grads) at edge
+    shapes, with test_cuda_ce_bf16_onchip_tc_edges' checks: B in {1, 3, 255,
+    256}, H in {68, 128, 192, 256}, V in {1, 127, 128, 129, 1,000,001 with
+    n_valid = V - 1}, n_valid = 0; on the exact-logit inputs the fp32 form
+    must fail `parity.BF16_GRAD_TOL` on ds and on dT's other rows; one
+    middle-route bf16 launch a call."""
+    assert ce.mid_route(b, h) and not ce.onchip_route(b, h) and not ce.wide_route(h)
+    _bf16_tc_edges(cuda_device, b, v, h, n_valid, inputs, "mid_launches")
+
+
+def _bf16_tc_edges(cuda_device, b, v, h, n_valid, inputs, route):
+    """The body of the on-chip and middle routes' edge tests; `route` names
+    the wrappers' counter of the route's launches."""
     states, table, a, d = _onchip_tc_inputs(b, v, h, n_valid, inputs, cuda_device)
     bf16 = "bfloat16"
-    assert ce.onchip_route(b, h)
-    counts = lambda: (ce.ce_logz.onchip_launches, ce.ce_logz.bf16_launches,
-                      ce.ce_grads.onchip_launches, ce.ce_grads.bf16_launches)
+    counts = lambda: (getattr(ce.ce_logz, route), ce.ce_logz.bf16_launches,
+                      getattr(ce.ce_grads, route), ce.ce_grads.bf16_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
@@ -322,20 +342,22 @@ def test_cuda_ce_bf16_onchip_tc_edges(cuda_device, b, v, h, n_valid, inputs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,onchip", [
-    (256, 64, True), (257, 64, False), (256, 68, False), (1, 4, True), (255, 48, True),
-    (64, 128, False),
+@pytest.mark.parametrize("b,h,route", [
+    (256, 64, "onchip"), (257, 64, "sweep"), (256, 68, "mid"), (1, 4, "onchip"), (255, 48, "onchip"),
+    (64, 128, "mid"), (256, 256, "mid"), (257, 128, "sweep"), (256, 260, "wide"),
 ])
-def test_cuda_ce_bf16_onchip_tc_route_boundary(cuda_device, b, h, onchip):
+def test_cuda_ce_bf16_onchip_tc_route_boundary(cuda_device, b, h, route):
     """The bf16 form on both sides of the on-chip route's bounds (B <= 256,
-    H <= 64): ce_loss_logz and ce_grads take the tensor-core kernels
-    (ce_fwd_onchip_tc_kernel, ce_bwd_onchip_tc_kernel: an on-chip bf16
-    launch) inside them and the sweeps' bf16 form outside; loss and logZ
-    within LOSS_TOL; the gradients at the kernel's logZ within
-    `parity.BF16_GRAD_TOL` of the plain bf16 version outside, and inside,
-    where the tensor cores sum in their own order, within
-    `parity.BF16_WIDE_GRAD_TOL` of `parity.ce_grads_bf16_in_order`; two
-    calls bit-equal."""
+    H <= 64), the middle route's (B <= 256, 64 < H <= 256) and the wide
+    route's (H > 256): ce_loss_logz and ce_grads take the on-chip
+    tensor-core kernels (ce_fwd_onchip_tc_kernel, ce_bwd_onchip_tc_kernel:
+    an on-chip bf16 launch), the middle route's (ce_fwd_mid_tc_kernel,
+    ce_bwd_mid_tc_kernel: a middle-route bf16 launch), the wide route's, or
+    past B = 256 the sweeps' bf16 form; loss and logZ within LOSS_TOL; the
+    gradients at the kernel's logZ within `parity.BF16_GRAD_TOL` of the
+    plain bf16 version on the sweeps, and on the tensor cores, which sum in
+    their own order, within `parity.BF16_WIDE_GRAD_TOL` of
+    `parity.ce_grads_bf16_in_order`; two calls bit-equal."""
     v, n_valid = 9001, 8999
     rng = np.random.default_rng(b * 1000 + h + 11)
     states = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(cuda_device)
@@ -343,22 +365,27 @@ def test_cuda_ce_bf16_onchip_tc_route_boundary(cuda_device, b, h, onchip):
     a = torch.from_numpy(rng.integers(-1, v + 3, size=b)).to(cuda_device)
     d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(cuda_device)
     bf16 = "bfloat16"
-    assert ce.onchip_route(b, h) == onchip and not ce.wide_route(h)
+    onchip, mid, wide = route == "onchip", route == "mid", route == "wide"
+    assert (ce.onchip_route(b, h), ce.mid_route(b, h), ce.wide_route(h)) == (onchip, mid, wide)
     counts = lambda: (ce.ce_logz.onchip_launches, ce.ce_logz.bf16_launches,
-                      ce.ce_grads.onchip_launches, ce.ce_grads.bf16_launches)
+                      ce.ce_grads.onchip_launches, ce.ce_grads.bf16_launches,
+                      ce.ce_logz.mid_launches, ce.ce_grads.mid_launches,
+                      ce.ce_logz.wide_launches, ce.ce_grads.wide_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
     loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid, dtype=bf16)
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid, dtype=bf16)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 2 * onchip, before[1] + 2, before[2] + 2 * onchip, before[3] + 2)
+    assert counts() == (before[0] + 2 * onchip, before[1] + 2, before[2] + 2 * onchip, before[3] + 2,
+                        before[4] + 2 * mid, before[5] + 2 * mid, before[6] + 2 * wide,
+                        before[7] + 2 * wide)
     assert torch.equal(loss, loss2) and torch.equal(logz, logz2)
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=True)
     torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
     torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
-    if onchip:
+    if route != "sweep":
         want, tol = parity.ce_grads_bf16_in_order(states, table, a, logz, d, n_valid), parity.BF16_WIDE_GRAD_TOL
     else:
         want, tol = ce.ce_grads_plain(states, table, a, logz, d, n_valid, bf16=True), parity.BF16_GRAD_TOL
@@ -507,12 +534,14 @@ def test_cuda_ce_grads_tc_edge_shapes(cuda_device, b, v, h, n_valid, dtype):
 @pytest.mark.parametrize("b,h,onchip", [
     (256, 64, True), (257, 64, False), (255, 64, True), (1, 64, True),
     (256, 60, True), (64, 128, False), (64, 64, True),
-    (256, 256, False), (256, 260, False), (257, 260, False),
+    (256, 256, False), (256, 260, False), (257, 260, False), (256, 68, False), (257, 128, False),
 ])
 def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
     """ce_grads on both sides of the on-chip route's bounds (B <= 256,
     H <= 64) and of the wide route's (H > 256): the route the shape names
-    (past H = 256 the fp32 form's tensor-core kernel), the plain version's
+    (past H = 256 the fp32 form's tensor-core kernel; the fp32 form takes
+    the sweep on the middle route's shapes, no middle-route launch), the
+    plain version's
     gradients within the tolerance, and two calls bit-equal. Past H = 256
     the tolerance is the wide route's, WIDE_GRAD_TOL of each group's
     largest entry: at these inputs the plain fp32 version itself misses
@@ -531,12 +560,13 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
     wide = h > 256
     assert ce.wide_route(h) == wide
     counts = lambda: (ce.ce_grads.launches, ce.ce_grads.onchip_launches,
-                      ce.ce_grads.wide_launches)
+                      ce.ce_grads.wide_launches, ce.ce_grads.mid_launches)
     before = counts()
     ds, dt = ce.ce_grads(states, table, a, logz, d, n_valid)
     ds2, dt2 = ce.ce_grads(states, table, a, logz, d, n_valid)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide)
+    assert ce.mid_route(b, h) == (b <= 256 and 64 < h <= 256)
+    assert counts() == (before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide, before[3])
     assert torch.equal(ds, ds2) and torch.equal(dt, dt2)
     want_ds, want_dt = ce.ce_grads_plain(states, table, a, logz, d, n_valid)
     if wide:
@@ -552,10 +582,13 @@ def test_cuda_ce_grads_route_boundary(cuda_device, b, h, onchip):
 @pytest.mark.parametrize("b,h,onchip", [
     (1, 64, True), (255, 64, True), (256, 64, True), (257, 64, False),
     (256, 48, True), (256, 128, False), (256, 256, False), (256, 260, False), (1, 260, False),
+    (256, 68, False), (257, 128, False), (1, 192, False),
 ])
 def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip, dtype):
     """ce_loss_logz on both sides of the on-chip route's bounds (B <= 256,
-    H <= 64) and of the wide route's (H > 256), in both forms: the route
+    H <= 64), of the middle route's (B <= 256, 64 < H <= 256: in the bf16
+    form ce_fwd_mid_tc_kernel, a middle-route launch; the fp32 form's
+    sweep) and of the wide route's (H > 256), in both forms: the route
     the shape names (past H = 256 a tensor-core kernel in either form),
     loss and logZ within the tolerance of the plain version, and two calls
     bit-equal."""
@@ -568,14 +601,16 @@ def test_cuda_ce_logz_route_boundary(cuda_device, b, h, onchip, dtype):
     assert ce.onchip_route(b, h) == onchip
     wide = h > 256
     assert ce.wide_route(h) == wide
+    mid = bf16 and b <= 256 and 64 < h <= 256
+    assert ce.mid_route(b, h) == (b <= 256 and 64 < h <= 256)
     counts = lambda: (ce.ce_logz.launches, ce.ce_logz.onchip_launches, ce.ce_logz.wide_launches,
-                      ce.ce_logz.bf16_launches)
+                      ce.ce_logz.bf16_launches, ce.ce_logz.mid_launches)
     before = counts()
     loss, logz = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
     loss2, logz2 = ce.ce_loss_logz(states, table, a, n_valid, dtype=dtype)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 2, before[1] + 2 * onchip, before[2] + 2 * wide,
-                        before[3] + 2 * bf16)
+                        before[3] + 2 * bf16, before[4] + 2 * mid)
     assert torch.equal(loss, loss2) and torch.equal(logz, logz2)
     want_loss, want_logz = ce.ce_loss_logz_plain(states, table, a, n_valid, bf16=bf16)
     torch.testing.assert_close(loss, want_loss, **LOSS_TOL)
