@@ -20,12 +20,14 @@
 //     where p is stored, so their product loops are the fp32 form's. On
 //     the wide route the fp32 form runs on the tensor cores too, in
 //     3xTF32, which keeps fp32 accuracy: ce_fwd_wide_tf32_kernel and
-//     ce_bwd_wide_tf32_kernel.
+//     ce_bwd_wide_tf32_kernel; on the middle route ce_fwd_mid_tf32_kernel,
+//     on wgmma, and ce_bwd_wide_tf32_kernel (ce_bwd_mid_tf32_kernel, on
+//     wgmma, is that backward's slower variant, for the ablation tool).
 //
 // Replaces the three Pallas TPU kernels of bsarec_tpu/ops/pallas_ce.py:
 //   - _fwd_kernel    -> ce_fwd_onchip_kernel (ce_fwd_onchip_tc_kernel in the
-//       bf16 form), ce_fwd_partial_kernel (ce_fwd_mid_tc_kernel in the bf16
-//       form at B <= 256) or, past H = 256,
+//       bf16 form), ce_fwd_partial_kernel (at B <= 256 ce_fwd_mid_tf32_kernel,
+//       ce_fwd_mid_tc_kernel in the bf16 form) or, past H = 256,
 //       ce_fwd_wide_tf32_kernel (fp32) and ce_fwd_wide_tc_kernel (bf16),
 //       then ce_fwd_merge_kernel:
 //       per row, logZ = logsumexp(s . T^T) over the columns < n_valid and,
@@ -33,8 +35,9 @@
 //   - _gather_kernel -> gold_rows_kernel: the answers' table rows T[a]
 //       (zeros where a is outside [0, V));
 //   - _grads_kernel  -> ce_bwd_onchip_kernel (ce_bwd_onchip_tc_kernel in the
-//       bf16 form), ce_bwd_sweep_kernel (ce_bwd_mid_tc_kernel in the bf16
-//       form at B <= 256) or, past H = 256,
+//       bf16 form), ce_bwd_sweep_kernel (at B <= 256 in the bf16 form
+//       ce_bwd_mid_tc_kernel, in the fp32 form ce_bwd_wide_tf32_kernel) or,
+//       past H = 256,
 //       ce_bwd_wide_tf32_kernel (fp32) and ce_bwd_wide_tc_kernel (bf16),
 //       then ce_ds_reduce_kernel (ce_ds_reduce_tc_kernel): with
 //       p = exp(s . T^T - logZ) * dloss (0 past n_valid),
@@ -86,9 +89,10 @@
 //       for both (fold_tile, merge_group): ce_fwd_wide_tf32_kernel in the fp32 form
 //       (3xTF32, each fragment split into TF32 hi and lo in registers),
 //       ce_fwd_wide_tc_kernel in the bf16 form; their heads say more;
-//     - elsewhere (B > 256, or 64 < H <= 256; but in the bf16 form at B <=
-//       256 the middle route's ce_fwd_mid_tc_kernel, its head says more)
-//       ce_fwd_partial_kernel, grid
+//     - the middle route, B <= 256 and 64 < H <= 256: ce_fwd_mid_tf32_kernel
+//       (wgmma in 3xTF32) and ce_fwd_mid_tc_kernel (bf16); their heads say
+//       more;
+//     - elsewhere (B > 256 at H > 64) ce_fwd_partial_kernel, grid
 //       (vocab splits x batch tiles of 64 rows), each block staging its 64
 //       state rows and each table tile synchronously, 4 x 4 logits a
 //       thread.
@@ -132,10 +136,12 @@
 //       fp32 form (128-column tiles, p fp32, every product in 3xTF32) and
 //       ce_bwd_wide_tc_kernel in the bf16 form (256-column tiles, p bf16);
 //       their heads say more;
-//     - the sweep route, B > 256 or 64 < H <= 256, where the batch and its
-//       ds do not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per
-//       SM (but in the bf16 form at B <= 256 the middle route's
-//       ce_bwd_mid_tc_kernel, on the tensor cores; its head says more).
+//     - the middle route, B <= 256 and 64 < H <= 256: the wide route's
+//       ce_bwd_wide_tf32_kernel in the fp32 form (faster there than
+//       ce_bwd_mid_tf32_kernel, wgmma in 3xTF32, at B = 256),
+//       ce_bwd_mid_tc_kernel (bf16); their heads say more;
+//     - the sweep route, B > 256 at H > 64, where the batch and its ds do
+//       not fit beside the tiles: ce_bwd_sweep_kernel, two blocks per SM.
 //       For each 64-column tile it loops over the batch in 64-row chunks,
 //       staging each chunk's states again: it recomputes the logits, forms
 //       p in shared memory, adds p^T @ s_chunk into the tile's dT held in
@@ -163,8 +169,9 @@
 // ~14.6 ms (backward, 33% of 4.766 ms); the bf16 form's tensor-core
 // kernels ~5.3 ms (backward, 23% of its 1.223 ms byte bound) and ~1.08 ms
 // (forward, 57% of 0.612 ms) (chip_smoke.py, tools/time_kernels.py). The
-// middle route's bf16 pair: ce_fwd_mid_tc_kernel's and ce_bwd_mid_tc_kernel's
-// heads. No wgmma or TMA.
+// middle route's pairs: ce_fwd_mid_tc_kernel's and ce_fwd_mid_tf32_kernel's
+// heads. The middle route's fp32 pair runs wgmma (wgmma.cuh); no kernel
+// uses TMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -172,6 +179,7 @@
 
 #include "onchip_tile.cuh"
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 using onchip::round_bf16;
 
@@ -1790,7 +1798,10 @@ __device__ __forceinline__ void fold_tile(float (&acc)[4][8][4], float (&m)[8], 
 // ([256] each in shared memory), which merges them after its own, and
 // lane t = 0 of warp column 0 writes one (m, s) per (split, row < B). A
 // barrier inside: every thread of the block calls it. Every merge runs in
-// a fixed order, so two calls give the same bits.
+// a fixed order, so two calls give the same bits. WG_ROWS: the rows of
+// wgmma's layout (ce_fwd_mid_tf32_kernel: row q = 2 i + half of a thread
+// is 64 i + 16 (w & 3) + g + 8 half, its columns as above).
+template <bool WG_ROWS = false>
 __device__ __forceinline__ void merge_group(float (&m)[8], float (&sum)[8], float* xm, float* xs,
                                             int g0, int B, float* __restrict__ part_m,
                                             float* __restrict__ part_s) {
@@ -1811,7 +1822,7 @@ __device__ __forceinline__ void merge_group(float (&m)[8], float (&sum)[8], floa
   if (wn == 1 && t4 == 0) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1);
+      const int r = WG_ROWS ? 64 * (q >> 1) + 16 * wm + g + 8 * (q & 1) : 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1);
       xm[r] = m[q];
       xs[r] = sum[q];
     }
@@ -1820,7 +1831,8 @@ __device__ __forceinline__ void merge_group(float (&m)[8], float (&sum)[8], floa
   if (wn == 0 && t4 == 0) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const int r = 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1), row = g0 + r;
+      const int r = WG_ROWS ? 64 * (q >> 1) + 16 * wm + g + 8 * (q & 1) : 64 * wm + 16 * (q >> 1) + g + 8 * (q & 1);
+      const int row = g0 + r;
       const float om = xm[r], os = xs[r];
       const float mm = fmaxf(m[q], om);
       if (mm > -INFINITY) {
@@ -3176,6 +3188,602 @@ ce_bwd_mid_tc_kernel(const float* __restrict__ states, const float* __restrict__
   }
 }
 
+// ---- the fp32 form at the middle widths, on the tensor cores with wgmma -------
+//
+// ce_fwd_mid_tf32_kernel and ce_bwd_mid_tf32_kernel: the forward's and the
+// backward's pass 1 in the fp32 form at B <= OC_B and OC_H < H <= MAX_H
+// (the middle route; the counterparts of pallas_ce.py:222 _fwd_kernel and
+// :340 _grads_kernel at f32, whose products are f32 dot_generals). Before
+// them these shapes ran the older sweeps (ce_fwd_partial_kernel<false>,
+// ce_bwd_sweep_kernel<false>: fp32 FMAs on 4 x 4 register tiles, each
+// 64-row batch chunk staged again for every 64-column tile). Every product
+// here is a warpgroup MMA (wgmma.cuh: wgmma.mma_async m64nNk8 TF32, a from
+// registers, b from shared memory) in tensor_core.cuh's 3xTF32 format: each
+// fp32 operand split into a TF32 hi and lo (split_tf32), three passes a k8
+// block (lo . hi, hi . lo, hi . hi), which keeps fp32 accuracy. mma.sync,
+// which the wide kernels issue at ~79-93 G/s whatever the operand type,
+// caps 3xTF32 below the 67 TFLOP/s of fp32 FMAs; wgmma is the way to the
+// 495 TFLOP/s TF32 rate.
+//
+// Bound at B=256, V=1M, H=256: the forward's logits 3 x 2BVH = 393 GFLOP
+// of TF32 passes, 0.794 ms at 495 TFLOP/s (H = 128: 0.397); the backward's
+// three products 2.383 ms (1.192); the fp32 table read once, 1.02 GB
+// (0.306 ms at 3.35 TB/s), and dT written once, as many bytes.
+//
+// Geometry, both kernels: one block of 256 threads (two warpgroups) per SM
+// over a split of whole tiles of MF_COLS = 128 catalog columns, against
+// every batch row (B <= 256: the m64 tiles mt < ceil(B / 64), the others
+// skipped by a block-uniform bound). TF32 wgmma reads b only K-major (k
+// along a stored row) from shared memory, in wgmma.cuh's canonical layout,
+// and its operands come split: so every b operand is written into shared
+// memory by the threads as a hi plane and a lo plane, split once as it is
+// stored (16-byte stores, eight neighbouring lanes on eight rows of a core
+// matrix), and every a operand is split in registers where it is loaded.
+// The logits of a tile (mf_logits, shared by both kernels): warpgroup w
+// takes catalog columns 64 w .. 64 w + 63 (b: the table rows, K-major as
+// stored) and every m64 tile of batch rows (a: the state rows by ldmatrix
+// from a cp.async copy [256][KC + 4] as stored), m64n64 MMAs, acc[4][8][4]:
+// 128 fp32 registers a thread in wgmma's accumulator layout, whose columns
+// are fold_tile's. Per step of KC hidden columns and per m64 tile, the
+// three passes of MF_CHAIN = 2 k8 blocks are summed on the tensor cores
+// from 0 (scale-d 0), waited for, and added to acc with one fp32 rounding:
+// a tensor core truncates its sum to its largest addend, so no sum runs
+// long there. (Summed over all of H in the MMAs' own accumulators, with
+// no partial sums, the logits read 6x further from the plain version -
+// logZ 2.0e-6, dT 4.9e-5 of WIDE_GRAD_TOL's 1e-4 at H = 256 - for a
+// backward 6% faster; partial sums of one or four blocks read as two do:
+// tools/ablate_ce_tc.py --mid, PERF.md.) A step's table rows
+// come by 16-byte loads into registers a step ahead and are split into
+// the planes of the other slot after the step's MMAs; its state rows by
+// cp.async a step ahead; two slots, one barrier a step.
+//
+// ce_fwd_mid_tf32_kernel: KC = MF_FKC = 32, Hp / 32 steps a tile (Hp = H up
+// to a multiple of 32); after a tile's last step fold_tile folds the
+// logits into each row's online (max, sum), and after the split
+// merge_group<true> merges them (the wide forward's fold and merge order,
+// in wgmma's rows) for ce_fwd_merge_kernel<false>. Shared memory: two
+// slots of 69,632 B ([256][36] states, the table's hi and lo planes
+// [128][32]), the warpgroups' exchange 2,048: 141,312 B.
+//
+// ce_bwd_mid_tf32_kernel, the backward on the same shapes, which the route
+// does not take: ce_bwd_wide_tf32_kernel, its 256-row groups, is faster at
+// B = 256 at H = 128 and 256 (PERF.md row 4m), the batch main trains at;
+// tools/ablate_ce_tc.py routes this kernel there. Per tile, Hp / 16
+// logits steps (KC = MF_BKC = 16, Hp = H up to a multiple of MF_HP = 32),
+// then p = exp(logit - logZ) * dloss (-inf past n_valid, logZ +inf past
+// B: no branch an element) from the accumulators into sP [256][128] fp32
+// (its 16-byte pieces permuted by the row, mf_sp, so that the stores and
+// the loads below fall on distinct banks), then Hp / 32 products steps of
+// MF_HP = 32 hidden columns:
+//   ds  warpgroup w: batch rows 128 w .. 128 w + 127 (its m64 tiles below
+//       ceil(B / 64)), ds[:, chunk] = p . T[tile, chunk], K = the tile's
+//       128 columns, m64n32 MMAs: a = p by ldmatrix from sP; b = the
+//       chunk's table rows transposed, [32 hidden][128 columns] planes;
+//   dT  warpgroup w: catalog columns 64 w .. 64 w + 63, dT[tile, chunk] =
+//       p^T . S[:, chunk], K = the batch rows up to 16 ceil(B / 16), m64n32
+//       MMAs: a = p^T by 8-byte loads from sP (lane (g, t) takes columns
+//       2g, 2g + 1 and batch rows 2t, 2t + 1 of each k8 block: wgmma's rows
+//       and k permuted alike); b = the chunk's state rows transposed, [32
+//       hidden][256 rows] planes, the rows in that k order; one
+//       accumulator over all of K (two, alternating and added at the end,
+//       were slower: they cost registers).
+//   Both b planes hold the chunk's hidden columns permuted (mf_sigma_inv)
+//   so that each lane's accumulators cover four neighbouring hidden
+//   columns: dT goes out as float4 stores and ds in
+//   ce_ds_reduce_tc_kernel<true>'s fragment order (ce_bwd_wide_tf32_kernel's:
+//   its ds warp W = the m64 tile, i = w & 3). A products step's sums start
+//   from 0 on the tensor cores and are added to the split's ds_part from
+//   the tile before with one fp32 rounding (loaded while the MMAs run; the
+//   split's first tile only writes). a is double-buffered in registers: k8
+//   block kb + 1 is loaded and split while kb's MMAs run (wgmma.wait_group
+//   1). The step's table rows (again, from L2) and state rows come by
+//   16-byte loads into registers a step ahead, are transposed in registers
+//   and split as they are stored, after a second barrier (the one slot is
+//   the region the logits slots use).
+// Then the one-hot term dT[a_i] -= dloss_i * s_i on the tile's finished dT
+// rows in device memory, in ascending i (ce_bwd_mid_tc_kernel's). Shared
+// memory: p 131,072 B, the region 98,304 (two logits slots of 36,864, or
+// the products planes: table 2 x 16,384, states 2 x 32,768), logZ, dloss and
+// the answers 3,072: 232,448 B, all a block may use.
+//
+// What holds the backward back (tools/ablate_ce_tc.py --mid, PERF.md): its
+// products steps' m64n32 MMAs, each fed one k8 block of a registers, run
+// at ~30% of the tensor rate (the forward's m64n64 at ~55%), and its 255
+// registers spill 780 bytes. Redesigns that were slower on the H100: the
+// products as two noinline phases (the logits' registers then spilled),
+// and as m64n128 MMAs over 32-row chunks streamed through two slots. At B
+// = 256 it takes ~10.0 ms at H = 256 against ce_bwd_wide_tf32_kernel's
+// ~7.5 (at B = 128 ~5.7 against ~7.3): hence the route.
+//
+// Sums run in a fixed order and pass 2 merges the splits in split order:
+// two calls give the same bits.
+
+constexpr int MF_COLS = 128;  // catalog columns per tile (both kernels)
+constexpr int MF_FKC = 32;    // hidden columns per logits step: the forward's
+constexpr int MF_BKC = 16;    // ... and the backward's
+constexpr int MF_HP = 32;     // hidden columns per products step (H is padded to a multiple)
+constexpr int MF_CHAIN = 2;   // the logits' k8 blocks summed on the tensor cores before an fp32 addition
+// a logits slot (floats): the state rows [TC_ROWS][kc + 4], then the
+// table's hi and lo planes, canonical [MF_COLS][kc] each
+__host__ __device__ constexpr int mf_lslot(int kc) { return TC_ROWS * (kc + 4) + 2 * MF_COLS * kc; }
+// the backward's products slot (floats): the table's planes [MF_HP][MF_COLS]
+// (hi, lo), then the states' [MF_HP][TC_ROWS]
+constexpr int MF_PSLOT = 2 * MF_HP * MF_COLS + 2 * MF_HP * TC_ROWS;
+constexpr long long MF_FWD_SMEM = 4LL * (2 * mf_lslot(MF_FKC) + 2 * TC_ROWS);          // 141,312 B
+constexpr long long MF_BWD_SMEM = 4LL * (TC_ROWS * MF_COLS + MF_PSLOT + 3 * TC_ROWS);  // 232,448 B
+static_assert(MF_FWD_SMEM <= MAX_SMEM && MF_BWD_SMEM <= MAX_SMEM && 2 * mf_lslot(MF_BKC) <= MF_PSLOT &&
+                  MF_COLS == FT_COLS && MF_COLS % VT == 0 && TC_ROWS == THREADS && THREADS == 256 &&
+                  MAX_H % MF_HP == 0 && MF_HP % MF_FKC == 0 && MF_HP % MF_BKC == 0 &&
+                  MF_HP == TF_HL && MF_HP == 32 && MF_COLS == 128,
+              "two warpgroups over 256 batch rows x 128 columns; ds_part in the wide fp32 "
+              "backward's order (ce_ds_reduce_tc_kernel<true>, Hp a multiple of TF_HL)");
+static_assert(MF_FKC % 16 == 0 && MF_BKC % 16 == 0 && MF_CHAIN >= 1,
+              "whole warp-wide groups of table pieces, whole k8 blocks");
+
+// Piece i of this thread's 16-byte pieces of a logits step's table rows
+// [MF_COLS][KC]: row r, hidden columns 4 q .. 4 q + 3. Eight neighbouring
+// lanes take one piece of eight rows (distinct banks when stored into a
+// canonical plane), four such groups of a warp four neighbouring pieces
+// (64 contiguous bytes a row when loaded).
+template <int KC>
+__device__ __forceinline__ void mf_piece(int i, int& r, int& q) {
+  constexpr int G = KC / 16;  // warps a row group
+  const int p = threadIdx.x + THREADS * i, lane = p & 31, wid = p >> 5;
+  r = (wid / G) * 8 + (lane & 7);
+  q = (wid % G) * 4 + (lane >> 3);
+}
+
+// fp32 x split into TF32 hi and lo (tensor_core.cuh), as uint4 planes.
+__device__ __forceinline__ void split4(float4 v, uint4& hi, uint4& lo) {
+  tc::split_tf32(__float_as_uint(v.x), hi.x, lo.x);
+  tc::split_tf32(__float_as_uint(v.y), hi.y, lo.y);
+  tc::split_tf32(__float_as_uint(v.z), hi.z, lo.z);
+  tc::split_tf32(__float_as_uint(v.w), hi.w, lo.w);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// A logits step's table rows [c0, c0 + MF_COLS), hidden columns [h0, h0 + KC),
+// zero past V and H: this thread's pieces into pre ...
+template <int KC>
+__device__ __forceinline__ void mf_load_table(float4 (&pre)[MF_COLS * KC / 4 / THREADS],
+                                              const float* __restrict__ table, int c0, int h0,
+                                              int V, int H) {
+#pragma unroll
+  for (int i = 0; i < MF_COLS * KC / 4 / THREADS; ++i) {
+    int r, q;
+    mf_piece<KC>(i, r, q);
+    const int h = h0 + 4 * q;
+    pre[i] = (c0 + r < V && h < H)
+                 ? __ldg(reinterpret_cast<const float4*>(table + (size_t)(c0 + r) * H + h))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// ... and, split, into the hi and lo planes th and tl (canonical [MF_COLS][KC]).
+template <int KC>
+__device__ __forceinline__ void mf_store_table(const float4 (&pre)[MF_COLS * KC / 4 / THREADS],
+                                               float* th, float* tl) {
+#pragma unroll
+  for (int i = 0; i < MF_COLS * KC / 4 / THREADS; ++i) {
+    int r, q;
+    mf_piece<KC>(i, r, q);
+    uint4 hi, lo;
+    split4(pre[i], hi, lo);
+    const int o = wg::canonical(r, 4 * q, KC);
+    *reinterpret_cast<uint4*>(th + o) = hi;
+    *reinterpret_cast<uint4*>(tl + o) = lo;
+  }
+}
+
+// acc[mt] += the logits of one step for the m64 tiles mt < mt_end: the
+// state rows sS [TC_ROWS][KC + 4] (hidden columns of the step) against the
+// table rows 64 w .. 64 w + 63 of the tile in the planes th and tl
+// (canonical [MF_COLS][KC]), w this thread's warpgroup. acc[mt][j][e] is
+// row 64 mt + 16 (warp & 3) + g + 8 (e >> 1), column 64 w + 8 j + 2 t +
+// (e & 1). Each MF_CHAIN k8 blocks' three passes are summed on the tensor
+// cores from 0, waited for, and added to acc in fp32. Waits for its MMAs.
+template <int KC>
+__device__ __forceinline__ void mf_logits(float (&acc)[4][8][4], const float* sS, const float* th,
+                                          const float* tl, int mt_end) {
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) & 3, w = threadIdx.x >> 7;
+  const float* bh = th + wg::canonical(64 * w, 0, KC);
+  const float* bl = tl + wg::canonical(64 * w, 0, KC);
+  const float* a0 = sS + (16 * wr + tc::a_row(lane)) * (KC + 4) + tc::a_col32(lane);
+  auto frag = [&](int mt, int k, uint32_t (&h)[4], uint32_t (&l)[4]) {  // rows of mt, k8 block at k
+    uint32_t r[4];
+    tc::ldmatrix_x4(r, a0 + 64 * mt * (KC + 4) + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tc::split_tf32(r[e], h[e], l[e]);
+  };
+  constexpr int CH = KC / 8 < MF_CHAIN ? KC / 8 : MF_CHAIN;
+  static_assert((KC / 8) % CH == 0, "whole chains a step");
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    if (mt >= mt_end) break;  // (block-uniform)
+#pragma unroll
+    for (int k0 = 0; k0 < KC; k0 += 8 * CH) {
+      uint32_t ah[CH][4], al[CH][4];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) frag(mt, k0 + 8 * c, ah[c], al[c]);
+      float part[32];
+      wg::fence();
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int kb = k0 / 8 + c;
+        wg::mma_3xtf32<64>(part, ah[c], al[c], wg::desc(bh + 64 * kb, KC), wg::desc(bl + 64 * kb, KC), c);
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(part);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[4 * j + e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_fwd_mid_tf32_kernel(const float* __restrict__ states, const float* __restrict__ table, int B,
+                       int V, int H, int n_valid, int tiles_per_split,
+                       float* __restrict__ part_m, float* __restrict__ part_s) {
+  constexpr int KC = MF_FKC, SLOT = mf_lslot(KC), NP = MF_COLS * KC / 4 / THREADS;
+  extern __shared__ __align__(128) float mf_smem[];
+  float* xm = mf_smem + 2 * SLOT;  // [TC_ROWS] warpgroup 1's m
+  float* xs = xm + TC_ROWS;     // [TC_ROWS] ... and its sum
+  const int nk = round_up(H, KC) / KC;
+  const int per = tiles_per_split / (MF_COLS / VT);
+  const int n_tiles = (V + MF_COLS - 1) / MF_COLS;
+  const int t_begin = blockIdx.x * per, t_end = min(t_begin + per, n_tiles);
+  const int n_steps = max(t_end - t_begin, 0) * nk;
+  const int mt_end = (B + 63) / 64;
+
+  // step s: hidden chunk s % nk of tile t_begin + s / nk, in slot s & 1
+  auto slot = [&](int s) { return mf_smem + (s & 1) * SLOT; };
+  auto th = [&](int s) { return slot(s) + TC_ROWS * (KC + 4); };
+  float4 pre[NP];  // a step's table pieces, loaded a step ahead
+  auto issue_states = [&](int s) {
+    copy_chunk_async<TC_ROWS, KC>(slot(s), KC + 4, states, 0, B, H, (s % nk) * KC);
+  };
+  auto load_table = [&](int s) {
+    mf_load_table<KC>(pre, table, (t_begin + s / nk) * MF_COLS, (s % nk) * KC, V, H);
+  };
+  auto store_table = [&](int s) {
+    mf_store_table<KC>(pre, th(s), th(s) + MF_COLS * KC);
+    wg::fence_proxy_async();
+  };
+
+  float m[8], sum[8];  // row q = 2 i + half of this thread: 64 i + 16 (warp & 3) + g + 8 half
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    m[q] = -INFINITY;
+    sum[q] = 0.f;
+  }
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  if (n_steps > 0) {
+    issue_states(0);
+    load_table(0);
+    store_table(0);
+  }
+  onchip::cp_async_commit();
+  for (int s = 0; s < n_steps; ++s) {
+    onchip::cp_async_wait_all();  // this thread's copies of step s have landed
+    __syncthreads();  // everyone's, and step s's table planes; step s - 1's MMAs are done
+    if (s + 1 < n_steps) {
+      issue_states(s + 1);
+      load_table(s + 1);
+    }
+    onchip::cp_async_commit();
+    mf_logits<KC>(acc, slot(s), th(s), th(s) + MF_COLS * KC, mt_end);
+    if (s % nk == nk - 1)  // the tile is complete: fold its logits
+      fold_tile(acc, m, sum, (t_begin + s / nk) * MF_COLS, n_valid);
+    if (s + 1 < n_steps) store_table(s + 1);  // its slot was last read by step s - 1
+  }
+  merge_group<true>(m, sum, xm, xs, 0, B, part_m, part_s);
+}
+
+// Of a products step's 32 hidden columns, the plane row (wgmma's n) that
+// holds hidden column h: n = 8 j + 2 t + e holds 16 (j >> 1) + 4 t + 2 (j &
+// 1) + e, so that lane t's accumulators of n8 blocks 2 jj and 2 jj + 1 are
+// hidden columns 16 jj + 4 t .. 16 jj + 4 t + 3.
+__device__ __forceinline__ int mf_sigma_inv(int h) {
+  return 16 * (h >> 4) + 8 * ((h >> 1) & 1) + 2 * ((h >> 2) & 3) + (h & 1);
+}
+
+// p's element (r, c) in sP [TC_ROWS][MF_COLS]: the row's 16-byte pieces
+// permuted by r & 7.
+__device__ __forceinline__ int mf_sp(int r, int c) {
+  return r * MF_COLS + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+}
+
+// The float4 of ds_part that holds, of split `split`, the 16 hidden columns
+// kc, m64 tile W, warp i = w & 3, half and lane (row 64 W + 16 i + g + 8
+// half, columns 16 kc + 4 t ..): ce_ds_reduce_tc_kernel<true>'s order, one
+// group of TC_ROWS rows, Hp / 16 chunks.
+__device__ __forceinline__ size_t mf_ds_at(int split, int Hp, int kc, int W, int i, int half, int lane) {
+  return (((size_t)split * (Hp / 16) + kc) * 4 + W) * 256 + (2 * i + half) * 32 + lane;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_bwd_mid_tf32_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                       const long long* __restrict__ answers, const float* __restrict__ logz,
+                       const float* __restrict__ dloss, int B, int V, int H, int n_valid,
+                       int tiles_per_split, float* __restrict__ ds_part,
+                       float* __restrict__ dtable) {
+  constexpr int KC = MF_BKC, LSLOT = mf_lslot(KC), NP = MF_COLS * KC / 4 / THREADS;
+  extern __shared__ __align__(128) float mf_smem[];
+  float* sP = mf_smem;                     // [TC_ROWS][MF_COLS] p (mf_sp)
+  float* sR = sP + TC_ROWS * MF_COLS;      // two logits slots, or the products slot
+  float* tth = sR;                         // products: the table's planes [MF_HP][MF_COLS]
+  float* ttl = tth + MF_HP * MF_COLS;
+  float* sth = ttl + MF_HP * MF_COLS;      // ... the states' [MF_HP][TC_ROWS]
+  float* stl = sth + MF_HP * TC_ROWS;
+  float* sZ = sR + MF_PSLOT;               // [TC_ROWS] logZ, +inf past B
+  float* sD = sZ + TC_ROWS;                // [TC_ROWS] dloss
+  int* sA = reinterpret_cast<int*>(sD + TC_ROWS);  // [TC_ROWS] the answer, -1 outside [0, n_valid)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, wr = warp & 3, w = warp >> 2;
+  const int Hp = round_up(H, MF_HP), nl = Hp / KC, np = Hp / MF_HP;
+  const int per = tiles_per_split / (MF_COLS / VT);
+  const int n_tiles = (V + MF_COLS - 1) / MF_COLS;
+  const int t_begin = blockIdx.x * per, t_end = min(t_begin + per, n_tiles);
+  const int mt_end = (B + 63) / 64;
+  const int kb_end = round_up((B + 7) / 8, 2);  // the dT product's k8 blocks: rows < B, in pairs
+
+  {
+    // logZ +inf for a row past B, or for every row when no column is
+    // valid, so that its p is exp(-inf) = 0 with no mask
+    const bool ok = tid < B;
+    sZ[tid] = ok && n_valid > 0 ? logz[tid] : INFINITY;
+    sD[tid] = ok ? dloss[tid] : 0.f;
+    const long long a = ok ? answers[tid] : -1;
+    sA[tid] = in_catalog(a, n_valid) ? (int)a : -1;
+  }
+
+  for (int tt = t_begin; tt < t_end; ++tt) {
+    const int j0 = tt * MF_COLS;
+    // ---- the logits: nl steps of KC hidden columns, slots s & 1 of the region
+    auto slot = [&](int s) { return sR + (s & 1) * LSLOT; };
+    auto th = [&](int s) { return slot(s) + TC_ROWS * (KC + 4); };
+    float4 pre[NP];
+    auto stage = [&](int s, bool first) {  // step s's state rows by cp.async, its table rows into pre
+      copy_chunk_async<TC_ROWS, KC>(slot(s), KC + 4, states, 0, B, H, s * KC);
+      mf_load_table<KC>(pre, table, j0, s * KC, V, H);
+      if (first) {
+        mf_store_table<KC>(pre, th(s), th(s) + MF_COLS * KC);
+        wg::fence_proxy_async();
+      }
+    };
+    // the region is free: the tile before ended with barriers after its last MMAs
+    stage(0, true);
+    onchip::cp_async_commit();
+    float acc[4][8][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int s = 0; s < nl; ++s) {
+      onchip::cp_async_wait_all();
+      __syncthreads();  // step s's rows (at the first tile's s = 0 the row scalars too); step s - 1's MMAs are done
+      if (s + 1 < nl) stage(s + 1, false);
+      onchip::cp_async_commit();
+      mf_logits<KC>(acc, slot(s), th(s), th(s) + MF_COLS * KC, mt_end);
+      if (s + 1 < nl) {
+        mf_store_table<KC>(pre, th(s + 1), th(s + 1) + MF_COLS * KC);
+        wg::fence_proxy_async();
+      }
+    }
+    // ---- p = exp(logit - logZ) * dloss into sP: the logits past n_valid
+    // set to -inf in the tile that reaches past it
+    {
+      const bool ragged = j0 + MF_COLS > n_valid;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= mt_end) break;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 64 * mt + 16 * wr + g + 8 * half;
+          const float z = sZ[r], d = sD[r];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = 64 * w + 8 * j + 2 * t4;
+            float l0 = acc[mt][j][2 * half], l1 = acc[mt][j][2 * half + 1];
+            if (ragged) {
+              if (j0 + c >= n_valid) l0 = -INFINITY;
+              if (j0 + c + 1 >= n_valid) l1 = -INFINITY;
+            }
+            *reinterpret_cast<float2*>(sP + mf_sp(r, c)) = make_float2(expf(l0 - z) * d, expf(l1 - z) * d);
+          }
+        }
+      }
+    }
+
+    // ---- the products: np steps of MF_HP hidden columns in the one slot;
+    // this thread's 4 x 4 blocks of a step: table rows 4 cq .. of the tile
+    // and batch rows 8 bg + par + 2 i (i < 4) of the states, at hidden
+    // columns 4 hq .. 4 hq + 3 of the chunk
+    const int hq = lane & 7, cq = 4 * warp + (lane >> 3);
+    float4 tp[4], sp[2][4];
+    auto load_products = [&](int k) {
+      const int h = k * MF_HP + 4 * hq;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = j0 + 4 * cq + i;
+        tp[i] = (c < V && h < H) ? __ldg(reinterpret_cast<const float4*>(table + (size_t)c * H + h))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int u = (tid + THREADS * v) >> 3, b0 = 8 * (u >> 1) + (u & 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int b = b0 + 2 * i;
+          sp[v][i] = (b < B && h < H) ? __ldg(reinterpret_cast<const float4*>(states + (size_t)b * H + h))
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    };
+    // transposed and split into the planes: the table's [hidden n][column],
+    // the states' [hidden n][row position], rows 8 bg + par + 2 i at
+    // positions 8 bg + 4 par + i (the dT product's k order)
+    auto store_products = [&]() {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = mf_sigma_inv(4 * hq + e);
+        uint4 hi, lo;
+        split4(make_float4(comp(tp[0], e), comp(tp[1], e), comp(tp[2], e), comp(tp[3], e)), hi, lo);
+        const int o = wg::canonical(n, 4 * cq, MF_COLS);
+        *reinterpret_cast<uint4*>(tth + o) = hi;
+        *reinterpret_cast<uint4*>(ttl + o) = lo;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int u = (tid + THREADS * v) >> 3;
+          split4(make_float4(comp(sp[v][0], e), comp(sp[v][1], e), comp(sp[v][2], e), comp(sp[v][3], e)),
+                 hi, lo);
+          const int os = wg::canonical(n, 8 * (u >> 1) + 4 * (u & 1), TC_ROWS);
+          *reinterpret_cast<uint4*>(sth + os) = hi;
+          *reinterpret_cast<uint4*>(stl + os) = lo;
+        }
+      }
+      wg::fence_proxy_async();
+    };
+    load_products(0);
+    __syncthreads();  // every logits MMA is done with the region; p is complete
+    store_products();
+    for (int k = 0; k < np; ++k) {
+      __syncthreads();  // step k's planes
+      if (k + 1 < np) load_products(k + 1);
+      const int h0 = k * MF_HP;
+      // a is double-buffered over one stream of k8 blocks (ds's m64 tiles,
+      // then dT's, each an even number of blocks, so each starts in buffer
+      // 0): block kb + 1 is loaded and split while kb's MMAs run, once
+      // wgmma.wait_group 1 has retired kb - 1's, the last reader of its buffer
+      uint32_t ah[2][4], al[2][4];
+      // ds: warpgroup w's m64 tiles 2 w + mi of batch rows, K = the tile's
+      // columns, a = p by ldmatrix
+      float dsa[2][16];
+      float4 prev[2][2][2];  // [mi][jj][half]: ds_part of the tile before
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (2 * w + mi >= mt_end) break;
+        const int ra = 128 * w + 64 * mi + 16 * wr + tc::a_row(lane);
+        auto frag = [&](int kb, uint32_t (&h)[4], uint32_t (&l)[4]) {
+          uint32_t r[4];
+          tc::ldmatrix_x4(r, sP + mf_sp(ra, 8 * kb + tc::a_col32(lane)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tc::split_tf32(r[e], h[e], l[e]);
+        };
+        wg::wait<1>();
+        frag(0, ah[0], al[0]);
+#pragma unroll
+        for (int kb = 0; kb < MF_COLS / 8; ++kb) {
+          wg::fence();
+          wg::mma_3xtf32<32>(dsa[mi], ah[kb & 1], al[kb & 1], wg::desc(tth + 64 * kb, MF_COLS),
+                             wg::desc(ttl + 64 * kb, MF_COLS), kb);
+          wg::commit();
+          if (kb + 1 < MF_COLS / 8) {
+            wg::wait<1>();
+            frag(kb + 1, ah[(kb + 1) & 1], al[(kb + 1) & 1]);
+          }
+        }
+        // the carry's loads, in flight while the MMAs run
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            prev[mi][jj][half] =
+                tt != t_begin ? reinterpret_cast<const float4*>(ds_part)[mf_ds_at(blockIdx.x, Hp, 2 * k + jj,
+                                                                                  2 * w + mi, wr, half, lane)]
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      // dT: warpgroup w's catalog columns 64 w .. 64 w + 63, K = the batch
+      // rows, a = p^T by 8-byte loads
+      float dta[16];
+      {
+        const int ca = 64 * w + 16 * wr + 2 * g;
+        auto frag = [&](int kb, uint32_t (&h)[4], uint32_t (&l)[4]) {
+          const int b = 8 * kb + 2 * t4;
+          const float2 v0 = *reinterpret_cast<const float2*>(sP + mf_sp(b, ca));
+          const float2 v1 = *reinterpret_cast<const float2*>(sP + mf_sp(b + 1, ca));
+          tc::split_tf32(__float_as_uint(v0.x), h[0], l[0]);
+          tc::split_tf32(__float_as_uint(v0.y), h[1], l[1]);
+          tc::split_tf32(__float_as_uint(v1.x), h[2], l[2]);
+          tc::split_tf32(__float_as_uint(v1.y), h[3], l[3]);
+        };
+        wg::wait<1>();
+        frag(0, ah[0], al[0]);
+        for (int kb = 0; kb < kb_end; kb += 2) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            wg::fence();
+            wg::mma_3xtf32<32>(dta, ah[u], al[u], wg::desc(sth + 64 * (kb + u), TC_ROWS),
+                               wg::desc(stl + 64 * (kb + u), TC_ROWS), kb + u);
+            wg::commit();
+            if (kb + u + 1 < kb_end) {
+              wg::wait<1>();
+              frag(kb + u + 1, ah[u ^ 1], al[u ^ 1]);
+            }
+          }
+        }
+      }
+      wg::wait<0>();
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) wg::fence_regs(dsa[mi]);
+      wg::fence_regs(dta);
+      // ds_part: prev + the step's sums, in ce_ds_reduce_tc_kernel<true>'s order
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (2 * w + mi >= mt_end) break;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float* c = dsa[mi] + 8 * jj + 2 * half;
+            const float4 pv = prev[mi][jj][half];
+            reinterpret_cast<float4*>(ds_part)[mf_ds_at(blockIdx.x, Hp, 2 * k + jj, 2 * w + mi, wr, half, lane)] =
+                make_float4(pv.x + c[0], pv.y + c[1], pv.z + c[4], pv.w + c[5]);
+          }
+      }
+      // dT rows j0 + 64 w + 16 (warp & 3) + 2 g + half, hidden columns h0 + 16 jj + 4 t ..
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = j0 + 64 * w + 16 * wr + 2 * g + half;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int h = h0 + 16 * jj + 4 * t4, i0 = 8 * jj + 2 * half;
+          if (col < V && h < H)
+            *reinterpret_cast<float4*>(dtable + (size_t)col * H + h) =
+                make_float4(dta[i0], dta[i0 + 1], dta[i0 + 4], dta[i0 + 5]);
+        }
+      }
+      __syncthreads();  // every MMA of step k is done with the planes
+      if (k + 1 < np) store_products();
+    }
+    // the one-hot term, in ascending i as every route takes it, on the
+    // tile's finished dT rows in device memory, from the states; the vote
+    // is also the barrier after every dT write of the tile
+    const int a_mine = sA[tid];
+    if (__syncthreads_or(a_mine >= j0 && a_mine < j0 + MF_COLS)) {
+      for (int h = tid; h < H; h += THREADS)
+        for (int i = 0; i < B; ++i) {
+          const int a = sA[i];
+          if (a >= j0 && a < j0 + MF_COLS) dtable[(size_t)a * H + h] -= sD[i] * __ldg(states + (size_t)i * H + h);
+        }
+    }
+  }
+}
+
 bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 != 0; }
 
 // The route of both sweeps, by shape: the on-chip kernels where the batch
@@ -3187,8 +3795,8 @@ bool bad_shape(int B, int V, int H) { return B < 1 || V < 1 || H < 4 || H % 4 !=
 bool onchip_route(int B, int H) { return B <= OC_B && H <= OC_H; }
 bool wide_route(int H) { return H > MAX_H; }
 // ... and the middle route, B <= OC_B and OC_H < H <= MAX_H, where the bf16
-// form runs ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel (the fp32 form
-// the older sweeps)
+// form runs ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel, the fp32 form
+// ce_fwd_mid_tf32_kernel and the wide route's ce_bwd_wide_tf32_kernel
 bool mid_route(int B, int H) { return B <= OC_B && H > OC_H && H <= MAX_H; }
 // ... and the backward tensor-core kernel's tile: catalog columns, and the
 // multiple of 64 that H is padded to
@@ -3210,6 +3818,7 @@ long long streaming_ce_smem_bytes(int B, int H, int which, int bf16) {
     const int Hp = round_up(H, TC_HL);
     return which == 0 ? mid_fwd_smem(Hp) : mid_bwd_smem(Hp);
   }
+  if (mid_route(B, H)) return which == 0 ? MF_FWD_SMEM : TF_SMEM;
   if (which == 0)
     return (long long)sizeof(float) *
            (onchip_route(B, H) ? onchip::STATE_FLOATS + onchip::RING_FLOATS : (BT + VT) * ld);
@@ -3230,10 +3839,11 @@ int ce_onchip_route(int B, int H) { return onchip_route(B, H) ? 1 : 0; }
 // (ce_bwd_wide_tc_kernel): tiles_per_split is a multiple of 2, or of 4.
 int ce_wide_route(int H) { return wide_route(H) ? 1 : 0; }
 
-// 1 where the bf16 form takes its middle route (B <= 256, 64 < H <= 256):
-// ce_fwd_mid_tc_kernel (tiles of FT_COLS = 128 columns) and
-// ce_bwd_mid_tc_kernel (MID_COLS = 128): tiles_per_split is a multiple of
-// 2 there. The fp32 form takes the older sweeps at these shapes.
+// 1 where both forms take their middle route (B <= 256, 64 < H <= 256):
+// the bf16 form ce_fwd_mid_tc_kernel (tiles of FT_COLS = 128 columns) and
+// ce_bwd_mid_tc_kernel (MID_COLS = 128), the fp32 form
+// ce_fwd_mid_tf32_kernel (MF_COLS = 128) and ce_bwd_wide_tf32_kernel
+// (TF_COLS = 128): tiles_per_split is a multiple of 2 there.
 int ce_mid_route(int B, int H) { return mid_route(B, H) ? 1 : 0; }
 
 // Bytes of the workspace that ce_logz takes at batch B, hidden size H, form
@@ -3253,10 +3863,11 @@ long long ce_logz_workspace_bytes(int B, int H, int bf16, int n_splits) {
 // the kernel's fragment order (ce_ds_reduce_tc_kernel; Bp = B up to a
 // multiple of 256, Hp = H up to a multiple of 32 in the fp32 form, of 64
 // in the bf16 form), and in the bf16 form then its bf16 states [Bp, Hp]
-// and one bf16 table tile [256, Hp] a split; on the bf16 form's middle
-// route [n_splits, 256, Hp] in that order (Hp a multiple of 64) alone.
+// and one bf16 table tile [256, Hp] a split; on the middle route
+// [n_splits, 256, Hp] in that order alone (Hp a multiple of 64 in the bf16
+// form, of 32 in the fp32 form).
 long long ce_grads_workspace_bytes(int B, int H, int bf16, int n_splits) {
-  if (bf16 && mid_route(B, H)) return 4LL * n_splits * TC_ROWS * round_up(H, TC_HL);
+  if (mid_route(B, H)) return 4LL * n_splits * TC_ROWS * round_up(H, bf16 ? TC_HL : MF_HP);
   if (!wide_route(H)) return 4LL * n_splits * B * H;
   const long long Bp = round_up(B, TC_ROWS), Hp = grads_tc_hp(H, bf16);
   return 4LL * n_splits * Bp * Hp + (bf16 ? 2LL * (Bp + (long long)n_splits * TC_SV) * Hp : 0);
@@ -3278,7 +3889,7 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
             int n_valid, int n_splits, int tiles_per_split, void* workspace, void* logz,
             void* loss, int bf16, void* stream) {
   const bool wide = wide_route(H);  // a tensor-core kernel in either form
-  const bool mid = bf16 && mid_route(B, H);  // ce_fwd_mid_tc_kernel
+  const bool mid = mid_route(B, H);  // ce_fwd_mid_tc_kernel, ce_fwd_mid_tf32_kernel
   const bool tiled = wide || mid || (bf16 && onchip_route(B, H));  // FT_COLS-column tiles
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       (long long)n_splits * tiles_per_split * VT < V || (answers == nullptr) != (loss == nullptr) ||
@@ -3305,10 +3916,10 @@ int ce_logz(const void* states, const void* table, const void* answers, int B, i
     ce_fwd_wide_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
         sb, static_cast<const float*>(table), B, V, H, n_valid, tiles_per_split, part_m, part_s);
   } else if (mid) {
-    e = cudaFuncSetAttribute(ce_fwd_mid_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    auto sweep = bf16 ? ce_fwd_mid_tc_kernel : ce_fwd_mid_tf32_kernel;
+    e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    ce_fwd_mid_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+    sweep<<<n_splits, THREADS, (size_t)smem, s>>>(
         static_cast<const float*>(states), static_cast<const float*>(table), B, V, H, n_valid,
         tiles_per_split, part_m, part_s);
   } else if (wide) {
@@ -3369,7 +3980,9 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
              int tiles_per_split, void* workspace, void* ds, void* dtable, int bf16,
              void* stream) {
   const int n_tiles = (V + VT - 1) / VT;
-  const bool tc = wide_route(H);  // a tensor-core kernel in either form
+  // a wide tensor-core kernel in either form (and ce_bwd_wide_tf32_kernel on
+  // the fp32 form's middle route)
+  const bool tc = wide_route(H) || (!bf16 && mid_route(B, H));
   const bool mid = bf16 && mid_route(B, H);  // ce_bwd_mid_tc_kernel
   if (bad_shape(B, V, H) || n_valid < 0 || n_valid > V || n_splits < 1 ||
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
@@ -3400,10 +4013,10 @@ int ce_grads(const void* states, const void* table, const void* answers, const v
         static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,
         ds_part, static_cast<float*>(dtable));
   } else if (mid) {
-    e = cudaFuncSetAttribute(ce_bwd_mid_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    auto sweep = ce_bwd_mid_tc_kernel;
+    e = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    ce_bwd_mid_tc_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+    sweep<<<n_splits, THREADS, (size_t)smem, s>>>(
         static_cast<const float*>(states), static_cast<const float*>(table),
         static_cast<const long long*>(answers), static_cast<const float*>(logz),
         static_cast<const float*>(dloss), B, V, H, n_valid, tiles_per_split,

@@ -25,9 +25,10 @@ Both sweeps take one of three routes, by shape: at B <= 256 and H <= 64
 (`onchip_route`) the batch (and the backward's ds) stays on chip for the
 whole sweep, one block per SM; at H > 256 (`wide_route`) the wide
 kernels stage the hidden dimension in chunks, so their shared memory does
-not grow with H; elsewhere the older sweeps re-stage 64-row batch tiles
-with whole rows, two blocks per SM, but for the bf16 form at B <= 256
-and 64 < H <= 256 (`mid_route`, the middle route, below).
+not grow with H; at B <= 256 and 64 < H <= 256 (`mid_route`, the middle
+route, below) the middle route's kernels; elsewhere (B > 256 at H > 64)
+the older sweeps re-stage 64-row batch tiles with whole rows, two blocks
+per SM.
 `ce_logz.onchip_launches`, `ce_grads.onchip_launches`,
 `ce_logz.wide_launches` and `ce_grads.wide_launches` count the first two
 apart. On the on-chip route the fp32 form runs fp32 FMA kernels and the
@@ -54,8 +55,13 @@ states (no states scratch, no extra launch): `ce_fwd_mid_tc_kernel`
 (256 batch rows x 128 catalog columns a tile, the wide forward's
 epilogue) and `ce_bwd_mid_tc_kernel` (128-column tiles, p held beside the
 states, ds_part in the wide backward's fragment order);
-`ce_logz.mid_launches` and `ce_grads.mid_launches` count them (the fp32
-form at those shapes runs the older sweeps). The kernels take every H % 4 == 0
+`ce_logz.mid_launches` and `ce_grads.mid_launches` count them. The fp32
+form there runs in 3xTF32: its forward `ce_fwd_mid_tf32_kernel`, on
+Hopper's warpgroup MMAs (wgmma; `ce_logz.mid_tf32_launches`), its backward
+the wide route's `ce_bwd_wide_tf32_kernel` (`ce_grads.mid_tf32_launches`),
+faster there at B = 256 than the wgmma backward `ce_bwd_mid_tf32_kernel`,
+which `tools/ablate_ce_tc.py` times.
+The kernels take every H % 4 == 0
 (JAX's kernels take an H that divides 128 or is a multiple of 128, all
 of it inside that); the workspaces (the splits' partials, and in the
 bf16 form's wide kernels bf16 copies of the states and, backward, of a
@@ -233,17 +239,17 @@ def wide_route(h: int) -> bool:
 
 @functools.cache
 def mid_route(b: int, h: int) -> bool:
-    """True where the bf16 form of `ce_logz` and `ce_grads` takes its
-    middle route (B <= 256, 64 < H <= 256: ce_fwd_mid_tc_kernel and
-    ce_bwd_mid_tc_kernel), by shape; the fp32 form takes the older sweeps
-    there."""
+    """True where `ce_logz` and `ce_grads` take their middle route (B <=
+    256, 64 < H <= 256), by shape: the bf16 form's ce_fwd_mid_tc_kernel and
+    ce_bwd_mid_tc_kernel, the fp32 form's ce_fwd_mid_tf32_kernel and
+    ce_bwd_wide_tf32_kernel."""
     return bool(_lib().ce_mid_route(b, h))
 
 
 # kernel tiling (csrc/streaming_ce.cu): batch rows per tile, columns per
 # tile, columns per tile of the tensor-core kernels (the forward in both
-# forms, the bf16 backward, the fp32 backward, the bf16 middle route's
-# backward)
+# forms, the bf16 backward, the fp32 backward, the middle route's backward
+# in both forms)
 _BT, _VT, _TC_FWD_VT, _TC_VT, _TF_VT, _MID_VT = 64, 64, 128, 256, 128, 128
 
 
@@ -305,15 +311,15 @@ def split_plan(b: int, v: int, onchip: bool, wide: bool, bf16: bool, backward: b
     """(n_splits, tiles_per_split) that `ce_logz` (or, with `backward`,
     `ce_grads`) launches with on `sms` SMs, for the route (`onchip_route`,
     `wide_route`, `mid_route`) and form of batch `b` and catalog `v`: one
-    block per SM on the on-chip, middle (bf16) and wide routes, each split
-    whole tiles of its kernel (the wide forward's, the bf16 on-chip
-    forward's and the bf16 middle route's 128 columns, the wide backward's
-    256 (bf16) or 128 (fp32), else 64); on the older sweeps two blocks per
-    SM, the forward's over (splits x batch tiles of 64 rows)."""
+    block per SM on the on-chip, middle and wide routes, each split whole
+    tiles of its kernel (the wide forward's, the bf16 on-chip forward's and
+    the middle route's 128 columns, the wide backward's 256 (bf16) or 128
+    (fp32), else 64); on the older sweeps two blocks per SM, the forward's
+    over (splits x batch tiles of 64 rows)."""
     if wide:
         tile = (_TC_VT if bf16 else _TF_VT) if backward else _TC_FWD_VT
         return tc_splits(v, tile, sms)
-    if mid and bf16:  # ce_fwd_mid_tc_kernel's and ce_bwd_mid_tc_kernel's tiles
+    if mid:  # the middle route's kernels' tiles, in either form
         return tc_splits(v, _MID_VT if backward else _TC_FWD_VT, sms)
     if onchip and bf16 and not backward:  # ce_fwd_onchip_tc_kernel's tiles
         return tc_splits(v, _TC_FWD_VT, sms)
@@ -347,6 +353,7 @@ def _launch_logz(states, table, answers, n_valid, bf16=False):
     ce_logz.onchip_launches += onchip
     ce_logz.wide_launches += wide
     ce_logz.mid_launches += mid and bf16
+    ce_logz.mid_tf32_launches += mid and not bf16
     ce_logz.bf16_launches += bf16
     return loss, logz
 
@@ -385,6 +392,7 @@ def _launch_grads(states, table, answers, logz, dloss, n_valid, bf16=False):
     ce_grads.onchip_launches += onchip
     ce_grads.wide_launches += wide
     ce_grads.mid_launches += mid and bf16
+    ce_grads.mid_tf32_launches += mid and not bf16
     ce_grads.bf16_launches += bf16
     return ds, dt
 
@@ -453,12 +461,14 @@ ce_logz.launches = 0  # kernel launches (CUDA path only), ce_loss_logz's include
 ce_logz.onchip_launches = 0  # the launches that took the on-chip route
 ce_logz.wide_launches = 0  # the launches that took the wide route (a tensor-core kernel, either form)
 ce_logz.mid_launches = 0  # the bf16 form's launches on the middle route (ce_fwd_mid_tc_kernel)
+ce_logz.mid_tf32_launches = 0  # the fp32 form's launches on the middle route (ce_fwd_mid_tf32_kernel)
 ce_logz.bf16_launches = 0  # the launches in the bf16-operand form
 gold_rows.launches = 0
 ce_grads.launches = 0
 ce_grads.onchip_launches = 0  # the launches that took the on-chip route
 ce_grads.wide_launches = 0  # the launches that took the wide route (a tensor-core kernel, either form)
 ce_grads.mid_launches = 0  # the bf16 form's launches on the middle route (ce_bwd_mid_tc_kernel)
+ce_grads.mid_tf32_launches = 0  # the fp32 form's launches on the middle route (ce_bwd_wide_tf32_kernel)
 ce_grads.bf16_launches = 0  # the launches in the bf16-operand form
 
 

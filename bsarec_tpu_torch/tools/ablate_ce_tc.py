@@ -87,12 +87,35 @@ and `chip_smoke.py:bf16_yardsticks`' library calls; each whole variant's
 logZ and gradients are printed against the plain bf16 versions and
 `parity.ce_grads_bf16_in_order`. Every library takes one split plan:
 whole 128-column tiles for the forward and whole 256-column tiles for
-the backward, which every kernel there accepts.
+the backward, which every kernel there accepts. `--mid` also times the
+fp32 form's middle route (the variants named "fp32 ...", each in the
+fp32 form beside the plain fp32 version and an fp64 one): the route as
+it is (`ce_fwd_mid_tf32_kernel`, the backward on
+`ce_bwd_wide_tf32_kernel`), the forward's yardstick (both entries on the
+wide 3xTF32 kernels), the backward on `ce_bwd_mid_tf32_kernel` (`wgmma`,
+which the route does not take; every cut below takes it too), the
+logits' partial sums one or four k8 blocks long or
+summed over all of H in the MMAs' accumulators, the pair's MMAs alone
+(no copies, loads, plane stores, dT stores or ds_part traffic), their
+memory path alone (no MMAs), without the forward's fold and the
+backward's carry, and the backward's logits or products steps alone;
+with the fp32 library calls (`F.cross_entropy` over the fp32 product).
+`--only TEXT` builds the variants whose name holds TEXT.
 
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py            # needs a card and nvcc
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --onchip   # the H=64 variants
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --mid      # the H=128 and H=256 variants
+    python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --mid-batches  # the fp32 backward's route by B
     python3 bsarec_tpu_torch/tools/ablate_ce_tc.py --check    # the replacements apply (no card)
+
+With `--mid-batches`, the fp32 form's two backward kernels on the middle
+route at V=1,000,000, H in {128, 256} and B in MID_BATCHES: the route's
+`ce_bwd_wide_tf32_kernel` and the variant `ce_bwd_mid_tf32_kernel`
+(`wgmma`), with the fp32 forward beside them; each checked against the
+plain fp32 version at B=37, V=5,003 and at every B timed (gradients
+within `parity.WIDE_GRAD_TOL`, two calls bit-equal), then timed in
+turns. This is the reading behind the route's choice of
+`ce_bwd_wide_tf32_kernel` at B = 256, the batch `main` trains at.
 
 Prints one JSON line per variant, then the card's name and power limit.
 """
@@ -278,8 +301,8 @@ TO_WIDE = [
      "  if (!(wide_route(H) || (bf16 && onchip_route(B, H)))) return 4LL * n_splits * B * H;"),
     ("  const bool wide = wide_route(H);  // a tensor-core kernel in either form",
      "  const bool wide = wide_route(H) || (bf16 && onchip_route(B, H));"),
-    ("  const bool tc = wide_route(H);  // a tensor-core kernel in either form",
-     "  const bool tc = wide_route(H) || (bf16 && onchip_route(B, H));"),
+    ("  const bool tc = wide_route(H) || (!bf16 && mid_route(B, H));",
+     "  const bool tc = wide_route(H) || (bf16 && onchip_route(B, H)) || (!bf16 && mid_route(B, H));"),
 ]
 # ce_fwd_onchip_tc_kernel without its table traffic (the copies and the
 # rounding into bf16: the MMAs and the fold alone), or without its
@@ -339,15 +362,18 @@ TO_WIDE_MID = [
      "    return which == 0 ? (bf16 ? FT_SMEM : FW_SMEM) : (bf16 ? TC_SMEM : TF_SMEM);"),
     ("  if (!(bf16 && wide_route(H))) return parts;",
      "  if (!(bf16 && (wide_route(H) || mid_route(B, H)))) return parts;"),
-    ("  if (bf16 && mid_route(B, H)) return 4LL * n_splits * TC_ROWS * round_up(H, TC_HL);\n"
+    ("  if (mid_route(B, H)) return 4LL * n_splits * TC_ROWS * round_up(H, bf16 ? TC_HL : MF_HP);\n"
      "  if (!wide_route(H)) return 4LL * n_splits * B * H;",
+     "  if (!bf16 && mid_route(B, H)) return 4LL * n_splits * TC_ROWS * round_up(H, MF_HP);\n"
      "  if (!(wide_route(H) || (bf16 && mid_route(B, H)))) return 4LL * n_splits * B * H;"),
     ("  const bool wide = wide_route(H);  // a tensor-core kernel in either form\n"
-     "  const bool mid = bf16 && mid_route(B, H);  // ce_fwd_mid_tc_kernel",
-     "  const bool wide = wide_route(H) || (bf16 && mid_route(B, H));\n  const bool mid = false;"),
-    ("  const bool tc = wide_route(H);  // a tensor-core kernel in either form\n"
+     "  const bool mid = mid_route(B, H);  // ce_fwd_mid_tc_kernel, ce_fwd_mid_tf32_kernel",
+     "  const bool wide = wide_route(H) || (bf16 && mid_route(B, H));\n"
+     "  const bool mid = !bf16 && mid_route(B, H);"),
+    ("  const bool tc = wide_route(H) || (!bf16 && mid_route(B, H));\n"
      "  const bool mid = bf16 && mid_route(B, H);  // ce_bwd_mid_tc_kernel",
-     "  const bool tc = wide_route(H) || (bf16 && mid_route(B, H));\n  const bool mid = false;"),
+     "  const bool tc = wide_route(H) || mid_route(B, H);\n"
+     "  const bool mid = false;"),
 ]
 # the bf16 form's middle-route backward alone sent to ce_bwd_wide_tc_kernel
 TO_WIDE_MID_BWD = [
@@ -524,12 +550,86 @@ MB_L2_HINTS = [
      "                    make_float2(acc[i][j][e], acc[i][j][e + 1]);\n            }\n      } else {",
      "                st_hint(reinterpret_cast<float2*>(dtable + (size_t)(j0 + m) * H + h),\n"
      "                        make_float2(acc[i][j][e], acc[i][j][e + 1]), stream);\n            }\n      } else {")]
+# ---- the fp32 form's middle pair (ce_fwd_mid_tf32_kernel, ce_bwd_mid_tf32_kernel)
+# the fp32 form's middle-route shapes sent to the wide 3xTF32 kernels
+# (ce_fwd_wide_tf32_kernel, ce_bwd_wide_tf32_kernel: mma.sync, any H): the
+# yardstick of the wgmma pair (ds_part takes the same bytes on both)
+TO_WIDE_MID_FP32 = [
+    ("  if (mid_route(B, H)) return which == 0 ? MF_FWD_SMEM : TF_SMEM;",
+     "  if (mid_route(B, H)) return which == 0 ? FW_SMEM : TF_SMEM;"),
+    ("  const bool wide = wide_route(H);  // a tensor-core kernel in either form\n"
+     "  const bool mid = mid_route(B, H);  // ce_fwd_mid_tc_kernel, ce_fwd_mid_tf32_kernel",
+     "  const bool wide = wide_route(H) || (!bf16 && mid_route(B, H));\n"
+     "  const bool mid = bf16 && mid_route(B, H);")]
+# the fp32 form's middle-route backward on ce_bwd_mid_tf32_kernel (wgmma),
+# which the route does not take (ce_bwd_wide_tf32_kernel is faster at B =
+# 256): the variants below that cut parts of it take this too
+F32_BWD_WGMMA = [
+    ("  if (mid_route(B, H)) return which == 0 ? MF_FWD_SMEM : TF_SMEM;",
+     "  if (mid_route(B, H)) return which == 0 ? MF_FWD_SMEM : MF_BWD_SMEM;"),
+    ("  const bool tc = wide_route(H) || (!bf16 && mid_route(B, H));\n"
+     "  const bool mid = bf16 && mid_route(B, H);  // ce_bwd_mid_tc_kernel",
+     "  const bool tc = wide_route(H);\n"
+     "  const bool mid = mid_route(B, H);"),
+    ("    auto sweep = ce_bwd_mid_tc_kernel;\n",
+     "    auto sweep = bf16 ? ce_bwd_mid_tc_kernel : ce_bwd_mid_tf32_kernel;\n")]
+# the logits' sums on the tensor cores (mf_logits) one or four k8 blocks
+# long (four: the forward's whole step; the backward's steps hold two),
+# each added to the running logits in fp32, where the kernel's are two
+# blocks long
+F32_CHAIN = {n: [("constexpr int MF_CHAIN = 2;", f"constexpr int MF_CHAIN = {n};")] for n in (1, 4)}
+# ... or summed over all of H in the MMAs' own accumulators (acc[mt]), no
+# partial sums and no wait inside a step, the a fragments double-buffered
+# over the stream of (m64 tile, pair of k8 blocks) groups
+MF_LOGITS_PARTIAL = '  constexpr int CH = KC / 8 < MF_CHAIN ? KC / 8 : MF_CHAIN;\n  static_assert((KC / 8) % CH == 0, "whole chains a step");\n#pragma unroll\n  for (int mt = 0; mt < 4; ++mt) {\n    if (mt >= mt_end) break;  // (block-uniform)\n#pragma unroll\n    for (int k0 = 0; k0 < KC; k0 += 8 * CH) {\n      uint32_t ah[CH][4], al[CH][4];\n#pragma unroll\n      for (int c = 0; c < CH; ++c) frag(mt, k0 + 8 * c, ah[c], al[c]);\n      float part[32];\n      wg::fence();\n#pragma unroll\n      for (int c = 0; c < CH; ++c) {\n        const int kb = k0 / 8 + c;\n        wg::mma_3xtf32<64>(part, ah[c], al[c], wg::desc(bh + 64 * kb, KC), wg::desc(bl + 64 * kb, KC), c);\n      }\n      wg::commit();\n      wg::wait<0>();\n      wg::fence_regs(part);\n#pragma unroll\n      for (int j = 0; j < 8; ++j)\n#pragma unroll\n        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[4 * j + e];\n    }\n  }\n'
+MF_LOGITS_ALL_OF_H = "  constexpr int NG = KC / 16;  // groups of two k8 blocks a step and m64 tile\n  uint32_t ah[2][2][4], al[2][2][4];  // [buffer][k8 block of the group]\n#pragma unroll\n  for (int mt = 0; mt < 4; ++mt) {\n    if (mt >= mt_end) break;  // (block-uniform)\n    float(&d)[32] = reinterpret_cast<float(&)[32]>(acc[mt]);\n#pragma unroll\n    for (int q = 0; q < NG; ++q) {\n      const int u = (mt * NG + q) & 1;  // this group's buffer\n      wg::wait<1>();  // the group before the one before, its last reader, is done\n#pragma unroll\n      for (int c = 0; c < 2; ++c) frag(mt, 16 * q + 8 * c, ah[u][c], al[u][c]);\n      wg::fence();\n#pragma unroll\n      for (int c = 0; c < 2; ++c) {\n        const int kb = 2 * q + c;\n        wg::mma_3xtf32<64>(d, ah[u][c], al[u][c], wg::desc(bh + 64 * kb, KC), wg::desc(bl + 64 * kb, KC), 1);\n      }\n      wg::commit();\n    }\n  }\n  wg::wait<0>();\n#pragma unroll\n  for (int mt = 0; mt < 4; ++mt) wg::fence_regs(reinterpret_cast<float(&)[32]>(acc[mt]));\n"
+F32_ALL_OF_H = [(MF_LOGITS_PARTIAL, MF_LOGITS_ALL_OF_H)]
+# the pair without their state copies, table loads and plane stores,
+# products loads and plane stores, dT stores, ds_part carry and stores:
+# their fragment loads, splits, MMAs and epilogues (fold, p) alone
+F32_NO_MEMORY = [
+    ("    copy_chunk_async<TC_ROWS, KC>(slot(s), KC + 4, states, 0, B, H, (s % nk) * KC);\n", ""),
+    ("    mf_load_table<KC>(pre, table, (t_begin + s / nk) * MF_COLS, (s % nk) * KC, V, H);\n", ""),
+    ("  auto store_table = [&](int s) {\n    mf_store_table<KC>(pre, th(s), th(s) + MF_COLS * KC);\n",
+     "  auto store_table = [&](int s) {\n"),
+    ("      copy_chunk_async<TC_ROWS, KC>(slot(s), KC + 4, states, 0, B, H, s * KC);\n"
+     "      mf_load_table<KC>(pre, table, j0, s * KC, V, H);\n", ""),
+    ("      if (first) {\n        mf_store_table<KC>(pre, th(s), th(s) + MF_COLS * KC);\n", "      if (first) {\n"),
+    ("        mf_store_table<KC>(pre, th(s + 1), th(s + 1) + MF_COLS * KC);\n", ""),
+    ("        tp[i] = (c < V && h < H) ?", "        tp[i] = (c < 0 && h < H) ?"),
+    ("          sp[v][i] = (b < B && h < H) ?", "          sp[v][i] = (b < 0 && h < H) ?"),
+    ("    store_products();\n    for (int k = 0; k < np; ++k) {", "    for (int k = 0; k < np; ++k) {"),
+    ("      if (k + 1 < np) store_products();\n", ""),
+    ("          if (col < V && h < H)\n            *reinterpret_cast<float4*>(dtable",
+     "          if (V < 0)\n            *reinterpret_cast<float4*>(dtable"),
+    ("                tt != t_begin ? reinterpret_cast<const float4*>(ds_part)",
+     "                false ? reinterpret_cast<const float4*>(ds_part)"),
+    ("            reinterpret_cast<float4*>(ds_part)[mf_ds_at(blockIdx.x, Hp, 2 * k + jj, 2 * w + mi, wr, half, lane)] =",
+     "            if (V < 0) reinterpret_cast<float4*>(ds_part)[mf_ds_at(blockIdx.x, Hp, 2 * k + jj, 2 * w + mi, wr, half, lane)] =")]
+# ... or without their MMAs (the copies, loads, plane stores, fragment
+# loads and epilogues: the memory path)
+F32_NO_MMA = [
+    ("        wg::mma_3xtf32<64>(part, ah[c], al[c], wg::desc(bh + 64 * kb, KC), wg::desc(bl + 64 * kb, KC), c);\n",
+     ""),
+    ("          wg::mma_3xtf32<32>(dsa[mi], ah[kb & 1], al[kb & 1], wg::desc(tth + 64 * kb, MF_COLS),\n"
+     "                             wg::desc(ttl + 64 * kb, MF_COLS), kb);\n", ""),
+    ("            wg::mma_3xtf32<32>(dta, ah[u], al[u], wg::desc(sth + 64 * (kb + u), TC_ROWS),\n"
+     "                               wg::desc(stl + 64 * (kb + u), TC_ROWS), kb + u);\n", "")]
+F32_LOGITS_ONLY = [("  const int Hp = round_up(H, MF_HP), nl = Hp / KC, np = Hp / MF_HP;",
+                    "  const int Hp = round_up(H, MF_HP), nl = Hp / KC, np = 0;")]
+F32_PRODUCTS_ONLY = [("  const int Hp = round_up(H, MF_HP), nl = Hp / KC, np = Hp / MF_HP;",
+                      "  const int Hp = round_up(H, MF_HP), nl = 0, np = Hp / MF_HP;")]
+F32_NO_FOLD = [("fold its logits\n      fold_tile(acc", "fold its logits\n      if (V < 0) fold_tile(acc")]
+F32_NO_CARRY = [F32_NO_MEMORY[11]]
+
 # variant: replacements, at B=256, V=1M, H in {128, 256} (--mid); the cut
-# variants compute wrong results and are timed only
+# variants compute wrong results and are timed only. "kernel" and "on the
+# older sweeps" are timed in both forms, a variant named "fp32 ..." in the
+# fp32 form, the others in the bf16 form
 MID_VARIANTS = {
     "kernel": [],
     "bf16 on the wide tensor-core kernels": TO_WIDE_MID,
-    "bf16 on the older sweeps": TO_SWEEP_MID,
+    "on the older sweeps": TO_SWEEP_MID,
     "middle kernels: MMAs and epilogue only": (MF_NO_LOADS + MF_NO_STORES + MB_NO_LOADS + MB_NO_FILL
                                               + MB_NO_DT_STORES + MB_NO_CARRY + MB_NO_DS_STORES),
     "middle kernels: everything but the MMAs": MF_NO_MMA + MB_NO_MMA,
@@ -542,7 +642,20 @@ MID_VARIANTS = {
     "backward: L2 eviction hints on ds_part and dT": MB_L2_HINTS,
     "backward: wide tiling, states streamed from fp32, a step ahead": wide_streamed(sync=False),
     "backward: wide tiling, states streamed from fp32, at the step": wide_streamed(sync=True),
+    "fp32 on the wide 3xTF32 kernels": TO_WIDE_MID_FP32,
+    "fp32 backward on ce_bwd_mid_tf32_kernel": F32_BWD_WGMMA,
+    "fp32 partial sums of one k8 block": F32_BWD_WGMMA + F32_CHAIN[1],
+    "fp32 partial sums of four k8 blocks": F32_BWD_WGMMA + F32_CHAIN[4],
+    "fp32 logits summed on the tensor cores over all of H": F32_BWD_WGMMA + F32_ALL_OF_H,
+    "fp32 middle kernels: MMAs alone": F32_BWD_WGMMA + F32_NO_MEMORY,
+    "fp32 middle kernels: everything but the MMAs": F32_BWD_WGMMA + F32_NO_MMA,
+    "fp32 middle kernels: no fold (forward), no ds_part carry (backward)": (F32_BWD_WGMMA + F32_NO_FOLD
+                                                                           + F32_NO_CARRY),
+    "fp32 middle kernels: backward, logits steps only": F32_BWD_WGMMA + F32_LOGITS_ONLY,
+    "fp32 middle kernels: backward, products steps only": F32_BWD_WGMMA + F32_PRODUCTS_ONLY,
 }
+# the variants of MID_VARIANTS timed in both forms
+MID_BOTH_FORMS = ("kernel", "on the older sweeps")
 
 
 def sources(variants: dict | None = None) -> dict[str, str]:
@@ -706,25 +819,133 @@ def timed_in_turns(calls: dict, iters: int = 10) -> dict:
     return readings
 
 
-def onchip_main() -> None:
+MID_BATCHES = (16, 64, 128, 192, 256)
+
+
+def mid_batches_main() -> None:
+    """The --mid-batches mode (module docstring)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from bsarec_tpu_torch import parity
+    from bsarec_tpu_torch.ops import ce
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate_ce_tc: no CUDA device")
+    names = {"ce_bwd_mid_tf32_kernel": "fp32 backward on ce_bwd_mid_tf32_kernel",
+             "ce_bwd_wide_tf32_kernel": "kernel"}
+    libs = build(sources({k: MID_VARIANTS[v] for k, v in names.items()}), prefix="mb")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p, i = ctypes.c_void_p, ctypes.c_int
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    loaded = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.ce_logz.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
+        lib.ce_logz_workspace_bytes.argtypes = lib.ce_grads_workspace_bytes.argtypes = [i, i, i, i]
+        lib.ce_logz_workspace_bytes.restype = lib.ce_grads_workspace_bytes.restype = ctypes.c_longlong
+        loaded[name] = lib
+
+    def entries(lib, states, table, answers, logz, dloss, v, n_valid):
+        b, h = states.shape
+        n_splits, per = ce.tc_splits(v, 128, sm)
+        fw = torch.empty((lib.ce_logz_workspace_bytes(b, h, 0, n_splits),), dtype=torch.uint8, device=dev)
+        gw = torch.empty((lib.ce_grads_workspace_bytes(b, h, 0, n_splits),), dtype=torch.uint8, device=dev)
+        z = torch.empty((b,), device=dev)
+        ds, dt = torch.empty((b, h), device=dev), torch.empty((v, h), device=dev)
+        fwd = lambda: lib.ce_logz(states.data_ptr(), table.data_ptr(), None, b, v, h, n_valid, n_splits, per,
+                                  fw.data_ptr(), z.data_ptr(), None, 0, stream())
+        bwd = lambda: lib.ce_grads(states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
+                                   dloss.data_ptr(), b, v, h, n_valid, n_splits, per, gw.data_ptr(),
+                                   ds.data_ptr(), dt.data_ptr(), 0, stream())
+        return fwd, bwd, (fw, gw, z, ds, dt)
+
+    for h in (128, 256):
+        # the check: both kernels against the plain fp32 version
+        b, v, n_valid = 37, 5003, 5001
+        rng = np.random.default_rng(h)
+        s = torch.from_numpy(rng.normal(size=(b, h)).astype(np.float32)).to(dev)
+        t = torch.from_numpy((0.5 * rng.normal(size=(v, h))).astype(np.float32)).to(dev)
+        a = torch.from_numpy(rng.integers(-1, v + 2, size=b)).to(dev)
+        d = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(dev)
+        z = ce.ce_logz_plain(s, t, n_valid)
+        want = ce.ce_grads_plain(s, t, a, z, d, n_valid)
+        for name, lib in loaded.items():
+            _, bwd, bufs = entries(lib, s, t, a, z, d, v, n_valid)
+            if bwd() != 0:
+                raise SystemExit(f"ablate_ce_tc: {name} launch failed")
+            torch.cuda.synchronize()
+            errs = parity.grad_errors(bufs[3], bufs[4], *want, a, n_valid)
+            if max(errs.values()) > parity.WIDE_GRAD_TOL:
+                raise SystemExit(f"ablate_ce_tc: {name} off the plain version at H={h}: {errs}")
+            print(json.dumps({"check": name, "B": b, "V": v, "H": h, "gradients vs plain fp32": errs}),
+                  flush=True)
+        v = 1_000_000
+        table = torch.from_numpy(0.25 * rng.standard_normal((v, h), dtype=np.float32)).to(dev)
+        for b in MID_BATCHES:
+            states = torch.from_numpy(rng.standard_normal((b, h), dtype=np.float32)).to(dev)
+            answers = torch.from_numpy(rng.integers(1, v, size=b)).to(dev)
+            dloss = torch.full((b,), 1.0 / b, device=dev)
+            logz = ce.ce_logz_plain(states, table, v)
+            want = ce.ce_grads_plain(states, table, answers, logz, dloss, v)
+            calls, keep = {}, []
+            for name, lib in loaded.items():
+                fwd, bwd, bufs = entries(lib, states, table, answers, logz, dloss, v, v)
+                if bwd() != 0:
+                    raise SystemExit(f"ablate_ce_tc: {name} launch failed")
+                first = (bufs[3].clone(), bufs[4].clone())
+                if bwd() != 0:
+                    raise SystemExit(f"ablate_ce_tc: {name} launch failed")
+                torch.cuda.synchronize()
+                errs = parity.grad_errors(bufs[3], bufs[4], *want, answers, v)
+                same = torch.equal(first[0], bufs[3]) and torch.equal(first[1], bufs[4])
+                if max(errs.values()) > parity.WIDE_GRAD_TOL or not same:
+                    raise SystemExit(f"ablate_ce_tc: {name} at B={b} H={h}: {errs}, two calls "
+                                     f"bit-equal {same}")
+                print(json.dumps({"check": name, "B": b, "V": v, "H": h, "gradients vs plain fp32": errs,
+                                  "two calls bit-equal": same}), flush=True)
+                del first
+                keep.append(bufs)
+                calls[f"backward: {name}"] = bwd
+                if name == "ce_bwd_mid_tf32_kernel":
+                    calls["forward: ce_fwd_mid_tf32_kernel"] = fwd
+            del want
+            for name, r in timed_in_turns(calls).items():
+                print(json.dumps({"variant": name, "ms": r, "B": b, "V": v, "H": h}), flush=True)
+            del keep, calls
+            torch.cuda.empty_cache()
+        del table
+        torch.cuda.empty_cache()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+
+
+def onchip_main(only=None) -> None:
     """The --onchip mode (module docstring)."""
-    route_main(ONCHIP_VARIANTS, "onchip", (64,), "on-chip kernels:")
+    route_main(ONCHIP_VARIANTS, "onchip", (64,), ("on-chip kernels:",), only)
 
 
-def mid_main() -> None:
+def mid_main(only=None) -> None:
     """The --mid mode (module docstring)."""
-    route_main(MID_VARIANTS, "mid", (128, 256), "middle kernels:")
+    route_main(MID_VARIANTS, "mid", (128, 256), ("middle kernels:", "fp32 middle kernels:"), only)
 
 
-def route_main(variants: dict, prefix: str, widths: tuple, cut: str) -> None:
-    """Build `variants`, then at B=256, V=1M and each H of `widths` time
-    them in turns with the fp32 form and the library calls; the whole
-    variants' (not those whose name starts with `cut`) outputs against the
-    plain bf16 versions."""
+def route_main(variants: dict, prefix: str, widths: tuple, cut: tuple, only=None) -> None:
+    """Build `variants` (with `only`, "kernel" and those whose name holds
+    one of its strings), then at B=256, V=1M and each H of `widths` time
+    them in turns with the library calls; the whole variants' (not those
+    whose name starts with one of `cut`) outputs against the plain
+    versions of their form."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("ablate_ce_tc: no CUDA device")
+    if only:
+        variants = {k: v for k, v in variants.items() if k == "kernel" or any(o in k for o in only)}
     libs = build(sources(variants), prefix=prefix)
     for h in widths:
         route_times(libs, h, cut)
@@ -732,7 +953,7 @@ def route_main(variants: dict, prefix: str, widths: tuple, cut: str) -> None:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
 
 
-def route_times(libs: dict, h: int, cut: str) -> None:
+def route_times(libs: dict, h: int, cut: tuple) -> None:
     """One width of `route_main`."""
     import importlib.util
 
@@ -758,6 +979,16 @@ def route_times(libs: dict, h: int, cut: str) -> None:
     # the tensor cores' summation order (parity.py's head): the reference of
     # BF16_WIDE_GRAD_TOL
     in_order = parity.ce_grads_bf16_in_order(states, table, answers, logz, dloss, v)
+    # the fp32 form's references: the plain fp32 version and the same in fp64
+    want32_loss, logz32 = ce.ce_loss_logz_plain(states, table, answers, v)
+    want32_ds, want32_dt = ce.ce_grads_plain(states, table, answers, logz32, dloss, v)
+    fp64 = ce.ce_grads_plain(states.double(), table.double(), answers, logz32.double(), dloss.double(), v)
+    fp64_logz = ce.ce_logz_plain(states.double(), table.double(), v)
+    print(json.dumps({"accuracy": "plain fp32", "B": b, "V": v, "H": h,
+                      "logZ vs fp64": float(((logz32.double() - fp64_logz).abs()
+                                             / fp64_logz.abs().clamp(min=1.0)).max()),
+                      "gradients vs fp64": parity.grad_errors(want32_ds, want32_dt, *fp64, answers, v)}),
+          flush=True)
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     f_splits, f_per = ce.tc_splits(v, ce._TC_FWD_VT, sm)
     g_splits, g_per = ce.tc_splits(v, ce._TC_VT, sm)
@@ -770,7 +1001,7 @@ def route_times(libs: dict, h: int, cut: str) -> None:
         lib.ce_grads.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, i, p]
         lib.ce_logz_workspace_bytes.argtypes = lib.ce_grads_workspace_bytes.argtypes = [i, i, i, i]
         lib.ce_logz_workspace_bytes.restype = lib.ce_grads_workspace_bytes.restype = ctypes.c_longlong
-        forms = (1, 0) if name == "kernel" else (1,)
+        forms = (1, 0) if name in MID_BOTH_FORMS else (0,) if name.startswith("fp32") else (1,)
         for form in forms:
             f_work = torch.empty((lib.ce_logz_workspace_bytes(b, h, form, f_splits),),
                                  dtype=torch.uint8, device=dev)
@@ -781,19 +1012,30 @@ def route_times(libs: dict, h: int, cut: str) -> None:
             keep += [f_work, g_work, loss, z, ds, dt]
             fwd = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), b, v, h, v, f_splits,
                    f_per, f_work.data_ptr(), z.data_ptr(), loss.data_ptr(), form)
-            bwd = (states.data_ptr(), table.data_ptr(), answers.data_ptr(), logz.data_ptr(),
-                   dloss.data_ptr(), b, v, h, v, g_splits, g_per, g_work.data_ptr(), ds.data_ptr(),
-                   dt.data_ptr(), form)
-            tag = name if form else "fp32 kernel"
+            bwd = (states.data_ptr(), table.data_ptr(), answers.data_ptr(),
+                   (logz if form else logz32).data_ptr(), dloss.data_ptr(), b, v, h, v, g_splits,
+                   g_per, g_work.data_ptr(), ds.data_ptr(), dt.data_ptr(), form)
+            tag = (("fp32 kernel" if name == "kernel" else f"{'bf16' if form else 'fp32'} {name}")
+                   if name in MID_BOTH_FORMS else name)
             calls[f"forward: {tag}"] = lambda lib=lib, a=fwd: lib.ce_logz(*a, stream())
             calls[f"backward: {tag}"] = lambda lib=lib, a=bwd: lib.ce_grads(*a, stream())
-            if not form or name.startswith(cut):
+            if name.startswith(cut):
                 continue
             if calls[f"forward: {tag}"]() != 0 or calls[f"backward: {tag}"]() != 0:
                 raise SystemExit(f"ablate_ce_tc: {name!r} launch failed")
             torch.cuda.synchronize()
+            if not form:  # against the plain fp32 version (CE_TOL, WIDE_GRAD_TOL) and fp64
+                print(json.dumps({
+                    "accuracy": tag, "B": b, "V": v, "H": h,
+                    "logZ vs plain fp32": float(((z - logz32).abs() / logz32.abs().clamp(min=1.0)).max()),
+                    "loss vs plain fp32": float(((loss - want32_loss).abs()
+                                                 / want32_loss.abs().clamp(min=1.0)).max()),
+                    "logZ vs fp64": float(((z.double() - fp64_logz).abs() / fp64_logz.abs().clamp(min=1.0)).max()),
+                    "gradients vs plain fp32": parity.grad_errors(ds, dt, want32_ds, want32_dt, answers, v),
+                    "gradients vs fp64": parity.grad_errors(ds, dt, *fp64, answers, v)}), flush=True)
+                continue
             errs = parity.grad_errors(ds, dt, want_ds, want_dt, answers, v)
-            print(json.dumps({"accuracy": name, "B": b, "V": v, "H": h,
+            print(json.dumps({"accuracy": tag, "B": b, "V": v, "H": h,
                               "logZ vs plain bf16": float(((z - logz).abs() / logz.abs().clamp(min=1.0)).max()),
                               "loss vs plain bf16": float(((loss - want_loss).abs() / want_loss.abs().clamp(min=1.0)).max()),
                               "gradients vs plain bf16": errs,
@@ -805,9 +1047,20 @@ def route_times(libs: dict, h: int, cut: str) -> None:
         return lambda: (fn(), 0)[1]
     calls[f"forward: library {fwd_name}"] = zero(fwd_lib)
     calls[f"backward: library {back_name}"] = zero(back_lib)
+    # ... and the fp32 form's (chip_smoke.py:phase_ce_times'), full fp32 products
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s_req, t_req = states.clone().requires_grad_(), table.clone().requires_grad_()
+    lib32_loss = F.cross_entropy(s_req @ t_req.T, answers)
+    calls["forward: library F.cross_entropy(states @ table.T), fp32"] = zero(
+        lambda: F.cross_entropy(states @ table.T, answers))
+    calls["backward: library backward of F.cross_entropy(states @ table.T), fp32"] = zero(
+        lambda: torch.autograd.grad(lib32_loss, (s_req, t_req), retain_graph=True))
     for name, r in timed_in_turns(calls).items():
         print(json.dumps({"variant": name, "ms": r, "B": b, "V": v, "H": h}), flush=True)
-    del keep, calls, states, table, want_ds, want_dt, in_order
+    del keep, calls, states, table, want_ds, want_dt, in_order, want32_ds, want32_dt, fp64
+    del lib32_loss, s_req, t_req
     torch.cuda.empty_cache()
 
 
@@ -815,7 +1068,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true", help="only check that the replacements apply")
     ap.add_argument("--onchip", action="store_true", help="the bf16 on-chip route's variants")
-    ap.add_argument("--mid", action="store_true", help="the bf16 middle route's variants")
+    ap.add_argument("--mid", action="store_true", help="the middle route's variants, both forms")
+    ap.add_argument("--mid-batches", action="store_true",
+                    help="the fp32 middle route's two backward kernels across B")
+    ap.add_argument("--only", action="append", metavar="TEXT",
+                    help="with --onchip or --mid: build only the variants whose name holds TEXT "
+                         "(and the kernel as it is); may repeat")
     args = ap.parse_args()
     texts = sources()
     if args.check:
@@ -824,10 +1082,13 @@ def main() -> None:
               f"{len(mid)} middle-route variants apply")
         return
     if args.onchip:
-        onchip_main()
+        onchip_main(args.only)
         return
     if args.mid:
-        mid_main()
+        mid_main(args.only)
+        return
+    if args.mid_batches:
+        mid_batches_main()
         return
     import numpy as np
     import torch

@@ -60,9 +60,11 @@ The wide ce_grads readings take the plain logZ as well.
 The middle widths (B=256, V=1,000,000, H in MID_WIDTHS = {128, 256}, the
 states N(0, 1), the table 0.25 N(0, 1), chip_smoke.py's main CE case's
 scales): the five forms there, `ce_loss_logz` and `ce_grads` in the fp32
-form (the older sweeps) and in the bf16 form (the middle route's
-tensor-core pair in this package, the older sweeps' bf16 form in one
-from before it), and `streaming_masked_topk` at k=20 (its older route),
+form (the middle route's wgmma forward, ce_fwd_mid_tf32_kernel, and
+ce_bwd_wide_tf32_kernel; the older sweeps in a package from before them)
+and in the bf16 form (the middle route's tensor-core pair, the older
+sweeps' bf16 form in one from before it), and `streaming_masked_topk` at
+k=20 (its older route),
 each first held against its plain version (the forward within CE_TOL;
 the fp32 gradients within GRAD_TOL and the bf16 ones within
 WIDE_BF16_TOL of `parity.ce_grads_bf16_in_order`, each group of
@@ -73,7 +75,8 @@ bf16 grads, fp32 grads, bf16 logz, fp32 logz), with its plain version's
 ms and its library call's (`F.cross_entropy` over the fp32 product, or
 `chip_smoke.py:bf16_yardsticks`' over the bf16 one, forward and
 backward; `matmul` + `masked_fill_` + `topk`): the `mid` entry, with
-each wrapper's middle-route launch count; and `ce_mid_bf16_digest`, the
+each wrapper's middle-route launch counts (the bf16 pair's and the fp32
+form's); and `ce_mid_bf16_digest`, the
 bf16 forms' outputs at `MID_CE_CASES` (seeded with 600 + i; the
 gradients at the plain fp32 logZ), which moves by design where the
 middle route's kernels replace the older sweeps (so does
@@ -522,12 +525,13 @@ def time_package(package_root: Path) -> dict:
     for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads)):
         out[f"{name}_wide_launches"] = getattr(f, "wide_launches", None)
     # the middle widths last: their forms at B=256, V=1M, H in MID_WIDTHS
-    mid_before = {name: getattr(f, "mid_launches", None)
-                  for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads))}
+    counters = [(f"{name}_{c}", f, c) for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads))
+                for c in ("mid_launches", "mid_tf32_launches")]
+    mid_before = {key: getattr(f, c, None) for key, f, c in counters}
     out["mid"] = {h: time_mid(h, r_mask, np.random.default_rng(100 + h), device) for h in MID_WIDTHS}
-    for name, f in (("ce_logz", ce.ce_logz), ("ce_grads", ce.ce_grads)):
-        after = getattr(f, "mid_launches", None)
-        out[f"{name}_mid_launches"] = None if after is None else after - mid_before[name]
+    for key, f, c in counters:
+        after = getattr(f, c, None)
+        out[key] = None if after is None else after - mid_before[key]
     out["streaming_masked_topk_tc_launches"] = getattr(rank.streaming_masked_topk, "tc_launches", None)
     return out
 

@@ -96,12 +96,15 @@ Phases, each of which raises (exit code 1) when it fails:
 3c. The middle route (B <= 256, 64 < H <= 256; the mid phase, after the
    wide phase): the CE kernels in both forms at MID_CE_CASES (the main
    path's B=256, V=1M, H=256 among them; H in {68, 128, 192}, B in {1, 3,
-   255}, BERT4Rec's table at n_valid = V - 1, repeated answers) with phase
+   255}, BERT4Rec's table at n_valid = V - 1, repeated answers) and at the
+   main shape at H = 128 with phase
    3's checks, the bf16 form on ce_fwd_mid_tc_kernel and
    ce_bwd_mid_tc_kernel (a middle-route launch each call) held as the
    on-chip route's tensor-core pair (parity.ce_grads_bf16_in_order within
-   BF16_WIDE_GRAD_TOL), the fp32 form on the older sweeps; two cases past
-   the route (B = 300 at H = 128, B = 257 at H = 256), where both forms
+   BF16_WIDE_GRAD_TOL), the fp32 form on ce_fwd_mid_tf32_kernel (wgmma in
+   3xTF32) and ce_bwd_wide_tf32_kernel (3xTF32; logZ within CE_TOL,
+   gradients within GRAD_TOL); two cases past the route (B = 300 at H =
+   128, B = 257 at H = 256), where both forms
    take the older sweeps, the bf16 form held within BF16_GRAD_TOL of the
    plain bf16 version with its fp32 control failing; and at
    MID_EXACT_CASES (parity.exact_logit_case inputs at scale 1, the main
@@ -111,10 +114,13 @@ Phases, each of which raises (exit code 1) when it fails:
    corpus for one epoch (every ce_logz and ce_grads launch on the middle
    route's kernels, the rank kernel on every eval batch), then `--do_eval
    --load_model --export_topk` (the rank kernel's older route, no CE
-   launch); the bf16 CE entries at H in {128, 256} timed as phase 10 times
-   them (in turns with the fp32 form, the older sweep there; plain,
-   library, bound; the training step's CE in at most 5 device operations),
-   and the step's CE ms beside main's examples/s.
+   launch); then the same epoch in fp32 (every ce_logz launch on
+   ce_fwd_mid_tf32_kernel, every ce_grads launch on
+   ce_bwd_wide_tf32_kernel); the bf16 CE entries at H in {128, 256} timed
+   as phase 10 times them (in turns with the fp32 form; plain, library,
+   bound; the training step's CE in at most 5 device operations), the
+   fp32 entries there (plain, library, the 3xTF32 bound), and each form's
+   step CE ms beside main's examples/s.
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -139,7 +145,7 @@ Phases, each of which raises (exit code 1) when it fails:
    export, every launch on its on-chip route, and the first 512 users'
    exported top-20 must agree with the plain version.
 7. Drive the training path through its normal entry point: `main`
-   without `--do_eval` on a 1,000,000-item x 10,000-user corpus, BSARec
+   without `--do_eval` on a 1,000,000-item x 5,000-user corpus, BSARec
    at the same widths with dropout 0.5, batch 256, lr 5e-4, 2 epochs;
    then `--resume --epochs 3 --export_topk`, which must start at epoch
    2. The CE forward and backward kernels must launch once per step, every
@@ -202,7 +208,7 @@ Phases, each of which raises (exit code 1) when it fails:
    hand-written kernel (every launch count stays 0): `python -m
    bsarec_tpu_torch.preprec.main`'s entry at full width (maxlen 200,
    hidden 50, 2 blocks, 1 head, batch 128, input_units 132 + 6) on a
-   20,000-user domain that the port's `preprocess` builds, one epoch with
+   10,000-user domain that the port's `preprocess` builds, one epoch with
    a method-1 valid and test eval (finite loss, ranks in [0, 100],
    best.ckpt written); the method-3 full-catalog eval over 1,000,000 items
    through `PrepRecTrainer.evaluate` (2,048 users, eval batch 32, item
@@ -337,7 +343,9 @@ PEAK_TF32_FLOPS = 495e12
 # EVAL_BATCH is TrainConfig.eval_batch_size's default, which main uses
 N_USERS, N_ITEMS, EVAL_BATCH, TOP_K = 50_000, 1_000_000, 256, 20
 TRACED_EVAL_USERS = 40 * EVAL_BATCH
-TRAIN_USERS, TRAIN_BATCH, LR = 10_000, 256, 5e-4
+# the training corpus: 5,000 users (10,000 before the fp32 middle route's
+# epochs: the script's time)
+TRAIN_USERS, TRAIN_BATCH, LR = 5_000, 256, 5e-4
 WIDTHS = ["--model_type", "BSARec", "--hidden_size", "64", "--num_hidden_layers", "2",
           "--num_attention_heads", "1", "--c", "5", "--alpha", "0.7", "--max_seq_length", "50"]
 # SASRec at the CLI defaults (hidden 64, 2 layers, 2 heads, dropout 0.5/0.5,
@@ -823,17 +831,22 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     # whose logits are not exact: held as the wide route's bf16 form is
     # (docstring)
     mid = bf16 and ce.mid_route(*states.shape)
+    # the fp32 form's middle route: ce_fwd_mid_tf32_kernel and
+    # ce_bwd_wide_tf32_kernel
+    mid32 = not bf16 and ce.mid_route(*states.shape)
     onchip_tc = bf16 and not exact and (ce.onchip_route(*states.shape) or mid)
     in_order = in_order or onchip_tc
     mapped = ce.map_answers(answers, n_valid)
     logz_onchip_before = ce.ce_logz.onchip_launches
     logz_wide_before = ce.ce_logz.wide_launches
     logz_mid_before = ce.ce_logz.mid_launches
+    logz_mid32_before = ce.ce_logz.mid_tf32_launches
     bf16_before = (ce.ce_logz.bf16_launches, ce.ce_grads.bf16_launches)
     loss_f, logz = ce.ce_loss_logz(states, table, answers, n_valid, dtype=dtype)
     check(ce.ce_logz.onchip_launches - logz_onchip_before == ce.onchip_route(*states.shape)
           and ce.ce_logz.wide_launches - logz_wide_before == ce.wide_route(states.shape[1])
-          and ce.ce_logz.mid_launches - logz_mid_before == mid,
+          and ce.ce_logz.mid_launches - logz_mid_before == mid
+          and ce.ce_logz.mid_tf32_launches - logz_mid32_before == mid32,
           f"{case_name}: ce_logz took another route than its shape and form name")
     check(ce.ce_logz.bf16_launches - bf16_before[0] == bf16,
           f"{case_name}: ce_logz took another form than {dtype or 'float32'}")
@@ -880,6 +893,7 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     onchip_before = ce.ce_grads.onchip_launches
     wide_before = ce.ce_grads.wide_launches
     mid_before = ce.ce_grads.mid_launches
+    mid32_before = ce.ce_grads.mid_tf32_launches
     grads_bf16_before = ce.ce_grads.bf16_launches
     fused_ds, fused_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
     again_ds, again_dt = ce.ce_grads(states, table, answers, logz, d, n_valid, dtype=dtype)
@@ -887,11 +901,14 @@ def compare_ce(case_name, states, table, answers, n_valid, dtype=None, in_order=
     n_onchip = ce.ce_grads.onchip_launches - onchip_before
     n_wide = ce.ce_grads.wide_launches - wide_before
     n_mid = ce.ce_grads.mid_launches - mid_before
+    n_mid32 = ce.ce_grads.mid_tf32_launches - mid32_before
     # every wide launch takes a tensor-core kernel, in either form
     route = (("on-chip, tensor cores" if bf16 else "on-chip") if n_onchip
-             else "wide, tensor cores" if n_wide else "middle, tensor cores" if n_mid else "sweep")
+             else "wide, tensor cores" if n_wide else "middle, tensor cores" if n_mid
+             else "middle, ce_grads on the wide 3xTF32 kernel" if n_mid32 else "sweep")
     check(n_onchip == (2 if ce.onchip_route(*states.shape) else 0)
-          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0) and n_mid == 2 * mid,
+          and n_wide == (2 if ce.wide_route(states.shape[1]) else 0) and n_mid == 2 * mid
+          and n_mid32 == 2 * mid32,
           f"{case_name}: ce_grads took another route than its shape and form name")
     check(ce.ce_grads.bf16_launches - grads_bf16_before == 2 * bf16,
           f"{case_name}: ce_grads took another form than {dtype or 'float32'}")
@@ -1605,13 +1622,14 @@ def step_ce_check(states, table, answers, dloss, card, dtype=None):
     torch.cuda.empty_cache()
 
 
-def phase_ce_times(full, card, dtype=None):
+def phase_ce_times(full, card, dtype=None, extras=True):
     """The CE kernels at the training shape, in the form `dtype` names.
     Each main-path entry's time, its plain version's, a library
     yardstick's and its bound: in the fp32 form against fp32 products at
-    67 TFLOP/s (on the wide route, H > 256, three TF32 passes at 495
-    TFLOP/s: its kernels take every product in 3xTF32; the fp32 FMA figure
-    on the `bound` log line only), and in the bf16-operand form in turns
+    67 TFLOP/s (on the wide and middle routes, H > 64 at B <= 256, three
+    TF32 passes at 495 TFLOP/s: their kernels take every product in
+    3xTF32; the fp32 FMA figure on the `bound` log line only), and in the
+    bf16-operand form in turns
     with the fp32 form
     (fp32, bf16, bf16, fp32), against `bf16_yardsticks` and the bf16
     tensor rate, 989 TFLOP/s. The fp32 form also times the standalone
@@ -1620,8 +1638,9 @@ def phase_ce_times(full, card, dtype=None):
     against the unfused composition of the public wrappers (the gather
     and elementwise ops around ce_logz and ce_grads), in turns: host ms to
     issue it, device ms in a CUDA graph and the device operations it
-    issues. In both forms it ends with `step_ce_check`. Returns {kernel:
-    JSON fields}."""
+    issues. In both forms it ends with `step_ce_check`. Without `extras`
+    (the fp32 form on the middle route) only the entries' times. Returns
+    {kernel: JSON fields}."""
     import torch
     import torch.nn.functional as F
 
@@ -1665,9 +1684,12 @@ def phase_ce_times(full, card, dtype=None):
             ((f1, f2), (k1, k2)) = in_turns(None, dtype, lambda dt: cuda_ms(lambda: kernel(dt), iters=20))
             ms = (k1 + k2) / 2
             fields["fp32_form_ms"] = (f1 + f2) / 2
-            # on the middle route the fp32 form runs the older sweep, whose
-            # loops the bf16 form ran before its tensor-core pair
-            sweep = " (the older sweep)" if ce.mid_route(b, h) else ""
+            # on the middle route the fp32 form runs the wgmma forward and
+            # the wide 3xTF32 backward
+            sweep = ""
+            if ce.mid_route(b, h):
+                kernel32 = "ce_fwd_mid_tf32_kernel" if name == "ce_logz" else "ce_bwd_wide_tf32_kernel"
+                sweep = f" ({kernel32})"
             log(f"time {name} bf16 form: {pair((k1, k2))} ms, fp32 form{sweep} {pair((f1, f2))} ms "
                 f"(B={b} V={v} H={h}; turns fp32, bf16, bf16, fp32) [{card}]")
         else:
@@ -1677,8 +1699,8 @@ def phase_ce_times(full, card, dtype=None):
         library_ms = cuda_ms(library, iters=5)
         t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         basis, fma = f"{ops / 1e9:.2f} GFLOP {rate}", ""
-        if not bf16 and ce.wide_route(h):
-            # both wide fp32 kernels take 3xTF32 on the tensor cores: three
+        if not bf16 and (ce.wide_route(h) or ce.mid_route(b, h)):
+            # the wide and middle fp32 kernels take 3xTF32 on the tensor cores: three
             # passes of the work at the TF32 rate; the same work in fp32
             # FMAs, for comparison
             t_fma, t_ops = t_ops, 3 * ops / PEAK_TF32_FLOPS * 1e3
@@ -1697,6 +1719,8 @@ def phase_ce_times(full, card, dtype=None):
     del pieces, fwd_library, back_library
     if bf16:
         step_ce_check(states, table, answers, d, card, dtype)
+        return out
+    if not extras:
         return out
 
     # the gather alone against one PyTorch call
@@ -1867,6 +1891,7 @@ def reset_counts() -> None:
         f.wide_launches = 0
     for f in (ce.ce_logz, ce.ce_grads):
         f.mid_launches = 0
+        f.mid_tf32_launches = 0
     rank.streaming_masked_topk.tc_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
@@ -2453,6 +2478,108 @@ def zoo_adam_excess(start, grads, want_grads, params, want_params, tol):
     return worst
 
 
+# Caser's horizontal filters take a max over time: where two windows' values
+# lie within rounding of each other, the card and the CPU may take
+# different windows, and the gradient then follows a different window on
+# each (an O(1) difference in that filter's gradient, correct on both
+# sides). A window the card took is held as a maximum when the fp64 bank
+# puts it within this fraction of the window's absolute sum (sum |w x| +
+# |b|) of the fp64 maximum
+CASER_TIE_TOL = 1e-5
+
+
+def caser_picks(model, ids):
+    """The window each of Caser's horizontal filters takes its max over
+    time at, on the device of `model`: [L] of [B, nh, 1] int64 on the CPU
+    (the first window where values tie exactly, as amax's gradient splits
+    there: the same weights' gradient, the windows' inputs being the same
+    padding rows)."""
+    import torch
+
+    with torch.no_grad():
+        emb = model.embed_items(ids).unsqueeze(1)
+        return [torch.relu(conv(emb).squeeze(3)).argmax(dim=2, keepdim=True).cpu()
+                for conv in model.conv_h]
+
+
+def caser_forward_at(model, picks):
+    """Bind to `model` (a CaserModel) the port's Caser forward with each
+    horizontal filter's max over time taken at the windows `picks`
+    (caser_picks) instead of by amax: the same function wherever the
+    windows are the maxima, and the same gradient where they are unique."""
+    import types
+
+    import torch
+
+    def forward(self, input_ids, user_ids=None, all_layers=False):
+        b = input_ids.shape[0]
+        if user_ids is None:
+            user_ids = torch.zeros((b,), dtype=torch.long, device=input_ids.device)
+        emb = self.embed_items(input_ids).unsqueeze(1)
+        out_v = self.conv_v(emb).reshape(b, -1)
+        out_h = [torch.relu(conv(emb).squeeze(3)).gather(2, w.to(emb.device)).squeeze(2)
+                 for conv, w in zip(self.conv_h, picks)]
+        out = self.fc_dropout(torch.cat([out_v, *out_h], dim=1))
+        z = torch.relu(self.fc1(out))
+        user_emb = self.user_embeddings(user_ids.reshape(-1).long())
+        return torch.relu(self.fc2(torch.cat([z, user_emb], dim=1)))[:, None, :]
+
+    model.forward = types.MethodType(forward, model)
+    return model
+
+
+def caser_tie_witness(cpu_model, ids, picks):
+    """The card's windows against Caser's bank in fp64 on the CPU (the
+    model's weights): raises unless each is a maximum within
+    CASER_TIE_TOL of its window's absolute sum. Returns the windows where
+    the card, the CPU in fp32 and fp64 disagree, and the fp64 gaps between
+    the value at the card's window, and at the CPU's, and the maximum
+    there, relative to the window's absolute sum (the largest of each)."""
+    import torch
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        emb = cpu_model.embed_items(ids).unsqueeze(1)
+        emb64 = emb.double()
+        out = {"windows": 0, "card_vs_fp64": 0, "cpu_fp32_vs_fp64": 0, "card_vs_cpu_fp32": 0,
+               "largest_gap": 0.0, "cpu_largest_gap": 0.0}
+        for i, (conv, card) in enumerate(zip(cpu_model.conv_h, picks)):
+            w64, b64 = conv.weight.double(), conv.bias.double()
+            v64 = torch.relu(F.conv2d(emb64, w64, b64).squeeze(3))
+            sums = F.conv2d(emb64.abs(), w64.abs(), b64.abs()).squeeze(3)
+
+            def gap(at):  # the fp64 maximum less the value at `at`, of at's absolute sum
+                return ((v64.amax(dim=2) - v64.gather(2, at).squeeze(2))
+                        / sums.gather(2, at).squeeze(2).clamp(min=1e-30))
+
+            mine = torch.relu(conv(emb).squeeze(3)).argmax(dim=2, keepdim=True)
+            best = v64.argmax(dim=2, keepdim=True)
+            gap_card, gap_cpu = float(gap(card).max()), float(gap(mine).max())
+            check(gap_card <= CASER_TIE_TOL,
+                  f"Caser step: filter {i}: the card's max over time is off the fp64 maximum by "
+                  f"{gap_card:.3g} of its window's absolute sum")
+            out["windows"] += card.numel()
+            out["card_vs_fp64"] += int((card != best).sum())
+            out["cpu_fp32_vs_fp64"] += int((mine != best).sum())
+            out["card_vs_cpu_fp32"] += int((card != mine).sum())
+            out["largest_gap"] = max(out["largest_gap"], gap_card)
+            out["cpu_largest_gap"] = max(out["cpu_largest_gap"], gap_cpu)
+    return out
+
+
+def caser_fp64_grads(cpu_model, batch, picks):
+    """The gradients of Caser's loss in fp64 on the CPU, from the model's
+    weights, its max over time at the card's windows: {name: fp32}."""
+    import torch
+
+    model = caser_forward_at(copy.deepcopy(cpu_model).double(), picks)
+    loss = zoo_loss(model, batch)
+    loss.backward()
+    grads = {k: q.grad.float() for k, q in model.named_parameters() if q.grad is not None}
+    del model
+    return grads
+
+
 def phase_zoo_steps(device, card):
     """One Adam step of each zoo model at full width over N_ITEMS items
     (BERT4Rec's table 1,000,001 rows), dropout 0, B=256: through the
@@ -2462,7 +2589,12 @@ def phase_zoo_steps(device, card):
     other rows apart); every parameter within STEP_PARAM_TOL of the CPU's
     beyond what `zoo_adam_excess` allows. The CE models' card step must
     launch ce_logz and ce_grads once each on the on-chip route, the others
-    no kernel. Returns {model: launch counts}."""
+    no kernel. Caser's CPU step takes each horizontal filter's max over time
+    at the window the card took (caser_forward_at), each of which must be a
+    maximum in fp64 (caser_tie_witness); its gradients are held besides
+    against the same step in fp64, and those of the CPU's own maxima
+    (amax) are logged beside, with the windows where the two sides took
+    different maxima. Returns {model: launch counts}."""
     import torch
 
     from bsarec_tpu_torch.models import build_model
@@ -2481,6 +2613,18 @@ def phase_zoo_steps(device, card):
         card_model = copy.deepcopy(cpu_model).to(device)
         start = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
         read_rows = zoo_read_rows(cpu_model, batch, masked)
+        if mt == "caser":
+            picks = caser_picks(card_model, batch[0].to(device))
+            tie = caser_tie_witness(cpu_model, batch[0], picks)
+            # the copy of the forward against the model's: bit-equal at the
+            # CPU's own maxima
+            with torch.no_grad():
+                own = zoo_loss(cpu_model, batch)
+                check(torch.equal(zoo_loss(caser_forward_at(cpu_model, caser_picks(cpu_model, batch[0])),
+                                           batch), own), "Caser step: caser_forward_at is not the model's")
+            plain_grads = zoo_one_step(copy.deepcopy(cpu_model), batch)[1]
+            grads64 = caser_fp64_grads(cpu_model, batch, picks)
+            caser_forward_at(cpu_model, picks)
         t0 = time.perf_counter()
         want_loss, want_grads, want_params = zoo_one_step(cpu_model, batch, masked)
         cpu_s = time.perf_counter() - t0
@@ -2505,6 +2649,21 @@ def phase_zoo_steps(device, card):
         tol, grad_errs, zero = zoo_grad_tolerance(grads, want_grads, read_rows)
         check(max(grad_errs.values()) <= GRAD_TOL,
               f"{name} step: gradient errors {grad_errs} > {GRAD_TOL}")
+        if mt == "caser":
+            errs64 = zoo_grad_tolerance(grads, grads64, read_rows)[1]
+            check(max(errs64.values()) <= GRAD_TOL,
+                  f"{name} step: gradient errors against fp64 {errs64} > {GRAD_TOL}")
+            plain_errs = zoo_grad_tolerance(grads, plain_grads, read_rows)[1]
+            log(f"zoo step {name}: max over time at {tie['windows']} windows; the card's and the "
+                f"CPU's fp32 maxima differ at {tie['card_vs_cpu_fp32']}, the card's and fp64's at "
+                f"{tie['card_vs_fp64']}, the CPU's and fp64's at {tie['cpu_fp32_vs_fp64']}; the "
+                f"card's windows within {tie['largest_gap']:.3g} of the fp64 maxima (of the window's "
+                f"absolute sum; limit {CASER_TIE_TOL}), the CPU's within {tie['cpu_largest_gap']:.3g}; "
+                f"gradient rel err against the fp64 step at "
+                f"the card's windows { {k: float(f'{v:.3g}') for k, v in errs64.items()} }, against "
+                f"the CPU's own maxima { {k: float(f'{v:.3g}') for k, v in plain_errs.items()} } "
+                f"[{card}]")
+            del plain_grads, grads64
         param_excess = zoo_adam_excess(start, grads, want_grads, params, want_params, tol)
         check(param_excess <= STEP_PARAM_TOL,
               f"{name} step: parameter error beyond Adam's share {param_excess} > {STEP_PARAM_TOL}")
@@ -2523,7 +2682,7 @@ def phase_zoo_steps(device, card):
 
 # the user ids of the served batch: the first users, then another set
 # (Caser's states depend on them; its top-20s must change)
-SERVED_USER_SETS = (0, 5000)
+SERVED_USER_SETS = (0, TRAIN_USERS // 2)
 
 
 def zoo_serving_check(device, workdir, name, data, argv, card):
@@ -2627,7 +2786,7 @@ def zoo_serving_check(device, workdir, name, data, argv, card):
 
 def phase_zoo_train(device, workdir, card):
     """`main --model_type <M> --epochs 1` for each zoo model on the
-    10,000-user x N_ITEMS synthetic corpus (Trainer.fit: one epoch, the
+    TRAIN_USERS-user x N_ITEMS synthetic corpus (Trainer.fit: one epoch, the
     validation, the test pass), FEARec under `--prng rbg` with
     BSAREC_DROPOUT=pallas; BERT4Rec and Caser then exported and served
     (`zoo_serving_check`).
@@ -2892,7 +3051,7 @@ def zero_bf16_counts() -> dict:
 
 
 def phase_bf16_train(device, card):
-    """The main paths under --dtype bf16 on the 1M-item x 10k-user corpus:
+    """The main paths under --dtype bf16 on the 1M-item x TRAIN_USERS corpus:
     BSARec at the paper widths for one epoch, then --resume to a second
     with the test pass and --export_topk (one ce_logz and one ce_grads
     launch a step, every one in the bf16 form on the on-chip route, the
@@ -3238,7 +3397,7 @@ def phase_wide_kernels(device):
 
 
 def phase_wide_train(device, card):
-    """`main --hidden_size 512` on the 1M-item x 2.5k-user corpus: one epoch,
+    """`main --hidden_size 512` on the 1M-item x WIDE_USERS corpus: one epoch,
     then --resume --epochs 2 --export_topk, which must start at epoch 1;
     then one --dtype bf16 epoch. Every step one ce_logz and one ce_grads
     launch, every one on the wide route (in the bf16 form under --dtype
@@ -3462,10 +3621,13 @@ MID_WIDTHS = ["--model_type", "BSARec", "--hidden_size", str(MID_H), "--num_hidd
 # the middle route's CE cases, the i-th on ce_case's inputs seeded with
 # 600 + i: (tag, B, V, H, n_valid, answers). In the bf16 form the first four
 # take ce_fwd_mid_tc_kernel and ce_bwd_mid_tc_kernel, held as the on-chip
-# route's tensor-core pair (compare_ce); the last two, at B > 256, the older
-# sweeps' bf16 form (ce_fwd_partial_kernel<true>, ce_bwd_sweep_kernel<true>),
-# held within BF16_GRAD_TOL of the plain bf16 version with the fp32 control
-# failing. The fp32 form takes the older sweeps throughout
+# route's tensor-core pair (compare_ce); in the fp32 form they take
+# ce_fwd_mid_tf32_kernel and ce_bwd_wide_tf32_kernel, logZ and loss within
+# CE_TOL of the plain fp32 version, the gradients within GRAD_TOL
+# (parity.WIDE_GRAD_TOL), two calls bit-equal; the last two, at B > 256,
+# the older sweeps in both forms (ce_fwd_partial_kernel,
+# ce_bwd_sweep_kernel), the bf16 form's held within BF16_GRAD_TOL of the
+# plain bf16 version with the fp32 control failing
 MID_CE_CASES = [
     ("main path at H=256", 256, N_ITEMS, MID_H, N_ITEMS, "plain"),
     ("H=128, B=255, BERT4Rec's table, n_valid = V - 1", 255, N_ITEMS + 1, 128, N_ITEMS, "odd"),
@@ -3492,6 +3654,8 @@ def mid_counts() -> dict:
 
     return read_counts() | {
         "ce_logz_mid": ce.ce_logz.mid_launches, "ce_grads_mid": ce.ce_grads.mid_launches,
+        "ce_logz_mid_tf32": ce.ce_logz.mid_tf32_launches,
+        "ce_grads_mid_tf32": ce.ce_grads.mid_tf32_launches,
         "ce_logz_bf16": ce.ce_logz.bf16_launches, "ce_grads_bf16": ce.ce_grads.bf16_launches,
         "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
         "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
@@ -3502,9 +3666,13 @@ def mid_counts() -> dict:
 
 def phase_mid_kernels(device):
     """The CE kernels in both forms at MID_CE_CASES and MID_EXACT_CASES
-    against their plain versions with phase 3's checks (compare_ce). Returns
-    ({form: {kernel: largest absolute error on the middle route's shapes}},
-    {H: the main-shape inputs at B=256, V=1M} for H in {128, 256})."""
+    against their plain versions with phase 3's checks (compare_ce): in the
+    bf16 form the middle route's mma.sync pair, in the fp32 form
+    ce_fwd_mid_tf32_kernel (wgmma) and ce_bwd_wide_tf32_kernel; then both
+    forms at the main shape at H = 128 (B=256, V=1M), the inputs the
+    entries are timed on. Returns ({form: {kernel: largest absolute error
+    on the middle route's shapes}}, {H: the main-shape inputs at B=256,
+    V=1M} for H in {128, 256})."""
     import torch
 
     from bsarec_tpu_torch import parity
@@ -3535,18 +3703,26 @@ def phase_mid_kernels(device):
         torch.cuda.empty_cache()
     full[128] = ce_case(TRAIN_BATCH, N_ITEMS, 128, N_ITEMS, seed=600, device=device,
                         answer_kind="plain")
+    for form in CE_FORMS:
+        errs = compare_ce(f"main shape at H=128 (B={TRAIN_BATCH} V={N_ITEMS} H=128 "
+                          f"n_valid={N_ITEMS})", *full[128], N_ITEMS, dtype=form)
+        worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
+    torch.cuda.empty_cache()
     return worst, full
 
 
 def phase_mid_train(device, card):
     """`main --hidden_size 256 --dtype bf16` (BSARec, 2 layers, 1 head,
-    c=5, alpha=0.7, max_len 50) on a 1M-item x 5k-user corpus: one epoch,
+    c=5, alpha=0.7, max_len 50) on a 1M-item x MID_USERS corpus: one epoch,
     every ce_logz and ce_grads launch on the middle route's tensor-core
     kernels (ce_fwd_mid_tc_kernel, ce_bwd_mid_tc_kernel), the rank kernel on
     every eval batch; then `--do_eval --load_model --export_topk` (the test
     pass and the export on the rank kernel's older route at this width, no
-    CE launch). Returns {run: launch counts, "examples_per_s": the epoch's
-    rate}."""
+    CE launch); then one fp32 epoch (main's default --dtype) on the same
+    corpus, every ce_logz launch on ce_fwd_mid_tf32_kernel and every
+    ce_grads launch on ce_bwd_wide_tf32_kernel. Returns {run: launch counts,
+    "examples_per_s": the bf16 epoch's rate, "examples_per_s_fp32": the
+    fp32 epoch's}."""
     import torch
 
     from bsarec_tpu_torch import main as port_main
@@ -3611,6 +3787,25 @@ def phase_mid_train(device, card):
         log(f"mid eval path: main(--do_eval --load_model smoke_mid --export_topk) returned in "
             f"{seconds:.1f}s, test scores {scores}, exported {topk.shape}; launches {counts}, the "
             f"rank kernel on its older route at H={MID_H} [{card}]")
+
+        # the fp32 form (main's default --dtype)
+        fp32 = [a for a in base if a not in ("--dtype", "bf16")]
+        counts, scores, seconds = run(fp32 + ["--train_name", "smoke_mid32", "--epochs", "1"])
+        want = dict.fromkeys(mid_counts(), 0) | rank_route(2 * eval_steps) | {
+            "ce_logz": steps, "ce_grads": steps, "ce_logz_mid_tf32": steps, "ce_grads_mid_tf32": steps}
+        check(counts == want, f"middle-route fp32 train launches {counts}, want {want}")
+        text = read_log(os.path.join(workdir, "smoke_mid32.log"))
+        losses = [float(x) for x in re.findall(r"'epoch': \d+, 'rec_loss': '([^']+)'", text)]
+        rates = [float(x) for x in re.findall(r"epoch \d+: train (\d+) ex/s", text)]
+        check("'dtype': 'fp32'" in text and len(losses) == 1 and math.isfinite(losses[0])
+              and len(rates) == 1, f"middle-route fp32 train: epoch losses {losses}, rates {rates}")
+        out["train_fp32"] = counts
+        out["examples_per_s_fp32"] = rates[0]
+        log(f"mid train path, fp32 form: main(--hidden_size {MID_H} --epochs 1) on {MID_USERS} users "
+            f"x {N_ITEMS} items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss {losses[0]}, "
+            f"train {rates[0]:.0f} examples/s (bf16 form {out['examples_per_s']:.0f}), test scores "
+            f"{scores}; all {steps} ce_logz launches on ce_fwd_mid_tf32_kernel (wgmma, 3xTF32), all "
+            f"{steps} ce_grads launches on ce_bwd_wide_tf32_kernel (3xTF32); launches {counts} [{card}]")
     torch.cuda.empty_cache()
     return out
 
@@ -3618,7 +3813,7 @@ def phase_mid_train(device, card):
 
 # ---- PREPRec (NewRec) --------------------------------------------------------
 
-PREPREC_USERS = 20_000
+PREPREC_USERS = 10_000  # 20,000 before the fp32 middle route's epochs: the script's time
 PREPREC_ITEMS = 5_000
 PREPREC_SPAN_S = 2 * 365 * 24 * 3600  # two years of interactions
 PREPREC_MAXLEN, PREPREC_HIDDEN = 200, 50
@@ -4097,7 +4292,7 @@ def host_s(fn):
 
 def phase_tools_native(workdir, card):
     """The native library (`bsarec_tpu_torch/native.py`, g++ on
-    `native/seqrec.cpp`) at phase 7's 1M-item x 10k-user corpus: the
+    `native/seqrec.cpp`) at phase 7's 1M-item x TRAIN_USERS corpus: the
     corpus parse, the train split (prefix_expand), both eval splits and the
     seen bitmask of the test split at V = 1,000,000 bit-equal to the port's
     numpy paths; the same-target sampler against its contract. Returns
@@ -4781,20 +4976,24 @@ def main() -> int:
         wide_paths = phase_wide_train(device, card)
         wide_times = phase_wide_times(wide_ce_full, wide_rank_full, card)
         del wide_ce_full, wide_rank_full
-    with timed("mid: the bf16 CE pair at 64 < H <= 256 vs plain, main --hidden_size 256 --dtype "
-               "bf16 (train, eval, export), times"):
+    with timed("mid: the CE pairs at 64 < H <= 256 vs plain in both forms, main --hidden_size "
+               "256 (bf16: train, eval, export; fp32: train), times"):
         mid_err, mid_full = phase_mid_kernels(device)
         mid_paths = phase_mid_train(device, card)
         # the bf16 entries at B=256, V=1M, H in {128, 256}, in turns with the
-        # fp32 form (the older sweeps there); the training step's CE in at
-        # most 5 device operations (no states scratch)
+        # fp32 form; the training step's CE in at most 5 device operations
+        # (no states scratch)
         mid_times = {h: phase_ce_times(mid_full[h], card, BF16) for h in sorted(mid_full)}
+        # the fp32 entries there (ce_fwd_mid_tf32_kernel, ce_bwd_wide_tf32_kernel)
+        mid_times32 = {h: phase_ce_times(mid_full[h], card, extras=False) for h in sorted(mid_full)}
         del mid_full
-        step_ms = 1e3 * TRAIN_BATCH / mid_paths["examples_per_s"]
-        ce_ms = mid_times[MID_H]["ce_logz"]["ms"] + mid_times[MID_H]["ce_grads"]["ms"]
-        log(f"mid train path: the step's CE kernels (ce_loss_logz + ce_grads at B={TRAIN_BATCH} "
-            f"V={N_ITEMS} H={MID_H}, bf16 form, timed above) {ce_ms:.4f} ms of a {step_ms:.2f} ms "
-            f"step ({mid_paths['examples_per_s']:.0f} examples/s in main's epoch) [{card}]")
+        for form, rate, times in (("bf16", mid_paths["examples_per_s"], mid_times),
+                                  ("fp32", mid_paths["examples_per_s_fp32"], mid_times32)):
+            step_ms = 1e3 * TRAIN_BATCH / rate
+            ce_ms = times[MID_H]["ce_logz"]["ms"] + times[MID_H]["ce_grads"]["ms"]
+            log(f"mid train path: the step's CE kernels (ce_loss_logz + ce_grads at B={TRAIN_BATCH} "
+                f"V={N_ITEMS} H={MID_H}, {form} form, timed above) {ce_ms:.4f} ms of a {step_ms:.2f} "
+                f"ms step ({rate:.0f} examples/s in main's epoch) [{card}]")
     with timed("dropout kernel vs plain"):
         dropout_err = phase_dropout_kernels(device)
     with timed("one step, kernels vs plain"):
@@ -4986,6 +5185,32 @@ def main() -> int:
             **mid_times[MID_H][name],
             "h128": mid_times[128][name],
         })
+    # the fp32 form on the middle route: ce_logz on ce_fwd_mid_tf32_kernel,
+    # ce_grads on ce_bwd_wide_tf32_kernel (launches: main --hidden_size 256's
+    # fp32 epoch; errors: the largest over the middle route's fp32 cases,
+    # every one of them on these two kernels)
+    mid32 = mid_paths["train_fp32"]
+    kernels += [{
+        "name": f"ce_logz (fp32 form, middle route, wgmma, H={MID_H})",
+        "kernel": "ce_fwd_mid_tf32_kernel",
+        "route": "cuda",
+        "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
+        "replaces": ce_replaces["ce_logz"],
+        "launches": mid32["ce_logz_mid_tf32"],
+        "max_abs_err": mid_err[None]["ce_logz"],
+        **mid_times32[MID_H]["ce_logz"],
+        "h128": mid_times32[128]["ce_logz"],
+    }, {
+        "name": f"ce_grads (fp32 form, middle route, H={MID_H})",
+        "kernel": "ce_bwd_wide_tf32_kernel",
+        "route": "cuda",
+        "source": "bsarec_tpu_torch/csrc/streaming_ce.cu",
+        "replaces": ce_replaces["ce_grads"],
+        "launches": mid32["ce_grads_mid_tf32"],
+        "max_abs_err": mid_err[None]["ce_grads"],
+        **mid_times32[MID_H]["ce_grads"],
+        "h128": mid_times32[128]["ce_grads"],
+    }]
     # the vocab-sharded mesh: launches of main --mesh data:1,model:1 (one
     # rank), of each rank of main --mesh data:1,model:2 (two gloo ranks on
     # the card), and one a shard of the one-process composition's checks;

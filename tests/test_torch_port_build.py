@@ -86,3 +86,34 @@ def test_mid_ablation_variants_apply_to_the_source():
         assert "states_bf16_kernel<<<" not in entry
         assert "ce_bwd_wide_tc_kernel<<<" in entry
     assert "states_bf16_kernel<<<" in texts["kernel"][texts["kernel"].index("int ce_grads("):]
+
+
+def test_mid_fp32_ablation_variants_apply_to_the_source():
+    """`tools/ablate_ce_tc.py --mid`'s fp32 variants: the forward's
+    yardstick (the fp32 middle shapes on the wide 3xTF32 kernels from both
+    C entries), the backward on the wgmma kernel ce_bwd_mid_tf32_kernel
+    (the source routes it to ce_bwd_wide_tf32_kernel), the logits'
+    partial-sum lengths, and each new kernel's MMAs alone and memory path
+    alone; each replacement matches once, and every variant but the
+    yardstick keeps the wgmma backward."""
+    from bsarec_tpu_torch.tools import ablate_ce_tc
+
+    texts = ablate_ce_tc.sources(ablate_ce_tc.MID_VARIANTS)
+    fp32 = [name for name in texts if name.startswith("fp32 ")]
+    assert {"fp32 on the wide 3xTF32 kernels", "fp32 backward on ce_bwd_mid_tf32_kernel",
+            "fp32 middle kernels: MMAs alone", "fp32 middle kernels: everything but the MMAs",
+            "fp32 partial sums of one k8 block"} <= set(fp32)
+    assert "on the older sweeps" in ablate_ce_tc.MID_BOTH_FORMS
+    wgmma_bwd = "auto sweep = bf16 ? ce_bwd_mid_tc_kernel : ce_bwd_mid_tf32_kernel;"
+    assert wgmma_bwd not in texts["kernel"]
+    assert "const bool tc = wide_route(H) || (!bf16 && mid_route(B, H));" in texts["kernel"]
+    for name in fp32:
+        assert (wgmma_bwd in texts[name]) == (name != "fp32 on the wide 3xTF32 kernels"), name
+    yardstick = texts["fp32 on the wide 3xTF32 kernels"]
+    assert "const bool wide = wide_route(H) || (!bf16 && mid_route(B, H));" in yardstick
+    assert "const bool tc = wide_route(H) || (!bf16 && mid_route(B, H));" in yardstick
+    assert "constexpr int MF_CHAIN = 2;" in texts["kernel"]
+    assert "constexpr int MF_CHAIN = 1;" in texts["fp32 partial sums of one k8 block"]
+    assert "wg::mma_3xtf32" not in texts["fp32 middle kernels: everything but the MMAs"].split(
+        "__global__ void __launch_bounds__(THREADS, 1)\nce_fwd_mid_tf32_kernel(")[1].split(
+        "bool bad_shape(")[0]

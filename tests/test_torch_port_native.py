@@ -2,12 +2,18 @@
 against the JAX package's binding (`bsarec_tpu/native`) and the port's
 numpy paths, entry by entry, on arrays and files made from a seed; its
 build (a failed build or load raises, `BSAREC_NO_NATIVE` and a missing
-g++ give the numpy paths, processes building at once all load)."""
+g++ give the numpy paths, processes building at once all load).
+
+The JAX binding builds `bsarec_tpu/native/_seqrec.so` in place and keeps
+a failed load as None for the life of the process, so on a fresh tree a
+worker that loads it while another worker's g++ is writing the file gets
+None: `jax_native_lib` waits that build out and loads again."""
 
 from __future__ import annotations
 
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -28,10 +34,66 @@ MAX_LEN = 6
 MAX_ITEM = 44
 
 
+# how long jax_native_lib waits for another process's build of the JAX
+# binding's library: the binding gives its g++ 120 s
+JAX_BUILD_WAIT_S = 150.0
+
+
+def jax_native_lib(wait_s: float = JAX_BUILD_WAIT_S, poll_s: float = 0.5):
+    """`bsarec_tpu.native.lib()`, loaded again while it gives None, for at
+    most `wait_s` seconds: each retry clears the binding's cached failure
+    (`_tried`, `_lib`), so that a load that met a library another process
+    was still writing is tried once more after that write. None if every
+    try failed."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        lib = jax_native.lib()
+        if lib is not None or time.monotonic() >= deadline:
+            return lib
+        time.sleep(poll_s)
+        jax_native._tried = False
+        jax_native._lib = None
+
+
 @pytest.fixture(scope="module")
 def libs():
-    assert native.lib() is not None and jax_native.lib() is not None
+    assert native.lib() is not None and jax_native_lib() is not None
     return native.lib(), jax_native.lib()
+
+
+def _keep_jax_binding_state(monkeypatch):
+    """Restore the JAX binding's cached load after the test."""
+    monkeypatch.setattr(jax_native, "_tried", jax_native._tried)
+    monkeypatch.setattr(jax_native, "_lib", jax_native._lib)
+
+
+def test_jax_binding_loads_again_after_a_failed_load(monkeypatch):
+    """A binding whose first load fails (another worker's g++ still writing
+    the library) and whose next one works: the helper clears the cached
+    failure and returns the loaded library."""
+    _keep_jax_binding_state(monkeypatch)
+    real, calls = jax_native.lib, []
+
+    def once_none():
+        calls.append(jax_native._tried)
+        return None if len(calls) == 1 else real()
+
+    monkeypatch.setattr(jax_native, "lib", once_none)
+    monkeypatch.setattr(jax_native, "_tried", True)  # as after the failed load
+    got = jax_native_lib(wait_s=60.0, poll_s=0.0)
+    assert got is not None and len(calls) == 2
+    assert calls[1] is False  # the second try started with the failure cleared
+
+
+def test_jax_binding_wait_is_bounded(monkeypatch):
+    """A binding that never loads: the helper gives up after its wait and
+    returns None (the fixture then fails, it does not skip)."""
+    _keep_jax_binding_state(monkeypatch)
+    calls = []
+    monkeypatch.setattr(jax_native, "lib", lambda: calls.append(1))
+    t0 = time.monotonic()
+    assert jax_native_lib(wait_s=0.3, poll_s=0.05) is None
+    assert 0.3 <= time.monotonic() - t0 < 30.0 and len(calls) >= 2
 
 
 def seeded_seqs(n_users=60, n_items=40, seed=0):
