@@ -180,8 +180,10 @@
 #include "onchip_tile.cuh"
 #include "tensor_core.cuh"
 #include "wgmma.cuh"
+#include "wgmma_tf32_tile.cuh"
 
 using onchip::round_bf16;
+using namespace mf;
 
 namespace {
 
@@ -3219,7 +3221,8 @@ ce_bwd_mid_tc_kernel(const float* __restrict__ states, const float* __restrict__
 // memory by the threads as a hi plane and a lo plane, split once as it is
 // stored (16-byte stores, eight neighbouring lanes on eight rows of a core
 // matrix), and every a operand is split in registers where it is loaded.
-// The logits of a tile (mf_logits, shared by both kernels): warpgroup w
+// The logits of a tile (mf_logits, wgmma_tf32_tile.cuh, shared by both
+// kernels and by streaming_rank.cu's rank_mid_tf32_kernel): warpgroup w
 // takes catalog columns 64 w .. 64 w + 63 (b: the table rows, K-major as
 // stored) and every m64 tile of batch rows (a: the state rows by ldmatrix
 // from a cp.async copy [256][KC + 4] as stored), m64n64 MMAs, acc[4][8][4]:
@@ -3298,14 +3301,11 @@ ce_bwd_mid_tc_kernel(const float* __restrict__ states, const float* __restrict__
 // Sums run in a fixed order and pass 2 merges the splits in split order:
 // two calls give the same bits.
 
-constexpr int MF_COLS = 128;  // catalog columns per tile (both kernels)
-constexpr int MF_FKC = 32;    // hidden columns per logits step: the forward's
-constexpr int MF_BKC = 16;    // ... and the backward's
+// The shared product's pieces (wgmma_tf32_tile.cuh): MF_COLS = 128 catalog
+// columns per tile (both kernels), the forward's MF_FKC = 32 hidden columns
+// a logits step, MF_CHAIN, mf_lslot, the table's staging and mf_logits.
+constexpr int MF_BKC = 16;    // hidden columns per logits step: the backward's
 constexpr int MF_HP = 32;     // hidden columns per products step (H is padded to a multiple)
-constexpr int MF_CHAIN = 2;   // the logits' k8 blocks summed on the tensor cores before an fp32 addition
-// a logits slot (floats): the state rows [TC_ROWS][kc + 4], then the
-// table's hi and lo planes, canonical [MF_COLS][kc] each
-__host__ __device__ constexpr int mf_lslot(int kc) { return TC_ROWS * (kc + 4) + 2 * MF_COLS * kc; }
 // the backward's products slot (floats): the table's planes [MF_HP][MF_COLS]
 // (hi, lo), then the states' [MF_HP][TC_ROWS]
 constexpr int MF_PSLOT = 2 * MF_HP * MF_COLS + 2 * MF_HP * TC_ROWS;
@@ -3313,117 +3313,15 @@ constexpr long long MF_FWD_SMEM = 4LL * (2 * mf_lslot(MF_FKC) + 2 * TC_ROWS);   
 constexpr long long MF_BWD_SMEM = 4LL * (TC_ROWS * MF_COLS + MF_PSLOT + 3 * TC_ROWS);  // 232,448 B
 static_assert(MF_FWD_SMEM <= MAX_SMEM && MF_BWD_SMEM <= MAX_SMEM && 2 * mf_lslot(MF_BKC) <= MF_PSLOT &&
                   MF_COLS == FT_COLS && MF_COLS % VT == 0 && TC_ROWS == THREADS && THREADS == 256 &&
+                  TC_ROWS == MF_ROWS && THREADS == MF_THREADS &&
                   MAX_H % MF_HP == 0 && MF_HP % MF_FKC == 0 && MF_HP % MF_BKC == 0 &&
                   MF_HP == TF_HL && MF_HP == 32 && MF_COLS == 128,
               "two warpgroups over 256 batch rows x 128 columns; ds_part in the wide fp32 "
               "backward's order (ce_ds_reduce_tc_kernel<true>, Hp a multiple of TF_HL)");
-static_assert(MF_FKC % 16 == 0 && MF_BKC % 16 == 0 && MF_CHAIN >= 1,
-              "whole warp-wide groups of table pieces, whole k8 blocks");
-
-// Piece i of this thread's 16-byte pieces of a logits step's table rows
-// [MF_COLS][KC]: row r, hidden columns 4 q .. 4 q + 3. Eight neighbouring
-// lanes take one piece of eight rows (distinct banks when stored into a
-// canonical plane), four such groups of a warp four neighbouring pieces
-// (64 contiguous bytes a row when loaded).
-template <int KC>
-__device__ __forceinline__ void mf_piece(int i, int& r, int& q) {
-  constexpr int G = KC / 16;  // warps a row group
-  const int p = threadIdx.x + THREADS * i, lane = p & 31, wid = p >> 5;
-  r = (wid / G) * 8 + (lane & 7);
-  q = (wid % G) * 4 + (lane >> 3);
-}
-
-// fp32 x split into TF32 hi and lo (tensor_core.cuh), as uint4 planes.
-__device__ __forceinline__ void split4(float4 v, uint4& hi, uint4& lo) {
-  tc::split_tf32(__float_as_uint(v.x), hi.x, lo.x);
-  tc::split_tf32(__float_as_uint(v.y), hi.y, lo.y);
-  tc::split_tf32(__float_as_uint(v.z), hi.z, lo.z);
-  tc::split_tf32(__float_as_uint(v.w), hi.w, lo.w);
-}
+static_assert(MF_BKC % 16 == 0, "whole warp-wide groups of table pieces, whole k8 blocks");
 
 __device__ __forceinline__ float comp(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// A logits step's table rows [c0, c0 + MF_COLS), hidden columns [h0, h0 + KC),
-// zero past V and H: this thread's pieces into pre ...
-template <int KC>
-__device__ __forceinline__ void mf_load_table(float4 (&pre)[MF_COLS * KC / 4 / THREADS],
-                                              const float* __restrict__ table, int c0, int h0,
-                                              int V, int H) {
-#pragma unroll
-  for (int i = 0; i < MF_COLS * KC / 4 / THREADS; ++i) {
-    int r, q;
-    mf_piece<KC>(i, r, q);
-    const int h = h0 + 4 * q;
-    pre[i] = (c0 + r < V && h < H)
-                 ? __ldg(reinterpret_cast<const float4*>(table + (size_t)(c0 + r) * H + h))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// ... and, split, into the hi and lo planes th and tl (canonical [MF_COLS][KC]).
-template <int KC>
-__device__ __forceinline__ void mf_store_table(const float4 (&pre)[MF_COLS * KC / 4 / THREADS],
-                                               float* th, float* tl) {
-#pragma unroll
-  for (int i = 0; i < MF_COLS * KC / 4 / THREADS; ++i) {
-    int r, q;
-    mf_piece<KC>(i, r, q);
-    uint4 hi, lo;
-    split4(pre[i], hi, lo);
-    const int o = wg::canonical(r, 4 * q, KC);
-    *reinterpret_cast<uint4*>(th + o) = hi;
-    *reinterpret_cast<uint4*>(tl + o) = lo;
-  }
-}
-
-// acc[mt] += the logits of one step for the m64 tiles mt < mt_end: the
-// state rows sS [TC_ROWS][KC + 4] (hidden columns of the step) against the
-// table rows 64 w .. 64 w + 63 of the tile in the planes th and tl
-// (canonical [MF_COLS][KC]), w this thread's warpgroup. acc[mt][j][e] is
-// row 64 mt + 16 (warp & 3) + g + 8 (e >> 1), column 64 w + 8 j + 2 t +
-// (e & 1). Each MF_CHAIN k8 blocks' three passes are summed on the tensor
-// cores from 0, waited for, and added to acc in fp32. Waits for its MMAs.
-template <int KC>
-__device__ __forceinline__ void mf_logits(float (&acc)[4][8][4], const float* sS, const float* th,
-                                          const float* tl, int mt_end) {
-  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) & 3, w = threadIdx.x >> 7;
-  const float* bh = th + wg::canonical(64 * w, 0, KC);
-  const float* bl = tl + wg::canonical(64 * w, 0, KC);
-  const float* a0 = sS + (16 * wr + tc::a_row(lane)) * (KC + 4) + tc::a_col32(lane);
-  auto frag = [&](int mt, int k, uint32_t (&h)[4], uint32_t (&l)[4]) {  // rows of mt, k8 block at k
-    uint32_t r[4];
-    tc::ldmatrix_x4(r, a0 + 64 * mt * (KC + 4) + k);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tc::split_tf32(r[e], h[e], l[e]);
-  };
-  constexpr int CH = KC / 8 < MF_CHAIN ? KC / 8 : MF_CHAIN;
-  static_assert((KC / 8) % CH == 0, "whole chains a step");
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (mt >= mt_end) break;  // (block-uniform)
-#pragma unroll
-    for (int k0 = 0; k0 < KC; k0 += 8 * CH) {
-      uint32_t ah[CH][4], al[CH][4];
-#pragma unroll
-      for (int c = 0; c < CH; ++c) frag(mt, k0 + 8 * c, ah[c], al[c]);
-      float part[32];
-      wg::fence();
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int kb = k0 / 8 + c;
-        wg::mma_3xtf32<64>(part, ah[c], al[c], wg::desc(bh + 64 * kb, KC), wg::desc(bl + 64 * kb, KC), c);
-      }
-      wg::commit();
-      wg::wait<0>();
-      wg::fence_regs(part);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[4 * j + e];
-    }
-  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)

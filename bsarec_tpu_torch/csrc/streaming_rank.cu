@@ -26,7 +26,7 @@
 //     folded into a sorted top-k list per row. Only scores that beat the
 //     row's current k-th entry are offered (the counted-merge idea of
 //     pallas_rank.py:209-247), so after the first tiles a row costs a
-//     compare. Three routes, picked by shape in the C entry:
+//     compare. Four routes, picked by shape in the C entry:
 //     - the on-chip route, B <= 256, H <= 64 and k <= 32 (the eval path's
 //       B=256, H=64, k=20): first rank_sample_kernel scores 4 tiles a
 //       split from the catalog's start and keeps, per row, the largest
@@ -51,6 +51,12 @@
 //       columns a tile, the table read once per 256 rows, the scores in
 //       3xTF32 on mma.sync), with a top-k epilogue over the accumulator
 //       fragments; its head says more.
+//     - the middle route, B <= 256, 64 < H <= 256 and k <= 32 (the
+//       hidden-256 eval path's B=256, H=256, k=20): rank_mid_tf32_kernel,
+//       on streaming_ce.cu's ce_fwd_mid_tf32_kernel's grid and product
+//       (wgmma_tf32_tile.cuh: one block per SM over every batch row, the
+//       scores in 3xTF32 on Hopper's warpgroup MMAs) with the tensor-core
+//       route's epilogue; its head says more.
 //     - elsewhere rank_partial_kernel: the grid is (vocab splits x batch
 //       tiles of 64 rows), sized by the caller to fill the SMs. Each block
 //       keeps its 64 state rows in shared memory, walks its split in
@@ -63,15 +69,15 @@
 //       lists (H > ~670 at k = 20, H > ~454 at k = 128), its wide form
 //       (WIDE = true) stages the states a 32-wide hidden chunk at a time
 //       beside the table's, 124,416 B at k = 128 and any H. It serves
-//       B > 256 at H <= 64, 64 < H <= 256, and k > 32 at any H.
+//       B > 256 at H <= 256, and k > 32 at any H.
 //     The on-chip and older routes compute each score as one FMA chain
 //     over h in ascending order, so their scores, and with the strict
-//     order their results, are bit-equal. The tensor-core route sums each
-//     score in another order (three TF32 passes a k8 block, the blocks'
-//     sums added in fp32): where every score is exact in any order
-//     (integer inputs) its values and ids are bit-equal to the others';
-//     elsewhere its values lie within fp32 rounding of theirs, and an id
-//     can differ only where two scores lie that close.
+//     order their results, are bit-equal. The middle and tensor-core
+//     routes sum each score in another order (three TF32 passes a k8
+//     block, the blocks' sums added in fp32): where every score is exact
+//     in any order (integer inputs) their values and ids are bit-equal to
+//     the others'; elsewhere their values lie within fp32 rounding of
+//     theirs, and an id can differ only where two scores lie that close.
 //   pass 2 (rank_merge_kernel): one warp per row folds the n_splits
 //     partial lists into the final k, offering each list's entries in
 //     split order; at k <= 32 the running list sits in the warp's
@@ -83,7 +89,8 @@
 // ~2.15 ms. At H = 512 (chip_smoke.py) the tensor-core route takes ~5.9 ms
 // at k = 20 (27% of its 1.589 ms 3xTF32 bound; the older route ~13.4, 29%
 // of its 3.913 ms FMA bound) and the older route's wide form ~23 ms at
-// k = 128. No wgmma or TMA.
+// k = 128; at H = 256 / 128 the middle route ~2.85 / ~1.98 ms (its head).
+// The middle route runs wgmma; no kernel here uses TMA.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -92,6 +99,9 @@
 
 #include "onchip_tile.cuh"
 #include "tensor_core.cuh"
+#include "wgmma_tf32_tile.cuh"
+
+using namespace mf;
 
 namespace {
 
@@ -777,11 +787,13 @@ static_assert(TW_MIN_H >= 2 * TW_HC, "at least two steps a tile");
 
 // Merge row r = threadIdx.x's pending entries into its sorted list and empty
 // them: one row a thread, so that the 256 rows merge at once. Entry q of
-// the row lies in its shared slots for q < TW_PEND, past that in the
-// block's overflow area (ov, oi: [TW_ROWS][TW_COLS] values, then ids). An
-// entry no longer ahead of the k-th is dropped; one that is finds its slot
-// by binary search and the entries below it move down a slot (a loop with
-// no compare in it), while the next entry's load is in flight.
+// the row lies in its PEND shared slots (rows PEND + 1 apart) for q < PEND,
+// past that in the block's overflow area (ov, oi: [TW_ROWS][TW_COLS]
+// values, then ids). An entry no longer ahead of the k-th is dropped; one
+// that is finds its slot by binary search and the entries below it move
+// down a slot (a loop with no compare in it), while the next entry's load
+// is in flight.
+template <int PEND = TW_PEND>
 __device__ __forceinline__ void merge_pending(float* lv, int* li, int* cnt, const float* pv,
                                               const int* pi, const float* ov, const int* oi,
                                               int k) {
@@ -789,8 +801,8 @@ __device__ __forceinline__ void merge_pending(float* lv, int* li, int* cnt, cons
   if (n == 0) return;
   float* L = lv + r * TW_LLD;
   int* I = li + r * TW_LLD;
-  auto entry_v = [&](int q) { return q < TW_PEND ? pv[r * TW_PLD + q] : ov[r * TW_COLS + q]; };
-  auto entry_i = [&](int q) { return q < TW_PEND ? pi[r * TW_PLD + q] : oi[r * TW_COLS + q]; };
+  auto entry_v = [&](int q) { return q < PEND ? pv[r * (PEND + 1) + q] : ov[r * TW_COLS + q]; };
+  auto entry_i = [&](int q) { return q < PEND ? pi[r * (PEND + 1) + q] : oi[r * TW_COLS + q]; };
   float nv = entry_v(0);
   int nid = entry_i(0);
   for (int q = 0; q < n; ++q) {
@@ -819,15 +831,17 @@ __device__ __forceinline__ void merge_pending(float* lv, int* li, int* cnt, cons
 
 // The top-k epilogue of a finished tile (catalog columns j0 ..): this
 // thread's scores acc[i][j][2 half + e] of row 64 wm + 16 i + g + 8 half
-// and tile column 64 wn + 8 j + 2 t + e (lane l, g = l >> 2, t = l & 3),
-// masked in place (the tile's bitmask words in sMt), and each that ranks
-// ahead of its row's bar offered: written, unsorted, to the row's next
-// entry (a per-row shared count hands them out), in its shared slots or
-// past them in the block's overflow area. Rows >= rows (past B) offer
-// nothing. Returns whether this thread offered a score. Nothing waits
-// between two offers and nothing is kept for later: with the 128
-// accumulators live, a longer epilogue made the compiler spill inside the
-// MMA loop.
+// (mma.sync's warp tiles; MID: row 64 i + 16 wm + g + 8 half, wgmma's m64
+// tiles) and tile column 64 wn + 8 j + 2 t + e (lane l, g = l >> 2, t = l &
+// 3, wm = warp & 3, wn = warp >> 2), masked in place (the tile's bitmask
+// words in sMt), and each that ranks ahead of its row's bar offered:
+// written, unsorted, to the row's next entry (a per-row shared count hands
+// them out), in its PEND shared slots (rows PEND + 1 apart) or past them
+// in the block's overflow area. Rows >= rows (past B) offer nothing.
+// Returns whether this thread offered a score. Nothing waits between two
+// offers and nothing is kept for later: with the 128 accumulators live, a
+// longer epilogue made the compiler spill inside the MMA loop.
+template <int PEND = TW_PEND, bool MID = false>
 __device__ __forceinline__ bool offer_tile(float (&acc)[4][8][4], const uint32_t* sMt,
                                            const float* lv, const int* li, int* cnt, float* pv,
                                            int* pi, float* ov, int* oi, int k, int j0,
@@ -839,7 +853,8 @@ __device__ __forceinline__ bool offer_tile(float (&acc)[4][8][4], const uint32_t
   bool offered = false;
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
-    const int i = q >> 1, half = q & 1, r = 64 * wm + 16 * i + g + 8 * half;
+    const int i = q >> 1, half = q & 1;
+    const int r = MID ? 64 * i + 16 * wm + g + 8 * half : 64 * wm + 16 * i + g + 8 * half;
     if (r >= rows) continue;
     const float kv = lv[r * TW_LLD + k - 1];
     const int ki = li[r * TW_LLD + k - 1];
@@ -873,9 +888,9 @@ __device__ __forceinline__ bool offer_tile(float (&acc)[4][8][4], const uint32_t
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         if ((cand >> (2 * j + e)) & 1u) {
-          if (at < TW_PEND) {
-            pv[r * TW_PLD + at] = acc[i][j][2 * half + e];
-            pi[r * TW_PLD + at] = c0 + 8 * j + e;
+          if (at < PEND) {
+            pv[r * (PEND + 1) + at] = acc[i][j][2 * half + e];
+            pi[r * (PEND + 1) + at] = c0 + 8 * j + e;
           } else {
             ov[r * TW_COLS + at] = acc[i][j][2 * half + e];
             oi[r * TW_COLS + at] = c0 + 8 * j + e;
@@ -1021,6 +1036,182 @@ rank_wide_tf32_kernel(const float* __restrict__ states, const float* __restrict_
   }
 }
 
+// ---- the middle route: rank_mid_tf32_kernel -------------------------------------
+//
+// Pass 1 at B <= RM_ROWS = 256, 64 < H <= RM_MAX_H = 256 and k <= TW_K (the
+// hidden-256 eval path's B=256, H=256, k=20), the counterpart of
+// pallas_rank.py:165 _rank_kernel at f32 on those widths. The scores are
+// streaming_ce.cu's ce_fwd_mid_tf32_kernel's product S . T^T (row 2m): so it
+// takes that kernel's grid, staging and product (wgmma_tf32_tile.cuh:
+// Hopper's warpgroup MMAs, m64n64k8 TF32 in 3xTF32, a from registers, b
+// from split planes in shared memory) and puts row 1w's top-k epilogue
+// (offer_tile, merge_pending) where that kernel folds (max, sum).
+//
+// Bound at B=256, V=1M, H=256 (H=128): 3 x 2BVH = 393.2 (196.6) GFLOP of
+// TF32 passes, 0.794 (0.397) ms at the dense TF32 rate (495 TFLOP/s); the
+// fp32 table read once, 1.02 (0.51) GB, 0.306 (0.153) ms at 3.35 TB/s. So
+// operations bound it. (rank_partial_kernel, which took these shapes
+// before, runs fp32 FMAs, 1.957 ms of them at 67 TFLOP/s at H=256, and
+// reads the table once per 64-row batch tile.)
+//
+// What the design does about it:
+//   - the table is read once: one block of 256 threads (two warpgroups)
+//     per SM walks its split of whole MF_COLS = 128-column tiles against
+//     every batch row, the m64 tiles past B skipped by a block-uniform
+//     bound (mf_logits), so a small batch (the exported scorer serves b =
+//     1-256) pays for ceil(B / 64) m64 tiles of products, not four;
+//   - the scores on wgmma in 3xTF32, which keeps fp32 accuracy (FLOAT_TOL);
+//     wgmma's m64n64 MMAs run the middle CE forward at ~41% of its bound
+//     where mma.sync's wide kernels reach ~32%;
+//   - a step is MF_FKC = 32 hidden columns: the state rows by cp.async a
+//     step ahead, the table rows by 16-byte loads into registers a step
+//     ahead, split into the other slot's hi and lo planes after the step's
+//     MMAs (before the epilogue, so that those registers are free there);
+//     two slots, one barrier a step;
+//   - the epilogue after a tile's last step, on wgmma's accumulators,
+//     whose columns are mma.sync's (a thread holds 8 rows x 16 columns of
+//     a row's 128 in two warpgroups, as row 1w's in two warps): seen items
+//     take seen_value, columns >= n_valid -inf, and a score that ranks
+//     ahead of its row's bar (the list's k-th) goes to the row's next
+//     pending entry through a shared count, past the RM_PEND shared slots
+//     into the split's overflow area in device memory; after one barrier
+//     one thread a row merges (offer_tile<RM_PEND, true>, merge_pending);
+//   - the tile's bitmask words (4 a row) come into one mask slot with the
+//     copies of the tile's second step: the tile before read its words in
+//     its epilogue, before this step's barrier, and the route's H > 64
+//     gives every tile at least three steps, so they land before the
+//     tile's own epilogue.
+// Shared memory: the forward's two slots of 69,632 B (the states [256][36],
+// the table's hi and lo planes [128][32]), the mask slot 4,096 B, the
+// pending counts 1,024, the pending slots at RM_PEND = 8 a row (stride 9,
+// odd: a warp's rows on distinct banks) 18,432, the lists at TW_K + 1 = 33
+// slots a row 67,584: 230,400 B of the 232,448 a block may use. Row 1w's 16
+// pending slots and two mask slots would need 250,880: the forward's
+// exchange (2,048 B) is not needed here, one mask slot suffices, and past
+// a split's first tiles a row's t-th tile offers ~k/t scores, so 8 shared
+// slots spill to the overflow area only in the first few tiles.
+// The keys (value, id) are distinct under a strict order, so the order of
+// the offers and merges does not change a list: two calls give the same
+// bits. Where every score is exact in any order (integer inputs) the
+// values and ids are bit-equal to the other routes'; elsewhere the values
+// lie within fp32 rounding of them. Slots never filled stay (-inf, NO_ID)
+// and rank_merge_kernel gives them (-inf, 0). 255 registers, 72 bytes of
+// spills (without the epilogue 252 and none).
+// On one "NVIDIA H100 80GB HBM3, 700.00 W" at V=1M, k=20, B=256
+// (tools/ablate_rank_tc.py --mid, tools/time_kernels.py, chip_smoke.py;
+// PERF.md row 1m): ~2.85 ms at H = 256 (28% of its bound, 0.40x its library
+// call; rank_partial_kernel ~7.5 in turns), ~1.98 at H = 128 (20%, 0.35x;
+// ~3.27). Without the epilogue ~1.70 / ~0.91: the epilogue costs ~1.1 ms
+// with the tensor cores idle, as row 1w's does, ~0.2 ms at B = 1.
+// rank_wide_tf32_kernel with its H bound lifted takes ~3.50 / ~2.32 on
+// these shapes (its mma.sync loop ~2.49 / ~1.30), so the route takes this
+// kernel. At B = 1 / 16 and H = 256 ~1.13 / ~1.39 ms against the older
+// route's ~1.78 / ~1.92; at H = 128 the older route reads faster at B = 8
+// to 32 (by at most ~0.14 ms) and slower at B <= 2 and B >= 64, so the
+// route keeps every B <= 256.
+constexpr int RM_ROWS = MF_ROWS;            // the route: B <= RM_ROWS ...
+constexpr int RM_MAX_H = 256;               // ... 64 < H <= RM_MAX_H, k <= TW_K
+constexpr int RM_PEND = 8;                  // pending slots a row in shared memory
+constexpr int RM_SLOT = mf_lslot(MF_FKC);   // a step's slot (floats)
+constexpr int RM_MASK_AT = 2 * RM_SLOT;     // one mask slot [RM_ROWS][TW_WORDS] (4-byte words)
+constexpr int RM_CNT_AT = RM_MASK_AT + RM_ROWS * TW_WORDS;
+constexpr int RM_PV_AT = RM_CNT_AT + RM_ROWS;
+constexpr int RM_PI_AT = RM_PV_AT + RM_ROWS * (RM_PEND + 1);
+constexpr int RM_LV_AT = RM_PI_AT + RM_ROWS * (RM_PEND + 1);
+constexpr int RM_LI_AT = RM_LV_AT + RM_ROWS * TW_LLD;
+constexpr long long RM_SMEM = 4LL * (RM_LI_AT + RM_ROWS * TW_LLD);  // 230,400 B
+static_assert(RM_SMEM <= MAX_SMEM && RM_ROWS == TW_ROWS && MF_COLS == TW_COLS && MF_COLS == VT &&
+                  MF_THREADS == THREADS && (RM_PEND + 1) % 2 == 1 && RM_MAX_H % 4 == 0,
+              "two warpgroups over 256 rows x 128 columns; the older route's tiles");
+static_assert(onchip::MAX_H >= 2 * MF_FKC, "H > onchip::MAX_H: at least three steps a tile");
+
+__global__ void __launch_bounds__(THREADS, 1)
+rank_mid_tf32_kernel(const float* __restrict__ states, const float* __restrict__ table,
+                     const int32_t* __restrict__ mask, int B, int V, int H, int W, int n_valid,
+                     float seen_value, int k, int tiles_per_split, float* __restrict__ overflow,
+                     float* __restrict__ part_v, int32_t* __restrict__ part_i) {
+  constexpr int KC = MF_FKC, NP = MF_COLS * KC / 4 / THREADS;
+  extern __shared__ __align__(128) float rm_smem[];
+  uint32_t* sM = reinterpret_cast<uint32_t*>(rm_smem + RM_MASK_AT);  // [RM_ROWS][TW_WORDS]
+  int* cnt = reinterpret_cast<int*>(rm_smem + RM_CNT_AT);            // [RM_ROWS] pending counts
+  float* pv = rm_smem + RM_PV_AT;                                    // [RM_ROWS][RM_PEND + 1] pending
+  int* pi = reinterpret_cast<int*>(rm_smem + RM_PI_AT);              // [RM_ROWS][RM_PEND + 1]
+  float* lv = rm_smem + RM_LV_AT;                                    // [RM_ROWS][TW_LLD] lists
+  int* li = reinterpret_cast<int*>(rm_smem + RM_LI_AT);              // [RM_ROWS][TW_LLD]
+  // this block's overflow area: [TW_ROWS][TW_COLS] values, then ids
+  float* ov = overflow + (size_t)blockIdx.x * 2 * TW_ROWS * TW_COLS;
+  int* oi = reinterpret_cast<int*>(ov + TW_ROWS * TW_COLS);
+  const int tid = threadIdx.x;
+  const int nk = (H + KC - 1) / KC;
+  const int n_tiles = (V + MF_COLS - 1) / MF_COLS;
+  const int t_begin = blockIdx.x * tiles_per_split, t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int n_steps = max(t_end - t_begin, 0) * nk;
+  const int mt_end = (B + 63) / 64;
+
+  // step s: hidden chunk s % nk of local tile s / nk, in slot s & 1
+  auto slot = [&](int s) { return rm_smem + (s & 1) * RM_SLOT; };
+  auto th = [&](int s) { return slot(s) + RM_ROWS * (KC + 4); };
+  float4 pre[NP];  // a step's table pieces, loaded a step ahead
+  auto issue = [&](int s) {  // step s's state rows by cp.async, its table rows into pre
+    const int tile = t_begin + s / nk;
+    tc::copy_chunk_async<RM_ROWS, KC>(slot(s), KC + 4, states, 0, B, H, (s % nk) * KC);
+    if (s % nk == 1)  // the tile's bitmask words, with its second step's copies
+      load_mask_async<RM_ROWS, TW_WORDS>(sM, mask, 0, B, W, tile * TW_WORDS);
+    mf_load_table<KC>(pre, table, tile * MF_COLS, (s % nk) * KC, V, H);
+  };
+  auto store_table = [&](int s) {
+    mf_store_table<KC>(pre, th(s), th(s) + MF_COLS * KC);
+    wg::fence_proxy_async();
+  };
+
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int e = tid; e < RM_ROWS * TW_LLD; e += THREADS) {
+    lv[e] = -INFINITY;
+    li[e] = NO_ID;
+  }
+  cnt[tid] = 0;
+  if (n_steps > 0) {
+    issue(0);
+    store_table(0);
+  }
+  onchip::cp_async_commit();
+  for (int s = 0; s < n_steps; ++s) {
+    onchip::cp_async_wait_all();  // this thread's copies of step s have landed
+    __syncthreads();  // everyone's, and step s's table planes; step s - 1's MMAs and epilogue are done
+    if (s + 1 < n_steps) issue(s + 1);
+    onchip::cp_async_commit();
+    mf_logits<KC>(acc, slot(s), th(s), th(s) + MF_COLS * KC, mt_end);
+    if (s + 1 < n_steps) store_table(s + 1);  // its slot was last read by step s - 1
+    if (s % nk == nk - 1) {  // the tile's scores are complete: offer them, then merge
+      const bool offered = offer_tile<RM_PEND, true>(acc, sM, lv, li, cnt, pv, pi, ov, oi, k,
+                                                     (t_begin + s / nk) * MF_COLS, n_valid,
+                                                     seen_value, B);
+      // every offer is written; the merges are seen by the next tile's
+      // offers after the next step's barrier
+      if (__syncthreads_or(offered)) merge_pending<RM_PEND>(lv, li, cnt, pv, pi, ov, oi, k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+  __syncthreads();  // every thread's last merges are done
+  for (int e = tid; e < B * k; e += THREADS) {
+    const int r = e / k, j = e - r * k;
+    const size_t o = ((size_t)blockIdx.x * B + r) * k + j;
+    part_v[o] = lv[r * TW_LLD + j];
+    part_i[o] = li[r * TW_LLD + j];
+  }
+}
+
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 rank_merge_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ part_i,
                   int B, int k, int n_splits, float* __restrict__ out_v,
@@ -1099,6 +1290,11 @@ bool onchip_route(int B, int H, int k) { return B <= onchip::ROWS && H <= onchip
 // The tensor-core route's domain (rank_wide_tf32_kernel), by shape.
 bool tc_route(int B, int H, int k) { return H > TW_MIN_H && k <= TW_K; }
 
+// The middle route's domain (rank_mid_tf32_kernel), by shape.
+bool mid_route(int B, int H, int k) {
+  return B <= RM_ROWS && H > onchip::MAX_H && H <= RM_MAX_H && k <= TW_K;
+}
+
 // Shared memory of rank_partial_kernel<wide>.
 long long partial_smem(int H, int k, bool wide) {
   return (long long)sizeof(float) * ((long long)(wide ? KC : H) * BT + KC * VT + BT * (VT + 1) + BT * k) +
@@ -1136,23 +1332,29 @@ int streaming_rank_onchip(int B, int H, int k) { return onchip_route(B, H, k) ? 
 // size H and top-k width k (unless its caller turns the route off).
 int streaming_rank_tc(int B, int H, int k) { return tc_route(B, H, k) ? 1 : 0; }
 
+// 1 where streaming_rank takes the middle route at batch B, hidden size H
+// and top-k width k (unless its caller turns the route off).
+int streaming_rank_mid(int B, int H, int k) { return mid_route(B, H, k) ? 1 : 0; }
+
 // 1 where the older route stages the states in hidden chunks (its wide
 // form) at hidden size H and top-k width k.
 int streaming_rank_wide(int H, int k) { return wide_route(H, k) ? 1 : 0; }
 
-// Bytes of the tensor-core route's overflow area at n_splits splits: a
-// block's offers of a tile past a row's shared slots (256 rows x 128
-// columns, values and ids).
+// Bytes of the tensor-core and middle routes' overflow area at n_splits
+// splits: a block's offers of a tile past a row's shared slots (256 rows x
+// 128 columns, values and ids).
 long long streaming_rank_overflow_bytes(int n_splits) {
   return 8LL * n_splits * TW_ROWS * TW_COLS;
 }
 
 // Shared memory of pass 1 on the on-chip route (route = 1), the
-// tensor-core route (route = 2) or the older one (route = 0, in the form H
-// and k take) at hidden size H and top-k width k.
+// tensor-core route (route = 2), the middle route (route = 3) or the older
+// one (route = 0, in the form H and k take) at hidden size H and top-k
+// width k.
 long long streaming_rank_smem_bytes(int H, int k, int route) {
   if (route == 1) return ONCHIP_STAGING + 8LL * onchip::ROWS * (k + 8 * onchip_slice(k));
   if (route == 2) return TW_SMEM;
+  if (route == 3) return RM_SMEM;
   return partial_smem(H, k, wide_route(H, k));
 }
 
@@ -1160,37 +1362,40 @@ long long streaming_rank_smem_bytes(int H, int k, int route) {
 // shape allows it (streaming_rank_onchip) and allow_onchip is 1: a sample
 // pass (rank_sample_kernel into `buckets`, [B, 64] 32-bit words that the
 // caller allocates and this entry zeroes) and then rank_onchip_kernel; the
-// tensor-core route (rank_wide_tf32_kernel) where the shape allows it
-// (streaming_rank_tc) and allow_tc is 1, with `overflow`, n_splits * 256 KB
-// that the caller allocates (streaming_rank_overflow_bytes). Elsewhere it is
+// middle route (rank_mid_tf32_kernel) where the shape allows it
+// (streaming_rank_mid) and allow_mid is 1, and the tensor-core route
+// (rank_wide_tf32_kernel) where the shape allows it (streaming_rank_tc) and
+// allow_tc is 1, both with `overflow`, n_splits * 256 KB that the caller
+// allocates (streaming_rank_overflow_bytes). Elsewhere it is
 // rank_partial_kernel, in its wide form where the shape asks for it
 // (streaming_rank_wide). The on-chip and older routes give bit-equal
-// results; the tensor-core route sums each score in another order, so its
-// results are bit-equal to theirs where the scores are exact in any order
-// (integer inputs) and within fp32 rounding elsewhere. The caller
-// allocates the partials ([n_splits, B, k]) and outputs ([B, k]);
-// n_splits * tiles_per_split must cover the catalog in tiles of the
-// route's width (64 columns on-chip, 128 otherwise), and on the on-chip and
-// tensor-core routes every split must hold a tile. `taken`, when not
+// results; the middle and tensor-core routes sum each score in another
+// order, so their results are bit-equal to the others' where the scores are
+// exact in any order (integer inputs) and within fp32 rounding elsewhere.
+// The caller allocates the partials ([n_splits, B, k]) and outputs ([B,
+// k]); n_splits * tiles_per_split must cover the catalog in tiles of the
+// route's width (64 columns on-chip, 128 otherwise), and on the on-chip,
+// middle and tensor-core routes every split must hold a tile. `taken`, when not
 // null, receives the on-chip route's count of scores its lists took. A
 // seen item scores seen_value (0.0 for eval, -inf for serving). Returns 0
 // or a cudaError_t code.
 int streaming_rank(const void* states, const void* table, const void* mask, int B, int V,
                    int H, int W, int n_valid, float seen_value, int k, int n_splits,
-                   int tiles_per_split, int allow_onchip, int allow_tc, void* buckets,
-                   void* overflow, void* part_v, void* part_i, void* out_v, void* out_i,
-                   void* taken, void* stream) {
+                   int tiles_per_split, int allow_onchip, int allow_tc, int allow_mid,
+                   void* buckets, void* overflow, void* part_v, void* part_i, void* out_v,
+                   void* out_i, void* taken, void* stream) {
   const bool onchip = allow_onchip && onchip_route(B, H, k);
-  const bool tc = !onchip && allow_tc && tc_route(B, H, k);
+  const bool mid = !onchip && allow_mid && mid_route(B, H, k);
+  const bool tc = !onchip && !mid && allow_tc && tc_route(B, H, k);
   const int width = onchip ? OC_VT : VT;
   const long long n_tiles = (V + width - 1) / width;
   if (B < 1 || V < 1 || H < 4 || H % 4 != 0 || k < 1 || k > MAX_K || n_splits < 1 ||
       tiles_per_split < 1 || (long long)n_splits * tiles_per_split < n_tiles ||
-      ((onchip || tc) && (long long)(n_splits - 1) * tiles_per_split >= n_tiles) ||
-      (onchip && buckets == nullptr) || (tc && overflow == nullptr) || W < (V + 31) / 32 ||
-      n_valid < 0 || n_valid > V)
+      ((onchip || mid || tc) && (long long)(n_splits - 1) * tiles_per_split >= n_tiles) ||
+      (onchip && buckets == nullptr) || ((mid || tc) && overflow == nullptr) ||
+      W < (V + 31) / 32 || n_valid < 0 || n_valid > V)
     return (int)cudaErrorInvalidValue;
-  const long long smem = streaming_rank_smem_bytes(H, k, onchip ? 1 : tc ? 2 : 0);
+  const long long smem = streaming_rank_smem_bytes(H, k, onchip ? 1 : tc ? 2 : mid ? 3 : 0);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -1218,6 +1423,14 @@ int streaming_rank(const void* states, const void* table, const void* mask, int 
         static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, k, onchip_slice(k),
         tiles_per_split, static_cast<const unsigned*>(buckets), static_cast<float*>(part_v),
         static_cast<int32_t*>(part_i), static_cast<unsigned long long*>(taken));
+  } else if (mid) {
+    e = cudaFuncSetAttribute(rank_mid_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    rank_mid_tf32_kernel<<<n_splits, THREADS, (size_t)smem, s>>>(
+        static_cast<const float*>(states), static_cast<const float*>(table),
+        static_cast<const int32_t*>(mask), B, V, H, W, n_valid, seen_value, k, tiles_per_split,
+        static_cast<float*>(overflow), static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
   } else if (tc) {
     e = cudaFuncSetAttribute(rank_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

@@ -4,29 +4,34 @@
 `streaming_masked_topk` returns, per user, the top k of the catalog
 scores `states @ table.T` without building the [B, V] score matrix on
 the card: the CUDA kernel in `csrc/streaming_rank.cu` (which replaces
-the Pallas `_rank_kernel`) sweeps the catalog once, on one of three
+the Pallas `_rank_kernel`) sweeps the catalog once, on one of four
 routes picked by shape:
 - the on-chip route (`onchip_route`: B <= 256, H <= 64, k <= 32): a
   sample pass bounds each row's k-th score from below, then one block per
   SM holds the whole batch and skips every score under the bound;
+- the middle route (`mid_route`: B <= 256, 64 < H <= 256, k <= 32): one
+  block per SM takes the scores of every row x 128 items a tile on
+  Hopper's warpgroup MMAs in 3xTF32, which keeps fp32 accuracy, reads the
+  table once, and offers each tile's scores to the rows' lists from the
+  accumulators;
 - the tensor-core route (`tc_route`: H > 256, k <= 32, any B): one block
   per SM takes the scores of 256 rows x 128 items a tile on the tensor
-  cores in 3xTF32, which keeps fp32 accuracy, reads the table once per
-  256 rows, and offers each tile's scores to the rows' lists from the
-  accumulator fragments;
+  cores (`mma.sync`) in 3xTF32, reads the table once per 256 rows, and
+  offers each tile's scores to the rows' lists from the accumulator
+  fragments;
 - elsewhere an older sweep that re-stages 64-row batch tiles, with fp32
   FMAs. It stages all of a tile's states ([H, 64]) where they fit and,
   past that (`wide_route`: H > ~670 at k = 20, H > ~454 at k = 128), a
   hidden chunk of 32 at a time beside the table's, so every H % 4 == 0
   and k <= 128 runs.
-`streaming_masked_topk.onchip_launches`, `.tc_launches` and
-`.wide_launches` count them apart. The on-chip and older routes give
-bit-equal results (one FMA chain a score, in ascending h). The
-tensor-core route sums each score in another order: where every score
-is exact in any order (integer inputs) its values and ids are bit-equal
-to theirs, elsewhere its values lie within fp32 rounding of the plain
-version's, and an id can differ from another route's only where two
-scores lie that close. Seen items score
+`streaming_masked_topk.onchip_launches`, `.mid_launches`, `.tc_launches`
+and `.wide_launches` count them apart. The on-chip and older routes give
+bit-equal results (one FMA chain a score, in ascending h). The middle
+and tensor-core routes sum each score in another order: where every
+score is exact in any order (integer inputs) their values and ids are
+bit-equal to the others', elsewhere their values lie within fp32
+rounding of the plain version's, and an id can differ from another
+route's only where two scores lie that close. Seen items score
 `seen_value`: 0.0 for eval (the reference's `src/trainers.py:134`, what
 the TPU kernel gives them) and -inf for serving (`ops/serving_topk.py`),
 where a seen item never enters the result. Columns >= n_valid score
@@ -189,7 +194,8 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """`lib` (a build of `csrc/streaming_rank.cu`) with its C signatures set."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.streaming_rank.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i, i, i, i, p, p, p, p, p, p,
+                                   p, p]
     lib.streaming_rank.restype = ctypes.c_int
     lib.streaming_rank_error.argtypes = [i]
     lib.streaming_rank_error.restype = ctypes.c_char_p
@@ -199,6 +205,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.streaming_rank_onchip.restype = ctypes.c_int
     lib.streaming_rank_tc.argtypes = [i, i, i]
     lib.streaming_rank_tc.restype = ctypes.c_int
+    lib.streaming_rank_mid.argtypes = [i, i, i]
+    lib.streaming_rank_mid.restype = ctypes.c_int
     lib.streaming_rank_wide.argtypes = [i, i]
     lib.streaming_rank_wide.restype = ctypes.c_int
     lib.streaming_rank_overflow_bytes.argtypes = [i]
@@ -221,6 +229,14 @@ def tc_route(b: int, h: int, k: int) -> bool:
 
 
 @functools.cache
+def mid_route(b: int, h: int, k: int) -> bool:
+    """True where the kernel takes its middle route (the scores on the
+    warpgroup MMAs in 3xTF32 for every row at once, the tensor-core
+    route's top-k epilogue), by shape."""
+    return bool(_lib().streaming_rank_mid(b, h, k))
+
+
+@functools.cache
 def wide_route(h: int, k: int) -> bool:
     """True where the older route stages the states in hidden chunks (all
     of them do not fit in shared memory), by shape."""
@@ -228,15 +244,16 @@ def wide_route(h: int, k: int) -> bool:
 
 
 # kernel tiling (csrc/streaming_rank.cu): rows per block and columns per
-# tile of the older route and of the tensor-core route; columns per tile
-# of the on-chip route
+# tile of the older route and of the middle and tensor-core routes;
+# columns per tile of the on-chip route
 _BT, _VT, _ONCHIP_VT = 64, 128, 64
 
 
 def _splits(b: int, v: int, onchip: bool, sms: int, tc: bool = False) -> tuple[int, int]:
     """(n_splits, tiles_per_split) in tiles of the route's width, every
-    split holding a tile: one block per SM on the on-chip and tensor-core
-    routes, enough blocks for two per SM on the older one."""
+    split holding a tile: one block per SM on the on-chip, middle and
+    tensor-core routes (`tc` for either of the last two: both walk
+    128-column tiles), enough blocks for two per SM on the older one."""
     n_tiles = -(-v // (_ONCHIP_VT if onchip else _VT))
     target = sms if onchip or tc else -(-2 * sms // -(-b // _BT))
     per = -(-n_tiles // max(1, min(n_tiles, target)))
@@ -244,11 +261,12 @@ def _splits(b: int, v: int, onchip: bool, sms: int, tc: bool = False) -> tuple[i
 
 
 def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=None,
-            seen_value=0.0, allow_tc=True):
-    """Both passes of the kernel. `allow_onchip=False` and `allow_tc=False`
-    keep the older route at any shape, and `taken` (an int64 [1] tensor on
-    the card) receives the count of scores the on-chip route's lists took:
-    all three serve only the checks and the timing tools."""
+            seen_value=0.0, allow_tc=True, allow_mid=True):
+    """Both passes of the kernel. `allow_onchip=False`, `allow_mid=False`
+    and `allow_tc=False` keep the older route at any shape, and `taken` (an
+    int64 [1] tensor on the card) receives the count of scores the on-chip
+    route's lists took: all four serve only the checks and the timing
+    tools."""
     b, h = states.shape
     v = table.shape[0]
     dev = states.device
@@ -266,21 +284,22 @@ def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=No
     lib = _lib()
     index = states.get_device()
     onchip = allow_onchip and onchip_route(b, h, k)
-    tc = not onchip and allow_tc and tc_route(b, h, k)
-    n_splits, per = _splits(b, v, onchip, sm_count(index), tc)
+    mid = not onchip and allow_mid and mid_route(b, h, k)
+    tc = not onchip and not mid and allow_tc and tc_route(b, h, k)
+    n_splits, per = _splits(b, v, onchip, sm_count(index), tc or mid)
     part_v = torch.empty((n_splits, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, b, k), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    # the on-chip route's sample: 64 bucket maxima a row; the tensor-core
-    # route's overflow area: a split's offers of a tile past a row's shared
-    # slots
+    # the on-chip route's sample: 64 bucket maxima a row; the middle and
+    # tensor-core routes' overflow area: a split's offers of a tile past a
+    # row's shared slots
     buckets = torch.empty((b, 64), dtype=torch.int32, device=dev) if onchip else None
     overflow = (torch.empty((lib.streaming_rank_overflow_bytes(n_splits),), dtype=torch.uint8,
-                            device=dev) if tc else None)
+                            device=dev) if tc or mid else None)
     rc = call_on(index, lib.streaming_rank, states.data_ptr(), table.data_ptr(),
                  seen_bitmask.data_ptr(), b, v, h, seen_bitmask.shape[1], n_valid, seen_value,
-                 k, n_splits, per, int(allow_onchip), int(allow_tc),
+                 k, n_splits, per, int(allow_onchip), int(allow_tc), int(allow_mid),
                  None if buckets is None else buckets.data_ptr(),
                  None if overflow is None else overflow.data_ptr(),
                  part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
@@ -289,12 +308,14 @@ def _launch(states, table, seen_bitmask, k, n_valid, allow_onchip=True, taken=No
         raise RuntimeError(
             f"streaming_rank launch failed ({rc}: {lib.streaming_rank_error(rc).decode()}); "
             f"B={b} V={v} H={h} k={k}, shared memory "
-            f"{lib.streaming_rank_smem_bytes(h, k, 1 if onchip else 2 if tc else 0)} bytes"
+            f"{lib.streaming_rank_smem_bytes(h, k, 1 if onchip else 2 if tc else 3 if mid else 0)} "
+            f"bytes"
         )
     streaming_masked_topk.launches += 1
     streaming_masked_topk.onchip_launches += onchip
+    streaming_masked_topk.mid_launches += mid
     streaming_masked_topk.tc_launches += tc
-    streaming_masked_topk.wide_launches += not onchip and not tc and wide_route(h, k)
+    streaming_masked_topk.wide_launches += not onchip and not mid and not tc and wide_route(h, k)
     return vals, ids
 
 
@@ -321,5 +342,6 @@ def streaming_masked_topk(states: torch.Tensor, table: torch.Tensor,
 
 streaming_masked_topk.launches = 0  # kernel launches (CUDA path only)
 streaming_masked_topk.onchip_launches = 0  # the launches that took the on-chip route
+streaming_masked_topk.mid_launches = 0  # ... the middle route (rank_mid_tf32_kernel)
 streaming_masked_topk.tc_launches = 0  # ... the tensor-core route (rank_wide_tf32_kernel)
 streaming_masked_topk.wide_launches = 0  # the older route's launches in its wide form

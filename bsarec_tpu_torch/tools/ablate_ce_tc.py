@@ -2,9 +2,9 @@
 `csrc/streaming_ce.cu` with parts of a kernel cut out, and time each at
 B=256, V=1,000,000, H=512.
 
-Each variant is this checkout's source, `csrc/tensor_core.cuh` inlined,
-with text replacements (each must match exactly once, so a variant that
-no longer applies fails loudly).
+Each variant is this checkout's source with the `csrc/*.cuh` headers it
+includes inlined (each once), with text replacements (each must match
+exactly once, so a variant that no longer applies fails loudly).
 For `ce_bwd_wide_tc_kernel` (through the C entry `ce_grads`): the whole
 kernel, its logits steps alone and its products steps alone, then each
 of those without one kind of work (state copies, table loads, the bf16
@@ -125,6 +125,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -658,11 +659,25 @@ MID_VARIANTS = {
 MID_BOTH_FORMS = ("kernel", "on the older sweeps")
 
 
+def inline_headers(text: str, done: set | None = None) -> str:
+    """`text` with each `#include "X.cuh"` of csrc/ replaced by that header's
+    own text, inlined likewise, the first time it is met, and by nothing
+    after (as the headers' `#pragma once` has it)."""
+    done = set() if done is None else done
+
+    def header(m):
+        if m.group(1) in done:
+            return ""
+        done.add(m.group(1))
+        return inline_headers((CSRC / m.group(1)).read_text(), done)
+
+    return re.sub(r'#include "([^"]+\.cuh)"', header, text)
+
+
 def sources(variants: dict | None = None) -> dict[str, str]:
     """{variant: source text} of `variants` (default VARIANTS); raises
     unless every replacement matches once."""
-    base = (CSRC / "streaming_ce.cu").read_text().replace(
-        '#include "tensor_core.cuh"', (CSRC / "tensor_core.cuh").read_text())
+    base = inline_headers((CSRC / "streaming_ce.cu").read_text())
     out = {}
     for name, replacements in (VARIANTS if variants is None else variants).items():
         text = base

@@ -76,7 +76,15 @@ ms and its library call's (`F.cross_entropy` over the fp32 product, or
 `chip_smoke.py:bf16_yardsticks`' over the bf16 one, forward and
 backward; `matmul` + `masked_fill_` + `topk`): the `mid` entry, with
 each wrapper's middle-route launch counts (the bf16 pair's and the fp32
-form's); and `ce_mid_bf16_digest`, the
+form's, and the rank kernel's middle route's, rank_mid_tf32_kernel, in a
+package that has it, with `mid_route` naming the rank kernel's route at
+B=256 there, and its older route, rank_partial_kernel, timed in turns
+beside it as `rank_older`: `allow_mid=False`); `rank_mid_eval_digest`
+and `rank_mid_int_digest`, the rank kernel's outputs at
+`MID_RANK_CASES` (seeded with 800 + i) and at their integer cases alone
+(equal across any two routes that rank correctly); `ce_mid_fp32_fwd_digest`,
+the fp32 `ce_loss_logz` (loss, logZ) at `MID_CE_CASES` (equal where
+ce_fwd_mid_tf32_kernel gives the same bits); and `ce_mid_bf16_digest`, the
 bf16 forms' outputs at `MID_CE_CASES` (seeded with 600 + i; the
 gradients at the plain fp32 logZ), which moves by design where the
 middle route's kernels replace the older sweeps (so does
@@ -181,26 +189,29 @@ def _chip_smoke():
     return smoke
 
 
-def rank_eval_digest(device, wide: bool = False, integer_only: bool = False) -> str:
+def rank_eval_digest(device, wide: bool = False, integer_only: bool = False,
+                     mid: bool = False) -> str:
     """sha256 over the rank kernel's eval-mode (values, ids) at this
     checkout's `chip_smoke.py` rank cases (`RANK_CASES`), on its inputs
     (`make_case`, the i-th case seeded with i); with `wide`, at
     `WIDE_RANK_CASES` (seeded with 300 + i, the float tables scaled by
-    sqrt(64 / H) as the wide phase draws them); with `integer_only`, at
-    the integer cases alone."""
+    sqrt(64 / H) as the wide phase draws them); with `mid`, at
+    `MID_RANK_CASES` (seeded with 800 + i, scaled likewise); with
+    `integer_only`, at the integer cases alone."""
     import torch
 
     from bsarec_tpu_torch.ops import rank
 
     smoke = _chip_smoke()
     digest = hashlib.sha256()
-    cases, seed0 = (smoke.WIDE_RANK_CASES, 300) if wide else (smoke.RANK_CASES, 0)
+    cases, seed0 = ((smoke.WIDE_RANK_CASES, 300) if wide else (smoke.MID_RANK_CASES, 800) if mid
+                    else (smoke.RANK_CASES, 0))
     for i, (_, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(cases):
         if integer_only and not integer:
             continue
         states, table, bitmask = smoke.make_case(b, v, h, n_seen, seed=seed0 + i, device=device,
                                                  integer=integer, all_seen_row=all_seen,
-                                                 scale=math.sqrt(64 / h) if wide else 1.0)
+                                                 scale=math.sqrt(64 / h) if wide or mid else 1.0)
         vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid)
         digest.update(vals.cpu().numpy().tobytes())
         digest.update(ids.cpu().numpy().tobytes())
@@ -318,6 +329,10 @@ def time_mid(h, r_mask, rng, device) -> dict:
     errs["rank"] = check_rank(states, table, r_mask)
     forms["rank"] = (lambda: rank.streaming_masked_topk(states, table, r_mask, K, V),
                      lambda: rank.streaming_masked_topk_plain(states, table, r_mask, K, V))
+    if "allow_mid" in inspect.signature(rank._launch).parameters:  # a package with the middle route
+        errs["rank_older"] = errs["rank"]
+        forms["rank_older"] = (lambda: rank._launch(states, table, r_mask, K, V, allow_mid=False),
+                               forms["rank"][1])
     torch.cuda.empty_cache()
     names = list(forms)
     ms = {name: [] for name in names}
@@ -338,10 +353,13 @@ def time_mid(h, r_mask, rng, device) -> dict:
                "ce_logz_bf16": (fwd16, fwd16_name), "ce_grads_bf16": (back16, back16_name),
                "rank": (lambda: torch.topk(torch.matmul(states, table.T).masked_fill_(seen, 0.0), K),
                         "matmul + masked_fill_ + topk")}
+    if "rank_older" in forms:
+        library["rank_older"] = library["rank"]
     for name, (fn, lib_name) in library.items():
         out[name] |= {"library_ms": cuda_ms(fn, iters=5), "library": lib_name}
     del graph, s_req, t_req, seen, cols
     torch.cuda.empty_cache()
+    out["rank"]["mid_route"] = rank.mid_route(B, h, K) if hasattr(rank, "mid_route") else False
     return out
 
 
@@ -492,6 +510,9 @@ def time_package(package_root: Path) -> dict:
            "ce_wide_fp32_grads_digest": ce_digest(device, wide=True, grads_only=True),
            "ce_bf16_digest": ce_digest(device, dtype="bfloat16"),
            "ce_mid_bf16_digest": ce_digest(device, mid=True, dtype="bfloat16", grads_only=True),
+           "ce_mid_fp32_fwd_digest": ce_digest(device, mid=True, forward_only=True),
+           "rank_mid_eval_digest": rank_eval_digest(device, mid=True),
+           "rank_mid_int_digest": rank_eval_digest(device, mid=True, integer_only=True),
            "ce_wide_bf16_grads_digest": ce_digest(device, wide=True, dtype="bfloat16",
                                                   grads_only=True)}
     if "taken" in inspect.signature(rank._launch).parameters:
@@ -533,6 +554,8 @@ def time_package(package_root: Path) -> dict:
         after = getattr(f, c, None)
         out[key] = None if after is None else after - mid_before[key]
     out["streaming_masked_topk_tc_launches"] = getattr(rank.streaming_masked_topk, "tc_launches", None)
+    out["streaming_masked_topk_mid_launches"] = getattr(rank.streaming_masked_topk, "mid_launches",
+                                                        None)
     return out
 
 

@@ -109,18 +109,31 @@ Phases, each of which raises (exit code 1) when it fails:
    plain bf16 version with its fp32 control failing; and at
    MID_EXACT_CASES (parity.exact_logit_case inputs at scale 1, the main
    path's shape among them) within parity.BF16_GRAD_TOL, which the fp32
-   form must fail. Then `main --hidden_size 256 --dtype bf16` (BSARec, 2
-   layers, 1 head, c=5, alpha=0.7, max_len 50) on a 1M-item x 5k-user
-   corpus for one epoch (every ce_logz and ce_grads launch on the middle
-   route's kernels, the rank kernel on every eval batch), then `--do_eval
-   --load_model --export_topk` (the rank kernel's older route, no CE
-   launch); then the same epoch in fp32 (every ce_logz launch on
-   ce_fwd_mid_tf32_kernel, every ce_grads launch on
-   ce_bwd_wide_tf32_kernel); the bf16 CE entries at H in {128, 256} timed
-   as phase 10 times them (in turns with the fp32 form; plain, library,
-   bound; the training step's CE in at most 5 device operations), the
-   fp32 entries there (plain, library, the 3xTF32 bound), and each form's
-   step CE ms beside main's examples/s.
+   form must fail. Then the rank kernel in both modes with phase 2's
+   checks on the middle route (rank_mid_tf32_kernel: wgmma in 3xTF32, B
+   <= 256, 64 < H <= 256, k <= 32), each case also against the older route
+   (bit-equal on integer inputs, within FLOAT_TOL on float ones): at the
+   main shape at H = 128 and 256 (B=256, V=1M, k=20, the CE cases' states
+   and tables), B = 1 there, and MID_RANK_CASES (k = 32 with an all-seen
+   row and n_valid < V, H = 68 and 192, fewer valid items than k, integer
+   inputs; B = 257 and k = 33, past the route, on the older route). Then
+   `main --hidden_size 256 --dtype bf16` (BSARec, 2 layers, 1 head, c=5,
+   alpha=0.7, max_len 50) on a 1M-item x 5k-user corpus for one epoch
+   (every ce_logz and ce_grads launch on the middle route's kernels,
+   every eval batch's rank launch on rank_mid_tf32_kernel), then
+   `--do_eval --load_model --export_topk` (every rank launch on
+   rank_mid_tf32_kernel, no CE launch); then the same epoch in fp32
+   (every ce_logz launch on ce_fwd_mid_tf32_kernel, every ce_grads launch
+   on ce_bwd_wide_tf32_kernel, every rank launch on rank_mid_tf32_kernel)
+   and that model's steady eval rate through the eval function main uses
+   (10 batches), in turns with the rank kernel's older route; the bf16
+   CE entries at H in {128, 256} timed as phase 10 times them (in turns
+   with the fp32 form; plain, library, bound; the training step's CE in
+   at most 5 device operations), the fp32 entries there (plain, library,
+   the 3xTF32 bound), and each form's step CE ms beside main's
+   examples/s; the rank kernel at k = 20 at B=256 and H in {128, 256} and
+   at B in {1, 16} and H = 256, in turns with its older route (plain,
+   library, the 3xTF32 bound).
 4. Hold the fused dropout kernel against its plain version, bit for bit,
    at SASRec's two site shapes ([256, 50, 64] and [256, 2, 50, 50]) in
    fp32 and bf16 and at edge shapes (n in {1, 3, 4, 4097, 1000003}, rates
@@ -266,11 +279,11 @@ Phases, each of which raises (exit code 1) when it fails:
    unsharded call. After phase 12, in phase 7's directory: `main --mesh
    data:1,model:1` through a one-rank NCCL group and `main --multihost`
    (the host-fed pipeline, `data/multihost.py`), alone and under that
-   mesh, in turns with the plain run (plain, host-fed, mesh, host-fed
-   under the mesh, host-fed, plain; scores, epoch loss and checkpoint
-   bit-equal, the same launches, the host-fed runs' peak allocated bytes
-   below the plain runs', printed beside the device-resident training
-   set's bytes and each run's examples/s), SASRec on the fused dropout
+   mesh, after the plain run (plain, host-fed, mesh, host-fed under the
+   mesh; scores, epoch loss and checkpoint bit-equal, the same launches,
+   the host-fed run's peak allocated bytes below the plain run's, printed
+   beside the device-resident training set's bytes and each run's
+   examples/s), SASRec on the fused dropout
    under the mesh, device-resident and host-fed (14 launches a step, the
    same epoch loss), and `main --mesh data:1,model:2` as two gloo processes sharing the
    card (the epoch loss within parity.MESH_LOSS_RTOL of the plain run's,
@@ -289,6 +302,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import copy
+import functools
 import json
 import logging
 import math
@@ -462,10 +476,8 @@ RANK_CASES = [
 def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False, scale=1.0):
     """Seeded inputs: states [b, h], table [v, h] (N(0, 1) times `scale`, or
     integers), a seen bitmask built on the device from 0-padded id lists
-    with repeats (and checked against the host builder)."""
+    with repeats (and checked against the host builder): make_seen."""
     import torch
-
-    from bsarec_tpu_torch.ops import rank
 
     rng = np.random.default_rng(seed)
     if integer:
@@ -476,6 +488,18 @@ def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False, 
         table = rng.standard_normal((v, h), dtype=np.float32)
         if scale != 1.0:
             table *= np.float32(scale)
+    dev = make_seen(b, v, n_seen, rng, device, all_seen_row)
+    return torch.from_numpy(states).to(device), torch.from_numpy(table).to(device), dev
+
+
+def make_seen(b, v, n_seen, rng, device, all_seen_row=False):
+    """A seen bitmask [b, ceil(v / 32)] built on the device from 0-padded id
+    lists with repeats drawn from rng (and checked against the host
+    builder); row b // 2 sees every item where all_seen_row."""
+    import torch
+
+    from bsarec_tpu_torch.ops import rank
+
     seen = rng.integers(1, v, size=(b, n_seen + 4)).astype(np.int32)
     seen[:, 1] = seen[:, 0]  # a repeated item
     seen[:, -3:] = 0  # padding
@@ -484,7 +508,7 @@ def make_case(b, v, h, n_seen, seed, device, integer=False, all_seen_row=False, 
     check(np.array_equal(dev.cpu().numpy(), host), "seen_ids_to_bitmask differs from build_seen_bitmask")
     if all_seen_row:
         dev[b // 2] = -1
-    return torch.from_numpy(states).to(device), torch.from_numpy(table).to(device), dev
+    return dev
 
 
 def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_value=0.0):
@@ -497,15 +521,16 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
     case_name = f"{case_name}, {'eval' if seen_value == 0.0 else 'serving'} mode"
     b, h = states.shape
     f = rank.streaming_masked_topk
-    before = (f.onchip_launches, f.tc_launches, f.wide_launches)
+    before = (f.onchip_launches, f.mid_launches, f.tc_launches, f.wide_launches)
     vals, ids = rank.streaming_masked_topk(states, table, bitmask, k, n_valid, seen_value)
     again_v, again_i = rank.streaming_masked_topk(states, table, bitmask, k, n_valid, seen_value)
     torch.cuda.synchronize()
-    onchip, tc, wide = ((n - n0) // 2 for n, n0 in
-                        zip((f.onchip_launches, f.tc_launches, f.wide_launches), before))
+    onchip, mid, tc, wide = ((n - n0) // 2 for n, n0 in zip(
+        (f.onchip_launches, f.mid_launches, f.tc_launches, f.wide_launches), before))
     check(onchip == rank.onchip_route(b, h, k)
-          and tc == (not onchip and rank.tc_route(b, h, k))
-          and wide == (not onchip and not tc and rank.wide_route(h, k)),
+          and mid == (not onchip and rank.mid_route(b, h, k))
+          and tc == (not onchip and not mid and rank.tc_route(b, h, k))
+          and wide == (not onchip and not mid and not tc and rank.wide_route(h, k)),
           f"{case_name}: the rank kernel took another route than its shape names")
     check(torch.equal(vals, again_v) and torch.equal(ids, again_i),
           f"{case_name}: two calls on the same inputs differ")
@@ -519,20 +544,21 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
               f"{int(((vals != old_v) | (ids != old_i)).sum())} of {vals.numel()} slots")
         del old_v, old_i
     tc_err = None
-    if tc:  # the older route on the same inputs: bit-equal where the scores are exact
+    kernel = "rank_mid_tf32_kernel" if mid else "rank_wide_tf32_kernel"
+    if tc or mid:  # the older route on the same inputs: bit-equal where the scores are exact
         old_v, old_i = rank._launch(states, table, bitmask, k, n_valid, allow_tc=False,
-                                    seen_value=seen_value)
+                                    allow_mid=False, seen_value=seen_value)
         torch.cuda.synchronize()
         old_finite = torch.isfinite(old_v)
         check(torch.equal(torch.isfinite(vals), old_finite),
-              f"{case_name}: the tensor-core route fills other slots than the older route")
+              f"{case_name}: {kernel} fills other slots than the older route")
         tc_err = float((vals[old_finite] - old_v[old_finite]).abs().max()) if old_finite.any() else 0.0
         if exact:
             check(torch.equal(vals, old_v) and torch.equal(ids, old_i),
-                  f"{case_name}: the tensor-core route differs from the older route at "
+                  f"{case_name}: {kernel} differs from the older route at "
                   f"{int(((vals != old_v) | (ids != old_i)).sum())} of {vals.numel()} slots")
         else:
-            check(tc_err <= FLOAT_TOL, f"{case_name}: tensor-core route {tc_err} off the older route")
+            check(tc_err <= FLOAT_TOL, f"{case_name}: {kernel} {tc_err} off the older route")
         del old_v, old_i
     want_v, want_i = rank.streaming_masked_topk_plain(states, table, bitmask, k, n_valid,
                                                       seen_value=seen_value)
@@ -552,9 +578,10 @@ def compare_kernel(case_name, states, table, bitmask, k, n_valid, exact, seen_va
         for r in range(ids.shape[0]):
             row = ids[r][finite[r]]
             check(row.unique().numel() == row.numel(), f"{case_name}: row {r} repeats an id")
+    where = "middle route, wgmma" if mid else "tensor cores"
     route = ("on-chip, bit-equal to the older route" if onchip
-             else "tensor cores (rank_wide_tf32_kernel), bit-equal to the older route" if tc and exact
-             else f"tensor cores (rank_wide_tf32_kernel), {tc_err:.3g} off the older route" if tc
+             else f"{where} ({kernel}), bit-equal to the older route" if (tc or mid) and exact
+             else f"{where} ({kernel}), {tc_err:.3g} off the older route" if tc or mid
              else "older route, states in hidden chunks" if wide else "older route")
     log(f"kernel vs plain {case_name}: ok, max |value error| {err:.3g}"
         f"{' (bit-equal ids and values)' if exact else ''}; {route}; two calls bit-equal")
@@ -1893,6 +1920,7 @@ def reset_counts() -> None:
         f.mid_launches = 0
         f.mid_tf32_launches = 0
     rank.streaming_masked_topk.tc_launches = 0
+    rank.streaming_masked_topk.mid_launches = 0
     for f in (ce.ce_logz, ce.ce_grads, fd.fused_dropout):
         f.bf16_launches = 0
 
@@ -3523,12 +3551,19 @@ def phase_wide_train(device, card):
     return out
 
 
-def wide_rank_times(rank_full, card, b):
-    """The rank kernel at H=512, k=20 on the first b rows of the main wide
-    case: the kernel (its tensor-core route) and its older route in turns
-    (kernel, older, older, kernel), the plain version, the library call and
-    the bound (3xTF32 at the dense TF32 rate, or the bytes; the same work
-    in fp32 FMAs on the bound line only). Returns the JSON fields."""
+# the rank kernel's routes on the tensor cores, by the route's name
+RANK_TC_KERNELS = {"tc": "rank_wide_tf32_kernel", "mid": "rank_mid_tf32_kernel"}
+
+
+def rank_route_times(rank_full, card, b, route="tc"):
+    """The rank kernel at k=20 on the first b rows of a main case (the wide
+    phase's at H=512, route "tc"; the mid phase's at H = 128 or 256, route
+    "mid"): the kernel on its tensor-core route (rank_wide_tf32_kernel or
+    rank_mid_tf32_kernel) and the older route (rank_partial_kernel) in
+    turns (kernel, older, older, kernel), the plain version, the library
+    call and the bound (3xTF32 at the dense TF32 rate, or the bytes; the
+    same work in fp32 FMAs on the bound line only). Returns the JSON
+    fields."""
     import torch
 
     from bsarec_tpu_torch.ops import rank
@@ -3536,9 +3571,10 @@ def wide_rank_times(rank_full, card, b):
     full_states, table, full_mask = rank_full
     states, bitmask = full_states[:b].contiguous(), full_mask[:b].contiguous()
     h, v, k = states.shape[1], table.shape[0], TOP_K
-    check(rank.tc_route(b, h, k), f"the rank kernel's tensor-core route at B={b} H={h} k={k}")
+    on_route = rank.tc_route(b, h, k) if route == "tc" else rank.mid_route(b, h, k)
+    check(on_route, f"the rank kernel's {RANK_TC_KERNELS[route]} at B={b} H={h} k={k}")
     kernel = lambda: rank.streaming_masked_topk(states, table, bitmask, k, v)
-    older = lambda: rank._launch(states, table, bitmask, k, v, allow_tc=False)
+    older = lambda: rank._launch(states, table, bitmask, k, v, allow_tc=False, allow_mid=False)
     ms1, old1, old2, ms2 = (cuda_ms(fn, iters=10) for fn in (kernel, older, older, kernel))
     plain_ms = cuda_ms(lambda: rank.streaming_masked_topk_plain(states, table, bitmask, k, v),
                        iters=3, warmup=1)
@@ -3554,7 +3590,7 @@ def wide_rank_times(rank_full, card, b):
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     ms = (ms1 + ms2) / 2
-    for name, t in (("kernel (rank_wide_tf32_kernel)", pair([ms1, ms2])),
+    for name, t in ((f"kernel ({RANK_TC_KERNELS[route]})", pair([ms1, ms2])),
                     ("kernel, older route (rank_partial_kernel)", pair([old1, old2])),
                     ("plain version", f"{plain_ms:.4f}"),
                     ("library matmul+masked_fill+topk", f"{library_ms:.4f}")):
@@ -3574,7 +3610,7 @@ def wide_rank_times(rank_full, card, b):
 def phase_wide_times(ce_full, rank_full, card):
     """The wide main path's kernels at B=256, V=1M, H=512: the CE entries in
     both forms (phase_ce_times), the rank kernel at k=20 (its tensor-core
-    route, at B=256 and B=16, wide_rank_times) and at k=128 (the older
+    route, at B=256 and B=16, rank_route_times) and at k=128 (the older
     route's wide form). Each with its plain version, a library yardstick
     and its bound. Returns {entry: JSON fields}."""
     import torch
@@ -3583,8 +3619,8 @@ def phase_wide_times(ce_full, rank_full, card):
 
     ce32 = phase_ce_times(ce_full, card)
     ce16 = phase_ce_times(ce_full, card, BF16)
-    rank20 = wide_rank_times(rank_full, card, rank_full[0].shape[0])
-    rank20["b16"] = wide_rank_times(rank_full, card, 16)
+    rank20 = rank_route_times(rank_full, card, rank_full[0].shape[0])
+    rank20["b16"] = rank_route_times(rank_full, card, 16)
     states, table, bitmask = rank_full
     b, h = states.shape
     v, k = table.shape[0], 128
@@ -3649,6 +3685,24 @@ MID_EXACT_CASES = [
 ]
 
 
+# the middle route's rank cases past the main shapes, the i-th on
+# make_case's inputs seeded with 800 + i (float tables scaled by sqrt(64 /
+# H), as WIDE_RANK_CASES'): (tag, B, V, H, k, n_valid, seen per row,
+# integer, all-seen row). At B <= 256, 64 < H <= 256 and k <= 32 the rank
+# kernel takes its middle route (rank_mid_tf32_kernel); the cases past it
+# (B = 257, k = 33) hold the older route there
+MID_RANK_CASES = [
+    ("k=32, all-seen row, n_valid < V", 256, 40009, 192, 32, 40000, 16, False, True),
+    ("B=257, past the middle route, n_valid < V", 257, 30011, MID_H, 20, 30000, 16, False, False),
+    ("k=33, past the middle route", 37, 20011, 128, 33, 20011, 16, False, False),
+    ("H=68, odd B, V off the tile", 5, 12101, 68, 20, 12101, 16, False, False),
+    ("integer, all-seen row, n_valid < V", 256, 20011, MID_H, 20, 20006, 16, True, True),
+    ("integer, B=1, k=32", 1, 20011, 128, 32, 20011, 16, True, False),
+    ("integer, B=257, past the middle route", 257, 20011, MID_H, 20, 20006, 16, True, False),
+    ("n_valid < k", 5, 300, MID_H, 20, 10, 4, False, False),
+]
+
+
 def mid_counts() -> dict:
     from bsarec_tpu_torch.ops import ce, rank
 
@@ -3660,6 +3714,7 @@ def mid_counts() -> dict:
         "ce_logz_onchip": ce.ce_logz.onchip_launches, "ce_grads_onchip": ce.ce_grads.onchip_launches,
         "ce_logz_wide": ce.ce_logz.wide_launches, "ce_grads_wide": ce.ce_grads.wide_launches,
         "rank_onchip": rank.streaming_masked_topk.onchip_launches,
+        "rank_mid": rank.streaming_masked_topk.mid_launches,
         "rank_tc": rank.streaming_masked_topk.tc_launches,
         "rank_wide": rank.streaming_masked_topk.wide_launches}
 
@@ -3670,13 +3725,17 @@ def phase_mid_kernels(device):
     bf16 form the middle route's mma.sync pair, in the fp32 form
     ce_fwd_mid_tf32_kernel (wgmma) and ce_bwd_wide_tf32_kernel; then both
     forms at the main shape at H = 128 (B=256, V=1M), the inputs the
-    entries are timed on. Returns ({form: {kernel: largest absolute error
-    on the middle route's shapes}}, {H: the main-shape inputs at B=256,
-    V=1M} for H in {128, 256})."""
+    entries are timed on. Then the rank kernel in both modes (compare_kernel)
+    on those main-shape states and tables at k = 20 (B = 256 at H = 128
+    and 256, B = 1 at H = 256), each with a seen bitmask seeded with 800 +
+    H, and at MID_RANK_CASES. Returns ({form: {kernel: largest absolute
+    error on the middle route's shapes}}, {H: the main-shape CE inputs at
+    B=256, V=1M} for H in {128, 256}, the rank kernel's largest value error
+    on the middle route, {H: the main-shape rank inputs})."""
     import torch
 
     from bsarec_tpu_torch import parity
-    from bsarec_tpu_torch.ops import ce
+    from bsarec_tpu_torch.ops import ce, rank
 
     worst = {form: {"ce_logz": 0.0, "gold_rows": 0.0, "ce_grads": 0.0} for form in CE_FORMS}
     full = {}
@@ -3708,21 +3767,50 @@ def phase_mid_kernels(device):
                           f"n_valid={N_ITEMS})", *full[128], N_ITEMS, dtype=form)
         worst[form] = {k: max(worst[form][k], errs[k]) for k in errs}
     torch.cuda.empty_cache()
-    return worst, full
+    rank_worst, rank_full = 0.0, {}
+    for h in sorted(full):
+        states, table = full[h][0], full[h][1]
+        bitmask = make_seen(TRAIN_BATCH, N_ITEMS, 16, np.random.default_rng(800 + h), device)
+        rank_full[h] = (states, table, bitmask)
+        shapes = [(f"main shape at H={h}", states, bitmask)]
+        if h == MID_H:
+            shapes.append((f"B=1 at H={h}", states[:1].contiguous(), bitmask[:1].contiguous()))
+        for tag, s, m in shapes:
+            name = f"{tag} (B={s.shape[0]} V={N_ITEMS} H={h} k={TOP_K} n_valid={N_ITEMS})"
+            for seen_value in (0.0, -math.inf):
+                err = compare_kernel(name, s, table, m, TOP_K, N_ITEMS, False, seen_value)
+                if rank.mid_route(s.shape[0], h, TOP_K):
+                    rank_worst = max(rank_worst, err)
+    for i, (tag, b, v, h, k, n_valid, n_seen, integer, all_seen) in enumerate(MID_RANK_CASES):
+        name = f"{tag} (B={b} V={v} H={h} k={k} n_valid={n_valid})"
+        states, table, bitmask = make_case(b, v, h, n_seen, seed=800 + i, device=device,
+                                           integer=integer, all_seen_row=all_seen,
+                                           scale=math.sqrt(64 / h))
+        for seen_value in (0.0, -math.inf):
+            err = compare_kernel(name, states, table, bitmask, k, n_valid, integer, seen_value)
+            if rank.mid_route(b, h, k):
+                rank_worst = max(rank_worst, err)
+        del states, table, bitmask
+    torch.cuda.empty_cache()
+    return worst, full, rank_worst, rank_full
 
 
 def phase_mid_train(device, card):
     """`main --hidden_size 256 --dtype bf16` (BSARec, 2 layers, 1 head,
     c=5, alpha=0.7, max_len 50) on a 1M-item x MID_USERS corpus: one epoch,
     every ce_logz and ce_grads launch on the middle route's tensor-core
-    kernels (ce_fwd_mid_tc_kernel, ce_bwd_mid_tc_kernel), the rank kernel on
-    every eval batch; then `--do_eval --load_model --export_topk` (the test
-    pass and the export on the rank kernel's older route at this width, no
-    CE launch); then one fp32 epoch (main's default --dtype) on the same
-    corpus, every ce_logz launch on ce_fwd_mid_tf32_kernel and every
-    ce_grads launch on ce_bwd_wide_tf32_kernel. Returns {run: launch counts,
-    "examples_per_s": the bf16 epoch's rate, "examples_per_s_fp32": the
-    fp32 epoch's}."""
+    kernels (ce_fwd_mid_tc_kernel, ce_bwd_mid_tc_kernel), every eval batch's
+    rank launch on the rank kernel's middle route (rank_mid_tf32_kernel);
+    then `--do_eval --load_model --export_topk` (the test pass and the
+    export on that route too, no CE launch); then one fp32 epoch (main's
+    default --dtype) on the same corpus, every ce_logz launch on
+    ce_fwd_mid_tf32_kernel and every ce_grads launch on
+    ce_bwd_wide_tf32_kernel, every rank launch on rank_mid_tf32_kernel;
+    then the fp32 epoch's model through the eval function main uses over
+    MID_EVAL_BATCHES steady batches, in turns with the rank kernel's older
+    route (mid_eval_turns). Returns {run: launch counts, "examples_per_s":
+    the bf16 epoch's rate, "examples_per_s_fp32": the fp32 epoch's,
+    "eval_users_per_s": mid_eval_turns' readings}."""
     import torch
 
     from bsarec_tpu_torch import main as port_main
@@ -3749,11 +3837,14 @@ def phase_mid_train(device, card):
             check(all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores), f"bad scores {scores}")
             return counts, scores, time.perf_counter() - t0
 
-        # the rank kernel at H = 256, k = 20: its older route (rank_partial_kernel,
-        # in the form its shared memory takes)
+        # the rank kernel at B = 256, H = 256, k = 20: its middle route
+        # (rank_mid_tf32_kernel) on every eval batch (the last one padded
+        # to 256 rows)
+        check(rank.mid_route(EVAL_BATCH, MID_H, TOP_K), "the rank kernel's middle route at H=256")
+
         def rank_route(n):
-            return {"streaming_masked_topk": n, "rank_tc": 0, "rank_onchip": 0,
-                    "rank_wide": n * rank.wide_route(MID_H, TOP_K)}
+            return {"streaming_masked_topk": n, "rank_mid": n, "rank_tc": 0, "rank_onchip": 0,
+                    "rank_wide": 0}
 
         counts, scores, seconds = run(base + ["--train_name", "smoke_mid", "--epochs", "1"])
         ce_step = {f"{name}{route}": steps for name in ("ce_logz", "ce_grads")
@@ -3772,7 +3863,8 @@ def phase_mid_train(device, card):
             f"{losses[0]}, train {rates[0]:.0f} examples/s, eval passes {eval_passes(text)} s "
             f"(valid, test), test scores {scores}; all {steps} ce_logz and {steps} ce_grads "
             f"launches on the middle route's tensor-core kernels (ce_fwd_mid_tc_kernel, "
-            f"ce_bwd_mid_tc_kernel); launches {counts} [{card}]")
+            f"ce_bwd_mid_tc_kernel), all {2 * eval_steps} rank launches on rank_mid_tf32_kernel; "
+            f"launches {counts} [{card}]")
 
         topk_path = os.path.join(workdir, "mid_topk.npy")
         counts, scores, seconds = run(base + ["--train_name", "smoke_mid_eval", "--do_eval",
@@ -3785,8 +3877,9 @@ def phase_mid_train(device, card):
               and int(topk.max()) < N_ITEMS, "middle-route export")
         out["eval"] = counts
         log(f"mid eval path: main(--do_eval --load_model smoke_mid --export_topk) returned in "
-            f"{seconds:.1f}s, test scores {scores}, exported {topk.shape}; launches {counts}, the "
-            f"rank kernel on its older route at H={MID_H} [{card}]")
+            f"{seconds:.1f}s, test scores {scores}, exported {topk.shape}; launches {counts}, all "
+            f"{2 * eval_steps} rank launches on rank_mid_tf32_kernel (eval passes "
+            f"{eval_passes(read_log(os.path.join(workdir, 'smoke_mid_eval.log')))} s) [{card}]")
 
         # the fp32 form (main's default --dtype)
         fp32 = [a for a in base if a not in ("--dtype", "bf16")]
@@ -3805,9 +3898,86 @@ def phase_mid_train(device, card):
             f"x {N_ITEMS} items, {steps} steps, returned in {seconds:.1f}s, epoch 0 loss {losses[0]}, "
             f"train {rates[0]:.0f} examples/s (bf16 form {out['examples_per_s']:.0f}), test scores "
             f"{scores}; all {steps} ce_logz launches on ce_fwd_mid_tf32_kernel (wgmma, 3xTF32), all "
-            f"{steps} ce_grads launches on ce_bwd_wide_tf32_kernel (3xTF32); launches {counts} [{card}]")
+            f"{steps} ce_grads launches on ce_bwd_wide_tf32_kernel (3xTF32), all "
+            f"{2 * eval_steps} rank launches on rank_mid_tf32_kernel; eval passes "
+            f"{eval_passes(text)} s; launches {counts} [{card}]")
+        out["eval_users_per_s"] = mid_eval_turns(device, workdir, seqs, card)
     torch.cuda.empty_cache()
     return out
+
+
+MID_EVAL_BATCHES = 10  # steady eval batches a reading of mid_eval_turns
+
+
+@contextlib.contextmanager
+def older_rank_route():
+    """The rank kernel's middle route off inside the block (the wrapper
+    launches with allow_mid=False: the older route, rank_partial_kernel,
+    at its shapes): for timing in turns only."""
+    from bsarec_tpu_torch.ops import rank
+
+    launch = rank._launch
+    rank._launch = functools.partial(launch, allow_mid=False)
+    try:
+        yield
+    finally:
+        rank._launch = launch
+
+
+def mid_eval_turns(device, workdir, seqs, card):
+    """The fp32 middle epoch's model (smoke_mid32.ckpt) through the eval
+    function main uses (build_eval_fn, streaming, seen ids) over the
+    test split's first MID_EVAL_BATCHES x 256 users: one uncounted pass,
+    then passes on the rank kernel's middle route and on its older route
+    in turns (middle, older, older, middle), host clock around each pass
+    ending in a synchronize; the middle route's passes must launch
+    rank_mid_tf32_kernel once a batch and the older route's never. Returns
+    {"middle": [users/s, users/s], "older": [users/s, users/s]}."""
+    import torch
+
+    from bsarec_tpu_torch.config import ModelConfig
+    from bsarec_tpu_torch.data.corpus import Corpus
+    from bsarec_tpu_torch.data.pipeline import SeqRecData
+    from bsarec_tpu_torch.models import build_model
+    from bsarec_tpu_torch.ops import rank
+    from bsarec_tpu_torch.train.checkpoint import load_params
+    from bsarec_tpu_torch.train.loop import build_eval_fn
+
+    n = MID_EVAL_BATCHES * EVAL_BATCH
+    cfg = ModelConfig(model_type="bsarec", item_size=N_ITEMS, num_users=MID_USERS + 1,
+                      max_seq_length=50, hidden_size=MID_H, num_hidden_layers=2,
+                      num_attention_heads=1, c=5, alpha=0.7)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(load_params(os.path.join(workdir, "smoke_mid32.ckpt")))
+    model.to(device).eval()
+    test = SeqRecData(Corpus(user_seq=seqs[:n], max_item=N_ITEMS - 1), max_len=50).test
+    inputs = torch.from_numpy(test.input_ids).long().to(device)
+    answers = torch.from_numpy(test.answers).long().to(device)
+    seen = torch.from_numpy(rank.dedupe_seen_rows(test.seen_items)).to(device)
+    evaluate, steps, _ = build_eval_fn(model, N_ITEMS, EVAL_BATCH, n, device, impl="streaming",
+                                       seen_format="ids")
+    f = rank.streaming_masked_topk
+
+    def users_per_s(older):
+        before = (f.launches, f.mid_launches)
+        with older_rank_route() if older else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            evaluate(inputs, answers, seen)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        check((f.launches - before[0], f.mid_launches - before[1]) == (steps, 0 if older else steps),
+              f"mid eval turns: launches {f.launches - before[0]}, on the middle route "
+              f"{f.mid_launches - before[1]}, of {steps} batches (older route {older})")
+        return n / seconds
+
+    users_per_s(False)
+    mid1, old1, old2, mid2 = (users_per_s(older) for older in (False, True, True, False))
+    log(f"mid eval steady: {n} users ({steps} batches of {EVAL_BATCH}) of main --hidden_size "
+        f"{MID_H}'s fp32 model through the eval function main uses: {mid1:.0f} / {mid2:.0f} "
+        f"users/s on rank_mid_tf32_kernel, {old1:.0f} / {old2:.0f} on the older route "
+        f"(rank_partial_kernel), in turns: {(mid1 + mid2) / (old1 + old2):.2f}x [{card}]")
+    del model
+    return {"middle": [mid1, mid2], "older": [old1, old2]}
 
 
 
@@ -4797,22 +4967,21 @@ def mesh_run(argv, fused=False):
     return scores, counts, float(rates[0]), losses[0], text, (peak, start)
 
 
-# the runs of phase_mesh_main, in turns: plain, host-fed, mesh, host-fed
-# under the mesh, host-fed, plain
+# the runs of phase_mesh_main: plain, host-fed, mesh, host-fed under the
+# mesh (a second host-fed and plain pair, for rates in turns, went for the
+# script's time limit: tools/time_multihost.py times the rates in turns)
 MESH_11 = ["--mesh", "data:1,model:1"]
 MESH_MAIN_RUNS = (("mesh_plain", []), ("mesh_host", ["--multihost"]), ("mesh_11", MESH_11),
-                  ("mesh_host_11", ["--multihost", *MESH_11]), ("mesh_hostb", ["--multihost"]),
-                  ("mesh_plainb", []))
+                  ("mesh_host_11", ["--multihost", *MESH_11]))
 
 
 def phase_mesh_main(device, workdir, card):
     """`main --mesh data:1,model:1` through a one-rank NCCL group and `main
     --multihost` (the host-fed pipeline), alone and under that mesh, on
-    phase 7's corpus (BSARec, one epoch, validation, the test pass), in
-    turns with the plain run (MESH_MAIN_RUNS): the scores, the epoch loss
-    and the best checkpoint bit-equal to the plain run's, the same kernel
-    launches, the host-fed runs' peak allocated bytes below the plain
-    runs'; then SASRec on the fused dropout under the same mesh,
+    phase 7's corpus (BSARec, one epoch, validation, the test pass), after
+    the plain run (MESH_MAIN_RUNS): the scores, the epoch loss and the best
+    checkpoint bit-equal to the plain run's, the same kernel launches, the
+    host-fed run's peak allocated bytes below the plain run's; then SASRec on the fused dropout under the same mesh,
     device-resident and host-fed (its 14 launches a step, data rank 0's
     seed words, the same epoch loss). Returns the phase's summary."""
     import torch
@@ -4847,13 +5016,12 @@ def phase_mesh_main(device, workdir, card):
               f"{name}: the checkpoint differs from the plain run's")
     rates = {name: r[2] for name, r in runs.items()}
     peaks = {name: r[5][0] - r[5][1] for name, r in runs.items()}
-    host_peak = max(peaks[n] for n in ("mesh_host", "mesh_hostb"))
-    plain_peak = min(peaks[n] for n in ("mesh_plain", "mesh_plainb"))
+    host_peak, plain_peak = peaks["mesh_host"], peaks["mesh_plain"]
     check(host_peak < plain_peak, f"host-fed peak {host_peak} not below the plain run's "
           f"{plain_peak}")
     log(f"mesh main: --mesh data:1,model:1 (one-rank NCCL group), --multihost and --multihost "
         f"--mesh data:1,model:1 bit-equal to the plain run (scores {plain_run[0]}, epoch loss "
-        f"{plain_run[3]}, checkpoint); launches {want}; epoch examples/s in turns "
+        f"{plain_run[3]}, checkpoint); launches {want}; epoch examples/s "
         f"{json.dumps(rates)} [{card}]")
     log(f"multihost memory: max_memory_allocated over each run (reset before it) "
         f"{json.dumps({name: r[5][0] for name, r in runs.items()})}, allocated at its start "
@@ -4976,10 +5144,17 @@ def main() -> int:
         wide_paths = phase_wide_train(device, card)
         wide_times = phase_wide_times(wide_ce_full, wide_rank_full, card)
         del wide_ce_full, wide_rank_full
-    with timed("mid: the CE pairs at 64 < H <= 256 vs plain in both forms, main --hidden_size "
-               "256 (bf16: train, eval, export; fp32: train), times"):
-        mid_err, mid_full = phase_mid_kernels(device)
+    with timed("mid: the CE pairs and the rank kernel at 64 < H <= 256 vs plain, main "
+               "--hidden_size 256 (bf16: train, eval, export; fp32: train, steady eval), times"):
+        mid_err, mid_full, mid_rank_err, mid_rank_full = phase_mid_kernels(device)
         mid_paths = phase_mid_train(device, card)
+        # the rank kernel at k=20, V=1M: B=256 at H in {128, 256}, and the
+        # serving path's b = 1 and 16 at H = 256, each in turns with its
+        # older route
+        mid_rank = {h: rank_route_times(mid_rank_full[h], card, TRAIN_BATCH, "mid")
+                    for h in sorted(mid_rank_full)}
+        mid_rank_small = {b: rank_route_times(mid_rank_full[MID_H], card, b, "mid") for b in (1, 16)}
+        del mid_rank_full
         # the bf16 entries at B=256, V=1M, H in {128, 256}, in turns with the
         # fp32 form; the training step's CE in at most 5 device operations
         # (no states scratch)
@@ -5016,9 +5191,8 @@ def main() -> int:
             tools = {"native_host_s": phase_tools_native(workdir, card),
                      "remat_steps": phase_tools_remat(device, card)}
             tools |= phase_tools_main(device, workdir, card)
-        with timed("mesh: main --mesh data:1,model:1 (one-rank NCCL group) and --multihost in "
-                   "turns with the plain run, SASRec on the fused dropout, two gloo ranks on the "
-                   "card"):
+        with timed("mesh: main --mesh data:1,model:1 (one-rank NCCL group) and --multihost after "
+                   "the plain run, SASRec on the fused dropout, two gloo ranks on the card"):
             mesh = phase_mesh_main(device, workdir, card)
             mesh["two_ranks"] = phase_mesh_two_ranks(device, workdir, card, mesh["plain_loss"])
     with timed("SASRec train main path"), tempfile.TemporaryDirectory() as workdir:
@@ -5211,6 +5385,28 @@ def main() -> int:
         **mid_times32[MID_H]["ce_grads"],
         "h128": mid_times32[128]["ce_grads"],
     }]
+    # the rank kernel's middle route (B <= 256, 64 < H <= 256, k <= 32):
+    # launches from main --hidden_size 256's bf16 epoch, its --do_eval
+    # --export_topk run and its fp32 epoch, every one on rank_mid_tf32_kernel
+    # (phase_mid_train checks it); errors: the largest over the middle
+    # route's rank cases
+    kernels.append({
+        "name": f"streaming_masked_topk (middle route, H={MID_H})",
+        "kernel": "rank_mid_tf32_kernel",
+        "route": "cuda",
+        "source": "bsarec_tpu_torch/csrc/streaming_rank.cu",
+        "replaces": "bsarec_tpu/ops/pallas_rank.py:165",
+        "launches": mid_paths["train"]["streaming_masked_topk"],
+        "mid_launches": mid_paths["train"]["rank_mid"],
+        "eval_run_launches": mid_paths["eval"]["rank_mid"],
+        "fp32_run_launches": mid_paths["train_fp32"]["rank_mid"],
+        "max_abs_err": mid_rank_err,
+        **mid_rank[MID_H],
+        "h128": mid_rank[128],
+        "b1": mid_rank_small[1],
+        "b16": mid_rank_small[16],
+        "eval_users_per_s": mid_paths["eval_users_per_s"],
+    })
     # the vocab-sharded mesh: launches of main --mesh data:1,model:1 (one
     # rank), of each rank of main --mesh data:1,model:2 (two gloo ranks on
     # the card), and one a shard of the one-process composition's checks;

@@ -5,6 +5,8 @@ so an edited header never loads a stale library. Runs without nvcc."""
 import re
 import shutil
 
+import pytest
+
 from bsarec_tpu_torch.ops import _build
 
 
@@ -43,15 +45,30 @@ def test_ablation_variants_apply_to_the_source():
     assert len(set(texts.values())) == len(texts)
 
 
-def test_rank_ablation_variants_apply_to_the_source():
+@pytest.mark.parametrize("mode", ["wide", "mid"])
+def test_rank_ablation_variants_apply_to_the_source(mode):
     """`tools/ablate_rank_tc.py` cuts parts out of the rank kernel's
-    tensor-core route by text replacement; each replacement still matches
-    the source exactly once."""
+    tensor-core route and, with `--mid`, out of its middle route and sends
+    the middle shapes to the tensor-core kernel, by text replacement; each
+    replacement still matches the source exactly once and every variant
+    differs from the others. The middle variants named after
+    rank_wide_tf32_kernel lift its H bound to 64 and turn the middle route
+    off; the others keep both as they are. Each "no epilogue" variant cuts
+    its own kernel's epilogue alone."""
     from bsarec_tpu_torch.tools import ablate_rank_tc
 
-    texts = ablate_rank_tc.sources()
-    assert list(texts) == list(ablate_rank_tc.VARIANTS)
+    variants = ablate_rank_tc.VARIANTS if mode == "wide" else ablate_rank_tc.MID_VARIANTS
+    texts = ablate_rank_tc.sources(variants)
+    assert list(texts) == list(variants)
     assert len(set(texts.values())) == len(texts)
+    if mode == "mid":
+        for name, text in texts.items():
+            wide = name.startswith("rank_wide_tf32_kernel")
+            assert ("constexpr int TW_MIN_H = 64;" in text) == wide, name
+            assert ("  return false;\n}" in text) == wide, name
+            assert ("merge_pending<RM_PEND>(" in text) == (name != "no epilogue"), name
+            assert ("if (__syncthreads_or(offered)) merge_pending(lv" in text) == (
+                name != "rank_wide_tf32_kernel, no epilogue"), name
 
 
 def test_onchip_ablation_variants_apply_to_the_source():

@@ -872,8 +872,10 @@ def test_cuda_rank_route_boundary(cuda_device, b, v, h, k, n_valid, all_seen, on
 def test_cuda_rank_tc_route_boundary(cuda_device, b, h, k, tc):
     """The tensor-core route's bounds (H > 256, k <= 32, any B): the route
     the shape names, its counter, and on integer inputs (exact scores, many
-    ties) values and ids bit-equal to the plain version and, on that route,
-    to the older route on the same inputs (n_valid < V, an all-seen row)."""
+    ties) values and ids bit-equal to the plain version and to the older
+    route on the same inputs (n_valid < V, an all-seen row). At H = 256 and
+    B <= 256 the middle route runs, so the older route is asked for with
+    both tensor-core routes off."""
     v, n_valid = 3001, 2990
     states, table, seen = _rank_inputs(b, v, h, seed=b + h + k, integer=True)
     s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
@@ -889,9 +891,111 @@ def test_cuda_rank_tc_route_boundary(cuda_device, b, h, k, tc):
     want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
     assert got_i[b // 2].tolist() == list(range(k)) and not got_v[b // 2].any()
-    old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_tc=False)
+    old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_tc=False, allow_mid=False)
     torch.cuda.synchronize()
     assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,k,mid", [
+    (256, 64, 20, False), (256, 68, 20, True), (256, 256, 32, True), (256, 256, 33, False),
+    (256, 260, 20, False), (257, 256, 20, False), (257, 128, 32, False), (1, 256, 20, True),
+    (16, 128, 20, True), (255, 192, 1, True),
+])
+def test_cuda_rank_mid_route_boundary(cuda_device, b, h, k, mid):
+    """The middle route's bounds (B <= 256, 64 < H <= 256, k <= 32): the
+    route the shape names, its counter (and no other route's), and on
+    integer inputs (exact scores, many ties) values and ids bit-equal to
+    the plain version and to the older route on the same inputs (n_valid
+    < V, V off the 128-column tile, an all-seen row)."""
+    v, n_valid = 3001, 2990
+    states, table, seen = _rank_inputs(b, v, h, seed=b + h + k, integer=True)
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    bm = torch.from_numpy(rank.build_seen_bitmask(seen, v)).to(cuda_device)
+    bm[b // 2] = -1
+    assert rank.mid_route(b, h, k) == mid and not (mid and rank.tc_route(b, h, k))
+    f = rank.streaming_masked_topk
+    before = (f.launches, f.mid_launches, f.tc_launches, f.onchip_launches)
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert (f.launches, f.mid_launches) == (before[0] + 1, before[1] + mid)
+    if mid:
+        assert (f.tc_launches, f.onchip_launches) == before[2:]
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert got_i[b // 2].tolist() == list(range(k)) and not got_v[b // 2].any()
+    old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_onchip=False, allow_tc=False,
+                                allow_mid=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seen_value", [0.0, float("-inf")], ids=["eval", "serving"])
+@pytest.mark.parametrize("b,v,h,k,n_valid,integer", [
+    (256, 20011, 256, 20, 20006, False),
+    (256, 40009, 128, 32, 40000, False),
+    (1, 12101, 256, 20, 12101, False),
+    (37, 5003, 68, 32, 4990, True),  # H off the 32-column step
+    (200, 5003, 192, 1, 5003, True),
+    (5, 300, 256, 20, 10, False),  # fewer valid items than k
+    (9, 4099, 128, 20, 4099, True),
+    (256, 70001, 256, 20, 70001, True),
+])
+def test_cuda_rank_mid_matches_plain_and_the_older_route(cuda_device, b, v, h, k, n_valid, integer,
+                                                         seen_value):
+    """The middle route (rank_mid_tf32_kernel, wgmma in 3xTF32) in both
+    modes, with an all-seen row where B > 1: on integer inputs values and
+    ids bit-equal to the plain version and to the older route; on float
+    inputs (the table scaled by sqrt(64 / H), so that the scores keep H =
+    64's spread) values within RTOL/ATOL of both, each returned id checked
+    by its plain score, no id twice in a row; two calls bit-equal; unfilled
+    slots (-inf, 0)."""
+    states, table, seen = _rank_inputs(b, v, h, seed=v + k + h, integer=integer)
+    if not integer:
+        table *= np.float32(np.sqrt(64 / h))
+    s, t = torch.from_numpy(states).to(cuda_device), torch.from_numpy(table).to(cuda_device)
+    bm = torch.from_numpy(rank.build_seen_bitmask(seen, v)).to(cuda_device)
+    all_seen = b > 1
+    if all_seen:
+        bm[b // 2] = -1
+    assert rank.mid_route(b, h, k)
+    before = rank.streaming_masked_topk.mid_launches
+    got_v, got_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid, seen_value=seen_value)
+    again_v, again_i = rank.streaming_masked_topk(s, t, bm, k=k, n_valid=n_valid,
+                                                  seen_value=seen_value)
+    old_v, old_i = rank._launch(s, t, bm, k, n_valid, allow_mid=False, seen_value=seen_value)
+    want_v, want_i = rank.streaming_masked_topk_plain(s, t, bm, k=k, n_valid=n_valid,
+                                                      seen_value=seen_value)
+    torch.cuda.synchronize()
+    assert rank.streaming_masked_topk.mid_launches == before + 2
+    assert torch.equal(got_v, again_v) and torch.equal(got_i, again_i)
+    finite = torch.isfinite(want_v)
+    assert torch.equal(torch.isfinite(got_v), finite) and torch.equal(torch.isfinite(old_v), finite)
+    assert (got_i[~finite] == 0).all()
+    if all_seen and seen_value == 0.0:  # every valid score 0.0: the first ids, in order
+        assert got_i[b // 2, :min(k, n_valid)].tolist() == list(range(min(k, n_valid)))
+    elif all_seen:
+        assert not finite[b // 2].any()
+    if integer:
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+        assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+        return
+    torch.testing.assert_close(got_v, want_v, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got_v, old_v, rtol=RTOL, atol=ATOL)
+    seen_all = np.concatenate([seen, np.zeros((b, v), np.int32)], axis=1)
+    if all_seen:
+        seen_all[b // 2, 20:] = np.arange(v)
+    logits = _masked_logits(states, table, seen_all, n_valid)
+    if seen_value != 0.0:  # serving: seen items (and item 0) never rank
+        logits[np.arange(b)[:, None], seen_all] = -np.inf
+        logits[:, 0] = -np.inf
+    ids = got_i.cpu().numpy().astype(np.int64)
+    by_score = np.take_along_axis(logits, ids, axis=1)
+    fin = finite.cpu().numpy()
+    np.testing.assert_allclose(by_score[fin], want_v.cpu().numpy()[fin], rtol=RTOL, atol=ATOL)
+    for r in range(b):
+        assert len(set(ids[r][fin[r]].tolist())) == int(fin[r].sum())
 
 
 @pytest.mark.cuda

@@ -38,12 +38,17 @@ def _masked_logits(states, table, seen, n_valid):
     return logits
 
 
-@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("k,h", [(5, 64), (20, 64), (20, 128), (20, 256)])
 @pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
-def test_plain_matches_jax_kernel(k, integer):
-    """B=10, V=5000 (two 4096-wide TPU tiles and a tail), n_valid=4990."""
-    b, v, h, n_valid = 10, 5000, 64, 4990
-    states, table, seen = _inputs(b, v, h, seed=k, integer=integer)
+def test_plain_matches_jax_kernel(k, h, integer):
+    """B=10, V=5000 (two 4096-wide TPU tiles and a tail), n_valid=4990; at
+    H = 64 and at the CUDA kernel's middle widths, H = 128 and 256 (float
+    tables scaled by sqrt(64 / H), as the card's checks scale them, so
+    that the scores keep H = 64's spread)."""
+    b, v, n_valid = 10, 5000, 4990
+    states, table, seen = _inputs(b, v, h, seed=k if h == 64 else k + h, integer=integer)
+    if not integer and h != 64:
+        table *= np.float32(np.sqrt(64 / h))
     want_v, want_i = jax_streaming_masked_topk(
         jnp.asarray(states), jnp.asarray(table), jnp.asarray(jax_build_seen_bitmask(seen, v)),
         k=k, n_valid=n_valid, interpret=True,
